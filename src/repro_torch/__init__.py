@@ -1,0 +1,9 @@
+"""PyTorch and CUDA port of the `repro` package, for NVIDIA Hopper GPUs.
+
+The JAX package `repro` is the reference; this package imports nothing
+of it (nor JAX). Layout and names follow `repro`: `core` (quantized
+nets, dataset), `netgen` (compiler, session, server), `kernels`
+(hand-written CUDA kernels with their plain PyTorch versions), `serve`
+(slot batching). Entry points run on `cuda:0` unless the caller passes
+`device="cpu"`.
+"""

@@ -1,0 +1,232 @@
+"""Public ops of the bit-plane datapath: kernel wrappers and bit packers.
+
+Counterpart of `repro/kernels/binary_matvec/ops.py`. Each kernel wrapper
+takes its plain version (`ref.py`) when its tensors lie on the CPU, and
+launches its CUDA kernel (`csrc/binary_matvec.cu`, built on first use by
+`build.py`) when they lie on a CUDA device. There is no fallback: a
+failed build or launch raises. Each wrapper counts its kernel launches
+in a plain integer attribute, `<wrapper>.launches`, that
+`reset_launches()` sets back to 0.
+
+Packed words are int32 tensors holding the uint32 bit pattern (see
+`ref.py`); numpy uint32 arrays cross over with `.view(np.int32)`.
+`binarize_pack` and `step_pack` stay PyTorch tensor ops on either
+device, as their JAX counterparts are `jnp` outside Pallas.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.binary_matvec import ref
+
+__all__ = [
+    "BLOCK_ROWS", "FORWARD_MAX_LAYERS", "binarize_pack",
+    "binary_forward_planes", "binary_matmul_planes", "check_forward_planes",
+    "check_matmul_blocks",
+    "forward_smem_bytes", "reset_launches", "step_pack",
+]
+
+# Rows per block the kernels are instantiated for (`bm`).
+BLOCK_ROWS = (1, 2, 4, 8, 16, 32)
+MATMUL_BM, MATMUL_BN = 8, 128          # defaults: rows x columns per block
+FORWARD_BM = 8
+FORWARD_MAX_LAYERS = 16                 # kMaxLayers in the .cu source
+FORWARD_WARPS = 8                       # kForwardThreads / 32
+SMEM_LIMIT = 232_448                    # bytes a block may opt in to (H100)
+
+binarize_pack = ref.binarize_pack
+step_pack = ref.step_pack
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    binary_matmul_planes.launches = 0
+    binary_forward_planes.launches = 0
+
+
+def _stream_args(t: torch.Tensor) -> tuple[int, int]:
+    """(device index, current stream handle) for a launch beside `t`."""
+    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_launch(lib, err: int, name: str) -> None:
+    if err != 0:
+        msg = lib.bmv_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")
+
+
+def _placement(name: str, tensors) -> str:
+    """'cpu' or 'cuda' for a set of operands that must share a device."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: operands on several devices {devices}")
+    kind = devices.pop().type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device type {kind!r}")
+    return kind
+
+
+def _check_cuda_operands(name: str, tensors) -> None:
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+
+
+def _check_bm(name: str, bm: int) -> int:
+    if bm not in BLOCK_ROWS:
+        raise ValueError(f"{name}: bm={bm} not in {BLOCK_ROWS}")
+    return int(bm)
+
+
+def check_matmul_blocks(bm: int | None = None,
+                        bn: int | None = None) -> tuple[int, int]:
+    """(bm, bn) for the per-layer kernel, defaults filled in; raises
+    ValueError for a block shape it is not built for."""
+    name = "binary_matmul_planes"
+    bm = _check_bm(name, MATMUL_BM if bm is None else bm)
+    bn = MATMUL_BN if bn is None else int(bn)
+    if bn <= 0 or bn % 32 or bn > 1024:
+        raise ValueError(f"{name}: bn={bn} must be a multiple of 32 <= 1024")
+    return bm, bn
+
+
+def binary_matmul_planes(xp: torch.Tensor, pos: torch.Tensor,
+                         neg: torch.Tensor, *, bm: int | None = None,
+                         bn: int | None = None) -> torch.Tensor:
+    """y = unpack(xp) @ w for w = sum_b 2^b (unpack(pos_b) - unpack(neg_b)).
+
+    xp: int32 words (B, KW); pos/neg: int32 words (P, KW, N). Returns
+    int32 (B, N). `bm` is the rows per block (one of BLOCK_ROWS), `bn`
+    the columns per block (a multiple of 32, at most 1024); both only
+    shape the CUDA launch.
+    """
+    name = "binary_matmul_planes"
+    if xp.dim() != 2 or pos.dim() != 3 or pos.shape != neg.shape \
+            or xp.shape[1] != pos.shape[1]:
+        raise ValueError(
+            f"{name}: want x (B, KW), pos/neg (P, KW, N); got "
+            f"{tuple(xp.shape)}, {tuple(pos.shape)}, {tuple(neg.shape)}")
+    if any(t.dtype != torch.int32 for t in (xp, pos, neg)):
+        raise TypeError(f"{name}: packed words must be int32 tensors")
+    if _placement(name, (xp, pos, neg)) == "cpu":
+        return ref.plane_matmul(xp, pos, neg)
+    bm, bn = check_matmul_blocks(bm, bn)
+    _check_cuda_operands(name, (xp, pos, neg))
+    b, kw = xp.shape
+    p, _, n = pos.shape
+    out = torch.empty((b, n), dtype=torch.int32, device=xp.device)
+    if b == 0 or n == 0:
+        return out
+    from repro_torch.kernels.binary_matvec import build
+
+    lib = build.load()
+    device, stream = _stream_args(xp)
+    err = lib.bmv_matmul_planes(
+        xp.data_ptr(), pos.data_ptr(), neg.data_ptr(), out.data_ptr(),
+        b, kw, p, n, bm, bn, device, stream)
+    _check_launch(lib, err, name)
+    binary_matmul_planes.launches += 1
+    return out
+
+
+def forward_smem_bytes(layer_words, bm: int) -> int:
+    """Dynamic shared memory of one forward block: two activation buffers
+    of bm x max(words) words and the per-warp argmax partials."""
+    return 4 * (2 * bm * max(layer_words) + 2 * FORWARD_WARPS * bm)
+
+
+def check_forward_planes(layer_words, bm: int | None = None) -> int:
+    """Raise ValueError when the forward kernel cannot take a net with
+    these per-layer word widths at `bm` rows per block; returns bm.
+    Checked on every device, so a net the kernel refuses is refused on
+    the CPU too."""
+    name = "binary_forward_planes"
+    bm = _check_bm(name, FORWARD_BM if bm is None else bm)
+    if not 1 <= len(layer_words) <= FORWARD_MAX_LAYERS:
+        raise ValueError(
+            f"{name}: depth {len(layer_words)} outside "
+            f"[1, {FORWARD_MAX_LAYERS}]")
+    smem = forward_smem_bytes(layer_words, bm)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: {smem} B of shared memory at bm={bm} exceeds "
+            f"{SMEM_LIMIT} B (widest layer {max(layer_words)} words)")
+    return bm
+
+
+def binary_forward_planes(x: torch.Tensor, *planes: torch.Tensor,
+                          threshold: int, n_classes: int,
+                          bm: int | None = None) -> torch.Tensor:
+    """Whole-net forward in one launch: raw uint8 images -> class ids.
+
+    x: uint8 (B, K), or (M, B, K) for a stacked M-model plan. `planes`
+    interleaves pos_0, neg_0, pos_1, neg_1, ... int32 words
+    (P_l, W_l, N_l) per layer ((M, P_l, W_l, N_l) when stacked), as
+    `ExecutionPlan.megakernel_view()` lays them out: each hidden N_l ==
+    W_{l+1} * 32. Returns int32 (B,) / (M, B). `bm` is the rows per
+    block of the CUDA launch.
+    """
+    name = "binary_forward_planes"
+    if not planes or len(planes) % 2:
+        raise ValueError(f"{name}: want pos/neg pairs, got {len(planes)}")
+    if x.dtype != torch.uint8 or x.dim() not in (2, 3):
+        raise ValueError(f"{name}: want uint8 (B, K) or (M, B, K) images")
+    stacked = x.dim() == 3
+    pairs = list(zip(planes[0::2], planes[1::2]))
+    for li, (pos, neg) in enumerate(pairs):
+        if pos.shape != neg.shape or pos.dim() != (4 if stacked else 3):
+            raise ValueError(f"{name}: layer {li} planes {tuple(pos.shape)}, "
+                             f"{tuple(neg.shape)}")
+        if pos.dtype != torch.int32 or neg.dtype != torch.int32:
+            raise TypeError(f"{name}: packed words must be int32 tensors")
+        if stacked and pos.shape[0] != x.shape[0]:
+            raise ValueError(f"{name}: layer {li} has {pos.shape[0]} models, "
+                             f"images {x.shape[0]}")
+        if li + 1 < len(pairs):
+            if pos.shape[-1] != pairs[li + 1][0].shape[-2] * ref.LANES:
+                raise ValueError(
+                    f"{name}: layer {li} fan_out {pos.shape[-1]} != 32 x "
+                    f"next words {pairs[li + 1][0].shape[-2]}")
+        elif not 1 <= n_classes <= pos.shape[-1]:
+            raise ValueError(f"{name}: n_classes {n_classes} outside "
+                             f"[1, {pos.shape[-1]}]")
+    k = x.shape[-1]
+    if pairs[0][0].shape[-2] * ref.LANES < k:
+        raise ValueError(f"{name}: {k} inputs exceed layer 0's "
+                         f"{pairs[0][0].shape[-2]} words")
+    layer_words = [p.shape[-2] for p, _ in pairs]
+    bm = check_forward_planes(layer_words, bm)
+    if _placement(name, (x, *planes)) == "cpu":
+        return ref.forward_planes(x, *planes, threshold=threshold,
+                                  n_classes=n_classes)
+    _check_cuda_operands(name, (x, *planes))
+    m = x.shape[0] if stacked else 1
+    b = x.shape[-2]
+    out = torch.empty(x.shape[:-1], dtype=torch.int32, device=x.device)
+    if b == 0 or m == 0:
+        return out
+    from repro_torch.kernels.binary_matvec import build
+
+    lib = build.load()
+    depth = len(pairs)
+    ptrs = ctypes.c_void_p * depth
+    ints = ctypes.c_int * depth
+    pos_ptrs = ptrs(*[p.data_ptr() for p, _ in pairs])
+    neg_ptrs = ptrs(*[q.data_ptr() for _, q in pairs])
+    p_l = ints(*[p.shape[-3] for p, _ in pairs])
+    w_l = ints(*layer_words)
+    n_l = ints(*[p.shape[-1] for p, _ in pairs])
+    device, stream = _stream_args(x)
+    err = lib.bmv_forward_planes(
+        x.data_ptr(), m, b, k, int(threshold), depth,
+        ctypes.addressof(pos_ptrs), ctypes.addressof(neg_ptrs),
+        ctypes.addressof(p_l), ctypes.addressof(w_l), ctypes.addressof(n_l),
+        int(n_classes), out.data_ptr(), bm, device, stream)
+    _check_launch(lib, err, name)
+    binary_forward_planes.launches += 1
+    return out
+
+
+reset_launches()

@@ -1,0 +1,154 @@
+"""Target registry: every execution backend as a first-class object.
+
+Counterpart of `repro/netgen/targets.py`. Targets are addressed by the
+same `name[opt=value,...]` item syntax as pipeline passes:
+
+    torch                    dense masked-column-sum predictor (the oracle;
+                             the counterpart of `jnp`)
+    cuda[planes=true]        per-layer bit-plane kernel chain (the
+                             counterpart of `pallas[planes=true]`)
+    cuda[fusednet=true]      the whole planes-form net in one kernel launch
+
+`resolve_target` parses an item string (or takes a bare name plus an
+opts dict), validates options against the target's declaration, and
+returns (Target, opts). `target_string` renders the canonical form.
+Options that later slices bring (`packed`, `tuned`, `explored`, `bkw`)
+are undeclared, so they raise "unknown option" like any other.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Mapping
+
+from repro_torch.netgen.pipeline import parse_item, render_opts
+
+__all__ = [
+    "Target", "get_target", "list_targets", "register_target",
+    "resolve_target", "target_string",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class Target:
+    """One execution target. `compile` maps (circuit, device=, **opts) to
+    the artifact; `kind` says what that artifact is ("callable"); `opts`
+    declares the accepted options as (name, type) pairs; `compile_multi`,
+    when present, builds the stacked multi-net dispatch (a stacked
+    `ExecutionPlan` plus the same declared opts -> callable)."""
+    name: str
+    kind: str
+    description: str
+    compile: Callable
+    opts: tuple = ()                       # ((opt_name, type), ...)
+    compile_multi: Callable | None = None
+
+    @property
+    def callable(self) -> bool:
+        return self.kind == "callable"
+
+
+_REGISTRY: dict[str, Target] = {}
+
+
+def register_target(target: Target) -> Target:
+    _REGISTRY[target.name] = target
+    return target
+
+
+def get_target(name: str) -> Target:
+    t = _REGISTRY.get(name)
+    if t is None:
+        raise ValueError(
+            f"unknown target {name!r} (registered: "
+            f"{', '.join(sorted(_REGISTRY))})")
+    return t
+
+
+def list_targets() -> tuple[Target, ...]:
+    """Every registered target, sorted by name."""
+    return tuple(_REGISTRY[k] for k in sorted(_REGISTRY))
+
+
+def resolve_target(target, extra_opts: Mapping | None = None
+                   ) -> tuple[Target, dict]:
+    """Resolve a target reference into (Target, validated opts).
+
+    `target` is a Target, a bare name, or an item string with bracketed
+    options ("cuda[planes=true]"); `extra_opts` are merged on top and
+    validated the same way. Unknown targets, unknown options, and
+    ill-typed option values raise ValueError.
+    """
+    if isinstance(target, Target):
+        t, opts = target, {}
+    else:
+        name, opts = parse_item(str(target))
+        t = get_target(name)
+    merged = dict(opts)
+    for k, v in (extra_opts or {}).items():
+        if k in merged and merged[k] != v:
+            raise ValueError(
+                f"option {k!r} given twice for target {t.name!r}: "
+                f"{merged[k]!r} in the target string vs {v!r} as a keyword")
+        merged[k] = v
+    declared = dict(t.opts)
+    for k, v in merged.items():
+        if k not in declared:
+            raise ValueError(
+                f"unknown option {k!r} for target {t.name!r} "
+                f"(declared: {', '.join(sorted(declared)) or 'none'})")
+        want = declared[k]
+        if want is bool and not isinstance(v, bool):
+            raise ValueError(
+                f"option {k!r} of target {t.name!r} wants true/false, "
+                f"got {v!r}")
+        if want is int and (isinstance(v, bool) or not isinstance(v, int)):
+            raise ValueError(
+                f"option {k!r} of target {t.name!r} wants an integer, "
+                f"got {v!r}")
+    return t, merged
+
+
+def target_string(target: Target, opts: Mapping) -> str:
+    """Canonical `name[k=v,...]` form — one axis of the artifact key."""
+    return f"{target.name}{render_opts(opts)}"
+
+
+# ---------------------------------------------------------------------------
+# Built-in targets (backend imports deferred to keep torch kernels off the
+# parse path)
+# ---------------------------------------------------------------------------
+
+def _compile_torch(circuit, **opts):
+    from repro_torch.netgen.backends.torch_ref import compile_torch
+    return compile_torch(circuit, **opts)
+
+
+def _compile_torch_multi(plan, **opts):
+    from repro_torch.netgen.backends.torch_ref import compile_torch_multi
+    return compile_torch_multi(plan, **opts)
+
+
+def _compile_cuda(circuit, **opts):
+    from repro_torch.netgen.backends.cuda import compile_cuda
+    return compile_cuda(circuit, **opts)
+
+
+def _compile_cuda_multi(plan, **opts):
+    from repro_torch.netgen.backends.cuda import compile_cuda_multi
+    return compile_cuda_multi(plan, **opts)
+
+
+register_target(Target(
+    name="torch", kind="callable",
+    description="dense masked-column-sum predictor (the oracle backend)",
+    compile=_compile_torch, compile_multi=_compile_torch_multi))
+register_target(Target(
+    name="cuda", kind="callable",
+    description="bit-plane popcount kernels: planes=true chains one "
+                "binary_matmul_planes launch per layer, fusednet=true runs "
+                "the whole planes-form net as ONE binary_forward_planes "
+                "launch (stacked multi-net dispatch prefers it for "
+                "planes=true too); bm/bn pin rows/columns per block",
+    compile=_compile_cuda,
+    opts=(("planes", bool), ("fusednet", bool), ("bm", int), ("bn", int)),
+    compile_multi=_compile_cuda_multi))

@@ -1,0 +1,212 @@
+"""Parity of the port's bit-plane ops (`repro_torch.kernels.binary_matvec`)
+with the JAX package's, on the CPU.
+
+The port's wrappers take their plain PyTorch versions for CPU tensors;
+the JAX side runs its Pallas kernels in the package's default interpret
+mode and its jnp references. The same seeded numpy inputs go to both,
+and every comparison is exact: the paths are integer.
+"""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro import netgen as jnetgen
+from repro.kernels.binary_matvec import ops as jops
+from repro.kernels.binary_matvec import ref as jref
+from repro.netgen.plan import lower_circuit as jlower_circuit
+from repro.netgen.plan import stack_plans as jstack_plans
+from repro.core import quantize as jquantize
+from repro_torch.kernels.binary_matvec import ops, ref
+
+from _netgen_helpers import images, random_net
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    """numpy words (uint32) or images (uint8) as the port's tensors."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a)
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+def _words(rng, shape) -> np.ndarray:
+    return rng.integers(0, 2 ** 32, size=shape, dtype=np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# Packers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,words,thr", [(50, 2, 128), (64, 2, 0), (33, 3, 254),
+                                         (5, 1, 100)])
+def test_binarize_pack_words_equal(n, words, thr):
+    x = images(n, 7, n)
+    want = np.asarray(jops.binarize_pack(jnp.asarray(x), threshold=thr,
+                                         words=words))
+    got = ops.binarize_pack(_t(x), threshold=thr, words=words)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_u32(got), want)
+
+
+@pytest.mark.parametrize("n,words", [(40, 2), (96, 3), (7, 1)])
+def test_step_pack_words_equal(n, words):
+    rng = np.random.default_rng(n)
+    acc = rng.integers(-3, 4, size=(9, n)).astype(np.int32)   # zeros included
+    want = np.asarray(jops.step_pack(jnp.asarray(acc), words=words))
+    got = ops.step_pack(torch.from_numpy(acc), words=words)
+    np.testing.assert_array_equal(_u32(got), want)
+
+
+def test_pack_bool_rejects_overflow():
+    with pytest.raises(ValueError):
+        ref.pack_bool(torch.ones((2, 40), dtype=torch.bool), 1)
+
+
+def test_unpack_bits_and_popcount():
+    rng = np.random.default_rng(3)
+    xp = _words(rng, (6, 4))
+    want = np.asarray(jref.unpack_bits_ref(jnp.asarray(xp), 100))
+    np.testing.assert_array_equal(ref.unpack_bits(_t(xp), 100).numpy(), want)
+    counts = np.array([bin(int(v)).count("1") for v in xp.ravel()]).reshape(xp.shape)
+    np.testing.assert_array_equal(ref.popcount(_t(xp)).numpy(), counts)
+
+
+# ---------------------------------------------------------------------------
+# binary_matmul_planes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,kw,n,p", [(5, 3, 10, 1), (17, 13, 45, 4),
+                                      (8, 9, 33, 6), (3, 1, 1, 4)])
+def test_binary_matmul_planes_matches_pallas_and_ref(b, kw, n, p):
+    """KW not a multiple of 8, N not a multiple of 32, P in {1, 4, 6}."""
+    rng = np.random.default_rng(b * 1000 + kw * 10 + p)
+    xp, pos, neg = _words(rng, (b, kw)), _words(rng, (p, kw, n)), \
+        _words(rng, (p, kw, n))
+    pallas = np.asarray(jops.binary_matmul_planes(
+        jnp.asarray(xp), jnp.asarray(pos), jnp.asarray(neg)))
+    oracle = np.asarray(jref.plane_matmul_ref(
+        jnp.asarray(xp), jnp.asarray(pos), jnp.asarray(neg)))
+    got = ops.binary_matmul_planes(_t(xp), _t(pos), _t(neg))
+    plain = ref.plane_matmul(_t(xp), _t(pos), _t(neg))
+    assert got.dtype == torch.int32 and got.shape == (b, n)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    np.testing.assert_array_equal(got.numpy(), oracle)
+    np.testing.assert_array_equal(plain.numpy(), oracle)
+
+
+def test_binary_matmul_planes_rejects_bad_operands():
+    x = torch.zeros((4, 3), dtype=torch.int32)
+    w = torch.zeros((2, 3, 5), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ops.binary_matmul_planes(x, w, w[:, :2])
+    with pytest.raises(TypeError):
+        ops.binary_matmul_planes(x.long(), w, w)
+    with pytest.raises(ValueError):
+        ops.check_matmul_blocks(bm=3)
+    with pytest.raises(ValueError):
+        ops.check_matmul_blocks(bn=48)
+    assert ops.check_matmul_blocks() == (ops.MATMUL_BM, ops.MATMUL_BN)
+
+
+# ---------------------------------------------------------------------------
+# binary_forward_planes
+# ---------------------------------------------------------------------------
+
+def _view(net):
+    return jlower_circuit(jnetgen.lower(net)).megakernel_view()
+
+
+@pytest.mark.parametrize("sizes", [(40, 6), (45, 21, 7), (33, 40, 12, 5)])
+def test_binary_forward_planes_single_depths(sizes):
+    """Depth 1-3, fan-ins and fan-outs straddling the 32-lane word."""
+    net = random_net(len(sizes), sizes, lo=-5, hi=5)
+    view = _view(net)
+    x = images(len(sizes), 11, sizes[0])
+    kw = {"threshold": view.input_threshold, "n_classes": view.n_classes}
+    pallas = np.asarray(jops.binary_forward_planes(
+        jnp.asarray(x), *[jnp.asarray(a) for a in view.arrays], **kw))
+    got = ops.binary_forward_planes(_t(x), *[_t(a) for a in view.arrays], **kw)
+    assert got.dtype == torch.int32 and got.shape == (11,)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    dense = np.asarray(jquantize.predict_quantized(net)(jnp.asarray(x)))
+    np.testing.assert_array_equal(got.numpy(), dense)
+
+
+def test_binary_forward_planes_stacked_padded_widths():
+    sizes = ((20, 13, 5), (20, 16, 5), (20, 19, 5))
+    nets = [random_net(20 + i, s, lo=-5, hi=5) for i, s in enumerate(sizes)]
+    view = jstack_plans([jlower_circuit(jnetgen.lower(n)) for n in nets]
+                        ).megakernel_view()
+    x = np.stack([images(21 + m, 8, 20) for m in range(3)])
+    kw = {"threshold": view.input_threshold, "n_classes": view.n_classes}
+    pallas = np.asarray(jops.binary_forward_planes(
+        jnp.asarray(x), *[jnp.asarray(a) for a in view.arrays], **kw))
+    got = ops.binary_forward_planes(_t(x), *[_t(a) for a in view.arrays], **kw)
+    assert got.shape == (3, 8)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+
+
+def test_binary_forward_planes_all_scores_negative():
+    """Every real class score negative: the first maximum among the real
+    classes wins, never a padded one."""
+    rng = np.random.default_rng(5)
+    w = -rng.integers(1, 6, size=(40, 6)).astype(np.int32)
+    net = jquantize.QuantizedNet(weights=[w])
+    view = _view(net)
+    x = images(5, 9, 40)
+    x[:, :8] = 255                                    # some bits set per row
+    kw = {"threshold": view.input_threshold, "n_classes": view.n_classes}
+    got = ops.binary_forward_planes(_t(x), *[_t(a) for a in view.arrays], **kw)
+    pallas = np.asarray(jops.binary_forward_planes(
+        jnp.asarray(x), *[jnp.asarray(a) for a in view.arrays], **kw))
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    scores = (x.astype(np.int64) > 128) @ w
+    assert (scores < 0).all()
+    np.testing.assert_array_equal(got.numpy(), np.argmax(scores, axis=1))
+
+
+def test_binary_forward_planes_rejects_bad_layouts():
+    net = random_net(9, (40, 21, 7), lo=-5, hi=5)
+    arrays = [_t(a) for a in _view(net).arrays]
+    x = _t(images(9, 4, 40))
+    with pytest.raises(ValueError):           # n_classes beyond the scores
+        ops.binary_forward_planes(x, *arrays, threshold=128, n_classes=8)
+    with pytest.raises(ValueError):           # hidden N != 32 x next words
+        ops.binary_forward_planes(x, arrays[0][..., :20], arrays[1][..., :20],
+                                  *arrays[2:], threshold=128, n_classes=7)
+    with pytest.raises(ValueError):           # unsupported rows per block
+        ops.binary_forward_planes(x, *arrays, threshold=128, n_classes=7, bm=3)
+    with pytest.raises(ValueError):           # deeper than one launch takes
+        ops.check_forward_planes([1] * (ops.FORWARD_MAX_LAYERS + 1))
+    with pytest.raises(ValueError):           # activations beyond shared memory
+        ops.check_forward_planes([4000], bm=32)
+
+
+def test_cpu_calls_launch_no_kernel():
+    ops.reset_launches()
+    net = random_net(8, (40, 6), lo=-5, hi=5)
+    view = _view(net)
+    ops.binary_forward_planes(_t(images(8, 3, 40)), *[_t(a) for a in view.arrays],
+                              threshold=128, n_classes=6)
+    assert ops.binary_forward_planes.launches == 0
+    assert ops.binary_matmul_planes.launches == 0
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    """No nvcc, or an nvcc that fails, raises: nothing falls back."""
+    from repro_torch.kernels.binary_matvec import build
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load()
+    monkeypatch.setattr(build, "_nvcc", lambda: "false")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        build.load()
+    assert build._lib is None and not list(tmp_path.glob("*.so"))

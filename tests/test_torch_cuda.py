@@ -1,0 +1,126 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Marked `cuda`: every test skips without a CUDA device (the check runs in
+a fixture, not at import). On a machine with an H100 and nvcc:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Imports neither JAX nor the JAX package, so it runs where only PyTorch
+is installed. Every comparison is exact: the paths are integer.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import netgen
+from repro_torch.core import quantize
+from repro_torch.kernels.binary_matvec import ops, ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _words(rng, shape, dev):
+    w = rng.integers(0, 2 ** 32, size=shape, dtype=np.uint32)
+    return torch.from_numpy(w.view(np.int32)).to(dev)
+
+
+def _net(seed, sizes, lo=-5, hi=5):
+    rng = np.random.default_rng(seed)
+    return quantize.QuantizedNet(weights=[
+        rng.integers(lo, hi + 1, size=s).astype(np.int32)
+        for s in zip(sizes, sizes[1:])])
+
+
+def _images(seed, b, n_in):
+    return np.random.default_rng(seed + 99).integers(
+        0, 256, size=(b, n_in)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("b,kw,n,p,bm,bn", [
+    (5, 3, 10, 1, 8, 128), (37, 33, 45, 4, 1, 32), (256, 25, 500, 4, 8, 128),
+    (100, 70, 97, 6, 32, 64), (3, 1, 1, 2, 16, 1024), (9, 40, 300, 3, 4, 96)])
+def test_matmul_planes_kernel_matches_plain(cuda, b, kw, n, p, bm, bn):
+    rng = np.random.default_rng(b + kw + n)
+    x, pos, neg = (_words(rng, s, cuda) for s in ((b, kw), (p, kw, n), (p, kw, n)))
+    before = ops.binary_matmul_planes.launches
+    got = ops.binary_matmul_planes(x, pos, neg, bm=bm, bn=bn)
+    torch.cuda.synchronize()
+    assert ops.binary_matmul_planes.launches == before + 1
+    assert torch.equal(got, ref.plane_matmul(x, pos, neg))
+    assert torch.equal(got.cpu(), ops.binary_matmul_planes(x.cpu(), pos.cpu(), neg.cpu()))
+
+
+@pytest.mark.parametrize("sizes,bm", [((40, 6), 8), ((45, 21, 7), 1),
+                                      ((33, 40, 12, 5), 32), ((784, 500, 10), 8),
+                                      ((70, 65, 9), 4)])
+def test_forward_planes_kernel_matches_plain(cuda, sizes, bm):
+    net = _net(len(sizes) + bm, sizes)
+    view = netgen.lower_circuit(netgen.lower(net)).megakernel_view()
+    arrays = [torch.from_numpy(a.view(np.int32)).to(cuda) for a in view.arrays]
+    x = torch.from_numpy(_images(bm, 77, sizes[0])).to(cuda)
+    kw = {"threshold": view.input_threshold, "n_classes": view.n_classes}
+    got = ops.binary_forward_planes(x, *arrays, bm=bm, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.forward_planes(x, *arrays, **kw))
+    want = quantize.predict_quantized(net, device=cuda)(x)
+    assert torch.equal(got.long(), want)
+
+
+def test_forward_planes_kernel_stacked_and_random_words(cuda):
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(0, 256, (3, 70, 100), dtype=np.uint8)).to(cuda)
+    planes = []
+    for p, w, n in ((4, 4, 64), (2, 2, 32), (3, 1, 11)):
+        planes += [_words(rng, (3, p, w, n), cuda) for _ in range(2)]
+    kw = {"threshold": 128, "n_classes": 11}
+    got = ops.binary_forward_planes(x, *planes, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 70)
+    assert torch.equal(got, ref.forward_planes(x, *planes, **kw))
+
+
+def test_forward_planes_kernel_all_scores_negative(cuda):
+    w = -np.random.default_rng(5).integers(1, 6, size=(40, 6)).astype(np.int32)
+    view = netgen.lower_circuit(netgen.lower([w])).megakernel_view()
+    x = _images(5, 33, 40)
+    x[:, :8] = 255
+    arrays = [torch.from_numpy(a.view(np.int32)).to(cuda) for a in view.arrays]
+    got = ops.binary_forward_planes(torch.from_numpy(x).to(cuda), *arrays,
+                                    threshold=128, n_classes=6)
+    scores = (x.astype(np.int64) > 128) @ w
+    assert (scores < 0).all()
+    np.testing.assert_array_equal(got.cpu().numpy(), np.argmax(scores, axis=1))
+
+
+def test_noncontiguous_operands_raise(cuda):
+    rng = np.random.default_rng(2)
+    x = _words(rng, (8, 6), cuda)
+    pos = _words(rng, (2, 6, 64), cuda)
+    with pytest.raises(ValueError):
+        ops.binary_matmul_planes(x, pos[..., ::2], pos[..., ::2])
+
+
+def test_served_path_runs_both_kernels(cuda):
+    nets = {f"v{i}": _net(10 + i, (120, 50 + 7 * i, 10)) for i in range(3)}
+    server = netgen.NetServer(session=netgen.Session(device=cuda),
+                              target="cuda[planes=true]", slot_capacity=64)
+    for name, net in nets.items():
+        server.register(name, net)
+    ops.reset_launches()
+    x = _images(3, 150, 120)
+    out = server.predict_many({"v0": x, "v1": x[:70], "v2": x[:9]})
+    single = server.predict("v2", x)
+    assert ops.binary_forward_planes.launches > 0
+    assert ops.binary_matmul_planes.launches > 0
+    for name, req in (("v0", x), ("v1", x[:70]), ("v2", x[:9])):
+        want = quantize.predict_quantized(nets[name], device=cuda)(req)
+        np.testing.assert_array_equal(out[name], want.cpu().numpy())
+    np.testing.assert_array_equal(
+        single, quantize.predict_quantized(nets["v2"], device=cuda)(x).cpu().numpy())

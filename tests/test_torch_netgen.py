@@ -1,0 +1,190 @@
+"""Parity of the port's compiler half (`repro_torch.netgen` up to the
+ExecutionPlan, and `repro_torch.core`) with the JAX package's.
+
+Frontend, passes, plans, bit-planes, megakernel views and stacked plans
+must produce identical arrays; digests, pass statistics and pipeline
+fingerprints must be equal. Everything here is numpy, so every
+comparison is exact.
+"""
+import numpy as np
+import pytest
+
+from repro import netgen as jnetgen
+from repro.core import dataset as jdataset
+from repro.core import quantize as jquantize
+from repro.netgen.plan import lower_circuit as jlower_circuit
+from repro.netgen.plan import stack_plans as jstack_plans
+from repro.serve.slots import pad_slots as jpad_slots
+from repro_torch import netgen
+from repro_torch.core import dataset, quantize
+from repro_torch.netgen.plan import lower_circuit, stack_plans
+from repro_torch.netgen.targets import resolve_target
+from repro_torch.serve.slots import pad_slots
+
+from _netgen_helpers import random_net
+
+SIZES = [(40, 6), (45, 21, 7), (33, 40, 12, 5), (64, 32, 10)]
+
+
+def _assert_same(a, b, what):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype, (what, a.dtype, b.dtype)
+    np.testing.assert_array_equal(a, b, err_msg=what)
+
+
+def _sparse_net(seed, sizes):
+    """A net with zero terms and dead hidden units for the passes."""
+    net = random_net(seed, sizes, lo=-3, hi=3)
+    ws = [w.copy() for w in net.weights]
+    ws[0][:, ::3] = 0                       # empty accumulators
+    if len(ws) > 1:
+        ws[1][1::4, :] = 0                  # hidden units nothing reads
+    return jquantize.QuantizedNet(weights=ws)
+
+
+def _port(net):
+    return quantize.from_numpy(net.weights, net.input_threshold)
+
+
+def _assert_same_plan(p, q):
+    assert (p.n_inputs, p.input_threshold, p.packed, p.bitplanes, p.n_models,
+            p.form) == (q.n_inputs, q.input_threshold, q.packed, q.bitplanes,
+                        q.n_models, q.form)
+    assert len(p.layers) == len(q.layers)
+    for i, (a, b) in enumerate(zip(p.layers, q.layers)):
+        assert (a.activation, a.words, a.n_planes) == \
+            (b.activation, b.words, b.n_planes), i
+        _assert_same(a.weights, b.weights, f"layer {i} weights")
+        if a.pos_planes is not None or b.pos_planes is not None:
+            _assert_same(a.pos_planes, b.pos_planes, f"layer {i} pos")
+            _assert_same(a.neg_planes, b.neg_planes, f"layer {i} neg")
+
+
+def _assert_same_view(v, w):
+    assert (v.n_inputs, v.input_threshold, v.n_classes, v.n_models,
+            v.layer_words, v.layer_planes, v.layer_fan_out) == \
+        (w.n_inputs, w.input_threshold, w.n_classes, w.n_models,
+         w.layer_words, w.layer_planes, w.layer_fan_out)
+    assert len(v.arrays) == len(w.arrays)
+    for i, (a, b) in enumerate(zip(v.arrays, w.arrays)):
+        _assert_same(a, b, f"view array {i}")
+
+
+@pytest.mark.parametrize("sizes", SIZES)
+def test_plan_planes_and_view_identical(sizes):
+    jnet = _sparse_net(len(sizes), sizes)
+    jc, jstats = jnetgen.PipelineSpec.coerce("default").run(jnetgen.lower(jnet))
+    c, stats = netgen.PipelineSpec.coerce("default").run(netgen.lower(_port(jnet)))
+    assert [(s.name, vars(s.before), vars(s.after)) for s in stats] == \
+        [(s.name, vars(s.before), vars(s.after)) for s in jstats]
+    jplan, plan = jlower_circuit(jc), lower_circuit(c)
+    _assert_same_plan(plan, jplan)
+    _assert_same_plan(plan.pack(), jplan.pack())
+    _assert_same_plan(plan.planes(), jplan.planes())
+    _assert_same_view(plan.megakernel_view(), jplan.megakernel_view())
+
+
+def test_stack_plans_identical():
+    sizes = ((20, 13, 5), (20, 16, 5), (20, 19, 5))
+    jnets = [_sparse_net(30 + i, s) for i, s in enumerate(sizes)]
+    jplan = jstack_plans([
+        jlower_circuit(jnetgen.PipelineSpec.coerce(None).run(
+            jnetgen.lower(n))[0]) for n in jnets])
+    plan = stack_plans([
+        lower_circuit(netgen.PipelineSpec.coerce(None).run(
+            netgen.lower(_port(n)))[0]) for n in jnets])
+    _assert_same_plan(plan, jplan)
+    _assert_same_plan(plan.planes(), jplan.planes())
+    _assert_same_view(plan.megakernel_view(), jplan.megakernel_view())
+    with pytest.raises(ValueError):
+        stack_plans([lower_circuit(netgen.lower(_port(random_net(1, (20, 5))))),
+                     lower_circuit(netgen.lower(_port(random_net(2, (20, 4)))))])
+
+
+def test_addend_rewrite_stats_identical():
+    jnet = _sparse_net(4, (30, 9, 4))
+    spec = "zeros,prune,addends"
+    _, jstats = jnetgen.PipelineSpec.parse(spec).run(jnetgen.lower(jnet))
+    c, stats = netgen.PipelineSpec.parse(spec).run(netgen.lower(_port(jnet)))
+    assert [(s.name, vars(s.before), vars(s.after)) for s in stats] == \
+        [(s.name, vars(s.before), vars(s.after)) for s in jstats]
+    assert stats[-1].after.mults == 0
+    # addend form stays a regular circuit: its plan equals the pruned one's
+    pruned, _ = netgen.PipelineSpec.parse("zeros,prune").run(
+        netgen.lower(_port(jnet)))
+    _assert_same_plan(lower_circuit(c), lower_circuit(pruned))
+
+
+def test_digest_and_from_numpy_round_trip():
+    jnet = random_net(7, (12, 9, 4))
+    net = _port(jnet)
+    assert net.digest() == jnet.digest()
+    assert quantize.weights_digest(net.weights) == \
+        jquantize.weights_digest(jnet.weights)
+    for a, b in zip(net.weights, jnet.weights):
+        _assert_same(a, b, "weights")
+    other = quantize.from_numpy(jnet.weights, input_threshold=64)
+    assert other.digest() != net.digest()
+    assert other.input_threshold == 64 and net.shapes == jnet.shapes
+    with pytest.raises(TypeError):
+        quantize.weights_digest([np.ones((2, 2), np.float32)])
+
+
+def test_params_from_numpy_quantize_identical():
+    rng = np.random.default_rng(0)
+    params = {"w1": rng.normal(size=(12, 7)).astype(np.float32),
+              "w2": rng.normal(size=(7, 3)).astype(np.float32)}
+    port = quantize.quantize(quantize.params_from_numpy(params))
+    ref = jquantize.quantize(params)
+    assert port.digest() == ref.digest()
+
+
+def test_predict_quantized_matches_reference():
+    import jax.numpy as jnp
+    jnet = random_net(8, (30, 11, 5))
+    x = np.random.default_rng(8).integers(0, 256, (13, 30)).astype(np.uint8)
+    want = np.asarray(jquantize.predict_quantized(jnet)(jnp.asarray(x)))
+    got = quantize.predict_quantized(_port(jnet), device="cpu")(x)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_pipeline_spec_strings_and_errors():
+    for spec in ("default", "zeros,prune", "prune,addends", "zeros,prune,addends"):
+        p, q = netgen.PipelineSpec.coerce(spec), jnetgen.PipelineSpec.coerce(spec)
+        assert p.spec_string() == q.spec_string()
+        assert p.fingerprint() == q.fingerprint()
+        assert netgen.PipelineSpec.parse(p.spec_string()) == p
+    for bad in ("zeros,zeros", "cse", "zeros[budget=2]", "", "zeros,,prune"):
+        with pytest.raises(ValueError):
+            netgen.PipelineSpec.coerce(bad)
+
+
+def test_targets_declare_only_ported_options():
+    t, opts = resolve_target("cuda[planes=true,bm=8]")
+    assert t.name == "cuda" and opts == {"planes": True, "bm": 8}
+    for bad in ("cuda[packed=true]", "cuda[tuned=true]", "cuda[explored=true]",
+                "cuda[bkw=8]", "cuda[planes=3]", "torch[planes=true]", "pallas"):
+        with pytest.raises(ValueError):
+            resolve_target(bad)
+    assert [t.name for t in netgen.list_targets()] == ["cuda", "torch"]
+
+
+def test_frontend_threshold_validation():
+    net = random_net(3, (8, 3))
+    for thr in (-1, 255, 1.5, True):
+        with pytest.raises((TypeError, ValueError)):
+            netgen.lower(net.weights, input_threshold=thr)
+    with pytest.raises(ValueError):
+        netgen.lower([np.ones((3, 2), np.float32)])
+
+
+def test_dataset_and_slots_copies_identical():
+    for n, seed in ((5, 0), (12, 3)):
+        for a, b in zip(dataset.make_dataset(n, seed), jdataset.make_dataset(n, seed)):
+            _assert_same(a, b, "dataset")
+    x = np.arange(12, dtype=np.uint8).reshape(3, 4)
+    (pa, na), (pb, nb) = pad_slots(x, 5), jpad_slots(x, 5)
+    assert na == nb
+    _assert_same(pa, pb, "pad_slots")
+    with pytest.raises(ValueError):
+        pad_slots(x, 2)
