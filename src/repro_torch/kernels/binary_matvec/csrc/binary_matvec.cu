@@ -1,31 +1,40 @@
-// Bit-plane popcount kernels for Hopper (sm_90a), bound to Python with ctypes.
+// Binary-activation matmul kernels for Hopper (sm_90a), bound to Python with ctypes.
 //
-// Both kernels compute the planes datapath of the netgen compiler: activations
-// are bits packed 32 to a little-endian uint32 word (bit i of word j is unit
-// 32j+i), and each integer weight matrix is split into signed bit-planes,
-// w = sum_b 2^b (pos_b - neg_b), each plane packed along fan_in the same way.
-// One layer is then
+// Activations are {0,1}. A layer y = x . w is then a masked column sum, the
+// rows of w selected by the set activations added up, with no multiply. The
+// four kernels differ in how the operands travel:
 //
-//     y[r, n] = sum_b 2^b sum_w (popc(x[r, w] & pos[b, w, n]) - popc(x[r, w] & neg[b, w, n]))
+//   matmul_dense_kernel   x int8 (B, K), w int32 (K, N). Replaces the Pallas
+//                         kernel binary_matmul (src/repro/kernels/binary_matvec/
+//                         binary_matvec.py, _binary_matmul_kernel).
+//   matmul_packed_kernel  x packed 32 to a little-endian uint32 word (bit i of
+//                         word j is unit 32j+i), w int32 (KW*32, N). Replaces
+//                         binary_matmul_packed (same file, _binary_matmul_packed_kernel).
+//   matmul_planes_kernel  both operands packed: w split into signed bit-planes,
+//                         w = sum_b 2^b (pos_b - neg_b), each plane packed along
+//                         fan_in like x, so one layer is
+//                             y[r, n] = sum_b 2^b sum_w (popc(x[r, w] & pos[b, w, n])
+//                                                        - popc(x[r, w] & neg[b, w, n])).
+//                         Replaces binary_matmul_planes (_binary_matmul_planes_kernel).
+//   forward_planes_kernel the whole planes-form net in one launch. Replaces
+//                         binary_forward_planes (_forward_planes_kernel).
 //
-// and accumulates in uint32 so that overflow wraps exactly as the int32
+// Every kernel accumulates in uint32, so overflow wraps exactly as the int32
 // reference does.
 //
-// matmul_planes_kernel replaces the Pallas kernel binary_matmul_planes
-// (src/repro/kernels/binary_matvec/binary_matvec.py, _binary_matmul_planes_kernel).
-// forward_planes_kernel replaces binary_forward_planes
-// (same file, _forward_planes_kernel): the whole net in one launch.
-//
-// What bounds them on an H100: popcount. __popc issues at 16 results per clock
-// per SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
-// compute capability 9.0), a quarter of the rate of 32-bit AND and add. One
-// 784-500-10 layer-1 pass at 256 rows is ~26 M popcounts against ~0.6 MB of
-// operands, so the work, not the bytes, sets the floor. The designs below keep
-// every popcount operand in a register or in shared memory: the activation
-// words of a row tile sit in shared memory and are read as warp broadcasts, and
-// each thread owns one output unit and reads its weight words once per tile,
-// coalesced along the unit axis. Making the kernels reach that floor
-// (register-blocked weights, cluster-resident planes, cp.async) is later work.
+// What bounds them on an H100. The dense and packed kernels do one select and
+// one 32-bit add per (row, k, column); 32-bit integer add issues at 64 results
+// per clock per SM (CUDA C++ Programming Guide, arithmetic instruction
+// throughput, compute capability 9.0). One 784-500-10 layer-1 pass at 256 rows
+// is 100 M adds against ~1.8 MB of operands, so the adds, not the bytes, set the
+// floor. The planes kernels are bound by popcount: __popc issues at 16 results
+// per clock per SM, a quarter of the add rate; layer 1 is ~26 M popcounts
+// against ~0.6 MB of operands. The designs below keep every activation in a
+// register or in shared memory: a tile of BM rows is staged in shared memory
+// and read as warp broadcasts, and each thread owns one output column and
+// reads each weight word once per tile, coalesced along the column axis, for
+// BM rows. Reaching the floor (register-blocked weights, cp.async pipelines,
+// clusters sharing a weight tile) is later work.
 
 #include <climits>
 #include <cstddef>
@@ -38,9 +47,15 @@ namespace {
 constexpr int kWarp = 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// matmul: the K sweep runs inside the block in chunks of this many words,
-// staged in shared memory, so the grid needs no reduction across blocks.
+// matmul: the K sweep runs inside the block in chunks of this many words
+// (packed, planes) or bytes (dense), staged in shared memory, so the grid
+// needs no reduction across blocks.
 constexpr int kChunkWords = 32;
+constexpr int kDenseChunk = 256;
+// The widest column tile (bn) a matmul block takes. The dense and packed
+// kernels are compiled to launch with this many threads at every BM (their
+// registers are capped to fit); the planes kernel at BM=32 needs fewer threads.
+constexpr int kMaxBlockThreads = 1024;
 
 // forward: threads per block, and the deepest net one launch takes (the layer
 // table travels in the kernel's parameter space). ops.py mirrors both as
@@ -70,6 +85,116 @@ __device__ __forceinline__ void accumulate(uint32_t (&acc)[BM], const uint32_t (
   for (int r = 0; r < BM; ++r) {
     const int d = __popc(a[r] & p) - __popc(a[r] & q);
     acc[r] += static_cast<uint32_t>(d) << b;
+  }
+}
+
+// y = x . w for x int8 (B, K) with nonzero meaning 1 and w int32 (K, N); y int32
+// (B, N). Grid: (ceil(B / BM), ceil(N / blockDim.x)). Each thread owns one
+// output column n and the block's BM rows; blockDim.x is the column tile bn.
+// A chunk of the tile's x bytes is staged in shared memory (bytes past K and
+// rows past B are 0) and read four bytes of a row at a time: byte j of the
+// word is x[row, k0 + g + j]. Each step loads 32 weights into registers before
+// it adds any (so 32 loads are in flight, not one), and the weight load of the
+// ragged K tail is masked. The select `(a & byte_j) ? v : 0` is branch-free (a
+// predicated add), so the accumulation adds only.
+template <int BM>
+__global__ void __launch_bounds__(kMaxBlockThreads) matmul_dense_kernel(const uint8_t* __restrict__ x,
+                                    const uint32_t* __restrict__ w,
+                                    int32_t* __restrict__ out, int B, int K, int N) {
+  __shared__ __align__(16) uint8_t xs[BM][kDenseChunk];
+  const int row0 = blockIdx.x * BM;
+  const int n = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool valid = n < N;
+
+  uint32_t acc[BM];
+#pragma unroll
+  for (int r = 0; r < BM; ++r) acc[r] = 0u;
+
+  for (int k0 = 0; k0 < K; k0 += kDenseChunk) {
+    const int kc = min(kDenseChunk, K - k0);
+#pragma unroll 8
+    for (int i = threadIdx.x; i < BM * kDenseChunk; i += blockDim.x) {
+      const int r = i / kDenseChunk;
+      const int c = i % kDenseChunk;
+      const int row = row0 + r;
+      xs[r][c] = (row < B && c < kc) ? x[static_cast<size_t>(row) * K + k0 + c] : 0u;
+    }
+    __syncthreads();
+    for (int g = 0; g < kc; g += kWarp) {
+      uint32_t v[kWarp];
+#pragma unroll
+      for (int j = 0; j < kWarp; ++j) {
+        const int k = k0 + g + j;
+        v[j] = (valid && k < K) ? __ldg(w + static_cast<size_t>(k) * N + n) : 0u;
+      }
+#pragma unroll
+      for (int q = 0; q < kWarp / 4; ++q) {
+        uint32_t a[BM];
+#pragma unroll
+        for (int r = 0; r < BM; ++r) a[r] = *reinterpret_cast<const uint32_t*>(&xs[r][g + 4 * q]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int r = 0; r < BM; ++r) acc[r] += (a[r] & (0xffu << (8 * j))) ? v[4 * q + j] : 0u;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (!valid) return;
+#pragma unroll
+  for (int r = 0; r < BM; ++r) {
+    if (row0 + r < B) out[static_cast<size_t>(row0 + r) * N + n] = static_cast<int32_t>(acc[r]);
+  }
+}
+
+// y = unpack(x) . w for x (B, KW) words and w int32 (KW * 32, N); y int32 (B, N).
+// The grid and the thread's work are those of matmul_dense_kernel; the staged
+// activations are words, and bit i of word c selects row 32c + i of w (the 32
+// weights of a word are loaded into registers before any is added). Bits are
+// tested on uint32_t, so bit 31 never sign-extends.
+template <int BM>
+__global__ void __launch_bounds__(kMaxBlockThreads) matmul_packed_kernel(const uint32_t* __restrict__ x,
+                                     const uint32_t* __restrict__ w,
+                                     int32_t* __restrict__ out, int B, int KW, int N) {
+  __shared__ uint32_t xs[BM][kChunkWords];
+  const int row0 = blockIdx.x * BM;
+  const int n = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool valid = n < N;
+
+  uint32_t acc[BM];
+#pragma unroll
+  for (int r = 0; r < BM; ++r) acc[r] = 0u;
+
+  for (int k0 = 0; k0 < KW; k0 += kChunkWords) {
+    const int kc = min(kChunkWords, KW - k0);
+    for (int i = threadIdx.x; i < BM * kChunkWords; i += blockDim.x) {
+      const int r = i / kChunkWords;
+      const int c = i % kChunkWords;
+      const int row = row0 + r;
+      xs[r][c] = (row < B && c < kc) ? x[static_cast<size_t>(row) * KW + k0 + c] : 0u;
+    }
+    __syncthreads();
+    for (int c = 0; c < kc; ++c) {
+      const uint32_t* wc = w + static_cast<size_t>(k0 + c) * kWarp * N + n;
+      uint32_t v[kWarp];
+#pragma unroll
+      for (int i = 0; i < kWarp; ++i) v[i] = valid ? __ldg(wc + static_cast<size_t>(i) * N) : 0u;
+      uint32_t a[BM];
+#pragma unroll
+      for (int r = 0; r < BM; ++r) a[r] = xs[r][c];
+#pragma unroll
+      for (int i = 0; i < kWarp; ++i) {
+#pragma unroll
+        for (int r = 0; r < BM; ++r) acc[r] += (a[r] & (1u << i)) ? v[i] : 0u;
+      }
+    }
+    __syncthreads();
+  }
+  if (!valid) return;
+#pragma unroll
+  for (int r = 0; r < BM; ++r) {
+    if (row0 + r < B) out[static_cast<size_t>(row0 + r) * N + n] = static_cast<int32_t>(acc[r]);
   }
 }
 
@@ -255,6 +380,26 @@ __global__ void __launch_bounds__(kForwardThreads)
 }
 
 template <int BM>
+cudaError_t launch_dense(const void* x, const void* w, void* out, int B, int K, int N, int bn,
+                         cudaStream_t stream) {
+  const dim3 grid((B + BM - 1) / BM, (N + bn - 1) / bn);
+  matmul_dense_kernel<BM><<<grid, bn, 0, stream>>>(static_cast<const uint8_t*>(x),
+                                                   static_cast<const uint32_t*>(w),
+                                                   static_cast<int32_t*>(out), B, K, N);
+  return cudaGetLastError();
+}
+
+template <int BM>
+cudaError_t launch_packed(const void* x, const void* w, void* out, int B, int KW, int N, int bn,
+                          cudaStream_t stream) {
+  const dim3 grid((B + BM - 1) / BM, (N + bn - 1) / bn);
+  matmul_packed_kernel<BM><<<grid, bn, 0, stream>>>(static_cast<const uint32_t*>(x),
+                                                    static_cast<const uint32_t*>(w),
+                                                    static_cast<int32_t*>(out), B, KW, N);
+  return cudaGetLastError();
+}
+
+template <int BM>
 cudaError_t launch_matmul(const void* x, const void* pos, const void* neg, void* out, int B,
                           int KW, int P, int N, int bn, cudaStream_t stream) {
   const dim3 grid((B + BM - 1) / BM, (N + bn - 1) / bn);
@@ -290,9 +435,47 @@ const char* bmv_error_string(int code) {
 }
 
 // Returns a cudaError_t: 0 on a launch that was accepted.
+int bmv_matmul(const void* x, const void* w, void* out, int B, int K, int N, int bm, int bn,
+               int device, void* stream) {
+  if (B <= 0 || N <= 0 || K < 0 || bn <= 0 || bn % kWarp != 0 || bn > kMaxBlockThreads) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bm) {
+    case 1: return launch_dense<1>(x, w, out, B, K, N, bn, s);
+    case 2: return launch_dense<2>(x, w, out, B, K, N, bn, s);
+    case 4: return launch_dense<4>(x, w, out, B, K, N, bn, s);
+    case 8: return launch_dense<8>(x, w, out, B, K, N, bn, s);
+    case 16: return launch_dense<16>(x, w, out, B, K, N, bn, s);
+    case 32: return launch_dense<32>(x, w, out, B, K, N, bn, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int bmv_matmul_packed(const void* x, const void* w, void* out, int B, int KW, int N, int bm,
+                      int bn, int device, void* stream) {
+  if (B <= 0 || N <= 0 || KW < 0 || bn <= 0 || bn % kWarp != 0 || bn > kMaxBlockThreads) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bm) {
+    case 1: return launch_packed<1>(x, w, out, B, KW, N, bn, s);
+    case 2: return launch_packed<2>(x, w, out, B, KW, N, bn, s);
+    case 4: return launch_packed<4>(x, w, out, B, KW, N, bn, s);
+    case 8: return launch_packed<8>(x, w, out, B, KW, N, bn, s);
+    case 16: return launch_packed<16>(x, w, out, B, KW, N, bn, s);
+    case 32: return launch_packed<32>(x, w, out, B, KW, N, bn, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 int bmv_matmul_planes(const void* x, const void* pos, const void* neg, void* out, int B, int KW,
                       int P, int N, int bm, int bn, int device, void* stream) {
-  if (B <= 0 || N <= 0 || KW < 0 || P < 0 || bn <= 0 || bn % kWarp != 0 || bn > 1024) {
+  if (B <= 0 || N <= 0 || KW < 0 || P < 0 || bn <= 0 || bn % kWarp != 0 || bn > kMaxBlockThreads) {
     return cudaErrorInvalidValue;
   }
   cudaError_t e = cudaSetDevice(device);

@@ -1,4 +1,4 @@
-"""Public ops of the bit-plane datapath: kernel wrappers and bit packers.
+"""Public ops of the binary matmul datapaths: kernel wrappers and bit packers.
 
 Counterpart of `repro/kernels/binary_matvec/ops.py`. Each kernel wrapper
 takes its plain version (`ref.py`) when its tensors lie on the CPU, and
@@ -10,8 +10,8 @@ in a plain integer attribute, `<wrapper>.launches`, that
 
 Packed words are int32 tensors holding the uint32 bit pattern (see
 `ref.py`); numpy uint32 arrays cross over with `.view(np.int32)`.
-`binarize_pack` and `step_pack` stay PyTorch tensor ops on either
-device, as their JAX counterparts are `jnp` outside Pallas.
+`pack_bits`, `binarize_pack` and `step_pack` stay PyTorch tensor ops on
+either device, as their JAX counterparts are `jnp` outside Pallas.
 """
 from __future__ import annotations
 
@@ -20,76 +20,117 @@ import ctypes
 import torch
 
 from repro_torch.kernels.binary_matvec import ref
+from repro_torch.kernels.launch import (
+    BLOCK_ROWS, SMEM_LIMIT, check_block_rows, check_contiguous, check_launch,
+    int32_weights, placement, stream_args,
+)
 
 __all__ = [
-    "BLOCK_ROWS", "FORWARD_MAX_LAYERS", "binarize_pack",
-    "binary_forward_planes", "binary_matmul_planes", "check_forward_planes",
-    "check_matmul_blocks",
-    "forward_smem_bytes", "reset_launches", "step_pack",
+    "BLOCK_ROWS", "FORWARD_MAX_LAYERS", "binarize_pack", "binary_forward_planes",
+    "binary_matmul", "binary_matmul_packed", "binary_matmul_planes",
+    "check_forward_planes", "check_matmul_blocks", "forward_smem_bytes",
+    "pack_bits", "reset_launches", "step_pack",
 ]
 
-# Rows per block the kernels are instantiated for (`bm`).
-BLOCK_ROWS = (1, 2, 4, 8, 16, 32)
-MATMUL_BM, MATMUL_BN = 8, 128          # defaults: rows x columns per block
+MATMUL_BM, MATMUL_BN = 8, 128          # planes defaults: rows x columns per block
+DENSE_BM, DENSE_BN = 4, 128            # dense defaults: 256 blocks at layer 1
+PACKED_BM, PACKED_BN = 8, 64           # packed defaults: 256 blocks at layer 1
 FORWARD_BM = 8
 FORWARD_MAX_LAYERS = 16                 # kMaxLayers in the .cu source
 FORWARD_WARPS = 8                       # kForwardThreads / 32
-SMEM_LIMIT = 232_448                    # bytes a block may opt in to (H100)
 
 binarize_pack = ref.binarize_pack
+pack_bits = ref.pack_bits
 step_pack = ref.step_pack
 
 
 def reset_launches() -> None:
     """Set every kernel wrapper's launch count to 0."""
+    binary_matmul.launches = 0
+    binary_matmul_packed.launches = 0
     binary_matmul_planes.launches = 0
     binary_forward_planes.launches = 0
 
 
-def _stream_args(t: torch.Tensor) -> tuple[int, int]:
-    """(device index, current stream handle) for a launch beside `t`."""
-    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _check_launch(lib, err: int, name: str) -> None:
-    if err != 0:
-        msg = lib.bmv_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")
-
-
-def _placement(name: str, tensors) -> str:
-    """'cpu' or 'cuda' for a set of operands that must share a device."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{name}: operands on several devices {devices}")
-    kind = devices.pop().type
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device type {kind!r}")
-    return kind
-
-
-def _check_cuda_operands(name: str, tensors) -> None:
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
-
-
-def _check_bm(name: str, bm: int) -> int:
-    if bm not in BLOCK_ROWS:
-        raise ValueError(f"{name}: bm={bm} not in {BLOCK_ROWS}")
-    return int(bm)
-
-
-def check_matmul_blocks(bm: int | None = None,
-                        bn: int | None = None) -> tuple[int, int]:
-    """(bm, bn) for the per-layer kernel, defaults filled in; raises
-    ValueError for a block shape it is not built for."""
-    name = "binary_matmul_planes"
-    bm = _check_bm(name, MATMUL_BM if bm is None else bm)
-    bn = MATMUL_BN if bn is None else int(bn)
+def check_matmul_blocks(bm: int | None = None, bn: int | None = None, *,
+                        defaults: tuple[int, int] = (MATMUL_BM, MATMUL_BN)
+                        ) -> tuple[int, int]:
+    """(bm, bn) for a per-layer kernel, `defaults` filled in (the planes
+    kernel's unless given); raises ValueError for a block shape the
+    kernels are not built for."""
+    name = "binary matmul"
+    bm = check_block_rows(name, defaults[0] if bm is None else bm)
+    bn = defaults[1] if bn is None else int(bn)
     if bn <= 0 or bn % 32 or bn > 1024:
         raise ValueError(f"{name}: bn={bn} must be a multiple of 32 <= 1024")
     return bm, bn
+
+
+def _launch_matmul(entry: str, x: torch.Tensor, w: torch.Tensor, k: int,
+                   blocks: tuple[int, int]) -> torch.Tensor:
+    """Launch the dense or packed kernel: x (B, k), w (K, N) -> (B, N)."""
+    bm, bn = blocks
+    check_contiguous(entry, (x, w))
+    b, n = x.shape[0], w.shape[1]
+    out = torch.empty((b, n), dtype=torch.int32, device=x.device)
+    if b == 0 or n == 0:
+        return out
+    from repro_torch.kernels.binary_matvec import build
+
+    lib = build.load()
+    device, stream = stream_args(x)
+    err = getattr(lib, entry)(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                              b, k, n, bm, bn, device, stream)
+    check_launch(err, lib.bmv_error_string, entry)
+    return out
+
+
+def binary_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int | None = None,
+                  bn: int | None = None) -> torch.Tensor:
+    """y = x @ w for x in {0, 1}: the rows of w selected by `x != 0`
+    added up, with no multiply.
+
+    x: int8 (B, K); w: int8 or int32 (K, N), int8 cast to int32. Returns
+    int32 (B, N), wrapping on overflow. `bm` is the rows per block (one
+    of BLOCK_ROWS), `bn` the columns per block (a multiple of 32, at most
+    1024); both only shape the CUDA launch.
+    """
+    name = "binary_matmul"
+    w = int32_weights(name, w)
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"{name}: want x (B, K), w (K, N); got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    if x.dtype != torch.int8:
+        raise TypeError(f"{name}: activations must be int8, got {x.dtype}")
+    blocks = check_matmul_blocks(bm, bn, defaults=(DENSE_BM, DENSE_BN))
+    if placement(name, (x, w)) == "cpu":
+        return ref.binary_matmul(x, w)
+    out = _launch_matmul("bmv_matmul", x, w, x.shape[1], blocks)
+    binary_matmul.launches += 1
+    return out
+
+
+def binary_matmul_packed(xp: torch.Tensor, w: torch.Tensor, *,
+                         bm: int | None = None,
+                         bn: int | None = None) -> torch.Tensor:
+    """y = unpack(xp) @ w: bit i of word c selects row 32c + i of w.
+
+    xp: int32 words (B, KW); w: int8 or int32 (KW * 32, N), int8 cast to
+    int32. Returns int32 (B, N). `bm`/`bn` as in `binary_matmul`.
+    """
+    name = "binary_matmul_packed"
+    w = int32_weights(name, w)
+    if xp.dim() != 2 or w.dim() != 2 or xp.shape[1] * ref.LANES != w.shape[0]:
+        raise ValueError(f"{name}: want x (B, KW), w (KW * 32, N); got "
+                         f"{tuple(xp.shape)}, {tuple(w.shape)}")
+    if xp.dtype != torch.int32:
+        raise TypeError(f"{name}: packed words must be int32 tensors")
+    blocks = check_matmul_blocks(bm, bn, defaults=(PACKED_BM, PACKED_BN))
+    if placement(name, (xp, w)) == "cpu":
+        return ref.binary_matmul_packed(xp, w)
+    out = _launch_matmul("bmv_matmul_packed", xp, w, xp.shape[1], blocks)
+    binary_matmul_packed.launches += 1
+    return out
 
 
 def binary_matmul_planes(xp: torch.Tensor, pos: torch.Tensor,
@@ -110,10 +151,10 @@ def binary_matmul_planes(xp: torch.Tensor, pos: torch.Tensor,
             f"{tuple(xp.shape)}, {tuple(pos.shape)}, {tuple(neg.shape)}")
     if any(t.dtype != torch.int32 for t in (xp, pos, neg)):
         raise TypeError(f"{name}: packed words must be int32 tensors")
-    if _placement(name, (xp, pos, neg)) == "cpu":
+    if placement(name, (xp, pos, neg)) == "cpu":
         return ref.plane_matmul(xp, pos, neg)
     bm, bn = check_matmul_blocks(bm, bn)
-    _check_cuda_operands(name, (xp, pos, neg))
+    check_contiguous(name, (xp, pos, neg))
     b, kw = xp.shape
     p, _, n = pos.shape
     out = torch.empty((b, n), dtype=torch.int32, device=xp.device)
@@ -122,11 +163,11 @@ def binary_matmul_planes(xp: torch.Tensor, pos: torch.Tensor,
     from repro_torch.kernels.binary_matvec import build
 
     lib = build.load()
-    device, stream = _stream_args(xp)
+    device, stream = stream_args(xp)
     err = lib.bmv_matmul_planes(
         xp.data_ptr(), pos.data_ptr(), neg.data_ptr(), out.data_ptr(),
         b, kw, p, n, bm, bn, device, stream)
-    _check_launch(lib, err, name)
+    check_launch(err, lib.bmv_error_string, name)
     binary_matmul_planes.launches += 1
     return out
 
@@ -143,7 +184,7 @@ def check_forward_planes(layer_words, bm: int | None = None) -> int:
     Checked on every device, so a net the kernel refuses is refused on
     the CPU too."""
     name = "binary_forward_planes"
-    bm = _check_bm(name, FORWARD_BM if bm is None else bm)
+    bm = check_block_rows(name, FORWARD_BM if bm is None else bm)
     if not 1 <= len(layer_words) <= FORWARD_MAX_LAYERS:
         raise ValueError(
             f"{name}: depth {len(layer_words)} outside "
@@ -198,10 +239,10 @@ def binary_forward_planes(x: torch.Tensor, *planes: torch.Tensor,
                          f"{pairs[0][0].shape[-2]} words")
     layer_words = [p.shape[-2] for p, _ in pairs]
     bm = check_forward_planes(layer_words, bm)
-    if _placement(name, (x, *planes)) == "cpu":
+    if placement(name, (x, *planes)) == "cpu":
         return ref.forward_planes(x, *planes, threshold=threshold,
                                   n_classes=n_classes)
-    _check_cuda_operands(name, (x, *planes))
+    check_contiguous(name, (x, *planes))
     m = x.shape[0] if stacked else 1
     b = x.shape[-2]
     out = torch.empty(x.shape[:-1], dtype=torch.int32, device=x.device)
@@ -218,13 +259,13 @@ def binary_forward_planes(x: torch.Tensor, *planes: torch.Tensor,
     p_l = ints(*[p.shape[-3] for p, _ in pairs])
     w_l = ints(*layer_words)
     n_l = ints(*[p.shape[-1] for p, _ in pairs])
-    device, stream = _stream_args(x)
+    device, stream = stream_args(x)
     err = lib.bmv_forward_planes(
         x.data_ptr(), m, b, k, int(threshold), depth,
         ctypes.addressof(pos_ptrs), ctypes.addressof(neg_ptrs),
         ctypes.addressof(p_l), ctypes.addressof(w_l), ctypes.addressof(n_l),
         int(n_classes), out.data_ptr(), bm, device, stream)
-    _check_launch(lib, err, name)
+    check_launch(err, lib.bmv_error_string, name)
     binary_forward_planes.launches += 1
     return out
 

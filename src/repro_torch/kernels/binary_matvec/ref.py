@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the bit-plane kernels and the bit packers.
+"""Plain PyTorch versions of the binary matmul kernels and the bit packers.
 
 Counterpart of `repro/kernels/binary_matvec/ref.py`. Packed words travel
 as int32 tensors holding the uint32 bit pattern: bit i of word j is
@@ -16,11 +16,13 @@ from __future__ import annotations
 import torch
 
 __all__ = [
-    "LANES", "binarize_pack", "forward_planes", "pack_bool", "plane_matmul",
-    "popcount", "step_pack", "unpack_bits",
+    "LANES", "binarize_pack", "binary_matmul", "binary_matmul_packed",
+    "forward_planes", "pack_bits", "pack_bool", "plane_matmul", "popcount",
+    "step_pack", "unpack_bits",
 ]
 
 LANES = 32          # activation bits per packed word
+_MATMUL_CHUNK = 64  # rows of w per masked-sum step in `binary_matmul`
 
 
 def _unsigned(words: torch.Tensor) -> torch.Tensor:
@@ -71,6 +73,33 @@ def unpack_bits(xp: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"{kw} words hold fewer than {k} bits")
     bits = (_unsigned(xp)[..., None] >> _shifts(xp.device)) & 1
     return bits.reshape(*xp.shape[:-1], kw * LANES)[..., :k].to(torch.int8)
+
+
+def pack_bits(x: torch.Tensor) -> torch.Tensor:
+    """Pack binary activations (B, K), any dtype with nonzero meaning 1,
+    into int32 words (B, ceil(K / 32)), zero-padding K up to a multiple
+    of 32."""
+    return pack_bool(x != 0, -(-x.shape[-1] // LANES))
+
+
+def binary_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The function of `binary_matmul`: int32 (B, N) = the sum of the rows
+    of w (K, N) selected by `x != 0` for x (B, K), a masked column sum
+    with no multiply. Sums in int64 and wraps to int32 like the kernel;
+    K is swept in chunks so the (B, chunk, N) select stays small."""
+    w = w.to(torch.int64)
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.int64,
+                      device=x.device)
+    for k0 in range(0, x.shape[1], _MATMUL_CHUNK):
+        k1 = k0 + _MATMUL_CHUNK
+        acc += torch.where(x[:, k0:k1, None] != 0, w[None, k0:k1], 0).sum(1)
+    return _as_words(acc)
+
+
+def binary_matmul_packed(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The function of `binary_matmul_packed`: `binary_matmul` of the
+    activations unpacked from int32 words xp (B, KW), w (KW * 32, N)."""
+    return binary_matmul(unpack_bits(xp, w.shape[0]), w)
 
 
 def popcount(words: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,11 @@ circuit IR (`frontend.lower`), optimized by a `PipelineSpec` (default
 target:
 
     torch                dense masked-column-sum oracle (JAX: `jnp`)
-    cuda[planes=true]    per-layer bit-plane kernel chain (JAX: `pallas`)
-    cuda[fusednet=true]  the whole net in one kernel launch
+    cuda                 per-layer dense kernel chain (JAX: `pallas`)
+    cuda[packed=true]    per-layer chain over bit-packed activations
+    cuda[planes=true]    per-layer bit-plane kernel chain
+    cuda[fusednet=true]  the whole planes-form net in one kernel launch
+    fused                the 2-layer paper net in one kernel launch
 
 `Session` holds the compiled artifacts for one device (the card unless
 `device="cpu"`), and `NetServer` serves registered versions, stacking

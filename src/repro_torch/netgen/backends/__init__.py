@@ -1,13 +1,16 @@
 """Execution backends, enumerated by the Target registry.
 
   torch  — dense masked-column-sum predictor (the oracle; `torch_ref.py`)
-  cuda   — bit-plane popcount kernels (`cuda.py`)
+  cuda   — per-layer dense, packed and bit-plane kernel chains and the
+           whole-net bit-plane megakernel (`cuda.py`)
+  fused  — the 2-layer net in one kernel launch (`cuda.compile_fused`)
 
-Both compile through ONE lowering step,
-`repro_torch.netgen.plan.lower_circuit`, and offer a multi-net form
-(`compile_multi`): a stacked ExecutionPlan becomes one
+All compile through ONE lowering step,
+`repro_torch.netgen.plan.lower_circuit`. `torch` and `cuda` offer a
+multi-net form (`compile_multi`): a stacked ExecutionPlan becomes one
 (M, B, n_in) -> (M, B) dispatch, the cross-model batching that
-`repro_torch.netgen.serve.NetServer` uses.
+`repro_torch.netgen.serve.NetServer` uses; `fused` has none, so the
+server routes each version on its own.
 """
 from __future__ import annotations
 

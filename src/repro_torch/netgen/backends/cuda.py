@@ -1,28 +1,37 @@
-"""cuda backend: execute a planes-form ExecutionPlan on the bit-plane kernels.
+"""cuda backend: execute an ExecutionPlan on the port's CUDA kernels.
 
-Counterpart of `repro/netgen/backends/pallas.py`, for the bit-plane
-datapaths only:
+Counterpart of `repro/netgen/backends/pallas.py`. The per-layer chain
+(any depth) runs one kernel launch per layer with the step at the layer
+boundary; the datapath follows the plan form (`cuda`,
+`cuda[packed=true]`, `cuda[planes=true]`):
 
-  planes    — the per-layer chain: inputs binarized straight into packed
-              words, one `binary_matmul_planes` launch per layer,
-              `sum_b 2^b (popc(x & pos_b) - popc(x & neg_b))`, and a
-              strict step + repack (`step_pack`) between layers. Both
-              operands travel as bits.
+  dense     — activations travel as int8 {0,1} into `binary_matmul`
+              (one byte per wire, int32 weights); binarize and step are
+              torch ops between the launches.
+  packed    — activations are packed 32 to an int32 word end to end:
+              binarize emits words, every hidden boundary is a
+              `step_pack`, and `binary_matmul_packed` consumes them (one
+              bit per wire; weights still int32).
+  planes    — both operands travel as bits: weights split into packed
+              signed bit-planes, one `binary_matmul_planes` launch per
+              layer, `sum_b 2^b (popc(x & pos_b) - popc(x & neg_b))`.
   fusednet  — the whole planes-form net (any depth up to the kernel's
               limit, single or stacked) as ONE `binary_forward_planes`
               launch through `plan.megakernel_view()`.
 
-The stacked multi-net dispatch prefers the megakernel: `planes=true`
-builds it and falls back to the per-layer chain when the plan has no
-view the kernel takes; `fusednet=true` is strict. The chain sweeps the
-model axis with a Python loop (depth x M launches per call against the
-megakernel's 1).
+The stacked multi-net dispatch prefers the megakernel for the bit-plane
+options: `planes=true` builds it and falls back to the per-layer chain
+when the plan has no view the kernel takes; `fusednet=true` is strict.
+Dense and packed sweep the model axis with a Python loop (depth x M
+launches per call against the megakernel's 1).
+
+`compile_fused` lowers the paper's 2-layer net into ONE
+`fused_mlp_predict` launch over the dense weights (the `fused` target).
 
 Predictors take uint8 images (numpy or tensor), return int32 class ids
 as a tensor on the compile device, and carry `plan_form`, `datapath`,
 `blocks` and `launches_per_call`. On a CPU device the wrappers run the
-kernels' plain versions. The dense and packed datapaths, tuning and
-explored records are not ported yet: asking for them raises.
+kernels' plain versions. Tuning and explored records are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,22 +39,33 @@ import torch
 
 from repro_torch.kernels.binary_matvec import ops as bmv
 from repro_torch.netgen.backends.torch_ref import as_device_images
-from repro_torch.netgen.graph import Circuit
+from repro_torch.netgen.graph import Circuit, IrregularCircuitError
 from repro_torch.netgen.plan import ExecutionPlan, lower_circuit
 
-__all__ = ["compile_cuda", "compile_cuda_multi"]
+__all__ = ["compile_cuda", "compile_cuda_multi", "compile_fused"]
 
 
-def _resolve_form(planes: bool, fusednet: bool) -> str:
+def _resolve_form(packed: bool, planes: bool, fusednet: bool) -> str:
     """The requested datapath. `fusednet` runs the planes form, so
-    planes+fusednet means fusednet."""
+    planes+fusednet means fusednet; packed is a different activation
+    encoding and stays exclusive. No option means dense."""
+    if packed and (planes or fusednet):
+        raise ValueError(
+            "cuda: packed=true is exclusive with the bit-plane datapaths "
+            "(planes=true / fusednet=true)")
     if fusednet:
         return "fusednet"
     if planes:
         return "planes"
-    raise ValueError(
-        "cuda: only the bit-plane datapaths are ported; pass planes=true "
-        "or fusednet=true (the dense and packed datapaths come later)")
+    return "packed" if packed else "dense"
+
+
+def _in_form(plan: ExecutionPlan, form: str) -> ExecutionPlan:
+    if form in ("planes", "fusednet"):
+        return plan.planes()
+    if form == "packed":
+        return plan.pack()
+    return plan
 
 
 def _words(a, device: torch.device) -> torch.Tensor:
@@ -53,17 +73,62 @@ def _words(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a.view("int32")).to(device)
 
 
-def _chain(plan: ExecutionPlan, blocks: dict, device: torch.device):
-    """One version's per-layer chain over a planes-form plan.
+def _zeros(a: torch.Tensor, n: int) -> torch.Tensor:
+    """The constant-0 accumulator of a layer whose fan_in was fully pruned."""
+    return torch.zeros((a.shape[0], n), dtype=torch.int32, device=a.device)
 
-    Returns (arrays, run): `arrays` is a flat tuple of per-layer pos/neg
-    word tensors (leading model axis when the plan is stacked) and
+
+def _argmax(acc: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(acc, dim=-1).to(torch.int32)
+
+
+def _chain(plan: ExecutionPlan, blocks: dict, device: torch.device):
+    """One version's per-layer chain for the plan's form.
+
+    Returns (arrays, run): `arrays` is a flat tuple of per-layer weight
+    tensors (leading model axis when the plan is stacked) and
     `run(x_uint8, *arrays)` maps one version's uint8 batch to int32
-    class ids. The chain is packed end to end: binarize emits words,
-    every hidden boundary is a `step_pack`.
+    class ids. The packed and planes chains are packed end to end:
+    binarize emits words, every hidden boundary is a `step_pack`.
     """
-    assert plan.form == "planes", plan.form
+    form = plan.form
     thr = plan.input_threshold
+
+    if form in ("dense", "packed"):
+        if form == "dense":
+            kernel, defaults = bmv.binary_matmul, (bmv.DENSE_BM, bmv.DENSE_BN)
+        else:
+            kernel, defaults = bmv.binary_matmul_packed, (bmv.PACKED_BM, bmv.PACKED_BN)
+        bm, bn = bmv.check_matmul_blocks(blocks.get("bm"), blocks.get("bn"),
+                                         defaults=defaults)
+        arrays = tuple(torch.as_tensor(l.weights, dtype=torch.int32, device=device)
+                       for l in plan.layers)
+
+        def matmul(a, w):
+            if w.shape[-2] == 0:
+                return _zeros(a, w.shape[-1])
+            return kernel(a, w, bm=bm, bn=bn)
+
+        if form == "dense":
+            def run(x_uint8, *ws):
+                a = (x_uint8.to(torch.int32) > thr).to(torch.int8)
+                for w in ws[:-1]:
+                    a = (matmul(a, w) > 0).to(torch.int8)
+                return _argmax(matmul(a, ws[-1]))
+
+            return arrays, run
+
+        words = [l.words for l in plan.layers]
+
+        def run(x_uint8, *ws):
+            a = bmv.binarize_pack(x_uint8, threshold=thr, words=words[0])
+            for w, nxt in zip(ws[:-1], words[1:]):
+                a = bmv.step_pack(matmul(a, w), words=nxt)
+            return _argmax(matmul(a, ws[-1]))
+
+        return arrays, run
+
+    assert form == "planes", form
     bm, bn = bmv.check_matmul_blocks(blocks.get("bm"), blocks.get("bn"))
     arrays = []
     for layer in plan.layers:
@@ -74,8 +139,7 @@ def _chain(plan: ExecutionPlan, blocks: dict, device: torch.device):
 
     def plane_matmul(a, pos, neg, fan_out):
         if pos.shape[-2] == 0:       # zero words: fully-pruned fan_in
-            return torch.zeros((a.shape[0], fan_out), dtype=torch.int32,
-                               device=a.device)
+            return _zeros(a, fan_out)
         return bmv.binary_matmul_planes(a, pos, neg, bm=bm, bn=bn)
 
     def run(x_uint8, *planes):
@@ -83,8 +147,7 @@ def _chain(plan: ExecutionPlan, blocks: dict, device: torch.device):
         for i in range(len(fan_outs) - 1):
             acc = plane_matmul(a, planes[2 * i], planes[2 * i + 1], fan_outs[i])
             a = bmv.step_pack(acc, words=words[i + 1])
-        acc = plane_matmul(a, planes[-2], planes[-1], fan_outs[-1])
-        return torch.argmax(acc, dim=-1).to(torch.int32)
+        return _argmax(plane_matmul(a, planes[-2], planes[-1], fan_outs[-1]))
 
     return tuple(arrays), run
 
@@ -92,8 +155,8 @@ def _chain(plan: ExecutionPlan, blocks: dict, device: torch.device):
 def _finish_predictor(predict, *, plan_form: str, datapath: str,
                       blocks: dict, launches: int):
     """Stamp the attributes callers read: the executed plan form, the
-    datapath ("planes" or "fusednet"), the chosen blocks, and kernel
-    launches per call."""
+    datapath (the form, "fusednet" for the megakernel, "fused" for the
+    2-layer kernel), the chosen blocks, and kernel launches per call."""
     predict.plan_form = plan_form
     predict.datapath = datapath
     predict.blocks = dict(blocks)
@@ -107,7 +170,7 @@ def _build_single(plan: ExecutionPlan, blocks: dict, device: torch.device):
     def predict(x_uint8):
         return run(as_device_images(x_uint8, device), *arrays)
 
-    return _finish_predictor(predict, plan_form="planes", datapath="planes",
+    return _finish_predictor(predict, plan_form=plan.form, datapath=plan.form,
                              blocks=blocks, launches=plan.depth)
 
 
@@ -120,7 +183,7 @@ def _build_multi(plan: ExecutionPlan, blocks: dict, device: torch.device):
         return torch.stack([run(x[m], *[a[m] for a in arrays])
                             for m in range(n_models)])
 
-    return _finish_predictor(predict, plan_form="planes", datapath="planes",
+    return _finish_predictor(predict, plan_form=plan.form, datapath=plan.form,
                              blocks=blocks, launches=plan.depth * n_models)
 
 
@@ -143,36 +206,69 @@ def _build_fusednet(plan: ExecutionPlan, blocks: dict, device: torch.device):
 
 
 def compile_cuda(circuit: Circuit, *, device: torch.device,
-                 planes: bool = False, fusednet: bool = False,
-                 bm: int | None = None, bn: int | None = None):
-    """A predictor chaining one `binary_matmul_planes` launch per plan
-    layer (`planes=true`), or ONE whole-net `binary_forward_planes`
-    launch (`fusednet=true`). `bm`/`bn` pin the kernels' rows and
-    columns per block (`bn` only shapes the per-layer kernel)."""
-    form = _resolve_form(planes, fusednet)
-    plan = lower_circuit(circuit, form="planes")
+                 packed: bool = False, planes: bool = False,
+                 fusednet: bool = False, bm: int | None = None,
+                 bn: int | None = None):
+    """A predictor chaining one kernel launch per plan layer — dense
+    (`binary_matmul`, no option), `packed=true` (`binary_matmul_packed`)
+    or `planes=true` (`binary_matmul_planes`) — or ONE whole-net
+    `binary_forward_planes` launch (`fusednet=true`). `bm`/`bn` pin the
+    kernels' rows and columns per block (`bn` only shapes the per-layer
+    kernels)."""
+    form = _resolve_form(packed, planes, fusednet)
+    plan = lower_circuit(circuit)
     blocks = {"bm": bm, "bn": bn}
     if form == "fusednet":
-        return _build_fusednet(plan, blocks, device)
-    return _build_single(plan, blocks, device)
+        return _build_fusednet(plan.planes(), blocks, device)
+    return _build_single(_in_form(plan, form), blocks, device)
 
 
 def compile_cuda_multi(plan: ExecutionPlan, *, device: torch.device,
-                       planes: bool = False, fusednet: bool = False,
-                       bm: int | None = None, bn: int | None = None):
+                       packed: bool = False, planes: bool = False,
+                       fusednet: bool = False, bm: int | None = None,
+                       bn: int | None = None):
     """Multi-net dispatch over a *stacked* ExecutionPlan: uint8 images
     (M, B, n_in) -> int32 predictions (M, B). Both bit-plane options
     build ONE `binary_forward_planes` launch over grid (B/bm, M);
-    `planes=true` falls back to the per-layer chain (a loop over the
-    models) when the megakernel build raises ValueError."""
+    `planes=true` falls back to the per-layer chain when the megakernel
+    build raises ValueError. Dense and packed run the per-model chain,
+    depth x M launches per call."""
     if not plan.stacked:
         raise ValueError("compile_cuda_multi needs a stacked ExecutionPlan")
-    form = _resolve_form(planes, fusednet)
+    form = _resolve_form(packed, planes, fusednet)
     blocks = {"bm": bm, "bn": bn}
-    plan = plan.planes()
-    try:
-        return _build_fusednet(plan, blocks, device)
-    except ValueError:
-        if form == "fusednet":
-            raise
+    plan = _in_form(plan, form)
+    if form in ("planes", "fusednet"):
+        try:
+            return _build_fusednet(plan, blocks, device)
+        except ValueError:
+            if form == "fusednet":
+                raise
     return _build_multi(plan, blocks, device)   # no megakernel view: chain
+
+
+def compile_fused(circuit: Circuit, *, device: torch.device,
+                  bm: int | None = None):
+    """The paper's 2-layer net as ONE `fused_mlp_predict` launch per call
+    over the dense plan's weights; a plan of any other depth raises
+    IrregularCircuitError. `bm` pins the rows per block; a net whose
+    activations the kernel's shared memory cannot hold raises
+    ValueError here, on every device."""
+    from repro_torch.kernels.fused_mlp import ops as fused
+
+    plan = lower_circuit(circuit)
+    if plan.depth != 2:
+        raise IrregularCircuitError(
+            f"fused backend supports exactly 2 layers, got {plan.depth}")
+    w1, w2 = (torch.as_tensor(l.weights, dtype=torch.int32, device=device)
+              for l in plan.layers)
+    kbm = fused.check_fused(w1.shape[0], w1.shape[1], w2.shape[1], bm)
+    thr = plan.input_threshold
+
+    def predict(x_uint8):
+        return fused.fused_mlp_predict(as_device_images(x_uint8, device),
+                                       w1, w2, threshold=thr, bm=kbm)
+
+    return _finish_predictor(predict, plan_form="dense", datapath="fused",
+                             blocks={} if bm is None else {"bm": int(bm)},
+                             launches=1)

@@ -41,7 +41,7 @@ The plan has four orthogonal forms:
              over the stacked versions).
 
 Backends declare which form they execute via target options
-(`cuda[planes=true]`, `cuda[fusednet=true]`); the Session records the
+(`cuda`, `cuda[packed=true]`, `cuda[planes=true]`); the Session records the
 compiled form on the `Artifact` (`artifact.plan_form`).
 """
 from __future__ import annotations

@@ -10,8 +10,10 @@ sharding, telemetry and stack reports (later slices):
       (`repro_torch.netgen.plan.stack_plans`) and serve them with one
       multi-net dispatch per round (the target's `compile_multi`); for
       `cuda[planes=true]` / `cuda[fusednet=true]` that is ONE
-      `binary_forward_planes` launch for every version and layer.
-      Incompatible sets fall back to per-version routing.
+      `binary_forward_planes` launch for every version and layer, for
+      `cuda` and `cuda[packed=true]` the per-layer chain looped over the
+      versions. Incompatible sets, and targets without a multi-net form
+      (`fused`), fall back to per-version routing.
       `dispatch_counts` records which path served each request.
 
 Hidden-width padding used for stacking is exact: a zero-padded column is

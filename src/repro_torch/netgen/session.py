@@ -12,7 +12,8 @@ Counterpart of `repro/netgen/session.py`, without the persistent
       target string, and the device every artifact runs on.
 
       session = Session()                      # cuda:0; raises without CUDA
-      art = session.compile(qnet, target="cuda[planes=true]")
+      art = session.compile(qnet, target="cuda")   # or "cuda[packed=true]",
+                                               # "cuda[planes=true]", "fused"
       art(images)                              # int32 class ids on the card
 
 `Session(device="cpu")` runs the kernels' plain versions on the CPU.
@@ -70,8 +71,8 @@ def artifact_key(digest: str, spec: PipelineSpec, target: str) -> str:
 @dataclasses.dataclass
 class Artifact:
     """One compilation result. `artifact` is the target's predictor;
-    `plan_form` records which ExecutionPlan form it executes ("dense" or
-    "planes") and `plan()` re-lowers the circuit into that form (what
+    `plan_form` records which ExecutionPlan form it executes ("dense",
+    "packed" or "planes") and `plan()` re-lowers the circuit into that form (what
     the serving layer stacks for multi-net dispatch)."""
     digest: str
     pipeline: str              # canonical PipelineSpec string

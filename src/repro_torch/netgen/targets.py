@@ -5,15 +5,19 @@ same `name[opt=value,...]` item syntax as pipeline passes:
 
     torch                    dense masked-column-sum predictor (the oracle;
                              the counterpart of `jnp`)
-    cuda[planes=true]        per-layer bit-plane kernel chain (the
-                             counterpart of `pallas[planes=true]`)
+    cuda                     per-layer dense kernel chain (the counterpart
+                             of `pallas`)
+    cuda[packed=true]        per-layer chain over bit-packed activations
+    cuda[planes=true]        per-layer bit-plane kernel chain
     cuda[fusednet=true]      the whole planes-form net in one kernel launch
+    fused                    the 2-layer paper net in one kernel launch
 
 `resolve_target` parses an item string (or takes a bare name plus an
 opts dict), validates options against the target's declaration, and
 returns (Target, opts). `target_string` renders the canonical form.
-Options that later slices bring (`packed`, `tuned`, `explored`, `bkw`)
-are undeclared, so they raise "unknown option" like any other.
+Options of the JAX targets that later slices bring (`tuned`,
+`explored`, `bkw`) and `interpret`, which has no counterpart on the
+card, are undeclared, so they raise "unknown option" like any other.
 """
 from __future__ import annotations
 
@@ -138,17 +142,33 @@ def _compile_cuda_multi(plan, **opts):
     return compile_cuda_multi(plan, **opts)
 
 
+def _compile_fused(circuit, **opts):
+    from repro_torch.netgen.backends.cuda import compile_fused
+    return compile_fused(circuit, **opts)
+
+
 register_target(Target(
     name="torch", kind="callable",
     description="dense masked-column-sum predictor (the oracle backend)",
     compile=_compile_torch, compile_multi=_compile_torch_multi))
 register_target(Target(
     name="cuda", kind="callable",
-    description="bit-plane popcount kernels: planes=true chains one "
-                "binary_matmul_planes launch per layer, fusednet=true runs "
-                "the whole planes-form net as ONE binary_forward_planes "
-                "launch (stacked multi-net dispatch prefers it for "
-                "planes=true too); bm/bn pin rows/columns per block",
+    description="per-layer binary_matvec CUDA kernel chain: int8 "
+                "activations into binary_matmul by default, packed=true "
+                "chains bit-packed activations end to end "
+                "(binary_matmul_packed), planes=true additionally splits "
+                "weights into packed bit-planes accumulated by popcount "
+                "(binary_matmul_planes), fusednet=true runs the whole "
+                "planes-form net as ONE binary_forward_planes launch "
+                "(stacked multi-net dispatch prefers it for planes=true "
+                "too); bm/bn pin rows/columns per block",
     compile=_compile_cuda,
-    opts=(("planes", bool), ("fusednet", bool), ("bm", int), ("bn", int)),
+    opts=(("packed", bool), ("planes", bool), ("fusednet", bool),
+          ("bm", int), ("bn", int)),
     compile_multi=_compile_cuda_multi))
+register_target(Target(
+    name="fused", kind="callable",
+    description="single-launch whole-net CUDA kernel fused_mlp_predict "
+                "(2-layer only; bm pins the rows per block)",
+    compile=_compile_fused,
+    opts=(("bm", int),)))

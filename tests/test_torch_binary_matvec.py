@@ -76,6 +76,94 @@ def test_unpack_bits_and_popcount():
     np.testing.assert_array_equal(ref.popcount(_t(xp)).numpy(), counts)
 
 
+@pytest.mark.parametrize("b,k", [(3, 70), (2, 64), (1, 784), (4, 5)])
+def test_pack_bits_words_equal(b, k):
+    """Any nonzero activation is a set bit; K pads up to whole words."""
+    x = np.random.default_rng(b * 100 + k).integers(-2, 3, size=(b, k)).astype(np.int8)
+    want = np.asarray(jops.pack_bits(jnp.asarray(x)))
+    got = ops.pack_bits(torch.from_numpy(x))
+    assert got.dtype == torch.int32 and got.shape == (b, -(-k // 32))
+    np.testing.assert_array_equal(_u32(got), want)
+
+
+# ---------------------------------------------------------------------------
+# binary_matmul and binary_matmul_packed
+# ---------------------------------------------------------------------------
+
+# The paper's two layers at small batch, and a ragged shape: K and N no
+# multiple of 32 (or of the Pallas tiles).
+MATMUL_SHAPES = [(1, 784, 500), (4, 500, 10), (3, 200, 77)]
+
+
+def _bits(rng, b, k) -> np.ndarray:
+    return rng.integers(0, 2, size=(b, k)).astype(np.int8)
+
+
+@pytest.mark.parametrize("wdtype", [np.int32, np.int8])
+@pytest.mark.parametrize("b,k,n", MATMUL_SHAPES)
+def test_binary_matmul_matches_pallas_and_ref(b, k, n, wdtype):
+    rng = np.random.default_rng(b * 1000 + k + n)
+    x = _bits(rng, b, k)
+    w = rng.integers(-9, 10, size=(k, n)).astype(wdtype)
+    pallas = np.asarray(jops.binary_matmul(jnp.asarray(x), jnp.asarray(w)))
+    oracle = np.asarray(jref.binary_matmul_ref(jnp.asarray(x), jnp.asarray(w)))
+    got = ops.binary_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.dtype == torch.int32 and got.shape == (b, n)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    np.testing.assert_array_equal(got.numpy(), oracle)
+
+
+@pytest.mark.parametrize("wdtype", [np.int32, np.int8])
+@pytest.mark.parametrize("b,k,n", MATMUL_SHAPES)
+def test_binary_matmul_packed_matches_pallas(b, k, n, wdtype):
+    """The activations packed by `pack_bits` (K padded to whole words)
+    against the Pallas kernel on the same words and zero-padded w."""
+    rng = np.random.default_rng(b * 1000 + k + n + 1)
+    x = _bits(rng, b, k)
+    w = rng.integers(-9, 10, size=(k, n)).astype(wdtype)
+    xp = np.asarray(jops.pack_bits(jnp.asarray(x)))
+    wp = np.zeros((xp.shape[1] * 32, n), wdtype)
+    wp[:k] = w
+    pallas = np.asarray(jops.binary_matmul_packed(jnp.asarray(xp), jnp.asarray(wp)))
+    got = ops.binary_matmul_packed(ops.pack_bits(torch.from_numpy(x)), torch.from_numpy(wp))
+    assert got.dtype == torch.int32 and got.shape == (b, n)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    np.testing.assert_array_equal(
+        got.numpy(), (x.astype(np.int64) @ w.astype(np.int64)).astype(np.int32))
+
+
+def test_binary_matmul_wraps_like_int32():
+    """Sums past int32 wrap as the Pallas kernel's int32 accumulator does."""
+    rng = np.random.default_rng(9)
+    x = np.ones((3, 96), np.int8)
+    x[1, ::3] = 0
+    w = rng.integers(2 ** 29, 2 ** 31 - 1, size=(96, 5)).astype(np.int32)
+    pallas = np.asarray(jops.binary_matmul(jnp.asarray(x), jnp.asarray(w)))
+    got = ops.binary_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    xp = np.array(jops.pack_bits(jnp.asarray(x)))
+    packed = ops.binary_matmul_packed(_t(xp), torch.from_numpy(w))
+    np.testing.assert_array_equal(packed.numpy(), pallas)
+    assert (pallas != (x.astype(np.int64) @ w.astype(np.int64))).any()
+
+
+def test_binary_matmul_rejects_bad_operands():
+    x = torch.zeros((4, 64), dtype=torch.int8)
+    w = torch.zeros((64, 5), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ops.binary_matmul(x, w[:60])
+    with pytest.raises(TypeError):
+        ops.binary_matmul(x.int(), w)
+    with pytest.raises(TypeError):
+        ops.binary_matmul(x, w.long())
+    with pytest.raises(ValueError):            # K != 32 x words
+        ops.binary_matmul_packed(torch.zeros((4, 2), dtype=torch.int32), w[:60])
+    with pytest.raises(TypeError):
+        ops.binary_matmul_packed(torch.zeros((4, 2), dtype=torch.int64), w)
+    assert ops.check_matmul_blocks(defaults=(ops.DENSE_BM, ops.DENSE_BN)) == \
+        (ops.DENSE_BM, ops.DENSE_BN)
+
+
 # ---------------------------------------------------------------------------
 # binary_matmul_planes
 # ---------------------------------------------------------------------------
@@ -193,20 +281,29 @@ def test_cpu_calls_launch_no_kernel():
     view = _view(net)
     ops.binary_forward_planes(_t(images(8, 3, 40)), *[_t(a) for a in view.arrays],
                               threshold=128, n_classes=6)
-    assert ops.binary_forward_planes.launches == 0
-    assert ops.binary_matmul_planes.launches == 0
+    x, w = torch.ones((2, 64), dtype=torch.int8), torch.ones((64, 3), dtype=torch.int32)
+    ops.binary_matmul(x, w)
+    ops.binary_matmul_packed(ops.pack_bits(x), w)
+    for wrapper in (ops.binary_forward_planes, ops.binary_matmul_planes,
+                    ops.binary_matmul, ops.binary_matmul_packed):
+        assert wrapper.launches == 0
 
 
-def test_failed_build_raises(monkeypatch, tmp_path):
-    """No nvcc, or an nvcc that fails, raises: nothing falls back."""
-    from repro_torch.kernels.binary_matvec import build
+@pytest.mark.parametrize("family", ["binary_matvec", "fused_mlp"])
+def test_failed_build_raises(monkeypatch, tmp_path, family):
+    """No nvcc, or an nvcc that fails, raises: nothing falls back. Each
+    kernel family's library builds through the shared nvcc core."""
+    import importlib
+    from repro_torch.kernels import nvcc
+    build = importlib.import_module(f"repro_torch.kernels.{family}.build")
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
-    monkeypatch.setattr(build.shutil, "which", lambda name: None)
-    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(nvcc.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build.LIBRARY, "_lib", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.load()
-    monkeypatch.setattr(build, "_nvcc", lambda: "false")
+    monkeypatch.setattr(nvcc, "_nvcc", lambda: "false")
     with pytest.raises(RuntimeError, match="nvcc failed"):
         build.load()
-    assert build._lib is None and not list(tmp_path.glob("*.so"))
+    assert build.LIBRARY._lib is None and not list(tmp_path.glob("*.so"))
+    assert build.SOURCE.is_file() and build.last_build() is None

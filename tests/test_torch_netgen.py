@@ -162,11 +162,17 @@ def test_pipeline_spec_strings_and_errors():
 def test_targets_declare_only_ported_options():
     t, opts = resolve_target("cuda[planes=true,bm=8]")
     assert t.name == "cuda" and opts == {"planes": True, "bm": 8}
-    for bad in ("cuda[packed=true]", "cuda[tuned=true]", "cuda[explored=true]",
-                "cuda[bkw=8]", "cuda[planes=3]", "torch[planes=true]", "pallas"):
+    t, opts = resolve_target("cuda[packed=true,bn=64]")
+    assert t.name == "cuda" and opts == {"packed": True, "bn": 64}
+    t, opts = resolve_target("fused[bm=4]")
+    assert t.name == "fused" and opts == {"bm": 4} and t.compile_multi is None
+    for bad in ("cuda[tuned=true]", "cuda[explored=true]", "cuda[bkw=8]",
+                "cuda[interpret=false]", "cuda[planes=3]", "torch[planes=true]",
+                "fused[tuned=true]", "fused[interpret=true]", "fused[bn=32]",
+                "pallas"):
         with pytest.raises(ValueError):
             resolve_target(bad)
-    assert [t.name for t in netgen.list_targets()] == ["cuda", "torch"]
+    assert [t.name for t in netgen.list_targets()] == ["cuda", "fused", "torch"]
 
 
 def test_frontend_threshold_validation():

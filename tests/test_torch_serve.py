@@ -77,13 +77,87 @@ def test_session_memory_tier_and_errors():
     session.compile(net, target="cuda[planes=true]")
     s = session.stats()
     assert (s.hits, s.compiles, s.evictions) == (1, 3, 2)
-    with pytest.raises(ValueError):            # the dense datapath is not ported
-        session.compile(net, target="cuda")
+    assert session.compile(net, target="cuda").plan_form == "dense"
+    with pytest.raises(ValueError):            # packed excludes the bit-planes
+        session.compile(net, target="cuda[packed=true,planes=true]")
     with pytest.raises(TypeError):
         a(np.zeros((2, 12), np.float32))
     with pytest.raises(ValueError):
         a(np.zeros((2, 11), np.uint8))
     assert a(torch.zeros((2, 12), dtype=torch.uint8)).shape == (2,)
+
+
+# The port's targets beside the JAX package's, for the dense and packed
+# chains and the 2-layer single-launch kernel.
+NEW_TARGETS = [("cuda", "pallas"), ("cuda[packed=true]", "pallas[packed=true]"),
+               ("fused", "fused")]
+
+
+@pytest.mark.parametrize("target,jtarget", NEW_TARGETS)
+def test_session_dense_packed_fused_match_pallas(target, jtarget):
+    jnet = random_net(51, (45, 21, 7), lo=-5, hi=5)
+    x = images(51, 19, 45)
+    jart = jnetgen.Session().compile(jnet, target=jtarget)
+    art = netgen.Session(device="cpu").compile(_port(jnet), target=target)
+    got = art(x)
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jart(jnp.asarray(x))))
+    np.testing.assert_array_equal(got.numpy(), _ref(jnet, x))
+    assert (art.artifact.datapath, art.artifact.launches_per_call, art.plan_form) == \
+        (jart.artifact.datapath, jart.artifact.launches_per_call, jart.plan_form)
+
+
+def test_fused_refuses_other_depths_and_packed_refuses_planes():
+    deep = random_net(52, (30, 12, 9, 4), lo=-5, hi=5)
+    with pytest.raises(netgen.IrregularCircuitError):
+        netgen.Session(device="cpu").compile(_port(deep), target="fused")
+    with pytest.raises(jnetgen.IrregularCircuitError):
+        jnetgen.Session().compile(deep, target="fused")
+    # a 3-layer net runs through the chains, as in JAX
+    x = images(52, 7, 30)
+    got = netgen.Session(device="cpu").compile(_port(deep), target="cuda")(x)
+    np.testing.assert_array_equal(got.numpy(), _ref(deep, x))
+    for opts in ("packed=true,planes=true", "packed=true,fusednet=true"):
+        with pytest.raises(ValueError):
+            netgen.Session(device="cpu").compile(_port(deep), target=f"cuda[{opts}]")
+        with pytest.raises(ValueError):
+            jnetgen.Session().compile(deep, target=f"pallas[{opts}]")
+
+
+@pytest.mark.parametrize("target,jtarget", NEW_TARGETS)
+def test_netserver_dense_packed_fused_match_jax_server(target, jtarget):
+    """cuda and cuda[packed=true] stack the versions (the per-model chain
+    looped over the model axis); fused has no multi-net form, so both
+    servers fall back to one dispatch per version."""
+    jnets = _pruned_versions()
+    jserver = jnetgen.NetServer(target=jtarget, slot_capacity=8)
+    server = netgen.NetServer(session=netgen.Session(device="cpu"),
+                              target=target, slot_capacity=8)
+    for name, jnet in jnets.items():
+        jserver.register(name, jnet)
+        server.register(name, _port(jnet))
+    x = images(62, 20, 40)
+    single = server.predict("v2", x)
+    np.testing.assert_array_equal(single, jserver.predict("v2", x))
+    for req in ({"v0": x, "v1": x[:5], "v2": x[:13]},
+                {"v0": x[:8], "v1": x[8:16], "v2": x[:3]}):
+        got, want = server.predict_many(req), jserver.predict_many(req)
+        for v in req:
+            np.testing.assert_array_equal(got[v], want[v], err_msg=v)
+            np.testing.assert_array_equal(got[v], _ref(jnets[v], req[v]))
+    counts, jcounts = server.dispatch_counts, jserver.dispatch_counts
+    assert counts == {k: jcounts[k] for k in counts}
+    stacked = target != "fused"
+    assert counts == {"single": 1, "stacked": 2 * stacked,
+                      "fallback": 2 * (not stacked)}
+    names = tuple(sorted(jnets))
+    fn, (jfn, _) = server._stacked_fn(names), jserver._stacked_fn(names)
+    if stacked:
+        assert (fn.datapath, fn.launches_per_call, fn.plan_form) == \
+            (jfn.datapath, jfn.launches_per_call, jfn.plan_form)
+        assert fn.launches_per_call == 2 * 3
+    else:
+        assert fn is None and jfn is None
 
 
 def test_netserver_matches_jax_server():
