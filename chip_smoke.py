@@ -6,31 +6,51 @@
 Phases, each raising on failure (nothing is caught):
 
 1. Device: the card's name, and `nvidia-smi`'s name and power limit.
-2. Build: both kernel libraries (`binary_matvec.cu`, `fused_mlp.cu`)
-   with nvcc, started together, into the git-ignored `build/` directory,
-   timed, with nvcc's register and shared-memory report.
+2. Build: all four kernel libraries (`binary_matvec.cu`, `fused_mlp.cu`,
+   `ssd_scan.cu`, `quant_matmul.cu`) with nvcc, one per source, started
+   together, into the git-ignored `build/` directory, timed, with nvcc's
+   register and shared-memory report.
 3. Kernels against their plain PyTorch versions on the card, at the
-   main paths' shapes (the paper's 784-500-10 net, 256 rows; 4
-   bit-planes on the planes path), seeded random words, bits, weights
-   (|w| <= 9) and images, exact equality.
-4. Main paths: three seeded 784-500-10 nets served by `NetServer` on
-   `Session(device="cuda")`, once per target:
-   `cuda[planes=true]` (one `predict` through the per-layer
-   `binary_matmul_planes` chain, two `predict_many` calls over 3
-   versions with skewed request sizes through the
-   `binary_forward_planes` megakernel), then `cuda` (`binary_matmul`),
-   `cuda[packed=true]` (`binary_matmul_packed`) and `fused`
-   (`fused_mlp_predict`) with the same requests. Every launch count is
-   set to 0 just before a path runs and read just after it; each of the
-   path's kernels must have launched. Answers must equal
-   `predict_quantized` and the `torch` oracle target.
+   main paths' shapes. The netgen kernels (the paper's 784-500-10 net,
+   256 rows; 4 bit-planes on the planes path; seeded random words, bits,
+   weights |w| <= 9 and images) and `quant_matmul` (seeded int8 at the
+   W8 mamba2-2.7b `in_proj`, `out_proj` and a decode step) must be
+   exactly equal; `ssd_scan` (mamba2-2.7b at batch 4 x 512 tokens, chunk
+   128) within 1e-4 in fp32, and in bf16 within one bf16 ulp on y (plus
+   1e-5 for fp32 summation order) and 1e-4 on the fp32 state.
+4. Main paths. (a) Three seeded 784-500-10 nets served by `NetServer` on
+   `Session(device="cuda")`, once per target: `cuda[planes=true]` (one
+   `predict` through the per-layer `binary_matmul_planes` chain, two
+   `predict_many` calls over 3 versions with skewed request sizes through
+   the `binary_forward_planes` megakernel), then `cuda`
+   (`binary_matmul`), `cuda[packed=true]` (`binary_matmul_packed`) and
+   `fused` (`fused_mlp_predict`) with the same requests; answers must
+   equal `predict_quantized` and the `torch` oracle target. (b) The LM
+   path: mamba2-2.7b at full width and depth (64 layers), weights from a
+   `torch.Generator` seeded 0 on the card, compute dtype bf16, served by
+   `Engine.generate` (batch 4 x prompt 512 and a ragged prompt of 200,
+   then 32 new tokens) from the fp32 checkpoint and from its W8 form;
+   `ssd` must launch once per layer of each prefill. The kernel route is
+   held against `use_kernel=False`: per layer on the same input in bf16
+   (4 bf16 ulps of the layer's scale), and end to end over the 64 layers
+   in fp32 compute, where no cast separates the routes (logits and final
+   SSM states within 1e-3 of their largest magnitude, equal greedy tokens
+   wherever the margin allows). The bf16 end-to-end differences are
+   reported beside two witnesses of their cause: the plain SSD fed the
+   kernel route's bf16 dt, and the plain route in fp32 compute. `qlinear` runs on the W8 layer-0 `in_proj`/`out_proj` with that
+   prefill's real activations and must equal plain `qlinear` exactly.
+   Every launch count is set to 0 just before a path runs and read just
+   after it; each of the path's kernels must have launched.
 5. Times: CUDA events, median of 20 runs after warmup, per kernel beside
    its plain version, a one-call library yardstick where one exists,
    and its bound; a block-shape sweep of the dense, packed and fused
-   kernels at layer-1 shape; then the served rounds' latency per target.
+   kernels at layer-1 shape; the served rounds' latency per target; the
+   LM path's prefill and per-token decode wall times, and a
+   `torch.profiler` trace of one prefill and one decode step (device busy
+   time, kernel launches, the longest kernels).
 
-The last two lines are the `{"kernels": [...]}` record and
-`{"ok": true, "device": {...}}`. Without CUDA, or without the
+The last two lines are the `{"kernels": [...]}` record (seven kernels)
+and `{"ok": true, "device": {...}}`. Without CUDA, or without the
 repository's `src/` beside it, the script exits non-zero and prints no
 result. Imports nothing of JAX or of the JAX package `repro`.
 """
@@ -52,6 +72,8 @@ SOURCES = {
     "binary_matmul_planes": BMV_SOURCE, "binary_forward_planes": BMV_SOURCE,
     "binary_matmul": BMV_SOURCE, "binary_matmul_packed": BMV_SOURCE,
     "fused_mlp_predict": FUSED_SOURCE,
+    "quant_matmul": "src/repro_torch/kernels/quant_matmul/csrc/quant_matmul.cu",
+    "ssd_scan": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
 }
 REPLACES = {
     "binary_matmul_planes": "src/repro/kernels/binary_matvec/binary_matvec.py:198",
@@ -59,7 +81,11 @@ REPLACES = {
     "binary_matmul": "src/repro/kernels/binary_matvec/binary_matvec.py:77",
     "binary_matmul_packed": "src/repro/kernels/binary_matvec/binary_matvec.py:134",
     "fused_mlp_predict": "src/repro/kernels/fused_mlp/fused_mlp.py:34",
+    "quant_matmul": "src/repro/kernels/quant_matmul/quant_matmul.py:46",
+    "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:73",
 }
+NETGEN = ("binary_matmul_planes", "binary_forward_planes", "binary_matmul",
+          "binary_matmul_packed", "fused_mlp_predict")
 # target -> the kernels its main path must launch
 PATHS = {
     "cuda[planes=true]": ("binary_matmul_planes", "binary_forward_planes"),
@@ -69,14 +95,37 @@ PATHS = {
 }
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 INT8_TC_OPS_PER_S = 1.979e15     # H100 SXM dense int8 tensor cores (data sheet)
+TF32_TC_FLOP_PER_S = 4.95e14     # H100 SXM dense TF32 tensor cores (data sheet)
 # CUDA C++ Programming Guide, arithmetic instruction throughput, compute
 # capability 9.0: results per clock per SM.
 POPC_PER_CLOCK_PER_SM = 16       # row "population count" (__popc)
 ADD_PER_CLOCK_PER_SM = 64        # row "32-bit integer add"
+FMA_PER_CLOCK_PER_SM = 128       # row "32-bit floating-point add, multiply, multiply-add"
 N_IN, N_HIDDEN, N_OUT, PLANES = 784, 500, 10, 4
 BATCH, MODELS = 256, 3
 TIMING_RUNS, TIMING_INNER = 20, 5
 SWEEP_BM, SWEEP_BN = (1, 2, 4, 8, 16, 32), (32, 64, 128, 256)
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_RAGGED, LM_NEW = "mamba2-2.7b", 4, 512, 200, 32
+LM_CHUNK = 128                   # the mixer's chunk
+# W8 (M, K, N) of qlinear/quant_matmul: in_proj and out_proj over a 4 x 512
+# prefill, and in_proj at one decode step of batch 4.
+QMM_SHAPES = {"in_proj": (LM_BATCH * LM_PROMPT, 2560, 10576),
+              "out_proj": (LM_BATCH * LM_PROMPT, 5120, 2560),
+              "in_proj_decode": (LM_BATCH, 2560, 10576)}
+# Kernel route against use_kernel=False, per layer on the same input: dt
+# enters the kernel in bf16 (relative error <= 2^-9, which the chunk's
+# cumulative decay sums over up to 128 rows), and the routes round y to
+# bf16 at different values (one ulp each). Bound: 4 bf16 ulps (eps_bf16 =
+# 2^-7) of the layer's largest output or state magnitude, elementwise.
+ROUTE_ULPS = 4.0
+# End to end in fp32 compute the kernel route casts nothing, and the routes
+# differ by fp32 summation order: ~1e-6 of a layer's scale (phase 3). bf16
+# runs show a stack of 64 random layers amplifying a per-layer difference
+# about 65-fold (one bf16 ulp, 2^-8, grew to 26 % of the largest logit), so
+# fp32 should land near 1e-4. Bound: 1e-3 of the plain route's largest
+# |logit| and |state|, elementwise; greedy tokens must be equal wherever
+# the plain route's top-2 margin exceeds twice the logit bound.
+FP32_ROUTE_RTOL = 1e-3
 
 
 def _smi(query: str) -> str:
@@ -182,6 +231,321 @@ def _library(name: str, args, out, clock_hz: float):
     return _time_ms(lambda: torch.matmul(xf, wf), clock_hz), err
 
 
+def _qmm_args(rng, m, k, n, dev):
+    """Seeded int8 operands and fp32 scales of one W8A8 product."""
+    import numpy as np
+    import torch
+    xq = torch.from_numpy(rng.integers(-127, 128, size=(m, k)).astype(np.int8)).to(dev)
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8)).to(dev)
+    sx = torch.tensor(0.013, dtype=torch.float32, device=dev)
+    sw = torch.from_numpy(rng.uniform(0.001, 0.1, size=(n,)).astype(np.float32)).to(dev)
+    return xq, wq, sx, sw
+
+
+def _ssd_args(rng, dev, dtype):
+    """Seeded SSD inputs at mamba2-2.7b's width (H=80, P=64, G=1, N=128),
+    batch 4 x 512 tokens, distributed as the JAX package's kernel tests."""
+    import numpy as np
+    import torch
+    b, l, h, p, g, n = LM_BATCH, LM_PROMPT, 80, 64, 1, 128
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    x = t(rng.normal(size=(b, l, h, p))).to(dtype)
+    dt = t(rng.uniform(0.001, 0.1, size=(b, l, h))).to(dtype)
+    a = t(-rng.uniform(0.5, 2.0, size=(h,)))
+    bb = (t(rng.normal(size=(b, l, g, n))) / np.sqrt(n)).to(dtype)
+    cc = (t(rng.normal(size=(b, l, g, n))) / np.sqrt(n)).to(dtype)
+    return x, dt, a, bb, cc
+
+
+def _ssd_agrees(y, s, yp, sp) -> bool:
+    """fp32: y and the state within 1e-4 (rtol and atol) of the plain
+    version. bf16: y within one bf16 ulp of the larger magnitude (eps x
+    |y|) plus 1e-5 for the fp32 sums' order, the state within 1e-4."""
+    import torch
+    ok = torch.allclose(s, sp, rtol=1e-4, atol=1e-4)
+    if y.dtype == torch.float32:
+        return ok and torch.allclose(y, yp, rtol=1e-4, atol=1e-4)
+    g, w = y.float(), yp.float()
+    ulp = torch.finfo(torch.bfloat16).eps * torch.maximum(g.abs(), w.abs())
+    return ok and bool(((g - w).abs() <= ulp + 1e-5).all())
+
+
+def _ssd_flop(x, b, chunk: int) -> int:
+    """BH (L/Q) (Q(Q+1) N + Q(Q+1) P + 4QNP): the FLOP y and the state need.
+    Per chunk, the causal Q(Q+1)/2 entries of the score tile, each a
+    length-N dot product (C B^T) and a length-P update of y (scores times
+    x), and 2QNP each for the carried-state term and the state update. The
+    masked upper triangle is not work the function needs."""
+    bsz, l, h, p = x.shape
+    n, q = b.shape[-1], chunk
+    return bsz * h * (l // q) * (q * (q + 1) * n + q * (q + 1) * p + 4 * q * n * p)
+
+
+def _int_mm_library(args):
+    """The one-call yardstick of quant_matmul: cuBLASLt's s8 x s8 -> s32
+    (`torch._int_mm`) and the same epilogue, where its shape rules admit
+    the operands (M > 16, K and N multiples of 8); else None."""
+    import torch
+    xq, wq, sx, sw = args
+    (m, k), n = xq.shape, wq.shape[1]
+    if m <= 16 or k % 8 or n % 8:
+        return None
+    return lambda: (torch._int_mm(xq, wq).float() * sx) * sw
+
+
+def _lm_main_path(dev, wrappers, reset_launches):
+    """Phase 4(b): mamba2-2.7b at full width and depth, served by
+    `Engine.generate` from the fp32 checkpoint and its W8 form, aligned
+    and ragged prompts; then `qlinear` on the W8 weights. Returns
+    ({kernel: launches on its main path}, {run: wall times})."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import api, base
+    from repro_torch.quantized import apply as qapply
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = configs.get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params = base.tree_init(api.abstract_params(cfg),
+                                torch.Generator(device=dev).manual_seed(SEED), dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        w8 = qapply.quantize_params_for_serving(cfg, params, min_size=0)
+        torch.cuda.synchronize()
+    print(f"[4 lm path] {LM_ARCH}: {base.count_params(api.abstract_params(cfg))} parameters, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, compute {cfg.compute_dtype}; "
+          f"init {init_s:.2f} s, W8 {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB allocated")
+    rng = np.random.default_rng(SEED)
+    prompts = {kind: rng.integers(0, cfg.vocab, size=(LM_BATCH, s)).astype(np.int32)
+               for kind, s in (("aligned", LM_PROMPT), ("ragged", LM_RAGGED))}
+    sc = ServeConfig(max_len=LM_PROMPT + LM_NEW + 8, max_new_tokens=LM_NEW)
+    # one untimed generate first: the process's first prefill also pays
+    # cuBLAS and module set-up (about 3x a warm prefill on an H100)
+    Engine(cfg, params, ServeConfig(max_len=LM_PROMPT + 8, max_new_tokens=2),
+           device=dev).generate(prompts["aligned"])
+    launches, times = {}, {}
+    for ckpt, p in (("fp32", params), ("w8", w8)):
+        engine = Engine(cfg, p, sc, device=dev)
+        for kind, pr in prompts.items():
+            reset_launches()
+            t0 = time.perf_counter()
+            out = engine.generate(pr)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {name: w.launches for name, w in wrappers.items()}
+            decode_ms = statistics.median(engine.stats["decode_s"]) * 1e3
+            print(f"[4 lm path] {ckpt} {kind} {pr.shape[0]}x{pr.shape[1]}: {wall:.2f} s, "
+                  f"prefill {engine.stats['prefill_s'] * 1e3:.1f} ms, decode "
+                  f"{decode_ms:.2f} ms/token, launches {counts}")
+            if counts["ssd_scan"] != cfg.n_layers:
+                raise AssertionError(f"{ckpt} {kind}: ssd launched {counts['ssd_scan']} "
+                                     f"times in one prefill, want {cfg.n_layers}")
+            if out.shape != (LM_BATCH, LM_NEW) or out.min() < 0 or out.max() >= cfg.vocab:
+                raise AssertionError(f"{ckpt} {kind}: bad tokens, shape {out.shape}")
+            launches["ssd_scan"] = counts["ssd_scan"]
+            times[f"{ckpt} {kind}"] = {
+                "prefill_ms": engine.stats["prefill_s"] * 1e3,
+                "decode_ms_per_token": decode_ms, "generate_s": wall,
+                "ssd_launches": counts["ssd_scan"],
+                "routes": _check_routes(cfg, p, pr, out, dev, f"{ckpt} {kind}")}
+    launches["quant_matmul"] = _qlinear_path(cfg, w8, prompts["aligned"], dev,
+                                             reset_launches)
+    trace = _lm_profile(cfg, params, prompts["aligned"], dev)
+    del params, w8, engine
+    torch.cuda.empty_cache()
+    return launches, times, trace
+
+
+def _lm_profile(cfg, params, prompts, dev) -> dict:
+    """Where the LM path's time goes: one warm prefill (kernel route) and
+    one decode step of the fp32 checkpoint. Wall time from a run without
+    the profiler; then `torch.profiler` over a second run for the device
+    busy time (the sum of the kernels' spans on the one stream), the
+    kernel launches, and the kernels that take longest, summed by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api, base
+
+    out = {}
+    with torch.inference_mode():
+        tokens = torch.as_tensor(prompts, device=dev).long()
+        cache = base.tree_init(api.abstract_cache(cfg, prompts.shape[0], 0),
+                               torch.Generator(device=dev), dev)
+        logits, state = api.prefill(cfg, params, {"tokens": tokens}, cache, use_kernel=True)
+        nxt = logits.argmax(-1)[:, None]
+        steps = {"prefill": lambda: api.prefill(cfg, params, {"tokens": tokens}, cache,
+                                                use_kernel=True),
+                 "decode_step": lambda: api.decode_step(cfg, params, nxt, None, state)}
+        for name, fn in steps.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            by_name: dict = {}
+            kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            for e in kernels:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            busy = sum(by_name.values())
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy,
+                         "idle_share": max(0.0, 1 - busy / wall_ms),
+                         "kernel_launches": len(kernels),
+                         "top_ms": [[n[:70], ms] for n, ms in top]}
+            print(f"[4 lm path] profile {name}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
+                  f"{len(kernels)} kernel launches")
+    return out
+
+
+def _prefill(cfg, params, tokens, dev, use_kernel: bool):
+    """(last-position logits in fp32, final SSM states) of `api.prefill`."""
+    import torch
+    from repro_torch.models import api, base
+    cache = base.tree_init(api.abstract_cache(cfg, tokens.shape[0], 0),
+                           torch.Generator(device=dev), dev)
+    logits, state = api.prefill(cfg, params, {"tokens": tokens}, cache, use_kernel=use_kernel)
+    return logits.float(), state["ssm"]
+
+
+def _check_routes(cfg, params, prompts, out, dev, label: str) -> dict:
+    """The kernel route against `use_kernel=False`; returns the readings.
+
+    1. Per layer, in bf16 as served: both mixers take the same input (the
+       plain route's residual stream); each layer's output and final SSM
+       state must lie within ROUTE_ULPS bf16 ulps (eps_bf16 x the plain
+       value's largest magnitude) of the plain route's.
+    2. End to end in fp32 compute (`compute_dtype="float32"`), where the
+       kernel route casts nothing: logits and final states within
+       FP32_ROUTE_RTOL of the plain route's largest magnitude, and equal
+       greedy tokens wherever the plain route's top-2 margin exceeds twice
+       the logit bound.
+    3. End to end in bf16, reported, not bounded, with two witnesses of
+       where the gap comes from: the plain SSD given the kernel route's
+       inputs (dt rounded to bf16; `ssd` swapped for its plain version for
+       this one prefill), and the plain route in fp32 compute. Each pair's
+       largest difference is relative to its second member's largest
+       magnitude.
+    The engine's first token must be the greedy token of the kernel
+    route's own prefill (the engine's consistency, not a route check)."""
+    import dataclasses
+    from unittest import mock
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ref as sref
+    from repro_torch.layers import embedding, norms
+    from repro_torch.layers import mamba2 as m2
+    from repro_torch.models import mamba
+
+    def rel(a, b) -> float:
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    eps = torch.finfo(torch.bfloat16).eps
+    worst = {"out": 0.0, "ssm": 0.0}
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.inference_mode():
+        tokens = torch.as_tensor(prompts, device=dev).long()
+        h = embedding.embed(cfg, params["embed"], tokens)
+        for i in range(cfg.n_layers):
+            lp = mamba.layer(params["layers"], i)
+            hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
+            ok, sk = m2.mamba_mixer(cfg, lp["mixer"], hn, use_kernel=True, return_state=True)
+            op, sp = m2.mamba_mixer(cfg, lp["mixer"], hn, use_kernel=False, return_state=True)
+            for key, k, p in (("out", ok.float(), op.float()), ("ssm", sk["ssm"], sp["ssm"])):
+                ulps = ((k - p).abs().max() / (eps * p.abs().max())).item()
+                worst[key] = max(worst[key], ulps)
+            h = h + op
+        kern, plain = (_prefill(cfg, params, tokens, dev, uk) for uk in (True, False))
+        with mock.patch.object(sops, "ssd", sref.ssd):
+            dt_bf16 = _prefill(cfg, params, tokens, dev, True)
+        kern32, plain32 = (_prefill(cfg32, params, tokens, dev, uk) for uk in (True, False))
+    top2 = plain32[0].topk(2, dim=-1).values
+    tol = FP32_ROUTE_RTOL * plain32[0].abs().max()
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    readings = {
+        "layer_ulps": worst,
+        "fp32_compute": {"logits": rel(kern32[0], plain32[0]),
+                         "ssm": rel(kern32[1], plain32[1]),
+                         "rows_decided": int(decided.sum()),
+                         "greedy_equal": int((kern32[0].argmax(-1)
+                                              == plain32[0].argmax(-1)).sum())},
+        "bf16": {pair: {"logits": rel(a[0], b[0]), "ssm": rel(a[1], b[1])}
+                 for pair, a, b in (("kernel~plain", kern, plain),
+                                    ("kernel~plain_ssd_dt_bf16", kern, dt_bf16),
+                                    ("plain_ssd_dt_bf16~plain", dt_bf16, plain),
+                                    ("plain~plain_fp32_compute", plain, plain32))},
+        "bf16_greedy_equal": int((kern[0].argmax(-1) == plain[0].argmax(-1)).sum()),
+    }
+    print(f"[4 lm path] {label} kernel vs plain route: per layer (bf16) outputs within "
+          f"{worst['out']:.3g} and states within {worst['ssm']:.3g} bf16 ulps of the "
+          f"layer's scale (bound {ROUTE_ULPS}); end to end in fp32 compute "
+          f"{json.dumps(readings['fp32_compute'])} (bound {FP32_ROUTE_RTOL}); "
+          f"in bf16 {json.dumps(readings['bf16'])}, greedy equal on "
+          f"{readings['bf16_greedy_equal']}/{prompts.shape[0]} rows")
+    if max(worst.values()) > ROUTE_ULPS:
+        raise AssertionError(f"{label}: a layer's kernel route leaves its bound")
+    fp32 = readings["fp32_compute"]
+    if max(fp32["logits"], fp32["ssm"]) > FP32_ROUTE_RTOL:
+        raise AssertionError(f"{label}: fp32-compute routes differ beyond {FP32_ROUTE_RTOL}")
+    if not torch.equal(kern32[0].argmax(-1)[decided], plain32[0].argmax(-1)[decided]):
+        raise AssertionError(f"{label}: fp32-compute greedy tokens differ where decided")
+    first = torch.as_tensor(out[:, 0], device=dev).long() == kern[0].argmax(-1)
+    k2 = kern[0].topk(2, dim=-1).values
+    if not all(torch.isfinite(t).all() for t in (*kern, *plain, *kern32, *plain32)) or \
+            not bool(first[k2[:, 0] > k2[:, 1]].all()):
+        raise AssertionError(f"{label}: the engine's first token is not its prefill's")
+    return readings
+
+
+def _qlinear_path(cfg, w8, prompts, dev, reset_launches) -> int:
+    """`qlinear` on the W8 layer-0 `in_proj` and `out_proj` with that
+    prefill's activations: the normed layer input, and the gated-norm
+    output (read by running the mixer with `out_proj` set to the
+    identity, exact in any dtype). Each must equal plain `qlinear`
+    exactly. Returns the launches of `quant_matmul`."""
+    import torch
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.quant_matmul import ref as qref
+    from repro_torch.layers import embedding, norms
+    from repro_torch.layers import mamba2 as m2
+    from repro_torch.models import mamba
+
+    with torch.inference_mode():
+        toks = torch.as_tensor(prompts, device=dev).long()
+        lp0 = mamba.layer(w8["layers"], 0)
+        h = embedding.embed(cfg, w8["embed"], toks)
+        hn = norms.apply_norm(cfg.norm, lp0["ln"], h, eps=cfg.norm_eps)
+        eye = {**lp0["mixer"], "out_proj": torch.eye(cfg.d_inner, device=dev)}
+        yg = m2.mamba_mixer(cfg, eye, hn, use_kernel=True)
+        acts = {"in_proj": (hn.reshape(-1, cfg.d_model), lp0["mixer"]["in_proj"]),
+                "out_proj": (yg.reshape(-1, cfg.d_inner), lp0["mixer"]["out_proj"])}
+        reset_launches()
+        got = {name: qops.qlinear(a, w["q"], w["s"]) for name, (a, w) in acts.items()}
+        torch.cuda.synchronize()
+        n = qops.quant_matmul.launches
+        for name, (a, w) in acts.items():
+            want = qref.qlinear_ref(a, w["q"], w["s"])
+            err = (got[name].float() - want.float()).abs().max().item()
+            print(f"[4 lm path] qlinear w8 layer 0 {name}: {tuple(a.shape)} {a.dtype} x "
+                  f"{tuple(w['q'].shape)} int8, max_abs_err={err}, launches {n}")
+            if not torch.equal(got[name], want):
+                raise AssertionError(f"qlinear {name} disagrees with plain qlinear")
+    if n <= 0:
+        raise AssertionError("qlinear never launched quant_matmul")
+    return n
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -195,17 +559,27 @@ def main() -> int:
     from repro_torch.kernels.fused_mlp import build as fbuild
     from repro_torch.kernels.fused_mlp import ops as fops
     from repro_torch.kernels.fused_mlp import ref as fref
+    from repro_torch.kernels.quant_matmul import build as qbuild
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.quant_matmul import ref as qref
+    from repro_torch.kernels.ssd_scan import build as sbuild
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ref as sref
     from repro_torch.netgen import NetServer, Session
 
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in full fp32
+    torch.backends.cudnn.allow_tf32 = False
     wrappers = {"binary_matmul_planes": ops.binary_matmul_planes,
                 "binary_forward_planes": ops.binary_forward_planes,
                 "binary_matmul": ops.binary_matmul,
                 "binary_matmul_packed": ops.binary_matmul_packed,
-                "fused_mlp_predict": fops.fused_mlp_predict}
+                "fused_mlp_predict": fops.fused_mlp_predict,
+                "quant_matmul": qops.quant_matmul, "ssd_scan": sops.ssd}
+    libraries = (build, fbuild, sbuild, qbuild)
 
     def reset_launches():
-        ops.reset_launches()
-        fops.reset_launches()
+        for mod in (ops, fops, qops, sops):
+            mod.reset_launches()
 
     # -- 1. device ------------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -214,33 +588,35 @@ def main() -> int:
     clock_hz = float(_smi("clocks.max.sm").split()[0]) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rates = {"popc": POPC_PER_CLOCK_PER_SM * sms * clock_hz,
-             "add": ADD_PER_CLOCK_PER_SM * sms * clock_hz}
+             "add": ADD_PER_CLOCK_PER_SM * sms * clock_hz,
+             "fp32": 2 * FMA_PER_CLOCK_PER_SM * sms * clock_hz,
+             "int8_tc": INT8_TC_OPS_PER_S}
     print(f"[1 device] {kind}: {sms} SMs, max SM clock {clock_hz / 1e6:.0f} MHz; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
 
     # -- 2. build: one nvcc per source, started together ---------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        loads = [pool.submit(b.load) for b in (build, fbuild)]
+    with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
+        loads = [pool.submit(b.load) for b in libraries]
         for f in loads:
             f.result()
     wall = time.perf_counter() - t0
-    for b in (build, fbuild):
+    for b in libraries:
         info = b.last_build()
         print(f"[2 build] {info.path.name} compiled={info.compiled} "
               f"nvcc {info.seconds:.1f} s")
         for line in info.log.splitlines():
             if "registers" in line or "Compiling entry" in line:
                 print("    " + line.strip())
-    print(f"[2 build] both libraries loaded in {wall:.1f} s")
+    print(f"[2 build] {len(libraries)} libraries loaded in {wall:.1f} s")
 
     # -- 3. kernels against their plain versions -----------------------------
     rng = np.random.default_rng(SEED)
     hidden_pad = -(-N_HIDDEN // 32) * 32
     w1, w2 = -(-N_IN // 32), hidden_pad // 32
     thr = quantize.INPUT_THRESHOLD
-    cases = {name: {} for name in wrappers}
+    cases = {name: {} for name in NETGEN}
     for label, (kw, n) in {"layer1": (w1, N_HIDDEN), "layer2": (w2, N_OUT)}.items():
         args = (_words(rng, (BATCH, kw), dev), _words(rng, (PLANES, kw, n), dev),
                 _words(rng, (PLANES, kw, n), dev))
@@ -280,6 +656,30 @@ def main() -> int:
                   f"max_abs_err={err}")
             if not torch.equal(got, want):
                 raise AssertionError(f"{name}[{label}] disagrees with its plain version")
+
+    lm_cases = {"quant_matmul": {}, "ssd_scan": {}}
+    for label, (m, k, n) in QMM_SHAPES.items():
+        args = _qmm_args(rng, m, k, n, dev)
+        got, want = qops.quant_matmul(*args), qref.quant_matmul_ref(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max().item())
+        errors["quant_matmul", label] = err
+        print(f"[3 kernel] quant_matmul[{label}] {tuple(got.shape)} max_abs_err={err}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"quant_matmul[{label}] disagrees with its plain version")
+        lm_cases["quant_matmul"][label] = args
+    for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        args = _ssd_args(rng, dev, dtype)
+        (y, s), (yp, sp) = sops.ssd(*args, chunk=LM_CHUNK), sref.ssd(*args, chunk=LM_CHUNK)
+        torch.cuda.synchronize()
+        err = float((y.float() - yp.float()).abs().max().item())
+        s_err = float((s - sp).abs().max().item())
+        errors["ssd_scan", label] = err
+        print(f"[3 kernel] ssd_scan[{label}] {tuple(y.shape)} max_abs_err={err:.3g} "
+              f"(|y| <= {yp.float().abs().max().item():.3g}), state {s_err:.3g}")
+        if not _ssd_agrees(y, s, yp, sp):
+            raise AssertionError(f"ssd_scan[{label}] disagrees with its plain version")
+        lm_cases["ssd_scan"][label] = args
 
     # -- 4. main paths --------------------------------------------------------
     nets = []
@@ -330,6 +730,9 @@ def main() -> int:
               "answers equal predict_quantized and the torch target")
         servers[target] = server
 
+    lm_launches, lm_times, lm_trace = _lm_main_path(dev, wrappers, reset_launches)
+    launches.update(lm_launches)
+
     # -- 5. times -------------------------------------------------------------
     def nbytes(tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
@@ -366,6 +769,59 @@ def main() -> int:
             "library_ms": head["library_ms"], "timed_shape": head["shape"],
             "shapes": per_shape,
         })
+
+    for name, shapes in lm_cases.items():
+        per_shape = []
+        for label, args in shapes.items():
+            if name == "quant_matmul":
+                def kernel():
+                    return qops.quant_matmul(*args)
+
+                def plain():
+                    return qref.quant_matmul_ref(*args)
+                out = [kernel()]
+                (m, k), n = args[0].shape, args[1].shape[1]
+                work, rate = 2 * m * k * n, rates["int8_tc"]
+                library = _int_mm_library(args)
+                extra = {"int8_ops": work}
+            else:
+                def kernel():
+                    return sops.ssd(*args, chunk=LM_CHUNK)
+
+                def plain():
+                    return sref.ssd(*args, chunk=LM_CHUNK)
+                out = list(kernel())
+                work, rate = _ssd_flop(args[0], args[3], LM_CHUNK), rates["fp32"]
+                library = None
+                extra = {"flop": work, "tf32_tc_floor_ms": work / TF32_TC_FLOP_PER_S * 1e3}
+            moved = nbytes(args) + nbytes(out)
+            bound_ms, bound_by = _bound(moved, work, rate)
+            rec = {
+                "shape": label, "ms": _time_ms(kernel, clock_hz),
+                "plain_ms": _time_ms(plain, clock_hz),
+                "library_ms": None if library is None else _time_ms(library, clock_hz),
+                "library_max_abs_err": None if library is None else
+                float((library() - out[0]).abs().max().item()),
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, **extra,
+                "max_abs_err": errors[name, label],
+            }
+            per_shape.append(rec)
+            print(json.dumps({"kernel": name, **rec}))
+        head = per_shape[0]
+        records.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in per_shape),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "timed_shape": head["shape"],
+            "shapes": per_shape,
+        })
+    for label, run in lm_times.items():
+        if label.endswith("aligned"):     # the shape ssd_scan was timed at, per layer
+            run["ssd_scan_ms_per_prefill"] = run["ssd_launches"] * records[-1]["ms"]
+    print(json.dumps({"lm_ms": lm_times, "lm_profile": lm_trace, "device": kind,
+                      "power": smi}))
 
     sweep = {}
     for name in ("binary_matmul", "binary_matmul_packed"):

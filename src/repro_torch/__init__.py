@@ -4,6 +4,7 @@ The JAX package `repro` is the reference; this package imports nothing
 of it (nor JAX). Layout and names follow `repro`: `core` (quantized
 nets, dataset), `netgen` (compiler, session, server), `kernels`
 (hand-written CUDA kernels with their plain PyTorch versions), `serve`
-(slot batching). Entry points run on `cuda:0` unless the caller passes
-`device="cpu"`.
+(slot batching, the LM engine), and the LM stack's `configs`, `layers`,
+`models`, `quantized` and `launch` (the Mamba2 family so far). Entry
+points run on `cuda:0` unless the caller passes `device="cpu"`.
 """

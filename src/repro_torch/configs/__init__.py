@@ -1,0 +1,49 @@
+"""Architecture config registry of the port.
+
+`get_config(name)` returns the full published config; `smoke(name)` a
+reduced same-family variant for CPU tests, with exactly the reductions
+of `repro/configs/__init__.py`. Only the families the port runs are
+registered (ssm); the others come with their family (ROADMAP.md, A.10).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs import mamba2_2_7b
+from repro_torch.models.base import ArchConfig
+
+__all__ = ["ARCHS", "get_config", "smoke"]
+
+ARCHS: dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in (mamba2_2_7b,)}
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in ARCHS:
+        raise KeyError(f"{name!r} is not ported (ported: {sorted(ARCHS)}); "
+                       "see ROADMAP.md, A.10")
+    return ARCHS[name]
+
+
+def smoke(name: str) -> ArchConfig:
+    """Reduced config preserving the family's structure."""
+    c = get_config(name)
+    kv = max(1, (4 * c.n_kv_heads) // max(c.n_heads, 1)) if c.n_heads else 0
+    repl: dict = dict(
+        name=c.name + "-smoke",
+        n_layers=4 if c.family == "hybrid" else 2,
+        d_model=64,
+        n_heads=4 if c.n_heads else 0,
+        n_kv_heads=kv,
+        head_dim=16 if c.n_heads else 0,
+        d_ff=96 if c.d_ff else 0,
+        vocab=512,
+    )
+    if c.family == "moe":
+        repl.update(n_experts=8, experts_per_token=2)
+    if c.family in ("ssm", "hybrid"):
+        repl.update(ssm_state=16, ssm_headdim=16, ssm_groups=1)
+    if c.family == "hybrid":
+        repl.update(attn_every=2)
+    if c.pos == "mrope":
+        repl.update(mrope_sections=(2, 3, 3))
+    return dataclasses.replace(c, **repl)

@@ -1,0 +1,70 @@
+"""Unified model API of the port: family dispatch + losses.
+
+Counterpart of `repro/models/api.py`, with the same entry points:
+  abstract_params(cfg)                  -> ParamInfo tree
+  abstract_cache(cfg, batch, max_len)   -> ParamInfo tree (decode state)
+  forward(cfg, params, batch)           -> (logits, aux)
+  prefill(cfg, params, batch, cache)    -> (last_logits, cache)
+  decode_step(cfg, params, tok, pos, c) -> (logits, cache)
+Only the `ssm` family is ported; the others raise (ROADMAP.md, A.10).
+`prefill` and `forward` take `use_kernel`, which sends every SSD through
+the `ssd_scan` kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import mamba
+from repro_torch.models.base import ArchConfig
+
+__all__ = ["module_for", "abstract_params", "abstract_cache", "forward", "prefill",
+           "decode_step", "loss_fn"]
+
+_FAMILY = {"ssm": mamba}
+
+
+def module_for(cfg: ArchConfig):
+    if cfg.family not in _FAMILY:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md, A.10: the "
+            "transformer, MoE and hybrid families)")
+    return _FAMILY[cfg.family]
+
+
+def abstract_params(cfg: ArchConfig):
+    return module_for(cfg).abstract_params(cfg)
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, max_len: int):
+    return module_for(cfg).abstract_cache(cfg, batch, max_len)
+
+
+def forward(cfg: ArchConfig, params, batch, *, use_kernel: bool = False):
+    return module_for(cfg).forward(cfg, params, batch, use_kernel=use_kernel)
+
+
+def prefill(cfg: ArchConfig, params, batch, cache, *, use_kernel: bool = False):
+    return module_for(cfg).prefill(cfg, params, batch, cache, use_kernel=use_kernel)
+
+
+def decode_step(cfg: ArchConfig, params, tokens, pos, cache, extras=None):
+    return module_for(cfg).decode_step(cfg, params, tokens, pos, cache, extras)
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, use_kernel: bool = False):
+    """Next-token cross-entropy. Returns (loss, metrics). The MoE
+    auxiliary losses come with that family."""
+    logits, _ = forward(cfg, params, batch, use_kernel=use_kernel)
+    targets = batch["targets"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones_like(targets, dtype=torch.float32)
+    mask = mask.float()
+
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)                               # (B, S)
+    tgt = torch.take_along_dim(lf, targets[..., None].long(), dim=-1)[..., 0]
+    nll = (lse - tgt) * mask
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    loss = nll.sum() / denom
+    return loss, {"nll": loss, "loss": loss}

@@ -1,0 +1,29 @@
+"""Weights carried into the port from numpy.
+
+The port draws its random weights from a `torch.Generator`, which gives
+other bits than the reference's `jax.random` for the same seed. To hold
+both packages to the same computation, a caller turns the reference's
+parameter tree into numpy arrays (leaf by leaf, nested dicts kept) and
+hands it to `from_jax_params`, which returns the port's tree of tensors
+with the same keys, shapes and dtypes, `{"q", "s"}` leaves included.
+The port itself never sees JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["from_jax_params"]
+
+
+def from_jax_params(tree, device=None) -> dict:
+    """A tree of numpy arrays (nested dicts) -> the same tree of tensors
+    on `device` (the CPU when None)."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return torch.from_numpy(np.array(node, copy=True, order="C")).to(device)
+
+    return conv(tree)

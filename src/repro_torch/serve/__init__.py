@@ -1,1 +1,2 @@
-"""Serving helpers shared by the port's servers."""
+"""Serving helpers shared by the port's servers (`slots`) and the LM
+engine (`engine`)."""

@@ -1,0 +1,87 @@
+"""Batched LM serving engine: prefill + decode loop over a shared cache.
+
+Counterpart of `repro/serve/engine.py`. The engine serves fixed-size
+batches of prompts: prefill once, then one greedy token per step for the
+whole batch (`serve_step`). Greedy decoding is all the reference does,
+so its config's unused `temperature` and `seed` are left out. It runs
+on `device` (the card unless the caller names the CPU). On the card, prefill sends every SSD through the
+`ssd_scan` kernel; `use_kernel=False` exists only so that tests and
+`chip_smoke.py` can compare the two routes, and nothing switches to it
+on a failure.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.models import api
+from repro_torch.models.base import ArchConfig, tree_init, tree_map
+
+__all__ = ["ServeConfig", "make_serve_step", "Engine"]
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_len: int = 256
+    max_new_tokens: int = 32
+    eos_id: int = -1              # -1 => never stop early
+
+
+def make_serve_step(cfg: ArchConfig):
+    """serve_step(params, cache, tokens(B,1), pos(B,)) -> (next (B,1), cache).
+    Greedy argmax inside the step (the first maximum wins)."""
+
+    def serve_step(params, cache, tokens, pos):
+        logits, cache = api.decode_step(cfg, params, tokens, pos, cache)
+        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], cache
+
+    return serve_step
+
+
+class Engine:
+    """`generate` serves a batch of prompts. `stats` holds the host-clock
+    seconds of the last call's prefill (through its first token on the
+    host) and of each decode step."""
+
+    def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *, device=None,
+                 use_kernel: bool = True):
+        self.device = resolve_device(device)
+        self.cfg, self.sc, self.use_kernel = cfg, sc, use_kernel
+        self.params = tree_map(lambda t: t.to(self.device), params)
+        self._step = make_serve_step(cfg)
+        self.stats: dict = {}
+
+    @torch.inference_mode()
+    def generate(self, prompts: np.ndarray, extras: dict | None = None) -> np.ndarray:
+        """prompts: (B, P) int32 token ids (uniform length). Returns
+        (B, max_new_tokens) int32."""
+        B, P = prompts.shape
+        sc, dev = self.sc, self.device
+        cache = tree_init(api.abstract_cache(self.cfg, B, sc.max_len),
+                          torch.Generator(device=dev).manual_seed(0), dev)
+        batch = {"tokens": torch.as_tensor(np.asarray(prompts), device=dev).long()}
+        if extras:
+            batch.update(extras)
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(self.cfg, self.params, batch, cache,
+                                    use_kernel=self.use_kernel)
+        toks = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        out = [toks.cpu().numpy()]
+        self.stats = {"prefill_s": time.perf_counter() - t0, "decode_s": []}
+        pos = torch.full((B,), P, dtype=torch.int32, device=dev)
+        alive = np.ones((B,), bool)
+        for _ in range(sc.max_new_tokens - 1):
+            t0 = time.perf_counter()
+            toks, cache = self._step(self.params, cache, toks.long(), pos)
+            pos = pos + 1
+            t_np = toks.cpu().numpy()
+            self.stats["decode_s"].append(time.perf_counter() - t0)
+            if sc.eos_id >= 0:
+                alive &= (t_np[:, 0] != sc.eos_id)
+                t_np = np.where(alive[:, None], t_np, sc.eos_id)
+            out.append(t_np)
+        return np.concatenate(out, axis=1)

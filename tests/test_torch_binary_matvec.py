@@ -289,7 +289,7 @@ def test_cpu_calls_launch_no_kernel():
         assert wrapper.launches == 0
 
 
-@pytest.mark.parametrize("family", ["binary_matvec", "fused_mlp"])
+@pytest.mark.parametrize("family", ["binary_matvec", "fused_mlp", "ssd_scan", "quant_matmul"])
 def test_failed_build_raises(monkeypatch, tmp_path, family):
     """No nvcc, or an nvcc that fails, raises: nothing falls back. Each
     kernel family's library builds through the shared nvcc core."""

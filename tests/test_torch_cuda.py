@@ -6,7 +6,8 @@ a fixture, not at import). On a machine with an H100 and nvcc:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Imports neither JAX nor the JAX package, so it runs where only PyTorch
-is installed. Every comparison is exact: the paths are integer.
+is installed. Every comparison of the netgen kernels and of
+`quant_matmul` is exact (integer paths); `ssd_scan` states its tolerance.
 """
 import numpy as np
 import pytest
@@ -222,3 +223,143 @@ def test_served_path_runs_each_new_kernel(cuda, target, wrapper):
         np.testing.assert_array_equal(out[name], want.cpu().numpy())
     np.testing.assert_array_equal(
         single, quantize.predict_quantized(nets["v1"], device=cuda)(x).cpu().numpy())
+
+
+# -- the LM path: ssd_scan (B7) and quant_matmul (B6) ------------------------
+
+def _ssd_inputs(b, l, h, g, p, n, seed, dev, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    x = t(rng.normal(size=(b, l, h, p))).to(dtype)
+    dt = t(rng.uniform(0.001, 0.1, size=(b, l, h))).to(dtype)
+    a = t(-rng.uniform(0.5, 2.0, size=(h,)))
+    bb = (t(rng.normal(size=(b, l, g, n))) / np.sqrt(n)).to(dtype)
+    cc = (t(rng.normal(size=(b, l, g, n))) / np.sqrt(n)).to(dtype)
+    return x, dt, a, bb, cc
+
+
+@pytest.mark.parametrize("b,l,h,g,p,n,chunk,dtype", [
+    (1, 64, 1, 1, 16, 32, 16, torch.float32), (2, 128, 4, 2, 32, 64, 64, torch.float32),
+    (2, 64, 8, 8, 16, 16, 32, torch.float32), (1, 256, 2, 1, 64, 128, 128, torch.float32),
+    (2, 96, 6, 3, 48, 40, 32, torch.float32), (2, 128, 4, 1, 64, 128, 128, torch.bfloat16),
+    (1, 512, 80, 1, 64, 128, 128, torch.bfloat16)])
+def test_ssd_kernel_matches_plain(cuda, b, l, h, g, p, n, chunk, dtype):
+    """Groups > 1, P and N off the 64-column passes, bf16, and a full-width
+    mamba2-2.7b head count. fp32: 1e-4; bf16: y within one bf16 ulp of the
+    larger of the two (both round fp32 sums once) plus 1e-5 for the sums'
+    order, state 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ref as sref
+    args = _ssd_inputs(b, l, h, g, p, n, l + h, cuda, dtype)
+    before = sops.ssd.launches
+    y, s = sops.ssd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sops.ssd.launches == before + 1
+    yp, sp = sref.ssd(*args, chunk=chunk)
+    assert y.dtype == dtype and s.dtype == torch.float32
+    torch.testing.assert_close(s, sp, rtol=1e-4, atol=1e-4)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, yp, rtol=1e-4, atol=1e-4)
+    else:
+        g, w = y.float(), yp.float()
+        ulp = torch.finfo(torch.bfloat16).eps * torch.maximum(g.abs(), w.abs())
+        assert bool(((g - w).abs() <= ulp + 1e-5).all())
+
+
+def test_ssd_kernel_reads_the_mixer_layout(cuda):
+    """x, B and C as strided views of one conv output, the mixer's layout,
+    give the same bits as their contiguous copies; L % chunk != 0 is
+    refused as in the reference."""
+    from repro_torch.kernels.ssd_scan import ops as sops
+    rng = np.random.default_rng(3)
+    bsz, l, h, p, g, n = 2, 64, 4, 16, 1, 32
+    conv = rng.normal(size=(bsz, l, h * p + 2 * g * n)).astype(np.float32)
+    conv[..., h * p:] /= 6
+    conv = torch.from_numpy(conv).to(cuda)
+    x = conv[..., :h * p].reshape(bsz, l, h, p)
+    bb = conv[..., h * p:h * p + g * n].reshape(bsz, l, g, n)
+    cc = conv[..., h * p + g * n:].reshape(bsz, l, g, n)
+    assert not x.is_contiguous() and not bb.is_contiguous()
+    dt = torch.full((bsz, l, h), 0.05, device=cuda)
+    a = -torch.ones(h, device=cuda)
+    y, s = sops.ssd(x, dt, a, bb, cc, chunk=32)
+    y2, s2 = sops.ssd(x.contiguous(), dt, a, bb.contiguous(), cc.contiguous(), chunk=32)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    with pytest.raises(AssertionError):
+        sops.ssd(x[:, :48], dt[:, :48], a, bb[:, :48], cc[:, :48], chunk=32)
+
+
+def test_ssd_kernel_refuses_bad_operands(cuda):
+    from repro_torch.kernels.ssd_scan import ops as sops
+    x, dt, a, bb, cc = _ssd_inputs(1, 64, 2, 1, 16, 32, 1, cuda)
+    with pytest.raises(ValueError):
+        sops.ssd(x[..., ::2], dt, a, bb[..., ::2], cc[..., ::2], chunk=32)
+    with pytest.raises(TypeError):
+        sops.ssd(x.half(), dt.half(), a, bb.half(), cc.half(), chunk=32)
+    with pytest.raises(TypeError):
+        sops.ssd(x, dt.to(torch.bfloat16), a, bb, cc, chunk=32)
+    with pytest.raises(TypeError):
+        sops.ssd(x, dt, a.double(), bb, cc, chunk=32)
+    # shared memory, as the kernel library lays it out: 215,168 B for
+    # mamba2-2.7b at the mixer's chunk; chunk 256 is refused
+    from repro_torch.kernels.ssd_scan import build as sbuild
+    assert sbuild.load().ssd_smem_bytes(128, 128, 64) == 215_168
+    x, dt, a, bb, cc = _ssd_inputs(1, 256, 2, 1, 64, 128, 2, cuda)
+    with pytest.raises(ValueError):
+        sops.ssd(x, dt, a, bb, cc, chunk=256)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 64), (3, 100, 50), (70, 130, 9), (4, 2560, 10576),
+                                   (257, 513, 65), (128, 5120, 2560), (2, 1, 3)])
+def test_quant_matmul_kernel_matches_plain(cuda, m, k, n):
+    """Exact: the int32 core and the epilogue's order are fixed."""
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.quant_matmul import ref as qref
+    rng = np.random.default_rng(m + k + n)
+    xq = torch.from_numpy(rng.integers(-127, 128, size=(m, k)).astype(np.int8)).to(cuda)
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8)).to(cuda)
+    sx = torch.tensor(0.013, device=cuda)
+    sw = torch.from_numpy(rng.uniform(0.001, 0.1, size=(n,)).astype(np.float32)).to(cuda)
+    before = qops.quant_matmul.launches
+    got = qops.quant_matmul(xq, wq, sx, sw)
+    torch.cuda.synchronize()
+    assert qops.quant_matmul.launches == before + 1
+    assert torch.equal(got, qref.quant_matmul_ref(xq, wq, sx, sw))
+    assert torch.equal(got.cpu(), qops.quant_matmul(xq.cpu(), wq.cpu(), sx.cpu(), sw.cpu()))
+
+
+def test_quant_matmul_kernel_refuses_bad_operands(cuda):
+    from repro_torch.kernels.quant_matmul import ops as qops
+    xq = torch.ones((4, 64), dtype=torch.int8, device=cuda)
+    wq = torch.ones((64, 32), dtype=torch.int8, device=cuda)
+    sw = torch.ones(32, device=cuda)
+    with pytest.raises(TypeError):
+        qops.quant_matmul(xq.int(), wq, 1.0, sw)
+    with pytest.raises(TypeError):
+        qops.quant_matmul(xq, wq, 1.0, sw.double())
+    with pytest.raises(ValueError):
+        qops.quant_matmul(xq, wq.T.contiguous().T, 1.0, sw)
+    x = torch.randn(8, 64, device=cuda, dtype=torch.bfloat16)
+    y = qops.qlinear(x, wq, sw)
+    assert y.dtype == torch.bfloat16 and y.shape == (8, 32)
+
+
+def test_engine_prefill_launches_ssd_once_per_layer(cuda):
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.models import api, base
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = dataclasses.replace(configs.smoke("mamba2-2.7b"), n_layers=3)
+    params = base.tree_init(api.abstract_params(cfg),
+                            torch.Generator(device=cuda).manual_seed(0), cuda)
+    prompts = np.arange(2 * 50, dtype=np.int32).reshape(2, 50) % cfg.vocab
+    sops.reset_launches()
+    out = Engine(cfg, params, ServeConfig(max_len=64, max_new_tokens=4)).generate(prompts)
+    assert out.shape == (2, 4)
+    assert sops.ssd.launches == cfg.n_layers
+    plain = Engine(cfg, params, ServeConfig(max_len=64, max_new_tokens=4),
+                   use_kernel=False).generate(prompts)
+    assert sops.ssd.launches == cfg.n_layers
+    assert out.shape == plain.shape
