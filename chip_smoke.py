@@ -13,7 +13,10 @@ Phases, each raising on failure (nothing is caught):
 3. Kernels against their plain PyTorch versions on the card, at the
    main paths' shapes. The netgen kernels (the paper's 784-500-10 net,
    256 rows; 4 bit-planes on the planes path; seeded random words, bits,
-   weights |w| <= 9 and images) and `quant_matmul` (seeded int8 at the
+   weights |w| <= 9 and images; `binary_matmul` and
+   `binary_matmul_packed` on both routes: int8 weights in the layout the
+   backend holds (the tensor-core route, also with weights at -128 and
+   127) and int32 weights (the scalar route)) and `quant_matmul` (seeded int8 at the
    W8 mamba2-2.7b `in_proj`, `out_proj` and a decode step) must be
    exactly equal; `ssd_scan` (mamba2-2.7b at batch 4 x 512 tokens, chunk
    128) within 1e-4 in fp32, and in bf16 within one bf16 ulp on y (plus
@@ -23,7 +26,8 @@ Phases, each raising on failure (nothing is caught):
    `predict` through the per-layer `binary_matmul_planes` chain, two
    `predict_many` calls over 3 versions with skewed request sizes through
    the `binary_forward_planes` megakernel), then `cuda`
-   (`binary_matmul`), `cuda[packed=true]` (`binary_matmul_packed`) and
+   (`binary_matmul`), `cuda[packed=true]` (`binary_matmul_packed`), both
+   of which must take the tensor-core route on every launch, and
    `fused` (`fused_mlp_predict`) with the same requests; answers must
    equal `predict_quantized` and the `torch` oracle target. (b) The LM
    path: mamba2-2.7b at full width and depth (64 layers), weights from a
@@ -42,9 +46,10 @@ Phases, each raising on failure (nothing is caught):
    Every launch count is set to 0 just before a path runs and read just
    after it; each of the path's kernels must have launched.
 5. Times: CUDA events, median of 20 runs after warmup, per kernel beside
-   its plain version, a one-call library yardstick where one exists,
-   and its bound; a block-shape sweep of the dense, packed and fused
-   kernels at layer-1 shape; the served rounds' latency per target; the
+   its plain version, the one-call library yardsticks where they exist
+   (fp32 `torch.matmul`, and `torch._int_mm` for int8 weights), and its
+   bound; a block-shape sweep of the dense and packed kernels (both
+   routes) and the fused kernel at layer-1 shape; the served rounds' latency per target; the
    LM path's prefill and per-token decode wall times, and a
    `torch.profiler` trace of one prefill and one decode step (device busy
    time, kernel launches, the longest kernels).
@@ -86,6 +91,9 @@ REPLACES = {
 }
 NETGEN = ("binary_matmul_planes", "binary_forward_planes", "binary_matmul",
           "binary_matmul_packed", "fused_mlp_predict")
+# target -> the kernel whose every launch on its main path must take the
+# tensor-core route (the served nets' weights fit int8)
+MMA_PATHS = {"cuda": "binary_matmul", "cuda[packed=true]": "binary_matmul_packed"}
 # target -> the kernels its main path must launch
 PATHS = {
     "cuda[planes=true]": ("binary_matmul_planes", "binary_forward_planes"),
@@ -105,6 +113,7 @@ N_IN, N_HIDDEN, N_OUT, PLANES = 784, 500, 10, 4
 BATCH, MODELS = 256, 3
 TIMING_RUNS, TIMING_INNER = 20, 5
 SWEEP_BM, SWEEP_BN = (1, 2, 4, 8, 16, 32), (32, 64, 128, 256)
+SWEEP_MMA_BM = (16, 32)          # the tensor-core tiles' rows (bm rounds up to 16)
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_RAGGED, LM_NEW = "mamba2-2.7b", 4, 512, 200, 32
 LM_CHUNK = 128                   # the mixer's chunk
 # W8 (M, K, N) of qlinear/quant_matmul: in_proj and out_proj over a 4 x 512
@@ -184,8 +193,10 @@ def _bound(nbytes: int, ops: int, ops_per_s: float) -> tuple[float, str]:
 def _work(name: str, args, kw) -> tuple[int, str]:
     """(operations, kind) one call of kernel `name` does on `args`:
     popcounts for the bit-plane kernels (2 x rows x P x W x N per layer,
-    N the real class count on the last), adds for the others (B x K x N
-    per layer; K = KW x 32 for packed words)."""
+    N the real class count on the last), int8 tensor-core operations for
+    the dense and packed products with int8 weights (2 x B x K x N), adds
+    for the others (B x K x N per layer; K = KW x 32 for packed words)."""
+    import torch
     if name == "binary_matmul_planes":
         x, pos, _ = args
         return 2 * x.shape[0] * pos.shape[0] * pos.shape[1] * pos.shape[2], "popc"
@@ -201,15 +212,22 @@ def _work(name: str, args, kw) -> tuple[int, str]:
         return popc, "popc"
     if name in ("binary_matmul", "binary_matmul_packed"):
         x, w = args
+        if w.dtype == torch.int8:
+            return 2 * x.shape[0] * w.shape[0] * w.shape[1], "int8_tc"
         return x.shape[0] * w.shape[0] * w.shape[1], "add"
     x, w1, w2 = args
     return x.shape[0] * (w1.shape[0] * w1.shape[1] + w2.shape[0] * w2.shape[1]), "add"
 
 
-def _library(name: str, args, out, clock_hz: float):
-    """(ms, max_abs_err) of the one-call PyTorch yardstick computing the
-    same product, an fp32 `torch.matmul` without TF32 (exact here: every
-    sum is an integer below 2**24), or (None, None) where none exists."""
+def _library(name: str, args, out, clock_hz: float) -> dict:
+    """The one-call PyTorch yardsticks computing the same product, each
+    exact here: an fp32 `torch.matmul` without TF32 (every sum is an
+    integer below 2**24) and, for the dense and packed products whose
+    weights fit int8, cuBLASLt's s8 x s8 -> s32 `torch._int_mm` on
+    operands zero-padded to its shape rules (K and N multiples of 8; M >
+    16). Returns their times, their largest differences from `out` on
+    the real columns, and the faster one as `library_ms`/`library`
+    (None where no yardstick exists)."""
     import torch
     from repro_torch.kernels.binary_matvec import ref
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -226,9 +244,25 @@ def _library(name: str, args, out, clock_hz: float):
         xf = ref.unpack_bits(args[0], args[1].shape[0]).float()
         wf = args[1].float()
     else:
-        return None, None
-    err = int((torch.matmul(xf, wf).long() - out.long()).abs().max().item())
-    return _time_ms(lambda: torch.matmul(xf, wf), clock_hz), err
+        return {"library_ms": None, "library": None, "library_max_abs_err": None}
+    calls = {"fp32 torch.matmul": (lambda: torch.matmul(xf, wf), lambda y: y.long())}
+    (m, k), n = xf.shape, wf.shape[1]
+    if name != "binary_matmul_planes" and m > 16 and \
+            -128 <= int(wf.min()) and int(wf.max()) <= 127:
+        kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+        xi = torch.zeros((m, kp), dtype=torch.int8, device=xf.device)
+        xi[:, :k] = xf.to(torch.int8)
+        wi = torch.zeros((kp, np_), dtype=torch.int8, device=xf.device)
+        wi[:k, :n] = wf.to(torch.int8)
+        calls["torch._int_mm"] = (lambda: torch._int_mm(xi, wi),
+                                  lambda y: y[:, :n].long())
+    res = {}
+    for label, (call, real) in calls.items():
+        err = int((real(call()) - out.long()).abs().max().item())
+        res[label] = {"ms": _time_ms(call, clock_hz), "max_abs_err": err}
+    best = min(res, key=lambda lb: res[lb]["ms"])
+    return {"library_ms": res[best]["ms"], "library": best,
+            "library_max_abs_err": res[best]["max_abs_err"], "yardsticks": res}
 
 
 def _qmm_args(rng, m, k, n, dev):
@@ -631,13 +665,28 @@ def main() -> int:
         kw_args = {"threshold": thr, "n_classes": N_OUT}
         cases["binary_forward_planes"][label] = (
             (x, *planes), kw_args, ops.binary_forward_planes, ref.forward_planes)
-    for label, (k, n) in {"layer1": (N_IN, N_HIDDEN), "layer2": (N_HIDDEN, N_OUT)}.items():
-        args = (_ints(rng, 0, 1, (BATCH, k), torch.int8, dev),
-                _ints(rng, -9, 9, (k, n), torch.int32, dev))
+    # Both routes of the dense and packed products: int8 weights in the
+    # layout the backend holds (`mma_weights`; the tensor-core route, the
+    # main path's, heading the kernel's record), at |w| <= 9 and over the
+    # whole int8 range with a row at -128 and a row at 127; then int32
+    # weights (the scalar route).
+    def weights(k, n, wide, dtype):
+        w = _ints(rng, -128 if wide else -9, 127 if wide else 9, (k, n), dtype, dev)
+        if wide:
+            w[0], w[-1] = -128, 127
+        return ops.mma_weights(w) if dtype == torch.int8 else w
+
+    routes = {"layer1_int8": (0, False, torch.int8), "layer2_int8": (1, False, torch.int8),
+              "layer1_int8_extremes": (0, True, torch.int8),
+              "layer2_int8_extremes": (1, True, torch.int8),
+              "layer1": (0, False, torch.int32), "layer2": (1, False, torch.int32)}
+    for label, (layer, wide, dtype) in routes.items():
+        k, n = ((N_IN, N_HIDDEN), (N_HIDDEN, N_OUT))[layer]
+        args = (_ints(rng, -2, 2, (BATCH, k), torch.int8, dev), weights(k, n, wide, dtype))
         cases["binary_matmul"][label] = (args, {}, ops.binary_matmul, ref.binary_matmul)
-    for label, (kw, n) in {"layer1": (w1, N_HIDDEN), "layer2": (w2, N_OUT)}.items():
-        args = (_words(rng, (BATCH, kw), dev),
-                _ints(rng, -9, 9, (kw * 32, n), torch.int32, dev))
+    for label, (layer, wide, dtype) in routes.items():
+        kw, n = ((w1, N_HIDDEN), (w2, N_OUT))[layer]
+        args = (_words(rng, (BATCH, kw), dev), weights(kw * 32, n, wide, dtype))
         cases["binary_matmul_packed"][label] = (
             args, {}, ops.binary_matmul_packed, ref.binary_matmul_packed)
     args = (torch.from_numpy(rng.integers(0, 256, size=(BATCH, N_IN), dtype=np.uint8)).to(dev),
@@ -696,7 +745,7 @@ def main() -> int:
     for v, net in enumerate(nets):
         oracle.register(f"v{v}", net)
 
-    servers, launches = {}, {}
+    servers, launches, mma_launches = {}, {}, {}
     for target, kernels in PATHS.items():
         reset_launches()
         t0 = time.perf_counter()
@@ -714,6 +763,13 @@ def main() -> int:
             if counts[name] <= 0:
                 raise AssertionError(f"the {target} path never launched {name}")
             launches[name] = counts[name]
+        if target in MMA_PATHS:
+            wrapper = wrappers[MMA_PATHS[target]]
+            mma_launches[MMA_PATHS[target]] = wrapper.mma_launches
+            print(f"[4 main path] {target}: {wrapper.mma_launches} of {wrapper.launches} "
+                  f"{MMA_PATHS[target]} launches on the int8 tensor cores")
+            if not 0 < wrapper.mma_launches == wrapper.launches:
+                raise AssertionError(f"{target}: not every launch took the tensor-core route")
         for req, out in served:
             for v, x in req.items():
                 net = nets[int(v[1:])]
@@ -744,19 +800,16 @@ def main() -> int:
             out = kernel(*args, **kw)
             moved = nbytes(args) + nbytes([out])
             work, op = _work(name, args, kw)
-            library_ms, lib_err = _library(name, args, out, clock_hz)
             bound_ms, bound_by = _bound(moved, work, rates[op])
             rec = {
                 "shape": label,
                 "ms": _time_ms(lambda: kernel(*args, **kw), clock_hz),
                 "plain_ms": _time_ms(lambda: plain(*args, **kw), clock_hz),
-                "library_ms": library_ms, "library_max_abs_err": lib_err,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "bytes": moved, "popcounts" if op == "popc" else "adds": work,
+                **_library(name, args, out, clock_hz),
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+                {"popc": "popcounts", "add": "adds", "int8_tc": "int8_ops"}[op]: work,
                 "max_abs_err": errors[name, label],
             }
-            if name in ("binary_matmul", "binary_matmul_packed"):
-                rec["int8_tc_floor_ms"] = 2 * work / INT8_TC_OPS_PER_S * 1e3
             per_shape.append(rec)
             print(json.dumps({"kernel": name, **rec}))
         head = per_shape[-1] if name == "binary_forward_planes" else per_shape[0]
@@ -766,9 +819,11 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in per_shape),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "timed_shape": head["shape"],
-            "shapes": per_shape,
+            "library_ms": head["library_ms"], "library": head["library"],
+            "timed_shape": head["shape"], "shapes": per_shape,
         })
+        if name in mma_launches:
+            records[-1]["mma_launches"] = mma_launches[name]
 
     for name, shapes in lm_cases.items():
         per_shape = []
@@ -800,6 +855,7 @@ def main() -> int:
                 "shape": label, "ms": _time_ms(kernel, clock_hz),
                 "plain_ms": _time_ms(plain, clock_hz),
                 "library_ms": None if library is None else _time_ms(library, clock_hz),
+                "library": None if library is None else "torch._int_mm",
                 "library_max_abs_err": None if library is None else
                 float((library() - out[0]).abs().max().item()),
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, **extra,
@@ -814,8 +870,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in per_shape),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "timed_shape": head["shape"],
-            "shapes": per_shape,
+            "library_ms": head["library_ms"], "library": head["library"],
+            "timed_shape": head["shape"], "shapes": per_shape,
         })
     for label, run in lm_times.items():
         if label.endswith("aligned"):     # the shape ssd_scan was timed at, per layer
@@ -825,16 +881,18 @@ def main() -> int:
 
     sweep = {}
     for name in ("binary_matmul", "binary_matmul_packed"):
-        args, _, kernel, _ = cases[name]["layer1"]
-        sweep[name] = {f"bm={bm},bn={bn}": _time_ms(
-            lambda: kernel(*args, bm=bm, bn=bn), clock_hz)
-            for bm in SWEEP_BM for bn in SWEEP_BN}
+        for label, bms in (("layer1_int8", SWEEP_MMA_BM), ("layer1", SWEEP_BM)):
+            args, _, kernel, _ = cases[name][label]
+            sweep[f"{name}[{label}]"] = {f"bm={bm},bn={bn}": _time_ms(
+                lambda: kernel(*args, bm=bm, bn=bn), clock_hz)
+                for bm in bms for bn in SWEEP_BN}
     args, kw, kernel, _ = cases["fused_mlp_predict"]["net"]
     sweep["fused_mlp_predict"] = {f"bm={bm}": _time_ms(
         lambda: kernel(*args, bm=bm, **kw), clock_hz) for bm in SWEEP_BM}
     print(json.dumps({"sweep_ms": sweep, "defaults": {
         "binary_matmul": [ops.DENSE_BM, ops.DENSE_BN],
         "binary_matmul_packed": [ops.PACKED_BM, ops.PACKED_BN],
+        "tensor-core route": [ops.MMA_BM, ops.MMA_BN],
         "fused_mlp_predict": fops.FUSED_BM}}))
 
     latency = {}

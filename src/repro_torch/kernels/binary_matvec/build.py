@@ -27,6 +27,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bmv_matmul.restype = i
     lib.bmv_matmul_packed.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp]
     lib.bmv_matmul_packed.restype = i
+    lib.bmv_matmul_mma.argtypes = [vp, vp, i, vp, i, i, i, i, i, i, vp]
+    lib.bmv_matmul_mma.restype = i
+    lib.bmv_matmul_packed_mma.argtypes = [vp, vp, i, vp, i, i, i, i, i, i, vp]
+    lib.bmv_matmul_packed_mma.restype = i
     lib.bmv_forward_planes.argtypes = [
         vp, i, i, i, i, i, vp, vp, vp, vp, vp, i, vp, i, i, vp]
     lib.bmv_forward_planes.restype = i

@@ -1,15 +1,21 @@
 // Binary-activation matmul kernels for Hopper (sm_90a), bound to Python with ctypes.
 //
 // Activations are {0,1}. A layer y = x . w is then a masked column sum, the
-// rows of w selected by the set activations added up, with no multiply. The
-// four kernels differ in how the operands travel:
+// rows of w selected by the set activations added up. The kernels differ in
+// how the operands travel:
 //
-//   matmul_dense_kernel   x int8 (B, K), w int32 (K, N). Replaces the Pallas
-//                         kernel binary_matmul (src/repro/kernels/binary_matvec/
-//                         binary_matvec.py, _binary_matmul_kernel).
-//   matmul_packed_kernel  x packed 32 to a little-endian uint32 word (bit i of
-//                         word j is unit 32j+i), w int32 (KW*32, N). Replaces
-//                         binary_matmul_packed (same file, _binary_matmul_packed_kernel).
+//   matmul_mma_kernel     y = x . w on the int8 tensor cores, for weights that
+//                         fit int8, with one of two loaders of the activation
+//                         tile: DenseRows (x int8 (B, K), nonzero meaning 1)
+//                         replaces the Pallas kernel binary_matmul
+//                         (src/repro/kernels/binary_matvec/binary_matvec.py:77,
+//                         _binary_matmul_kernel); PackedRows (x packed 32 to a
+//                         little-endian uint32 word, bit i of word j is unit
+//                         32j+i) replaces binary_matmul_packed (same file,
+//                         :134, _binary_matmul_packed_kernel).
+//   matmul_dense_kernel   the same two functions with int32 weights, one
+//   matmul_packed_kernel  predicated 32-bit add per (row, k, column): the
+//                         route for weights that do not fit int8.
 //   matmul_planes_kernel  both operands packed: w split into signed bit-planes,
 //                         w = sum_b 2^b (pos_b - neg_b), each plane packed along
 //                         fan_in like x, so one layer is
@@ -19,22 +25,32 @@
 //   forward_planes_kernel the whole planes-form net in one launch. Replaces
 //                         binary_forward_planes (_forward_planes_kernel).
 //
-// Every kernel accumulates in uint32, so overflow wraps exactly as the int32
-// reference does.
+// Every kernel accumulates in 32-bit integers that wrap exactly as the int32
+// reference does (the tensor-core product has no .satfinite).
 //
-// What bounds them on an H100. The dense and packed kernels do one select and
-// one 32-bit add per (row, k, column); 32-bit integer add issues at 64 results
-// per clock per SM (CUDA C++ Programming Guide, arithmetic instruction
-// throughput, compute capability 9.0). One 784-500-10 layer-1 pass at 256 rows
-// is 100 M adds against ~1.8 MB of operands, so the adds, not the bytes, set the
-// floor. The planes kernels are bound by popcount: __popc issues at 16 results
-// per clock per SM, a quarter of the add rate; layer 1 is ~26 M popcounts
-// against ~0.6 MB of operands. The designs below keep every activation in a
-// register or in shared memory: a tile of BM rows is staged in shared memory
-// and read as warp broadcasts, and each thread owns one output column and
-// reads each weight word once per tile, coalesced along the column axis, for
-// BM rows. Reaching the floor (register-blocked weights, cp.async pipelines,
-// clusters sharing a weight tile) is later work.
+// What bounds them on an H100. The tensor-core kernel computes x in {0,1}
+// times int8 w exactly with mma.sync m16n8k32 s8.s8.s32. One 784-500-10
+// layer-1 pass at 256 rows is 0.2 G int8 operations (0.1 us at 1,979 TOP/s)
+// against 1.1 MB of operands (0.33 us at 3.35 TB/s): bytes bound it, and in
+// practice the launch and the latency of the K sweep do. So wgmma, TMA and
+// warp specialisation would buy nothing at this size; the design keeps the
+// sweep short and the loads in flight instead: K in chunks of kMmaK bytes,
+// both operands double-buffered in shared memory by cp.async, 32 x 32 output
+// tiles (128 blocks at layer 1), weights read as int8 (a quarter of the
+// int32 bytes) from a copy laid out K-contiguous per column (as the B
+// operand wants it), made once when the predictor is built: transposing
+// the (K, N) weights inside the kernel, through byte loads, cost more
+// than the rest of the kernel together.
+// The scalar kernels do one select and one add per (row, k, column); 32-bit
+// integer add issues at 64 results per clock per SM (CUDA C++ Programming
+// Guide, arithmetic instruction throughput, compute capability 9.0): ~100 M
+// adds at layer 1, so the adds set their floor. The planes kernels are bound
+// by popcount: __popc issues at 16 results per clock per SM, a quarter of the
+// add rate; layer 1 is ~26 M popcounts against ~0.6 MB of operands. The
+// scalar designs keep every activation in a register or in shared memory: a
+// tile of BM rows is staged in shared memory and read as warp broadcasts, and
+// each thread owns one output column and reads each weight word once per
+// tile, coalesced along the column axis, for BM rows.
 
 #include <climits>
 #include <cstddef>
@@ -87,6 +103,252 @@ __device__ __forceinline__ void accumulate(uint32_t (&acc)[BM], const uint32_t (
     acc[r] += static_cast<uint32_t>(d) << b;
   }
 }
+
+// ---- the int8 tensor-core product ------------------------------------------
+
+// Threads of a tensor-core block (4 warps), the K bytes staged per chunk (8
+// steps of the m16n8k32 product), the slots of the cp.async ring, the
+// columns of one sub-tile, and the staged row length: 16 bytes of padding
+// make a row 68 words, so the fragment reads of a warp (8 rows x 4 words)
+// hit 32 distinct banks. Of the chunks (64-256) and ring depths (2-6)
+// tried on an H100 at layer 1 (K = 784), 256 x 2 was the fastest.
+constexpr int kMmaThreads = 128;
+constexpr int kMmaK = 256;
+constexpr int kMmaStages = 2;
+constexpr int kMmaN = 32;
+constexpr int kMmaRow = kMmaK + 16;
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes));
+}
+
+// Copies src_bytes (0..16) and zero-fills the rest of the 16.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_shared_u32(const uint8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// c += a . b for one m16n8k32 tile: a 16x32 s8 (row), b 32x8 s8 (col), c s32.
+// Without .satfinite the sums wrap.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Each byte of v as 1 when it is nonzero, else 0: bit 7 of a byte is set
+// after the add iff its low 7 bits are nonzero (no carry leaves the byte).
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t v) {
+  return ((((v & 0x7f7f7f7fu) + 0x7f7f7f7fu) | v) >> 7) & 0x01010101u;
+}
+
+// Bits shift..shift+3 of a word as four {0,1} bytes, bit shift+i in byte i:
+// the multiply places the nibble's bits 0-3 at bits 0, 8, 16, 24 (the four
+// shifted copies do not overlap, so nothing carries).
+__device__ __forceinline__ uint32_t bits_to_bytes(uint32_t word, int shift) {
+  return (((word >> shift) & 0xfu) * 0x00204081u) & 0x01010101u;
+}
+
+// The two loaders of the activation tile. Each stages TM rows x kMmaK units
+// of K starting at (row0, k0) into ring slot `slot` (rows past B and K past
+// the end are 0), and builds a warp's A fragment of m16n8k32 for rows
+// r0..r0+15 and K step kk of the chunk: lane (g, t) = (lane / 4, lane % 4)
+// holds rows g and g+8 at K t*4..t*4+3 and 16+t*4..16+t*4+3, a byte per K.
+
+// x int8 (B, K), nonzero meaning 1. The raw bytes are staged, VEC at a time
+// (cp.async when VEC is 4 or 16: K % VEC == 0, so a vector lies wholly in or
+// past K), and made exactly {0,1} as the fragment is built.
+template <int TM, int VEC>
+struct DenseRows {
+  using T = uint8_t;
+  struct Tile {
+    __align__(16) uint8_t b[kMmaStages][TM][kMmaRow];
+  };
+  static __device__ __forceinline__ void stage(Tile& s, int slot, const uint8_t* x, int B,
+                                               int K, int row0, int k0) {
+    constexpr int per_row = kMmaK / VEC;
+    for (int i = threadIdx.x; i < TM * per_row; i += kMmaThreads) {
+      const int r = i / per_row;
+      const int c = (i % per_row) * VEC;
+      const int row = row0 + r;
+      const int k = k0 + c;
+      const bool valid = row < B && k < K;
+      const uint8_t* src = valid ? x + static_cast<size_t>(row) * K + k : x;
+      uint8_t* dst = &s.b[slot][r][c];
+      if constexpr (VEC == 16) {
+        cp_async16(dst, src, valid ? 16 : 0);
+      } else if constexpr (VEC == 4) {
+        cp_async4(dst, src, valid ? 4 : 0);
+      } else {
+        *dst = valid ? *src : 0u;
+      }
+    }
+  }
+  static __device__ __forceinline__ void fragment(const Tile& s, int slot, int r0, int kk, int g,
+                                                  int t, uint32_t (&a)[4]) {
+    const uint8_t* p = &s.b[slot][r0 + g][kk * 32 + t * 4];
+    a[0] = nonzero_bytes(ld_shared_u32(p));
+    a[1] = nonzero_bytes(ld_shared_u32(p + 8 * kMmaRow));
+    a[2] = nonzero_bytes(ld_shared_u32(p + 16));
+    a[3] = nonzero_bytes(ld_shared_u32(p + 8 * kMmaRow + 16));
+  }
+};
+
+// x packed (B, KW) words. One K step of 32 is one word, so the words are
+// staged by cp.async (kMmaK / 32 a row) and each fragment register unpacks
+// four bits of a word into four {0,1} bytes. Bits are tested on uint32_t.
+template <int TM>
+struct PackedRows {
+  using T = uint32_t;
+  struct Tile {
+    uint32_t w[kMmaStages][TM][kMmaK / 32];
+  };
+  static __device__ __forceinline__ void stage(Tile& s, int slot, const uint32_t* x, int B,
+                                               int KW, int row0, int k0) {
+    constexpr int per_row = kMmaK / 32;
+    for (int i = threadIdx.x; i < TM * per_row; i += kMmaThreads) {
+      const int r = i / per_row;
+      const int c = i % per_row;
+      const int row = row0 + r;
+      const int word = k0 / 32 + c;
+      const bool valid = row < B && word < KW;
+      cp_async4(&s.w[slot][r][c], valid ? x + static_cast<size_t>(row) * KW + word : x,
+                valid ? 4 : 0);
+    }
+  }
+  static __device__ __forceinline__ void fragment(const Tile& s, int slot, int r0, int kk, int g,
+                                                  int t, uint32_t (&a)[4]) {
+    const uint32_t lo = s.w[slot][r0 + g][kk];
+    const uint32_t hi = s.w[slot][r0 + g + 8][kk];
+    a[0] = bits_to_bytes(lo, 4 * t);
+    a[1] = bits_to_bytes(hi, 4 * t);
+    a[2] = bits_to_bytes(lo, 16 + 4 * t);
+    a[3] = bits_to_bytes(hi, 16 + 4 * t);
+  }
+};
+
+// The weight tile of one chunk, kMmaK rows of K x kMmaN columns, from int8 w
+// laid out K-contiguous: column n starts at w + n * ldw (ldw and w 16-byte
+// aligned), as the B operand of m16n8k32.col wants it. 16 bytes of K per
+// cp.async; the copy stops at K and zero-fills the rest, and columns past N
+// are 0.
+__device__ __forceinline__ void stage_w(uint8_t (*ws)[kMmaRow], const uint8_t* w, int ldw, int K,
+                                        int N, int k0, int n0) {
+  constexpr int per_col = kMmaK / 16;
+  for (int i = threadIdx.x; i < kMmaN * per_col; i += kMmaThreads) {
+    const int n = i / per_col;
+    const int c = (i % per_col) * 16;
+    const int col = n0 + n;
+    const int k = k0 + c;
+    const int bytes = (col < N && k < K) ? min(16, K - k) : 0;
+    cp_async16(&ws[n][c], bytes ? w + static_cast<size_t>(col) * ldw + k : w, bytes);
+  }
+}
+
+// y = x . w on the int8 tensor cores: x through loader A (`kx` units a row:
+// K bytes, or KW words), w int8 (K, N) K-contiguous with column stride ldw,
+// K = kx or 32 kx, y int32 (B, N). Grid: (ceil(B / TM), ceil(N / tn)). A
+// block owns TM rows and tn columns and walks them in sub-tiles of kMmaN
+// columns; per sub-tile each warp owns a 16 x (8 TM / 16) slab of the output
+// (TM = 16: warp w has columns 8w..8w+7; TM = 32: rows 16 (w % 2), columns
+// 16 (w / 2)). K is swept in chunks of kMmaK through a ring of kMmaStages
+// slots: while the tensor cores work on one chunk, the next ones are in
+// flight by cp.async.
+template <int TM, class A>
+__global__ void __launch_bounds__(kMmaThreads)
+    matmul_mma_kernel(const typename A::T* __restrict__ x, const uint8_t* __restrict__ w,
+                      int ldw, int32_t* __restrict__ out, int B, int kx, int K, int N, int tn) {
+  constexpr int NT = TM / 16;  // n8 tiles per warp
+  __shared__ typename A::Tile xs;
+  __shared__ __align__(16) uint8_t ws[kMmaStages][kMmaN][kMmaRow];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = (warp % NT) * 16;
+  const int c0 = (warp / NT) * NT * 8;
+  const int row0 = blockIdx.x * TM;
+  const int col0 = static_cast<int>(blockIdx.y) * tn;
+  const int n_end = min(N, col0 + tn);
+  const int chunks = (K + kMmaK - 1) / kMmaK;
+
+  for (int n0 = col0; n0 < n_end; n0 += kMmaN) {
+    int acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+
+    // One commit group per chunk, empty past the last, so that waiting for
+    // all but kMmaStages - 2 groups means chunk c has landed.
+#pragma unroll
+    for (int c = 0; c < kMmaStages - 1; ++c) {
+      if (c < chunks) {
+        A::stage(xs, c, x, B, kx, row0, c * kMmaK);
+        stage_w(ws[c], w, ldw, K, N, c * kMmaK, n0);
+      }
+      cp_async_commit();
+    }
+    for (int c = 0; c < chunks; ++c) {
+      cp_async_wait<kMmaStages - 2>();
+      __syncthreads();
+      // The slot refilled here was read in iteration c - 1, which every
+      // warp has left at the barrier above.
+      const int next = c + kMmaStages - 1;
+      if (next < chunks) {
+        A::stage(xs, next % kMmaStages, x, B, kx, row0, next * kMmaK);
+        stage_w(ws[next % kMmaStages], w, ldw, K, N, next * kMmaK, n0);
+      }
+      cp_async_commit();
+      const int slot = c % kMmaStages;
+#pragma unroll
+      for (int kk = 0; kk < kMmaK / 32; ++kk) {
+        uint32_t a[4];
+        A::fragment(xs, slot, r0, kk, g, t, a);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint8_t* col = &ws[slot][c0 + 8 * j + g][kk * 32 + t * 4];
+          const uint32_t b[2] = {ld_shared_u32(col), ld_shared_u32(col + 16)};
+          mma_s8(acc[j], a, b);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the ring before it is refilled
+
+    // c0, c1 at row g, columns 2t, 2t+1; c2, c3 at row g + 8.
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = n0 + c0 + 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + r0 + g + 8 * h;
+        if (row >= B) continue;
+        int32_t* o = out + static_cast<size_t>(row) * N + col;
+        if (col < N) o[0] = acc[j][2 * h];
+        if (col + 1 < N) o[1] = acc[j][2 * h + 1];
+      }
+    }
+  }
+}
+
+// ---- the scalar products (int32 weights) ------------------------------------
 
 // y = x . w for x int8 (B, K) with nonzero meaning 1 and w int32 (K, N); y int32
 // (B, N). Grid: (ceil(B / BM), ceil(N / blockDim.x)). Each thread owns one
@@ -379,6 +641,44 @@ __global__ void __launch_bounds__(kForwardThreads)
   }
 }
 
+template <int TM, class A>
+cudaError_t launch_mma(const void* x, const void* w, int ldw, void* out, int B, int kx, int K,
+                       int N, int tn, cudaStream_t stream) {
+  const dim3 grid((B + TM - 1) / TM, (N + tn - 1) / tn);
+  matmul_mma_kernel<TM, A><<<grid, kMmaThreads, 0, stream>>>(
+      static_cast<const typename A::T*>(x), static_cast<const uint8_t*>(w), ldw,
+      static_cast<int32_t*>(out), B, kx, K, N, tn);
+  return cudaGetLastError();
+}
+
+// The tensor-core tile of a (bm, bn) block shape: bm rows rounded up to 16
+// (bm <= 16 -> 16 rows, 32 -> 32) and bn columns (a multiple of 32, walked
+// in sub-tiles of 32). Returns false for a shape the scalar kernels refuse
+// too, so every shape they take is taken here.
+bool mma_blocks(int bm, int bn) {
+  const bool rows = bm == 1 || bm == 2 || bm == 4 || bm == 8 || bm == 16 || bm == 32;
+  return rows && bn > 0 && bn % kMmaN == 0 && bn <= kMaxBlockThreads;
+}
+
+// The weights' layout the tensor-core kernel reads: K-contiguous columns
+// whose start is 16-byte aligned (nothing is read when K is 0).
+bool mma_weights(const void* w, int ldw, int K) {
+  return K == 0 || (ldw >= K && ldw % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0);
+}
+
+template <int TM>
+cudaError_t launch_dense_mma(const void* x, const void* w, int ldw, void* out, int B, int K,
+                             int N, int tn, cudaStream_t s) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(x);
+  if (K % 16 == 0 && p % 16 == 0) {
+    return launch_mma<TM, DenseRows<TM, 16>>(x, w, ldw, out, B, K, K, N, tn, s);
+  }
+  if (K % 4 == 0 && p % 4 == 0) {
+    return launch_mma<TM, DenseRows<TM, 4>>(x, w, ldw, out, B, K, K, N, tn, s);
+  }
+  return launch_mma<TM, DenseRows<TM, 1>>(x, w, ldw, out, B, K, K, N, tn, s);
+}
+
 template <int BM>
 cudaError_t launch_dense(const void* x, const void* w, void* out, int B, int K, int N, int bn,
                          cudaStream_t stream) {
@@ -452,6 +752,35 @@ int bmv_matmul(const void* x, const void* w, void* out, int B, int K, int N, int
     case 32: return launch_dense<32>(x, w, out, B, K, N, bn, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// x int8 (B, K), w int8 (K, N) K-contiguous with column stride ldw: the
+// tensor-core product. Returns a cudaError_t.
+int bmv_matmul_mma(const void* x, const void* w, int ldw, void* out, int B, int K, int N, int bm,
+                   int bn, int device, void* stream) {
+  if (B <= 0 || N <= 0 || K < 0 || !mma_blocks(bm, bn) || !mma_weights(w, ldw, K)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bm > 16 ? launch_dense_mma<32>(x, w, ldw, out, B, K, N, bn, s)
+                 : launch_dense_mma<16>(x, w, ldw, out, B, K, N, bn, s);
+}
+
+// x (B, KW) words, w int8 (KW * 32, N) as in bmv_matmul_mma: the
+// tensor-core product.
+int bmv_matmul_packed_mma(const void* x, const void* w, int ldw, void* out, int B, int KW, int N,
+                          int bm, int bn, int device, void* stream) {
+  const int K = KW * kWarp;
+  if (B <= 0 || N <= 0 || KW < 0 || !mma_blocks(bm, bn) || !mma_weights(w, ldw, K)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bm > 16 ? launch_mma<32, PackedRows<32>>(x, w, ldw, out, B, KW, K, N, bn, s)
+                 : launch_mma<16, PackedRows<16>>(x, w, ldw, out, B, KW, K, N, bn, s);
 }
 
 int bmv_matmul_packed(const void* x, const void* w, void* out, int B, int KW, int N, int bm,

@@ -8,6 +8,12 @@ failed build or launch raises. Each wrapper counts its kernel launches
 in a plain integer attribute, `<wrapper>.launches`, that
 `reset_launches()` sets back to 0.
 
+`binary_matmul` and `binary_matmul_packed` have two CUDA routes, picked
+by the weights' dtype alone (no device sync, no range check): int8
+weights go to the int8 tensor-core kernel, int32 weights to the scalar
+kernel, the route for weights that do not fit int8. `.launches` counts
+both routes; `.mma_launches` counts the tensor-core launches alone.
+
 Packed words are int32 tensors holding the uint32 bit pattern (see
 `ref.py`); numpy uint32 arrays cross over with `.view(np.int32)`.
 `pack_bits`, `binarize_pack` and `step_pack` stay PyTorch tensor ops on
@@ -22,19 +28,20 @@ import torch
 from repro_torch.kernels.binary_matvec import ref
 from repro_torch.kernels.launch import (
     BLOCK_ROWS, SMEM_LIMIT, check_block_rows, check_contiguous, check_launch,
-    int32_weights, placement, stream_args,
+    check_weights, placement, stream_args,
 )
 
 __all__ = [
     "BLOCK_ROWS", "FORWARD_MAX_LAYERS", "binarize_pack", "binary_forward_planes",
     "binary_matmul", "binary_matmul_packed", "binary_matmul_planes",
     "check_forward_planes", "check_matmul_blocks", "forward_smem_bytes",
-    "pack_bits", "reset_launches", "step_pack",
+    "mma_weights", "pack_bits", "reset_launches", "step_pack",
 ]
 
 MATMUL_BM, MATMUL_BN = 8, 128          # planes defaults: rows x columns per block
 DENSE_BM, DENSE_BN = 4, 128            # dense defaults: 256 blocks at layer 1
 PACKED_BM, PACKED_BN = 8, 64           # packed defaults: 256 blocks at layer 1
+MMA_BM, MMA_BN = 32, 32                # tensor-core defaults: 128 blocks at layer 1
 FORWARD_BM = 8
 FORWARD_MAX_LAYERS = 16                 # kMaxLayers in the .cu source
 FORWARD_WARPS = 8                       # kForwardThreads / 32
@@ -47,7 +54,9 @@ step_pack = ref.step_pack
 def reset_launches() -> None:
     """Set every kernel wrapper's launch count to 0."""
     binary_matmul.launches = 0
+    binary_matmul.mma_launches = 0
     binary_matmul_packed.launches = 0
+    binary_matmul_packed.mma_launches = 0
     binary_matmul_planes.launches = 0
     binary_forward_planes.launches = 0
 
@@ -66,11 +75,48 @@ def check_matmul_blocks(bm: int | None = None, bn: int | None = None, *,
     return bm, bn
 
 
-def _launch_matmul(entry: str, x: torch.Tensor, w: torch.Tensor, k: int,
-                   blocks: tuple[int, int]) -> torch.Tensor:
-    """Launch the dense or packed kernel: x (B, k), w (K, N) -> (B, N)."""
+def mma_weights(w: torch.Tensor) -> torch.Tensor:
+    """int8 weights (..., K, N) in the layout the tensor-core kernels read:
+    the same (K, N) values, K contiguous within each column, every column
+    starting on a 16-byte boundary. It is a transposed view of a
+    zero-padded (..., N, ceil(K / 16) * 16) buffer, so it still has the
+    public (K, N) shape. The netgen backend makes it once, when it builds a
+    predictor; `binary_matmul` and `binary_matmul_packed` copy int8
+    weights in any other layout into it on every call."""
+    if w.dtype != torch.int8:
+        raise TypeError(f"mma_weights: want int8 weights, got {w.dtype}")
+    k, n = w.shape[-2:]
+    buf = torch.zeros((*w.shape[:-2], n, -(-k // 16) * 16), dtype=torch.int8,
+                      device=w.device)
+    buf[..., :k] = w.transpose(-1, -2)
+    return buf.transpose(-1, -2)[..., :k, :]
+
+
+def _in_mma_layout(w: torch.Tensor) -> bool:
+    return w.shape[0] == 0 or (w.stride(0) == 1 and w.stride(1) % 16 == 0
+                               and w.stride(1) >= w.shape[0] and w.data_ptr() % 16 == 0)
+
+
+def _route_blocks(w: torch.Tensor, bm, bn, scalar: tuple[int, int]):
+    """(tensor-core route?, checked (bm, bn)) for weights w: int8 takes the
+    tensor cores with the MMA defaults, int32 the scalar kernel with
+    `scalar` defaults. On the tensor-core route bm maps to a tile of 16
+    rows (bm <= 16) or 32 (bm = 32), and the block walks its bn columns
+    32 at a time, so every (bm, bn) either route accepts is taken."""
+    mma = w.dtype == torch.int8
+    return mma, check_matmul_blocks(bm, bn, defaults=(MMA_BM, MMA_BN) if mma else scalar)
+
+
+def _launch_matmul(name: str, x: torch.Tensor, w: torch.Tensor, k: int,
+                   mma: bool, blocks: tuple[int, int]) -> torch.Tensor:
+    """Launch the dense or packed kernel of one route: x (B, k), w (K, N)
+    -> (B, N). The tensor-core route reads int8 w in the `mma_weights`
+    layout, copying it there first when it is laid out otherwise."""
     bm, bn = blocks
-    check_contiguous(entry, (x, w))
+    if mma and not _in_mma_layout(w):
+        w = mma_weights(w)
+    entry = f"bmv_{name}_mma" if mma else f"bmv_{name}"
+    check_contiguous(entry, (x,) if mma else (x, w))
     b, n = x.shape[0], w.shape[1]
     out = torch.empty((b, n), dtype=torch.int32, device=x.device)
     if b == 0 or n == 0:
@@ -79,8 +125,8 @@ def _launch_matmul(entry: str, x: torch.Tensor, w: torch.Tensor, k: int,
 
     lib = build.load()
     device, stream = stream_args(x)
-    err = getattr(lib, entry)(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                              b, k, n, bm, bn, device, stream)
+    head = (x.data_ptr(), w.data_ptr()) + ((w.stride(1),) if mma else ())
+    err = getattr(lib, entry)(*head, out.data_ptr(), b, k, n, bm, bn, device, stream)
     check_launch(err, lib.bmv_error_string, entry)
     return out
 
@@ -88,25 +134,27 @@ def _launch_matmul(entry: str, x: torch.Tensor, w: torch.Tensor, k: int,
 def binary_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int | None = None,
                   bn: int | None = None) -> torch.Tensor:
     """y = x @ w for x in {0, 1}: the rows of w selected by `x != 0`
-    added up, with no multiply.
+    added up.
 
-    x: int8 (B, K); w: int8 or int32 (K, N), int8 cast to int32. Returns
-    int32 (B, N), wrapping on overflow. `bm` is the rows per block (one
-    of BLOCK_ROWS), `bn` the columns per block (a multiple of 32, at most
+    x: int8 (B, K); w: int8 (K, N), the tensor-core route (fastest in the
+    `mma_weights` layout), or int32, the scalar route. Returns int32
+    (B, N), wrapping on overflow. `bm` is the rows per block (one of
+    BLOCK_ROWS), `bn` the columns per block (a multiple of 32, at most
     1024); both only shape the CUDA launch.
     """
     name = "binary_matmul"
-    w = int32_weights(name, w)
+    check_weights(name, w)
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"{name}: want x (B, K), w (K, N); got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}")
     if x.dtype != torch.int8:
         raise TypeError(f"{name}: activations must be int8, got {x.dtype}")
-    blocks = check_matmul_blocks(bm, bn, defaults=(DENSE_BM, DENSE_BN))
+    mma, blocks = _route_blocks(w, bm, bn, (DENSE_BM, DENSE_BN))
     if placement(name, (x, w)) == "cpu":
         return ref.binary_matmul(x, w)
-    out = _launch_matmul("bmv_matmul", x, w, x.shape[1], blocks)
+    out = _launch_matmul("matmul", x, w, x.shape[1], mma, blocks)
     binary_matmul.launches += 1
+    binary_matmul.mma_launches += int(mma)
     return out
 
 
@@ -115,21 +163,23 @@ def binary_matmul_packed(xp: torch.Tensor, w: torch.Tensor, *,
                          bn: int | None = None) -> torch.Tensor:
     """y = unpack(xp) @ w: bit i of word c selects row 32c + i of w.
 
-    xp: int32 words (B, KW); w: int8 or int32 (KW * 32, N), int8 cast to
-    int32. Returns int32 (B, N). `bm`/`bn` as in `binary_matmul`.
+    xp: int32 words (B, KW); w: int8 (KW * 32, N), the tensor-core route,
+    or int32, the scalar route. Returns int32 (B, N). `bm`/`bn` as in
+    `binary_matmul`.
     """
     name = "binary_matmul_packed"
-    w = int32_weights(name, w)
+    check_weights(name, w)
     if xp.dim() != 2 or w.dim() != 2 or xp.shape[1] * ref.LANES != w.shape[0]:
         raise ValueError(f"{name}: want x (B, KW), w (KW * 32, N); got "
                          f"{tuple(xp.shape)}, {tuple(w.shape)}")
     if xp.dtype != torch.int32:
         raise TypeError(f"{name}: packed words must be int32 tensors")
-    blocks = check_matmul_blocks(bm, bn, defaults=(PACKED_BM, PACKED_BN))
+    mma, blocks = _route_blocks(w, bm, bn, (PACKED_BM, PACKED_BN))
     if placement(name, (xp, w)) == "cpu":
         return ref.binary_matmul_packed(xp, w)
-    out = _launch_matmul("bmv_matmul_packed", xp, w, xp.shape[1], blocks)
+    out = _launch_matmul("matmul_packed", xp, w, xp.shape[1], mma, blocks)
     binary_matmul_packed.launches += 1
+    binary_matmul_packed.mma_launches += int(mma)
     return out
 
 

@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["BLOCK_ROWS", "SMEM_LIMIT", "check_block_rows", "check_contiguous",
-           "check_launch", "int32_weights", "placement", "stream_args"]
+           "check_launch", "check_weights", "int32_weights", "placement",
+           "stream_args"]
 
 # Rows per block the kernels are instantiated for (`bm`).
 BLOCK_ROWS = (1, 2, 4, 8, 16, 32)
@@ -35,13 +36,16 @@ def check_contiguous(name: str, tensors) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
 
 
-def int32_weights(name: str, w: torch.Tensor) -> torch.Tensor:
-    """int8 or int32 weights as int32, as the JAX wrappers cast them."""
-    if w.dtype == torch.int8:
-        return w.to(torch.int32)
-    if w.dtype != torch.int32:
+def check_weights(name: str, w: torch.Tensor) -> torch.Tensor:
+    """Raise TypeError unless the weights are int8 or int32; returns w."""
+    if w.dtype not in (torch.int8, torch.int32):
         raise TypeError(f"{name}: weights must be int8 or int32, got {w.dtype}")
     return w
+
+
+def int32_weights(name: str, w: torch.Tensor) -> torch.Tensor:
+    """int8 or int32 weights as int32, as the JAX wrappers cast them."""
+    return check_weights(name, w).to(torch.int32)
 
 
 def check_block_rows(name: str, bm: int) -> int:

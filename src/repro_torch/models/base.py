@@ -16,6 +16,8 @@ from typing import Any
 
 import torch
 
+from repro_torch._device import resolve_device
+
 __all__ = ["ArchConfig", "ShapeConfig", "ParamInfo", "tree_map", "tree_init",
            "count_params"]
 
@@ -101,8 +103,9 @@ def tree_map(fn, tree):
 def tree_init(tree, generator: torch.Generator, device=None):
     """Materialize an abstract tree on `device`. Leaves draw from the one
     `generator` in the tree's key order (sorted at each level), so the
-    result depends only on the generator's seed and the tree."""
-    device = torch.device("cpu") if device is None else torch.device(device)
+    result depends only on the generator's seed and the tree. `device`
+    None means `cuda:0` (`_device.resolve_device`)."""
+    device = resolve_device(device)
 
     def mk(info: ParamInfo) -> torch.Tensor:
         if info.init == "zeros":

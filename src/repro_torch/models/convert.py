@@ -13,13 +13,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
+
 __all__ = ["from_jax_params"]
 
 
 def from_jax_params(tree, device=None) -> dict:
     """A tree of numpy arrays (nested dicts) -> the same tree of tensors
-    on `device` (the CPU when None)."""
-    device = torch.device("cpu") if device is None else torch.device(device)
+    on `device` (`cuda:0` when None, `_device.resolve_device`)."""
+    device = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):

@@ -6,12 +6,18 @@ boundary; the datapath follows the plan form (`cuda`,
 `cuda[packed=true]`, `cuda[planes=true]`):
 
   dense     — activations travel as int8 {0,1} into `binary_matmul`
-              (one byte per wire, int32 weights); binarize and step are
-              torch ops between the launches.
+              (one byte per wire); binarize and step are torch ops
+              between the launches.
   packed    — activations are packed 32 to an int32 word end to end:
               binarize emits words, every hidden boundary is a
               `step_pack`, and `binary_matmul_packed` consumes them (one
-              bit per wire; weights still int32).
+              bit per wire).
+
+              Both hold int8 weights in the tensor-core kernels' layout
+              (`mma_weights`), and so run on the int8 tensor cores, when
+              every layer's weights fit int8 (decided once, from the
+              plan's host arrays, when the predictor is built); otherwise
+              int32 weights and the scalar kernels.
   planes    — both operands travel as bits: weights split into packed
               signed bit-planes, one `binary_matmul_planes` launch per
               layer, `sum_b 2^b (popc(x & pos_b) - popc(x & neg_b))`.
@@ -82,6 +88,12 @@ def _argmax(acc: torch.Tensor) -> torch.Tensor:
     return torch.argmax(acc, dim=-1).to(torch.int32)
 
 
+def _fits_int8(plan: ExecutionPlan) -> bool:
+    """Every layer's weights lie in [-128, 127] (an empty layer fits)."""
+    return all(l.weights.size == 0 or (-128 <= l.weights.min() and l.weights.max() <= 127)
+               for l in plan.layers)
+
+
 def _chain(plan: ExecutionPlan, blocks: dict, device: torch.device):
     """One version's per-layer chain for the plan's form.
 
@@ -95,14 +107,16 @@ def _chain(plan: ExecutionPlan, blocks: dict, device: torch.device):
     thr = plan.input_threshold
 
     if form in ("dense", "packed"):
-        if form == "dense":
-            kernel, defaults = bmv.binary_matmul, (bmv.DENSE_BM, bmv.DENSE_BN)
+        kernel = bmv.binary_matmul if form == "dense" else bmv.binary_matmul_packed
+        bm, bn = blocks.get("bm"), blocks.get("bn")
+        bmv.check_matmul_blocks(bm, bn)
+        if _fits_int8(plan):
+            arrays = tuple(bmv.mma_weights(torch.as_tensor(l.weights, dtype=torch.int8,
+                                                           device=device))
+                           for l in plan.layers)
         else:
-            kernel, defaults = bmv.binary_matmul_packed, (bmv.PACKED_BM, bmv.PACKED_BN)
-        bm, bn = bmv.check_matmul_blocks(blocks.get("bm"), blocks.get("bn"),
-                                         defaults=defaults)
-        arrays = tuple(torch.as_tensor(l.weights, dtype=torch.int32, device=device)
-                       for l in plan.layers)
+            arrays = tuple(torch.as_tensor(l.weights, dtype=torch.int32, device=device)
+                           for l in plan.layers)
 
         def matmul(a, w):
             if w.shape[-2] == 0:

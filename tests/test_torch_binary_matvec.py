@@ -147,6 +147,36 @@ def test_binary_matmul_wraps_like_int32():
     assert (pallas != (x.astype(np.int64) @ w.astype(np.int64))).any()
 
 
+@pytest.mark.parametrize("b,k,n,lo,hi", [(5, 784, 500, -9, 9), (17, 70, 10, -128, 127),
+                                         (3, 200, 77, -128, 127), (33, 500, 10, -128, -128)])
+def test_int8_and_int32_weights_give_equal_results(b, k, n, lo, hi):
+    """The int8 form of a net's weights (the tensor-core route on the
+    card) and its int32 form (the scalar route) give the same int32
+    result, at the int8 extremes too, dense and packed; activations are
+    any nonzero byte."""
+    rng = np.random.default_rng(b + k + n)
+    x = torch.from_numpy(rng.integers(-2, 3, size=(b, k)).astype(np.int8))
+    w8 = rng.integers(lo, hi + 1, size=(k, n)).astype(np.int8)
+    w8[0], w8[-1] = -128, 127
+    w8, w32 = torch.from_numpy(w8), torch.from_numpy(w8.astype(np.int32))
+    want = (x.numpy() != 0).astype(np.int64) @ w32.numpy().astype(np.int64)
+    dense = ops.binary_matmul(x, w8)
+    assert dense.dtype == torch.int32
+    np.testing.assert_array_equal(dense.numpy(), want)
+    np.testing.assert_array_equal(ops.binary_matmul(x, w32).numpy(), want)
+    laid = ops.mma_weights(w8)
+    assert laid.shape == (k, n) and laid.stride(0) == 1 and laid.stride(1) % 16 == 0
+    np.testing.assert_array_equal(ops.binary_matmul(x, laid).numpy(), want)
+    xp = ops.pack_bits(x)
+    kp = xp.shape[1] * 32
+    pad8 = torch.zeros((kp, n), dtype=torch.int8)
+    pad8[:k] = w8
+    packed8 = ops.binary_matmul_packed(xp, pad8)
+    np.testing.assert_array_equal(packed8.numpy(), want)
+    np.testing.assert_array_equal(
+        ops.binary_matmul_packed(xp, pad8.to(torch.int32)).numpy(), want)
+
+
 def test_binary_matmul_rejects_bad_operands():
     x = torch.zeros((4, 64), dtype=torch.int8)
     w = torch.zeros((64, 5), dtype=torch.int32)
@@ -284,9 +314,12 @@ def test_cpu_calls_launch_no_kernel():
     x, w = torch.ones((2, 64), dtype=torch.int8), torch.ones((64, 3), dtype=torch.int32)
     ops.binary_matmul(x, w)
     ops.binary_matmul_packed(ops.pack_bits(x), w)
+    ops.binary_matmul(x, w.to(torch.int8))
+    ops.binary_matmul_packed(ops.pack_bits(x), w.to(torch.int8))
     for wrapper in (ops.binary_forward_planes, ops.binary_matmul_planes,
                     ops.binary_matmul, ops.binary_matmul_packed):
         assert wrapper.launches == 0
+    assert ops.binary_matmul.mma_launches == ops.binary_matmul_packed.mma_launches == 0
 
 
 @pytest.mark.parametrize("family", ["binary_matvec", "fused_mlp", "ssd_scan", "quant_matmul"])

@@ -172,8 +172,64 @@ def test_matmul_kernels_wrap_like_int32(cuda):
     x = torch.ones((3, 96), dtype=torch.int8, device=cuda)
     w = torch.from_numpy(rng.integers(2 ** 29, 2 ** 31 - 1, size=(96, 5)).astype(np.int32)).to(cuda)
     want = ref.binary_matmul(x, w)
+    mma = ops.binary_matmul.mma_launches, ops.binary_matmul_packed.mma_launches
     assert torch.equal(ops.binary_matmul(x, w), want)
     assert torch.equal(ops.binary_matmul_packed(ops.pack_bits(x), w), want)
+    # int32 weights take the scalar route
+    assert (ops.binary_matmul.mma_launches, ops.binary_matmul_packed.mma_launches) == mma
+
+
+def _int8_operands(rng, b, k, n, dev):
+    """Activations in -2..2 (nonzero means 1) and int8 weights over the
+    whole range, with a row at -128 and a row at 127."""
+    x = torch.from_numpy(rng.integers(-2, 3, size=(b, k)).astype(np.int8)).to(dev)
+    w = rng.integers(-128, 128, size=(k, n)).astype(np.int8)
+    w[0], w[-1] = -128, 127
+    return x, torch.from_numpy(w).to(dev)
+
+
+@pytest.mark.parametrize("b,k,n", [
+    (256, 784, 500), (256, 500, 10), (37, 784, 77), (5, 70, 10), (100, 70, 500),
+    (17, 1000, 8), (1, 33, 1), (300, 784, 10), (64, 20, 1030)])
+def test_matmul_mma_kernels_match_plain(cuda, b, k, n):
+    """The tensor-core routes of both wrappers at ragged shapes: B not a
+    multiple of 16, K not a multiple of 32 (and of 16 or 4: the staging
+    falls back from 16- to 4- to 1-byte copies), N not a multiple of 8."""
+    rng = np.random.default_rng(b * 7 + k + n)
+    x, w = _int8_operands(rng, b, k, n, cuda)
+    want = ref.binary_matmul(x, w)
+    before = ops.binary_matmul.launches, ops.binary_matmul.mma_launches
+    got = ops.binary_matmul(x, w)
+    torch.cuda.synchronize()
+    assert (ops.binary_matmul.launches, ops.binary_matmul.mma_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want)
+    assert torch.equal(got, ops.binary_matmul(x, w.int()))
+    assert torch.equal(got, ops.binary_matmul(x, ops.mma_weights(w)))
+    xp = ops.pack_bits(x)
+    wp = torch.zeros((xp.shape[1] * 32, n), dtype=torch.int8, device=cuda)
+    wp[:k] = w
+    before = ops.binary_matmul_packed.mma_launches
+    got = ops.binary_matmul_packed(xp, wp)
+    torch.cuda.synchronize()
+    assert ops.binary_matmul_packed.mma_launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, ref.binary_matmul_packed(xp, wp))
+    assert torch.equal(got, ops.binary_matmul_packed(xp, ops.mma_weights(wp)))
+
+
+def test_matmul_mma_kernels_take_every_block_shape(cuda):
+    """Every (bm, bn) the wrappers accept maps onto a tensor-core tile."""
+    rng = np.random.default_rng(11)
+    x, w = _int8_operands(rng, 70, 300, 150, cuda)
+    xp = ops.pack_bits(x)
+    wp = torch.zeros((xp.shape[1] * 32, 150), dtype=torch.int8, device=cuda)
+    wp[:300] = w
+    want = ref.binary_matmul(x, w)
+    for bm in ops.BLOCK_ROWS:
+        for bn in range(32, 1025, 32):
+            assert torch.equal(ops.binary_matmul(x, w, bm=bm, bn=bn), want), (bm, bn)
+            assert torch.equal(ops.binary_matmul_packed(xp, wp, bm=bm, bn=bn), want), (bm, bn)
 
 
 @pytest.mark.parametrize("b,k,h,o,bm,thr", [
@@ -213,11 +269,14 @@ def test_served_path_runs_each_new_kernel(cuda, target, wrapper):
                               target=target, slot_capacity=64)
     for name, net in nets.items():
         server.register(name, net)
+    ops.reset_launches()
     wrapper.launches = 0
     x = _images(4, 150, 120)
     out = server.predict_many({"v0": x, "v1": x[:70], "v2": x[:9]})
     single = server.predict("v1", x)
     assert wrapper.launches > 0
+    if target != "fused":          # |w| <= 5 fits int8: the tensor-core route
+        assert wrapper.mma_launches == wrapper.launches
     for name, req in (("v0", x), ("v1", x[:70]), ("v2", x[:9])):
         want = quantize.predict_quantized(nets[name], device=cuda)(req)
         np.testing.assert_array_equal(out[name], want.cpu().numpy())

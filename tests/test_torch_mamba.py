@@ -44,7 +44,7 @@ def model():
     jcfg, cfg = _cfgs()
     pj = jbase.tree_init(japi.abstract_params(jcfg), jax.random.PRNGKey(0))
     pn = jax.tree.map(np.asarray, pj)
-    return jcfg, cfg, pj, convert.from_jax_params(pn)
+    return jcfg, cfg, pj, convert.from_jax_params(pn, device="cpu")
 
 
 def _layer0(pj, pt):
@@ -128,7 +128,7 @@ def test_decode_step_matches_jax(model):
 def test_prefill_and_decode_step_match_jax(model, use_kernel):
     jcfg, cfg, pj, pt = model
     toks = _prompts(3, 2, 40)
-    cache = base.tree_init(api.abstract_cache(cfg, 2, 64), torch.Generator())
+    cache = base.tree_init(api.abstract_cache(cfg, 2, 64), torch.Generator(), "cpu")
     logits, cache = api.prefill(cfg, pt, {"tokens": torch.from_numpy(toks).long()}, cache,
                                 use_kernel=use_kernel)
     jcache = jbase.tree_init(japi.abstract_cache(jcfg, 2, 64), jax.random.PRNGKey(0))
@@ -181,9 +181,9 @@ def test_engine_bf16_close_to_jax():
     JAX's top-2 margin exceeds twice that."""
     jcfg, cfg = _cfgs("bfloat16")
     pj = jbase.tree_init(japi.abstract_params(jcfg), jax.random.PRNGKey(1))
-    pt = convert.from_jax_params(jax.tree.map(np.asarray, pj))
+    pt = convert.from_jax_params(jax.tree.map(np.asarray, pj), device="cpu")
     toks = _prompts(6, 4, 48)
-    cache = base.tree_init(api.abstract_cache(cfg, 4, 64), torch.Generator())
+    cache = base.tree_init(api.abstract_cache(cfg, 4, 64), torch.Generator(), "cpu")
     logits, _ = api.prefill(cfg, pt, {"tokens": torch.from_numpy(toks).long()}, cache,
                             use_kernel=True)
     jcache = jbase.tree_init(japi.abstract_cache(jcfg, 4, 64), jax.random.PRNGKey(0))
@@ -226,14 +226,27 @@ def test_configs_and_abstract_tree():
 def test_tree_init_is_seeded_and_follows_the_rules():
     cfg = configs.smoke(ARCH)
     tree = api.abstract_params(cfg)
-    p1 = base.tree_init(tree, torch.Generator().manual_seed(0))
-    p2 = base.tree_init(tree, torch.Generator().manual_seed(0))
+    p1 = base.tree_init(tree, torch.Generator().manual_seed(0), "cpu")
+    p2 = base.tree_init(tree, torch.Generator().manual_seed(0), "cpu")
     mix = p1["layers"]["mixer"]
     assert torch.equal(mix["in_proj"], p2["layers"]["mixer"]["in_proj"])
     assert torch.all(mix["d_skip"] == 1) and torch.all(mix["a_log"] == 0)
     # normal init: std = scale / sqrt(fan-in), fan-in dim 1 for stacked weights
     assert abs(float(mix["in_proj"].std()) - 64 ** -0.5) < 0.01
     assert abs(float(mix["conv_w"].std()) - 0.5 / 2) < 0.05
+
+
+def test_tree_init_and_from_jax_params_default_to_the_card(monkeypatch):
+    """device=None means cuda:0, so without CUDA both raise instead of
+    quietly building on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = api.abstract_params(configs.smoke(ARCH))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        base.tree_init(tree, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.from_jax_params({"w": np.zeros((2, 3), np.float32)})
+    assert convert.from_jax_params({"w": np.ones(2, np.float32)},
+                                   device="cpu")["w"].device.type == "cpu"
 
 
 def test_launcher_serves_the_smoke_config(capsys):
@@ -255,6 +268,6 @@ def test_unported_features_raise():
         with pytest.raises(NotImplementedError):
             api.abstract_params(dataclasses.replace(small, **repl))
     cfg = dataclasses.replace(small, modality="vlm")
-    p = base.tree_init(api.abstract_params(small), torch.Generator())
+    p = base.tree_init(api.abstract_params(small), torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError):
         api.forward(cfg, p, {"tokens": torch.zeros((1, 4), dtype=torch.long)})

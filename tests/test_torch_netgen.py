@@ -175,6 +175,35 @@ def test_targets_declare_only_ported_options():
     assert [t.name for t in netgen.list_targets()] == ["cuda", "fused", "torch"]
 
 
+@pytest.mark.parametrize("target,jtarget", [("cuda", "pallas"),
+                                            ("cuda[packed=true]", "pallas[packed=true]")])
+@pytest.mark.parametrize("wide", [False, True])
+def test_chain_holds_int8_weights_when_the_net_fits(target, jtarget, wide):
+    """The dense and packed chains hold int8 weights (the tensor-core
+    route) when every layer fits int8, else int32 (one |w| = 200 is
+    enough); either way the answers equal JAX's Pallas target in
+    interpret mode and `predict_quantized`."""
+    import jax.numpy as jnp
+    import torch
+    from repro_torch.netgen.backends import cuda
+
+    jnet = random_net(70, (45, 21, 7), lo=-9, hi=9)
+    if wide:
+        ws = [w.copy() for w in jnet.weights]
+        ws[1][3, 2] = 200
+        jnet = jquantize.QuantizedNet(weights=ws)
+    plan = lower_circuit(netgen.lower(_port(jnet)))
+    plan = plan.pack() if "packed" in target else plan
+    arrays, _ = cuda._chain(plan, {}, torch.device("cpu"))
+    assert {a.dtype for a in arrays} == {torch.int32 if wide else torch.int8}
+    x = np.random.default_rng(70).integers(0, 256, (19, 45)).astype(np.uint8)
+    got = netgen.Session(device="cpu").compile(_port(jnet), target=target)(x).numpy()
+    jart = jnetgen.Session().compile(jnet, target=jtarget)
+    np.testing.assert_array_equal(got, np.asarray(jart(jnp.asarray(x))))
+    np.testing.assert_array_equal(
+        got, np.asarray(jquantize.predict_quantized(jnet)(jnp.asarray(x))))
+
+
 def test_frontend_threshold_validation():
     net = random_net(3, (8, 3))
     for thr in (-1, 255, 1.5, True):

@@ -98,7 +98,7 @@ def smoke_params():
     jcfg = jconfigs.smoke("mamba2-2.7b")
     pj = jbase.tree_init(japi.abstract_params(jcfg), jax.random.PRNGKey(2))
     pn = jax.tree.map(np.asarray, pj)
-    return jcfg, pn, convert.from_jax_params(pn)
+    return jcfg, pn, convert.from_jax_params(pn, device="cpu")
 
 
 def _flat(tree, path=""):
