@@ -12,15 +12,19 @@ Phases, each raising on failure (nothing is caught):
    register and shared-memory report.
 3. Kernels against their plain PyTorch versions on the card, at the
    main paths' shapes. The netgen kernels (the paper's 784-500-10 net,
-   256 rows; 4 bit-planes on the planes path; seeded random words, bits,
-   weights |w| <= 9 and images; `binary_matmul` and
-   `binary_matmul_packed` on both routes: int8 weights in the layout the
-   backend holds (the tensor-core route, also with weights at -128 and
-   127) and int32 weights (the scalar route)) and `quant_matmul` (seeded int8 at the
-   W8 mamba2-2.7b `in_proj`, `out_proj` and a decode step) must be
-   exactly equal; `ssd_scan` (mamba2-2.7b at batch 4 x 512 tokens, chunk
-   128) within 1e-4 in fp32, and in bf16 within one bf16 ulp on y (plus
-   1e-5 for fp32 summation order) and 1e-4 on the fp32 state.
+   256 rows; seeded random words, bits, weights |w| <= 9 and images):
+   `binary_matmul_planes` on the 1-bit tensor cores (4 bit-planes, in
+   the `plane_mma_weights` layout the backend holds, and row-major at
+   layer 1, copied per call); `binary_matmul` and `binary_matmul_packed`
+   on both routes: int8 weights in the layout the backend holds (the
+   tensor-core route, also with weights at -128 and 127) and int32
+   weights (the scalar route); and `quant_matmul` (seeded int8 at the W8
+   mamba2-2.7b `in_proj` and `out_proj` on the 128 x 128 tile and a
+   decode step on the 64 x 64 tile, w_q in the `qmm_weights` layout, and
+   `in_proj` once with w_q row-major) must be exactly equal; `ssd_scan`
+   (mamba2-2.7b at batch 4 x 512 tokens, chunk 128) within 1e-4 in fp32,
+   and in bf16 within one bf16 ulp on y (plus 1e-5 for fp32 summation
+   order) and 1e-4 on the fp32 state.
 4. Main paths. (a) Three seeded 784-500-10 nets served by `NetServer` on
    `Session(device="cuda")`, once per target: `cuda[planes=true]` (one
    `predict` through the per-layer `binary_matmul_planes` chain, two
@@ -41,15 +45,19 @@ Phases, each raising on failure (nothing is caught):
    SSM states within 1e-3 of their largest magnitude, equal greedy tokens
    wherever the margin allows). The bf16 end-to-end differences are
    reported beside two witnesses of their cause: the plain SSD fed the
-   kernel route's bf16 dt, and the plain route in fp32 compute. `qlinear` runs on the W8 layer-0 `in_proj`/`out_proj` with that
-   prefill's real activations and must equal plain `qlinear` exactly.
+   kernel route's bf16 dt, and the plain route in fp32 compute. `qlinear`
+   runs on the W8 layer-0 `in_proj`/`out_proj` (weights made K-major by
+   `qmm_weights` once) with that prefill's real activations and must
+   equal plain `qlinear` exactly.
    Every launch count is set to 0 just before a path runs and read just
    after it; each of the path's kernels must have launched.
 5. Times: CUDA events, median of 20 runs after warmup, per kernel beside
    its plain version, the one-call library yardsticks where they exist
-   (fp32 `torch.matmul`, and `torch._int_mm` for int8 weights), and its
-   bound; a block-shape sweep of the dense and packed kernels (both
-   routes) and the fused kernel at layer-1 shape; the served rounds' latency per target; the
+   (fp32 `torch.matmul`, and `torch._int_mm` with B row-major and
+   K-contiguous where the weights fit int8; the faster is `library_ms`),
+   and its bound; a block-shape sweep of the planes, dense and packed
+   kernels (both routes) and the fused kernel at layer-1 shape; the
+   served rounds' latency per target; the
    LM path's prefill and per-token decode wall times, and a
    `torch.profiler` trace of one prefill and one decode step (device busy
    time, kernel launches, the longest kernels).
@@ -184,22 +192,29 @@ def _time_ms(fn, clock_hz: float) -> float:
     return statistics.median(runs)
 
 
-def _bound(nbytes: int, ops: int, ops_per_s: float) -> tuple[float, str]:
+def _bound(nbytes: int, ops: int, ops_per_s: float | None) -> tuple[float, str]:
+    """The larger of the bytes' and the operations' times, in ms; by bytes
+    alone where the card's rate for the operations is not published."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if ops_per_s is None:
+        return t_bytes, "bytes"
     t_ops = ops / ops_per_s * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def _work(name: str, args, kw) -> tuple[int, str]:
     """(operations, kind) one call of kernel `name` does on `args`:
-    popcounts for the bit-plane kernels (2 x rows x P x W x N per layer,
-    N the real class count on the last), int8 tensor-core operations for
-    the dense and packed products with int8 weights (2 x B x K x N), adds
-    for the others (B x K x N per layer; K = KW x 32 for packed words)."""
+    1-bit tensor-core AND-popcount bit operations for `binary_matmul_planes`
+    (2 x B x P x KW x 32 x N; NVIDIA publishes no rate for them, so its
+    bound is by bytes), popcounts for the megakernel (2 x rows x P x W x N
+    per layer, N the real class count on the last), int8 tensor-core
+    operations for the dense and packed products with int8 weights
+    (2 x B x K x N), adds for the others (B x K x N per layer; K = KW x 32
+    for packed words)."""
     import torch
     if name == "binary_matmul_planes":
         x, pos, _ = args
-        return 2 * x.shape[0] * pos.shape[0] * pos.shape[1] * pos.shape[2], "popc"
+        return 2 * x.shape[0] * pos.shape[0] * pos.shape[1] * 32 * pos.shape[2], "b1_tc"
     if name == "binary_forward_planes":
         x, planes = args[0], args[1:]
         rows = x.numel() // x.shape[-1]
@@ -219,15 +234,27 @@ def _work(name: str, args, kw) -> tuple[int, str]:
     return x.shape[0] * (w1.shape[0] * w1.shape[1] + w2.shape[0] * w2.shape[1]), "add"
 
 
+def _int_mm_layouts(xi, wi) -> dict:
+    """`torch._int_mm` (cuBLASLt's s8 x s8 -> s32) on int8 A (M, K) and B
+    (K, N) in both of B's layouts: row-major as given, and K-contiguous (the
+    transposed view of an (N, K) tensor, cuBLASLt's TN layout)."""
+    import torch
+    wt = wi.T.contiguous().T
+    return {"torch._int_mm": lambda: torch._int_mm(xi, wi),
+            "torch._int_mm TN": lambda: torch._int_mm(xi, wt)}
+
+
 def _library(name: str, args, out, clock_hz: float) -> dict:
     """The one-call PyTorch yardsticks computing the same product, each
     exact here: an fp32 `torch.matmul` without TF32 (every sum is an
-    integer below 2**24) and, for the dense and packed products whose
-    weights fit int8, cuBLASLt's s8 x s8 -> s32 `torch._int_mm` on
-    operands zero-padded to its shape rules (K and N multiples of 8; M >
-    16). Returns their times, their largest differences from `out` on
-    the real columns, and the faster one as `library_ms`/`library`
-    (None where no yardstick exists)."""
+    integer below 2**24) and, where the weights fit int8 (the dense and
+    packed products' int8 weights, and the bit-planes recombined into
+    w = sum_b 2^b (pos_b - neg_b)), cuBLASLt's s8 x s8 -> s32
+    `torch._int_mm` in both of B's layouts on operands zero-padded to its
+    shape rules (K and N multiples of 8; M > 16). Returns their times,
+    their largest differences from `out` on the real columns, and the
+    faster one as `library_ms`/`library` (None where no yardstick
+    exists)."""
     import torch
     from repro_torch.kernels.binary_matvec import ref
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -247,15 +274,14 @@ def _library(name: str, args, out, clock_hz: float) -> dict:
         return {"library_ms": None, "library": None, "library_max_abs_err": None}
     calls = {"fp32 torch.matmul": (lambda: torch.matmul(xf, wf), lambda y: y.long())}
     (m, k), n = xf.shape, wf.shape[1]
-    if name != "binary_matmul_planes" and m > 16 and \
-            -128 <= int(wf.min()) and int(wf.max()) <= 127:
+    if m > 16 and -128 <= int(wf.min()) and int(wf.max()) <= 127:
         kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
         xi = torch.zeros((m, kp), dtype=torch.int8, device=xf.device)
         xi[:, :k] = xf.to(torch.int8)
         wi = torch.zeros((kp, np_), dtype=torch.int8, device=xf.device)
         wi[:k, :n] = wf.to(torch.int8)
-        calls["torch._int_mm"] = (lambda: torch._int_mm(xi, wi),
-                                  lambda y: y[:, :n].long())
+        for label, call in _int_mm_layouts(xi, wi).items():
+            calls[label] = (call, lambda y: y[:, :n].long())
     res = {}
     for label, (call, real) in calls.items():
         err = int((real(call()) - out.long()).abs().max().item())
@@ -318,16 +344,27 @@ def _ssd_flop(x, b, chunk: int) -> int:
     return bsz * h * (l // q) * (q * (q + 1) * n + q * (q + 1) * p + 4 * q * n * p)
 
 
-def _int_mm_library(args):
-    """The one-call yardstick of quant_matmul: cuBLASLt's s8 x s8 -> s32
-    (`torch._int_mm`) and the same epilogue, where its shape rules admit
-    the operands (M > 16, K and N multiples of 8); else None."""
-    import torch
+def _int_mm_library(args, out, clock_hz: float) -> dict:
+    """The one-call yardsticks of quant_matmul: `torch._int_mm` in both of
+    B's layouts (`_int_mm_layouts`) and the same epilogue, where its shape
+    rules admit the operands (M > 16, K and N multiples of 8). Returns
+    their times and largest differences from `out`, and the faster one as
+    `library_ms`/`library` (None when the shape rules refuse)."""
     xq, wq, sx, sw = args
     (m, k), n = xq.shape, wq.shape[1]
     if m <= 16 or k % 8 or n % 8:
-        return None
-    return lambda: (torch._int_mm(xq, wq).float() * sx) * sw
+        return {"library_ms": None, "library": None, "library_max_abs_err": None}
+    res = {}
+    for label, call in _int_mm_layouts(xq, wq.contiguous()).items():
+        def full(call=call):
+            return (call().float() * sx) * sw
+        res[f"{label} + epilogue"] = {
+            "ms": _time_ms(full, clock_hz),
+            "max_abs_err": float((full() - out).abs().max().item()),
+            "product_ms": _time_ms(call, clock_hz)}
+    best = min(res, key=lambda lb: res[lb]["ms"])
+    return {"library_ms": res[best]["ms"], "library": best,
+            "library_max_abs_err": res[best]["max_abs_err"], "yardsticks": res}
 
 
 def _lm_main_path(dev, wrappers, reset_launches):
@@ -564,8 +601,10 @@ def _qlinear_path(cfg, w8, prompts, dev, reset_launches) -> int:
         yg = m2.mamba_mixer(cfg, eye, hn, use_kernel=True)
         acts = {"in_proj": (hn.reshape(-1, cfg.d_model), lp0["mixer"]["in_proj"]),
                 "out_proj": (yg.reshape(-1, cfg.d_inner), lp0["mixer"]["out_proj"])}
+        # the K-major weights the kernel reads, made once, as a caller would
+        held = {name: qops.qmm_weights(w["q"]) for name, (_, w) in acts.items()}
         reset_launches()
-        got = {name: qops.qlinear(a, w["q"], w["s"]) for name, (a, w) in acts.items()}
+        got = {name: qops.qlinear(a, held[name], w["s"]) for name, (a, w) in acts.items()}
         torch.cuda.synchronize()
         n = qops.quant_matmul.launches
         for name, (a, w) in acts.items():
@@ -621,7 +660,7 @@ def main() -> int:
     smi = _smi("name,power.limit")
     clock_hz = float(_smi("clocks.max.sm").split()[0]) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rates = {"popc": POPC_PER_CLOCK_PER_SM * sms * clock_hz,
+    rates = {"b1_tc": None, "popc": POPC_PER_CLOCK_PER_SM * sms * clock_hz,
              "add": ADD_PER_CLOCK_PER_SM * sms * clock_hz,
              "fp32": 2 * FMA_PER_CLOCK_PER_SM * sms * clock_hz,
              "int8_tc": INT8_TC_OPS_PER_S}
@@ -651,11 +690,17 @@ def main() -> int:
     w1, w2 = -(-N_IN // 32), hidden_pad // 32
     thr = quantize.INPUT_THRESHOLD
     cases = {name: {} for name in NETGEN}
+    # The planes in the layout the backend holds (`plane_mma_weights`), and
+    # once row-major, which the op copies into that layout on every call.
     for label, (kw, n) in {"layer1": (w1, N_HIDDEN), "layer2": (w2, N_OUT)}.items():
-        args = (_words(rng, (BATCH, kw), dev), _words(rng, (PLANES, kw, n), dev),
-                _words(rng, (PLANES, kw, n), dev))
+        x, pos, neg = (_words(rng, (BATCH, kw), dev), _words(rng, (PLANES, kw, n), dev),
+                       _words(rng, (PLANES, kw, n), dev))
         cases["binary_matmul_planes"][label] = (
-            args, {}, ops.binary_matmul_planes, ref.plane_matmul)
+            (x, ops.plane_mma_weights(pos), ops.plane_mma_weights(neg)), {},
+            ops.binary_matmul_planes, ref.plane_matmul)
+        if label == "layer1":
+            cases["binary_matmul_planes"]["layer1_rowmajor"] = (
+                (x, pos, neg), {}, ops.binary_matmul_planes, ref.plane_matmul)
     for label, lead in {"single": (), "stacked": (MODELS,)}.items():
         x = torch.from_numpy(rng.integers(
             0, 256, size=(*lead, BATCH, N_IN), dtype=np.uint8)).to(dev)
@@ -706,16 +751,30 @@ def main() -> int:
             if not torch.equal(got, want):
                 raise AssertionError(f"{name}[{label}] disagrees with its plain version")
 
+    # w_q K-major as `qmm_weights` makes it once (the decode shape takes
+    # the narrow tile), and in_proj once more with w_q row-major, which the
+    # op copies into that layout on every call.
     lm_cases = {"quant_matmul": {}, "ssd_scan": {}}
+    qmm_cases = []
     for label, (m, k, n) in QMM_SHAPES.items():
-        args = _qmm_args(rng, m, k, n, dev)
+        xq, wq, sx, sw = _qmm_args(rng, m, k, n, dev)
+        qmm_cases.append((label, (xq, qops.qmm_weights(wq), sx, sw)))
+        if label == "in_proj":
+            qmm_cases.append(("in_proj_rowmajor", (xq, wq, sx, sw)))
+    for label, args in qmm_cases:
+        m = args[0].shape[0]
+        narrow = qops.quant_matmul.narrow_launches
         got, want = qops.quant_matmul(*args), qref.quant_matmul_ref(*args)
         torch.cuda.synchronize()
         err = float((got - want).abs().max().item())
         errors["quant_matmul", label] = err
-        print(f"[3 kernel] quant_matmul[{label}] {tuple(got.shape)} max_abs_err={err}")
+        tile = "64x64" if qops.quant_matmul.narrow_launches > narrow else "128x128"
+        print(f"[3 kernel] quant_matmul[{label}] {tuple(got.shape)} tile {tile} "
+              f"max_abs_err={err}")
         if not torch.equal(got, want):
             raise AssertionError(f"quant_matmul[{label}] disagrees with its plain version")
+        if (tile == "64x64") != (m <= qops.NARROW_M):
+            raise AssertionError(f"quant_matmul[{label}] took the {tile} tile at M={m}")
         lm_cases["quant_matmul"][label] = args
     for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         args = _ssd_args(rng, dev, dtype)
@@ -807,7 +866,8 @@ def main() -> int:
                 "plain_ms": _time_ms(lambda: plain(*args, **kw), clock_hz),
                 **_library(name, args, out, clock_hz),
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
-                {"popc": "popcounts", "add": "adds", "int8_tc": "int8_ops"}[op]: work,
+                {"b1_tc": "bit_ops", "popc": "popcounts", "add": "adds",
+                 "int8_tc": "int8_ops"}[op]: work,
                 "max_abs_err": errors[name, label],
             }
             per_shape.append(rec)
@@ -837,8 +897,8 @@ def main() -> int:
                 out = [kernel()]
                 (m, k), n = args[0].shape, args[1].shape[1]
                 work, rate = 2 * m * k * n, rates["int8_tc"]
-                library = _int_mm_library(args)
-                extra = {"int8_ops": work}
+                library = _int_mm_library(args, out[0], clock_hz)
+                extra = {"int8_ops": work, "tile": "64x64" if m <= qops.NARROW_M else "128x128"}
             else:
                 def kernel():
                     return sops.ssd(*args, chunk=LM_CHUNK)
@@ -847,17 +907,13 @@ def main() -> int:
                     return sref.ssd(*args, chunk=LM_CHUNK)
                 out = list(kernel())
                 work, rate = _ssd_flop(args[0], args[3], LM_CHUNK), rates["fp32"]
-                library = None
+                library = {"library_ms": None, "library": None, "library_max_abs_err": None}
                 extra = {"flop": work, "tf32_tc_floor_ms": work / TF32_TC_FLOP_PER_S * 1e3}
             moved = nbytes(args) + nbytes(out)
             bound_ms, bound_by = _bound(moved, work, rate)
             rec = {
                 "shape": label, "ms": _time_ms(kernel, clock_hz),
-                "plain_ms": _time_ms(plain, clock_hz),
-                "library_ms": None if library is None else _time_ms(library, clock_hz),
-                "library": None if library is None else "torch._int_mm",
-                "library_max_abs_err": None if library is None else
-                float((library() - out[0]).abs().max().item()),
+                "plain_ms": _time_ms(plain, clock_hz), **library,
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, **extra,
                 "max_abs_err": errors[name, label],
             }
@@ -880,6 +936,10 @@ def main() -> int:
                       "power": smi}))
 
     sweep = {}
+    args, _, kernel, _ = cases["binary_matmul_planes"]["layer1"]
+    sweep["binary_matmul_planes[layer1]"] = {f"bm={bm},bn={bn}": _time_ms(
+        lambda: kernel(*args, bm=bm, bn=bn), clock_hz)
+        for bm in SWEEP_MMA_BM for bn in SWEEP_BN}
     for name in ("binary_matmul", "binary_matmul_packed"):
         for label, bms in (("layer1_int8", SWEEP_MMA_BM), ("layer1", SWEEP_BM)):
             args, _, kernel, _ = cases[name][label]
@@ -893,6 +953,7 @@ def main() -> int:
         "binary_matmul": [ops.DENSE_BM, ops.DENSE_BN],
         "binary_matmul_packed": [ops.PACKED_BM, ops.PACKED_BN],
         "tensor-core route": [ops.MMA_BM, ops.MMA_BN],
+        "binary_matmul_planes": [ops.MATMUL_BM, ops.MATMUL_BN],
         "fused_mlp_predict": fops.FUSED_BM}}))
 
     latency = {}

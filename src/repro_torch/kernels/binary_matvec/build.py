@@ -21,8 +21,11 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "binary_matvec.cu"
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.bmv_matmul_planes.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+    ll = ctypes.c_longlong
+    lib.bmv_matmul_planes.argtypes = [vp, vp, vp, ll, i, vp, i, i, i, i, i, i, i, vp]
     lib.bmv_matmul_planes.restype = i
+    lib.bmv_planes_smem_bytes.argtypes = [i, i]
+    lib.bmv_planes_smem_bytes.restype = ll
     lib.bmv_matmul.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp]
     lib.bmv_matmul.restype = i
     lib.bmv_matmul_packed.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp]

@@ -16,12 +16,15 @@
 //   matmul_dense_kernel   the same two functions with int32 weights, one
 //   matmul_packed_kernel  predicated 32-bit add per (row, k, column): the
 //                         route for weights that do not fit int8.
-//   matmul_planes_kernel  both operands packed: w split into signed bit-planes,
+//   matmul_planes_mma_kernel
+//                         both operands packed: w split into signed bit-planes,
 //                         w = sum_b 2^b (pos_b - neg_b), each plane packed along
 //                         fan_in like x, so one layer is
 //                             y[r, n] = sum_b 2^b sum_w (popc(x[r, w] & pos[b, w, n])
-//                                                        - popc(x[r, w] & neg[b, w, n])).
-//                         Replaces binary_matmul_planes (_binary_matmul_planes_kernel).
+//                                                        - popc(x[r, w] & neg[b, w, n])),
+//                         on the 1-bit tensor cores (mma.sync m16n8k256
+//                         b1.and.popc). Replaces binary_matmul_planes
+//                         (_binary_matmul_planes_kernel).
 //   forward_planes_kernel the whole planes-form net in one launch. Replaces
 //                         binary_forward_planes (_forward_planes_kernel).
 //
@@ -44,13 +47,19 @@
 // The scalar kernels do one select and one add per (row, k, column); 32-bit
 // integer add issues at 64 results per clock per SM (CUDA C++ Programming
 // Guide, arithmetic instruction throughput, compute capability 9.0): ~100 M
-// adds at layer 1, so the adds set their floor. The planes kernels are bound
-// by popcount: __popc issues at 16 results per clock per SM, a quarter of the
-// add rate; layer 1 is ~26 M popcounts against ~0.6 MB of operands. The
-// scalar designs keep every activation in a register or in shared memory: a
-// tile of BM rows is staged in shared memory and read as warp broadcasts, and
-// each thread owns one output column and reads each weight word once per
-// tile, coalesced along the column axis, for BM rows.
+// adds at layer 1, so the adds set their floor. The scalar designs stage a
+// tile of BM rows in shared memory, read as warp broadcasts, and each thread
+// owns one output column and reads each weight word once per tile,
+// coalesced along the column axis, for BM rows.
+// The planes product is what the 1-bit tensor cores compute: AND, then
+// popcount summed over 256 bits of K, for a 16 x 8 tile per instruction.
+// NVIDIA publishes no b1 rate for the H100, so its bound is by bytes
+// (0.94 MB at layer 1, 0.28 us); like the int8 product it is bound in
+// practice by the launch and the latency of the K sweep, and shares its
+// design: 32 x 32 output tiles, operands double-buffered by cp.async, and
+// planes read from a copy laid out K-contiguous per column (the B operand's
+// layout), made once when the predictor is built. The whole-net
+// forward_planes_kernel keeps the scalar __popc (16 results per clock per SM).
 
 #include <climits>
 #include <cstddef>
@@ -64,13 +73,13 @@ constexpr int kWarp = 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // matmul: the K sweep runs inside the block in chunks of this many words
-// (packed, planes) or bytes (dense), staged in shared memory, so the grid
-// needs no reduction across blocks.
+// (packed) or bytes (dense), staged in shared memory, so the grid needs no
+// reduction across blocks.
 constexpr int kChunkWords = 32;
 constexpr int kDenseChunk = 256;
 // The widest column tile (bn) a matmul block takes. The dense and packed
 // kernels are compiled to launch with this many threads at every BM (their
-// registers are capped to fit); the planes kernel at BM=32 needs fewer threads.
+// registers are capped to fit).
 constexpr int kMaxBlockThreads = 1024;
 
 // forward: threads per block, and the deepest net one launch takes (the layer
@@ -460,49 +469,143 @@ __global__ void __launch_bounds__(kMaxBlockThreads) matmul_packed_kernel(const u
   }
 }
 
-// y = x . planes for x (B, KW) words and pos/neg (P, KW, N) words; y int32 (B, N).
-// Grid: (ceil(B / BM), ceil(N / blockDim.x)). Each thread owns one output
-// column n and the block's BM rows; blockDim.x is the column tile bn.
-template <int BM>
-__global__ void matmul_planes_kernel(const uint32_t* __restrict__ x,
-                                     const uint32_t* __restrict__ pos,
-                                     const uint32_t* __restrict__ neg,
-                                     int32_t* __restrict__ out, int B, int KW, int P, int N) {
-  __shared__ uint32_t xs[BM][kChunkWords];
-  const int row0 = blockIdx.x * BM;
-  const int n = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool valid = n < N;
+// ---- the bit-plane product on the 1-bit tensor cores -------------------------
 
-  uint32_t acc[BM];
-#pragma unroll
-  for (int r = 0; r < BM; ++r) acc[r] = 0u;
+// Words of K staged per chunk (one m16n8k256 step), the slots of the ring,
+// and the staged row length in words: 12 words make the fragment reads of
+// a warp (8 rows x 4 words) hit 32 distinct banks, and keep each row's
+// start 16-byte aligned for cp.async.
+constexpr int kPlaneWords = 8;
+constexpr int kPlaneStages = 2;
+constexpr int kPlaneRow = 12;
 
-  for (int k0 = 0; k0 < KW; k0 += kChunkWords) {
-    const int kc = min(kChunkWords, KW - k0);
-    for (int i = threadIdx.x; i < BM * kChunkWords; i += blockDim.x) {
-      const int r = i / kChunkWords;
-      const int c = i % kChunkWords;
-      const int row = row0 + r;
-      xs[r][c] = (row < B && c < kc) ? x[static_cast<size_t>(row) * KW + k0 + c] : 0u;
+// d = popc(a AND b) for one m16n8k256 tile from a zero sum: a 16x256 bits
+// (row), b 256x8 bits (col), d s32.
+__device__ __forceinline__ void mma_b1(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "r"(0));
+}
+
+// Dynamic shared memory of a planes block: per ring slot, TM x kPlaneRow
+// words of x and 2P x kMmaN x kPlaneRow words of planes (pos_b, neg_b for
+// each b). ops.py mirrors it as `planes_smem_bytes`.
+__host__ __device__ constexpr size_t planes_smem(int tm, int P) {
+  return static_cast<size_t>(kPlaneStages) * (tm + 2 * P * kMmaN) * kPlaneRow * sizeof(uint32_t);
+}
+
+// y = x . planes on the 1-bit tensor cores: x (B, KW) words, pos/neg planes
+// (P, KW, N) with word (b, w, n) at b * lp + n * ldw + w (K-contiguous per
+// column; lp, ldw and the base 16-byte aligned), y int32 (B, N). Grid and
+// warp layout as matmul_mma_kernel: TM rows and tn columns per block, walked
+// in sub-tiles of kMmaN columns; K in chunks of kPlaneWords words through a
+// ring of kPlaneStages slots filled by cp.async (x 4 bytes a copy, its rows
+// are not aligned; planes 16). Per chunk and plane b, each warp forms
+// popc(x & pos_b) and popc(x & neg_b) from zero sums, and adds
+// (pos - neg) << b to its uint32 totals: the shift and the adds distribute
+// over the chunks modulo 2^32, so the totals wrap exactly as the int32
+// reference does, for any P, with two temporary fragments per n8 tile.
+template <int TM>
+__global__ void __launch_bounds__(kMmaThreads)
+    matmul_planes_mma_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ pos,
+                             const uint32_t* __restrict__ neg, long long lp, int ldw,
+                             int32_t* __restrict__ out, int B, int KW, int P, int N, int tn) {
+  constexpr int NT = TM / 16;
+  extern __shared__ __align__(16) uint32_t plane_smem[];
+  const int slot_words = (TM + 2 * P * kMmaN) * kPlaneRow;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = (warp % NT) * 16;
+  const int c0 = (warp / NT) * NT * 8;
+  const int row0 = blockIdx.x * TM;
+  const int col0 = static_cast<int>(blockIdx.y) * tn;
+  const int n_end = min(N, col0 + tn);
+  const int chunks = (KW + kPlaneWords - 1) / kPlaneWords;
+
+  // Stages chunk c of x rows row0.. and of every plane's columns n0.. into
+  // ring slot `slot`; words past KW, rows past B and columns past N are 0.
+  auto stage = [&](int slot, int c, int n0) {
+    uint32_t* xs = plane_smem + slot * slot_words;
+    uint32_t* ws = xs + TM * kPlaneRow;
+    const int w0 = c * kPlaneWords;
+    for (int i = threadIdx.x; i < TM * kPlaneWords; i += kMmaThreads) {
+      const int r = i / kPlaneWords;
+      const int w = w0 + i % kPlaneWords;
+      const bool valid = row0 + r < B && w < KW;
+      cp_async4(&xs[r * kPlaneRow + i % kPlaneWords],
+                valid ? x + static_cast<size_t>(row0 + r) * KW + w : x, valid ? 4 : 0);
     }
-    __syncthreads();
-    for (int c = 0; c < kc; ++c) {
-      uint32_t a[BM];
+    // (plane-sign s, column n, half h): 16 bytes of words w0 + 4h.
+    for (int i = threadIdx.x; i < 2 * P * kMmaN * 2; i += kMmaThreads) {
+      const int h = i % 2;
+      const int n = (i / 2) % kMmaN;
+      const int s = i / (2 * kMmaN);
+      const int col = n0 + n;
+      const int w = w0 + 4 * h;
+      const int bytes = col < N ? 4 * max(0, min(4, KW - w)) : 0;
+      const uint32_t* src = (s % 2 ? neg : pos) + (s / 2) * lp + static_cast<size_t>(col) * ldw + w;
+      cp_async16(&ws[(s * kMmaN + n) * kPlaneRow + 4 * h], bytes ? src : pos, bytes);
+    }
+  };
+
+  for (int n0 = col0; n0 < n_end; n0 += kMmaN) {
+    uint32_t acc[NT][4];
 #pragma unroll
-      for (int r = 0; r < BM; ++r) a[r] = xs[r][c];
+    for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0u;
+
+#pragma unroll
+    for (int c = 0; c < kPlaneStages - 1; ++c) {
+      if (c < chunks) stage(c, c, n0);
+      cp_async_commit();
+    }
+    for (int c = 0; c < chunks; ++c) {
+      cp_async_wait<kPlaneStages - 2>();
+      __syncthreads();
+      const int next = c + kPlaneStages - 1;
+      if (next < chunks) stage(next % kPlaneStages, next, n0);
+      cp_async_commit();
+      const uint32_t* xs = plane_smem + (c % kPlaneStages) * slot_words;
+      const uint32_t* ws = xs + TM * kPlaneRow;
+      // a0/a1: rows g, g+8 at word t; a2/a3: the same rows at word 4+t.
+      const uint32_t a[4] = {xs[(r0 + g) * kPlaneRow + t], xs[(r0 + g + 8) * kPlaneRow + t],
+                             xs[(r0 + g) * kPlaneRow + 4 + t],
+                             xs[(r0 + g + 8) * kPlaneRow + 4 + t]};
       for (int b = 0; b < P; ++b) {
-        const size_t off = (static_cast<size_t>(b) * KW + k0 + c) * N + n;
-        const uint32_t p = valid ? __ldg(pos + off) : 0u;
-        const uint32_t q = valid ? __ldg(neg + off) : 0u;
-        accumulate(acc, a, p, q, b);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int n = c0 + 8 * j + g;
+          const uint32_t* p = &ws[((2 * b) * kMmaN + n) * kPlaneRow];
+          const uint32_t* q = &ws[((2 * b + 1) * kMmaN + n) * kPlaneRow];
+          const uint32_t bp[2] = {p[t], p[4 + t]};
+          const uint32_t bq[2] = {q[t], q[4 + t]};
+          int dp[4], dq[4];
+          mma_b1(dp, a, bp);
+          mma_b1(dq, a, bq);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j][i] += static_cast<uint32_t>(dp[i] - dq[i]) << b;
+        }
       }
     }
-    __syncthreads();
-  }
-  if (!valid) return;
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the ring before it is refilled
+
 #pragma unroll
-  for (int r = 0; r < BM; ++r) {
-    if (row0 + r < B) out[static_cast<size_t>(row0 + r) * N + n] = static_cast<int32_t>(acc[r]);
+    for (int j = 0; j < NT; ++j) {
+      const int col = n0 + c0 + 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + r0 + g + 8 * h;
+        if (row >= B) continue;
+        int32_t* o = out + static_cast<size_t>(row) * N + col;
+        if (col < N) o[0] = static_cast<int32_t>(acc[j][2 * h]);
+        if (col + 1 < N) o[1] = static_cast<int32_t>(acc[j][2 * h + 1]);
+      }
+    }
   }
 }
 
@@ -699,13 +802,21 @@ cudaError_t launch_packed(const void* x, const void* w, void* out, int B, int KW
   return cudaGetLastError();
 }
 
-template <int BM>
-cudaError_t launch_matmul(const void* x, const void* pos, const void* neg, void* out, int B,
-                          int KW, int P, int N, int bn, cudaStream_t stream) {
-  const dim3 grid((B + BM - 1) / BM, (N + bn - 1) / bn);
-  matmul_planes_kernel<BM><<<grid, bn, 0, stream>>>(
+template <int TM>
+cudaError_t launch_planes_mma(const void* x, const void* pos, const void* neg, long long lp,
+                              int ldw, void* out, int B, int KW, int P, int N, int tn,
+                              cudaStream_t stream) {
+  const size_t smem = planes_smem(TM, P);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(matmul_planes_mma_kernel<TM>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((B + TM - 1) / TM, (N + tn - 1) / tn);
+  matmul_planes_mma_kernel<TM><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(pos),
-      static_cast<const uint32_t*>(neg), static_cast<int32_t*>(out), B, KW, P, N);
+      static_cast<const uint32_t*>(neg), lp, ldw, static_cast<int32_t*>(out), B, KW, P, N, tn);
   return cudaGetLastError();
 }
 
@@ -802,23 +913,29 @@ int bmv_matmul_packed(const void* x, const void* w, void* out, int B, int KW, in
   }
 }
 
-int bmv_matmul_planes(const void* x, const void* pos, const void* neg, void* out, int B, int KW,
-                      int P, int N, int bm, int bn, int device, void* stream) {
-  if (B <= 0 || N <= 0 || KW < 0 || P < 0 || bn <= 0 || bn % kWarp != 0 || bn > kMaxBlockThreads) {
+// x (B, KW) words; pos/neg (P, KW, N) words laid out K-contiguous per
+// column (word (b, w, n) at b * lp + n * ldw + w): the 1-bit tensor-core
+// product. Returns a cudaError_t.
+int bmv_matmul_planes(const void* x, const void* pos, const void* neg, long long lp, int ldw,
+                      void* out, int B, int KW, int P, int N, int bm, int bn, int device,
+                      void* stream) {
+  const bool layout = KW == 0 || P == 0 ||
+                      (ldw >= KW && ldw % 4 == 0 && lp % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(pos) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(neg) % 16 == 0);
+  if (B <= 0 || N <= 0 || KW < 0 || P < 0 || !mma_blocks(bm, bn) || !layout) {
     return cudaErrorInvalidValue;
   }
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bm) {
-    case 1: return launch_matmul<1>(x, pos, neg, out, B, KW, P, N, bn, s);
-    case 2: return launch_matmul<2>(x, pos, neg, out, B, KW, P, N, bn, s);
-    case 4: return launch_matmul<4>(x, pos, neg, out, B, KW, P, N, bn, s);
-    case 8: return launch_matmul<8>(x, pos, neg, out, B, KW, P, N, bn, s);
-    case 16: return launch_matmul<16>(x, pos, neg, out, B, KW, P, N, bn, s);
-    case 32: return launch_matmul<32>(x, pos, neg, out, B, KW, P, N, bn, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return bm > 16 ? launch_planes_mma<32>(x, pos, neg, lp, ldw, out, B, KW, P, N, bn, s)
+                 : launch_planes_mma<16>(x, pos, neg, lp, ldw, out, B, KW, P, N, bn, s);
+}
+
+// Dynamic shared memory of a planes block at bm rows and P planes.
+long long bmv_planes_smem_bytes(int bm, int P) {
+  return static_cast<long long>(planes_smem(bm > 16 ? 32 : 16, P));
 }
 
 // pos/neg: `depth` device pointers each; planes/words/units: `depth` ints.

@@ -13,6 +13,8 @@ by the weights' dtype alone (no device sync, no range check): int8
 weights go to the int8 tensor-core kernel, int32 weights to the scalar
 kernel, the route for weights that do not fit int8. `.launches` counts
 both routes; `.mma_launches` counts the tensor-core launches alone.
+`binary_matmul_planes` has one route, the 1-bit tensor cores, for any
+plane count: planes are bits whatever the weights.
 
 Packed words are int32 tensors holding the uint32 bit pattern (see
 `ref.py`); numpy uint32 arrays cross over with `.view(np.int32)`.
@@ -35,10 +37,11 @@ __all__ = [
     "BLOCK_ROWS", "FORWARD_MAX_LAYERS", "binarize_pack", "binary_forward_planes",
     "binary_matmul", "binary_matmul_packed", "binary_matmul_planes",
     "check_forward_planes", "check_matmul_blocks", "forward_smem_bytes",
-    "mma_weights", "pack_bits", "reset_launches", "step_pack",
+    "mma_weights", "pack_bits", "plane_mma_weights", "planes_smem_bytes",
+    "reset_launches", "step_pack",
 ]
 
-MATMUL_BM, MATMUL_BN = 8, 128          # planes defaults: rows x columns per block
+MATMUL_BM, MATMUL_BN = 32, 32          # planes defaults (1-bit tensor cores): 128 blocks at layer 1
 DENSE_BM, DENSE_BN = 4, 128            # dense defaults: 256 blocks at layer 1
 PACKED_BM, PACKED_BN = 8, 64           # packed defaults: 256 blocks at layer 1
 MMA_BM, MMA_BN = 32, 32                # tensor-core defaults: 128 blocks at layer 1
@@ -90,6 +93,39 @@ def mma_weights(w: torch.Tensor) -> torch.Tensor:
                       device=w.device)
     buf[..., :k] = w.transpose(-1, -2)
     return buf.transpose(-1, -2)[..., :k, :]
+
+
+def plane_mma_weights(planes: torch.Tensor) -> torch.Tensor:
+    """int32 plane words (..., P, KW, N) in the layout the 1-bit
+    tensor-core kernel reads: the same words, KW contiguous within each
+    column, every column starting on a 32-byte boundary. It is a
+    transposed view of a zero-padded (..., P, N, ceil(KW / 8) * 8) buffer,
+    so it still has the public (..., P, KW, N) shape. The netgen backend
+    makes it once, when it builds a predictor; `binary_matmul_planes`
+    copies planes in any other layout into it on every call."""
+    if planes.dtype != torch.int32 or planes.dim() < 3:
+        raise TypeError(f"plane_mma_weights: want int32 words (..., P, KW, N), got "
+                        f"{planes.dtype} {tuple(planes.shape)}")
+    kw, n = planes.shape[-2:]
+    buf = torch.zeros((*planes.shape[:-2], n, -(-kw // 8) * 8), dtype=torch.int32,
+                      device=planes.device)
+    buf[..., :kw] = planes.transpose(-1, -2)
+    return buf.transpose(-1, -2)[..., :kw, :]
+
+
+def _in_plane_layout(p: torch.Tensor) -> bool:
+    """(P, KW, N) words K-contiguous per column, with plane and column
+    strides and the base 16-byte aligned, as the kernel reads them."""
+    return p.stride(1) == 1 and p.stride(2) % 4 == 0 and p.stride(2) >= p.shape[1] \
+        and p.stride(0) % 4 == 0 and p.data_ptr() % 16 == 0
+
+
+def planes_smem_bytes(bm: int, p: int) -> int:
+    """Dynamic shared memory of one planes block (`planes_smem` in the
+    .cu source): two ring slots of 16 or 32 rows of x and 2P x 32 columns
+    of planes, 8 words of K each in rows of 12 words."""
+    tm = 32 if bm > 16 else 16
+    return 2 * (tm + 2 * p * 32) * 12 * 4
 
 
 def _in_mma_layout(w: torch.Tensor) -> bool:
@@ -188,10 +224,12 @@ def binary_matmul_planes(xp: torch.Tensor, pos: torch.Tensor,
                          bn: int | None = None) -> torch.Tensor:
     """y = unpack(xp) @ w for w = sum_b 2^b (unpack(pos_b) - unpack(neg_b)).
 
-    xp: int32 words (B, KW); pos/neg: int32 words (P, KW, N). Returns
-    int32 (B, N). `bm` is the rows per block (one of BLOCK_ROWS), `bn`
-    the columns per block (a multiple of 32, at most 1024); both only
-    shape the CUDA launch.
+    xp: int32 words (B, KW); pos/neg: int32 words (P, KW, N), fastest in
+    the `plane_mma_weights` layout (any other layout is copied into it on
+    each call). Returns int32 (B, N), wrapping on overflow. `bm` is the
+    rows per block (one of BLOCK_ROWS; the tensor-core tile takes 16 rows
+    for bm <= 16, else 32), `bn` the columns per block (a multiple of 32,
+    at most 1024, walked 32 at a time); both only shape the CUDA launch.
     """
     name = "binary_matmul_planes"
     if xp.dim() != 2 or pos.dim() != 3 or pos.shape != neg.shape \
@@ -204,9 +242,16 @@ def binary_matmul_planes(xp: torch.Tensor, pos: torch.Tensor,
     if placement(name, (xp, pos, neg)) == "cpu":
         return ref.plane_matmul(xp, pos, neg)
     bm, bn = check_matmul_blocks(bm, bn)
-    check_contiguous(name, (xp, pos, neg))
     b, kw = xp.shape
     p, _, n = pos.shape
+    smem = planes_smem_bytes(bm, p)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: {p} planes need {smem} B of shared memory "
+                         f"(limit {SMEM_LIMIT} B)")
+    check_contiguous(name, (xp,))
+    if not (_in_plane_layout(pos) and _in_plane_layout(neg)
+            and pos.stride() == neg.stride()):
+        pos, neg = plane_mma_weights(pos), plane_mma_weights(neg)
     out = torch.empty((b, n), dtype=torch.int32, device=xp.device)
     if b == 0 or n == 0:
         return out
@@ -215,8 +260,8 @@ def binary_matmul_planes(xp: torch.Tensor, pos: torch.Tensor,
     lib = build.load()
     device, stream = stream_args(xp)
     err = lib.bmv_matmul_planes(
-        xp.data_ptr(), pos.data_ptr(), neg.data_ptr(), out.data_ptr(),
-        b, kw, p, n, bm, bn, device, stream)
+        xp.data_ptr(), pos.data_ptr(), neg.data_ptr(), pos.stride(0), pos.stride(2),
+        out.data_ptr(), b, kw, p, n, bm, bn, device, stream)
     check_launch(err, lib.bmv_error_string, name)
     binary_matmul_planes.launches += 1
     return out

@@ -21,7 +21,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "quant_matmul.cu"
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.qmm_matmul.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
+    ll = ctypes.c_longlong
+    lib.qmm_matmul.argtypes = [vp, ll, vp, ll, vp, vp, vp, i, i, i, i, i, vp]
     lib.qmm_matmul.restype = i
     lib.qmm_error_string.argtypes = [i]
     lib.qmm_error_string.restype = ctypes.c_char_p

@@ -20,7 +20,9 @@ boundary; the datapath follows the plan form (`cuda`,
               int32 weights and the scalar kernels.
   planes    — both operands travel as bits: weights split into packed
               signed bit-planes, one `binary_matmul_planes` launch per
-              layer, `sum_b 2^b (popc(x & pos_b) - popc(x & neg_b))`.
+              layer, `sum_b 2^b (popc(x & pos_b) - popc(x & neg_b))` on
+              the 1-bit tensor cores; the planes are held K-contiguous
+              per column (`plane_mma_weights`), made once at build.
   fusednet  — the whole planes-form net (any depth up to the kernel's
               limit, single or stacked) as ONE `binary_forward_planes`
               launch through `plan.megakernel_view()`.
@@ -146,8 +148,8 @@ def _chain(plan: ExecutionPlan, blocks: dict, device: torch.device):
     bm, bn = bmv.check_matmul_blocks(blocks.get("bm"), blocks.get("bn"))
     arrays = []
     for layer in plan.layers:
-        arrays.append(_words(layer.pos_planes, device))
-        arrays.append(_words(layer.neg_planes, device))
+        arrays.append(bmv.plane_mma_weights(_words(layer.pos_planes, device)))
+        arrays.append(bmv.plane_mma_weights(_words(layer.neg_planes, device)))
     words = [l.words for l in plan.layers]
     fan_outs = [l.fan_out for l in plan.layers]
 

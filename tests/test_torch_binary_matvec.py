@@ -217,6 +217,63 @@ def test_binary_matmul_planes_matches_pallas_and_ref(b, kw, n, p):
     np.testing.assert_array_equal(plain.numpy(), oracle)
 
 
+@pytest.mark.parametrize("lead,p,kw,n", [((), 4, 25, 500), ((), 1, 3, 10), ((), 6, 9, 33),
+                                         ((3,), 4, 16, 10), ((2,), 2, 8, 1)])
+def test_plane_mma_weights_keep_shape_and_values(lead, p, kw, n):
+    """The K-major copy keeps the public (..., P, KW, N) shape and every
+    word, with KW contiguous per column and columns 32-byte aligned."""
+    rng = np.random.default_rng(p * 100 + kw + n)
+    planes = _t(_words(rng, (*lead, p, kw, n)))
+    laid = ops.plane_mma_weights(planes)
+    assert laid.shape == planes.shape and laid.dtype == torch.int32
+    assert laid.stride(-2) == 1 and laid.stride(-1) % 8 == 0 and laid.stride(-1) >= kw
+    assert torch.equal(laid, planes)
+    if lead:
+        assert torch.equal(laid[1], planes[1]) and laid[1].stride() == laid[0].stride()
+    with pytest.raises(TypeError):
+        ops.plane_mma_weights(planes.long())
+
+
+@pytest.mark.parametrize("b,kw,n,p", [(5, 3, 10, 1), (17, 13, 45, 4), (8, 9, 33, 6),
+                                      (40, 25, 70, 4), (3, 1, 1, 8), (11, 17, 9, 2)])
+def test_binary_matmul_planes_kmajor_layout_matches_pallas(b, kw, n, p):
+    """Planes in the `plane_mma_weights` layout the backend holds give the
+    same words as contiguous planes, and both equal the Pallas kernel in
+    interpret mode; KW ragged (not a multiple of 8) included."""
+    rng = np.random.default_rng(b * 100 + kw * 10 + p + 5)
+    xp, pos, neg = _words(rng, (b, kw)), _words(rng, (p, kw, n)), _words(rng, (p, kw, n))
+    pallas = np.asarray(jops.binary_matmul_planes(
+        jnp.asarray(xp), jnp.asarray(pos), jnp.asarray(neg)))
+    flat = ops.binary_matmul_planes(_t(xp), _t(pos), _t(neg))
+    laid = ops.binary_matmul_planes(_t(xp), ops.plane_mma_weights(_t(pos)),
+                                    ops.plane_mma_weights(_t(neg)))
+    np.testing.assert_array_equal(laid.numpy(), pallas)
+    np.testing.assert_array_equal(flat.numpy(), pallas)
+    assert ops.planes_smem_bytes(32, 4) == 2 * (32 + 8 * 32) * 12 * 4
+
+
+def test_binary_matmul_planes_wraps_like_int32():
+    """24 planes of mostly set words overflow int32 the way the Pallas
+    kernel's int32 accumulator does (in the K-major layout)."""
+    b, kw, n, p = 4, 40, 9, 24
+    rng = np.random.default_rng(12)
+    xp = np.full((b, kw), 0xFFFFFFFF, np.uint32)
+    pos = np.full((p, kw, n), 0xFFFFFFFF, np.uint32)
+    neg = _words(rng, (p, kw, n)) & np.uint32(0x0000FFFF)
+    pos[-1, :, ::2] = 0
+    pallas = np.asarray(jops.binary_matmul_planes(
+        jnp.asarray(xp), jnp.asarray(pos), jnp.asarray(neg)))
+    got = ops.binary_matmul_planes(_t(xp), ops.plane_mma_weights(_t(pos)),
+                                   ops.plane_mma_weights(_t(neg)))
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    def popc(a):                    # (P, KW, N) words -> set bits per (P, N)
+        return np.unpackbits(a.view(np.uint8).reshape(*a.shape, 4), axis=-1).sum((1, 3))
+
+    exact = ((popc(pos) - popc(neg)).astype(np.int64) << np.arange(p)[:, None]).sum(0)
+    assert (exact >= 2 ** 31).any()          # the column sums wrap
+    np.testing.assert_array_equal(got.numpy(), np.broadcast_to(exact.astype(np.int32), (b, n)))
+
+
 def test_binary_matmul_planes_rejects_bad_operands():
     x = torch.zeros((4, 3), dtype=torch.int32)
     w = torch.zeros((2, 3, 5), dtype=torch.int32)

@@ -103,11 +103,68 @@ def test_forward_planes_kernel_all_scores_negative(cuda):
 
 
 def test_noncontiguous_operands_raise(cuda):
+    """Strided activations raise; planes in any layout are copied into the
+    K-major one and give the same words."""
     rng = np.random.default_rng(2)
-    x = _words(rng, (8, 6), cuda)
+    x = _words(rng, (8, 12), cuda)
     pos = _words(rng, (2, 6, 64), cuda)
     with pytest.raises(ValueError):
-        ops.binary_matmul_planes(x, pos[..., ::2], pos[..., ::2])
+        ops.binary_matmul_planes(x[:, ::2], pos, pos)
+    got = ops.binary_matmul_planes(x[:, :6].contiguous(), pos[..., ::2], pos[..., 1::2])
+    assert torch.equal(got, ref.plane_matmul(x[:, :6], pos[..., ::2], pos[..., 1::2]))
+    with pytest.raises(TypeError):
+        ops.binary_matmul_planes(x[:, :6].contiguous(), pos.long(), pos.long())
+    with pytest.raises(ValueError):        # 64 planes overflow a block's shared memory
+        big = _words(rng, (64, 6, 8), cuda)
+        ops.binary_matmul_planes(x[:, :6].contiguous(), big, big)
+
+
+def test_matmul_planes_kernel_takes_every_block_shape(cuda):
+    """Every (bm, bn) `check_matmul_blocks` accepts maps onto a 1-bit
+    tensor-core tile, bm=32, bn=1024 included."""
+    rng = np.random.default_rng(13)
+    x, pos, neg = (_words(rng, s, cuda) for s in ((70, 25), (4, 25, 150), (4, 25, 150)))
+    pos, neg = ops.plane_mma_weights(pos), ops.plane_mma_weights(neg)
+    want = ref.plane_matmul(x, pos, neg)
+    for bm in ops.BLOCK_ROWS:
+        for bn in range(32, 1025, 32):
+            assert ops.check_matmul_blocks(bm, bn) == (bm, bn)
+            assert torch.equal(ops.binary_matmul_planes(x, pos, neg, bm=bm, bn=bn), want), (bm, bn)
+
+
+@pytest.mark.parametrize("p", range(1, 9))
+def test_matmul_planes_kernel_every_plane_count(cuda, p):
+    """P from 1 to 8 at the layer-1 width, the backend's K-major layout and
+    row-major planes alike."""
+    rng = np.random.default_rng(30 + p)
+    x, pos, neg = (_words(rng, s, cuda) for s in ((256, 25), (p, 25, 500), (p, 25, 500)))
+    want = ref.plane_matmul(x, pos, neg)
+    from repro_torch.kernels.binary_matvec import build
+    for bm in (16, 32):              # ops.py's mirror of the kernel's shared memory
+        assert build.load().bmv_planes_smem_bytes(bm, p) == ops.planes_smem_bytes(bm, p)
+    before = ops.binary_matmul_planes.launches
+    got = ops.binary_matmul_planes(x, ops.plane_mma_weights(pos), ops.plane_mma_weights(neg))
+    torch.cuda.synchronize()
+    assert ops.binary_matmul_planes.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(ops.binary_matmul_planes(x, pos, neg), want)
+
+
+def test_matmul_planes_kernel_wraps_like_int32(cuda):
+    """24 planes of mostly set words: the column sums pass 2^31 and wrap
+    as the int32 reference does."""
+    rng = np.random.default_rng(14)
+    b, kw, n, p = 40, 40, 70, 24
+    x = torch.full((b, kw), -1, dtype=torch.int32, device=cuda)
+    pos = torch.full((p, kw, n), -1, dtype=torch.int32, device=cuda)
+    neg = _words(rng, (p, kw, n), cuda) & 0xFFFF
+    want = ref.plane_matmul(x, pos, neg)
+    got = ops.binary_matmul_planes(x, ops.plane_mma_weights(pos), ops.plane_mma_weights(neg))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    exact = (ref.popcount(pos).sum(1) - ref.popcount(neg).sum(1)) \
+        << torch.arange(p, device=cuda)[:, None]
+    assert bool((exact.sum(0) >= 2 ** 31).all())
 
 
 def test_served_path_runs_both_kernels(cuda):
@@ -369,23 +426,48 @@ def test_ssd_kernel_refuses_bad_operands(cuda):
         sops.ssd(x, dt, a, bb, cc, chunk=256)
 
 
+def _qmm_operands(m, k, n, dev):
+    rng = np.random.default_rng(m + k + n)
+    xq = torch.from_numpy(rng.integers(-127, 128, size=(m, k)).astype(np.int8)).to(dev)
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8)).to(dev)
+    sx = torch.tensor(0.013, device=dev)
+    sw = torch.from_numpy(rng.uniform(0.001, 0.1, size=(n,)).astype(np.float32)).to(dev)
+    return xq, wq, sx, sw
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 64, 64), (3, 100, 50), (70, 130, 9), (4, 2560, 10576),
                                    (257, 513, 65), (128, 5120, 2560), (2, 1, 3)])
 def test_quant_matmul_kernel_matches_plain(cuda, m, k, n):
-    """Exact: the int32 core and the epilogue's order are fixed."""
+    """Exact: the int32 core and the epilogue's order are fixed. Row-major
+    w_q (copied per call) and the `qmm_weights` layout alike."""
     from repro_torch.kernels.quant_matmul import ops as qops
     from repro_torch.kernels.quant_matmul import ref as qref
-    rng = np.random.default_rng(m + k + n)
-    xq = torch.from_numpy(rng.integers(-127, 128, size=(m, k)).astype(np.int8)).to(cuda)
-    wq = torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8)).to(cuda)
-    sx = torch.tensor(0.013, device=cuda)
-    sw = torch.from_numpy(rng.uniform(0.001, 0.1, size=(n,)).astype(np.float32)).to(cuda)
+    xq, wq, sx, sw = _qmm_operands(m, k, n, cuda)
     before = qops.quant_matmul.launches
     got = qops.quant_matmul(xq, wq, sx, sw)
     torch.cuda.synchronize()
     assert qops.quant_matmul.launches == before + 1
     assert torch.equal(got, qref.quant_matmul_ref(xq, wq, sx, sw))
     assert torch.equal(got.cpu(), qops.quant_matmul(xq.cpu(), wq.cpu(), sx.cpu(), sw.cpu()))
+    assert torch.equal(got, qops.quant_matmul(xq, qops.qmm_weights(wq), sx, sw))
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 63, 64, 65, 2048])
+@pytest.mark.parametrize("k,n", [(2560, 1000), (200, 97), (48, 10576)])
+def test_quant_matmul_kernel_both_tiles(cuda, m, k, n):
+    """M on both sides of the narrow tile's limit (64 x 64 up to M = 64,
+    128 x 128 above, each counted), K ragged against the 128-byte K step,
+    N ragged against both tile widths."""
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.quant_matmul import ref as qref
+    xq, wq, sx, sw = _qmm_operands(m, k, n, cuda)
+    launches = qops.quant_matmul.launches, qops.quant_matmul.narrow_launches
+    got = qops.quant_matmul(xq, qops.qmm_weights(wq), sx, sw)
+    torch.cuda.synchronize()
+    narrow = int(m <= qops.NARROW_M)
+    assert (qops.quant_matmul.launches, qops.quant_matmul.narrow_launches) == \
+        (launches[0] + 1, launches[1] + narrow)
+    assert torch.equal(got, qref.quant_matmul_ref(xq, wq, sx, sw))
 
 
 def test_quant_matmul_kernel_refuses_bad_operands(cuda):
@@ -397,8 +479,14 @@ def test_quant_matmul_kernel_refuses_bad_operands(cuda):
         qops.quant_matmul(xq.int(), wq, 1.0, sw)
     with pytest.raises(TypeError):
         qops.quant_matmul(xq, wq, 1.0, sw.double())
-    with pytest.raises(ValueError):
-        qops.quant_matmul(xq, wq.T.contiguous().T, 1.0, sw)
+    with pytest.raises(TypeError):
+        qops.qmm_weights(wq.int())
+    with pytest.raises(ValueError):            # strided activations
+        qops.quant_matmul(torch.ones((4, 128), dtype=torch.int8, device=cuda)[:, ::2], wq,
+                          1.0, sw)
+    # the K-major view of (N, K) is the kernel's own layout, taken as it is
+    kmajor = wq.T.contiguous().T
+    assert torch.equal(qops.quant_matmul(xq, kmajor, 1.0, sw), qops.quant_matmul(xq, wq, 1.0, sw))
     x = torch.randn(8, 64, device=cuda, dtype=torch.bfloat16)
     y = qops.qlinear(x, wq, sw)
     assert y.dtype == torch.bfloat16 and y.shape == (8, 32)

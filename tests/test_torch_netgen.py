@@ -204,6 +204,34 @@ def test_chain_holds_int8_weights_when_the_net_fits(target, jtarget, wide):
         got, np.asarray(jquantize.predict_quantized(jnet)(jnp.asarray(x))))
 
 
+@pytest.mark.parametrize("stacked", [False, True])
+def test_planes_chain_holds_k_major_planes(stacked):
+    """The `cuda[planes=true]` chain holds every plane K-major
+    (`plane_mma_weights`, the 1-bit tensor cores' layout), single and
+    stacked; built on the CPU, its answers equal `predict_quantized` and
+    JAX's `pallas[planes=true]` target in interpret mode."""
+    import jax.numpy as jnp
+    import torch
+    from repro_torch.netgen.backends import cuda
+
+    jnets = [random_net(80 + i, (45, 21, 7), lo=-9, hi=9) for i in range(3 if stacked else 1)]
+    plans = [lower_circuit(netgen.lower(_port(j))) for j in jnets]
+    plan = (stack_plans(plans) if stacked else plans[0]).planes()
+    arrays, run = cuda._chain(plan, {}, torch.device("cpu"))
+    for a, want in zip(arrays, [p for l in plan.layers for p in (l.pos_planes, l.neg_planes)]):
+        assert a.shape == want.shape and a.stride(-2) == 1 and a.stride(-1) % 8 == 0
+        np.testing.assert_array_equal(a.numpy().view(np.uint32), want)
+    x = np.random.default_rng(80).integers(0, 256, (19, 45)).astype(np.uint8)
+    for m, jnet in enumerate(jnets):
+        ws = [a[m] for a in arrays] if stacked else arrays
+        got = run(torch.from_numpy(x), *ws).numpy()
+        np.testing.assert_array_equal(
+            got, np.asarray(jquantize.predict_quantized(jnet)(jnp.asarray(x))))
+    got = netgen.Session(device="cpu").compile(_port(jnets[0]), target="cuda[planes=true]")(x)
+    jart = jnetgen.Session().compile(jnets[0], target="pallas[planes=true]")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jart(jnp.asarray(x))))
+
+
 def test_frontend_threshold_validation():
     net = random_net(3, (8, 3))
     for thr in (-1, 255, 1.5, True):

@@ -45,13 +45,43 @@ def test_quant_matmul_exact_vs_pallas(m, k, n):
     np.testing.assert_array_equal(acc.numpy(), xq.astype(np.int64) @ wq.astype(np.int64))
 
 
+@pytest.mark.parametrize("k,n", [(2560, 40), (100, 50), (37, 131), (1, 3), (16, 1), (0, 5)])
+def test_qmm_weights_keep_shape_and_values(k, n):
+    """The K-major copy the kernel reads keeps the public (K, N) shape and
+    every value, with K contiguous per column and the column stride a
+    multiple of 16 bytes (at least 16)."""
+    _, wq, _, _ = _operands(2, k, n, k + n)
+    w = torch.from_numpy(wq)
+    laid = ops.qmm_weights(w)
+    assert laid.shape == (k, n) and laid.dtype == torch.int8
+    assert laid.stride(0) == 1 and laid.stride(1) % 16 == 0 and laid.stride(1) >= max(k, 16)
+    assert torch.equal(laid, w)
+    with pytest.raises(TypeError):
+        ops.qmm_weights(w.int())
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 2560, 40), (3, 100, 50), (5, 37, 131), (70, 130, 9)])
+def test_quant_matmul_kmajor_layout_matches_pallas(m, k, n):
+    """w_q in the `qmm_weights` layout gives the same result as row-major
+    w_q, and both equal the Pallas kernel in interpret mode, K ragged (not
+    a multiple of 16) included."""
+    xq, wq, sx, sw = _operands(m, k, n, m + 3 * k + n)
+    want = np.asarray(jops.quant_matmul(jnp.asarray(xq), jnp.asarray(wq), sx, jnp.asarray(sw)))
+    x, w, s = torch.from_numpy(xq), torch.from_numpy(wq), torch.from_numpy(sw)
+    np.testing.assert_array_equal(ops.quant_matmul(x, ops.qmm_weights(w), float(sx), s).numpy(),
+                                  want)
+    np.testing.assert_array_equal(ops.quant_matmul(x, w, float(sx), s).numpy(), want)
+    y = ops.qlinear(torch.from_numpy(xq.astype(np.float32)), ops.qmm_weights(w), s)
+    assert torch.equal(y, ops.qlinear(torch.from_numpy(xq.astype(np.float32)), w, s))
+
+
 def test_quant_matmul_takes_a_scale_tensor_and_counts_no_cpu_launch():
     xq, wq, sx, sw = (torch.from_numpy(np.asarray(v)) for v in _operands(4, 96, 33, 1))
     ops.reset_launches()
     got = ops.quant_matmul(xq, wq, sx, sw)
     assert torch.equal(got, ref.quant_matmul_ref(xq, wq, sx, sw))
     assert torch.equal(got, ops.quant_matmul(xq, wq, float(sx), sw))
-    assert ops.quant_matmul.launches == 0
+    assert ops.quant_matmul.launches == 0 and ops.quant_matmul.narrow_launches == 0
     with pytest.raises(ValueError):
         ops.quant_matmul(xq, wq[:-1], sx, sw)
     with pytest.raises(ValueError):
