@@ -18,27 +18,35 @@ Phases, each raising on failure (nothing is caught):
    layer 1, copied per call); `binary_matmul` and `binary_matmul_packed`
    on both routes: int8 weights in the layout the backend holds (the
    tensor-core route, also with weights at -128 and 127) and int32
-   weights (the scalar route); and `quant_matmul` (seeded int8 at the W8
+   weights (the scalar route); `fused_mlp_predict` on both routes the
+   same way (int8 weights on the int8 tensor cores, int32 on the scalar
+   kernel); and `quant_matmul` (seeded int8 at the W8
    mamba2-2.7b `in_proj` and `out_proj` on the 128 x 128 tile and a
    decode step on the 64 x 64 tile, w_q in the `qmm_weights` layout, and
    `in_proj` once with w_q row-major) must be exactly equal; `ssd_scan`
-   (mamba2-2.7b at batch 4 x 512 tokens, chunk 128) within 1e-4 in fp32,
-   and in bf16 within one bf16 ulp on y (plus 1e-5 for fp32 summation
-   order) and 1e-4 on the fp32 state.
+   (mamba2-2.7b at batch 4 x 512 tokens, chunk 128) within 1e-4 in fp32
+   (the scalar route), and in bf16 (which must take the tensor-core
+   route) within one bf16 ulp on y (plus 1e-5 for fp32 summation order)
+   and 1e-4 on the fp32 state.
 4. Main paths. (a) Three seeded 784-500-10 nets served by `NetServer` on
    `Session(device="cuda")`, once per target: `cuda[planes=true]` (one
    `predict` through the per-layer `binary_matmul_planes` chain, two
    `predict_many` calls over 3 versions with skewed request sizes through
    the `binary_forward_planes` megakernel), then `cuda`
-   (`binary_matmul`), `cuda[packed=true]` (`binary_matmul_packed`), both
-   of which must take the tensor-core route on every launch, and
-   `fused` (`fused_mlp_predict`) with the same requests; answers must
-   equal `predict_quantized` and the `torch` oracle target. (b) The LM
+   (`binary_matmul`), `cuda[packed=true]` (`binary_matmul_packed`) and
+   `fused` (`fused_mlp_predict`), all three of which must take the
+   tensor-core route on every launch, with the same requests; answers
+   must equal `predict_quantized` and the `torch` oracle target. Then
+   two 17-layer and two 40-layer width-16 nets through
+   `cuda[fusednet=true]` (the megakernel at any depth), and a net whose
+   accumulator wraps at 2**31 through every netgen target, equal to
+   `predict_quantized` (which wraps as the reference does). (b) The LM
    path: mamba2-2.7b at full width and depth (64 layers), weights from a
    `torch.Generator` seeded 0 on the card, compute dtype bf16, served by
    `Engine.generate` (batch 4 x prompt 512 and a ragged prompt of 200,
    then 32 new tokens) from the fp32 checkpoint and from its W8 form;
-   `ssd` must launch once per layer of each prefill. The kernel route is
+   `ssd` must launch once per layer of each prefill, every launch on the
+   tensor cores (the bf16 route). The kernel route is
    held against `use_kernel=False`: per layer on the same input in bf16
    (4 bf16 ulps of the layer's scale), and end to end over the 64 layers
    in fp32 compute, where no cast separates the routes (logits and final
@@ -51,24 +59,29 @@ Phases, each raising on failure (nothing is caught):
    equal plain `qlinear` exactly.
    Every launch count is set to 0 just before a path runs and read just
    after it; each of the path's kernels must have launched.
-5. Times: CUDA events, median of 20 runs after warmup, per kernel beside
-   its plain version, the one-call library yardsticks where they exist
-   (fp32 `torch.matmul`, and `torch._int_mm` with B row-major and
-   K-contiguous where the weights fit int8; the faster is `library_ms`),
-   and its bound; a block-shape sweep of the planes, dense and packed
-   kernels (both routes) and the fused kernel at layer-1 shape; the
-   served rounds' latency per target; the
-   LM path's prefill and per-token decode wall times, and a
+5. Times: CUDA events, median of 20 runs after warmup, per kernel (both
+   routes of the dense and packed products, of `fused_mlp_predict` and
+   of `ssd_scan`) beside its plain version, the one-call library
+   yardsticks where they exist (fp32 `torch.matmul`, and `torch._int_mm`
+   with B row-major and K-contiguous where the weights fit int8; the
+   faster is `library_ms`), and its bound (for `ssd_scan` by the
+   route's own rate, bf16 tensor cores or fp32 CUDA cores, with the
+   CUDA-core bound beside it); a block-shape sweep of the planes, dense
+   and packed kernels (both routes) and the scalar fused kernel at
+   layer-1 shape; the served rounds' latency per target; the LM path's
+   prefill and per-token decode wall times, and a
    `torch.profiler` trace of one prefill and one decode step (device busy
    time, kernel launches, the longest kernels).
 
-The last two lines are the `{"kernels": [...]}` record (seven kernels)
+The last two lines are the `{"kernels": [...]}` record (seven kernels;
+B3, B4, B5 and B7 headed by their tensor-core route, with `mma_launches`)
 and `{"ok": true, "device": {...}}`. Without CUDA, or without the
 repository's `src/` beside it, the script exits non-zero and prints no
 result. Imports nothing of JAX or of the JAX package `repro`.
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -101,7 +114,8 @@ NETGEN = ("binary_matmul_planes", "binary_forward_planes", "binary_matmul",
           "binary_matmul_packed", "fused_mlp_predict")
 # target -> the kernel whose every launch on its main path must take the
 # tensor-core route (the served nets' weights fit int8)
-MMA_PATHS = {"cuda": "binary_matmul", "cuda[packed=true]": "binary_matmul_packed"}
+MMA_PATHS = {"cuda": "binary_matmul", "cuda[packed=true]": "binary_matmul_packed",
+             "fused": "fused_mlp_predict"}
 # target -> the kernels its main path must launch
 PATHS = {
     "cuda[planes=true]": ("binary_matmul_planes", "binary_forward_planes"),
@@ -111,7 +125,7 @@ PATHS = {
 }
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 INT8_TC_OPS_PER_S = 1.979e15     # H100 SXM dense int8 tensor cores (data sheet)
-TF32_TC_FLOP_PER_S = 4.95e14     # H100 SXM dense TF32 tensor cores (data sheet)
+BF16_TC_FLOP_PER_S = 9.89e14     # H100 SXM dense bf16 tensor cores (data sheet)
 # CUDA C++ Programming Guide, arithmetic instruction throughput, compute
 # capability 9.0: results per clock per SM.
 POPC_PER_CLOCK_PER_SM = 16       # row "population count" (__popc)
@@ -124,6 +138,9 @@ SWEEP_BM, SWEEP_BN = (1, 2, 4, 8, 16, 32), (32, 64, 128, 256)
 SWEEP_MMA_BM = (16, 32)          # the tensor-core tiles' rows (bm rounds up to 16)
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_RAGGED, LM_NEW = "mamba2-2.7b", 4, 512, 200, 32
 LM_CHUNK = 128                   # the mixer's chunk
+DEEP_DEPTHS, DEEP_WIDTH = (17, 40), 16     # deep planes-form nets for cuda[fusednet=true]
+WRAP_TARGETS = ("torch", "cuda", "cuda[packed=true]", "cuda[planes=true]",
+                "cuda[fusednet=true]", "fused")
 # W8 (M, K, N) of qlinear/quant_matmul: in_proj and out_proj over a 4 x 512
 # prefill, and in_proj at one decode step of batch 4.
 QMM_SHAPES = {"in_proj": (LM_BATCH * LM_PROMPT, 2560, 10576),
@@ -208,9 +225,9 @@ def _work(name: str, args, kw) -> tuple[int, str]:
     (2 x B x P x KW x 32 x N; NVIDIA publishes no rate for them, so its
     bound is by bytes), popcounts for the megakernel (2 x rows x P x W x N
     per layer, N the real class count on the last), int8 tensor-core
-    operations for the dense and packed products with int8 weights
-    (2 x B x K x N), adds for the others (B x K x N per layer; K = KW x 32
-    for packed words)."""
+    operations for the dense and packed products and the fused net with
+    int8 weights (2 x B x K x N per layer), adds for the others (B x K x N
+    per layer; K = KW x 32 for packed words)."""
     import torch
     if name == "binary_matmul_planes":
         x, pos, _ = args
@@ -231,7 +248,8 @@ def _work(name: str, args, kw) -> tuple[int, str]:
             return 2 * x.shape[0] * w.shape[0] * w.shape[1], "int8_tc"
         return x.shape[0] * w.shape[0] * w.shape[1], "add"
     x, w1, w2 = args
-    return x.shape[0] * (w1.shape[0] * w1.shape[1] + w2.shape[0] * w2.shape[1]), "add"
+    macs = x.shape[0] * (w1.shape[0] * w1.shape[1] + w2.shape[0] * w2.shape[1])
+    return (2 * macs, "int8_tc") if w1.dtype == torch.int8 else (macs, "add")
 
 
 def _int_mm_layouts(xi, wi) -> dict:
@@ -334,14 +352,17 @@ def _ssd_agrees(y, s, yp, sp) -> bool:
 
 
 def _ssd_flop(x, b, chunk: int) -> int:
-    """BH (L/Q) (Q(Q+1) N + Q(Q+1) P + 4QNP): the FLOP y and the state need.
-    Per chunk, the causal Q(Q+1)/2 entries of the score tile, each a
-    length-N dot product (C B^T) and a length-P update of y (scores times
-    x), and 2QNP each for the carried-state term and the state update. The
-    masked upper triangle is not work the function needs."""
+    """BH (L/Q) (Q(Q+1) P + 4QNP) + B G (L/Q) Q(Q+1) N: the FLOP y and the
+    state need. Per chunk and head, the causal Q(Q+1)/2 entries of the
+    score tile each update a length-P row of y (scores times x), and 2QNP
+    each go to the carried-state term and the state update. C B^T is the
+    same for every head of a group, so its causal entries, each a length-N
+    dot product, count once per (batch, chunk, group). The masked upper
+    triangle is not work the function needs."""
     bsz, l, h, p = x.shape
-    n, q = b.shape[-1], chunk
-    return bsz * h * (l // q) * (q * (q + 1) * n + q * (q + 1) * p + 4 * q * n * p)
+    g, n, q = b.shape[-2], b.shape[-1], chunk
+    per_head = q * (q + 1) * p + 4 * q * n * p
+    return bsz * (l // q) * (h * per_head + g * q * (q + 1) * n)
 
 
 def _int_mm_library(args, out, clock_hz: float) -> dict:
@@ -365,6 +386,76 @@ def _int_mm_library(args, out, clock_hz: float) -> dict:
     best = min(res, key=lambda lb: res[lb]["ms"])
     return {"library_ms": res[best]["ms"], "library": best,
             "library_max_abs_err": res[best]["max_abs_err"], "yardsticks": res}
+
+
+def _deep_fusednet_path(session, oracle, dev, wrappers, reset_launches) -> int:
+    """Phase 4(a), deep nets: two versions each of a 17-layer and a
+    40-layer width-16 net (seeded weights in [-4, 6], 16-pixel images),
+    served by `cuda[fusednet=true]` (one stacked `predict_many` and one
+    `predict`; one `binary_forward_planes` launch each, any depth); answers
+    must equal `predict_quantized` and the `torch` target. Returns the
+    megakernel's launches."""
+    import numpy as np
+    from repro_torch.core import quantize
+    from repro_torch.netgen import NetServer
+
+    reset_launches()
+    answers = 0
+    for depth in DEEP_DEPTHS:
+        server = NetServer(session=session, target="cuda[fusednet=true]", slot_capacity=BATCH)
+        nets = {}
+        for v in range(2):
+            r = np.random.default_rng(SEED + 100 * depth + v)
+            sizes = (DEEP_WIDTH,) * depth + (N_OUT,)
+            nets[f"d{depth}v{v}"] = quantize.QuantizedNet(weights=[
+                r.integers(-4, 7, size=sz).astype(np.int32) for sz in zip(sizes, sizes[1:])])
+        for name, net in nets.items():
+            server.register(name, net)
+            oracle.register(name, net)
+        x = np.random.default_rng(SEED + depth).integers(
+            0, 256, size=(300, DEEP_WIDTH)).astype(np.uint8)
+        out = server.predict_many({name: x[:200 + 50 * i] for i, name in enumerate(nets)})
+        out[f"single d{depth}v0"] = server.predict(f"d{depth}v0", x)
+        for key, got in out.items():
+            name = key.split()[-1]
+            want = quantize.predict_quantized(nets[name], device=dev)(x[:got.shape[0]])
+            if not np.array_equal(got, want.cpu().numpy()):
+                raise AssertionError(f"fusednet {key}: answers != predict_quantized")
+            if not np.array_equal(got, oracle.predict(name, x[:got.shape[0]])):
+                raise AssertionError(f"fusednet {key}: answers != torch target")
+            answers += got.shape[0]
+    n = wrappers["binary_forward_planes"].launches
+    print(f"[4 main path] cuda[fusednet=true] deep nets {DEEP_DEPTHS} x width {DEEP_WIDTH}: "
+          f"{answers} answers equal predict_quantized and the torch target, "
+          f"binary_forward_planes launches {n}")
+    if n <= 0:
+        raise AssertionError("the deep fusednet path never launched binary_forward_planes")
+    return n
+
+
+def _wrapping_net_path(session, dev) -> None:
+    """Phase 4(a), int32 wrap: the 4x2 / 2x2 net whose hidden unit 0 sums
+    to 2**32 on four set pixels (w1 column 0 all 2**30), through every
+    netgen target; each must give class 1, equal to `predict_quantized`,
+    which wraps its accumulators to int32 as the reference does."""
+    import numpy as np
+    import torch
+    from repro_torch.core import quantize
+    w1 = np.ones((4, 2), np.int64)
+    w1[:, 0] = 2 ** 30
+    net = quantize.QuantizedNet(weights=[w1.astype(np.int32), np.array([[5, 0], [0, 1]],
+                                                                       np.int32)],
+                                input_threshold=127)
+    x = np.full((3, 4), 255, np.uint8)
+    want = quantize.predict_quantized(net, device=dev)(x)
+    got = {t: session.compile(net, target=t)(x).cpu().numpy() for t in WRAP_TARGETS}
+    print(f"[4 main path] wrapping net: predict_quantized {want.tolist()} "
+          f"({want.dtype}), targets {json.dumps({t: g.tolist() for t, g in got.items()})}")
+    if want.dtype != torch.int32 or want.tolist() != [1, 1, 1]:
+        raise AssertionError("predict_quantized does not wrap to int32")
+    for t, g in got.items():
+        if not np.array_equal(g, want.cpu().numpy()):
+            raise AssertionError(f"{t} disagrees with predict_quantized on the wrapping net")
 
 
 def _lm_main_path(dev, wrappers, reset_launches):
@@ -415,12 +506,17 @@ def _lm_main_path(dev, wrappers, reset_launches):
             print(f"[4 lm path] {ckpt} {kind} {pr.shape[0]}x{pr.shape[1]}: {wall:.2f} s, "
                   f"prefill {engine.stats['prefill_s'] * 1e3:.1f} ms, decode "
                   f"{decode_ms:.2f} ms/token, launches {counts}")
-            if counts["ssd_scan"] != cfg.n_layers:
-                raise AssertionError(f"{ckpt} {kind}: ssd launched {counts['ssd_scan']} "
-                                     f"times in one prefill, want {cfg.n_layers}")
+            mma = wrappers["ssd_scan"].mma_launches
+            print(f"[4 lm path] {ckpt} {kind}: {mma} of {counts['ssd_scan']} ssd_scan launches "
+                  "on the tensor cores")
+            if not counts["ssd_scan"] == mma == cfg.n_layers:
+                raise AssertionError(f"{ckpt} {kind}: ssd launched {counts['ssd_scan']} times "
+                                     f"({mma} on the tensor cores) in one prefill, want "
+                                     f"{cfg.n_layers} on the tensor cores")
             if out.shape != (LM_BATCH, LM_NEW) or out.min() < 0 or out.max() >= cfg.vocab:
                 raise AssertionError(f"{ckpt} {kind}: bad tokens, shape {out.shape}")
             launches["ssd_scan"] = counts["ssd_scan"]
+            launches["ssd_scan mma"] = mma
             times[f"{ckpt} {kind}"] = {
                 "prefill_ms": engine.stats["prefill_s"] * 1e3,
                 "decode_ms_per_token": decode_ms, "generate_s": wall,
@@ -708,8 +804,10 @@ def main() -> int:
         for kw, n in ((w1, hidden_pad), (w2, N_OUT)):
             planes += [_words(rng, (*lead, PLANES, kw, n), dev) for _ in range(2)]
         kw_args = {"threshold": thr, "n_classes": N_OUT}
+        # the layer table built once, as the backend builds it
+        forward = functools.partial(ops.binary_forward_planes, table=ops.ForwardTable(planes))
         cases["binary_forward_planes"][label] = (
-            (x, *planes), kw_args, ops.binary_forward_planes, ref.forward_planes)
+            (x, *planes), kw_args, forward, ref.forward_planes)
     # Both routes of the dense and packed products: int8 weights in the
     # layout the backend holds (`mma_weights`; the tensor-core route, the
     # main path's, heading the kernel's record), at |w| <= 9 and over the
@@ -734,11 +832,16 @@ def main() -> int:
         args = (_words(rng, (BATCH, kw), dev), weights(kw * 32, n, wide, dtype))
         cases["binary_matmul_packed"][label] = (
             args, {}, ops.binary_matmul_packed, ref.binary_matmul_packed)
-    args = (torch.from_numpy(rng.integers(0, 256, size=(BATCH, N_IN), dtype=np.uint8)).to(dev),
-            _ints(rng, -9, 9, (N_IN, N_HIDDEN), torch.int32, dev),
-            _ints(rng, -9, 9, (N_HIDDEN, N_OUT), torch.int32, dev))
-    cases["fused_mlp_predict"]["net"] = (
-        args, {"threshold": thr}, fops.fused_mlp_predict, fref.fused_mlp_predict)
+    # Both routes of the fused net: int8 weights in the layout the backend
+    # holds (the tensor-core route, heading the record), at |w| <= 9 and
+    # over the whole int8 range; then int32 weights (the scalar route).
+    x = torch.from_numpy(rng.integers(0, 256, size=(BATCH, N_IN), dtype=np.uint8)).to(dev)
+    for label, (wide, dtype) in {"net_int8": (False, torch.int8),
+                                 "net_int8_extremes": (True, torch.int8),
+                                 "net": (False, torch.int32)}.items():
+        args = (x, weights(N_IN, N_HIDDEN, wide, dtype), weights(N_HIDDEN, N_OUT, wide, dtype))
+        cases["fused_mlp_predict"][label] = (
+            args, {"threshold": thr}, fops.fused_mlp_predict, fref.fused_mlp_predict)
     errors = {}
     for name, shapes in cases.items():
         for label, (args, kw, kernel, plain) in shapes.items():
@@ -776,17 +879,23 @@ def main() -> int:
         if (tile == "64x64") != (m <= qops.NARROW_M):
             raise AssertionError(f"quant_matmul[{label}] took the {tile} tile at M={m}")
         lm_cases["quant_matmul"][label] = args
+    ssd_routes = {}
     for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         args = _ssd_args(rng, dev, dtype)
+        mma = sops.ssd.mma_launches
         (y, s), (yp, sp) = sops.ssd(*args, chunk=LM_CHUNK), sref.ssd(*args, chunk=LM_CHUNK)
         torch.cuda.synchronize()
+        ssd_routes[label] = "tensor cores" if sops.ssd.mma_launches > mma else "scalar"
         err = float((y.float() - yp.float()).abs().max().item())
         s_err = float((s - sp).abs().max().item())
         errors["ssd_scan", label] = err
-        print(f"[3 kernel] ssd_scan[{label}] {tuple(y.shape)} max_abs_err={err:.3g} "
-              f"(|y| <= {yp.float().abs().max().item():.3g}), state {s_err:.3g}")
+        print(f"[3 kernel] ssd_scan[{label}] {tuple(y.shape)} on the {ssd_routes[label]} "
+              f"route max_abs_err={err:.3g} (|y| <= {yp.float().abs().max().item():.3g}), "
+              f"state {s_err:.3g}")
         if not _ssd_agrees(y, s, yp, sp):
             raise AssertionError(f"ssd_scan[{label}] disagrees with its plain version")
+        if label == "bf16" and ssd_routes[label] != "tensor cores":
+            raise AssertionError("ssd_scan[bf16] did not take the tensor-core route")
         lm_cases["ssd_scan"][label] = args
 
     # -- 4. main paths --------------------------------------------------------
@@ -845,7 +954,12 @@ def main() -> int:
               "answers equal predict_quantized and the torch target")
         servers[target] = server
 
+    launches["binary_forward_planes"] += _deep_fusednet_path(session, oracle, dev, wrappers,
+                                                             reset_launches)
+    _wrapping_net_path(session, dev)
+
     lm_launches, lm_times, lm_trace = _lm_main_path(dev, wrappers, reset_launches)
+    mma_launches["ssd_scan"] = lm_launches.pop("ssd_scan mma")
     launches.update(lm_launches)
 
     # -- 5. times -------------------------------------------------------------
@@ -906,9 +1020,15 @@ def main() -> int:
                 def plain():
                     return sref.ssd(*args, chunk=LM_CHUNK)
                 out = list(kernel())
-                work, rate = _ssd_flop(args[0], args[3], LM_CHUNK), rates["fp32"]
+                work = _ssd_flop(args[0], args[3], LM_CHUNK)
+                # the route's own rate: bf16 tensor cores, or fp32 FMAs on
+                # the CUDA cores for the scalar route
+                tc = ssd_routes[label] == "tensor cores"
+                rate = BF16_TC_FLOP_PER_S if tc else rates["fp32"]
                 library = {"library_ms": None, "library": None, "library_max_abs_err": None}
-                extra = {"flop": work, "tf32_tc_floor_ms": work / TF32_TC_FLOP_PER_S * 1e3}
+                extra = {"flop": work, "path": ssd_routes[label],
+                         "cuda_core_bound_ms": _bound(nbytes(args) + nbytes(out), work,
+                                                      rates["fp32"])[0]}
             moved = nbytes(args) + nbytes(out)
             bound_ms, bound_by = _bound(moved, work, rate)
             rec = {
@@ -929,6 +1049,8 @@ def main() -> int:
             "library_ms": head["library_ms"], "library": head["library"],
             "timed_shape": head["shape"], "shapes": per_shape,
         })
+        if name in mma_launches:
+            records[-1]["mma_launches"] = mma_launches[name]
     for label, run in lm_times.items():
         if label.endswith("aligned"):     # the shape ssd_scan was timed at, per layer
             run["ssd_scan_ms_per_prefill"] = run["ssd_launches"] * records[-1]["ms"]

@@ -157,22 +157,27 @@ def quantize(params: dict) -> QuantizedNet:
 def predict_quantized(net: QuantizedNet, device=None):
     """Reference L3 arithmetic for a quantized net: the dense path the
     compiled targets must match bit for bit. Returns fn(uint8 images
-    (B, n_in), numpy or tensor) -> int64 class ids on `device`.
+    (B, n_in), numpy or tensor) -> int32 class ids on `device`.
 
-    The layer products run in float64, which is exact for every integer
-    accumulator below 2**53 (CUDA has no integer matmul); the int32
-    accumulators of the compiled paths are far inside that range.
+    The layer products run in float64 (CUDA has no integer matmul), which
+    is exact while a sum of {0, 1}-selected int32 weights stays below
+    2**53, i.e. for fan-ins below 2**22. Each accumulator is then wrapped
+    to int32 before the step and before the argmax, as the reference's
+    int32 products wrap.
     """
     dev = resolve_device(device)
     ws = [torch.as_tensor(np.asarray(w), dtype=torch.float64, device=dev)
           for w in net.weights]
     thr = net.input_threshold
 
+    def wrap(acc):
+        return acc.to(torch.int64).to(torch.int32)
+
     def f(x_uint8):
         x = torch.as_tensor(x_uint8, device=dev)
         a = binarize_input(x, thr).to(torch.float64)
         for w in ws[:-1]:
-            a = step(a @ w).to(torch.float64)
-        return torch.argmax(a @ ws[-1], dim=-1)
+            a = step(wrap(a @ w)).to(torch.float64)
+        return torch.argmax(wrap(a @ ws[-1]), dim=-1).to(torch.int32)
 
     return f

@@ -34,8 +34,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bmv_matmul_mma.restype = i
     lib.bmv_matmul_packed_mma.argtypes = [vp, vp, i, vp, i, i, i, i, i, i, vp]
     lib.bmv_matmul_packed_mma.restype = i
-    lib.bmv_forward_planes.argtypes = [
-        vp, i, i, i, i, i, vp, vp, vp, vp, vp, i, vp, i, i, vp]
+    lib.bmv_forward_planes.argtypes = [vp, i, i, i, i, vp, i, i, i, vp, i, i, vp]
     lib.bmv_forward_planes.restype = i
     lib.bmv_error_string.argtypes = [i]
     lib.bmv_error_string.restype = ctypes.c_char_p

@@ -25,7 +25,9 @@
 //                         on the 1-bit tensor cores (mma.sync m16n8k256
 //                         b1.and.popc). Replaces binary_matmul_planes
 //                         (_binary_matmul_planes_kernel).
-//   forward_planes_kernel the whole planes-form net in one launch. Replaces
+//   forward_planes_kernel the whole planes-form net in one launch, of any
+//                         depth: the layer table lies in device memory, built
+//                         once with the predictor. Replaces
 //                         binary_forward_planes (_forward_planes_kernel).
 //
 // Every kernel accumulates in 32-bit integers that wrap exactly as the int32
@@ -82,25 +84,21 @@ constexpr int kDenseChunk = 256;
 // registers are capped to fit).
 constexpr int kMaxBlockThreads = 1024;
 
-// forward: threads per block, and the deepest net one launch takes (the layer
-// table travels in the kernel's parameter space). ops.py mirrors both as
-// FORWARD_WARPS and FORWARD_MAX_LAYERS.
+// forward: threads per block (ops.py mirrors it as FORWARD_WARPS).
 constexpr int kForwardThreads = 256;
 constexpr int kForwardWarps = kForwardThreads / kWarp;
-constexpr int kMaxLayers = 16;
 
+// One row of the forward kernel's layer table, which lies in device memory
+// (any depth; ops.forward_table builds it, 32 bytes a layer, in this order).
 struct PlaneLayer {
   const uint32_t* pos;  // (P, W, N) words, or (M, P, W, N) when stacked
   const uint32_t* neg;
   int planes;           // P
   int words;            // W: packed fan_in
   int units;            // N: fan_out (hidden layers: a multiple of 32)
+  int pad;
 };
-
-struct PlaneNet {
-  PlaneLayer layer[kMaxLayers];
-  int depth;
-};
+static_assert(sizeof(PlaneLayer) == 32, "ops.forward_table writes 32-byte rows");
 
 // Adds one (word, plane) term to BM row accumulators.
 template <int BM>
@@ -625,8 +623,8 @@ __device__ __forceinline__ void take_max(int& v, int& i, int ov, int oi) {
 template <int BM>
 __global__ void __launch_bounds__(kForwardThreads)
     forward_planes_kernel(const uint8_t* __restrict__ x, int B, int K, int threshold,
-                          PlaneNet net, int n_classes, int max_words,
-                          int32_t* __restrict__ out) {
+                          const PlaneLayer* __restrict__ net, int depth, int n_classes,
+                          int max_words, int32_t* __restrict__ out) {
   extern __shared__ uint32_t smem[];
   uint32_t* cur = smem;
   uint32_t* nxt = smem + BM * max_words;
@@ -641,7 +639,7 @@ __global__ void __launch_bounds__(kForwardThreads)
 
   // Binarize and pack: lane i of a warp tests pixel 32w+i of row r, and the
   // ballot is the packed word. Pixels past K and rows past B are 0.
-  const int w0 = net.layer[0].words;
+  const int w0 = net[0].words;
   for (int i = warp; i < BM * w0; i += kForwardWarps) {
     const int r = i / w0;
     const int w = i % w0;
@@ -662,9 +660,9 @@ __global__ void __launch_bounds__(kForwardThreads)
     best_i[r] = INT_MAX;
   }
 
-  for (int l = 0; l < net.depth; ++l) {
-    const PlaneLayer L = net.layer[l];
-    const bool last = l + 1 == net.depth;
+  for (int l = 0; l < depth; ++l) {
+    const PlaneLayer L = net[l];
+    const bool last = l + 1 == depth;
     const size_t per_model = static_cast<size_t>(L.planes) * L.words * L.units;
     const uint32_t* pos = L.pos + m * per_model;
     const uint32_t* neg = L.neg + m * per_model;
@@ -821,8 +819,8 @@ cudaError_t launch_planes_mma(const void* x, const void* pos, const void* neg, l
 }
 
 template <int BM>
-cudaError_t launch_forward(const void* x, int M, int B, int K, int threshold, const PlaneNet& net,
-                           int n_classes, int max_words, size_t smem, void* out,
+cudaError_t launch_forward(const void* x, int M, int B, int K, int threshold, const void* net,
+                           int depth, int n_classes, int max_words, size_t smem, void* out,
                            cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -832,8 +830,8 @@ cudaError_t launch_forward(const void* x, int M, int B, int K, int threshold, co
   }
   const dim3 grid((B + BM - 1) / BM, M);
   forward_planes_kernel<BM><<<grid, kForwardThreads, smem, stream>>>(
-      static_cast<const uint8_t*>(x), B, K, threshold, net, n_classes, max_words,
-      static_cast<int32_t*>(out));
+      static_cast<const uint8_t*>(x), B, K, threshold, static_cast<const PlaneLayer*>(net),
+      depth, n_classes, max_words, static_cast<int32_t*>(out));
   return cudaGetLastError();
 }
 
@@ -938,39 +936,33 @@ long long bmv_planes_smem_bytes(int bm, int P) {
   return static_cast<long long>(planes_smem(bm > 16 ? 32 : 16, P));
 }
 
-// pos/neg: `depth` device pointers each; planes/words/units: `depth` ints.
-int bmv_forward_planes(const void* x, int M, int B, int K, int threshold, int depth,
-                       const void* const* pos, const void* const* neg, const int* planes,
-                       const int* words, const int* units, int n_classes, void* out, int bm,
-                       int device, void* stream) {
-  if (M <= 0 || B <= 0 || K < 0 || depth < 1 || depth > kMaxLayers || n_classes < 1) {
+// table: `depth` PlaneLayer rows in device memory (16-byte aligned);
+// max_words: the widest layer's W, which sizes the activation buffers.
+int bmv_forward_planes(const void* x, int M, int B, int K, int threshold, const void* table,
+                       int depth, int max_words, int n_classes, void* out, int bm, int device,
+                       void* stream) {
+  if (M <= 0 || B <= 0 || K < 0 || depth < 1 || max_words < 0 || n_classes < 1 ||
+      reinterpret_cast<uintptr_t>(table) % 16 != 0) {
     return cudaErrorInvalidValue;
   }
-  PlaneNet net{};
-  int max_words = 0;
-  for (int l = 0; l < depth; ++l) {
-    net.layer[l] = PlaneLayer{static_cast<const uint32_t*>(pos[l]),
-                              static_cast<const uint32_t*>(neg[l]), planes[l], words[l], units[l]};
-    max_words = words[l] > max_words ? words[l] : max_words;
-  }
-  net.depth = depth;
   const size_t smem =
       (2 * static_cast<size_t>(bm) * max_words + 2 * static_cast<size_t>(kForwardWarps) * bm) *
       sizeof(uint32_t);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FORWARD(BM) \
+  launch_forward<BM>(x, M, B, K, threshold, table, depth, n_classes, max_words, smem, out, s)
   switch (bm) {
-    case 1: return launch_forward<1>(x, M, B, K, threshold, net, n_classes, max_words, smem, out, s);
-    case 2: return launch_forward<2>(x, M, B, K, threshold, net, n_classes, max_words, smem, out, s);
-    case 4: return launch_forward<4>(x, M, B, K, threshold, net, n_classes, max_words, smem, out, s);
-    case 8: return launch_forward<8>(x, M, B, K, threshold, net, n_classes, max_words, smem, out, s);
-    case 16:
-      return launch_forward<16>(x, M, B, K, threshold, net, n_classes, max_words, smem, out, s);
-    case 32:
-      return launch_forward<32>(x, M, B, K, threshold, net, n_classes, max_words, smem, out, s);
+    case 1: return FORWARD(1);
+    case 2: return FORWARD(2);
+    case 4: return FORWARD(4);
+    case 8: return FORWARD(8);
+    case 16: return FORWARD(16);
+    case 32: return FORWARD(32);
     default: return cudaErrorInvalidValue;
   }
+#undef FORWARD
 }
 
 }  // extern "C"

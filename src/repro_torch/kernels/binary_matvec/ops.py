@@ -23,8 +23,6 @@ either device, as their JAX counterparts are `jnp` outside Pallas.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels.binary_matvec import ref
@@ -34,10 +32,10 @@ from repro_torch.kernels.launch import (
 )
 
 __all__ = [
-    "BLOCK_ROWS", "FORWARD_MAX_LAYERS", "binarize_pack", "binary_forward_planes",
+    "BLOCK_ROWS", "ForwardTable", "binarize_pack", "binary_forward_planes",
     "binary_matmul", "binary_matmul_packed", "binary_matmul_planes",
     "check_forward_planes", "check_matmul_blocks", "forward_smem_bytes",
-    "mma_weights", "pack_bits", "plane_mma_weights", "planes_smem_bytes",
+    "in_mma_layout", "mma_weights", "pack_bits", "plane_mma_weights", "planes_smem_bytes",
     "reset_launches", "step_pack",
 ]
 
@@ -46,7 +44,6 @@ DENSE_BM, DENSE_BN = 4, 128            # dense defaults: 256 blocks at layer 1
 PACKED_BM, PACKED_BN = 8, 64           # packed defaults: 256 blocks at layer 1
 MMA_BM, MMA_BN = 32, 32                # tensor-core defaults: 128 blocks at layer 1
 FORWARD_BM = 8
-FORWARD_MAX_LAYERS = 16                 # kMaxLayers in the .cu source
 FORWARD_WARPS = 8                       # kForwardThreads / 32
 
 binarize_pack = ref.binarize_pack
@@ -128,7 +125,9 @@ def planes_smem_bytes(bm: int, p: int) -> int:
     return 2 * (tm + 2 * p * 32) * 12 * 4
 
 
-def _in_mma_layout(w: torch.Tensor) -> bool:
+def in_mma_layout(w: torch.Tensor) -> bool:
+    """int8 (K, N) weights as the tensor-core kernels read them: K
+    contiguous in each column, column stride and base 16-byte aligned."""
     return w.shape[0] == 0 or (w.stride(0) == 1 and w.stride(1) % 16 == 0
                                and w.stride(1) >= w.shape[0] and w.data_ptr() % 16 == 0)
 
@@ -149,7 +148,7 @@ def _launch_matmul(name: str, x: torch.Tensor, w: torch.Tensor, k: int,
     -> (B, N). The tensor-core route reads int8 w in the `mma_weights`
     layout, copying it there first when it is laid out otherwise."""
     bm, bn = blocks
-    if mma and not _in_mma_layout(w):
+    if mma and not in_mma_layout(w):
         w = mma_weights(w)
     entry = f"bmv_{name}_mma" if mma else f"bmv_{name}"
     check_contiguous(entry, (x,) if mma else (x, w))
@@ -277,13 +276,12 @@ def check_forward_planes(layer_words, bm: int | None = None) -> int:
     """Raise ValueError when the forward kernel cannot take a net with
     these per-layer word widths at `bm` rows per block; returns bm.
     Checked on every device, so a net the kernel refuses is refused on
-    the CPU too."""
+    the CPU too. Any depth is taken: the layer table lies in device
+    memory (`ForwardTable`)."""
     name = "binary_forward_planes"
     bm = check_block_rows(name, FORWARD_BM if bm is None else bm)
-    if not 1 <= len(layer_words) <= FORWARD_MAX_LAYERS:
-        raise ValueError(
-            f"{name}: depth {len(layer_words)} outside "
-            f"[1, {FORWARD_MAX_LAYERS}]")
+    if not layer_words:
+        raise ValueError(f"{name}: want at least one layer")
     smem = forward_smem_bytes(layer_words, bm)
     if smem > SMEM_LIMIT:
         raise ValueError(
@@ -292,9 +290,30 @@ def check_forward_planes(layer_words, bm: int | None = None) -> int:
     return bm
 
 
+class ForwardTable:
+    """The forward kernel's layer table for one set of plane tensors: per
+    layer, a 32-byte row (pos and neg pointers; P, W, N; padding; the
+    `PlaneLayer` struct of the .cu source) in an int64 (depth, 4) tensor
+    on the planes' device. It is a pure function of the tensors' addresses
+    and shapes (`key`), so a table built once, when a predictor is built,
+    serves every call on those tensors without a host-to-device copy."""
+
+    def __init__(self, planes):
+        pairs = list(zip(planes[0::2], planes[1::2]))
+        self.key = _table_key(planes)
+        rows = [[p.data_ptr(), q.data_ptr(), p.shape[-3] | (p.shape[-2] << 32),
+                 p.shape[-1]] for p, q in pairs]
+        self.rows = torch.tensor(rows, dtype=torch.int64).to(planes[0].device)
+
+
+def _table_key(planes) -> tuple:
+    return tuple((t.data_ptr(), tuple(t.shape)) for t in planes)
+
+
 def binary_forward_planes(x: torch.Tensor, *planes: torch.Tensor,
                           threshold: int, n_classes: int,
-                          bm: int | None = None) -> torch.Tensor:
+                          bm: int | None = None,
+                          table: ForwardTable | None = None) -> torch.Tensor:
     """Whole-net forward in one launch: raw uint8 images -> class ids.
 
     x: uint8 (B, K), or (M, B, K) for a stacked M-model plan. `planes`
@@ -302,7 +321,9 @@ def binary_forward_planes(x: torch.Tensor, *planes: torch.Tensor,
     (P_l, W_l, N_l) per layer ((M, P_l, W_l, N_l) when stacked), as
     `ExecutionPlan.megakernel_view()` lays them out: each hidden N_l ==
     W_{l+1} * 32. Returns int32 (B,) / (M, B). `bm` is the rows per
-    block of the CUDA launch.
+    block of the CUDA launch. `table` is the `ForwardTable` of `planes`,
+    made once by a caller that calls again on the same tensors; without
+    it the CUDA route builds one per call (a host-to-device copy).
     """
     name = "binary_forward_planes"
     if not planes or len(planes) % 2:
@@ -346,20 +367,14 @@ def binary_forward_planes(x: torch.Tensor, *planes: torch.Tensor,
     from repro_torch.kernels.binary_matvec import build
 
     lib = build.load()
-    depth = len(pairs)
-    ptrs = ctypes.c_void_p * depth
-    ints = ctypes.c_int * depth
-    pos_ptrs = ptrs(*[p.data_ptr() for p, _ in pairs])
-    neg_ptrs = ptrs(*[q.data_ptr() for _, q in pairs])
-    p_l = ints(*[p.shape[-3] for p, _ in pairs])
-    w_l = ints(*layer_words)
-    n_l = ints(*[p.shape[-1] for p, _ in pairs])
+    if table is None:
+        table = ForwardTable(planes)
+    elif table.key != _table_key(planes) or table.rows.device != x.device:
+        raise ValueError(f"{name}: the layer table was built for other tensors")
     device, stream = stream_args(x)
     err = lib.bmv_forward_planes(
-        x.data_ptr(), m, b, k, int(threshold), depth,
-        ctypes.addressof(pos_ptrs), ctypes.addressof(neg_ptrs),
-        ctypes.addressof(p_l), ctypes.addressof(w_l), ctypes.addressof(n_l),
-        int(n_classes), out.data_ptr(), bm, device, stream)
+        x.data_ptr(), m, b, k, int(threshold), table.rows.data_ptr(), len(pairs),
+        max(layer_words), int(n_classes), out.data_ptr(), bm, device, stream)
     check_launch(err, lib.bmv_error_string, name)
     binary_forward_planes.launches += 1
     return out

@@ -23,6 +23,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.fmlp_predict.argtypes = [vp, i, i, i, vp, i, vp, i, vp, i, i, vp]
     lib.fmlp_predict.restype = i
+    lib.fmlp_predict_mma.argtypes = [vp, i, i, i, vp, i, i, vp, i, i, vp, i, vp]
+    lib.fmlp_predict_mma.restype = i
+    lib.fmlp_mma_smem_bytes.argtypes = [i, i]
+    lib.fmlp_mma_smem_bytes.restype = ctypes.c_longlong
     lib.fmlp_error_string.argtypes = [i]
     lib.fmlp_error_string.restype = ctypes.c_char_p
     return lib

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["BLOCK_ROWS", "SMEM_LIMIT", "check_block_rows", "check_contiguous",
-           "check_launch", "check_weights", "int32_weights", "placement",
+           "check_launch", "check_weights", "placement",
            "stream_args"]
 
 # Rows per block the kernels are instantiated for (`bm`).
@@ -41,11 +41,6 @@ def check_weights(name: str, w: torch.Tensor) -> torch.Tensor:
     if w.dtype not in (torch.int8, torch.int32):
         raise TypeError(f"{name}: weights must be int8 or int32, got {w.dtype}")
     return w
-
-
-def int32_weights(name: str, w: torch.Tensor) -> torch.Tensor:
-    """int8 or int32 weights as int32, as the JAX wrappers cast them."""
-    return check_weights(name, w).to(torch.int32)
 
 
 def check_block_rows(name: str, bm: int) -> int:

@@ -24,8 +24,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ssd_scan.argtypes = [i, vp, ll, ll, vp, ll, ll, vp, vp, ll, ll, vp, ll, ll,
                              vp, vp, i, i, i, i, i, i, i, i, vp]
     lib.ssd_scan.restype = i
+    lib.ssd_scan_mma.argtypes = lib.ssd_scan.argtypes[1:]
+    lib.ssd_scan_mma.restype = i
     lib.ssd_smem_bytes.argtypes = [i, i, i]
     lib.ssd_smem_bytes.restype = ll
+    lib.ssd_mma_smem_bytes.argtypes = [i, i, i]
+    lib.ssd_mma_smem_bytes.restype = ll
+    lib.ssd_mma_supported.argtypes = [i, i, i]
+    lib.ssd_mma_supported.restype = i
     lib.ssd_error_string.argtypes = [i]
     lib.ssd_error_string.restype = ctypes.c_char_p
     return lib

@@ -11,8 +11,15 @@ Unlike the JAX op, the kernel reads the model layout in place: it takes
 the batch and length strides of x, dt, b and c, maps head h to group
 h // (H/G) itself, and never materializes B and C repeated over the
 heads. The innermost two dims of x, b and c, and the head dim of dt,
-must be packed (stride 1 and the inner size). Launches are counted in
-`ssd.launches`, which `reset_launches()` sets back to 0.
+must be packed (stride 1 and the inner size).
+
+Two CUDA routes, picked by dtype and shape: bf16 inputs whose chunk is a
+multiple of 16 up to 128, with N <= 128 and P <= 64 (mamba2-2.7b's
+layers), go to the tensor-core kernel (`ssd_mma_kernel`, one head a
+block); fp32 inputs and other shapes to the
+scalar kernel (`ssd_scan_kernel`). `ssd.launches` counts both routes,
+`ssd.mma_launches` the tensor-core launches alone; `reset_launches()`
+sets both back to 0.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def reset_launches() -> None:
     """Set the wrapper's launch count to 0."""
     ssd.launches = 0
+    ssd.mma_launches = 0
 
 
 def _packed(t: torch.Tensor, inner: int) -> bool:
@@ -72,7 +80,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_per_head: torch.Tensor,
     from repro_torch.kernels.ssd_scan import build
 
     lib = build.load()
-    smem = lib.ssd_smem_bytes(chunk, N, P)      # the kernel's own layout
+    mma = x.dtype == torch.bfloat16 and bool(lib.ssd_mma_supported(chunk, N, P))
+    smem = (lib.ssd_mma_smem_bytes(chunk, N, P) if mma      # the kernels' own layouts
+            else lib.ssd_smem_bytes(chunk, N, P))
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: {smem} B of shared memory at chunk={chunk}, N={N}, "
                          f"P={P} exceeds {SMEM_LIMIT} B")
@@ -81,13 +91,17 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_per_head: torch.Tensor,
     if B * H == 0:
         return y, s
     device, stream = stream_args(x)
-    err = lib.ssd_scan(
-        int(x.dtype == torch.bfloat16), x.data_ptr(), x.stride(0), x.stride(1),
-        dt.data_ptr(), dt.stride(0), dt.stride(1), a_per_head.data_ptr(),
-        b.data_ptr(), b.stride(0), b.stride(1), c.data_ptr(), c.stride(0), c.stride(1),
-        y.data_ptr(), s.data_ptr(), B, L, H, G, N, P, chunk, device, stream)
+    args = (x.data_ptr(), x.stride(0), x.stride(1),
+            dt.data_ptr(), dt.stride(0), dt.stride(1), a_per_head.data_ptr(),
+            b.data_ptr(), b.stride(0), b.stride(1), c.data_ptr(), c.stride(0), c.stride(1),
+            y.data_ptr(), s.data_ptr(), B, L, H, G, N, P, chunk, device, stream)
+    if mma:
+        err = lib.ssd_scan_mma(*args)
+    else:
+        err = lib.ssd_scan(int(x.dtype == torch.bfloat16), *args)
     check_launch(err, lib.ssd_error_string, name)
     ssd.launches += 1
+    ssd.mma_launches += int(mma)
     return y, s
 
 

@@ -23,9 +23,10 @@ boundary; the datapath follows the plan form (`cuda`,
               layer, `sum_b 2^b (popc(x & pos_b) - popc(x & neg_b))` on
               the 1-bit tensor cores; the planes are held K-contiguous
               per column (`plane_mma_weights`), made once at build.
-  fusednet  — the whole planes-form net (any depth up to the kernel's
-              limit, single or stacked) as ONE `binary_forward_planes`
-              launch through `plan.megakernel_view()`.
+  fusednet  — the whole planes-form net (any depth whose activations
+              fit shared memory, single or stacked) as ONE
+              `binary_forward_planes` launch through
+              `plan.megakernel_view()`, its layer table built once.
 
 The stacked multi-net dispatch prefers the megakernel for the bit-plane
 options: `planes=true` builds it and falls back to the per-layer chain
@@ -34,7 +35,10 @@ Dense and packed sweep the model axis with a Python loop (depth x M
 launches per call against the megakernel's 1).
 
 `compile_fused` lowers the paper's 2-layer net into ONE
-`fused_mlp_predict` launch over the dense weights (the `fused` target).
+`fused_mlp_predict` launch over the dense weights (the `fused` target):
+int8 weights in the tensor-core layout (`mma_weights`) when both layers
+fit int8, decided once at build as for the chains; otherwise int32 and
+the scalar kernel.
 
 Predictors take uint8 images (numpy or tensor), return int32 class ids
 as a tensor on the compile device, and carry `plan_form`, `datapath`,
@@ -211,11 +215,13 @@ def _build_fusednet(plan: ExecutionPlan, blocks: dict, device: torch.device):
     view = plan.megakernel_view()
     bm = bmv.check_forward_planes(view.layer_words, blocks.get("bm"))
     arrays = tuple(_words(a, device) for a in view.arrays)
+    table = bmv.ForwardTable(arrays)
 
     def predict(x_uint8):
         return bmv.binary_forward_planes(
             as_device_images(x_uint8, device), *arrays,
-            threshold=view.input_threshold, n_classes=view.n_classes, bm=bm)
+            threshold=view.input_threshold, n_classes=view.n_classes, bm=bm,
+            table=table)
 
     return _finish_predictor(predict, plan_form="planes", datapath="fusednet",
                              blocks=blocks, launches=1)
@@ -267,18 +273,23 @@ def compile_fused(circuit: Circuit, *, device: torch.device,
                   bm: int | None = None):
     """The paper's 2-layer net as ONE `fused_mlp_predict` launch per call
     over the dense plan's weights; a plan of any other depth raises
-    IrregularCircuitError. `bm` pins the rows per block; a net whose
-    activations the kernel's shared memory cannot hold raises
-    ValueError here, on every device."""
+    IrregularCircuitError. `bm` pins the rows per block of the scalar
+    route; a net whose activations the route's shared memory cannot hold
+    raises ValueError here, on every device."""
     from repro_torch.kernels.fused_mlp import ops as fused
 
     plan = lower_circuit(circuit)
     if plan.depth != 2:
         raise IrregularCircuitError(
             f"fused backend supports exactly 2 layers, got {plan.depth}")
-    w1, w2 = (torch.as_tensor(l.weights, dtype=torch.int32, device=device)
-              for l in plan.layers)
-    kbm = fused.check_fused(w1.shape[0], w1.shape[1], w2.shape[1], bm)
+    mma = _fits_int8(plan)
+    if mma:
+        w1, w2 = (bmv.mma_weights(torch.as_tensor(l.weights, dtype=torch.int8, device=device))
+                  for l in plan.layers)
+    else:
+        w1, w2 = (torch.as_tensor(l.weights, dtype=torch.int32, device=device)
+                  for l in plan.layers)
+    kbm = fused.check_fused(w1.shape[0], w1.shape[1], w2.shape[1], bm, mma=mma)
     thr = plan.input_threshold
 
     def predict(x_uint8):

@@ -2,8 +2,9 @@
 
 Counterpart of `repro/serve/engine.py`. The engine serves fixed-size
 batches of prompts: prefill once, then one greedy token per step for the
-whole batch (`serve_step`). Greedy decoding is all the reference does,
-so its config's unused `temperature` and `seed` are left out. It runs
+whole batch (`serve_step`). Greedy decoding is all the reference does:
+`ServeConfig` carries its `temperature` and `seed` fields, in its order
+and with its defaults, and, as there, nothing reads them. It runs
 on `device` (the card unless the caller names the CPU). On the card, prefill sends every SSD through the
 `ssd_scan` kernel; `use_kernel=False` exists only so that tests and
 `chip_smoke.py` can compare the two routes, and nothing switches to it
@@ -28,7 +29,9 @@ __all__ = ["ServeConfig", "make_serve_step", "Engine"]
 class ServeConfig:
     max_len: int = 256
     max_new_tokens: int = 32
+    temperature: float = 0.0      # unread: decoding is greedy, as in the reference
     eos_id: int = -1              # -1 => never stop early
+    seed: int = 0                 # unread, as in the reference
 
 
 def make_serve_step(cfg: ArchConfig):

@@ -356,10 +356,33 @@ def test_binary_forward_planes_rejects_bad_layouts():
                                   *arrays[2:], threshold=128, n_classes=7)
     with pytest.raises(ValueError):           # unsupported rows per block
         ops.binary_forward_planes(x, *arrays, threshold=128, n_classes=7, bm=3)
-    with pytest.raises(ValueError):           # deeper than one launch takes
-        ops.check_forward_planes([1] * (ops.FORWARD_MAX_LAYERS + 1))
+    with pytest.raises(ValueError):           # no layer
+        ops.check_forward_planes([])
     with pytest.raises(ValueError):           # activations beyond shared memory
         ops.check_forward_planes([4000], bm=32)
+
+
+@pytest.mark.parametrize("depth", [17, 40])
+def test_binary_forward_planes_takes_any_depth(depth):
+    """No depth cap: the layer table lies in device memory, so a net
+    deeper than 16 layers is accepted and equals JAX's kernel and the
+    plain chain; its table has one 32-byte row per layer."""
+    net = random_net(depth, (16,) * depth + (5,), lo=-3, hi=3)
+    view = _view(net)
+    assert len(view.layer_words) == depth
+    assert ops.check_forward_planes(view.layer_words) == ops.FORWARD_BM
+    arrays = [_t(a) for a in view.arrays]
+    table = ops.ForwardTable(arrays)
+    assert table.rows.shape == (depth, 4) and table.rows.dtype == torch.int64
+    assert table.key == tuple((a.data_ptr(), tuple(a.shape)) for a in arrays)
+    x = images(depth, 9, 16)
+    kw = {"threshold": view.input_threshold, "n_classes": view.n_classes}
+    got = ops.binary_forward_planes(_t(x), *arrays, table=table, **kw)
+    pallas = np.asarray(jops.binary_forward_planes(
+        jnp.asarray(x), *[jnp.asarray(a) for a in view.arrays], **kw))
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jquantize.predict_quantized(net)(jnp.asarray(x))))
 
 
 def test_cpu_calls_launch_no_kernel():

@@ -73,7 +73,32 @@ def test_forward_planes_kernel_matches_plain(cuda, sizes, bm):
     torch.cuda.synchronize()
     assert torch.equal(got, ref.forward_planes(x, *arrays, **kw))
     want = quantize.predict_quantized(net, device=cuda)(x)
-    assert torch.equal(got.long(), want)
+    assert want.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("depth", [17, 40])
+def test_forward_planes_kernel_takes_deep_nets(cuda, depth):
+    """No depth cap: a width-16 net of 17 or 40 layers through the
+    megakernel (its layer table in device memory, built once) equals the
+    plain chain, `predict_quantized` and the `cuda[fusednet=true]` target."""
+    net = _net(depth, (16,) * depth + (5,), lo=-4, hi=6)
+    view = netgen.lower_circuit(netgen.lower(net)).megakernel_view()
+    arrays = [torch.from_numpy(a.view(np.int32)).to(cuda) for a in view.arrays]
+    table = ops.ForwardTable(arrays)
+    x = torch.from_numpy(_images(depth, 300, 16)).to(cuda)
+    kw = {"threshold": view.input_threshold, "n_classes": view.n_classes}
+    before = ops.binary_forward_planes.launches
+    got = ops.binary_forward_planes(x, *arrays, table=table, **kw)
+    again = ops.binary_forward_planes(x, *arrays, **kw)
+    torch.cuda.synchronize()
+    assert ops.binary_forward_planes.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, ref.forward_planes(x, *arrays, **kw))
+    assert torch.equal(got, quantize.predict_quantized(net, device=cuda)(x))
+    art = netgen.Session(device=cuda).compile(net, target="cuda[fusednet=true]")
+    assert torch.equal(art(x), got)
+    with pytest.raises(ValueError):           # a table of other tensors
+        ops.binary_forward_planes(x, *arrays, table=ops.ForwardTable(arrays[:2]), **kw)
 
 
 def test_forward_planes_kernel_stacked_and_random_words(cuda):
@@ -289,31 +314,58 @@ def test_matmul_mma_kernels_take_every_block_shape(cuda):
             assert torch.equal(ops.binary_matmul_packed(xp, wp, bm=bm, bn=bn), want), (bm, bn)
 
 
+@pytest.mark.parametrize("wdtype,lo,hi", [(torch.int32, -9, 9), (torch.int8, -9, 9),
+                                          (torch.int8, -128, 127)])
 @pytest.mark.parametrize("b,k,h,o,bm,thr", [
     (256, 784, 500, 10, None, 128), (37, 784, 500, 10, 1, 0), (9, 45, 21, 7, 8, 254),
-    (100, 70, 1100, 12, 32, 100), (3, 33, 40, 1, 4, 128), (64, 1000, 64, 30, 16, 50)])
-def test_fused_kernel_matches_plain(cuda, b, k, h, o, bm, thr):
-    """The paper shape at the default block, H wider than the block's
-    threads, one class, and K and H ragged."""
+    (100, 70, 1100, 12, 32, 100), (3, 33, 40, 1, 4, 128), (64, 1000, 64, 30, 16, 50),
+    (17, 130, 9, 3, 2, -1), (300, 800, 520, 11, 8, 255)])
+def test_fused_kernel_matches_plain(cuda, b, k, h, o, bm, thr, wdtype, lo, hi):
+    """Both routes: int32 weights on the scalar kernel, int8 (|w| <= 9 and
+    the whole int8 range) on the tensor cores, in the `mma_weights` layout
+    (w1 and w2) and row-major (copied per call). The paper shape at the
+    default block, H wider than the block's threads or than a cluster's
+    sub-tiles, one class, K, H, O and B ragged, thresholds past both ends."""
     rng = np.random.default_rng(b + k + h)
     x = torch.from_numpy(_images(b, b, k)).to(cuda)
-    w1 = torch.from_numpy(rng.integers(-9, 10, size=(k, h)).astype(np.int32)).to(cuda)
-    w2 = torch.from_numpy(rng.integers(-9, 10, size=(h, o)).astype(np.int32)).to(cuda)
-    before = fops.fused_mlp_predict.launches
-    got = fops.fused_mlp_predict(x, w1, w2, threshold=thr, bm=bm)
-    torch.cuda.synchronize()
-    assert fops.fused_mlp_predict.launches == before + 1
-    assert torch.equal(got, fref.fused_mlp_predict(x, w1, w2, threshold=thr))
+    w1 = torch.from_numpy(rng.integers(lo, hi + 1, size=(k, h))).to(wdtype).to(cuda)
+    w2 = torch.from_numpy(rng.integers(lo, hi + 1, size=(h, o))).to(wdtype).to(cuda)
+    if lo == -128:
+        w1[0], w2[-1] = -128, 127
+    want = fref.fused_mlp_predict(x, w1, w2, threshold=thr)
+    layouts = [(w1, w2)]
+    if wdtype == torch.int8:
+        layouts.append((ops.mma_weights(w1), ops.mma_weights(w2)))
+    for a1, a2 in layouts:
+        launches, mma = fops.fused_mlp_predict.launches, fops.fused_mlp_predict.mma_launches
+        got = fops.fused_mlp_predict(x, a1, a2, threshold=thr, bm=bm)
+        torch.cuda.synchronize()
+        assert fops.fused_mlp_predict.launches == launches + 1
+        assert fops.fused_mlp_predict.mma_launches == mma + int(wdtype == torch.int8)
+        assert torch.equal(got, want)
 
 
-def test_fused_kernel_all_scores_negative(cuda):
+@pytest.mark.parametrize("wdtype", [torch.int32, torch.int8])
+def test_fused_kernel_all_scores_negative(cuda, wdtype):
     rng = np.random.default_rng(4)
-    w1 = torch.from_numpy(rng.integers(-9, 10, size=(40, 16)).astype(np.int32)).to(cuda)
-    w2 = torch.from_numpy(-rng.integers(1, 6, size=(16, 6)).astype(np.int32)).to(cuda)
+    w1 = torch.from_numpy(rng.integers(-9, 10, size=(40, 16))).to(wdtype).to(cuda)
+    w2 = torch.from_numpy(-rng.integers(1, 6, size=(16, 6))).to(wdtype).to(cuda)
     x = _images(3, 9, 40)
     x[:, :8] = 255
     x = torch.from_numpy(x).to(cuda)
     got = fops.fused_mlp_predict(x, w1, w2, threshold=128)
+    assert torch.equal(got, fref.fused_mlp_predict(x, w1, w2, threshold=128))
+
+
+@pytest.mark.parametrize("wdtype", [torch.int32, torch.int8])
+def test_fused_kernel_ties_go_to_the_lower_class(cuda, wdtype):
+    """Equal class scores summed across the cluster's blocks: the first
+    maximum wins, also when the tie spans hidden units of several blocks."""
+    w1 = torch.ones((8, 600), dtype=wdtype, device=cuda)
+    w2 = torch.tensor([[1, 3, 3, 2]] * 600, dtype=wdtype, device=cuda)
+    x = torch.full((40, 8), 200, dtype=torch.uint8, device=cuda)
+    got = fops.fused_mlp_predict(x, w1, w2, threshold=128)
+    assert torch.equal(got, torch.ones(40, dtype=torch.int32, device=cuda))
     assert torch.equal(got, fref.fused_mlp_predict(x, w1, w2, threshold=128))
 
 
@@ -327,13 +379,12 @@ def test_served_path_runs_each_new_kernel(cuda, target, wrapper):
     for name, net in nets.items():
         server.register(name, net)
     ops.reset_launches()
-    wrapper.launches = 0
+    fops.reset_launches()
     x = _images(4, 150, 120)
     out = server.predict_many({"v0": x, "v1": x[:70], "v2": x[:9]})
     single = server.predict("v1", x)
     assert wrapper.launches > 0
-    if target != "fused":          # |w| <= 5 fits int8: the tensor-core route
-        assert wrapper.mma_launches == wrapper.launches
+    assert wrapper.mma_launches == wrapper.launches    # |w| <= 5 fits int8
     for name, req in (("v0", x), ("v1", x[:70]), ("v2", x[:9])):
         want = quantize.predict_quantized(nets[name], device=cuda)(req)
         np.testing.assert_array_equal(out[name], want.cpu().numpy())
@@ -354,24 +405,35 @@ def _ssd_inputs(b, l, h, g, p, n, seed, dev, dtype=torch.float32):
     return x, dt, a, bb, cc
 
 
-@pytest.mark.parametrize("b,l,h,g,p,n,chunk,dtype", [
-    (1, 64, 1, 1, 16, 32, 16, torch.float32), (2, 128, 4, 2, 32, 64, 64, torch.float32),
-    (2, 64, 8, 8, 16, 16, 32, torch.float32), (1, 256, 2, 1, 64, 128, 128, torch.float32),
-    (2, 96, 6, 3, 48, 40, 32, torch.float32), (2, 128, 4, 1, 64, 128, 128, torch.bfloat16),
-    (1, 512, 80, 1, 64, 128, 128, torch.bfloat16)])
-def test_ssd_kernel_matches_plain(cuda, b, l, h, g, p, n, chunk, dtype):
-    """Groups > 1, P and N off the 64-column passes, bf16, and a full-width
-    mamba2-2.7b head count. fp32: 1e-4; bf16: y within one bf16 ulp of the
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("b,l,h,g,p,n,chunk,dtype,mma", [
+    (1, 64, 1, 1, 16, 32, 16, _F32, False), (2, 128, 4, 2, 32, 64, 64, _F32, False),
+    (2, 64, 8, 8, 16, 16, 32, _F32, False), (1, 256, 2, 1, 64, 128, 128, _F32, False),
+    (2, 96, 6, 3, 48, 40, 32, _F32, False), (2, 128, 4, 1, 64, 128, 128, _BF16, True),
+    (1, 512, 80, 1, 64, 128, 128, _BF16, True), (1, 64, 1, 1, 16, 32, 16, _BF16, True),
+    (2, 128, 4, 2, 32, 64, 64, _BF16, True), (2, 64, 8, 8, 16, 16, 32, _BF16, True),
+    (2, 96, 6, 3, 48, 40, 32, _BF16, True), (1, 256, 3, 1, 24, 20, 64, _BF16, True),
+    (2, 256, 10, 5, 64, 128, 128, _BF16, True), (1, 128, 2, 1, 80, 16, 64, _BF16, False),
+    (1, 96, 2, 1, 16, 16, 24, _BF16, False), (1, 64, 2, 1, 16, 192, 64, _BF16, False)])
+def test_ssd_kernel_matches_plain(cuda, b, l, h, g, p, n, chunk, dtype, mma):
+    """Both routes: bf16 on the tensor cores (G > 1, several chunks and
+    one, Q in {16, 32, 64, 128}, P and N off the 16-column tiles, N not a
+    multiple of 8 (staged a value at a time), a full-width mamba2-2.7b
+    head count), and fp32 or shapes it refuses (P > 64, Q % 16, N > 128)
+    on the scalar kernel. fp32: 1e-4; bf16: y within one bf16 ulp of the
     larger of the two (both round fp32 sums once) plus 1e-5 for the sums'
     order, state 1e-4."""
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan import ref as sref
     args = _ssd_inputs(b, l, h, g, p, n, l + h, cuda, dtype)
-    before = sops.ssd.launches
+    before, before_mma = sops.ssd.launches, sops.ssd.mma_launches
     y, s = sops.ssd(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert sops.ssd.launches == before + 1
+    assert sops.ssd.mma_launches == before_mma + int(mma)
     yp, sp = sref.ssd(*args, chunk=chunk)
     assert y.dtype == dtype and s.dtype == torch.float32
     torch.testing.assert_close(s, sp, rtol=1e-4, atol=1e-4)
@@ -383,27 +445,58 @@ def test_ssd_kernel_matches_plain(cuda, b, l, h, g, p, n, chunk, dtype):
         assert bool(((g - w).abs() <= ulp + 1e-5).all())
 
 
+def test_mixer_pads_ragged_lengths_onto_the_tensor_cores(cuda):
+    """A ragged S in bf16: the mixer zero-pads it to a chunk multiple and
+    the SSD takes the tensor-core route; output and final state lie within
+    4 bf16 ulps of the layer's scale of the plain route (chip_smoke.py's
+    per-layer bound)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.layers import mamba2 as m2
+    from repro_torch.models import api, base, mamba
+    cfg = dataclasses.replace(configs.smoke("mamba2-2.7b"), ssm_state=128, ssm_headdim=64)
+    params = base.tree_init(api.abstract_params(cfg),
+                            torch.Generator(device=cuda).manual_seed(1), cuda)
+    mixer = mamba.layer(params["layers"], 0)["mixer"]
+    eps = torch.finfo(torch.bfloat16).eps
+    for s_len, chunk in ((100, 64), (200, 128), (77, 16)):
+        xin = torch.randn((2, s_len, cfg.d_model), device=cuda,
+                          generator=torch.Generator(device=cuda).manual_seed(s_len))
+        xin = xin.to(torch.bfloat16)
+        before = sops.ssd.mma_launches
+        ok, sk = m2.mamba_mixer(cfg, mixer, xin, chunk=chunk, use_kernel=True,
+                                return_state=True)
+        torch.cuda.synchronize()
+        assert sops.ssd.mma_launches == before + 1
+        op, sp = m2.mamba_mixer(cfg, mixer, xin, chunk=chunk, use_kernel=False,
+                                return_state=True)
+        for k, p in ((ok.float(), op.float()), (sk["ssm"], sp["ssm"])):
+            assert (k - p).abs().max() <= 4 * eps * p.abs().max()
+
+
 def test_ssd_kernel_reads_the_mixer_layout(cuda):
     """x, B and C as strided views of one conv output, the mixer's layout,
-    give the same bits as their contiguous copies; L % chunk != 0 is
-    refused as in the reference."""
+    give the same bits as their contiguous copies on both routes; L % chunk
+    != 0 is refused as in the reference."""
     from repro_torch.kernels.ssd_scan import ops as sops
     rng = np.random.default_rng(3)
     bsz, l, h, p, g, n = 2, 64, 4, 16, 1, 32
     conv = rng.normal(size=(bsz, l, h * p + 2 * g * n)).astype(np.float32)
     conv[..., h * p:] /= 6
-    conv = torch.from_numpy(conv).to(cuda)
-    x = conv[..., :h * p].reshape(bsz, l, h, p)
-    bb = conv[..., h * p:h * p + g * n].reshape(bsz, l, g, n)
-    cc = conv[..., h * p + g * n:].reshape(bsz, l, g, n)
-    assert not x.is_contiguous() and not bb.is_contiguous()
-    dt = torch.full((bsz, l, h), 0.05, device=cuda)
     a = -torch.ones(h, device=cuda)
-    y, s = sops.ssd(x, dt, a, bb, cc, chunk=32)
-    y2, s2 = sops.ssd(x.contiguous(), dt, a, bb.contiguous(), cc.contiguous(), chunk=32)
-    assert torch.equal(y, y2) and torch.equal(s, s2)
-    with pytest.raises(AssertionError):
-        sops.ssd(x[:, :48], dt[:, :48], a, bb[:, :48], cc[:, :48], chunk=32)
+    for dtype in (torch.float32, torch.bfloat16):
+        cv = torch.from_numpy(conv).to(cuda).to(dtype)
+        x = cv[..., :h * p].reshape(bsz, l, h, p)
+        bb = cv[..., h * p:h * p + g * n].reshape(bsz, l, g, n)
+        cc = cv[..., h * p + g * n:].reshape(bsz, l, g, n)
+        assert not x.is_contiguous() and not bb.is_contiguous()
+        dt = torch.full((bsz, l, h), 0.05, device=cuda, dtype=dtype)
+        y, s = sops.ssd(x, dt, a, bb, cc, chunk=32)
+        y2, s2 = sops.ssd(x.contiguous(), dt, a, bb.contiguous(), cc.contiguous(), chunk=32)
+        assert torch.equal(y, y2) and torch.equal(s, s2)
+        with pytest.raises(AssertionError):
+            sops.ssd(x[:, :48], dt[:, :48], a, bb[:, :48], cc[:, :48], chunk=32)
 
 
 def test_ssd_kernel_refuses_bad_operands(cuda):
@@ -417,13 +510,18 @@ def test_ssd_kernel_refuses_bad_operands(cuda):
         sops.ssd(x, dt.to(torch.bfloat16), a, bb, cc, chunk=32)
     with pytest.raises(TypeError):
         sops.ssd(x, dt, a.double(), bb, cc, chunk=32)
-    # shared memory, as the kernel library lays it out: 215,168 B for
-    # mamba2-2.7b at the mixer's chunk; chunk 256 is refused
+    # shared memory, as the kernel library lays it out: 215,168 B on the
+    # scalar route for mamba2-2.7b at the mixer's chunk, 214,528 B on the
+    # tensor cores (a two-slot ring); chunk 256 is refused on both
     from repro_torch.kernels.ssd_scan import build as sbuild
-    assert sbuild.load().ssd_smem_bytes(128, 128, 64) == 215_168
-    x, dt, a, bb, cc = _ssd_inputs(1, 256, 2, 1, 64, 128, 2, cuda)
-    with pytest.raises(ValueError):
-        sops.ssd(x, dt, a, bb, cc, chunk=256)
+    lib = sbuild.load()
+    assert lib.ssd_smem_bytes(128, 128, 64) == 215_168
+    assert lib.ssd_mma_smem_bytes(128, 128, 64) == 214_528
+    assert lib.ssd_mma_supported(128, 128, 64) and not lib.ssd_mma_supported(256, 128, 64)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dt, a, bb, cc = _ssd_inputs(1, 256, 2, 1, 64, 128, 2, cuda, dtype)
+        with pytest.raises(ValueError):
+            sops.ssd(x, dt, a, bb, cc, chunk=256)
 
 
 def _qmm_operands(m, k, n, dev):

@@ -106,3 +106,57 @@ def test_rejects_what_the_kernel_cannot_take():
         ops.check_fused(2_000_000, 500, 10, bm=32)
     assert ops.check_fused(784, 500, 10) == ops.FUSED_BM
     assert ops.fused_smem_bytes(784, 500, 10, 2) == 4 * 2 * (25 + 16 + 10)
+
+
+def test_tensor_core_route_states_its_shared_memory():
+    """The int8 route's block: a 4-slot ring of 16 + 64 rows of 272 bytes,
+    16 rows of the block's hidden units (ceil(H / 8) rounded up to 64) and
+    O columns of w2 over them as bytes, and 16 x O partial scores; refused
+    on every device past the limit, whatever bm."""
+    assert ops.fused_mma_smem_bytes(500, 10) == 4 * 80 * 272 + 26 * 64 + 4 * 16 * 10
+    assert ops.fused_mma_smem_bytes(1100, 12) == 4 * 80 * 272 + 28 * 192 + 4 * 16 * 12
+    assert ops.check_fused(784, 500, 10, mma=True) == ops.FUSED_BM
+    with pytest.raises(ValueError):
+        ops.check_fused(784, 100_000, 10, mma=True)
+    with pytest.raises(ValueError):              # the int8 route on the CPU refuses too
+        ops.fused_mlp_predict(torch.zeros((2, 8), dtype=torch.uint8),
+                              torch.zeros((8, 100_000), dtype=torch.int8),
+                              torch.zeros((100_000, 3), dtype=torch.int8), threshold=1)
+    assert ops.check_fused(784, 100_000, 10, bm=1) == 1     # the scalar route takes it
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_compile_fused_holds_int8_weights_when_the_net_fits(wide, monkeypatch):
+    """`compile_fused` holds both layers as int8 in the tensor-core layout
+    (`mma_weights`) when every weight fits int8, else int32 (one |w| = 200
+    is enough); either way its plain route equals JAX's
+    `fused_mlp_predict(interpret=True)` and `predict_quantized`."""
+    from repro_torch import netgen
+    from repro_torch.core import quantize
+    from repro_torch.kernels.binary_matvec import ops as bops
+    from repro_torch.netgen.backends import cuda
+    from repro.core import quantize as jquantize
+    w1, w2 = _weights(90, 45, 21, 7)
+    if wide:
+        w2[3, 2] = 200
+    net = quantize.from_numpy([w1, w2])
+    seen = []
+    real = ops.fused_mlp_predict
+
+    def spy(x, a, b, **kw):
+        seen.append((a, b))
+        return real(x, a, b, **kw)
+
+    monkeypatch.setattr(ops, "fused_mlp_predict", spy)
+    x = images(90, 13, 45)
+    got = cuda.compile_fused(netgen.lower(net), device=torch.device("cpu"))(x).numpy()
+    (a, b), = seen
+    assert {a.dtype, b.dtype} == {torch.int32 if wide else torch.int8}
+    if not wide:
+        assert bops.in_mma_layout(a) and b.stride(0) == 1
+    pallas = np.asarray(jops.fused_mlp_predict(
+        jnp.asarray(x), jnp.asarray(w1), jnp.asarray(w2), threshold=128, interpret=True))
+    np.testing.assert_array_equal(got, pallas)
+    jnet = jquantize.QuantizedNet(weights=[w1, w2])
+    np.testing.assert_array_equal(
+        got, np.asarray(jquantize.predict_quantized(jnet)(jnp.asarray(x))))

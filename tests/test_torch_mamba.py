@@ -271,3 +271,13 @@ def test_unported_features_raise():
     p = base.tree_init(api.abstract_params(small), torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError):
         api.forward(cfg, p, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+
+
+def test_serve_config_fields_equal_the_reference():
+    """The port's ServeConfig has the reference's fields, in its order and
+    with its defaults; decoding stays greedy, as there."""
+    assert [(f.name, f.default) for f in dataclasses.fields(ServeConfig)] == \
+        [(f.name, f.default) for f in dataclasses.fields(JServeConfig)]
+    sc = ServeConfig(64, 4, 0.0, -1, 0)
+    assert (sc.temperature, sc.seed) == (0.0, 0)
+    assert ServeConfig(temperature=0.0, seed=0) == ServeConfig()

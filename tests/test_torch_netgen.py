@@ -8,6 +8,7 @@ comparison is exact.
 """
 import numpy as np
 import pytest
+import torch
 
 from repro import netgen as jnetgen
 from repro.core import dataset as jdataset
@@ -146,6 +147,39 @@ def test_predict_quantized_matches_reference():
     want = np.asarray(jquantize.predict_quantized(jnet)(jnp.asarray(x)))
     got = quantize.predict_quantized(_port(jnet), device="cpu")(x)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _wrapping_net():
+    """w1 4x2 with column 0 all 2**30 (its accumulator wraps to 0 on four
+    set pixels) and column 1 all 1; w2 [[5, 0], [0, 1]]; threshold 127."""
+    w1 = np.ones((4, 2), np.int64)
+    w1[:, 0] = 2 ** 30
+    w2 = np.array([[5, 0], [0, 1]], np.int32)
+    return jquantize.QuantizedNet(weights=[w1.astype(np.int32), w2], input_threshold=127)
+
+
+def test_predict_quantized_wraps_like_the_reference():
+    """The accumulators wrap to int32 as JAX's int32 products do: four
+    pixels of 255 make hidden unit 0 sum to 2**32, which wraps to 0, so
+    class 1 wins; the ids are int32, as JAX returns them."""
+    import jax.numpy as jnp
+    jnet = _wrapping_net()
+    x = np.full((1, 4), 255, np.uint8)
+    want = np.asarray(jquantize.predict_quantized(jnet)(jnp.asarray(x)))
+    got = quantize.predict_quantized(_port(jnet), device="cpu")(x)
+    assert want.tolist() == [1] and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("target", ["torch", "cuda", "cuda[packed=true]", "cuda[planes=true]",
+                                    "cuda[fusednet=true]", "fused"])
+def test_every_target_wraps_like_predict_quantized(target):
+    jnet = _wrapping_net()
+    x = np.full((1, 4), 255, np.uint8)
+    got = netgen.Session(device="cpu").compile(_port(jnet), target=target)(x)
+    np.testing.assert_array_equal(
+        got.numpy(), quantize.predict_quantized(_port(jnet), device="cpu")(x).numpy())
+    assert got.tolist() == [1]
 
 
 def test_pipeline_spec_strings_and_errors():

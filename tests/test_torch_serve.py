@@ -220,7 +220,7 @@ def test_stacked_planes_fall_back_to_chain_when_kernel_refuses(monkeypatch):
     plan = netgen.stack_plans([
         netgen.lower_circuit(netgen.PipelineSpec.coerce(None).run(
             netgen.lower(_port(n)))[0]) for n in jnets.values()])
-    monkeypatch.setattr(ops, "FORWARD_MAX_LAYERS", 1)
+    monkeypatch.setattr(ops, "SMEM_LIMIT", 64)      # the megakernel's shared-memory refusal
     fn = cuda.compile_cuda_multi(plan, device=torch.device("cpu"), planes=True)
     assert (fn.datapath, fn.launches_per_call) == ("planes", 2 * 3)
     x = np.stack([images(80 + m, 5, 40) for m in range(3)])
@@ -281,3 +281,18 @@ def test_port_sources_name_no_jax_or_repro():
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 mod = words[1].split(".")[0]
                 assert mod not in ("jax", "jaxlib", "repro"), (f, line)
+
+
+@pytest.mark.parametrize("depth", [17, 33])
+def test_fusednet_serves_nets_deeper_than_sixteen_layers(depth):
+    """`cuda[fusednet=true]` takes any depth whose activations fit shared
+    memory: a width-16 net of 17 or 33 layers, built on the CPU, equals
+    JAX's `pallas[fusednet=true,interpret=true]` and `predict_quantized`."""
+    jnet = random_net(90 + depth, (16,) * depth + (5,), lo=-4, hi=6)
+    x = images(90 + depth, 8, 16)
+    art = netgen.Session(device="cpu").compile(_port(jnet), target="cuda[fusednet=true]")
+    assert (art.artifact.datapath, art.artifact.launches_per_call) == ("fusednet", 1)
+    got = art(x).numpy()
+    jart = jnetgen.Session().compile(jnet, target="pallas[fusednet=true,interpret=true]")
+    np.testing.assert_array_equal(got, np.asarray(jart(jnp.asarray(x))))
+    np.testing.assert_array_equal(got, _ref(jnet, x))

@@ -119,3 +119,71 @@ def test_rejects_shapes():
         ops.ssd(x, dt[:, :, :2], a, bb, cc)
     with pytest.raises(ValueError):                  # b and c disagree
         ops.ssd(x, dt, a, bb, cc[:, :, :1])
+
+
+def _chip_smoke():
+    """`chip_smoke.py`, for its `_ssd_agrees`: the card's bound on the kernel."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _split_model(x, dt, a, b, c, *, chunk, split=True):
+    """A float32 model of the tensor-core kernel's arithmetic (`ssd_mma_kernel`,
+    G = 1): B, C and x enter the products as the bf16 values they are, and
+    each fp32 operand (S = CB o L o dt, the carried state s, w o x) as a
+    bf16 hi + lo pair (`split=False`: the hi half alone); products and sums
+    in fp32, y rounded to bf16 once."""
+    def parts(t):
+        hi = _bf16(t)
+        return (hi, _bf16(t - hi)) if split else (hi,)
+
+    bsz, length, heads, p = x.shape
+    n = b.shape[-1]
+    xf = x.float().permute(0, 2, 1, 3)                      # (B, H, L, P)
+    dtf = dt.float().permute(0, 2, 1)                       # (B, H, L)
+    bf, cf = b.float()[:, None, :, 0], c.float()[:, None, :, 0]   # (B, 1, L, N)
+    s = torch.zeros((bsz, heads, n, p))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    ys = []
+    for q0 in range(0, length, chunk):
+        xq, dq = xf[:, :, q0:q0 + chunk], dtf[:, :, q0:q0 + chunk]
+        bq, cq = bf[:, :, q0:q0 + chunk], cf[:, :, q0:q0 + chunk]
+        cum = torch.cumsum(dq * a[None, :, None], dim=-1)
+        cb = cq @ bq.transpose(-1, -2)                     # once per group
+        decay = torch.exp(cum[..., :, None] - cum[..., None, :])
+        smat = torch.where(tri, cb * decay * dq[..., None, :], torch.zeros(()))
+        y = torch.exp(cum)[..., None] * sum(cq @ part for part in parts(s))
+        y = y + sum(part @ xq for part in parts(smat))
+        ys.append(y)
+        w = dq * torch.exp(cum[..., -1:] - cum)
+        s = torch.exp(cum[..., -1])[..., None, None] * s + sum(
+            bq.transpose(-1, -2) @ part for part in parts(w[..., None] * xq))
+    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3).to(torch.bfloat16)
+    return y, s
+
+
+def test_kernel_split_rounding_meets_the_card_bound():
+    """The bf16 hi + lo split that the tensor-core kernel applies to its
+    fp32 operands keeps y within one bf16 ulp (+1e-5) and the state within
+    1e-4 of the plain version (`chip_smoke._ssd_agrees`, unchanged), at
+    mamba2-2.7b's N, P and chunk on 4 heads; the hi half alone (one bf16
+    rounding, 2^-9) leaves that bound."""
+    x, dt, a, bb, cc = _inputs(1, 256, 4, 1, 64, 128, seed=16)
+    x, dt, bb, cc = (torch.from_numpy(v).to(torch.bfloat16) for v in (x, dt, bb, cc))
+    a = torch.from_numpy(a)
+    yp, sp = ref.ssd(x, dt, a, bb, cc, chunk=128)
+    y, s = _split_model(x, dt, a, bb, cc, chunk=128)
+    agrees = _chip_smoke()._ssd_agrees
+    assert agrees(y, s, yp, sp)
+    assert (s - sp).abs().max().item() < 1e-5
+    y1, s1 = _split_model(x, dt, a, bb, cc, chunk=128, split=False)
+    assert not agrees(y1, s1, yp, sp)
