@@ -15,7 +15,11 @@ Phases, each raising on failure (nothing is caught):
    256 rows; seeded random words, bits, weights |w| <= 9 and images):
    `binary_matmul_planes` on the 1-bit tensor cores (4 bit-planes, in
    the `plane_mma_weights` layout the backend holds, and row-major at
-   layer 1, copied per call); `binary_matmul` and `binary_matmul_packed`
+   layer 1, copied per call); `binary_forward_planes` on the 1-bit
+   tensor cores across a cluster (single and stacked in the backend's
+   layout, stacked row-major, copied per call), and its scalar kernel
+   called directly (stacked, row-major), the route the op takes only for
+   nets too wide for the tensor-core route; `binary_matmul` and `binary_matmul_packed`
    on both routes: int8 weights in the layout the backend holds (the
    tensor-core route, also with weights at -128 and 127) and int32
    weights (the scalar route); `fused_mlp_predict` on both routes the
@@ -34,13 +38,14 @@ Phases, each raising on failure (nothing is caught):
    `predict_many` calls over 3 versions with skewed request sizes through
    the `binary_forward_planes` megakernel), then `cuda`
    (`binary_matmul`), `cuda[packed=true]` (`binary_matmul_packed`) and
-   `fused` (`fused_mlp_predict`), all three of which must take the
-   tensor-core route on every launch, with the same requests; answers
+   `fused` (`fused_mlp_predict`), with the same requests; the megakernel
+   and those three must take the tensor-core route on every launch; answers
    must equal `predict_quantized` and the `torch` oracle target. Then
    two 17-layer and two 40-layer width-16 nets through
    `cuda[fusednet=true]` (the megakernel at any depth), and a net whose
    accumulator wraps at 2**31 through every netgen target, equal to
-   `predict_quantized` (which wraps as the reference does). (b) The LM
+   `predict_quantized` (which wraps as the reference does); both print
+   the megakernel's route. (b) The LM
    path: mamba2-2.7b at full width and depth (64 layers), weights from a
    `torch.Generator` seeded 0 on the card, compute dtype bf16, served by
    `Engine.generate` (batch 4 x prompt 512 and a ragged prompt of 200,
@@ -66,15 +71,18 @@ Phases, each raising on failure (nothing is caught):
    with B row-major and K-contiguous where the weights fit int8; the
    faster is `library_ms`), and its bound (for `ssd_scan` by the
    route's own rate, bf16 tensor cores or fp32 CUDA cores, with the
-   CUDA-core bound beside it); a block-shape sweep of the planes, dense
-   and packed kernels (both routes) and the scalar fused kernel at
-   layer-1 shape; the served rounds' latency per target; the LM path's
+   CUDA-core bound beside it; for the megakernel's tensor-core route by
+   bytes, with its popcounts' CUDA-core bound beside it); a block-shape
+   sweep of the planes, dense and packed kernels (both routes) and the
+   scalar fused kernel at layer-1 shape, and of the megakernel's tile
+   rows and cluster size at its stacked shape; the served rounds'
+   latency per target; the LM path's
    prefill and per-token decode wall times, and a
    `torch.profiler` trace of one prefill and one decode step (device busy
    time, kernel launches, the longest kernels).
 
 The last two lines are the `{"kernels": [...]}` record (seven kernels;
-B3, B4, B5 and B7 headed by their tensor-core route, with `mma_launches`)
+B1, B3, B4, B5 and B7 headed by their tensor-core route, with `mma_launches`)
 and `{"ok": true, "device": {...}}`. Without CUDA, or without the
 repository's `src/` beside it, the script exits non-zero and prints no
 result. Imports nothing of JAX or of the JAX package `repro`.
@@ -113,9 +121,11 @@ REPLACES = {
 NETGEN = ("binary_matmul_planes", "binary_forward_planes", "binary_matmul",
           "binary_matmul_packed", "fused_mlp_predict")
 # target -> the kernel whose every launch on its main path must take the
-# tensor-core route (the served nets' weights fit int8)
-MMA_PATHS = {"cuda": "binary_matmul", "cuda[packed=true]": "binary_matmul_packed",
-             "fused": "fused_mlp_predict"}
+# tensor-core route (the served nets' weights fit int8; the 784-500-10
+# megakernel's activations fit its shared memory)
+MMA_PATHS = {"cuda[planes=true]": "binary_forward_planes", "cuda": "binary_matmul",
+             "cuda[packed=true]": "binary_matmul_packed", "fused": "fused_mlp_predict"}
+MMA_KIND = {"binary_forward_planes": "1-bit"}    # else int8
 # target -> the kernels its main path must launch
 PATHS = {
     "cuda[planes=true]": ("binary_matmul_planes", "binary_forward_planes"),
@@ -136,6 +146,7 @@ BATCH, MODELS = 256, 3
 TIMING_RUNS, TIMING_INNER = 20, 5
 SWEEP_BM, SWEEP_BN = (1, 2, 4, 8, 16, 32), (32, 64, 128, 256)
 SWEEP_MMA_BM = (16, 32)          # the tensor-core tiles' rows (bm rounds up to 16)
+SWEEP_CLUSTER = (1, 2, 4, 8)     # blocks of a megakernel cluster
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_RAGGED, LM_NEW = "mamba2-2.7b", 4, 512, 200, 32
 LM_CHUNK = 128                   # the mixer's chunk
 DEEP_DEPTHS, DEEP_WIDTH = (17, 40), 16     # deep planes-form nets for cuda[fusednet=true]
@@ -166,6 +177,29 @@ def _smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def _scalar_forward(planes):
+    """The megakernel's scalar kernel (`bmv_forward_planes`) on row-major
+    `planes`, called directly with a layer table built once: the op takes
+    it only for nets whose activations the tensor-core route cannot hold."""
+    import torch
+    from repro_torch.kernels.binary_matvec import build, ops
+    table = ops.ForwardTable(planes)
+    words = [p.shape[-2] for p in planes[0::2]]
+
+    def forward(x, *_, threshold, n_classes):
+        out = torch.empty(x.shape[:-1], dtype=torch.int32, device=x.device)
+        lib = build.load()
+        err = lib.bmv_forward_planes(
+            x.data_ptr(), x.shape[0] if x.dim() == 3 else 1, x.shape[-2], x.shape[-1],
+            threshold, table.rows.data_ptr(), len(words), max(words), n_classes,
+            out.data_ptr(), ops.FORWARD_BM, x.device.index,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"bmv_forward_planes: {lib.bmv_error_string(err).decode()}")
+        return out
+    return forward
 
 
 def _words(rng, shape, dev):
@@ -219,12 +253,13 @@ def _bound(nbytes: int, ops: int, ops_per_s: float | None) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _work(name: str, args, kw) -> tuple[int, str]:
+def _work(name: str, args, kw, route: str = "tensor cores") -> tuple[int, str]:
     """(operations, kind) one call of kernel `name` does on `args`:
     1-bit tensor-core AND-popcount bit operations for `binary_matmul_planes`
     (2 x B x P x KW x 32 x N; NVIDIA publishes no rate for them, so its
-    bound is by bytes), popcounts for the megakernel (2 x rows x P x W x N
-    per layer, N the real class count on the last), int8 tensor-core
+    bound is by bytes) and for the megakernel's tensor-core route (2 x
+    rows x P x W x 32 x N per layer, N the real class count on the last),
+    popcounts for its scalar route (2 x rows x P x W x N per layer), int8 tensor-core
     operations for the dense and packed products and the fused net with
     int8 weights (2 x B x K x N per layer), adds for the others (B x K x N
     per layer; K = KW x 32 for packed words)."""
@@ -241,7 +276,7 @@ def _work(name: str, args, kw) -> tuple[int, str]:
             if li == len(planes) // 2 - 1:
                 n = kw["n_classes"]
             popc += 2 * rows * p * w * n
-        return popc, "popc"
+        return (32 * popc, "b1_tc") if route == "tensor cores" else (popc, "popc")
     if name in ("binary_matmul", "binary_matmul_packed"):
         x, w = args
         if w.dtype == torch.int8:
@@ -394,9 +429,10 @@ def _deep_fusednet_path(session, oracle, dev, wrappers, reset_launches) -> int:
     served by `cuda[fusednet=true]` (one stacked `predict_many` and one
     `predict`; one `binary_forward_planes` launch each, any depth); answers
     must equal `predict_quantized` and the `torch` target. Returns the
-    megakernel's launches."""
+    megakernel's launches and those on the tensor-core route."""
     import numpy as np
     from repro_torch.core import quantize
+    from repro_torch.kernels.binary_matvec import ops
     from repro_torch.netgen import NetServer
 
     reset_launches()
@@ -425,12 +461,14 @@ def _deep_fusednet_path(session, oracle, dev, wrappers, reset_launches) -> int:
                 raise AssertionError(f"fusednet {key}: answers != torch target")
             answers += got.shape[0]
     n = wrappers["binary_forward_planes"].launches
+    mma = wrappers["binary_forward_planes"].mma_launches
     print(f"[4 main path] cuda[fusednet=true] deep nets {DEEP_DEPTHS} x width {DEEP_WIDTH}: "
           f"{answers} answers equal predict_quantized and the torch target, "
-          f"binary_forward_planes launches {n}")
+          f"binary_forward_planes launches {n}, {mma} of them on the 1-bit tensor-core "
+          f"route (clusters of {ops.forward_cluster([1] * DEEP_DEPTHS[0])} block)")
     if n <= 0:
         raise AssertionError("the deep fusednet path never launched binary_forward_planes")
-    return n
+    return n, mma
 
 
 def _wrapping_net_path(session, dev) -> None:
@@ -446,11 +484,18 @@ def _wrapping_net_path(session, dev) -> None:
     net = quantize.QuantizedNet(weights=[w1.astype(np.int32), np.array([[5, 0], [0, 1]],
                                                                        np.int32)],
                                 input_threshold=127)
+    from repro_torch.kernels.binary_matvec import ops
     x = np.full((3, 4), 255, np.uint8)
     want = quantize.predict_quantized(net, device=dev)(x)
+    forward = ops.binary_forward_planes
+    n, mma = forward.launches, forward.mma_launches
     got = {t: session.compile(net, target=t)(x).cpu().numpy() for t in WRAP_TARGETS}
+    n, mma = forward.launches - n, forward.mma_launches - mma
     print(f"[4 main path] wrapping net: predict_quantized {want.tolist()} "
-          f"({want.dtype}), targets {json.dumps({t: g.tolist() for t, g in got.items()})}")
+          f"({want.dtype}), targets {json.dumps({t: g.tolist() for t, g in got.items()})}; "
+          f"binary_forward_planes {mma} of {n} launches on the 1-bit tensor-core route")
+    if n <= 0:
+        raise AssertionError("the wrapping net never launched binary_forward_planes")
     if want.dtype != torch.int32 or want.tolist() != [1, 1, 1]:
         raise AssertionError("predict_quantized does not wrap to int32")
     for t, g in got.items():
@@ -797,17 +842,25 @@ def main() -> int:
         if label == "layer1":
             cases["binary_matmul_planes"]["layer1_rowmajor"] = (
                 (x, pos, neg), {}, ops.binary_matmul_planes, ref.plane_matmul)
+    # The megakernel on planes in the layout the backend holds, with the
+    # layer table built once, as the backend builds it; stacked once more
+    # row-major (copied per call); and its scalar kernel, called directly.
+    kw_args = {"threshold": thr, "n_classes": N_OUT}
     for label, lead in {"single": (), "stacked": (MODELS,)}.items():
         x = torch.from_numpy(rng.integers(
             0, 256, size=(*lead, BATCH, N_IN), dtype=np.uint8)).to(dev)
         planes = []
         for kw, n in ((w1, hidden_pad), (w2, N_OUT)):
             planes += [_words(rng, (*lead, PLANES, kw, n), dev) for _ in range(2)]
-        kw_args = {"threshold": thr, "n_classes": N_OUT}
-        # the layer table built once, as the backend builds it
-        forward = functools.partial(ops.binary_forward_planes, table=ops.ForwardTable(planes))
+        held = [ops.plane_mma_weights(a) for a in planes]
+        forward = functools.partial(ops.binary_forward_planes, table=ops.ForwardTable(held))
         cases["binary_forward_planes"][label] = (
-            (x, *planes), kw_args, forward, ref.forward_planes)
+            (x, *held), kw_args, forward, ref.forward_planes)
+        if label == "stacked":
+            cases["binary_forward_planes"]["stacked_rowmajor"] = (
+                (x, *planes), kw_args, ops.binary_forward_planes, ref.forward_planes)
+            cases["binary_forward_planes"]["stacked_scalar"] = (
+                (x, *planes), kw_args, _scalar_forward(planes), ref.forward_planes)
     # Both routes of the dense and packed products: int8 weights in the
     # layout the backend holds (`mma_weights`; the tensor-core route, the
     # main path's, heading the kernel's record), at |w| <= 9 and over the
@@ -842,14 +895,22 @@ def main() -> int:
         args = (x, weights(N_IN, N_HIDDEN, wide, dtype), weights(N_HIDDEN, N_OUT, wide, dtype))
         cases["fused_mlp_predict"][label] = (
             args, {"threshold": thr}, fops.fused_mlp_predict, fref.fused_mlp_predict)
-    errors = {}
+    errors, forward_routes = {}, {}
     for name, shapes in cases.items():
         for label, (args, kw, kernel, plain) in shapes.items():
+            mma = ops.binary_forward_planes.mma_launches
             got, want = kernel(*args, **kw), plain(*args, **kw)
             torch.cuda.synchronize()
             err = int((got.long() - want.long()).abs().max().item())
             errors[name, label] = err
-            print(f"[3 kernel] {name}[{label}] {tuple(got.shape)} "
+            route = ""
+            if name == "binary_forward_planes":
+                tc = ops.binary_forward_planes.mma_launches > mma
+                forward_routes[label] = "tensor cores" if tc else "scalar"
+                route = f" on the {forward_routes[label]} route"
+                if tc == (label == "stacked_scalar"):
+                    raise AssertionError(f"{name}[{label}] took the {forward_routes[label]} route")
+            print(f"[3 kernel] {name}[{label}] {tuple(got.shape)}{route} "
                   f"max_abs_err={err}")
             if not torch.equal(got, want):
                 raise AssertionError(f"{name}[{label}] disagrees with its plain version")
@@ -935,7 +996,8 @@ def main() -> int:
             wrapper = wrappers[MMA_PATHS[target]]
             mma_launches[MMA_PATHS[target]] = wrapper.mma_launches
             print(f"[4 main path] {target}: {wrapper.mma_launches} of {wrapper.launches} "
-                  f"{MMA_PATHS[target]} launches on the int8 tensor cores")
+                  f"{MMA_PATHS[target]} launches on the "
+                  f"{MMA_KIND.get(MMA_PATHS[target], 'int8')} tensor cores")
             if not 0 < wrapper.mma_launches == wrapper.launches:
                 raise AssertionError(f"{target}: not every launch took the tensor-core route")
         for req, out in served:
@@ -954,8 +1016,9 @@ def main() -> int:
               "answers equal predict_quantized and the torch target")
         servers[target] = server
 
-    launches["binary_forward_planes"] += _deep_fusednet_path(session, oracle, dev, wrappers,
-                                                             reset_launches)
+    deep, deep_mma = _deep_fusednet_path(session, oracle, dev, wrappers, reset_launches)
+    launches["binary_forward_planes"] += deep
+    mma_launches["binary_forward_planes"] += deep_mma
     _wrapping_net_path(session, dev)
 
     lm_launches, lm_times, lm_trace = _lm_main_path(dev, wrappers, reset_launches)
@@ -972,8 +1035,14 @@ def main() -> int:
         for label, (args, kw, kernel, plain) in shapes.items():
             out = kernel(*args, **kw)
             moved = nbytes(args) + nbytes([out])
-            work, op = _work(name, args, kw)
+            work, op = _work(name, args, kw, forward_routes.get(label, "tensor cores"))
             bound_ms, bound_by = _bound(moved, work, rates[op])
+            extra = {}
+            if name == "binary_forward_planes":
+                # the popcounts at the CUDA cores' __popc rate, beside the route's bound
+                popc, _ = _work(name, args, kw, "scalar")
+                extra = {"path": forward_routes[label],
+                         "cuda_core_bound_ms": _bound(moved, popc, rates["popc"])[0]}
             rec = {
                 "shape": label,
                 "ms": _time_ms(lambda: kernel(*args, **kw), clock_hz),
@@ -982,11 +1051,11 @@ def main() -> int:
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
                 {"b1_tc": "bit_ops", "popc": "popcounts", "add": "adds",
                  "int8_tc": "int8_ops"}[op]: work,
-                "max_abs_err": errors[name, label],
+                **extra, "max_abs_err": errors[name, label],
             }
             per_shape.append(rec)
             print(json.dumps({"kernel": name, **rec}))
-        head = per_shape[-1] if name == "binary_forward_planes" else per_shape[0]
+        head = per_shape[1] if name == "binary_forward_planes" else per_shape[0]
         records.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
@@ -1058,6 +1127,20 @@ def main() -> int:
                       "power": smi}))
 
     sweep = {}
+    # the megakernel's cluster: what the op picks per shape, and the
+    # clusters of each size the card holds at once at its shared memory
+    shape = ([PLANES, PLANES], [w1, w2])
+    smem = ops.forward_mma_smem_bytes(*shape, ops.FORWARD_BM)
+    forward_clusters = {
+        "cluster_single": ops.launch_cluster(*shape, BATCH, 1, ops.FORWARD_BM, dev),
+        "cluster_stacked": ops.launch_cluster(*shape, BATCH, MODELS, ops.FORWARD_BM, dev),
+        "max_active_clusters": {c: build.load().bmv_forward_max_clusters(
+            ops.FORWARD_BM, c, smem, 0) for c in SWEEP_CLUSTER},
+        "smem_bytes": smem}
+    args, kw, kernel, _ = cases["binary_forward_planes"]["stacked"]
+    sweep["binary_forward_planes[stacked]"] = {f"tile={bm},cluster={cl}": _time_ms(
+        lambda: kernel(*args, bm=bm, cluster=cl, **kw), clock_hz)
+        for bm in SWEEP_MMA_BM for cl in SWEEP_CLUSTER}
     args, _, kernel, _ = cases["binary_matmul_planes"]["layer1"]
     sweep["binary_matmul_planes[layer1]"] = {f"bm={bm},bn={bn}": _time_ms(
         lambda: kernel(*args, bm=bm, bn=bn), clock_hz)
@@ -1076,7 +1159,8 @@ def main() -> int:
         "binary_matmul_packed": [ops.PACKED_BM, ops.PACKED_BN],
         "tensor-core route": [ops.MMA_BM, ops.MMA_BN],
         "binary_matmul_planes": [ops.MATMUL_BM, ops.MATMUL_BN],
-        "fused_mlp_predict": fops.FUSED_BM}}))
+        "fused_mlp_predict": fops.FUSED_BM,
+        "binary_forward_planes": {"bm": ops.FORWARD_BM, **forward_clusters}}}))
 
     latency = {}
     for target, server in servers.items():

@@ -36,6 +36,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bmv_matmul_packed_mma.restype = i
     lib.bmv_forward_planes.argtypes = [vp, i, i, i, i, vp, i, i, i, vp, i, i, vp]
     lib.bmv_forward_planes.restype = i
+    lib.bmv_forward_planes_mma.argtypes = [vp, i, i, i, i, vp, i, i, i, vp, i, i, i, i, vp]
+    lib.bmv_forward_planes_mma.restype = i
+    lib.bmv_forward_mma_smem_bytes.argtypes = [i, i, i]
+    lib.bmv_forward_mma_smem_bytes.restype = ll
+    lib.bmv_forward_stage_words.argtypes = [i, i]
+    lib.bmv_forward_stage_words.restype = ll
+    lib.bmv_forward_max_clusters.argtypes = [i, i, ll, i]
+    lib.bmv_forward_max_clusters.restype = i
     lib.bmv_error_string.argtypes = [i]
     lib.bmv_error_string.restype = ctypes.c_char_p
     return lib

@@ -25,10 +25,18 @@
 //                         on the 1-bit tensor cores (mma.sync m16n8k256
 //                         b1.and.popc). Replaces binary_matmul_planes
 //                         (_binary_matmul_planes_kernel).
-//   forward_planes_kernel the whole planes-form net in one launch, of any
-//                         depth: the layer table lies in device memory, built
-//                         once with the predictor. Replaces
-//                         binary_forward_planes (_forward_planes_kernel).
+//   forward_planes_mma_kernel
+//                         the whole planes-form net in one launch, of any
+//   forward_planes_kernel depth: binarize, per layer the planes product, a
+//                         strict step and repack, argmax. The layer table
+//                         lies in device memory, built once with the
+//                         predictor. The first runs each layer on the 1-bit
+//                         tensor cores with a hidden layer's units split
+//                         across a thread-block cluster; the second, one
+//                         thread per unit with scalar __popc, is the route
+//                         for nets whose activations the first cannot hold
+//                         in shared memory. Both replace binary_forward_planes
+//                         (_forward_planes_kernel).
 //
 // Every kernel accumulates in 32-bit integers that wrap exactly as the int32
 // reference does (the tensor-core product has no .satfinite).
@@ -60,14 +68,32 @@
 // practice by the launch and the latency of the K sweep, and shares its
 // design: 32 x 32 output tiles, operands double-buffered by cp.async, and
 // planes read from a copy laid out K-contiguous per column (the B operand's
-// layout), made once when the predictor is built. The whole-net
-// forward_planes_kernel keeps the scalar __popc (16 results per clock per SM).
+// layout), made once when the predictor is built.
+// The whole-net forward_planes_mma_kernel does the same product per layer
+// and keeps the activations on chip: 0.4 MB of layer-1 planes a model and
+// 0.2 MB of images at 256 rows, bound by bytes (0.55 us for 3 models) and in
+// practice by the latency of each layer's loads and of the cluster barriers
+// between layers. Its design: a cluster of up to 8 blocks shares a tile of
+// 16 or 32 rows, each block computing a slice of a hidden layer's units, so
+// a model's planes are read once per row tile and the grid fills the card
+// (128 blocks at B = 256; the wrapper takes the largest cluster whose grid
+// the card holds in one wave); a block copies the planes of 32 columns at
+// a time (every plane and word) into shared memory by bulk asynchronous
+// copies, the next 32 while it computes these, so a stage's loads are in
+// flight together (B fragments loaded into registers a few steps ahead
+// left each step waiting about a whole L2 latency); each block packs its
+// step bits and writes them into every block's next-layer buffer through
+// distributed shared memory. The scalar forward_planes_kernel keeps __popc
+// (16 results per clock per SM).
 
 #include <climits>
 #include <cstddef>
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -90,13 +116,17 @@ constexpr int kForwardWarps = kForwardThreads / kWarp;
 
 // One row of the forward kernel's layer table, which lies in device memory
 // (any depth; ops.forward_table builds it, 32 bytes a layer, in this order).
+// The scalar kernel reads planes row-major, word (b, w, n) at
+// (b * W + w) * N + n; the tensor-core kernel K-contiguous per column, word
+// (b, w, n) at (b * N + n) * ldw + w. Stacked, model m starts P W N or
+// P N ldw words further on.
 struct PlaneLayer {
   const uint32_t* pos;  // (P, W, N) words, or (M, P, W, N) when stacked
   const uint32_t* neg;
   int planes;           // P
   int words;            // W: packed fan_in
   int units;            // N: fan_out (hidden layers: a multiple of 32)
-  int pad;
+  int ldw;              // column stride in words (the tensor-core layout)
 };
 static_assert(sizeof(PlaneLayer) == 32, "ops.forward_table writes 32-byte rows");
 
@@ -742,6 +772,393 @@ __global__ void __launch_bounds__(kForwardThreads)
   }
 }
 
+// ---- the whole net on the 1-bit tensor cores, across a cluster ---------------
+
+// Threads of a block (4 warps), the largest cluster, and the columns of one
+// stage of staged planes (one n8 tile per warp).
+constexpr int kFwdThreads = 128;
+constexpr int kFwdWarps = kFwdThreads / kWarp;
+constexpr int kMaxCluster = 8;
+constexpr int kFwdCols = 8 * kFwdWarps;
+
+// Row stride in words of an activation buffer: the widest layer rounded up
+// to whole m16n8k256 steps, then to 8 mod 16, so that a half-warp's 8-byte
+// fragment reads (4 rows x 4 lanes) hit 32 distinct banks.
+__host__ __device__ constexpr int forward_mma_ldx(int words) {
+  return (words + 7) / 8 * 8 % 16 ? (words + 7) / 8 * 8 : (words + 7) / 8 * 8 + 8;
+}
+
+// Column stride in words of the planes, in device memory and staged alike
+// (the plane_mma_weights layout): W rounded up to whole steps and no
+// further, so a stage's columns of one plane and sign are one contiguous
+// run, copied by one bulk copy. Padding to 8 mod 16 as above would spare
+// the B reads a 4-way bank conflict at W = 25, but makes a 784-500-10 block
+// 85 KB, two blocks an SM; unpadded it is 70 KB, three an SM.
+__host__ __device__ constexpr int forward_mma_lds(int words) { return (words + 7) / 8 * 8; }
+
+// Dynamic shared memory of a tensor-core forward block, in this order: two
+// activation buffers of tm rows (this layer's input, the next one's), the
+// per-warp argmax partials, the two stage slots' mbarriers (16 bytes), and
+// the two stage slots of `stage_words` words each (the largest layer's 2P x
+// kFwdCols plane columns). ops.py mirrors it as `forward_mma_smem_bytes`.
+__host__ __device__ constexpr size_t forward_mma_smem(int tm, int max_words, int stage_words) {
+  return (2 * static_cast<size_t>(tm) * forward_mma_ldx(max_words) + 2 * kFwdWarps * tm + 4 +
+          2 * static_cast<size_t>(stage_words)) *
+         sizeof(uint32_t);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Waits for the phase of parity `parity` of an mbarrier to complete; traps
+// after about ten seconds of SM clock, so a fault shows as a launch error
+// and never as a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > 20000000000LL) asm volatile("trap;");
+  }
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Four pixels > threshold as four bits, pixel i at bit i: `thr4` holds the
+// threshold clamped to 0..255 in every byte, `all_on` a threshold below 0.
+// The multiply moves byte j's flag (bit 8j) to bit 28 + j; its 16 partial
+// products land on distinct bits, so nothing carries.
+__device__ __forceinline__ uint32_t pixel_bits4(uint32_t v, uint32_t thr4, bool all_on) {
+  return all_on ? 0xfu : (((__vcmpgtu4(v, thr4) & 0x01010101u) * 0x10204080u) >> 28);
+}
+
+// Binarizes and packs TM rows of x (rows past B and pixels past K are 0)
+// into dst, `words` words a row at row stride ldx. Each lane tests VEC
+// pixels (one 16-, 4- or 1-byte load), and the 32 / VEC lanes of a word
+// OR their bits together with shuffles. A thread issues kBinarizeBatch
+// loads before it tests any, so their latencies overlap. TM * words *
+// (32 / VEC) is a multiple of 32, so every lane of a warp takes part in
+// each shuffle.
+constexpr int kBinarizeBatch = 8;
+
+template <int VEC>
+struct PixelLoad {
+  using T = uint32_t;
+  static __device__ __forceinline__ T load(const uint8_t* p) {
+    if constexpr (VEC == 4) return __ldg(reinterpret_cast<const uint32_t*>(p));
+    return *p;
+  }
+  static __device__ __forceinline__ uint32_t bits(T v, int threshold, uint32_t thr4, bool all_on) {
+    if constexpr (VEC == 4) return pixel_bits4(v, thr4, all_on);
+    return static_cast<int>(v) > threshold;
+  }
+};
+
+template <>
+struct PixelLoad<16> {
+  using T = uint4;
+  static __device__ __forceinline__ T load(const uint8_t* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ uint32_t bits(T v, int, uint32_t thr4, bool all_on) {
+    return pixel_bits4(v.x, thr4, all_on) | pixel_bits4(v.y, thr4, all_on) << 4 |
+           pixel_bits4(v.z, thr4, all_on) << 8 | pixel_bits4(v.w, thr4, all_on) << 12;
+  }
+};
+
+template <int TM, int VEC>
+__device__ __forceinline__ void binarize_rows(uint32_t* dst, int ldx, const uint8_t* x, int B,
+                                              int K, int threshold, int row0, int words) {
+  using Load = PixelLoad<VEC>;
+  constexpr int kLanes = kWarp / VEC;
+  const bool all_on = threshold < 0;
+  const uint32_t thr4 = static_cast<uint32_t>(min(max(threshold, 0), 255)) * 0x01010101u;
+  const int total = TM * words * kLanes;
+  for (int base = threadIdx.x; base < total; base += kBinarizeBatch * kFwdThreads) {
+    typename Load::T v[kBinarizeBatch];
+    bool valid[kBinarizeBatch];
+#pragma unroll
+    for (int j = 0; j < kBinarizeBatch; ++j) {
+      const int i = base + j * kFwdThreads;
+      const int row = row0 + i / kLanes / words;
+      const int k = i / kLanes % words * kWarp + i % kLanes * VEC;
+      valid[j] = i < total && row < B && k < K;
+      if (valid[j]) v[j] = Load::load(x + static_cast<size_t>(row) * K + k);
+    }
+#pragma unroll
+    for (int j = 0; j < kBinarizeBatch; ++j) {
+      const int i = base + j * kFwdThreads;
+      if (i < total) {  // warp-uniform
+        const int sub = i % kLanes;
+        uint32_t bits = valid[j] ? Load::bits(v[j], threshold, thr4, all_on) << (sub * VEC) : 0u;
+#pragma unroll
+        for (int o = 1; o < kLanes; o *= 2) bits |= __shfl_xor_sync(kFullMask, bits, o);
+        if (sub == 0) dst[i / kLanes / words * ldx + i / kLanes % words] = bits;
+      }
+    }
+  }
+}
+
+// The units of layer l that block `rank` of `blocks` computes: hidden
+// layers split N in whole words, rank-major; the final layer runs on rank 0
+// alone, over its n_classes columns. Empty when u0 >= n_end.
+__device__ __forceinline__ void forward_units(const PlaneLayer& L, bool last, int rank,
+                                              int blocks, int n_classes, int& u0, int& n_end) {
+  if (last) {
+    u0 = 0;
+    n_end = rank == 0 ? n_classes : 0;
+  } else {
+    const int slice = (L.units / kWarp + blocks - 1) / blocks * kWarp;
+    u0 = rank * slice;
+    n_end = min(L.units, u0 + slice);
+  }
+}
+
+// The whole planes-form net on the 1-bit tensor cores. Grid (cluster, ceil(B /
+// TM), M), clusters along x: the blocks of a cluster share TM rows of model
+// blockIdx.z. Each block
+//   1. binarizes and packs the tile's images into activation buffer 0;
+//   2. per hidden layer, computes its slice of the units (ceil(N / 32 /
+//      cluster) words each, rank-major) in stages of kFwdCols columns: a
+//      stage's planes (all P, both signs, every word of K; 2P contiguous
+//      runs) are copied into a shared-memory slot by 2P bulk asynchronous
+//      copies that one thread issues, completing on the slot's mbarrier,
+//      while the stage before is computed (the first stage while the
+//      images are binarized); warp w computes the stage's n8 tile w over
+//      (8-word chunk, plane) steps on m16n8k256 b1.and.popc, summing
+//      (pos - neg) << b in uint32, so the sums wrap as the int32 reference
+//      does;
+//   3. steps its units (> 0), packs 8 units of a row into a byte (lane (g,
+//      t) of the C fragment holds units 2t, 2t+1 of rows g and g + 8; two
+//      shuffles OR the four lanes' bits), and stores each byte into every
+//      block's next buffer through distributed shared memory (bit i of word
+//      j is unit 32j + i, as the planes' K runs); a cluster barrier then
+//      makes the next layer's whole input visible in every block;
+//   4. the final layer runs on rank 0 alone, over its n_classes columns, and
+//      rank 0 takes the argmax, the first maximum winning.
+// Lane t's fragment words are words 2t and 2t + 1 of a step (K order is free
+// within a step as long as A and B agree), so each is one 8-byte load. Words
+// at or past W read as 0 in A, so the planes' padding words add nothing;
+// columns past a final layer's classes are not copied, and their scores are
+// never read. Stages run across layer boundaries: a layer's planes do not
+// depend on the activations, so the next layer's first stage is in flight
+// during the cluster barrier.
+template <int TM, int VEC>
+__global__ void __launch_bounds__(kFwdThreads)
+    forward_planes_mma_kernel(const uint8_t* __restrict__ x, int B, int K, int threshold,
+                              const PlaneLayer* __restrict__ net, int depth, int n_classes,
+                              int ldx, int stage_words, int32_t* __restrict__ out) {
+  constexpr int MT = TM / 16;  // m16 tiles a warp computes per n8 tile
+  extern __shared__ __align__(16) uint32_t fwd_smem[];
+  uint32_t* act0 = fwd_smem;
+  uint32_t* act1 = fwd_smem + TM * ldx;
+  int* part_v = reinterpret_cast<int*>(fwd_smem + 2 * TM * ldx);
+  int* part_i = part_v + kFwdWarps * TM;
+  uint64_t* full = reinterpret_cast<uint64_t*>(part_i + kFwdWarps * TM);
+  uint32_t* slots = reinterpret_cast<uint32_t*>(full + 2);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int blocks = static_cast<int>(cluster.num_blocks());
+  const int m = blockIdx.z;
+  const int row0 = blockIdx.y * TM;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  // The next stage to copy: layer sl, columns sn.. (sl == depth: none).
+  // Every thread moves the cursor; lanes of warp 0 issue the copies, one
+  // each (one thread issuing all of them in turn was measurably slower).
+  int sl = 0;
+  int sn = 0;
+  int s_end = 0;
+  forward_units(net[0], depth == 1, rank, blocks, n_classes, sn, s_end);
+  int staged = 0;  // stages issued so far; stage k fills slot k % 2
+  auto issue = [&]() {
+    while (sl < depth && sn >= s_end) {
+      if (++sl < depth) forward_units(net[sl], sl + 1 == depth, rank, blocks, n_classes, sn, s_end);
+    }
+    if (sl == depth) return;
+    if (warp == 0) {
+      const PlaneLayer L = net[sl];
+      const int lds = forward_mma_lds(L.words);
+      const uint32_t run = static_cast<uint32_t>(min(kFwdCols, s_end - sn) * lds * 4);
+      const size_t plane_stride = static_cast<size_t>(L.units) * lds;
+      const size_t first = m * L.planes * plane_stride + static_cast<size_t>(sn) * lds;
+      uint32_t* slot = slots + (staged % 2) * stage_words;
+      uint64_t* bar = full + staged % 2;
+      if (lane == 0) {
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+                     "r"(2 * L.planes * run)
+                     : "memory");
+      }
+      __syncwarp();
+      for (int q = lane; run > 0 && q < 2 * L.planes; q += kWarp) {  // q = 2 b + sign
+        bulk_load(slot + q * kFwdCols * lds, (q % 2 ? L.neg : L.pos) + first + (q / 2) * plane_stride,
+                  run, bar);
+      }
+    }
+    ++staged;
+    sn += kFwdCols;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(full + i)));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  issue();
+  binarize_rows<TM, VEC>(act0, ldx, x + static_cast<size_t>(m) * B * K, B, K, threshold, row0,
+                         net[0].words);
+  // Also: every block of the cluster has started before any writes to it.
+  cluster.sync();
+
+  int best_v[MT][2];
+  int best_i[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    best_v[mt][0] = best_v[mt][1] = INT_MIN;
+    best_i[mt][0] = best_i[mt][1] = INT_MAX;
+  }
+
+  int used = 0;  // stages computed so far
+  for (int l = 0; l < depth; ++l) {
+    const bool last = l + 1 == depth;
+    if (last && rank != 0) return;
+    const PlaneLayer L = net[l];
+    const uint32_t* cur = l % 2 ? act1 : act0;
+    uint8_t* nxt = reinterpret_cast<uint8_t*>(l % 2 ? act0 : act1);
+    const int lds = forward_mma_lds(L.words);
+    const int chunks = (L.words + 7) / 8;
+    int u0, n_end;
+    forward_units(L, last, rank, blocks, n_classes, u0, n_end);
+
+    for (int n0 = u0; n0 < n_end; n0 += kFwdCols) {
+      issue();  // into the slot every warp left at the barrier closing the last stage
+      mbar_wait(full + used % 2, (used / 2) % 2);
+      const uint32_t* ws = slots + (used % 2) * stage_words;
+      ++used;
+      const int nt = n0 + 8 * warp;  // this warp's n8 tile
+      if (nt < n_end) {
+        uint32_t acc[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0u;
+        for (int c = 0; c < chunks; ++c) {
+          const int wd = 8 * c + 2 * t;
+          uint32_t a[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const int r = mt * 16 + g;
+            const uint2 lo = *reinterpret_cast<const uint2*>(cur + r * ldx + wd);
+            const uint2 hi = *reinterpret_cast<const uint2*>(cur + (r + 8) * ldx + wd);
+            a[mt][0] = wd < L.words ? lo.x : 0u;
+            a[mt][1] = wd < L.words ? hi.x : 0u;
+            a[mt][2] = wd + 1 < L.words ? lo.y : 0u;
+            a[mt][3] = wd + 1 < L.words ? hi.y : 0u;
+          }
+#pragma unroll 4
+          for (int b = 0; b < L.planes; ++b) {
+            const uint2 p = *reinterpret_cast<const uint2*>(
+                ws + ((2 * b) * kFwdCols + 8 * warp + g) * lds + wd);
+            const uint2 q = *reinterpret_cast<const uint2*>(
+                ws + ((2 * b + 1) * kFwdCols + 8 * warp + g) * lds + wd);
+            const uint32_t bp[2] = {p.x, p.y};
+            const uint32_t bq[2] = {q.x, q.y};
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              int dp[4], dq[4];
+              mma_b1(dp, a[mt], bp);
+              mma_b1(dq, a[mt], bq);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[mt][e] += static_cast<uint32_t>(dp[e] - dq[e]) << b;
+            }
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if (!last) {
+            // Step and repack: byte nt / 8 of a row is word nt / 32, byte
+            // (nt % 32) / 8.
+            uint32_t lo = (static_cast<int>(acc[mt][0]) > 0) | (static_cast<int>(acc[mt][1]) > 0) << 1;
+            uint32_t hi = (static_cast<int>(acc[mt][2]) > 0) | (static_cast<int>(acc[mt][3]) > 0) << 1;
+            lo <<= 2 * t;
+            hi <<= 2 * t;
+            lo |= __shfl_xor_sync(kFullMask, lo, 1);
+            hi |= __shfl_xor_sync(kFullMask, hi, 1);
+            lo |= __shfl_xor_sync(kFullMask, lo, 2);
+            hi |= __shfl_xor_sync(kFullMask, hi, 2);
+            if (t < 2) {
+              const size_t off = static_cast<size_t>(mt * 16 + g + 8 * t) * ldx * 4 + nt / 8;
+              const uint8_t byte = static_cast<uint8_t>(t ? hi : lo);
+              for (int q = 0; q < blocks; ++q) cluster.map_shared_rank(nxt, q)[off] = byte;
+            }
+          } else {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const int col = nt + 2 * t + c;
+                if (col < n_classes) {
+                  take_max(best_v[mt][h], best_i[mt][h], static_cast<int>(acc[mt][2 * h + c]), col);
+                }
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();  // every warp is done with the slot before it is refilled
+    }
+    // Hidden: every block's slice of the next input has landed everywhere,
+    // and no block still reads the buffer the next layer writes.
+    if (!last) cluster.sync();
+  }
+
+  // Rank 0: argmax across the four lanes of a row, then across the warps.
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int v = best_v[mt][h];
+      int i = best_i[mt][h];
+      for (int o = 1; o < 4; o *= 2) {
+        const int ov = __shfl_xor_sync(kFullMask, v, o);
+        const int oi = __shfl_xor_sync(kFullMask, i, o);
+        take_max(v, i, ov, oi);
+      }
+      if (t == 0) {
+        part_v[warp * TM + mt * 16 + g + 8 * h] = v;
+        part_i[warp * TM + mt * 16 + g + 8 * h] = i;
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < TM) {
+    const int r = threadIdx.x;
+    int v = part_v[r];
+    int i = part_i[r];
+    for (int w = 1; w < kFwdWarps; ++w) take_max(v, i, part_v[w * TM + r], part_i[w * TM + r]);
+    if (row0 + r < B) out[static_cast<size_t>(m) * B + row0 + r] = i;
+  }
+}
+
 template <int TM, class A>
 cudaError_t launch_mma(const void* x, const void* w, int ldw, void* out, int B, int kx, int K,
                        int N, int tn, cudaStream_t stream) {
@@ -833,6 +1250,52 @@ cudaError_t launch_forward(const void* x, int M, int B, int K, int threshold, co
       static_cast<const uint8_t*>(x), B, K, threshold, static_cast<const PlaneLayer*>(net),
       depth, n_classes, max_words, static_cast<int32_t*>(out));
   return cudaGetLastError();
+}
+
+template <int TM, int VEC>
+cudaError_t launch_forward_mma(const void* x, int M, int B, int K, int threshold, const void* net,
+                               int depth, int n_classes, int ldx, int stage_words, int cluster,
+                               size_t smem, void* out, cudaStream_t stream) {
+  const auto kernel = forward_planes_mma_kernel<TM, VEC>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, (B + TM - 1) / TM, M);
+  cfg.blockDim = dim3(kFwdThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const uint8_t*>(x), B, K,
+                                           threshold, static_cast<const PlaneLayer*>(net), depth,
+                                           n_classes, ldx, stage_words, static_cast<int32_t*>(out));
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <int TM>
+cudaError_t launch_forward_mma_rows(const void* x, int M, int B, int K, int threshold,
+                                    const void* net, int depth, int n_classes, int ldx,
+                                    int stage_words, int cluster, size_t smem, void* out,
+                                    cudaStream_t s) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(x);
+  if (K % 16 == 0 && p % 16 == 0) {
+    return launch_forward_mma<TM, 16>(x, M, B, K, threshold, net, depth, n_classes, ldx,
+                                      stage_words, cluster, smem, out, s);
+  }
+  if (K % 4 == 0 && p % 4 == 0) {
+    return launch_forward_mma<TM, 4>(x, M, B, K, threshold, net, depth, n_classes, ldx,
+                                     stage_words, cluster, smem, out, s);
+  }
+  return launch_forward_mma<TM, 1>(x, M, B, K, threshold, net, depth, n_classes, ldx,
+                                   stage_words, cluster, smem, out, s);
 }
 
 }  // namespace
@@ -963,6 +1426,75 @@ int bmv_forward_planes(const void* x, int M, int B, int K, int threshold, const 
     default: return cudaErrorInvalidValue;
   }
 #undef FORWARD
+}
+
+// Clusters of `cluster` tensor-core forward blocks the device can hold at
+// once with `smem` bytes each (cudaOccupancyMaxActiveClusters), or a
+// negated cudaError_t.
+int bmv_forward_max_clusters(int bm, int cluster, long long smem, int device) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  const auto kernel = bm > 16 ? forward_planes_mma_kernel<32, 16> : forward_planes_mma_kernel<16, 16>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(kFwdThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// Dynamic shared memory of a tensor-core forward block at bm rows (a tile
+// of 16 or 32), the widest layer's max_words and stage_words per stage slot.
+long long bmv_forward_mma_smem_bytes(int bm, int max_words, int stage_words) {
+  return static_cast<long long>(forward_mma_smem(bm > 16 ? 32 : 16, max_words, stage_words));
+}
+
+// Words of one stage slot for a layer of P planes and W words: both signs
+// of every plane for kFwdCols columns at the staged column stride.
+long long bmv_forward_stage_words(int P, int W) {
+  return 2LL * P * kFwdCols * forward_mma_lds(W);
+}
+
+// The tensor-core route of bmv_forward_planes: table rows hold planes laid
+// out K-contiguous per column (ldw = W rounded up to 8, planes and models
+// packed; both pointers 16-byte aligned); `cluster` blocks (1, 2, 4 or 8) share a row
+// tile of 16 rows (bm <= 16) or 32; stage_words is the largest
+// bmv_forward_stage_words over the layers.
+int bmv_forward_planes_mma(const void* x, int M, int B, int K, int threshold, const void* table,
+                           int depth, int max_words, int n_classes, void* out, int bm,
+                           int cluster, int stage_words, int device, void* stream) {
+  const bool rows = bm == 1 || bm == 2 || bm == 4 || bm == 8 || bm == 16 || bm == 32;
+  const bool blocks = cluster == 1 || cluster == 2 || cluster == 4 || cluster == kMaxCluster;
+  if (M <= 0 || B <= 0 || K < 0 || depth < 1 || max_words < 0 || n_classes < 1 || !rows ||
+      !blocks || stage_words < 0 || stage_words % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(table) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const int tm = bm > 16 ? 32 : 16;
+  const size_t smem = forward_mma_smem(tm, max_words, stage_words);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  int optin = 0;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e != cudaSuccess) return e;
+  if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ldx = forward_mma_ldx(max_words);
+  return tm == 32 ? launch_forward_mma_rows<32>(x, M, B, K, threshold, table, depth, n_classes,
+                                                ldx, stage_words, cluster, smem, out, s)
+                  : launch_forward_mma_rows<16>(x, M, B, K, threshold, table, depth, n_classes,
+                                                ldx, stage_words, cluster, smem, out, s);
 }
 
 }  // extern "C"

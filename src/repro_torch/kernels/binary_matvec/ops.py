@@ -15,6 +15,11 @@ kernel, the route for weights that do not fit int8. `.launches` counts
 both routes; `.mma_launches` counts the tensor-core launches alone.
 `binary_matmul_planes` has one route, the 1-bit tensor cores, for any
 plane count: planes are bits whatever the weights.
+`binary_forward_planes` has two, picked by shapes alone: the 1-bit
+tensor-core kernel, whose blocks of a cluster split each hidden layer's
+units, for every net whose activations fit its shared memory
+(`forward_on_mma`), and the scalar kernel for the rest; `.launches`
+counts both, `.mma_launches` the tensor-core launches.
 
 Packed words are int32 tensors holding the uint32 bit pattern (see
 `ref.py`); numpy uint32 arrays cross over with `.view(np.int32)`.
@@ -22,6 +27,8 @@ Packed words are int32 tensors holding the uint32 bit pattern (see
 either device, as their JAX counterparts are `jnp` outside Pallas.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -32,9 +39,11 @@ from repro_torch.kernels.launch import (
 )
 
 __all__ = [
-    "BLOCK_ROWS", "ForwardTable", "binarize_pack", "binary_forward_planes",
-    "binary_matmul", "binary_matmul_packed", "binary_matmul_planes",
-    "check_forward_planes", "check_matmul_blocks", "forward_smem_bytes",
+    "BLOCK_ROWS", "FORWARD_CLUSTERS", "ForwardTable", "binarize_pack",
+    "binary_forward_planes", "binary_matmul", "binary_matmul_packed",
+    "binary_matmul_planes", "check_forward_planes", "check_matmul_blocks",
+    "forward_cluster", "forward_mma_smem_bytes", "forward_on_mma", "forward_smem_bytes",
+    "forward_stage_words", "launch_cluster",
     "in_mma_layout", "mma_weights", "pack_bits", "plane_mma_weights", "planes_smem_bytes",
     "reset_launches", "step_pack",
 ]
@@ -45,6 +54,8 @@ PACKED_BM, PACKED_BN = 8, 64           # packed defaults: 256 blocks at layer 1
 MMA_BM, MMA_BN = 32, 32                # tensor-core defaults: 128 blocks at layer 1
 FORWARD_BM = 8
 FORWARD_WARPS = 8                       # kForwardThreads / 32
+FORWARD_MMA_WARPS = 4                   # kFwdThreads / 32
+FORWARD_CLUSTERS = (1, 2, 4, 8)         # blocks a tensor-core forward cluster may have
 
 binarize_pack = ref.binarize_pack
 pack_bits = ref.pack_bits
@@ -59,6 +70,7 @@ def reset_launches() -> None:
     binary_matmul_packed.mma_launches = 0
     binary_matmul_planes.launches = 0
     binary_forward_planes.launches = 0
+    binary_forward_planes.mma_launches = 0
 
 
 def check_matmul_blocks(bm: int | None = None, bn: int | None = None, *,
@@ -290,19 +302,106 @@ def check_forward_planes(layer_words, bm: int | None = None) -> int:
     return bm
 
 
+def _staged_words(words: int) -> int:
+    """An activation row of `words` words (`forward_mma_ldx`): rounded up
+    to 8, then to 8 mod 16."""
+    ldx = -(-words // 8) * 8
+    return ldx if ldx % 16 else ldx + 8
+
+
+def forward_stage_words(layer_planes, layer_words) -> int:
+    """Words of one stage slot of the tensor-core forward kernel: the
+    largest layer's 2P plane columns, W rounded up to 8 words, for one
+    stage of 32 columns (`bmv_forward_stage_words`)."""
+    return max(2 * p * 32 * -(-w // 8) * 8 for p, w in zip(layer_planes, layer_words))
+
+
+def forward_mma_smem_bytes(layer_planes, layer_words, bm: int) -> int:
+    """Dynamic shared memory of one tensor-core forward block
+    (`forward_mma_smem` in the .cu source): two activation buffers of 16
+    rows (bm <= 16) or 32 at the widest layer's staged row, the per-warp
+    argmax partials, two stage slots' mbarriers and the two slots."""
+    tm = 32 if bm > 16 else 16
+    return 4 * (2 * tm * _staged_words(max(layer_words)) + 2 * FORWARD_MMA_WARPS * tm + 4
+                + 2 * forward_stage_words(layer_planes, layer_words))
+
+
+def forward_on_mma(layer_planes, layer_words, bm: int | None = None) -> bool:
+    """Whether `binary_forward_planes` takes the 1-bit tensor-core route
+    for a net with these per-layer plane counts and word widths at `bm`
+    rows per block: whenever its activations and two stages of planes fit
+    the route's shared memory. Shapes alone decide, so the backend knows
+    the route when it builds a predictor."""
+    bm = FORWARD_BM if bm is None else bm
+    return forward_mma_smem_bytes(layer_planes, layer_words, bm) <= SMEM_LIMIT
+
+
+def forward_cluster(layer_words) -> int:
+    """The most blocks a tensor-core forward cluster takes for a net: the
+    largest of 1, 2, 4, 8 that does not exceed the widest hidden layer's
+    output words (the words of layers 1..), so every block has units of
+    it; 1 for a single-layer net."""
+    widest = max(layer_words[1:], default=1)
+    return max(c for c in FORWARD_CLUSTERS if c <= max(1, widest))
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(device: int, bm: int, cluster: int, smem: int) -> int:
+    from repro_torch.kernels.binary_matvec import build
+
+    lib = build.load()
+    n = lib.bmv_forward_max_clusters(bm, cluster, smem, device)
+    check_launch(-n if n < 0 else 0, lib.bmv_error_string, "bmv_forward_max_clusters")
+    return n
+
+
+def launch_cluster(layer_planes, layer_words, rows: int, models: int, bm: int,
+                   device: torch.device) -> int:
+    """The cluster size a tensor-core forward launch takes on `device`:
+    the largest up to `forward_cluster` whose clusters (one per row tile
+    and model) the card holds at once (`cudaOccupancyMaxActiveClusters`
+    at the block's shared memory), so the grid runs in one wave; the
+    largest allowed when none does. On an H100 at 784-500-10 it holds 45
+    clusters of 8 blocks and 92 of 4, so 16 row tiles of one model take
+    clusters of 8 and three models' 48 take clusters of 4."""
+    tm = 32 if bm > 16 else 16
+    tiles = models * -(-rows // tm)
+    smem = forward_mma_smem_bytes(layer_planes, layer_words, bm)
+    cap = forward_cluster(layer_words)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    for c in sorted(FORWARD_CLUSTERS, reverse=True):
+        if c <= cap and tiles <= _max_clusters(index, bm, c, smem):
+            return c
+    return cap
+
+
+def _in_forward_layout(p: torch.Tensor) -> bool:
+    """(…, P, W, N) words as the tensor-core forward kernel reads them, the
+    `plane_mma_weights` layout: K-contiguous per column at a column stride
+    of W rounded up to 8, planes and models packed at P x N x stride (so
+    a run of columns of one plane is contiguous), the base 16-byte
+    aligned."""
+    ldw, n, w = p.stride(-1), p.shape[-1], p.shape[-2]
+    lead = p.dim() < 4 or p.stride(-4) == p.shape[-3] * n * ldw
+    return p.stride(-2) == 1 and ldw == -(-w // 8) * 8 \
+        and p.stride(-3) == n * ldw and lead and p.data_ptr() % 16 == 0
+
+
 class ForwardTable:
-    """The forward kernel's layer table for one set of plane tensors: per
-    layer, a 32-byte row (pos and neg pointers; P, W, N; padding; the
-    `PlaneLayer` struct of the .cu source) in an int64 (depth, 4) tensor
-    on the planes' device. It is a pure function of the tensors' addresses
-    and shapes (`key`), so a table built once, when a predictor is built,
-    serves every call on those tensors without a host-to-device copy."""
+    """The forward kernels' layer table for one set of plane tensors: per
+    layer, a 32-byte row (pos and neg pointers; P, W, N; the column stride,
+    which the tensor-core kernel reads; the `PlaneLayer` struct of the .cu
+    source) in an int64 (depth, 4) tensor on the planes' device. It is a
+    pure function of the tensors' addresses and shapes (`key`) and strides
+    (`strides`), so a table built once, when a predictor is built, serves
+    every call on those tensors without a host-to-device copy."""
 
     def __init__(self, planes):
         pairs = list(zip(planes[0::2], planes[1::2]))
         self.key = _table_key(planes)
+        self.strides = tuple(t.stride() for t in planes)
         rows = [[p.data_ptr(), q.data_ptr(), p.shape[-3] | (p.shape[-2] << 32),
-                 p.shape[-1]] for p, q in pairs]
+                 p.shape[-1] | (p.stride(-1) << 32)] for p, q in pairs]
         self.rows = torch.tensor(rows, dtype=torch.int64).to(planes[0].device)
 
 
@@ -312,7 +411,7 @@ def _table_key(planes) -> tuple:
 
 def binary_forward_planes(x: torch.Tensor, *planes: torch.Tensor,
                           threshold: int, n_classes: int,
-                          bm: int | None = None,
+                          bm: int | None = None, cluster: int | None = None,
                           table: ForwardTable | None = None) -> torch.Tensor:
     """Whole-net forward in one launch: raw uint8 images -> class ids.
 
@@ -320,10 +419,18 @@ def binary_forward_planes(x: torch.Tensor, *planes: torch.Tensor,
     interleaves pos_0, neg_0, pos_1, neg_1, ... int32 words
     (P_l, W_l, N_l) per layer ((M, P_l, W_l, N_l) when stacked), as
     `ExecutionPlan.megakernel_view()` lays them out: each hidden N_l ==
-    W_{l+1} * 32. Returns int32 (B,) / (M, B). `bm` is the rows per
-    block of the CUDA launch. `table` is the `ForwardTable` of `planes`,
-    made once by a caller that calls again on the same tensors; without
-    it the CUDA route builds one per call (a host-to-device copy).
+    W_{l+1} * 32. Returns int32 (B,) / (M, B).
+
+    On CUDA tensors the route follows from the shapes (`forward_on_mma`):
+    the 1-bit tensor-core route reads planes in the `plane_mma_weights`
+    layout, the scalar route row-major; planes in the other layout are
+    copied into the route's for the call (with a table of their own).
+    `bm` is the rows per block (the tensor-core route takes a tile of 16
+    rows for bm <= 16, else 32); `cluster` the blocks of a tensor-core
+    cluster (one of FORWARD_CLUSTERS, default `launch_cluster`); both
+    only shape the CUDA launch. `table` is the `ForwardTable` of
+    `planes`, made once by a caller that calls again on the same tensors;
+    without it the CUDA route builds one per call (a host-to-device copy).
     """
     name = "binary_forward_planes"
     if not planes or len(planes) % 2:
@@ -354,11 +461,24 @@ def binary_forward_planes(x: torch.Tensor, *planes: torch.Tensor,
         raise ValueError(f"{name}: {k} inputs exceed layer 0's "
                          f"{pairs[0][0].shape[-2]} words")
     layer_words = [p.shape[-2] for p, _ in pairs]
+    layer_planes = [p.shape[-3] for p, _ in pairs]
     bm = check_forward_planes(layer_words, bm)
+    if cluster is not None and cluster not in FORWARD_CLUSTERS:
+        raise ValueError(f"{name}: cluster={cluster} not in {FORWARD_CLUSTERS}")
     if placement(name, (x, *planes)) == "cpu":
         return ref.forward_planes(x, *planes, threshold=threshold,
                                   n_classes=n_classes)
-    check_contiguous(name, (x, *planes))
+    check_contiguous(name, (x,))
+    if table is not None and (table.key != _table_key(planes)
+                              or table.strides != tuple(t.stride() for t in planes)
+                              or table.rows.device != x.device):
+        raise ValueError(f"{name}: the layer table was built for other tensors")
+    mma = forward_on_mma(layer_planes, layer_words, bm)
+    if mma and not all(_in_forward_layout(p) and p.stride() == q.stride()
+                       for p, q in pairs):
+        planes, table = tuple(plane_mma_weights(p) for p in planes), None
+    elif not mma and not all(p.is_contiguous() for p in planes):
+        planes, table = tuple(p.contiguous() for p in planes), None
     m = x.shape[0] if stacked else 1
     b = x.shape[-2]
     out = torch.empty(x.shape[:-1], dtype=torch.int32, device=x.device)
@@ -369,14 +489,19 @@ def binary_forward_planes(x: torch.Tensor, *planes: torch.Tensor,
     lib = build.load()
     if table is None:
         table = ForwardTable(planes)
-    elif table.key != _table_key(planes) or table.rows.device != x.device:
-        raise ValueError(f"{name}: the layer table was built for other tensors")
     device, stream = stream_args(x)
-    err = lib.bmv_forward_planes(
-        x.data_ptr(), m, b, k, int(threshold), table.rows.data_ptr(), len(pairs),
-        max(layer_words), int(n_classes), out.data_ptr(), bm, device, stream)
+    head = (x.data_ptr(), m, b, k, int(threshold), table.rows.data_ptr(), len(pairs),
+            max(layer_words), int(n_classes), out.data_ptr(), bm)
+    if mma:
+        if cluster is None:
+            cluster = launch_cluster(layer_planes, layer_words, b, m, bm, x.device)
+        err = lib.bmv_forward_planes_mma(
+            *head, cluster, forward_stage_words(layer_planes, layer_words), device, stream)
+    else:
+        err = lib.bmv_forward_planes(*head, device, stream)
     check_launch(err, lib.bmv_error_string, name)
     binary_forward_planes.launches += 1
+    binary_forward_planes.mma_launches += int(mma)
     return out
 
 

@@ -26,7 +26,11 @@ boundary; the datapath follows the plan form (`cuda`,
   fusednet  — the whole planes-form net (any depth whose activations
               fit shared memory, single or stacked) as ONE
               `binary_forward_planes` launch through
-              `plan.megakernel_view()`, its layer table built once.
+              `plan.megakernel_view()`, its layer table built once; on
+              the 1-bit tensor cores with the planes held in the
+              `plane_mma_weights` layout, or, for a net whose
+              activations that route cannot hold, on the scalar kernel
+              with the planes row-major (decided once at build).
 
 The stacked multi-net dispatch prefers the megakernel for the bit-plane
 options: `planes=true` builds it and falls back to the per-layer chain
@@ -215,6 +219,8 @@ def _build_fusednet(plan: ExecutionPlan, blocks: dict, device: torch.device):
     view = plan.megakernel_view()
     bm = bmv.check_forward_planes(view.layer_words, blocks.get("bm"))
     arrays = tuple(_words(a, device) for a in view.arrays)
+    if bmv.forward_on_mma(view.layer_planes, view.layer_words, bm):   # the route's layout, once
+        arrays = tuple(bmv.plane_mma_weights(a) for a in arrays)
     table = bmv.ForwardTable(arrays)
 
     def predict(x_uint8):

@@ -385,6 +385,174 @@ def test_binary_forward_planes_takes_any_depth(depth):
         got.numpy(), np.asarray(jquantize.predict_quantized(net)(jnp.asarray(x))))
 
 
+# ---------------------------------------------------------------------------
+# binary_forward_planes on planes in the backend's layout
+# (`plane_mma_weights`, the tensor-core route's), against JAX
+# ---------------------------------------------------------------------------
+
+def _random_planes(rng, lead, p, words, n_classes):
+    """Random uint32 plane words for layers of `words` input words each;
+    a hidden layer's fan_out is 32 x the next layer's words."""
+    arrays = []
+    for i, w in enumerate(words):
+        n = n_classes if i + 1 == len(words) else 32 * words[i + 1]
+        arrays += [_words(rng, (*lead, p, w, n)) for _ in range(2)]
+    return arrays
+
+
+def _forward_both(x, arrays, threshold, n_classes):
+    """(port on the `plane_mma_weights` layout, JAX's interpret-mode
+    kernel) on the same numpy inputs."""
+    kw = {"threshold": threshold, "n_classes": n_classes}
+    held = [ops.plane_mma_weights(_t(a)) for a in arrays]
+    got = ops.binary_forward_planes(_t(x), *held, **kw)
+    pallas = np.asarray(jops.binary_forward_planes(
+        jnp.asarray(x), *[jnp.asarray(a) for a in arrays], **kw))
+    return got, pallas
+
+
+@pytest.mark.parametrize("lead,b,p,words,k", [
+    ((), 1, 4, (2, 16, 1), 50), ((), 17, 4, (2, 16, 1), 50), ((), 255, 4, (2, 16, 1), 50),
+    ((3,), 1, 4, (2, 16, 1), 64), ((3,), 17, 2, (2, 4, 1), 64), ((2,), 255, 3, (2, 1, 1), 40),
+    ((), 40, 1, (1, 1, 1), 32), ((), 40, 2, (2, 32, 1), 33), ((), 40, 3, (3, 2, 4, 1), 70),
+    ((), 40, 5, (1, 8, 1), 20), ((), 40, 6, (1, 3, 1), 20), ((), 40, 7, (2, 1, 1), 60),
+    ((), 40, 8, (1, 2, 1), 31),
+])
+def test_binary_forward_planes_backend_layout_equals_jax(lead, b, p, words, k):
+    """Single and stacked, B ragged against 16- and 32-row tiles, P from 1
+    to 8, hidden widths from 32 to 1024 units, random words (their sums
+    step about half the units on)."""
+    rng = np.random.default_rng(b + p + len(words))
+    n_classes = 7
+    arrays = _random_planes(rng, lead, p, words, n_classes)
+    x = rng.integers(0, 256, size=(*lead, b, k)).astype(np.uint8)
+    got, pallas = _forward_both(x, arrays, 128, n_classes)
+    assert got.shape == (*lead, b)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+
+
+@pytest.mark.parametrize("case", ["deep17", "all_negative", "wrap"])
+def test_binary_forward_planes_backend_layout_nets(case):
+    """A 17-layer width-16 net, a net whose every real score is negative,
+    and the net whose hidden accumulator wraps at 2**31 (class 1), each
+    through its megakernel view held in the backend's layout."""
+    if case == "deep17":
+        net = random_net(17, (16,) * 17 + (5,), lo=-4, hi=6)
+        x = images(17, 40, 16)
+    elif case == "all_negative":
+        w = -np.random.default_rng(5).integers(1, 6, size=(40, 6)).astype(np.int32)
+        net = jquantize.QuantizedNet(weights=[w])
+        x = images(5, 9, 40)
+        x[:, :8] = 255
+    else:
+        w1 = np.ones((4, 2), np.int64)
+        w1[:, 0] = 2 ** 30
+        net = jquantize.QuantizedNet(weights=[w1.astype(np.int32),
+                                              np.array([[5, 0], [0, 1]], np.int32)],
+                                     input_threshold=127)
+        x = np.full((3, 4), 255, np.uint8)
+    view = _view(net)
+    got, pallas = _forward_both(x, view.arrays, view.input_threshold, view.n_classes)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jquantize.predict_quantized(net)(jnp.asarray(x))))
+    if case == "wrap":
+        assert got.tolist() == [1, 1, 1]
+
+
+def test_forward_table_writes_the_column_stride():
+    """The fourth int of a table row is the planes' column stride: W
+    rounded up to 8 words in the backend's layout, 1 row-major."""
+    rng = np.random.default_rng(3)
+    arrays = _random_planes(rng, (3,), 4, (25, 16), 10)
+    held = [ops.plane_mma_weights(_t(a)) for a in arrays]
+    rows = ops.ForwardTable(held).rows
+    assert (rows[:, 3] >> 32).tolist() == [32, 16]
+    assert (rows[:, 3] & 0xFFFFFFFF).tolist() == [512, 10]
+    assert (rows[:, 2] >> 32).tolist() == [25, 16]
+    assert (ops.ForwardTable([_t(a) for a in arrays]).rows[:, 3] >> 32).tolist() == [1, 1]
+
+
+def _parent_takes(words: int, bm: int) -> bool:
+    """The rule `check_forward_planes` had before the tensor-core route:
+    two bm x words buffers and 8 warps' (value, index) partials."""
+    return 4 * (2 * bm * words + 2 * 8 * bm) <= 232_448
+
+
+@pytest.mark.parametrize("bm", [8, 32])
+def test_check_forward_planes_takes_what_it_took(bm):
+    """Every widest-layer width the parent took at this bm is still taken,
+    up to the boundary, and the first beyond it is refused; nets over the
+    tensor-core route's shared memory take the scalar route."""
+    edge = max(w for w in range(1, 8000) if _parent_takes(w, bm))
+    for w in (1, 25, 512, edge - 1, edge):
+        assert ops.check_forward_planes([w, 1], bm) == bm
+    with pytest.raises(ValueError):
+        ops.check_forward_planes([edge + 1, 1], bm)
+    assert ops.forward_on_mma([4, 4, 4], [25, 16, 1], bm)
+    assert not ops.forward_on_mma([1, 1], [edge, 1], bm)   # staged planes overflow
+    for p in (1, 4, 8):
+        mma_edge = max(w for w in range(1, 8000) if ops.forward_on_mma([p], [w], bm))
+        assert ops.forward_mma_smem_bytes([p], [mma_edge], bm) <= 232_448
+        assert ops.forward_mma_smem_bytes([p], [mma_edge + 1], bm) > 232_448
+        assert ops.check_forward_planes([mma_edge + 1], bm) == bm   # the scalar route
+    for bm_all in ops.BLOCK_ROWS:          # the whole parent rule, every bm
+        for w in range(1, 4000, 37):
+            if _parent_takes(w, bm_all):
+                assert ops.check_forward_planes([w], bm_all) == bm_all
+
+
+def test_forward_cluster_and_route_follow_the_shapes():
+    assert ops.forward_cluster([25, 16, 1]) == 8      # 784-500-10: 16 hidden words
+    assert ops.forward_cluster([1] * 17) == 1         # width-16 deep nets
+    assert ops.forward_cluster([25]) == 1             # no hidden layer
+    assert ops.forward_cluster([4, 3, 1]) == 2
+    assert ops.forward_on_mma([3] * 40, [1] * 40)
+    assert ops.forward_stage_words([4, 4], [25, 16]) == 2 * 4 * 32 * 32
+    x = _t(images(3, 4, 40))
+    arrays = [_t(a) for a in _view(random_net(3, (40, 21, 7), lo=-5, hi=5)).arrays]
+    with pytest.raises(ValueError):
+        ops.binary_forward_planes(x, *arrays, threshold=128, n_classes=7, cluster=3)
+
+
+def _fragment_repack(acc: np.ndarray) -> np.ndarray:
+    """numpy model of the tensor-core kernel's step and repack: acc int32
+    (16 or 32 rows, N) in m16n8 C fragments (lane (g, t) holds units 2t,
+    2t+1 of rows g and g+8), two OR-shuffles across the four lanes of a
+    row, and lanes t = 0, 1 storing the byte of rows g, g+8 at byte n0 / 8.
+    Returns the rows' uint32 words."""
+    rows, n = acc.shape
+    out = np.zeros((rows, n // 8), np.uint8)
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    for mt in range(rows // 16):
+        for n0 in range(0, n, 8):
+            c = [acc[mt * 16 + g + 8 * h, n0 + 2 * t + j] for h in (0, 1) for j in (0, 1)]
+            lo = ((c[0] > 0) | (c[1] > 0).astype(np.uint32) << 1).astype(np.uint32) << (2 * t)
+            hi = ((c[2] > 0) | (c[3] > 0).astype(np.uint32) << 1).astype(np.uint32) << (2 * t)
+            for o in (1, 2):
+                lo, hi = lo | lo[lanes ^ o], hi | hi[lanes ^ o]
+            for lane in lanes[t < 2]:
+                out[mt * 16 + g[lane] + 8 * t[lane], n0 // 8] = (hi if t[lane] else lo)[lane]
+    return out.view("<u4")
+
+
+@pytest.mark.parametrize("rows,n", [(16, 32), (16, 512), (32, 96)])
+def test_fragment_repack_model_equals_step_pack(rows, n):
+    acc = np.random.default_rng(rows + n).integers(-3, 4, size=(rows, n)).astype(np.int32)
+    acc[0, :] = 0                                           # zeros step to 0
+    want = ref.step_pack(torch.from_numpy(acc), words=n // 32)
+    np.testing.assert_array_equal(_fragment_repack(acc), _u32(want))
+
+
+def test_pixel_bits_multiply_packs_four_flags():
+    """The kernel's binarize turns the four byte flags of a word (bit 8j)
+    into bits 0-3 with one multiply: ((m & 0x01010101) * 0x10204080) >> 28."""
+    for bits in range(16):
+        m = sum(0xFF << (8 * j) for j in range(4) if bits >> j & 1)
+        assert (((m & 0x01010101) * 0x10204080) & 0xFFFFFFFF) >> 28 == bits
+
+
 def test_cpu_calls_launch_no_kernel():
     ops.reset_launches()
     net = random_net(8, (40, 6), lo=-5, hi=5)

@@ -88,10 +88,12 @@ def test_forward_planes_kernel_takes_deep_nets(cuda, depth):
     x = torch.from_numpy(_images(depth, 300, 16)).to(cuda)
     kw = {"threshold": view.input_threshold, "n_classes": view.n_classes}
     before = ops.binary_forward_planes.launches
+    mma = ops.binary_forward_planes.mma_launches
     got = ops.binary_forward_planes(x, *arrays, table=table, **kw)
     again = ops.binary_forward_planes(x, *arrays, **kw)
     torch.cuda.synchronize()
     assert ops.binary_forward_planes.launches == before + 2
+    assert ops.binary_forward_planes.mma_launches == mma + 2    # the tensor-core route
     assert torch.equal(got, again)
     assert torch.equal(got, ref.forward_planes(x, *arrays, **kw))
     assert torch.equal(got, quantize.predict_quantized(net, device=cuda)(x))
@@ -125,6 +127,143 @@ def test_forward_planes_kernel_all_scores_negative(cuda):
     scores = (x.astype(np.int64) > 128) @ w
     assert (scores < 0).all()
     np.testing.assert_array_equal(got.cpu().numpy(), np.argmax(scores, axis=1))
+
+
+# -- binary_forward_planes: the 1-bit tensor-core route and the scalar route --
+
+def _random_planes(rng, lead, p, words, n_classes, dev):
+    arrays = []
+    for i, w in enumerate(words):
+        n = n_classes if i + 1 == len(words) else 32 * words[i + 1]
+        arrays += [_words(rng, (*lead, p, w, n), dev) for _ in range(2)]
+    return arrays
+
+
+def _scalar_forward(x, planes, threshold, n_classes, bm=8):
+    """The scalar kernel (`bmv_forward_planes`) on row-major planes,
+    called directly: the op takes it only where the tensor-core route's
+    shared memory cannot hold the activations."""
+    from repro_torch.kernels.binary_matvec import build
+    table = ops.ForwardTable(planes)
+    out = torch.empty(x.shape[:-1], dtype=torch.int32, device=x.device)
+    m = x.shape[0] if x.dim() == 3 else 1
+    words = [p.shape[-2] for p in planes[0::2]]
+    err = build.load().bmv_forward_planes(
+        x.data_ptr(), m, x.shape[-2], x.shape[-1], threshold, table.rows.data_ptr(),
+        len(words), max(words), n_classes, out.data_ptr(), bm, x.device.index,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return out
+
+
+@pytest.mark.parametrize("lead,b,p,words,k", [
+    ((), 1, 4, (2, 16, 1), 50), ((), 17, 4, (2, 16, 1), 50), ((), 255, 4, (2, 16, 1), 50),
+    ((3,), 1, 4, (2, 16, 1), 64), ((3,), 17, 2, (2, 4, 1), 64), ((2,), 255, 3, (2, 1, 1), 40),
+    ((), 40, 1, (1, 1, 1), 32), ((), 40, 2, (2, 32, 1), 33), ((), 40, 3, (3, 2, 4, 1), 70),
+    ((), 40, 5, (1, 8, 1), 20), ((), 40, 6, (1, 3, 1), 20), ((), 40, 7, (2, 1, 1), 60),
+    ((), 40, 8, (1, 2, 1), 31), ((3,), 256, 4, (25, 16, 1), 784),
+])
+def test_forward_planes_both_routes_match_plain(cuda, lead, b, p, words, k):
+    """Random words, single and stacked, B ragged against the tiles, P 1-8,
+    hidden widths 32-1024 units, the 784-500-10 shape: the tensor-core
+    route on the backend's layout, at both tile heights, and the scalar
+    kernel each equal the plain version."""
+    rng = np.random.default_rng(b + p + len(words))
+    planes = _random_planes(rng, lead, p, words, 10, cuda)
+    x = torch.from_numpy(rng.integers(0, 256, (*lead, b, k), dtype=np.uint8)).to(cuda)
+    kw = {"threshold": 128, "n_classes": 10}
+    want = ref.forward_planes(x, *planes, **kw)
+    held = [ops.plane_mma_weights(a) for a in planes]
+    for bm in (8, 32):
+        before = ops.binary_forward_planes.mma_launches
+        got = ops.binary_forward_planes(x, *held, bm=bm, **kw)
+        torch.cuda.synchronize()
+        assert ops.binary_forward_planes.mma_launches == before + 1
+        assert torch.equal(got, want), bm
+    assert torch.equal(_scalar_forward(x, planes, **kw), want)
+
+
+def test_forward_planes_every_cluster_and_tile(cuda):
+    """Every cluster size at both tile heights gives the same classes at
+    the 784-500-10 stacked shape; the C entry's shared memory equals
+    ops.py's mirror."""
+    from repro_torch.kernels.binary_matvec import build
+    rng = np.random.default_rng(21)
+    planes = [ops.plane_mma_weights(a)
+              for a in _random_planes(rng, (3,), 4, (25, 16), 10, cuda)]
+    x = torch.from_numpy(rng.integers(0, 256, (3, 256, 784), dtype=np.uint8)).to(cuda)
+    kw = {"threshold": 128, "n_classes": 10}
+    want = ref.forward_planes(x, *planes, **kw)
+    for bm in (8, 32):
+        for cluster in ops.FORWARD_CLUSTERS:
+            got = ops.binary_forward_planes(x, *planes, bm=bm, cluster=cluster, **kw)
+            assert torch.equal(got, want), (bm, cluster)
+        picked = ops.launch_cluster([4, 4], [25, 16], 256, 3, bm, cuda)
+        assert picked in ops.FORWARD_CLUSTERS and picked <= ops.forward_cluster([25, 16])
+    lib = build.load()
+    for p in (1, 4, 8):
+        for w in (1, 8, 16, 25, 99, 100):
+            stage = ops.forward_stage_words([p], [w])
+            assert lib.bmv_forward_stage_words(p, w) == stage
+            for bm in ops.BLOCK_ROWS:
+                assert lib.bmv_forward_mma_smem_bytes(bm, w, stage) \
+                    == ops.forward_mma_smem_bytes([p], [w], bm)
+
+
+def test_forward_planes_routes_by_shape(cuda):
+    """Row-major planes are copied into the tensor-core layout and are
+    exact; a net whose activations overflow that route's shared memory at
+    bm=8 takes the scalar kernel and is exact too."""
+    rng = np.random.default_rng(22)
+    kw = {"threshold": 100, "n_classes": 6}
+    planes = _random_planes(rng, (), 3, (25, 16), 6, cuda)
+    x = torch.from_numpy(rng.integers(0, 256, (70, 784), dtype=np.uint8)).to(cuda)
+    before = ops.binary_forward_planes.mma_launches
+    got = ops.binary_forward_planes(x, *planes, table=ops.ForwardTable(planes), **kw)
+    torch.cuda.synchronize()
+    assert ops.binary_forward_planes.mma_launches == before + 1
+    assert torch.equal(got, ref.forward_planes(x, *planes, **kw))
+    wide = _random_planes(rng, (), 2, (2000, 1), 6, cuda)
+    assert not ops.forward_on_mma([2, 2], [2000, 1], 8)
+    assert ops.check_forward_planes([2000, 1], 8) == 8
+    x = torch.from_numpy(rng.integers(0, 256, (40, 2000 * 32), dtype=np.uint8)).to(cuda)
+    want = ref.forward_planes(x, *wide, **kw)
+    launches, mma = ops.binary_forward_planes.launches, ops.binary_forward_planes.mma_launches
+    assert torch.equal(ops.binary_forward_planes(x, *wide, bm=8, **kw), want)
+    assert ops.binary_forward_planes.launches == launches + 1
+    assert ops.binary_forward_planes.mma_launches == mma
+    held = [ops.plane_mma_weights(a) for a in wide]    # copied back to row-major
+    assert torch.equal(ops.binary_forward_planes(x, *held, bm=8, **kw), want)
+    assert ops.binary_forward_planes.mma_launches == mma
+
+
+def test_served_784_500_10_takes_the_tensor_cores(cuda):
+    """Every `binary_forward_planes` launch of stacked `cuda[planes=true]`
+    rounds over 784-500-10 nets takes the tensor-core route, and the
+    wrapping net gives class 1 through `cuda[fusednet=true]` on it."""
+    nets = {f"v{i}": _net(30 + i, (784, 500, 10), lo=-9, hi=9) for i in range(3)}
+    server = netgen.NetServer(session=netgen.Session(device=cuda),
+                              target="cuda[planes=true]", slot_capacity=256)
+    for name, net in nets.items():
+        server.register(name, net)
+    ops.reset_launches()
+    x = _images(5, 256, 784)
+    for _ in range(2):
+        out = server.predict_many({"v0": x, "v1": x[:200], "v2": x[:17]})
+    assert ops.binary_forward_planes.launches == 2
+    assert ops.binary_forward_planes.mma_launches == 2
+    for name, req in (("v0", x), ("v1", x[:200]), ("v2", x[:17])):
+        want = quantize.predict_quantized(nets[name], device=cuda)(req)
+        np.testing.assert_array_equal(out[name], want.cpu().numpy())
+    w1 = np.ones((4, 2), np.int64)
+    w1[:, 0] = 2 ** 30
+    wrap = quantize.QuantizedNet(weights=[w1.astype(np.int32),
+                                          np.array([[5, 0], [0, 1]], np.int32)],
+                                 input_threshold=127)
+    art = netgen.Session(device=cuda).compile(wrap, target="cuda[fusednet=true]")
+    mma = ops.binary_forward_planes.mma_launches
+    assert art(np.full((3, 4), 255, np.uint8)).tolist() == [1, 1, 1]
+    assert ops.binary_forward_planes.mma_launches == mma + 1
 
 
 def test_noncontiguous_operands_raise(cuda):
