@@ -61,7 +61,23 @@ Phases, each raising on failure (nothing is caught):
    kernel route's bf16 dt, and the plain route in fp32 compute. `qlinear`
    runs on the W8 layer-0 `in_proj`/`out_proj` (weights made K-major by
    `qmm_weights` once) with that prefill's real activations and must
-   equal plain `qlinear` exactly.
+   equal plain `qlinear` exactly. (c) The paper's hardware output, run
+   after (a) on its session, served v0 net and 1200 images: the `cost`
+   and `verilog` targets under `zeros,prune,addends` (cells per pass
+   beside the paper's Figure 7, the module's bytes, sha256 and header,
+   the proof summary; no multiplier survives, cells never rise pass to
+   pass, the widest declared accumulator is the proof's `max_width`,
+   int32 proven safe); the same addend-form net through
+   `cuda[fusednet=true]` and `cuda[planes=true]` (B1, all on the 1-bit
+   tensor cores, and B2 must launch; the addend form lowers to the
+   default pipeline's planes, `plan.verify()` clean; the answers equal
+   the numpy interpreter's strict step on the circuit the Verilog came
+   from and `predict_quantized`; the images the MSB step would change
+   are counted); `cuda` under the named `hw` pipeline raising
+   `IrregularCircuitError`; adder sharing on a 784-4-10 net under
+   `zeros,cse[budget=8,bucketed=true]` (adders saved, the generic
+   module's shared sub-sums, the shared DAG's answers equal
+   `predict_quantized`); and each compile's host seconds.
    Every launch count is set to 0 just before a path runs and read just
    after it; each of the path's kernels must have launched.
 5. Times: CUDA events, median of 20 runs after warmup, per kernel (both
@@ -152,6 +168,8 @@ LM_CHUNK = 128                   # the mixer's chunk
 DEEP_DEPTHS, DEEP_WIDTH = (17, 40), 16     # deep planes-form nets for cuda[fusednet=true]
 WRAP_TARGETS = ("torch", "cuda", "cuda[packed=true]", "cuda[planes=true]",
                 "cuda[fusednet=true]", "fused")
+HW_SPEC = "zeros,prune,addends"                  # the paper's L4 + L5 hardware path
+CSE_SPEC = "zeros,cse[budget=8,bucketed=true]"   # adder sharing at 784 inputs
 # W8 (M, K, N) of qlinear/quant_matmul: in_proj and out_proj over a 4 x 512
 # prefill, and in_proj at one decode step of batch 4.
 QMM_SHAPES = {"in_proj": (LM_BATCH * LM_PROMPT, 2560, 10576),
@@ -501,6 +519,132 @@ def _wrapping_net_path(session, dev) -> None:
     for t, g in got.items():
         if not np.array_equal(g, want.cpu().numpy()):
             raise AssertionError(f"{t} disagrees with predict_quantized on the wrapping net")
+
+
+def _hw_path(session, net, images, dev, wrappers, reset_launches, smi) -> dict:
+    """Phase 4(c), the paper's hardware output on the served v0 net
+    (784-500-10): (a) the `cost` and `verilog` targets under
+    `zeros,prune,addends`; (b) the addend-form net on the card through
+    `cuda[fusednet=true]` and `cuda[planes=true]`, equal to the numpy
+    interpreter on the circuit the Verilog was emitted from and to
+    `predict_quantized`, and `cuda` under the named `hw` pipeline raising
+    `IrregularCircuitError`; (c) adder sharing at 784 inputs on the
+    784-4-10 net; (d) each compile's host seconds. Returns the launches
+    of B1 (with those on the tensor cores) and B2 in this phase."""
+    import hashlib
+    import re
+    import numpy as np
+    from repro_torch.core import quantize
+    from repro_torch.netgen import IrregularCircuitError, PipelineSpec, evaluate
+    from repro_torch.netgen.analysis import summary_row
+    from repro_torch.netgen.plan import lower_circuit
+
+    spec = HW_SPEC
+    timings = {}
+    # (a) the hardware path
+    cost = session.compile(net, target="cost", pipeline=spec)
+    verilog = session.compile(net, target="verilog", pipeline=spec)
+    timings["cost"], timings["verilog"] = cost.timings, verilog.timings
+    report = cost.artifact
+    fig7 = dict(report.paper_fig7)
+    paper = {"lowered": "naive", "zeros": "pruned", "addends": "addend"}
+    cells = [(name, c.total) for name, c in report.per_pass]
+    print("[4 hw path] v0 784-500-10 cells per pass: " + ", ".join(
+        f"{name} {n}" + (f" (paper Fig. 7 {paper[name]} ~{fig7[paper[name]]})"
+                         if name in paper else "") for name, n in cells))
+    text = verilog.artifact
+    header = text.splitlines()[1]
+    print(f"[4 hw path] verilog: {len(text.encode())} bytes, sha256 "
+          f"{hashlib.sha256(text.encode()).hexdigest()}, header '{header}'")
+    print(f"[4 hw path] {summary_row(verilog.analysis)}")
+    if [name for name, _ in cells] != ["lowered", "zeros", "prune", "addends"]:
+        raise AssertionError(f"cost per-pass stages {[n for n, _ in cells]}")
+    if cost.pass_stats[-1].after.mults != 0 or report.final.mult_cells != 0:
+        raise AssertionError("multipliers survive the addend rewrite")
+    totals = [n for _, n in cells]
+    if any(b > a for a, b in zip(totals, totals[1:])) or not totals[-1] < totals[0]:
+        raise AssertionError(f"cells do not fall pass by pass: {totals}")
+    if "784-500-10" not in header:
+        raise AssertionError(f"verilog header {header!r}")
+    body = text.split(");", 1)[1].split("// prediction")[0]
+    if "*" in body:
+        raise AssertionError("the addend-form module multiplies")
+    widest = max(int(w) + 1 for w in re.findall(r"wire signed \[(\d+):0\]", text))
+    if widest != verilog.analysis["max_width"]:
+        raise AssertionError(f"widest accumulator {widest} bits != proof "
+                             f"{verilog.analysis['max_width']}")
+    if not verilog.analysis["int32_safe"]:
+        raise AssertionError("the proof does not hold int32 accumulation safe")
+
+    # (b) the addend-form net on the card
+    circuit = verilog.circuit
+    strict = evaluate(circuit, images, step_semantics="strict")
+    msb = evaluate(circuit, images, step_semantics="msb")
+    want = quantize.predict_quantized(net, device=dev)(images).cpu().numpy()
+    if not np.array_equal(strict, want):
+        raise AssertionError("the interpreter disagrees with predict_quantized")
+    default_plan = session.compile(net, target="cuda[planes=true]").plan()
+    for form in ("dense", "packed", "planes"):
+        diags = lower_circuit(circuit, form=form).verify(collect=True)
+        if diags:
+            raise AssertionError(f"{form} plan of the addend form: {diags}")
+    for a, b in zip(lower_circuit(circuit, form="planes").layers, default_plan.layers):
+        for x, y in ((a.weights, b.weights), (a.pos_planes, b.pos_planes),
+                     (a.neg_planes, b.neg_planes)):
+            if not np.array_equal(x, y):
+                raise AssertionError("the addend form lowers to other planes")
+    reset_launches()
+    answers = {}
+    for target in ("cuda[fusednet=true]", "cuda[planes=true]"):
+        art = session.compile(net, target=target, pipeline=spec)
+        timings[target] = art.timings
+        answers[target] = art(images).cpu().numpy()
+    b1, b2 = wrappers["binary_forward_planes"], wrappers["binary_matmul_planes"]
+    counts = {"binary_forward_planes": b1.launches, "binary_matmul_planes": b2.launches,
+              "binary_forward_planes mma": b1.mma_launches}
+    print(f"[4 hw path] addend form on the card: launches {counts}; "
+          f"{b1.mma_launches} of {b1.launches} binary_forward_planes launches on the "
+          "1-bit tensor cores; plans equal the default pipeline's, verify() clean on "
+          "dense, packed and planes")
+    if not (b1.launches > 0 and b2.launches > 0 and b1.mma_launches == b1.launches):
+        raise AssertionError(f"the addend-form path launched {counts}")
+    for target, got in answers.items():
+        if not (np.array_equal(got, strict) and np.array_equal(got, want)):
+            raise AssertionError(f"{target} on the addend form != evaluate / "
+                                 "predict_quantized")
+    print(f"[4 hw path] {len(images)} answers of each target equal evaluate(strict) "
+          f"and predict_quantized; the msb step would change "
+          f"{int((msb != strict).sum())} of them")
+    r = np.random.default_rng(SEED)
+    tiny = quantize.QuantizedNet(weights=[r.integers(-2, 3, size=s).astype(np.int32)
+                                          for s in ((16, 8), (8, N_OUT))])
+    try:
+        session.compile(tiny, target="cuda", pipeline="hw")
+    except IrregularCircuitError as e:
+        print(f"[4 hw path] cuda under hw ({PipelineSpec.named('hw')}) on a 16-8-10 net "
+              f"raises IrregularCircuitError: {e}")
+    else:
+        raise AssertionError("cuda took a CSE-shared circuit")
+
+    # (c) adder sharing at 784 inputs
+    r = np.random.default_rng(0)
+    wide = quantize.QuantizedNet(weights=[r.integers(-2, 3, size=s).astype(np.int32)
+                                          for s in ((N_IN, 4), (4, N_OUT))])
+    shared = session.compile(wide, target="verilog[style=generic]", pipeline=CSE_SPEC)
+    timings["cse verilog"] = shared.timings
+    stats = shared.pass_stats[-1]
+    got = evaluate(shared.circuit, images)
+    want = quantize.predict_quantized(wide, device=dev)(images).cpu().numpy()
+    print(f"[4 hw path] 784-4-10 {stats.row()}, adds saved {stats.adds_saved}; "
+          f"{len(images)} answers of evaluate equal predict_quantized")
+    if stats.adds_saved <= 0 or "// shared sub-sums" not in shared.artifact:
+        raise AssertionError("adder sharing found nothing at 784 inputs")
+    if not np.array_equal(got, want):
+        raise AssertionError("the shared DAG disagrees with predict_quantized")
+
+    # (d) host seconds
+    print(json.dumps({"hw_compile_s": timings, "power": smi}))
+    return counts
 
 
 def _lm_main_path(dev, wrappers, reset_launches):
@@ -1020,6 +1164,10 @@ def main() -> int:
     launches["binary_forward_planes"] += deep
     mma_launches["binary_forward_planes"] += deep_mma
     _wrapping_net_path(session, dev)
+    hw = _hw_path(session, nets[0], images, dev, wrappers, reset_launches, smi)
+    mma_launches["binary_forward_planes"] += hw.pop("binary_forward_planes mma")
+    for name, n in hw.items():
+        launches[name] += n
 
     lm_launches, lm_times, lm_trace = _lm_main_path(dev, wrappers, reset_launches)
     mma_launches["ssd_scan"] = lm_launches.pop("ssd_scan mma")

@@ -1,8 +1,9 @@
 """Typed circuit IR for the netgen compiler.
 
 Counterpart of `repro/netgen/graph.py`: the node types, `Circuit` with
-its inline `validate`, and `as_layered_weights`, which the array
-backends lower through. The paper's network becomes
+its inline `validate`, bit-width inference, `as_layered_weights` (which
+the array backends lower through), the array codec, and the reference
+interpreter `evaluate`. The paper's network becomes
 
   InputCompare  — paper §III.B / Fig. 6 line 5: `pixel > threshold` -> 1 bit
   WeightedSum   — a signed accumulator node: sum of weighted single-bit
@@ -11,12 +12,21 @@ backends lower through. The paper's network becomes
   Argmax        — paper Fig. 6 line 15: the predicted class index.
 
 Nodes are immutable and identified by dense integer ids; a `Circuit` is
-a topologically-ordered tuple of nodes. Bit-width inference, the array
-codec and the reference interpreter are not ported yet.
+a topologically-ordered tuple of nodes. Every value-carrying node has a
+signed bit-width inferred exactly from the maximum magnitude it can
+reach (`value_bounds` / `signed_width`), which sizes the Verilog wires.
+
+`evaluate` is the reference interpreter, in numpy: the semantic arbiter
+of every circuit, including the irregular (CSE-shared) DAGs that no
+array backend can run. The compiled backends compute the strict step
+`acc > 0`; the emitted Verilog's MSB trick `~acc[msb]` fires on
+`acc >= 0`. The two differ only when an accumulator is exactly zero, and
+`evaluate(..., step_semantics=...)` exposes both.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Iterable, Union
 
 import numpy as np
@@ -108,6 +118,20 @@ class Circuit:
         sums = self.by_kind(WeightedSum)
         return max((n.layer for n in sums), default=0)
 
+    def consumers(self) -> dict[NodeId, list[NodeId]]:
+        """Map node id -> ids of nodes that read it."""
+        out: dict[NodeId, list[NodeId]] = {n.id: [] for n in self.nodes}
+        for n in self.nodes:
+            if isinstance(n, WeightedSum):
+                for t in n.terms:
+                    out[t.src].append(n.id)
+            elif isinstance(n, SignStep):
+                out[n.src].append(n.id)
+            elif isinstance(n, Argmax):
+                for s in n.srcs:
+                    out[s].append(n.id)
+        return out
+
     def validate(self) -> None:
         """Check topological order, id uniqueness, and output wiring."""
         seen: set[NodeId] = set()
@@ -129,6 +153,43 @@ class Circuit:
             seen.add(n.id)
         if self.output not in seen or not isinstance(self.node(self.output), Argmax):
             raise ValueError("output must name an Argmax node")
+
+
+# ---------------------------------------------------------------------------
+# Bit-width inference
+# ---------------------------------------------------------------------------
+
+def value_bounds(circuit: Circuit) -> dict[NodeId, int]:
+    """Exact per-node bound on |value|: single-bit nodes are 1; a sum node
+    reaches at most `sum(|w| * bound(src))`. One topological sweep."""
+    bound: dict[NodeId, int] = {}
+    for n in circuit.nodes:
+        if isinstance(n, (InputCompare, SignStep)):
+            bound[n.id] = 1
+        elif isinstance(n, WeightedSum):
+            bound[n.id] = sum(abs(t.weight) * bound[t.src] for t in n.terms)
+        elif isinstance(n, Argmax):
+            bound[n.id] = max(len(n.srcs) - 1, 1)
+    return bound
+
+
+def signed_width(bound: int) -> int:
+    """Bits for a signed register holding values in [-bound, bound]."""
+    return max(math.ceil(math.log2(bound + 1)) + 1, 2) if bound > 0 else 2
+
+
+def node_widths(circuit: Circuit) -> dict[NodeId, int]:
+    """Per-node signed bit-widths (1 for the single-bit node kinds)."""
+    widths: dict[NodeId, int] = {}
+    for nid, b in value_bounds(circuit).items():
+        n = circuit.node(nid)
+        if isinstance(n, (InputCompare, SignStep)):
+            widths[nid] = 1
+        elif isinstance(n, Argmax):
+            widths[nid] = max(math.ceil(math.log2(max(len(n.srcs), 2))), 1)
+        else:
+            widths[nid] = signed_width(b)
+    return widths
 
 
 # ---------------------------------------------------------------------------
@@ -180,3 +241,145 @@ def as_layered_weights(circuit: Circuit) -> list[np.ndarray]:
         mats.append(w)
         src_index = next_index
     return mats
+
+
+# ---------------------------------------------------------------------------
+# Array codec (the persistent form of a circuit)
+# ---------------------------------------------------------------------------
+
+_KIND_CODES = {InputCompare: 0, WeightedSum: 1, SignStep: 2, Argmax: 3}
+
+
+def circuit_to_arrays(circuit: Circuit) -> dict[str, np.ndarray]:
+    """Encode a circuit (regular OR irregular DAG) as a flat dict of
+    integer arrays, the form the reference's `ArtifactStore` persists via
+    `np.savez` (the same keys and dtypes). Compact (terms are one (host_row, weight,
+    src) int64 triple each, not a Python object) and code-free (no
+    pickle: the store stays loadable across refactors and trustworthy
+    across processes). `circuit_from_arrays` is the exact inverse.
+    """
+    kinds, ids = [], []
+    cmp_pixel, cmp_thr = [], []
+    sum_layer, sum_nterms, term_weight, term_src = [], [], [], []
+    step_src, argmax_srcs, argmax_nsrcs = [], [], []
+    for n in circuit.nodes:
+        kinds.append(_KIND_CODES[type(n)])
+        ids.append(n.id)
+        if isinstance(n, InputCompare):
+            cmp_pixel.append(n.pixel)
+            cmp_thr.append(n.threshold)
+        elif isinstance(n, WeightedSum):
+            sum_layer.append(n.layer)
+            sum_nterms.append(len(n.terms))
+            for t in n.terms:
+                term_weight.append(t.weight)
+                term_src.append(t.src)
+        elif isinstance(n, SignStep):
+            step_src.append(n.src)
+        else:
+            argmax_nsrcs.append(len(n.srcs))
+            argmax_srcs.extend(n.srcs)
+    i64 = lambda xs: np.asarray(xs, dtype=np.int64)  # noqa: E731
+    return {
+        "header": i64([circuit.n_inputs, circuit.input_threshold,
+                       circuit.output]),
+        "kinds": i64(kinds), "ids": i64(ids),
+        "cmp_pixel": i64(cmp_pixel), "cmp_thr": i64(cmp_thr),
+        "sum_layer": i64(sum_layer), "sum_nterms": i64(sum_nterms),
+        "term_weight": i64(term_weight), "term_src": i64(term_src),
+        "step_src": i64(step_src),
+        "argmax_nsrcs": i64(argmax_nsrcs), "argmax_srcs": i64(argmax_srcs),
+    }
+
+
+def circuit_from_arrays(arrays) -> Circuit:
+    """Rebuild a circuit from `circuit_to_arrays` output (or an opened
+    `np.load` of it). Validates the result before returning it."""
+    a = {k: np.asarray(arrays[k]) for k in (
+        "header", "kinds", "ids", "cmp_pixel", "cmp_thr", "sum_layer",
+        "sum_nterms", "term_weight", "term_src", "step_src",
+        "argmax_nsrcs", "argmax_srcs")}
+    n_inputs, input_threshold, output = (int(v) for v in a["header"])
+    nodes: list[Node] = []
+    ci = si = ti = pi = ai = aj = 0
+    for kind, nid in zip(a["kinds"].tolist(), a["ids"].tolist()):
+        if kind == 0:
+            nodes.append(InputCompare(
+                id=nid, pixel=int(a["cmp_pixel"][ci]),
+                threshold=int(a["cmp_thr"][ci])))
+            ci += 1
+        elif kind == 1:
+            k = int(a["sum_nterms"][si])
+            terms = tuple(
+                Term(weight=int(a["term_weight"][ti + j]),
+                     src=int(a["term_src"][ti + j])) for j in range(k))
+            nodes.append(WeightedSum(
+                id=nid, terms=terms, layer=int(a["sum_layer"][si])))
+            si += 1
+            ti += k
+        elif kind == 2:
+            nodes.append(SignStep(id=nid, src=int(a["step_src"][pi])))
+            pi += 1
+        elif kind == 3:
+            k = int(a["argmax_nsrcs"][ai])
+            nodes.append(Argmax(id=nid, srcs=tuple(
+                int(s) for s in a["argmax_srcs"][aj:aj + k])))
+            ai += 1
+            aj += k
+        else:
+            raise ValueError(f"unknown node kind code {kind}")
+    circuit = Circuit(n_inputs=n_inputs, input_threshold=input_threshold,
+                      nodes=tuple(nodes), output=output)
+    circuit.validate()
+    return circuit
+
+
+# ---------------------------------------------------------------------------
+# Reference interpreter (the semantic arbiter for every backend)
+# ---------------------------------------------------------------------------
+
+def evaluate(
+    circuit: Circuit,
+    x_uint8: np.ndarray,
+    *,
+    step_semantics: str = "strict",
+    check_widths: bool = False,
+) -> np.ndarray:
+    """Execute the circuit on a batch of uint8 inputs (B, n_inputs).
+
+    step_semantics: "strict" — step fires on `acc > 0` (the arithmetic the
+    compiled array backends and `quantize.predict_quantized` implement);
+    "msb" — step is `~acc[msb]`, i.e. fires on `acc >= 0` (the emitted
+    Verilog's §V.D MSB trick). check_widths asserts every accumulator
+    stays inside its inferred signed bit-width.
+    """
+    if step_semantics not in ("strict", "msb"):
+        raise ValueError(f"unknown step_semantics {step_semantics!r}")
+    x = np.asarray(x_uint8)
+    if x.ndim != 2 or x.shape[1] != circuit.n_inputs:
+        raise ValueError(f"expected (B, {circuit.n_inputs}), got {x.shape}")
+    widths = node_widths(circuit) if check_widths else None
+
+    vals: dict[NodeId, np.ndarray] = {}
+    out = None
+    for n in circuit.nodes:
+        if isinstance(n, InputCompare):
+            vals[n.id] = (x[:, n.pixel].astype(np.int64) > n.threshold).astype(np.int64)
+        elif isinstance(n, WeightedSum):
+            acc = np.zeros(x.shape[0], dtype=np.int64)
+            for t in n.terms:
+                acc += t.weight * vals[t.src]
+            if widths is not None:
+                lim = 2 ** (widths[n.id] - 1)
+                assert np.all(acc >= -lim) and np.all(acc < lim), (
+                    f"sum node {n.id} overflows its {widths[n.id]}-bit width")
+            vals[n.id] = acc
+        elif isinstance(n, SignStep):
+            v = vals[n.src]
+            vals[n.id] = (v > 0 if step_semantics == "strict" else v >= 0).astype(np.int64)
+        elif isinstance(n, Argmax):
+            stacked = np.stack([vals[s] for s in n.srcs], axis=1)
+            out = vals[n.id] = np.argmax(stacked, axis=1)
+    if out is None:
+        raise ValueError("circuit has no Argmax output node")
+    return vals[circuit.output]

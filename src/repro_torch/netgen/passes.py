@@ -12,19 +12,29 @@ tricks map onto them:
                           unit nothing reads is deleted outright.
   addend_rewrite        — paper L5: `w * x` with x in {0,1} becomes |w|
                           repeated ±x addends — multiplication-free form.
+  share_common_addends  — CSE over addends: a (w_a·a + w_b·b) pair that
+                          occurs in several accumulators is computed once
+                          in a shared sub-sum node (adder sharing). Makes
+                          the circuit an irregular DAG: fine for the
+                          Verilog and cost targets and the interpreter,
+                          rejected by the array backends.
 
 `ops` counts a circuit's arithmetic and `PassStats` records one pass's
-before/after counts; `PipelineSpec.run` threads the passes. Adder
-sharing (CSE) is not ported yet.
+before/after counts. `run_pipeline` threads a circuit through a list of
+pass callables; `PipelineSpec.run` is the spec-driven face of the same
+loop.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import Counter
+from typing import Callable, Sequence
 
 from repro_torch.netgen.graph import (
     Argmax, Circuit, SignStep, Term, WeightedSum,
 )
+
+Pass = Callable[[Circuit], Circuit]
 
 # ---------------------------------------------------------------------------
 # Cost model (the paper counts logic cells; we count the arithmetic the
@@ -40,6 +50,9 @@ class CircuitOps:
     mults: int          # terms needing a real multiplier (|w| > 1)
     adds: int           # two-input adders: sum over nodes of (terms - 1)
     addend_units: int   # adders after full L5 expansion: sum of |w|
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
 
 
 def ops(circuit: Circuit) -> CircuitOps:
@@ -61,6 +74,20 @@ class PassStats:
     name: str
     before: CircuitOps
     after: CircuitOps
+
+    @property
+    def terms_deleted(self) -> int:
+        return self.before.terms - self.after.terms
+
+    @property
+    def adds_saved(self) -> int:
+        return self.before.adds - self.after.adds
+
+    def row(self) -> str:
+        b, a = self.before, self.after
+        return (f"{self.name}: terms {b.terms}->{a.terms}, "
+                f"mults {b.mults}->{a.mults}, adds {b.adds}->{a.adds}, "
+                f"nodes {b.nodes}->{a.nodes}")
 
 
 # ---------------------------------------------------------------------------
@@ -141,3 +168,134 @@ def addend_rewrite(circuit: Circuit) -> Circuit:
     nodes = tuple(
         expand(n) if isinstance(n, WeightedSum) else n for n in circuit.nodes)
     return dataclasses.replace(circuit, nodes=nodes)
+
+
+def share_common_addends(circuit: Circuit, *, max_new_nodes: int = 4096,
+                         bucketed: bool = False) -> Circuit:
+    """Greedy two-term CSE: extract the most frequent addend pair into a
+    shared sub-sum until no pair repeats (or max_new_nodes is hit).
+
+    A pair key is the unordered combination of two distinct (weight, src)
+    terms; a node counts each key at most once per round. Every extraction
+    strictly reduces total adds (k co-occurrences save k adders and spend
+    one in the shared node), so the loop terminates. Exact: the shared
+    node computes precisely the sub-sum it replaces.
+
+    The default (exhaustive) candidate search is O(sum_nodes * terms^2)
+    per round and extracts ONE pair per round — intended for post-addend
+    hardware circuits of moderate size. `bucketed=True` selects the
+    scalable variant: per node, candidate pairs
+    are indexed by their (sign, magnitude) weight bucket — only terms
+    with the SAME signed weight pair up — so one counting sweep costs
+    ~O(terms * bucket) instead of O(terms^2), and every pair that repeats
+    is extracted in that same sweep (batch extraction) instead of one per
+    round. Same-weight pairs are exactly the ones the addend form
+    produces en masse, so on L5 circuits the restriction loses little
+    sharing while making the full 784-input net tractable. Still an
+    exact rewrite; still an irregular DAG result (see
+    graph.IrregularCircuitError).
+    """
+    nodes = list(circuit.nodes)
+    next_id = max(n.id for n in nodes) + 1
+    created = 0
+
+    while created < max_new_nodes:
+        counts: Counter = Counter()
+        for n in nodes:
+            if not isinstance(n, WeightedSum):
+                continue
+            distinct = sorted(set(n.terms), key=lambda t: (t.src, t.weight))
+            if bucketed:
+                buckets: dict[int, list[Term]] = {}
+                for t in distinct:
+                    buckets.setdefault(t.weight, []).append(t)
+                groups = buckets.values()
+            else:
+                groups = (distinct,)
+            for group in groups:
+                for i in range(len(group)):
+                    for j in range(i + 1, len(group)):
+                        counts[(group[i], group[j])] += 1
+
+        if bucketed:
+            repeated = [(pair, k) for pair, k in counts.most_common()
+                        if k >= 2]
+        else:
+            # classic greedy: one pair per round (most_common(1) is a
+            # heap scan, not a full sort of the O(terms^2) counter)
+            repeated = [(pair, k) for pair, k in counts.most_common(1)
+                        if k >= 2]
+        if not repeated:
+            break
+
+        progressed = False
+        for (ta, tb), _ in repeated:
+            if created >= max_new_nodes:
+                break
+            # membership may have changed within this sweep — recheck
+            hosts = [
+                i for i, n in enumerate(nodes)
+                if isinstance(n, WeightedSum)
+                and ta in n.terms and tb in n.terms]
+            if len(hosts) < 2:
+                continue
+            shared = WeightedSum(
+                id=next_id, terms=(ta, tb),
+                layer=min(nodes[i].layer for i in hosts))
+            next_id += 1
+            created += 1
+            progressed = True
+
+            for i in hosts:
+                n = nodes[i]
+                kept = list(n.terms)
+                kept.remove(ta)
+                kept.remove(tb)
+                kept.append(Term(weight=1, src=shared.id))
+                nodes[i] = dataclasses.replace(n, terms=tuple(kept))
+            nodes.insert(min(hosts), shared)
+        if not progressed:
+            break
+
+    out = dataclasses.replace(circuit, nodes=tuple(nodes))
+    out.validate()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Pipeline driver
+# ---------------------------------------------------------------------------
+
+# Exact rewrites safe for every backend (dense layered form preserved).
+DEFAULT_PASSES: tuple[Pass, ...] = (delete_zero_terms, prune_dead_units)
+
+# Full hardware pipeline: multiplication-free form plus adder sharing.
+# Produces an irregular DAG — Verilog / interpreter only.
+HW_PASSES: tuple[Pass, ...] = (
+    delete_zero_terms, prune_dead_units, addend_rewrite, share_common_addends)
+
+
+def run_pipeline(
+    circuit: Circuit, passes: Sequence[Pass] = DEFAULT_PASSES,
+    *, verify: bool = False,
+) -> tuple[Circuit, tuple[PassStats, ...]]:
+    """Apply `passes` in order, recording per-pass cost deltas.
+
+    `verify=True` runs the `analysis` structural verifier
+    (plus the pass's postconditions, matched by function name) after
+    every pass — the list-of-callables face of `PipelineSpec.run(verify=)`.
+    """
+    if verify:
+        from repro_torch.netgen import analysis
+        analysis.verify_circuit(circuit, stage="lowered")
+    stats = []
+    for p in passes:
+        before = ops(circuit)
+        circuit = p(circuit)
+        name = getattr(p, "__name__", str(p))
+        if verify:
+            analysis.verify_circuit(circuit, after_pass=name, stage=name)
+        stats.append(PassStats(
+            name=name, before=before,
+            after=ops(circuit)))
+    return circuit, tuple(stats)

@@ -128,6 +128,16 @@ class ExecutionPlan:
     def n_classes(self) -> int:
         return self.layers[-1].fan_out
 
+    def verify(self, *, collect: bool = False):
+        """Certify the plan's invariants via `analysis.verify_plan`:
+        layer chain shape agreement, packed lane-padding exactness
+        (padding rows all zero), bit-plane decomposition losslessness,
+        int32 kernel-accumulation safety at the actual fan-in. Raises
+        `analysis.VerificationError` on a violation; `collect=True`
+        returns the diagnostics instead."""
+        from repro_torch.netgen.analysis import verify_plan
+        return verify_plan(self, collect=collect)
+
     # -- form conversions ----------------------------------------------------
 
     def pack(self) -> "ExecutionPlan":

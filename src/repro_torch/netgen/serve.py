@@ -1,7 +1,7 @@
 """Multi-version serving of netgen-compiled predictors.
 
 Counterpart of `repro/netgen/serve.py`'s `NetServer`, without mesh
-sharding, telemetry and stack reports (later slices):
+sharding and telemetry (later slices):
 
   NetServer — serve uint8 image batches across registered model
       versions. Single-version requests route to that version's
@@ -13,7 +13,8 @@ sharding, telemetry and stack reports (later slices):
       `binary_forward_planes` launch for every version and layer, for
       `cuda` and `cuda[packed=true]` the per-layer chain looped over the
       versions. Incompatible sets, and targets without a multi-net form
-      (`fused`), fall back to per-version routing.
+      (`fused`), fall back to per-version routing, and the reason is
+      recorded as an `analysis.StackReport` (`stack_report()`).
       `dispatch_counts` records which path served each request.
 
 Hidden-width padding used for stacking is exact: a zero-padded column is
@@ -29,6 +30,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch.netgen import analysis
 from repro_torch.netgen.backends import compile_multi
 from repro_torch.netgen.graph import IrregularCircuitError
 from repro_torch.netgen.plan import lower_circuit, stack_plans
@@ -81,6 +83,8 @@ class NetServer:
         self._lock = threading.RLock()
         self._versions: "OrderedDict[str, _Version]" = OrderedDict()
         self._multi: dict[tuple, object] = {}
+        # why a version set could not stack: {names: analysis.StackReport}
+        self._stack_reports: dict[tuple, analysis.StackReport] = {}
         self._generation = 0   # bumped by register/unregister; guards _multi
         self._dispatch = {"single": 0, "stacked": 0, "fallback": 0}
 
@@ -109,6 +113,7 @@ class NetServer:
         with self._lock:
             self._versions[version] = _Version(version, compiled)
             self._multi.clear()
+            self._stack_reports.clear()
             self._generation += 1
         return compiled
 
@@ -116,7 +121,19 @@ class NetServer:
         with self._lock:
             del self._versions[version]
             self._multi.clear()
+            self._stack_reports.clear()
             self._generation += 1
+
+    def stack_report(self, names=None):
+        """Why a version set fell back to per-version dispatch: the
+        `analysis.StackReport` recorded when `_stacked_fn` diagnosed the
+        set (None for sets that stacked fine or were never requested).
+        With `names`, the report for that version set; without,
+        {version-name tuple: report} for every diagnosed set."""
+        with self._lock:
+            if names is None:
+                return dict(self._stack_reports)
+            return self._stack_reports.get(tuple(sorted(names)))
 
     def versions(self) -> list[str]:
         with self._lock:
@@ -209,9 +226,11 @@ class NetServer:
 
     def _stacked_fn(self, names: tuple):
         """Build (or recall) the multi-net dispatch for this version set;
-        None when the set cannot be stacked. Compilation happens outside
-        the lock; a generation check before storing keeps a stale build
-        (a concurrent register/unregister) out of `_multi`."""
+        None when the set cannot be stacked, with the reason recorded as
+        a `StackReport` (the static `analysis.diagnose_stack`, or the
+        build error when compilation itself fails). Compilation happens
+        outside the lock; a generation check before storing keeps a stale
+        build (a concurrent register/unregister) out of `_multi`."""
         while True:
             with self._lock:
                 if names in self._multi:
@@ -219,15 +238,31 @@ class NetServer:
                 generation = self._generation
                 circuits = [self._versions[v].compiled.circuit for v in names]
             fn = None
-            if self._target.compile_multi is not None:
-                try:
-                    plan = stack_plans([lower_circuit(c) for c in circuits])
-                    fn = compile_multi(plan, backend=self._target.name,
-                                       device=self.device, **self._opts)
-                except (IrregularCircuitError, ValueError):
-                    fn = None
+            if self._target.compile_multi is None:
+                report = analysis.StackReport(
+                    compatible=False, n_versions=len(names),
+                    diagnostics=(analysis.Diagnostic(
+                        check="stack.target",
+                        message=f"target {self._target.name!r} has no "
+                                "multi-net dispatch"),))
+            else:
+                report = analysis.diagnose_stack(circuits)
+                if report.compatible:
+                    try:
+                        plan = stack_plans(
+                            [lower_circuit(c) for c in circuits])
+                        fn = compile_multi(plan, backend=self._target.name,
+                                           device=self.device, **self._opts)
+                        report = None
+                    except (IrregularCircuitError, ValueError) as e:
+                        report = analysis.StackReport(
+                            compatible=False, n_versions=len(names),
+                            diagnostics=(analysis.Diagnostic(
+                                check="stack.build", message=str(e)),))
             with self._lock:
                 if self._generation == generation:
                     self._multi[names] = fn
+                    if report is not None:
+                        self._stack_reports[names] = report
                     return fn
             # registry changed underneath the build: retry

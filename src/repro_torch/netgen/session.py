@@ -1,28 +1,34 @@
 """Session API: compile a net once per content, for one device.
 
 Counterpart of `repro/netgen/session.py`, without the persistent
-`ArtifactStore`, the tuner and the explorer (later slices):
+`ArtifactStore`, telemetry, the tuner and the explorer (later slices):
 
-  compile_resolved — the driver: frontend -> `PipelineSpec` -> `Target`,
-      returning an `Artifact` that carries the optimized circuit,
-      per-pass stats and its content address.
+  compile_resolved — the driver: frontend -> `PipelineSpec` -> range
+      analysis -> `Target`, returning an `Artifact` that carries the
+      optimized circuit, per-pass stats, the logic-cell estimate, the
+      proof summary, host timings and its content address.
 
   Session — the object users hold: an LRU in-memory tier keyed by the
       net's weights digest x the canonical pipeline x the canonical
-      target string, and the device every artifact runs on.
+      target string, and the device every callable artifact runs on.
 
       session = Session()                      # cuda:0; raises without CUDA
       art = session.compile(qnet, target="cuda")   # or "cuda[packed=true]",
                                                # "cuda[planes=true]", "fused"
       art(images)                              # int32 class ids on the card
+      session.compile(qnet, target="verilog", pipeline="zeros,prune,addends")
+      session.compile(qnet, target="cost").artifact.report()
 
 `Session(device="cpu")` runs the kernels' plain versions on the CPU.
+The `verilog` and `cost` targets are host-only: their artifacts are text
+and a `CostReport`, and the device plays no part in them.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import threading
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -30,6 +36,8 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.quantize import weights_digest
+from repro_torch.netgen import analysis as _analysis
+from repro_torch.netgen.backends.cost import CellCounts, logic_cells
 from repro_torch.netgen.frontend import _extract_weights, lower
 from repro_torch.netgen.graph import Circuit
 from repro_torch.netgen.pipeline import PipelineSpec
@@ -70,44 +78,123 @@ def artifact_key(digest: str, spec: PipelineSpec, target: str) -> str:
 
 @dataclasses.dataclass
 class Artifact:
-    """One compilation result. `artifact` is the target's predictor;
-    `plan_form` records which ExecutionPlan form it executes ("dense",
-    "packed" or "planes") and `plan()` re-lowers the circuit into that form (what
+    """One compilation result.
+
+    `artifact` is the target's product (a predictor, Verilog text or a
+    `CostReport`), and `kind` says which ("callable", "text" or
+    "report"). `cost` is the logic-cell estimate of the final circuit
+    (every target gets one; the `cost` target's artifact additionally
+    breaks it down per pass). `analysis` is the range-analysis proof
+    summary computed before the backend (`analysis.proof_summary`), and
+    `timings` the host seconds of each compile stage (lower, passes,
+    analysis, backend). For callable targets `plan_form` records which
+    ExecutionPlan form the predictor executes ("dense", "packed" or
+    "planes"), and `plan()` re-lowers the circuit into that form (what
     the serving layer stacks for multi-net dispatch)."""
     digest: str
     pipeline: str              # canonical PipelineSpec string
     target: str                # canonical target string (with options)
+    kind: str                  # "callable" | "text" | "report"
     key: str                   # content address
     circuit: Circuit
     pass_stats: tuple
+    cost: CellCounts
+    timings: dict
     artifact: object
     plan_form: str | None = None
+    analysis: dict | None = None
+
+    @property
+    def backend(self) -> str:
+        """Base target name."""
+        return self.target.partition("[")[0]
 
     def plan(self):
+        if self.kind != "callable":
+            raise TypeError(
+                f"{self.backend} artifacts have no execution plan "
+                f"(kind: {self.kind})")
         from repro_torch.netgen.plan import lower_circuit
         return lower_circuit(self.circuit, form=self.plan_form or "dense")
 
     def __call__(self, x_uint8) -> torch.Tensor:
+        if not callable(self.artifact):
+            raise TypeError(
+                f"{self.backend} artifact is not callable (use .artifact)")
         _validate_batch(x_uint8, self.circuit.n_inputs)
         return self.artifact(x_uint8)
+
+    def report(self) -> str:
+        """Per-pass savings table, the final cell estimate, and the
+        range-analysis proof summary when one was recorded."""
+        lines = [s.row() for s in self.pass_stats]
+        lines.append(self.cost.row())
+        if self.analysis:
+            lines.append(_analysis.summary_row(self.analysis))
+        return "\n".join(lines)
 
 
 def compile_resolved(ws, thr: int, digest: str, spec: PipelineSpec,
                      tgt, opts: dict, device: torch.device) -> Artifact:
     """The compile driver proper, for callers that already extracted the
-    weights and computed the digest."""
+    weights and computed the digest. Records the pass trace for targets
+    that want it, always runs the pre-backend range analysis (raising
+    `VerificationError` under `analysis.strict_verify()`, otherwise
+    proceeding), and hands the analysis to targets that want it. Only
+    callable targets receive `device`."""
     tstring = target_string(tgt, opts)
-    circuit, stats = spec.run(lower(ws, input_threshold=thr))
-    raw = tgt.compile(circuit, device=device, **opts)
+    t0 = time.perf_counter()
+    circuit = lower(ws, input_threshold=thr)
+    t_lower = time.perf_counter()
+
+    trace: list | None = [] if tgt.wants_pass_trace else None
+    circuit, stats = spec.run(
+        circuit, observe=(lambda name, c: trace.append((name, c)))
+        if trace is not None else None)
+    t_passes = time.perf_counter()
+
+    # Prove every accumulator fits its inferred width (and int32) before
+    # any backend bakes those widths into Verilog, cell counts or kernel
+    # dtypes. Strict mode (NETGEN_VERIFY, on in tests) raises on a
+    # violation; production compiles anyway, as the reference does.
+    ranges, diags = _analysis.analyze(circuit, stage="pre-backend",
+                                      collect=True)
+    if diags and _analysis.strict_verify():
+        raise _analysis.VerificationError(diags)
+    summary = _analysis.proof_summary(circuit, ranges)
+    t_analysis = time.perf_counter()
+
+    kwargs = dict(opts)
+    if tgt.callable:
+        kwargs["device"] = device
+    if tgt.wants_pass_trace:
+        kwargs["_pass_trace"] = tuple(trace)
+    if tgt.wants_analysis:
+        kwargs["_analysis"] = ranges
+    raw = tgt.compile(circuit, **kwargs)
+    t_backend = time.perf_counter()
+
+    timings = {
+        "lower_s": t_lower - t0,
+        "passes_s": t_passes - t_lower,
+        "analysis_s": t_analysis - t_passes,
+        "backend_s": t_backend - t_analysis,
+        "total_s": t_backend - t0,
+    }
     return Artifact(
         digest=digest,
         pipeline=spec.spec_string(),
         target=tstring,
+        kind=tgt.kind,
         key=artifact_key(digest, spec, tstring),
         circuit=circuit,
         pass_stats=stats,
+        cost=logic_cells(circuit, analysis=ranges),
+        timings=timings,
         artifact=raw,
-        plan_form=getattr(raw, "plan_form", None) or "dense",
+        plan_form=(getattr(raw, "plan_form", None) or "dense")
+        if tgt.callable else None,
+        analysis=summary,
     )
 
 

@@ -11,6 +11,8 @@ same `name[opt=value,...]` item syntax as pipeline passes:
     cuda[planes=true]        per-layer bit-plane kernel chain
     cuda[fusednet=true]      the whole planes-form net in one kernel launch
     fused                    the 2-layer paper net in one kernel launch
+    verilog[style=legacy]    the paper's combinational module source (text)
+    cost                     IR walk -> logic-cell estimate vs Figure 7
 
 `resolve_target` parses an item string (or takes a bare name plus an
 opts dict), validates options against the target's declaration, and
@@ -24,7 +26,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Mapping
 
-from repro_torch.netgen.pipeline import parse_item, render_opts
+from repro_torch.netgen.pipeline import (
+    check_opt_string, parse_item, render_opts,
+)
 
 __all__ = [
     "Target", "get_target", "list_targets", "register_target",
@@ -34,17 +38,26 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class Target:
-    """One execution target. `compile` maps (circuit, device=, **opts) to
-    the artifact; `kind` says what that artifact is ("callable"); `opts`
-    declares the accepted options as (name, type) pairs; `compile_multi`,
-    when present, builds the stacked multi-net dispatch (a stacked
-    `ExecutionPlan` plus the same declared opts -> callable)."""
+    """One execution target. `compile` maps (circuit, **opts) to the
+    artifact — callable targets also take `device=`; `kind` says what
+    that artifact is ("callable", "text", "report"); `opts` declares the
+    accepted options as (name, type) pairs; `compile_multi`, when
+    present, builds the stacked multi-net dispatch (a stacked
+    `ExecutionPlan` plus the same declared opts -> callable);
+    `wants_pass_trace` asks the Session driver to hand the pipeline's
+    per-pass circuit trace to `compile` as `_pass_trace`; and
+    `wants_analysis` asks it to hand its pre-backend
+    `analysis.RangeAnalysis` as `_analysis`, so width-consuming backends
+    (verilog, cost) emit the proven widths instead of re-deriving
+    them."""
     name: str
     kind: str
     description: str
     compile: Callable
     opts: tuple = ()                       # ((opt_name, type), ...)
     compile_multi: Callable | None = None
+    wants_pass_trace: bool = False
+    wants_analysis: bool = False
 
     @property
     def callable(self) -> bool:
@@ -109,6 +122,12 @@ def resolve_target(target, extra_opts: Mapping | None = None
             raise ValueError(
                 f"option {k!r} of target {t.name!r} wants an integer, "
                 f"got {v!r}")
+        if want is str:
+            if not isinstance(v, str):
+                raise ValueError(
+                    f"option {k!r} of target {t.name!r} wants a string, "
+                    f"got {v!r}")
+            check_opt_string(v, f"option {k!r} of target {t.name!r}")
     return t, merged
 
 
@@ -147,6 +166,16 @@ def _compile_fused(circuit, **opts):
     return compile_fused(circuit, **opts)
 
 
+def _compile_verilog(circuit, **opts):
+    from repro_torch.netgen.backends.verilog import emit_verilog
+    return emit_verilog(circuit, **opts)
+
+
+def _compile_cost(circuit, **opts):
+    from repro_torch.netgen.backends.cost import compile_cost
+    return compile_cost(circuit, **opts)
+
+
 register_target(Target(
     name="torch", kind="callable",
     description="dense masked-column-sum predictor (the oracle backend)",
@@ -172,3 +201,13 @@ register_target(Target(
                 "(2-layer only; bm pins the rows per block)",
     compile=_compile_fused,
     opts=(("bm", int),)))
+register_target(Target(
+    name="verilog", kind="text",
+    description="the paper's clockless combinational Verilog module",
+    compile=_compile_verilog,
+    opts=(("module_name", str), ("style", str), ("addend", bool)),
+    wants_analysis=True))
+register_target(Target(
+    name="cost", kind="report",
+    description="logic-cell estimate of the circuit vs paper Figure 7",
+    compile=_compile_cost, wants_pass_trace=True, wants_analysis=True))

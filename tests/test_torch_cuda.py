@@ -237,10 +237,11 @@ def test_forward_planes_routes_by_shape(cuda):
     assert ops.binary_forward_planes.mma_launches == mma
 
 
-def test_served_784_500_10_takes_the_tensor_cores(cuda):
+def test_served_784_500_10_takes_the_tensor_cores(cuda, monkeypatch):
     """Every `binary_forward_planes` launch of stacked `cuda[planes=true]`
     rounds over 784-500-10 nets takes the tensor-core route, and the
-    wrapping net gives class 1 through `cuda[fusednet=true]` on it."""
+    wrapping net gives class 1 through `cuda[fusednet=true]` on it (its
+    range proof fails, so it compiles in the production posture)."""
     nets = {f"v{i}": _net(30 + i, (784, 500, 10), lo=-9, hi=9) for i in range(3)}
     server = netgen.NetServer(session=netgen.Session(device=cuda),
                               target="cuda[planes=true]", slot_capacity=256)
@@ -260,10 +261,43 @@ def test_served_784_500_10_takes_the_tensor_cores(cuda):
     wrap = quantize.QuantizedNet(weights=[w1.astype(np.int32),
                                           np.array([[5, 0], [0, 1]], np.int32)],
                                  input_threshold=127)
+    with pytest.raises(netgen.VerificationError, match="range.int32"):
+        netgen.Session(device=cuda).compile(wrap, target="cuda[fusednet=true]")
+    monkeypatch.setenv("NETGEN_VERIFY", "0")
     art = netgen.Session(device=cuda).compile(wrap, target="cuda[fusednet=true]")
     mma = ops.binary_forward_planes.mma_launches
     assert art(np.full((3, 4), 255, np.uint8)).tolist() == [1, 1, 1]
     assert ops.binary_forward_planes.mma_launches == mma + 1
+
+
+@pytest.mark.parametrize("target,wrapper", [
+    ("cuda[fusednet=true]", "binary_forward_planes"),
+    ("cuda[planes=true]", "binary_matmul_planes")])
+def test_addend_form_nets_on_the_card_equal_the_interpreter(cuda, target, wrapper):
+    """A random 784-wide net in the multiplication-free addend form
+    (`zeros,prune,addends`) lowers to the same planes as its `default`
+    form, and the card's answers equal the numpy interpreter's strict
+    semantics; a CSE'd net has no layered form and raises."""
+    net = _net(40, (784, 96, 10), lo=-7, hi=7)
+    session = netgen.Session(device=cuda)
+    x = _images(40, 300, 784)
+    ops.reset_launches()
+    art = session.compile(net, target=target, pipeline="zeros,prune,addends")
+    got = art(x).cpu().numpy()
+    launches = getattr(ops, wrapper).launches
+    assert launches > 0
+    if wrapper == "binary_forward_planes":
+        assert ops.binary_forward_planes.mma_launches == launches
+    want = netgen.evaluate(art.circuit, x, step_semantics="strict")
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, quantize.predict_quantized(net, device=cuda)(x).cpu().numpy())
+    plain = session.compile(net, target=target).plan().planes()
+    for a, b in zip(art.plan().planes().layers, plain.layers):
+        np.testing.assert_array_equal(a.pos_planes, b.pos_planes)
+        np.testing.assert_array_equal(a.neg_planes, b.neg_planes)
+    with pytest.raises(netgen.IrregularCircuitError):
+        session.compile(net, target=target, pipeline="zeros,cse[budget=4,bucketed=true]")
 
 
 def test_noncontiguous_operands_raise(cuda):
