@@ -45,7 +45,23 @@ Phases, each raising on failure (nothing is caught):
    `cuda[fusednet=true]` (the megakernel at any depth), and a net whose
    accumulator wraps at 2**31 through every netgen target, equal to
    `predict_quantized` (which wraps as the reference does); both print
-   the megakernel's route. (b) The LM
+   the megakernel's route. The engine path: `ServingEngine` on a
+   `Session` over a fresh `ArtifactStore` serves the three 784-500-10
+   versions through `cuda[planes=true]` (slot capacity 256, 2 ms batch
+   delay), registered from the memory tier after `compile_async`;
+   requests keep arriving until a fourth version's background build has
+   finished (at least 192), and some must be answered while it runs;
+   then, on a second engine and with no compile running,
+   eight producer threads submit 3 x 1200 single images, at most 64 of
+   each one's own in flight; every answer must equal `predict_quantized`, B1 must
+   launch on the tensor cores, every launch on the main thread's stream,
+   a zero-deadline request must fail, shutdown must drain; it prints
+   batches, rows per batch, queue wait and service latency p50/p99 and
+   answers per second, of that cold load and of a 4 s warm window on a
+   third engine whose stacked dispatch one untimed round built; a second session over the store must register
+   with 0 compiles and 3 loads and answer the same; `lint_store`, the
+   linter CLI and `benchmarks/check_trace.py` (a subprocess, stdlib
+   only) must pass the store and the phase's trace. (b) The LM
    path: mamba2-2.7b at full width and depth (64 layers), weights from a
    `torch.Generator` seeded 0 on the card, compute dtype bf16, served by
    `Engine.generate` (batch 4 x prompt 512 and a ragged prompt of 200,
@@ -159,6 +175,7 @@ ADD_PER_CLOCK_PER_SM = 64        # row "32-bit integer add"
 FMA_PER_CLOCK_PER_SM = 128       # row "32-bit floating-point add, multiply, multiply-add"
 N_IN, N_HIDDEN, N_OUT, PLANES = 784, 500, 10, 4
 BATCH, MODELS = 256, 3
+SUSTAIN_S = 4.0                  # the engine's warm window, seconds of submissions
 TIMING_RUNS, TIMING_INNER = 20, 5
 SWEEP_BM, SWEEP_BN = (1, 2, 4, 8, 16, 32), (32, 64, 128, 256)
 SWEEP_MMA_BM = (16, 32)          # the tensor-core tiles' rows (bm rounds up to 16)
@@ -519,6 +536,320 @@ def _wrapping_net_path(session, dev) -> None:
     for t, g in got.items():
         if not np.array_equal(g, want.cpu().numpy()):
             raise AssertionError(f"{t} disagrees with predict_quantized on the wrapping net")
+
+
+def _engine_path(nets, images, dev, wrappers, reset_launches, smi) -> dict:
+    """Phase 4 engine path: the online front door on the card. A session
+    over a fresh `ArtifactStore` compiles the three served versions in
+    the background (`compile_async`), its `ServingEngine` over
+    `cuda[planes=true]` (slot capacity 256, 2 ms batch delay) registers
+    them from the memory tier, and serves requests from before a fourth
+    version's background build starts until it has finished (at least
+    192, some answered while it ran; answers and the fourth version
+    equal to `predict_quantized`). Then, on a second engine registered
+    from the memory tier and with no compile running, eight producer
+    threads submit 3 x 1200 single images (request r: version r % 3,
+    image r // 3), at most 64 of each producer's own outstanding. Every
+    future must resolve within its bound, equal `predict_quantized`,
+    and the engine must count 3600 completions; B1
+    must launch, all on the 1-bit tensor cores, and every launch of the
+    phase on the stream the main thread launches on; a request with a
+    zero deadline must fail with `DeadlineExceededError`; shutdown must
+    drain and leave no batcher thread. A second session over the same
+    store must register the versions with zero compiles and three loads
+    and answer as the first; `lint_store` and the linter CLI must pass
+    the store, and `benchmarks/check_trace.py` the phase's trace. Prints
+    batches, rows per batch, queue wait, service latency per version and
+    answers per second, of that load and of a warm window on a third
+    engine (`_engine_sustained`). Returns the B1/B2 launches of the
+    served load."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.core import quantize
+    from repro_torch.kernels.binary_matvec import ops
+    from repro_torch.kernels.fused_mlp import ops as fops
+    from repro_torch.netgen import ArtifactStore, NetServer, Session, telemetry
+    from repro_torch.netgen.analysis import lint_store
+    from repro_torch.netgen.engine import DeadlineExceededError
+
+    target = "cuda[planes=true]"
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="engine-", dir=ROOT / "build"))
+    store_dir, trace_dir = work / "store", work / "trace"
+    trace_dir.mkdir()
+    want = {f"v{v}": quantize.predict_quantized(net, device=dev)(images).cpu().numpy()
+            for v, net in enumerate(nets)}
+    extra = quantize.QuantizedNet(  # a fourth version, compiled during the load
+        w1=quantize.int_cast_weights(np.random.default_rng(SEED + 9).normal(
+            0, N_IN ** -0.5, (N_IN, N_HIDDEN))),
+        w2=quantize.int_cast_weights(np.random.default_rng(SEED + 10).normal(
+            0, N_HIDDEN ** -0.5, (N_HIDDEN, N_OUT))))
+    launched = []                    # (thread, stream) of every launch in the phase
+    originals = {mod: mod.stream_args for mod in (ops, fops)}
+
+    def recording(original):
+        def stream_args(t):
+            out = original(t)
+            launched.append((threading.current_thread().name, out[1]))
+            return out
+        return stream_args
+
+    telemetry.reset()
+    telemetry.enable()
+    for mod, original in originals.items():
+        mod.stream_args = recording(original)
+    try:
+        session = Session(device="cuda", store=ArtifactStore(store_dir))
+        t0 = time.perf_counter()
+        compiles = [session.compile_async(net, target=target) for net in nets]
+        reset_launches()
+        engine = session.engine(target=target, slot_capacity=BATCH, max_batch_delay=0.002)
+        for v, net in enumerate(nets):
+            engine.register(f"v{v}", net)
+        for f in compiles:
+            f.result(timeout=600)
+        register_s = time.perf_counter() - t0
+        if session.stats().compiles != 3:
+            raise AssertionError(f"engine registration compiled again: {session.stats()}")
+        registered = session.stats().row()
+        # The first requests arrive while a fourth version compiles in the
+        # background: they are answered without waiting for the build, on
+        # the main thread's stream. They keep arriving, 24 at a time, from
+        # before a worker picks the build up until it has finished (at
+        # least 192), so every stage of the build, its device work
+        # included, overlaps serving; the phase fails unless some were
+        # answered while the build ran. This engine serves only them; the
+        # timed load runs on a second engine, with no compile holding the host.
+        background = session.compile_async(extra, target=target)
+        early, during_build, r = [], 0, 0
+        t0 = time.perf_counter()
+        while r < 3 * 64 or not background.done():
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("the fourth version's build ran past 600 s")
+            batch = [(q, engine.submit(f"v{q % 3}", images[q // 3 % len(images)]))
+                     for q in range(r, r + 24)]
+            for q, fut in batch:
+                early.append((q, fut.result(timeout=60)))
+                during_build += not background.done()
+            r += 24
+        early_s = time.perf_counter() - t0
+        if not during_build:
+            raise AssertionError("no request was answered while the fourth version compiled")
+        if any(a != int(want[f"v{q % 3}"][q // 3 % len(images)]) for q, a in early):
+            raise AssertionError("answers served during a background compile are wrong")
+        extra_art = background.result(timeout=600)
+        x = images[:BATCH]
+        if not np.array_equal(extra_art(x).cpu().numpy(),
+                              quantize.predict_quantized(extra, device=dev)(x).cpu().numpy()):
+            raise AssertionError("the version compiled during serving disagrees")
+        engine.shutdown()
+        engine = session.engine(target=target, slot_capacity=BATCH, max_batch_delay=0.002)
+        for v, net in enumerate(nets):
+            engine.register(f"v{v}", net)
+        if session.stats().compiles != 4:
+            raise AssertionError(f"the second engine compiled again: {session.stats()}")
+        n_req, producers, window = 3 * len(images), 8, 64
+        futures = [None] * n_req
+
+        def producer(k: int) -> None:
+            slots = threading.BoundedSemaphore(window)
+            for r in range(k, n_req, producers):
+                if not slots.acquire(timeout=60):
+                    raise AssertionError(f"producer {k}: no request resolved in 60 s")
+                fut = engine.submit(f"v{r % 3}", images[r // 3])
+                fut.add_done_callback(lambda _: slots.release())
+                futures[r] = fut
+
+        threads = [threading.Thread(target=producer, args=(k,), name=f"producer-{k}")
+                   for k in range(producers)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        if any(t.is_alive() for t in threads) or any(f is None for f in futures):
+            raise AssertionError("a producer did not submit all its requests")
+        got = {f"v{v}": np.full(len(images), -1, np.int64) for v in range(3)}
+        for r, fut in enumerate(futures):
+            got[f"v{r % 3}"][r // 3] = fut.result(timeout=60)
+        load_s = time.perf_counter() - t0
+        counts = {name: wrappers[name].launches for name in NETGEN}
+        b1_mma = ops.binary_forward_planes.mma_launches
+        try:
+            engine.submit("v0", images[0], deadline=0).result(timeout=60)
+        except DeadlineExceededError:
+            pass
+        else:
+            raise AssertionError("a request with a zero deadline was answered")
+        engine.shutdown()
+        stats = engine.stats()
+        if [t.name for t in threading.enumerate() if t.name.startswith("netgen-engine")]:
+            raise AssertionError("a netgen-engine thread outlived shutdown")
+        for v in want:
+            if not np.array_equal(got[v], want[v]):
+                raise AssertionError(f"engine {v}: answers != predict_quantized")
+        if len({id(f) for f in futures}) != n_req or stats.completed != n_req:
+            raise AssertionError(f"engine lost or duplicated futures: {stats}")
+        if stats.rejected_deadline != 1:
+            raise AssertionError(f"the zero-deadline request was not rejected: {stats}")
+        b1 = counts["binary_forward_planes"]
+        if not 0 < b1_mma == b1:
+            raise AssertionError(f"engine: {b1_mma} of {b1} B1 launches on the tensor cores")
+        main_stream = torch.cuda.current_stream(dev).cuda_stream
+        streams = {s for _, s in launched}
+        if streams != {main_stream}:
+            raise AssertionError(f"engine launches on streams {streams}, not {main_stream}")
+        threads_seen = sorted({name.rsplit("-", 1)[0] if name.startswith("netgen-engine")
+                               else name for name, _ in launched})
+        reg = telemetry.get_registry()
+        rows = reg.histogram("netgen_engine_batch_rows", engine=engine.scope)
+        wait = reg.histogram("netgen_engine_queue_wait_seconds", engine=engine.scope)
+        service = {v: reg.histogram("netgen_predict_latency_seconds",
+                                    server=engine.server._scope, version=v)
+                   for v in want}
+        # each batch's dispatch (its span) and rows, in order; their sum
+        # over the load's wall time is the batcher's dispatch share
+        batches = [(r.duration_s, r.attrs["rows"]) for r in reg.spans()
+                   if r.name == "netgen.engine.batch" and r.attrs.get("engine") == engine.scope]
+        dispatch_s = sum(d for d, _ in batches)
+        print(f"[4 engine path] {target}: 3 versions registered from the memory tier "
+              f"({registered}), {register_s:.2f} s with their background compiles")
+        print(f"[4 engine path] {len(early)} requests served while a fourth version compiled "
+              f"({during_build} answered before its build finished): all equal "
+              f"predict_quantized, and so does the fourth version")
+        print(f"[4 engine path] {n_req} single requests from {producers} producers "
+              f"({window} in flight each): {stats.row()}; all equal predict_quantized")
+        print(f"[4 engine path] launches {counts}; binary_forward_planes {b1_mma} of {b1} "
+              f"on the 1-bit tensor cores, binary_matmul_planes {counts['binary_matmul_planes']}; "
+              f"{len(launched)} launches from {threads_seen}, all on stream {main_stream}")
+        print(f"[4 engine path] zero-deadline request: DeadlineExceededError; shutdown "
+              f"drained, no netgen-engine thread left")
+        numbers = {
+            "batches": stats.batches, "answers_per_s": n_req / load_s, "load_s": load_s,
+            "dispatch_share": dispatch_s / load_s,
+            "batch_ms": [d * 1e3 for d, _ in batches], "batch_rows": [n for _, n in batches],
+            "during_compile": {"requests": len(early), "answered_while_building": during_build,
+                               "answers_per_s": len(early) / early_s},
+            "rows_per_batch": {"p50": rows.p50, "p99": rows.p99, "mean": rows.mean},
+            "queue_wait_ms": {"p50": wait.p50 * 1e3, "p99": wait.p99 * 1e3},
+            "service_ms": {v: {"p50": h.p50 * 1e3, "p99": h.p99 * 1e3, "count": h.count}
+                           for v, h in service.items()},
+            "device": torch.cuda.get_device_name(0), "power": smi}
+        numbers["sustained"] = _engine_sustained(
+            session, target, nets, images, want, producers, window)
+        print(json.dumps({"engine": numbers}))
+
+        warm = Session(device="cuda", store=ArtifactStore(store_dir))
+        server = NetServer(session=warm, target=target, slot_capacity=BATCH)
+        for v, net in enumerate(nets):
+            server.register(f"v{v}", net)
+        if (warm.stats().compiles, warm.store_stats().loads) != (0, 3):
+            raise AssertionError(f"second session: {warm.stats()}, {warm.store_stats()}")
+        again = server.predict_many({v: images for v in want})
+        for v in want:
+            if not np.array_equal(again[v], got[v]):
+                raise AssertionError(f"second session {v}: answers != the first session's")
+        print(f"[4 engine path] second session over the store: {warm.stats().row()}; "
+              f"{warm.store_stats().row()}; {3 * len(images)} answers equal the first's")
+        failures = lint_store(store_dir)
+        if failures:
+            raise AssertionError(f"lint_store: {failures}")
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        cli = subprocess.run([sys.executable, "-m", "repro_torch.netgen.analysis", "-q",
+                              str(store_dir)], env=env, capture_output=True, text=True,
+                             timeout=600)
+        if cli.returncode != 0:
+            raise AssertionError(f"linter CLI exit {cli.returncode}: {cli.stdout}{cli.stderr}")
+        print(f"[4 engine path] lint_store: clean; CLI: {cli.stdout.strip()}")
+        n_spans = telemetry.export_jsonl(trace_dir / "trace.jsonl")
+        (trace_dir / "metrics.prom").write_text(telemetry.prometheus())
+        gate = subprocess.run([sys.executable, str(ROOT / "benchmarks" / "check_trace.py"),
+                               str(trace_dir)], capture_output=True, text=True, timeout=600)
+        if gate.returncode != 0:
+            raise AssertionError(f"check_trace.py exit {gate.returncode}: {gate.stderr}")
+        print(f"[4 engine path] check_trace.py: {gate.stdout.strip()} ({n_spans} spans)")
+        session.shutdown()
+    finally:
+        for mod, original in originals.items():
+            mod.stream_args = original
+        telemetry.disable()
+    shutil.rmtree(work, ignore_errors=True)
+    return {"binary_forward_planes": b1, "binary_forward_planes mma": b1_mma,
+            "binary_matmul_planes": counts["binary_matmul_planes"]}
+
+
+def _engine_sustained(session, target, nets, images, want, producers, window) -> dict:
+    """The engine's warm steady state: a third engine over the same
+    session, its stacked dispatch built by one untimed multi-version
+    round, then the same producers (request r: version r % 3, image
+    r // 3 cycling over the images) submitting for SUSTAIN_S seconds.
+    Every answer must equal `predict_quantized`. Returns the window's
+    answers per second, rows per batch, queue wait and service latency."""
+    import threading
+    import numpy as np
+    from repro_torch.netgen import telemetry
+
+    engine = session.engine(target=target, slot_capacity=BATCH, max_batch_delay=0.002)
+    try:
+        for v, net in enumerate(nets):
+            engine.register(f"v{v}", net)
+        t0 = time.perf_counter()
+        engine.server.predict_many({v: images[:1] for v in want})
+        warm_round_ms = (time.perf_counter() - t0) * 1e3
+        submitted, stalled = [[] for _ in range(producers)], []
+        t_end = time.perf_counter() + SUSTAIN_S
+
+        def producer(k: int) -> None:
+            slots = threading.BoundedSemaphore(window)
+            r = k
+            while time.perf_counter() < t_end:
+                if not slots.acquire(timeout=60):
+                    stalled.append(k)
+                    return
+                fut = engine.submit(f"v{r % 3}", images[r // 3 % len(images)])
+                fut.add_done_callback(lambda _: slots.release())
+                submitted[k].append((r, fut))
+                r += producers
+
+        threads = [threading.Thread(target=producer, args=(k,), name=f"producer-{k}")
+                   for k in range(producers)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SUSTAIN_S + 120)
+        if any(t.is_alive() for t in threads) or stalled:
+            raise AssertionError(f"sustained window: producers {stalled} stalled")
+        n = 0
+        for requests in submitted:
+            for r, fut in requests:
+                if fut.result(timeout=60) != want[f"v{r % 3}"][r // 3 % len(images)]:
+                    raise AssertionError(f"sustained window: request {r} != predict_quantized")
+                n += 1
+        seconds = time.perf_counter() - t0
+    finally:
+        engine.shutdown()
+    stats = engine.stats()
+    if stats.completed != n:
+        raise AssertionError(f"sustained window: {stats.completed} completed of {n}")
+    reg = telemetry.get_registry()
+    rows = reg.histogram("netgen_engine_batch_rows", engine=engine.scope)
+    wait = reg.histogram("netgen_engine_queue_wait_seconds", engine=engine.scope)
+    service = reg.histogram("netgen_predict_latency_seconds",
+                            server=engine.server._scope, version="v0")
+    print(f"[4 engine path] sustained window on a warm engine: {n} requests in "
+          f"{seconds:.3f} s, {n / seconds:.0f} answers/s, queue wait p99 "
+          f"{wait.p99 * 1e3:.3f} ms; all equal predict_quantized")
+    return {"requests": n, "seconds": seconds, "answers_per_s": n / seconds,
+            "batches": stats.batches, "warm_round_ms": warm_round_ms,
+            "rows_per_batch": {"p50": rows.p50, "p99": rows.p99, "mean": rows.mean},
+            "queue_wait_ms": {"p50": wait.p50 * 1e3, "p99": wait.p99 * 1e3},
+            "service_ms_v0": {"p50": service.p50 * 1e3, "p99": service.p99 * 1e3,
+                              "count": service.count}}
 
 
 def _hw_path(session, net, images, dev, wrappers, reset_launches, smi) -> dict:
@@ -1164,6 +1495,10 @@ def main() -> int:
     launches["binary_forward_planes"] += deep
     mma_launches["binary_forward_planes"] += deep_mma
     _wrapping_net_path(session, dev)
+    served = _engine_path(nets, images, dev, wrappers, reset_launches, smi)
+    mma_launches["binary_forward_planes"] += served.pop("binary_forward_planes mma")
+    for name, n in served.items():
+        launches[name] += n
     hw = _hw_path(session, nets[0], images, dev, wrappers, reset_launches, smi)
     mma_launches["binary_forward_planes"] += hw.pop("binary_forward_planes mma")
     for name, n in hw.items():

@@ -40,6 +40,13 @@ machine-checked invariant layer behind both:
       (irregular circuit, depth/threshold/input/class disagreement),
       which `NetServer` records instead of silently falling back.
 
+  Store linter — `lint_store(root)` re-verifies every entry of an
+      `ArtifactStore` directory (meta schema, circuit invariants and
+      range proofs, content address, recomputed cost and proof summary,
+      plan certification); `python -m repro_torch.netgen.analysis
+      <store>` exits 0 when every entry is clean, 1 when one fails, and
+      2 when there is no store.
+
 Wiring: `PipelineSpec.run(verify=...)` checks invariants between
 passes (default from the `NETGEN_VERIFY` env var — on in tests, off in
 production); `Session.compile_resolved` always runs the range analysis
@@ -49,9 +56,13 @@ proceeding; the proof summary rides on the artifact and prints in
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
 import math
 import os
+import sys
+from pathlib import Path
 from typing import Callable, Mapping, Sequence
 
 import numpy as np
@@ -67,8 +78,9 @@ from repro_torch.netgen.plan import (
 __all__ = [
     "Diagnostic", "NodeRange", "RangeAnalysis", "StackReport",
     "VerificationError", "analyze", "analyze_ranges", "check_envelope",
-    "check_observed", "check_ranges", "diagnose_stack", "proof_summary",
-    "strict_verify", "summary_row", "verify_circuit", "verify_plan",
+    "check_observed", "check_ranges", "diagnose_stack", "lint_store",
+    "main", "proof_summary", "strict_verify", "summary_row",
+    "verify_circuit", "verify_plan",
 ]
 
 _SUMMARY_FORMAT = "netgen-analysis-v1"
@@ -750,3 +762,144 @@ def diagnose_stack(items: Sequence) -> StackReport:
     axis("stack.classes", "class count", [p.n_classes for p in plans])
     return StackReport(compatible=not diags, n_versions=len(items),
                        diagnostics=tuple(diags))
+
+
+# ---------------------------------------------------------------------------
+# ArtifactStore linter (`python -m repro_torch.netgen.analysis <store>`)
+# ---------------------------------------------------------------------------
+
+_META_REQUIRED = ("format", "digest", "pipeline", "target", "kind",
+                  "pass_stats", "cost", "timings")
+
+
+def lint_store(root) -> dict[str, list[Diagnostic]]:
+    """Re-verify every entry of an `ArtifactStore` directory. Returns
+    {key: diagnostics} for the entries that FAILED (clean stores map to
+    {}). Checks: meta schema, circuit invariants + range proofs,
+    content-address consistency (a mismatched key is a stale entry
+    compiled by different sources or schema), recomputed cost and
+    proof-summary agreement, plan-form certification for callables."""
+    # lazy imports: session imports this module for the compile driver
+    from repro_torch.netgen.backends.cost import logic_cells
+    from repro_torch.netgen.graph import circuit_from_arrays
+    from repro_torch.netgen.pipeline import PipelineSpec
+    from repro_torch.netgen.session import _FORMAT, artifact_key
+
+    root = Path(root).expanduser()
+    if not root.is_dir():
+        raise FileNotFoundError(f"no artifact store at {root}")
+    failures: dict[str, list[Diagnostic]] = {}
+    for entry in sorted(p for p in root.iterdir() if p.is_dir()):
+        if entry.name.startswith(".tmp-"):
+            continue
+        diags = _lint_entry(entry, _FORMAT, artifact_key, PipelineSpec,
+                            circuit_from_arrays, logic_cells)
+        if diags:
+            failures[entry.name] = diags
+    return failures
+
+
+def _lint_entry(entry: Path, fmt: str, artifact_key, PipelineSpec,
+                circuit_from_arrays, logic_cells) -> list[Diagnostic]:
+    key = entry.name
+    diags: list[Diagnostic] = []
+
+    def bad(check: str, message: str) -> None:
+        diags.append(Diagnostic(check=check, message=message, stage=key[:12]))
+
+    try:
+        with open(entry / "meta.json") as f:
+            meta = json.load(f)
+    except Exception as e:
+        bad("store.meta", f"unreadable meta.json: {e}")
+        return diags
+    if meta.get("format") != fmt:
+        bad("store.format",
+            f"format {meta.get('format')!r} != expected {fmt!r}")
+        return diags
+    missing = [k for k in _META_REQUIRED if k not in meta]
+    if missing:
+        bad("store.fields", f"meta.json missing {missing}")
+        return diags
+
+    try:
+        with np.load(entry / "circuit.npz") as z:
+            circuit = circuit_from_arrays(z)
+    except Exception as e:
+        bad("store.circuit", f"unreadable circuit.npz: {e}")
+        return diags
+    for d in verify_circuit(circuit, stage=key[:12], collect=True):
+        diags.append(d)
+    ranges = analyze_ranges(circuit)
+    diags.extend(check_ranges(circuit, ranges, stage=key[:12], collect=True))
+
+    try:
+        spec = PipelineSpec.coerce(meta["pipeline"])
+        want = artifact_key(meta["digest"], spec, meta["target"])
+    except Exception as e:
+        bad("store.key", f"cannot recompute content address: {e}")
+        want = None
+    if want is not None and want != key:
+        bad("store.key",
+            "stale entry: stored content address does not match the "
+            "current compiler sources/spec (recompute "
+            f"{want[:12]}... != {key[:12]}...)")
+
+    cost = logic_cells(circuit, analysis=ranges).as_dict()
+    if cost != meta["cost"]:
+        bad("store.cost",
+            f"recomputed cell estimate {cost} != stored {meta['cost']}")
+    recorded = meta.get("analysis")
+    if recorded is not None and recorded != proof_summary(circuit, ranges):
+        bad("store.analysis",
+            "stored proof summary does not match a recompute")
+    if meta["kind"] == "text" and not (entry / "artifact.txt").exists():
+        bad("store.artifact", "text artifact with no artifact.txt")
+    if meta["kind"] == "callable":
+        form = meta.get("plan_form") or "dense"
+        if form not in ("dense", "packed", "planes"):
+            bad("store.plan", f"unknown plan_form {form!r}")
+        else:
+            try:
+                plan = lower_circuit(circuit, form=form)
+            except IrregularCircuitError as e:
+                bad("store.plan", f"callable artifact's circuit has no "
+                                  f"layered form: {e}")
+            else:
+                diags.extend(verify_plan(plan, stage=key[:12], collect=True))
+    return diags
+
+
+def main(argv: Sequence[str] | None = None) -> int:
+    """CLI: lint every artifact in a store directory; exit 0 when all
+    entries verify, 1 with one structured diagnostic line per failure
+    otherwise, 2 when there is no store at the path."""
+    parser = argparse.ArgumentParser(
+        prog="python -m repro_torch.netgen.analysis",
+        description="lint every artifact in a netgen ArtifactStore")
+    parser.add_argument("store", help="ArtifactStore root directory")
+    parser.add_argument("-q", "--quiet", action="store_true",
+                        help="suppress the per-entry OK lines")
+    args = parser.parse_args(argv)
+    try:
+        failures = lint_store(args.store)
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    root = Path(args.store).expanduser()
+    keys = sorted(p.name for p in root.iterdir()
+                  if p.is_dir() and not p.name.startswith(".tmp-"))
+    for key in keys:
+        if key in failures:
+            for d in failures[key]:
+                print(f"FAIL {key[:12]} {d.row()}")
+        elif not args.quiet:
+            print(f"ok   {key[:12]}")
+    n_bad = len(failures)
+    print(f"linted {len(keys)} artifact(s): "
+          f"{len(keys) - n_bad} ok, {n_bad} failed")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,6 +19,7 @@ cross-model batching that `repro_torch.netgen.serve.NetServer` uses;
 """
 from __future__ import annotations
 
+from repro_torch._device import resolve_device
 from repro_torch.netgen.backends.cost import (
     CellCounts, CostReport, compile_cost, logic_cells,
 )
@@ -26,9 +27,21 @@ from repro_torch.netgen.backends.verilog import emit_verilog
 from repro_torch.netgen.targets import resolve_target
 
 __all__ = [
-    "CellCounts", "CostReport", "compile_cost", "compile_multi",
-    "emit_verilog", "logic_cells",
+    "CellCounts", "CostReport", "compile_circuit", "compile_cost",
+    "compile_multi", "emit_verilog", "logic_cells",
 ]
+
+
+def compile_circuit(circuit, backend: str = "torch", *, device=None, **opts):
+    """Compile an IR circuit with the named target. Extra options are
+    target-specific (declared in the registry; e.g. module_name/style/
+    addend for verilog, packed/planes for cuda). Callable targets build
+    on `device`, resolved like every entry point (the card unless the
+    caller passes "cpu"); host-only targets take no device."""
+    target, merged = resolve_target(backend, opts)
+    if target.callable:
+        merged["device"] = resolve_device(device)
+    return target.compile(circuit, **merged)
 
 
 def compile_multi(plan, backend: str = "torch", *, device, **opts):

@@ -46,14 +46,19 @@ the scalar kernel.
 
 Predictors take uint8 images (numpy or tensor), return int32 class ids
 as a tensor on the compile device, and carry `plan_form`, `datapath`,
-`blocks` and `launches_per_call`. On a CPU device the wrappers run the
-kernels' plain versions. Tuning and explored records are not ported yet.
+`blocks` and `launches_per_call`, plus `weight_bytes` and `ops_per_row`
+(the counts `telemetry.jit_cost` reads). Every call adds its launches to
+`netgen_kernel_launches_total{form}`: depth for a chain, depth x M for
+the looped multi chain, 1 for the megakernel ("fusednet") and for the
+2-layer kernel ("fused"). On a CPU device the wrappers run the kernels'
+plain versions. Tuning and explored records are not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.binary_matvec import ops as bmv
+from repro_torch.netgen import telemetry
 from repro_torch.netgen.backends.torch_ref import as_device_images
 from repro_torch.netgen.graph import Circuit, IrregularCircuitError
 from repro_torch.netgen.plan import ExecutionPlan, lower_circuit
@@ -176,39 +181,48 @@ def _chain(plan: ExecutionPlan, blocks: dict, device: torch.device):
     return tuple(arrays), run
 
 
-def _finish_predictor(predict, *, plan_form: str, datapath: str,
+def _finish_predictor(predict, *, plan: ExecutionPlan, arrays, datapath: str,
                       blocks: dict, launches: int):
     """Stamp the attributes callers read: the executed plan form, the
     datapath (the form, "fusednet" for the megakernel, "fused" for the
-    2-layer kernel), the chosen blocks, and kernel launches per call."""
-    predict.plan_form = plan_form
+    2-layer kernel), the chosen blocks, kernel launches per call, and
+    what `telemetry.jit_cost` counts: the bytes of the weight arrays the
+    predictor holds, and the layers' integer operations per input row of
+    one version (a multiply and an add per weight of the plan)."""
+    predict.plan_form = plan.form
     predict.datapath = datapath
     predict.blocks = dict(blocks)
     predict.launches_per_call = launches
+    predict.weight_bytes = sum(a.numel() * a.element_size() for a in arrays)
+    predict.ops_per_row = 2 * sum(l.fan_in * l.fan_out for l in plan.layers)
     return predict
 
 
 def _build_single(plan: ExecutionPlan, blocks: dict, device: torch.device):
     arrays, run = _chain(plan, blocks, device)
+    form, depth = plan.form, plan.depth
 
     def predict(x_uint8):
+        telemetry.kernel_launches(form).inc(depth)
         return run(as_device_images(x_uint8, device), *arrays)
 
-    return _finish_predictor(predict, plan_form=plan.form, datapath=plan.form,
-                             blocks=blocks, launches=plan.depth)
+    return _finish_predictor(predict, plan=plan, arrays=arrays, datapath=form,
+                             blocks=blocks, launches=depth)
 
 
 def _build_multi(plan: ExecutionPlan, blocks: dict, device: torch.device):
     arrays, run = _chain(plan, blocks, device)
     n_models = plan.n_models or 1
+    form, launches = plan.form, plan.depth * n_models
 
     def predict(x_uint8):                           # (M, B, n_in)
+        telemetry.kernel_launches(form).inc(launches)
         x = as_device_images(x_uint8, device)
         return torch.stack([run(x[m], *[a[m] for a in arrays])
                             for m in range(n_models)])
 
-    return _finish_predictor(predict, plan_form=plan.form, datapath=plan.form,
-                             blocks=blocks, launches=plan.depth * n_models)
+    return _finish_predictor(predict, plan=plan, arrays=arrays, datapath=form,
+                             blocks=blocks, launches=launches)
 
 
 def _build_fusednet(plan: ExecutionPlan, blocks: dict, device: torch.device):
@@ -224,12 +238,13 @@ def _build_fusednet(plan: ExecutionPlan, blocks: dict, device: torch.device):
     table = bmv.ForwardTable(arrays)
 
     def predict(x_uint8):
+        telemetry.kernel_launches("fusednet").inc()
         return bmv.binary_forward_planes(
             as_device_images(x_uint8, device), *arrays,
             threshold=view.input_threshold, n_classes=view.n_classes, bm=bm,
             table=table)
 
-    return _finish_predictor(predict, plan_form="planes", datapath="fusednet",
+    return _finish_predictor(predict, plan=plan, arrays=arrays, datapath="fusednet",
                              blocks=blocks, launches=1)
 
 
@@ -299,9 +314,10 @@ def compile_fused(circuit: Circuit, *, device: torch.device,
     thr = plan.input_threshold
 
     def predict(x_uint8):
+        telemetry.kernel_launches("fused").inc()
         return fused.fused_mlp_predict(as_device_images(x_uint8, device),
                                        w1, w2, threshold=thr, bm=kbm)
 
-    return _finish_predictor(predict, plan_form="dense", datapath="fused",
+    return _finish_predictor(predict, plan=plan, arrays=(w1, w2), datapath="fused",
                              blocks={} if bm is None else {"bm": int(bm)},
                              launches=1)

@@ -24,16 +24,27 @@ registry entry. The canonical string is what `fingerprint()` hashes
 equal fingerprints in both packages. Unknown passes, unknown or
 ill-typed options and duplicate steps raise ValueError. The
 bracket-option syntax (`name[k=v,flag]`) is shared with the target
-registry. Out-of-tree passes by dotted module path are not ported.
+registry.
+
+Dotted module paths are accepted for out-of-tree passes
+(`"mypkg.passes.retime"` imports and calls `mypkg.passes.retime`), and
+`PipelineSpec.from_passes` represents a sequence of pass callables —
+registered functions, `functools.partial` of them (their keywords map
+back to declared options: `cse[budget=2]`) and module-level functions
+(by dotted name). Lambdas and closures have no stable fingerprint and
+raise.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
+import importlib
 import re
-from typing import Callable, Mapping
+from typing import Callable, Mapping, Sequence
 
 from repro_torch.netgen import passes as _passes
+from repro_torch.netgen import telemetry
 from repro_torch.netgen.graph import Circuit
 from repro_torch.netgen.passes import PassStats, ops
 
@@ -152,13 +163,21 @@ class PassDef:
                 return kw
         raise KeyError(opt)
 
+    def opt_for_keyword(self, kw: str) -> str | None:
+        for o, _, k in self.opts:
+            if k == kw:
+                return o
+        return None
+
 
 _PASS_REGISTRY: dict[str, PassDef] = {}
+_FN_TO_DEF: dict[Callable, PassDef] = {}
 _PIPELINES: dict[str, str] = {}
 
 
 def register_pass(passdef: PassDef) -> PassDef:
     _PASS_REGISTRY[passdef.name] = passdef
+    _FN_TO_DEF[passdef.fn] = passdef
     return passdef
 
 
@@ -191,14 +210,28 @@ register_pass(PassDef(
     doc="share repeated addend pairs (adder CSE; irregular DAG)"))
 
 
+def _resolve_dotted(name: str) -> Callable:
+    mod, _, attr = name.rpartition(".")
+    try:
+        fn = getattr(importlib.import_module(mod), attr)
+    except (ImportError, AttributeError) as e:
+        raise ValueError(
+            f"unknown pass {name!r}: not in the registry "
+            f"({', '.join(sorted(_PASS_REGISTRY))}) and not importable "
+            f"({e})") from None
+    if not callable(fn):
+        raise ValueError(f"pass {name!r} resolves to non-callable {fn!r}")
+    return fn
+
+
 # ---------------------------------------------------------------------------
 # PipelineSpec
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class PassSpec:
-    """One pipeline step in canonical form: registry name plus a sorted
-    tuple of (opt, value) pairs."""
+    """One pipeline step in canonical form: registry (or dotted) name plus
+    a sorted tuple of (opt, value) pairs."""
     name: str
     opts: tuple = ()
 
@@ -260,9 +293,22 @@ class PipelineSpec:
         return cls.parse(_PIPELINES[name])
 
     @classmethod
+    def from_passes(cls, passes: Sequence[Callable]) -> "PipelineSpec":
+        """Represent a sequence of pass callables (registered functions,
+        `functools.partial` of them, or callables produced by `build()`)
+        as a spec. Lambdas/closures and unknown partial keywords raise —
+        they have no stable canonical form."""
+        steps = tuple(_spec_for_callable(p) for p in passes)
+        names = [s.name for s in steps]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate passes in pipeline: {names}")
+        return cls(steps=steps)
+
+    @classmethod
     def coerce(cls, value) -> "PipelineSpec":
-        """None -> the "default" pipeline; a PipelineSpec -> itself; a
-        string -> a named pipeline or a parsed spec."""
+        """The one entry point every API uses: None -> the "default"
+        pipeline; a PipelineSpec -> itself; a string -> named pipeline or
+        parsed spec; a sequence of callables -> `from_passes`."""
         if value is None:
             return cls.named("default")
         if isinstance(value, cls):
@@ -271,7 +317,9 @@ class PipelineSpec:
             if value in _PIPELINES:
                 return cls.named(value)
             return cls.parse(value)
-        raise TypeError(f"cannot make a PipelineSpec from {value!r}")
+        if callable(value):
+            return cls.from_passes([value])
+        return cls.from_passes(list(value))
 
     # -- canonical form ------------------------------------------------------
 
@@ -293,7 +341,8 @@ class PipelineSpec:
     def build(self) -> tuple[Callable, ...]:
         """Materialize the pipeline as `Circuit -> Circuit` callables.
         Each carries its canonical item string as `__name__` (so
-        `PassStats.name` reads e.g. `cse[bucketed=true,budget=8]`)."""
+        `PassStats.name` reads e.g. `cse[bucketed=true,budget=8]`) and a
+        `_pass_spec` attribute for exact round-tripping."""
         return tuple(_build_step(step) for step in self.steps)
 
     def run(self, circuit: Circuit, *, observe=None,
@@ -302,44 +351,59 @@ class PipelineSpec:
         """Apply the pipeline, recording per-pass stats. `observe`, if
         given, is called as observe(stage_name, circuit) for the lowered
         circuit and after every pass (the cost target's pass trace).
+        With tracing enabled each pass runs under a `netgen.pass` span
+        (nested in `netgen.pipeline`) carrying its before/after node
+        and term counts.
 
         `verify=True` checks the full `analysis` invariant suite at
         every pass boundary — structural well-formedness, the pass's own
         postconditions, accumulator range proofs, and that no pass
         *widened* a class score's value interval (an exact rewrite may
         only tighten it). A violation raises `analysis.VerificationError`
-        naming the pass and the node. `verify=None` (default) takes the
+        naming the pass and the node, and counts
+        `netgen_verify_failures_total{phase=pipeline}`. `verify=None`
+        (default) takes the
         `NETGEN_VERIFY` env var: on in tests, off in production (the
         Session driver still runs one pre-backend analysis regardless)."""
         from repro_torch.netgen import analysis
 
         check = analysis.strict_verify() if verify is None else bool(verify)
-        if observe is not None:
-            observe("lowered", circuit)
-        envelope = None
-        if check:
-            analysis.verify_circuit(circuit, stage="lowered")
-            envelope = analysis.analyze_ranges(
-                circuit).output_envelope(circuit)
-        stats = []
-        for step, fn in zip(self.steps, self.build()):
-            before = ops(circuit)
-            circuit = fn(circuit)
-            stage = step.item_string()
-            stats.append(PassStats(name=stage, before=before,
-                                   after=ops(circuit)))
-            if check:
-                ranges, diags = analysis.analyze(
-                    circuit, after_pass=step.name, stage=stage, collect=True)
-                if not diags:
-                    nxt = ranges.output_envelope(circuit)
-                    diags = analysis.check_envelope(
-                        envelope, nxt, stage=stage, collect=True)
-                    envelope = nxt
-                if diags:
-                    raise analysis.VerificationError(diags)
+        tel = telemetry.get_registry()
+        with tel.span("netgen.pipeline", pipeline=self.spec_string(),
+                      steps=len(self.steps)):
             if observe is not None:
-                observe(stage, circuit)
+                observe("lowered", circuit)
+            envelope = None
+            if check:
+                analysis.verify_circuit(circuit, stage="lowered")
+                envelope = analysis.analyze_ranges(
+                    circuit).output_envelope(circuit)
+            stats = []
+            for step, fn in zip(self.steps, self.build()):
+                before = ops(circuit)
+                stage = step.item_string()
+                with tel.span("netgen.pass", name=stage) as sp:
+                    circuit = fn(circuit)
+                    after = ops(circuit)
+                    sp.set_attr("terms_before", before.terms)
+                    sp.set_attr("terms_after", after.terms)
+                    sp.set_attr("nodes_deleted", before.nodes - after.nodes)
+                stats.append(PassStats(name=stage, before=before, after=after))
+                if check:
+                    ranges, diags = analysis.analyze(
+                        circuit, after_pass=step.name, stage=stage,
+                        collect=True)
+                    if not diags:
+                        nxt = ranges.output_envelope(circuit)
+                        diags = analysis.check_envelope(
+                            envelope, nxt, stage=stage, collect=True)
+                        envelope = nxt
+                    if diags:
+                        tel.counter("netgen_verify_failures_total",
+                                    phase="pipeline").inc(len(diags))
+                        raise analysis.VerificationError(diags)
+                if observe is not None:
+                    observe(stage, circuit)
         return circuit, tuple(stats)
 
 
@@ -350,13 +414,22 @@ def _canonical_pass_name(name: str) -> str:
     for pd in _PASS_REGISTRY.values():
         if name == pd.fn.__name__:
             return pd.name
+    if "." in name:
+        _resolve_dotted(name)   # validates importability
+        return name
     raise ValueError(
         f"unknown pass {name!r} (registered: "
-        f"{', '.join(sorted(_PASS_REGISTRY))})")
+        f"{', '.join(sorted(_PASS_REGISTRY))}; dotted module paths are "
+        "also accepted)")
 
 
 def _validate_pass_opts(name: str, raw_opts: dict) -> tuple:
-    pd = _PASS_REGISTRY[name]
+    pd = _PASS_REGISTRY.get(name)
+    if pd is None:             # dotted out-of-tree pass: opts pass through
+        for k, v in raw_opts.items():
+            if isinstance(v, str):
+                check_opt_string(v, f"option {k!r} of pass {name!r}")
+        return tuple(sorted(raw_opts.items()))
     declared = {o: t for o, t, _ in pd.opts}
     out = {}
     for k, v in raw_opts.items():
@@ -380,9 +453,13 @@ def _validate_pass_opts(name: str, raw_opts: dict) -> tuple:
 
 
 def _build_step(step: PassSpec) -> Callable:
-    pd = _PASS_REGISTRY[step.name]
-    fn = pd.fn
-    kwargs = {pd.keyword_for(k): v for k, v in step.opts}
+    pd = _PASS_REGISTRY.get(step.name)
+    if pd is not None:
+        fn = pd.fn
+        kwargs = {pd.keyword_for(k): v for k, v in step.opts}
+    else:
+        fn = _resolve_dotted(step.name)
+        kwargs = dict(step.opts)
 
     def run(circuit: Circuit) -> Circuit:
         return fn(circuit, **kwargs)
@@ -390,7 +467,47 @@ def _build_step(step: PassSpec) -> Callable:
     label = step.item_string()
     run.__name__ = label
     run.__qualname__ = label
+    run._pass_spec = step
     return run
+
+
+def _spec_for_callable(p: Callable) -> PassSpec:
+    spec = getattr(p, "_pass_spec", None)
+    if spec is not None:
+        return spec
+    if isinstance(p, functools.partial):
+        inner = _spec_for_callable(p.func)
+        if p.args:
+            raise ValueError(
+                f"cannot represent positional partial args of {p!r} in a "
+                "pipeline spec; bind options by keyword")
+        pd = _PASS_REGISTRY.get(inner.name)
+        opts = dict(inner.opts)
+        for kw, v in p.keywords.items():
+            opt = pd.opt_for_keyword(kw) if pd is not None else kw
+            if opt is None:
+                raise ValueError(
+                    f"keyword {kw!r} of {p!r} has no declared option on "
+                    f"pass {inner.name!r} — it cannot be fingerprinted")
+            opts[opt] = v
+        return PassSpec(name=inner.name,
+                        opts=_validate_pass_opts(inner.name, opts))
+    pd = _FN_TO_DEF.get(p)
+    if pd is not None:
+        return PassSpec(name=pd.name)
+    name = getattr(p, "__qualname__", None) or getattr(p, "__name__", None)
+    if not name or "<lambda>" in name or "<locals>" in name:
+        raise ValueError(
+            f"cannot represent pass {name or p!r} in a pipeline spec: "
+            "lambdas and closures have no stable fingerprint — spell it as "
+            "a registry entry (e.g. 'cse[budget=5]'), a module-level "
+            "function, or functools.partial of one")
+    mod = getattr(p, "__module__", None)
+    if not mod:
+        raise ValueError(f"cannot represent pass {name!r}: no module")
+    dotted = f"{mod}.{name}"
+    _resolve_dotted(dotted)    # must be re-importable to round-trip
+    return PassSpec(name=dotted)
 
 
 # Built-in named pipelines (registered last: registration parses eagerly).

@@ -565,6 +565,44 @@ def test_served_path_runs_each_new_kernel(cuda, target, wrapper):
         single, quantize.predict_quantized(nets["v1"], device=cuda)(x).cpu().numpy())
 
 
+@pytest.mark.parametrize("target,wrapper", [
+    ("cuda", ops.binary_matmul), ("cuda[packed=true]", ops.binary_matmul_packed),
+    ("cuda[fusednet=true]", ops.binary_forward_planes), ("fused", fops.fused_mlp_predict)])
+def test_engine_load_and_store_warm_start(cuda, target, wrapper, tmp_path):
+    """Single requests through `ServingEngine` on the card, three versions
+    interleaved, then a second session over the same store: zero compiles,
+    three loads, and every answer equal to `predict_quantized`."""
+    nets = {f"v{i}": _net(30 + i, (120, 50 + 7 * i, 10)) for i in range(3)}
+    x = _images(5, 90, 120)
+    want = {name: quantize.predict_quantized(net, device=cuda)(x).cpu().numpy()
+            for name, net in nets.items()}
+    session = netgen.Session(device=cuda, store=tmp_path / "store")
+    with session, session.engine(target=target, slot_capacity=32,
+                                 max_batch_delay=0.002) as engine:
+        for name, net in nets.items():
+            engine.register(name, net)
+        ops.reset_launches()
+        fops.reset_launches()
+        futs = [(name, i, engine.submit(name, x[i]))
+                for i in range(len(x)) for name in nets]
+        got = {name: np.full(len(x), -1, np.int64) for name in nets}
+        for name, i, fut in futs:
+            got[name][i] = fut.result(timeout=60)
+    assert engine.stats().completed == 3 * len(x)
+    assert wrapper.launches > 0 and wrapper.mma_launches == wrapper.launches
+    for name in nets:
+        np.testing.assert_array_equal(got[name], want[name])
+    assert session.stats().compiles == 3
+    warm = netgen.Session(device=cuda, store=tmp_path / "store")
+    server = netgen.NetServer(session=warm, target=target, slot_capacity=32)
+    for name, net in nets.items():
+        server.register(name, net)
+    assert warm.stats().compiles == 0 and warm.store_stats().loads == 3
+    out = server.predict_many({name: x for name in nets})
+    for name in nets:
+        np.testing.assert_array_equal(out[name], want[name])
+
+
 # -- the LM path: ssd_scan (B7) and quant_matmul (B6) ------------------------
 
 def _ssd_inputs(b, l, h, g, p, n, seed, dev, dtype=torch.float32):

@@ -225,8 +225,12 @@ def test_registries_and_bad_specs():
                 "cse[budget=2", "mypkg.passes.retime", "zeros,zeros"):
         with pytest.raises(ValueError):
             netgen.PipelineSpec.coerce(bad)
+    # a list of pass callables is a spec, as in the reference; a value
+    # that is neither a spec, a string nor callables is not
+    assert netgen.PipelineSpec.coerce([netgen.delete_zero_terms]).spec_string() == \
+        jnetgen.PipelineSpec.coerce([jnetgen.delete_zero_terms]).spec_string() == "zeros"
     with pytest.raises(TypeError):
-        netgen.PipelineSpec.coerce([netgen.delete_zero_terms])
+        netgen.PipelineSpec.coerce(3)
 
 
 # ---------------------------------------------------------------------------

@@ -252,9 +252,13 @@ def _port_modules():
         for p in pkg.rglob("*.py"))
 
 
-def test_port_imports_without_jax_or_repro():
+def test_port_imports_without_jax_or_repro(tmp_path):
+    """Every module of the port, `chip_smoke.py`, and the store linter's
+    CLI (`python -m repro_torch.netgen.analysis`) run with `jax` and
+    `repro` blocked."""
     mods = _port_modules()
-    assert "repro_torch.netgen.backends.cuda" in mods
+    assert {"repro_torch.netgen.backends.cuda", "repro_torch.netgen.engine",
+            "repro_torch.netgen.telemetry", "repro_torch.core.netgen"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -270,6 +274,19 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    store = tmp_path / "store"
+    netgen.Session(device="cpu", store=store).compile(
+        _port(random_net(3, (12, 9, 4))), target="cuda[planes=true]")
+    cli = (
+        "import sys, runpy\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"sys.argv = ['analysis', {str(store)!r}]\n"
+        "runpy.run_module('repro_torch.netgen.analysis', run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", cli], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "linted 1 artifact(s): 1 ok, 0 failed" in out.stdout
 
 
 def test_port_sources_name_no_jax_or_repro():
