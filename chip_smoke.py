@@ -93,7 +93,23 @@ Phases, each raising on failure (nothing is caught):
    `IrregularCircuitError`; adder sharing on a 784-4-10 net under
    `zeros,cse[budget=8,bucketed=true]` (adders saved, the generic
    module's shared sub-sums, the shared DAG's answers equal
-   `predict_quantized`); and each compile's host seconds.
+   `predict_quantized`); and each compile's host seconds. (d) The
+   paper's whole pipeline, after (c): 784-500-10 trained on the card
+   with `MLPConfig()` (1000 images, 60 epochs) and its wall time; L0-L3
+   beside the paper's figures, within the reference test's band (L0 >
+   0.85, the others within 0.10 of it); `run_ladder` with the `torch`,
+   `cuda` and `fused` backends, and `cuda[tuned=true]`,
+   `cuda[tuned=true,planes=true]` and `fused[tuned=true]` through a
+   `Session(tune_store=...)`, every one bit-exact with `predict_l3` on
+   the 1000 test images and launching its kernels; each search's whole
+   surface (every candidate's microseconds and the winner); a second
+   session over the tune store measuring nothing; `session.explore`
+   (latency, budget 8, seed 0) over `default` and
+   `zeros,prune,addends`, after which `cuda[explored=true]` resolves the
+   winner with one `hit` and no measurement; a `NetServer` stacked round
+   of the trained net and its `int_cast_weights(bound=5)` variant equal
+   to `predict_quantized`; `benchmarks/check_trace.py` on the phase's
+   trace; B1-B5 must launch.
    Every launch count is set to 0 just before a path runs and read just
    after it; each of the path's kernels must have launched.
 5. Times: CUDA events, median of 20 runs after warmup, per kernel (both
@@ -978,6 +994,198 @@ def _hw_path(session, net, images, dev, wrappers, reset_launches, smi) -> dict:
     return counts
 
 
+PAPER_ACC = {"L0_baseline": 0.98, "L1_step_act": 0.95, "L2_binary_input": 0.94,
+             "L3_int_weights": 0.92}          # the paper's §III figures
+PAPER_TUNED = ("cuda[tuned=true]", "cuda[tuned=true,planes=true]", "fused[tuned=true]")
+PAPER_EXPLORE = ("default", "zeros,prune,addends")   # the explorer's pipeline axis
+PAPER_PHASE_S = 240.0                                # a run past this fails the phase
+
+
+def _paper_band(acc: dict, label: str) -> None:
+    """The reference test's band (`tests/test_core_ladder.py`): L0 > 0.85,
+    and L1, L2 and L3 each within 0.10 of L0."""
+    a0 = acc["L0_baseline"]
+    if not a0 > 0.85 or any(acc[k] <= a0 - 0.10 for k in list(PAPER_ACC)[1:]):
+        raise AssertionError(f"{label}: accuracies {acc} leave the reference band")
+
+
+def _paper_path(dev, wrappers, reset_launches, smi) -> dict:
+    """Phase 4(d), the paper's whole pipeline on the card: train 784-500-10
+    with `MLPConfig()` (60 epochs, batches of 10, lr 2) on
+    `dataset.train_test_split(1000, 1000, seed=0)`; L0-L3 beside the
+    paper's figures, within the reference test's band; `run_ladder` with
+    the `torch`, `cuda` and `fused` backends (its own training, seed 1),
+    every backend bit-exact with `predict_l3`; through a
+    `Session(tune_store=...)`, `cuda[tuned=true]`,
+    `cuda[tuned=true,planes=true]` and `fused[tuned=true]`, each
+    predictor's answers bit-exact with `predict_l3` and each call
+    launching its CUDA kernels, each search's whole surface printed; a
+    second session over the tune store compiling the same targets with 0
+    measurements; `session.explore` (latency, budget 8, seed 0) over
+    `default` and `zeros,prune,addends`, after which
+    `cuda[explored=true]` resolves the winner (one `hit`, 0
+    measurements); a `NetServer` stacked round of the trained net and
+    its `int_cast_weights(bound=5)` variant equal to `predict_quantized`;
+    and `benchmarks/check_trace.py` on the phase's trace. Returns the
+    phase's launches of B1-B5 (with those on the tensor cores)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import dataset, mlp, quantize
+    from repro_torch.core.ladder import run_ladder
+    from repro_torch.netgen import NetServer, Session, telemetry
+    from repro_torch.netgen.explore import SearchSpace
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="paper-", dir=ROOT / "build"))
+    tune_dir, trace_dir = work / "tune", work / "trace"
+    trace_dir.mkdir()
+    names = ("binary_forward_planes", "binary_matmul_planes", "binary_matmul",
+             "binary_matmul_packed", "fused_mlp_predict")
+    numbers = {"device": torch.cuda.get_device_name(0), "power": smi}
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        t_phase = time.perf_counter()
+        reset_launches()
+        xtr, ytr, xte, yte = dataset.train_test_split(1000, 1000, seed=0)
+        cfg = mlp.MLPConfig()
+        t0 = time.perf_counter()
+        params = mlp.train(cfg, xtr, ytr, device=dev)
+        train_s = time.perf_counter() - t0
+        print(f"[4 paper path] train {'-'.join(map(str, mlp.layer_sizes(cfg)))}, "
+              f"{cfg.epochs} epochs x {len(xtr) // 10} batches of 10, lr {cfg.lr}, seed "
+              f"{cfg.seed}: {train_s:.2f} s wall")
+        fns = {"L0_baseline": mlp.predict_l0(params, dev),
+               "L1_step_act": quantize.predict_l1(params, dev),
+               "L2_binary_input": quantize.predict_l2(params, dev),
+               "L3_int_weights": quantize.predict_l3(params, dev)}
+        acc = {k: mlp.accuracy(f, xte, yte) for k, f in fns.items()}
+        print("[4 paper path] ladder on 1000 test images: " + ", ".join(
+            f"{k} {v:.3f} (paper {PAPER_ACC[k]:.2f})" for k, v in acc.items()))
+        _paper_band(acc, "MLPConfig()")
+        l3 = fns["L3_int_weights"](xte)
+
+        t0 = time.perf_counter()
+        ladder = run_ladder(n_train=1000, n_test=1000, epochs=60, seed=0,
+                            backends=("torch", "cuda", "fused"), device=dev)
+        ladder_s = time.perf_counter() - t0
+        print(f"[4 paper path] run_ladder(seed=0, backends torch/cuda/fused) in "
+              f"{ladder_s:.2f} s: " + ", ".join(f"{k} {v:.3f}" for k, v in ladder.acc.items())
+              + f"; exact_l4_l5={ladder.exact_l4_l5}, zero fraction "
+              f"{ladder.stats.zero_fraction:.3f}")
+        _paper_band(ladder.acc, "run_ladder")
+        if not ladder.exact_l4_l5:
+            raise AssertionError("run_ladder: an L4/L5 backend differs from predict_l3")
+
+        qnet = quantize.quantize(params)
+        session = Session(device=dev, tune_store=tune_dir)
+        surfaces = {}
+        for target in PAPER_TUNED:
+            before = set(session.tuner.store.keys())
+            t0 = time.perf_counter()
+            art = session.compile(qnet, target=target)
+            compile_s = time.perf_counter() - t0
+            counts = {n: wrappers[n].launches for n in names}
+            preds = art(xte)
+            torch.cuda.synchronize()
+            launched = sum(wrappers[n].launches - counts[n] for n in names)
+            if launched != art.artifact.launches_per_call:
+                raise AssertionError(f"{target}: {launched} kernel launches, want "
+                                     f"{art.artifact.launches_per_call}")
+            if not torch.equal(preds, l3):
+                raise AssertionError(f"{target}: answers != predict_l3")
+            (key,) = set(session.tuner.store.keys()) - before
+            rec = session.tuner.store.get(key)
+            surfaces[target] = {"winner": rec.best, "compile_s": compile_s,
+                                "us": [[p, us] for p, us in rec.measurements]}
+            print(f"[4 paper path] {target}: winner {rec.best} "
+                  f"({art.artifact.datapath}, {launched} launches a call) of "
+                  f"{len(rec.measurements)} measured in {compile_s:.2f} s; surface us: "
+                  + ", ".join(f"{p.get('form', 'fused')} {p['bm']}x{p.get('bn', '-')} {us:.1f}"
+                              for p, us in rec.measurements))
+        stats = session.tune_stats()
+        print(f"[4 paper path] first session: {stats.row()}; 1000 answers of each "
+              "tuned target equal predict_l3")
+        warm = Session(device=dev, tune_store=tune_dir)
+        for target in PAPER_TUNED:
+            if not torch.equal(warm.compile(qnet, target=target)(xte), l3):
+                raise AssertionError(f"second session {target}: answers != predict_l3")
+        ws = warm.tune_stats()
+        if (ws.measurements, ws.tunes) != (0, 0):
+            raise AssertionError(f"second session over the tune store measured: {ws.row()}")
+        print(f"[4 paper path] second session over the tune store: {ws.row()}")
+
+        t0 = time.perf_counter()
+        report = session.explore(qnet, objective="latency", budget=8, seed=0,
+                                 space=SearchSpace(pipelines=PAPER_EXPLORE))
+        explore_s = time.perf_counter() - t0
+        print(f"[4 paper path] {report.describe()} in {explore_s:.2f} s; evaluations us: "
+              + ", ".join(f"{c['pipeline']}/{c['form']} {c['bm']}x{c['bn']} {v:.1f}"
+                          for c, v in report.evaluations))
+        hits = telemetry.get_registry().counter("netgen_explored_resolved_total",
+                                                outcome="hit")
+        measured = session.tune_stats().measurements
+        explored = session.compile(qnet, target="cuda[explored=true]",
+                                   pipeline=report.best.pipeline)
+        if hits.value != 1 or session.tune_stats().measurements != measured:
+            raise AssertionError(f"cuda[explored=true]: hits {hits.value}, measurements "
+                                 f"{session.tune_stats().measurements - measured}")
+        if not torch.equal(explored(xte), l3):
+            raise AssertionError("cuda[explored=true]: answers != predict_l3")
+        print(f"[4 paper path] cuda[explored=true] under '{report.best.pipeline}': "
+              f"{explored.artifact.datapath} {explored.artifact.blocks}, "
+              f"netgen_explored_resolved_total{{outcome=\"hit\"}} = {int(hits.value)}, "
+              "0 measurements; 1000 answers equal predict_l3")
+
+        variant = quantize.QuantizedNet(weights=[
+            quantize.int_cast_weights(w, bound=5) for w in quantize.param_weights(params)])
+        server = NetServer(session=session, target="cuda", slot_capacity=BATCH)
+        server.register("paper", qnet)
+        server.register("paper-b5", variant)
+        before = int(hits.value)
+        out = server.predict_many({"paper": xte, "paper-b5": xte})
+        for name, net in (("paper", qnet), ("paper-b5", variant)):
+            want = quantize.predict_quantized(net, device=dev)(xte).cpu().numpy()
+            if not np.array_equal(out[name], want):
+                raise AssertionError(f"stacked round {name}: answers != predict_quantized")
+        if server.dispatch_counts["stacked"] < 1:
+            raise AssertionError(f"no stacked dispatch: {server.dispatch_counts}")
+        stacked = [f for f in server._multi.values() if f is not None]
+        print(f"[4 paper path] NetServer stacked round (paper + int_cast_weights(bound=5)): "
+              f"dispatch {server.dispatch_counts}, stacked datapath "
+              f"{stacked[0].datapath if stacked else None}, explored record "
+              f"{'hit' if hits.value > before else 'miss'}; 2000 answers equal "
+              "predict_quantized")
+
+        n_spans = telemetry.export_jsonl(trace_dir / "trace.jsonl")
+        (trace_dir / "metrics.prom").write_text(telemetry.prometheus())
+        gate = subprocess.run([sys.executable, str(ROOT / "benchmarks" / "check_trace.py"),
+                               str(trace_dir)], capture_output=True, text=True, timeout=600)
+        if gate.returncode != 0:
+            raise AssertionError(f"check_trace.py exit {gate.returncode}: {gate.stderr}")
+        print(f"[4 paper path] check_trace.py: {gate.stdout.strip()} ({n_spans} spans)")
+        counts = {n: wrappers[n].launches for n in names}
+        mma = {n: wrappers[n].mma_launches for n in names if hasattr(wrappers[n], "mma_launches")}
+        phase_s = time.perf_counter() - t_phase
+        print(f"[4 paper path] launches {counts}, on the tensor cores {mma}; phase "
+              f"{phase_s:.1f} s")
+        for n in names:
+            if counts[n] <= 0:
+                raise AssertionError(f"the paper path never launched {n}")
+        if phase_s > PAPER_PHASE_S:
+            raise AssertionError(f"the paper path took {phase_s:.1f} s")
+        numbers.update(train_s=train_s, acc=acc, ladder_acc=ladder.acc, ladder_s=ladder_s,
+                       tuned=surfaces, explore_s=explore_s, explore=report.as_dict(),
+                       phase_s=phase_s)
+        print(json.dumps({"paper": numbers}))
+    finally:
+        telemetry.disable()
+    shutil.rmtree(work, ignore_errors=True)
+    return {**counts, "mma": mma}
+
+
 def _lm_main_path(dev, wrappers, reset_launches):
     """Phase 4(b): mamba2-2.7b at full width and depth, served by
     `Engine.generate` from the fp32 checkpoint and its W8 form, aligned
@@ -1502,6 +1710,11 @@ def main() -> int:
     hw = _hw_path(session, nets[0], images, dev, wrappers, reset_launches, smi)
     mma_launches["binary_forward_planes"] += hw.pop("binary_forward_planes mma")
     for name, n in hw.items():
+        launches[name] += n
+    paper = _paper_path(dev, wrappers, reset_launches, smi)
+    for name, n in paper.pop("mma").items():
+        mma_launches[name] += n
+    for name, n in paper.items():
         launches[name] += n
 
     lm_launches, lm_times, lm_trace = _lm_main_path(dev, wrappers, reset_launches)

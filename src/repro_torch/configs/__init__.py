@@ -2,14 +2,17 @@
 
 `get_config(name)` returns the full published config; `smoke(name)` a
 reduced same-family variant for CPU tests, with exactly the reductions
-of `repro/configs/__init__.py`. Only the families the port runs are
+of `repro/configs/__init__.py`. Only the LM families the port runs are
 registered (ssm); the others come with their family (ROADMAP.md, A.10).
+`mnist_fpga`, the paper's own net (family "mlp"), is imported but left
+out of `ARCHS`, as in the reference, so `get_config("mnist-fpga")`
+raises in both packages; `repro_torch.core` runs it.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import mamba2_2_7b
+from repro_torch.configs import mamba2_2_7b, mnist_fpga  # noqa: F401
 from repro_torch.models.base import ArchConfig
 
 __all__ = ["ARCHS", "get_config", "smoke"]

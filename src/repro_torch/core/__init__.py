@@ -1,1 +1,2 @@
-"""Quantized-net definitions and the synthetic digit dataset."""
+"""The paper's network: training, the optimization ladder, quantized
+nets and the synthetic digit dataset."""

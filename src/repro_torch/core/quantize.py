@@ -6,6 +6,15 @@ L3 reference `predict_quantized` that every compiled target must match
 bit for bit. Weights stay numpy arrays, as in the reference, so a net
 digests to the same sha256 in both packages.
 
+The ladder predictors `predict_l1`..`predict_l3` (paper §III.A-C) share
+one arithmetic, `_step_chain`: the strict step (`acc > 0`) between
+layers and the argmax (the first maximal index) at the end. L1 and L2
+multiply in fp32 with TF32 off (`mlp.full_fp32`); L3 and
+`predict_quantized` are integer arithmetic, run as float64 products
+(CUDA has no int32 matmul; exact while fan-ins stay below 2**22) whose
+accumulators are wrapped to int32 before the step and the argmax, as
+the reference's int32 products wrap.
+
 `from_numpy` / `params_from_numpy` carry the JAX package's nets and
 float parameters (as numpy arrays) into the port.
 """
@@ -19,11 +28,13 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.core import mlp as mlp_lib
 
 __all__ = [
     "INPUT_THRESHOLD", "WEIGHT_BOUND", "QuantizedNet", "binarize_input",
     "from_numpy", "int_cast_weights", "param_weights", "params_from_numpy",
-    "predict_quantized", "quantize", "step", "weights_digest",
+    "predict_l1", "predict_l2", "predict_l3", "predict_quantized", "quantize",
+    "step", "weights_digest",
 ]
 
 INPUT_THRESHOLD = 128  # paper: pixel cutoff value
@@ -154,6 +165,59 @@ def quantize(params: dict) -> QuantizedNet:
         for w in param_weights(params)])
 
 
+def _step_chain(x: torch.Tensor, ws, integer: bool) -> torch.Tensor:
+    """Shared ladder arithmetic: strict step between layers, argmax (the
+    first maximal index) at the end; int32 class ids. `integer`: x and ws
+    are float64 holding integers, and each accumulator is wrapped to
+    int32 before the step and the argmax, as int32 products wrap."""
+    def acc(a):
+        return a.to(torch.int64).to(torch.int32) if integer else a
+
+    for w in ws[:-1]:
+        x = step(acc(x @ w)).to(x.dtype)
+    return torch.argmax(acc(x @ ws[-1]), dim=-1).to(torch.int32)
+
+
+def _float_weights(params: dict, dev: torch.device) -> list:
+    return [torch.as_tensor(w, dtype=torch.float32).to(dev)
+            for w in param_weights(params)]
+
+
+def predict_l1(params: dict, device=None):
+    """L1: step hidden activations, float weights, scaled float input.
+    Returns fn(uint8 images, numpy or tensor) -> int32 class ids on
+    `device`."""
+    dev = resolve_device(device)
+    ws = _float_weights(params, dev)
+
+    def f(x_uint8):
+        x = mlp_lib.scale_inputs(torch.as_tensor(x_uint8).to(dev))
+        with mlp_lib.full_fp32():
+            return _step_chain(x, ws, integer=False)
+
+    return f
+
+
+def predict_l2(params: dict, device=None):
+    """L2: + binary inputs (pixel > 128)."""
+    dev = resolve_device(device)
+    ws = _float_weights(params, dev)
+
+    def f(x_uint8):
+        x = binarize_input(torch.as_tensor(x_uint8).to(dev)).to(torch.float32)
+        with mlp_lib.full_fp32():
+            return _step_chain(x, ws, integer=False)
+
+    return f
+
+
+def predict_l3(params: dict, device=None):
+    """L3: + integer weights. The whole network is now integer arithmetic:
+    binary inputs, int weights, int accumulators, sign-bit activations —
+    exactly the arithmetic the paper's Verilog implements."""
+    return predict_quantized(quantize(params), device=device)
+
+
 def predict_quantized(net: QuantizedNet, device=None):
     """Reference L3 arithmetic for a quantized net: the dense path the
     compiled targets must match bit for bit. Returns fn(uint8 images
@@ -170,14 +234,8 @@ def predict_quantized(net: QuantizedNet, device=None):
           for w in net.weights]
     thr = net.input_threshold
 
-    def wrap(acc):
-        return acc.to(torch.int64).to(torch.int32)
-
     def f(x_uint8):
         x = torch.as_tensor(x_uint8, device=dev)
-        a = binarize_input(x, thr).to(torch.float64)
-        for w in ws[:-1]:
-            a = step(wrap(a @ w)).to(torch.float64)
-        return torch.argmax(wrap(a @ ws[-1]), dim=-1).to(torch.int32)
+        return _step_chain(binarize_input(x, thr).to(torch.float64), ws, integer=True)
 
     return f

@@ -10,6 +10,8 @@ circuit IR (`frontend.lower`), optimized by a `PipelineSpec` (default
     cuda[packed=true]    per-layer chain over bit-packed activations
     cuda[planes=true]    per-layer bit-plane kernel chain
     cuda[fusednet=true]  the whole planes-form net in one kernel launch
+    cuda[tuned=true]     datapath and block shapes searched, winner persisted
+    cuda[explored=true]  the design-space explorer's recorded winner
     fused                the 2-layer paper net in one kernel launch
     verilog              the paper's clockless combinational module (text)
     cost                 logic-cell estimate vs the paper's Figure 7
@@ -49,6 +51,20 @@ compatible ones into one multi-net dispatch and recording a
 single requests, with continuous slot formation, a bounded queue,
 deadlines and drain-on-exit. `python -m repro_torch.netgen.analysis
 <store>` lints a store (`analysis.lint_store`).
+
+Autotuning (`repro_torch.netgen.tune`): `cuda[tuned=true]` grid-searches
+the datapath (dense / packed / planes / fusednet) and the bm/bn block
+shapes not pinned, per plan shape x device kind (the CUDA device's name
+and compute capability), over Hopper's own grid filtered by
+`analysis.tile_legality`; `fused[tuned=true]` searches its bm.
+`Session(tune_store=...)` persists the winners (a second process
+re-measures nothing); `session.tune_stats()` shows hits against
+measurements. Design-space exploration (`repro_torch.netgen.explore`):
+`session.explore(qnet, objective="latency", budget=8, seed=0)` searches
+pipeline x datapath x block shapes as one problem (seeded `random` or
+`anneal`), persists the report, and publishes the winner's datapath,
+which `cuda[explored=true]` and the servers' stacked dispatch
+(`NetServer(prefer_explored=True)`, the default) resolve by plan shape.
 
 Every layer reports into `telemetry` (`repro_torch.netgen.telemetry`),
 a stdlib-only registry with the reference's metric names, label keys
@@ -99,27 +115,33 @@ from repro_torch.netgen.session import (
 from repro_torch.netgen.targets import (
     Target, list_targets, register_target, resolve_target,
 )
+from repro_torch.netgen.tune import (
+    KernelTuner, TuneRecord, TuneStats, TuneStore, default_tuner,
+)
 
 __all__ = [
-    "Argmax", "Artifact", "ArtifactStore", "CacheKey", "CellCounts",
-    "Circuit", "CircuitOps", "CompileCache", "CompiledNet", "CostReport",
-    "DEFAULT_PASSES", "DeadlineExceededError", "Diagnostic",
-    "EngineClosedError", "EngineStats", "ExecutionPlan", "HW_PASSES",
-    "InputCompare", "IrregularCircuitError", "MegakernelView", "NetServer",
-    "Pass", "PassStats", "PipelineSpec", "PlanLayer", "QueueFullError",
-    "RangeAnalysis", "ServingEngine", "Session", "SignStep", "StackReport",
-    "StoreStats", "Target", "Term", "VerificationError", "WeightedSum",
-    "addend_rewrite", "analysis", "analyze_ranges", "as_layered_weights",
-    "backends", "cached_compile_net", "circuit_from_arrays",
-    "circuit_to_arrays", "compile_artifact", "compile_net",
-    "decompose_planes", "default_session", "delete_zero_terms",
-    "diagnose_stack", "emit_verilog", "engine", "evaluate", "list_passes",
+    "Argmax", "Artifact", "ArtifactStore", "CacheKey", "Candidate",
+    "CellCounts", "Circuit", "CircuitOps", "CompileCache", "CompiledNet",
+    "CostReport", "DEFAULT_PASSES", "DeadlineExceededError", "Diagnostic",
+    "EngineClosedError", "EngineStats", "Evaluation", "ExecutionPlan",
+    "ExplorationReport", "Explorer", "HW_PASSES", "InputCompare",
+    "IrregularCircuitError", "KernelTuner", "MegakernelView", "NetServer",
+    "Objective", "Pass", "PassStats", "PipelineSpec", "PlanLayer",
+    "QueueFullError", "RangeAnalysis", "SearchSpace", "ServingEngine",
+    "Session", "SignStep", "StackReport", "StoreStats", "Target", "Term",
+    "TuneRecord", "TuneStats", "TuneStore", "VerificationError",
+    "WeightedSum", "addend_rewrite", "analysis", "analyze_ranges",
+    "as_layered_weights", "backends", "cached_compile_net",
+    "circuit_from_arrays", "circuit_to_arrays", "compile_artifact",
+    "compile_net", "decompose_planes", "default_session", "default_tuner",
+    "delete_zero_terms", "diagnose_stack", "emit_verilog", "engine",
+    "evaluate", "explore", "list_passes", "make_objective",
     "list_pipelines", "list_targets", "lower", "lower_circuit",
     "node_widths", "ops", "prune_dead_units", "register_pass",
     "register_pipeline", "register_target", "resolve_target",
     "run_pipeline", "serve", "share_common_addends", "specialize",
-    "stack_layered_weights", "stack_plans", "telemetry", "verify_circuit",
-    "verify_plan",
+    "stack_layered_weights", "stack_plans", "telemetry", "tune",
+    "verify_circuit", "verify_plan",
 ]
 
 
@@ -236,4 +258,9 @@ from repro_torch.netgen import engine  # noqa: E402  (builds on serve)
 from repro_torch.netgen.engine import (  # noqa: E402
     DeadlineExceededError, EngineClosedError, EngineStats, QueueFullError,
     ServingEngine,
+)
+from repro_torch.netgen import explore, tune  # noqa: E402  (builds on session)
+from repro_torch.netgen.explore import (  # noqa: E402
+    Candidate, Evaluation, ExplorationReport, Explorer, Objective,
+    SearchSpace, make_objective,
 )

@@ -40,6 +40,13 @@ machine-checked invariant layer behind both:
       (irregular circuit, depth/threshold/input/class disagreement),
       which `NetServer` records instead of silently falling back.
 
+  Tile legality — `tile_legality` / `tile_report`: the tuner's static
+      filter over candidate block shapes, on the card's shared-memory
+      budget (`FUSEDNET_SMEM_BYTES`, the 232,448 B a block may opt in
+      to), counted with the kernels' own functions on the route each
+      kernel takes (`fusednet_smem_bytes`), and with candidates that
+      launch the same kernel (`effective_tiles`) deduplicated.
+
   Store linter — `lint_store(root)` re-verifies every entry of an
       `ArtifactStore` directory (meta schema, circuit invariants and
       range proofs, content address, recomputed cost and proof summary,
@@ -71,16 +78,18 @@ from repro_torch.netgen.graph import (
     Argmax, Circuit, InputCompare, IrregularCircuitError, SignStep,
     WeightedSum, signed_width,
 )
+from repro_torch.kernels.launch import SMEM_LIMIT
 from repro_torch.netgen.plan import (
     ARGMAX, PACK_LANES, STEP, ExecutionPlan, lower_circuit,
 )
 
 __all__ = [
     "Diagnostic", "NodeRange", "RangeAnalysis", "StackReport",
-    "VerificationError", "analyze", "analyze_ranges", "check_envelope",
-    "check_observed", "check_ranges", "diagnose_stack", "lint_store",
-    "main", "proof_summary", "strict_verify", "summary_row",
-    "verify_circuit", "verify_plan",
+    "FUSEDNET_SMEM_BYTES", "VerificationError", "analyze", "analyze_ranges",
+    "check_envelope", "check_observed", "check_ranges", "diagnose_stack",
+    "effective_tiles", "fusednet_smem_bytes", "lint_store", "main",
+    "proof_summary", "strict_verify", "summary_row", "tile_legality",
+    "tile_report", "verify_circuit", "verify_plan",
 ]
 
 _SUMMARY_FORMAT = "netgen-analysis-v1"
@@ -691,6 +700,196 @@ def _verify_planes(layer, i: int, bad) -> None:
         bad("plan.planes-lossless",
             "bit-plane decomposition does not reconstruct the weight "
             "matrix", i)
+
+
+# ---------------------------------------------------------------------------
+# Tile legality on the card's shared-memory budget (consumed by KernelTuner)
+# ---------------------------------------------------------------------------
+
+def _plan_words(plan: ExecutionPlan) -> list[int]:
+    """Per-layer input words of the megakernel's view of this plan
+    (`MegakernelView.layer_words`), from the layer geometry alone."""
+    return [max(1, -(-layer.fan_in // PACK_LANES)) for layer in plan.layers]
+
+
+def _plan_planes(plan: ExecutionPlan) -> list[int]:
+    """Per-layer bit-plane counts (`decompose_planes`), from the weight
+    magnitudes alone: no decomposition is materialized."""
+    return [max(1, int(np.abs(layer.weights).max(initial=0)).bit_length())
+            for layer in plan.layers]
+
+
+def _mma_rows(bm: int) -> int:
+    """The tensor-core kernels' tile rows for `bm` rows a block."""
+    return 32 if bm > 16 else 16
+
+
+def _on_mma(plan: ExecutionPlan, form: str, bm: int) -> bool:
+    """Whether the kernel of `form` takes its tensor-core route for this
+    plan, decided as the backend decides it: int8-fitting weights for the
+    dense, packed and fused kernels; always for planes; shapes and `bm`
+    for the megakernel (`forward_on_mma`)."""
+    from repro_torch.kernels.binary_matvec import ops as bmv
+    from repro_torch.netgen.backends.cuda import _fits_int8
+
+    if form == "planes":
+        return True
+    if form == "fusednet":
+        return bmv.forward_on_mma(_plan_planes(plan), _plan_words(plan), bm)
+    return _fits_int8(plan)
+
+
+def effective_tiles(plan: ExecutionPlan, form: str, blocks: Mapping,
+                    batch: int) -> tuple:
+    """The launch shape each kernel of a candidate ACTUALLY takes, so two
+    candidates with equal effective tiles launch identical kernels and
+    dedupe. Mirrors the port's kernels' own clamps (the reference
+    mirrors Pallas's `_rup`): on a tensor-core route `bm` becomes a tile
+    of 16 rows (bm <= 16) or 32 (`_route_blocks`) and a block walks its
+    `bn` columns 32 at a time, so `bn` past the layer's width rounded up
+    to 32 changes nothing; a scalar kernel launches `bm` x `bn` exactly.
+    Per layer for the chains, one entry for the single-launch kernels
+    (fusednet, fused; `bn` does not shape them). `batch` is taken for
+    the reference's signature: no tile of the port clamps to it."""
+    from repro_torch.kernels.fused_mlp import ops as fops
+
+    del batch
+    bm = int(blocks["bm"])
+    mma = _on_mma(plan, form, bm)
+    route = "mma" if mma else "scalar"
+    if form == "fused":          # its tensor-core route takes 16 rows whatever bm
+        return ((route, fops._MMA_ROWS if mma else bm),)
+    if form == "fusednet":
+        return ((route, _mma_rows(bm) if mma else bm),)
+    bn = int(blocks["bn"])
+    return tuple(
+        (route, _mma_rows(bm), min(bn, -(-layer.fan_out // PACK_LANES) * PACK_LANES))
+        if mma else (route, bm, bn)
+        for layer in plan.layers)
+
+
+# The card's budget, which every kernel's own check holds a block to:
+# the shared memory one block may opt in to on an H100 (the reference
+# budgets the TPU's 16 MiB of VMEM, `FUSEDNET_VMEM_BYTES`).
+FUSEDNET_SMEM_BYTES = SMEM_LIMIT
+
+
+def fusednet_smem_bytes(plan: ExecutionPlan, *, bm: int) -> int:
+    """Dynamic shared memory of one `binary_forward_planes` block for this
+    plan at `bm` rows, on the route the kernel takes: the tensor-core
+    route's count (`forward_mma_smem_bytes`) when its activations and two
+    stages of planes fit, else the scalar kernel's (`forward_smem_bytes`,
+    which `check_forward_planes` holds to `SMEM_LIMIT`). The counterpart
+    of the reference's `fusednet_vmem_bytes`, computed from the layer
+    geometry and weight magnitudes, per tuner candidate."""
+    from repro_torch.kernels.binary_matvec import ops as bmv
+
+    words, planes = _plan_words(plan), _plan_planes(plan)
+    if bmv.forward_on_mma(planes, words, bm):
+        return bmv.forward_mma_smem_bytes(planes, words, bm)
+    return bmv.forward_smem_bytes(words, bm)
+
+
+def _budget_reason(plan: ExecutionPlan, form: str, bm: int) -> str | None:
+    """Why the kernel of `form` would refuse this plan at `bm` rows for
+    its shared memory, or None: the same counts the kernels' own checks
+    use (`check_forward_planes`, the planes op's `planes_smem_bytes`,
+    `check_fused`), on the route each would take."""
+    from repro_torch.kernels.binary_matvec import ops as bmv
+    from repro_torch.kernels.fused_mlp import ops as fops
+
+    if form == "fusednet":
+        need, what = fusednet_smem_bytes(plan, bm=bm), "fusednet"
+    elif form == "planes":
+        need, what = max(bmv.planes_smem_bytes(bm, p) for p in _plan_planes(plan)), "planes"
+    elif form == "fused":
+        (k, h), o = plan.layers[0].weights.shape[-2:], plan.layers[-1].fan_out
+        need = (fops.fused_mma_smem_bytes(h, o) if _on_mma(plan, form, bm)
+                else fops.fused_smem_bytes(k, h, o, bm))
+        what = "fused"
+    else:
+        return None
+    if need > FUSEDNET_SMEM_BYTES:
+        return (f"{what} shared memory {need} B exceeds the "
+                f"{FUSEDNET_SMEM_BYTES} B budget")
+    return None
+
+
+def _block_reason(plan: ExecutionPlan, form: str, bm: int, bn) -> str | None:
+    """Why the kernels refuse this block shape whatever their shared
+    memory (`check_block_rows`, `check_matmul_blocks`), or None."""
+    from repro_torch.kernels.binary_matvec import ops as bmv
+    from repro_torch.kernels.launch import check_block_rows
+
+    try:
+        if form in ("fusednet", "fused"):
+            check_block_rows(f"{form} kernel", bm)
+        else:
+            bmv.check_matmul_blocks(bm, bn)
+    except ValueError as e:
+        return f"refused by the kernel: {e}"
+    if form == "fused" and plan.depth != 2:
+        return f"fused takes exactly 2 layers, not {plan.depth}"
+    return None
+
+
+def tile_report(plan: ExecutionPlan, candidates: Sequence[Mapping], *,
+                batch: int, multi: bool = False
+                ) -> tuple[list, list]:
+    """Split a candidate grid into (legal, rejected) where rejected is
+    [(candidate, reason), ...]: non-positive blocks, block shapes or
+    shared memory a kernel refuses, and duplicates of an earlier
+    candidate's launch (searching both wastes a measurement on the same
+    kernel). A candidate it admits passes the kernel's own check; one it
+    rejects for the budget is refused by that check."""
+    legal: list = []
+    rejected: list = []
+    seen: dict = {}
+    for cand in candidates:
+        reason = _tile_reason(plan, cand, batch=batch, seen=seen)
+        if reason is None:
+            legal.append(cand)
+        else:
+            rejected.append((cand, reason))
+    return legal, rejected
+
+
+def _tile_reason(plan: ExecutionPlan, cand: Mapping, *, batch: int,
+                 seen: dict) -> str | None:
+    form = cand.get("form", plan.form)
+    keys = ("bm",) if form == "fused" else ("bm", "bn")
+    for k in keys:
+        v = cand.get(k)
+        if v is not None and int(v) < 1:
+            return f"non-positive block size {k}={v}"
+    blocks = {k: cand.get(k) for k in keys}
+    if any(v is None for v in blocks.values()):
+        return None                      # partial candidate: cannot judge
+    bm = int(blocks["bm"])
+    reason = (_block_reason(plan, form, bm, blocks.get("bn"))
+              or _budget_reason(plan, form, bm))
+    if reason is not None:
+        return reason
+    eff = (form, effective_tiles(plan, form, blocks, batch))
+    prior = seen.get(eff)
+    if prior is not None:
+        return (f"clamps to the same effective tiles as candidate "
+                f"{prior} — duplicate kernel")
+    seen[eff] = dict(cand)
+    return None
+
+
+def tile_legality(plan: ExecutionPlan, *, batch: int,
+                  multi: bool = False) -> Callable[[Mapping], str | None]:
+    """A fresh legality closure for one tuning search: `legal(cand)`
+    returns None (keep) or a rejection reason. Stateful — it remembers
+    effective tiles already admitted — so build one per search."""
+    seen: dict = {}
+
+    def legal(cand: Mapping) -> str | None:
+        return _tile_reason(plan, cand, batch=batch, seen=seen)
+
+    return legal
 
 
 # ---------------------------------------------------------------------------

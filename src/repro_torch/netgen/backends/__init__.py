@@ -44,16 +44,20 @@ def compile_circuit(circuit, backend: str = "torch", *, device=None, **opts):
     return target.compile(circuit, **merged)
 
 
-def compile_multi(plan, backend: str = "torch", *, device, **opts):
+def compile_multi(plan, backend: str = "torch", *, device, tuner=None, **opts):
     """Compile a stacked ExecutionPlan into one multi-net dispatch:
     uint8 (M, B, n_in) -> predictions (M, B) on `device`. `backend`
     accepts bracket options like the single-net form; options are
-    validated against the target's declaration. The plan is certified
-    by `analysis.verify_plan` before any backend sees it (a violation
-    raises `VerificationError`, a ValueError)."""
+    validated against the target's declaration. `tuner` (a
+    `tune.KernelTuner`, not a declared option) reaches targets that want
+    one, so stacked dispatch builds reuse persisted tuning records. The
+    plan is certified by `analysis.verify_plan` before any backend sees
+    it (a violation raises `VerificationError`, a ValueError)."""
     from repro_torch.netgen import analysis
     target, merged = resolve_target(backend, opts)
     if target.compile_multi is None:
         raise ValueError(f"target {target.name!r} has no multi-net dispatch")
     analysis.verify_plan(plan, stage="compile_multi")
+    if target.wants_tuner:
+        merged["_tuner"] = tuner
     return target.compile_multi(plan, device=device, **merged)

@@ -51,10 +51,31 @@ as a tensor on the compile device, and carry `plan_form`, `datapath`,
 `netgen_kernel_launches_total{form}`: depth for a chain, depth x M for
 the looped multi chain, 1 for the megakernel ("fusednet") and for the
 2-layer kernel ("fused"). On a CPU device the wrappers run the kernels'
-plain versions. Tuning and explored records are not ported yet.
+plain versions.
+
+Block shapes (`bm`, `bn`) are declared target options; with
+`cuda[tuned=true]` they, and, when no form is forced, the
+dense/packed/planes/fusednet choice itself, are grid-searched per
+(plan shape x device kind) through `repro_torch.netgen.tune` and
+persisted, so a warm process never re-measures (`Session(tune_store=
+...)`); `fused[tuned=true]` searches its `bm`. The grid is Hopper's own
+(`_TUNE_BLOCKS`: each form's default and shapes every kernel takes),
+filtered by `analysis.tile_legality` before any measurement. A
+measurement is the reference's: best of `reps` calls on the host clock,
+the answers copied to the host so the device has finished. The device
+kind in every key is the CUDA device's name and compute capability
+(`tune.device_kind`), or "cpu". `cuda[explored=true]` resolves the
+design-space explorer's winner for the plan's shape from its
+`cuda-explored` record (`publish_explored`), with zero measurements,
+and is inert without one. No port kernel blocks K (each walks K whole
+or in fixed 32-column stages), so the reference's `bkw` has no
+counterpart: `bkw=` raises ValueError.
 """
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 
 from repro_torch.kernels.binary_matvec import ops as bmv
@@ -63,13 +84,42 @@ from repro_torch.netgen.backends.torch_ref import as_device_images
 from repro_torch.netgen.graph import Circuit, IrregularCircuitError
 from repro_torch.netgen.plan import ExecutionPlan, lower_circuit
 
-__all__ = ["compile_cuda", "compile_cuda_multi", "compile_fused"]
+__all__ = ["compile_cuda", "compile_cuda_multi", "compile_fused",
+           "explored_key_fields", "explored_record", "publish_explored"]
+
+# Executable datapaths: the plan forms plus the whole-net megakernel
+# (which runs the planes form, but as one launch).
+_DATAPATHS = ("dense", "packed", "planes", "fusednet")
+
+# The tuner's candidate grid, Hopper's own: block shapes every kernel
+# takes (`bm` in `launch.BLOCK_ROWS`, `bn` a multiple of 32 up to 1,024,
+# `check_matmul_blocks`), each form's default among them. The megakernel
+# reads only `bm`; on a tensor-core route `bm` maps to a 16- or 32-row
+# tile, so `analysis.tile_legality` drops the candidates that launch a
+# kernel another one already launches.
+_TUNE_BLOCKS = (
+    {"bm": bmv.MMA_BM, "bn": bmv.MMA_BN},          # tensor-core and planes default
+    {"bm": bmv.DENSE_BM, "bn": bmv.DENSE_BN},      # dense scalar default
+    {"bm": bmv.PACKED_BM, "bn": bmv.PACKED_BN},    # packed scalar default; FORWARD_BM
+    {"bm": 32, "bn": 128},
+)
+_TUNE_BATCH = 256        # measurement batch: the serve layer's default cap
+_FUSED_TUNE_BM = (2, 4, 8, 16)   # FUSED_BM first; the int8 route takes 16 rows whatever bm
 
 
-def _resolve_form(packed: bool, planes: bool, fusednet: bool) -> str:
-    """The requested datapath. `fusednet` runs the planes form, so
-    planes+fusednet means fusednet; packed is a different activation
-    encoding and stays exclusive. No option means dense."""
+def _refuse_bkw(bkw) -> None:
+    if bkw is not None:
+        raise ValueError(
+            "cuda: bkw has no counterpart on the card: no port kernel blocks "
+            "K (each walks K whole or in fixed 32-column stages), a deliberate "
+            "difference from the reference's pallas targets")
+
+
+def _resolve_form(packed: bool, planes: bool, fusednet: bool) -> str | None:
+    """The requested datapath, or None when the caller left the choice
+    open (tuned=true may then search it; otherwise it means dense).
+    `fusednet` runs the planes form, so planes+fusednet means fusednet;
+    packed is a different activation encoding and stays exclusive."""
     if packed and (planes or fusednet):
         raise ValueError(
             "cuda: packed=true is exclusive with the bit-plane datapaths "
@@ -78,7 +128,7 @@ def _resolve_form(packed: bool, planes: bool, fusednet: bool) -> str:
         return "fusednet"
     if planes:
         return "planes"
-    return "packed" if packed else "dense"
+    return "packed" if packed else None
 
 
 def _in_form(plan: ExecutionPlan, form: str) -> ExecutionPlan:
@@ -248,19 +298,222 @@ def _build_fusednet(plan: ExecutionPlan, blocks: dict, device: torch.device):
                              blocks=blocks, launches=1)
 
 
+# ---------------------------------------------------------------------------
+# Autotuning (repro_torch.netgen.tune) and explored records
+# ---------------------------------------------------------------------------
+
+def _plan_signature(plan: ExecutionPlan) -> dict:
+    """The JSON-stable shape identity tuning records are keyed on: layer
+    geometry plus each layer's bit-plane count (the plane count sets the
+    planes kernels' work, so nets of equal shape but different weight
+    ranges tune separately). Computed from magnitudes directly: no plane
+    decomposition is materialized for keying."""
+    return {
+        "n_inputs": plan.n_inputs,
+        "widths": [l.fan_out for l in plan.layers],
+        "n_models": plan.n_models,
+        "n_planes": [
+            max(1, int(np.abs(l.weights).max(initial=0)).bit_length())
+            for l in plan.layers],
+    }
+
+
+def _tuner_or_default(tuner):
+    from repro_torch.netgen import tune
+
+    return tuner if tuner is not None else tune.default_tuner()
+
+
+# The design-space explorer publishes its winning datapath (form +
+# blocks) under this pseudo-target, keyed on the plan signature alone —
+# not on a candidate grid — so any later compile of the same shape can
+# resolve it without knowing how the search was configured.
+_EXPLORED_TARGET = "cuda-explored"
+
+
+def explored_key_fields(signature: dict, *, device, multi: bool) -> dict:
+    """The JSON-stable identity an explored datapath record is keyed on
+    (the reference's `pallas-explored` fields, keyed on the CUDA device's
+    name and compute capability instead of a TPU's device kind, with no
+    `interpret`). The explorer writes through it and `cuda[explored=true]`
+    reads through it."""
+    from repro_torch.netgen.tune import device_kind
+
+    return {
+        "target": _EXPLORED_TARGET,
+        "device_kind": device_kind(device),
+        "multi": bool(multi),
+        "signature": signature,
+    }
+
+
+def publish_explored(plan: ExecutionPlan, tuner, best: dict, *, device,
+                     measurements=(), extra=None):
+    """Upsert the explored winner's datapath record for this plan shape
+    (`best`: form + bm/bn). Called by `repro_torch.netgen.explore` after
+    a search; later `explored=true` compiles of the same signature on a
+    device of the same kind resolve it with zero measurements."""
+    fields = explored_key_fields(_plan_signature(plan), device=device,
+                                 multi=plan.stacked)
+    return _tuner_or_default(tuner).publish(
+        fields, best, measurements=measurements, extra=extra)
+
+
+def explored_record(plan: ExecutionPlan, tuner, *, device, multi: bool):
+    """The resident explored-winner record for this plan shape, or None.
+    A stacked lookup that misses falls back to the single-net signature
+    (model axis erased): the explorer searches one net at a time, and a
+    homogeneous stack executes the same per-model geometry the single
+    net was measured on."""
+    from repro_torch.netgen import tune
+
+    tuner = _tuner_or_default(tuner)
+    sig = _plan_signature(plan)
+    rec = tuner.record_for(tune.tune_key(
+        explored_key_fields(sig, device=device, multi=multi)))
+    if rec is None and multi:
+        rec = tuner.record_for(tune.tune_key(explored_key_fields(
+            {**sig, "n_models": None}, device=device, multi=False)))
+    return rec
+
+
+def _form_compatible(pinned: str | None, recorded: str) -> bool:
+    """May an explored record's form satisfy an explicitly pinned one?
+    planes and fusednet are the same bit-plane datapath family (the
+    megakernel runs the planes form), so they satisfy each other; any
+    other disagreement means the record is ignored."""
+    if pinned is None or pinned == recorded:
+        return True
+    return {pinned, recorded} == {"planes", "fusednet"}
+
+
+def _host_seconds(fn, x) -> float:
+    """One call's host-clock seconds, its answers copied to the host so
+    the device has finished."""
+    t0 = time.perf_counter()
+    fn(x).cpu()
+    return time.perf_counter() - t0
+
+
+def _tuned_params(plan: ExecutionPlan, blocks: dict, forms, tuner, *,
+                  device: torch.device, multi: bool):
+    """Grid-search (form x block shape) for this plan through the tuner
+    (memory -> store -> measure); returns (winning params, the winner's
+    already-built predictor, or None on a warm record hit). Explicit
+    block options are pinned, not searched."""
+    from repro_torch.netgen.analysis import tile_legality
+    from repro_torch.netgen.tune import device_kind
+
+    tuner = _tuner_or_default(tuner)
+    pinned = {k: v for k, v in blocks.items() if v is not None}
+    candidates = []
+    seen = set()
+    for form in forms:
+        for grid in _TUNE_BLOCKS:
+            cand = {"form": form, **grid, **pinned}
+            key = tuple(sorted(cand.items()))
+            if key not in seen:
+                seen.add(key)
+                candidates.append(cand)
+
+    batch = _TUNE_BATCH if not multi else max(32, _TUNE_BATCH // 4)
+    shape = ((batch, plan.n_inputs) if not multi
+             else (plan.n_models, batch, plan.n_inputs))
+    x = np.zeros(shape, np.uint8)
+    built: dict = {}
+
+    def measure(cand: dict) -> float:
+        ckey = tuple(sorted(cand.items()))
+        fn = built.get(ckey)
+        if fn is None:
+            form = cand["form"]
+            cblocks = {k: cand[k] for k in ("bm", "bn")}
+            if form == "fusednet":
+                fn = _build_fusednet(plan.planes(), cblocks, device)
+            else:
+                build = _build_multi if multi else _build_single
+                fn = build(_in_form(plan, form), cblocks, device)
+            built[ckey] = fn
+        return _host_seconds(fn, x)
+
+    key_fields = {
+        "target": "cuda",
+        "device_kind": device_kind(device),
+        "multi": bool(multi),
+        "batch": batch,
+        "signature": _plan_signature(plan),
+        "candidates": candidates,
+    }
+    best = tuner.get_or_tune(
+        key_fields, candidates, measure,
+        legal=tile_legality(plan, batch=batch, multi=multi))
+    return best, built.get(tuple(sorted(best.items())))
+
+
+def _resolve_datapath(plan: ExecutionPlan, *, packed, planes, fusednet,
+                      tuned, explored, bm, bn, bkw, tuner,
+                      device: torch.device, multi: bool):
+    """Turn the declared target options into (form, blocks, prebuilt):
+    explicit options pin their axis; `tuned=true` searches the rest
+    (over every datapath, megakernel included, when no form is forced).
+    `prebuilt` is the winning predictor when this process's search just
+    built it (None otherwise — the caller builds).
+
+    `explored=true` consults the design-space explorer's persisted
+    winner for this plan signature first: a resident record supplies the
+    form and any unpinned block sizes with zero measurements; without
+    one (or when it contradicts an explicitly pinned form) the option is
+    inert and resolution falls through to tuned/default, so the serving
+    layer can request it unconditionally."""
+    _refuse_bkw(bkw)
+    form = _resolve_form(packed, planes, fusednet)
+    blocks = {"bm": bm, "bn": bn}
+    if explored:
+        rec = explored_record(plan, tuner, device=device, multi=multi)
+        hit = rec is not None and _form_compatible(form, rec.best.get("form"))
+        telemetry.get_registry().counter(
+            "netgen_explored_resolved_total",
+            outcome="hit" if hit else "miss").inc()
+        if hit:
+            best = rec.best
+            if form is None:
+                form = best["form"]
+            return form, {k: blocks[k] if blocks[k] is not None
+                          else best.get(k) for k in blocks}, None
+    if tuned:
+        forms = (form,) if form is not None else _DATAPATHS
+        best, prebuilt = _tuned_params(plan, blocks, forms, tuner,
+                                       device=device, multi=multi)
+        return best["form"], {k: best[k] for k in ("bm", "bn")}, prebuilt
+    return form or "dense", blocks, None
+
+
+# ---------------------------------------------------------------------------
+# Target entry points
+# ---------------------------------------------------------------------------
+
 def compile_cuda(circuit: Circuit, *, device: torch.device,
                  packed: bool = False, planes: bool = False,
-                 fusednet: bool = False, bm: int | None = None,
-                 bn: int | None = None):
+                 fusednet: bool = False, tuned: bool = False,
+                 explored: bool = False, bm: int | None = None,
+                 bn: int | None = None, bkw: int | None = None, _tuner=None):
     """A predictor chaining one kernel launch per plan layer — dense
     (`binary_matmul`, no option), `packed=true` (`binary_matmul_packed`)
     or `planes=true` (`binary_matmul_planes`) — or ONE whole-net
     `binary_forward_planes` launch (`fusednet=true`). `bm`/`bn` pin the
     kernels' rows and columns per block (`bn` only shapes the per-layer
-    kernels)."""
-    form = _resolve_form(packed, planes, fusednet)
+    kernels); `tuned=true` grid-searches the unpinned ones (and the
+    datapath, when none is forced) through the persistent autotuner;
+    `explored=true` resolves the design-space explorer's winner for this
+    plan shape when one exists. The predictor's `.plan_form`,
+    `.datapath` and `.blocks` say what was chosen. `bkw` raises."""
     plan = lower_circuit(circuit)
-    blocks = {"bm": bm, "bn": bn}
+    form, blocks, prebuilt = _resolve_datapath(
+        plan, packed=packed, planes=planes, fusednet=fusednet, tuned=tuned,
+        explored=explored, bm=bm, bn=bn, bkw=bkw, tuner=_tuner,
+        device=device, multi=False)
+    if prebuilt is not None:
+        return prebuilt
     if form == "fusednet":
         return _build_fusednet(plan.planes(), blocks, device)
     return _build_single(_in_form(plan, form), blocks, device)
@@ -268,18 +521,26 @@ def compile_cuda(circuit: Circuit, *, device: torch.device,
 
 def compile_cuda_multi(plan: ExecutionPlan, *, device: torch.device,
                        packed: bool = False, planes: bool = False,
-                       fusednet: bool = False, bm: int | None = None,
-                       bn: int | None = None):
+                       fusednet: bool = False, tuned: bool = False,
+                       explored: bool = False, bm: int | None = None,
+                       bn: int | None = None, bkw: int | None = None,
+                       _tuner=None):
     """Multi-net dispatch over a *stacked* ExecutionPlan: uint8 images
     (M, B, n_in) -> int32 predictions (M, B). Both bit-plane options
     build ONE `binary_forward_planes` launch over grid (B/bm, M);
     `planes=true` falls back to the per-layer chain when the megakernel
     build raises ValueError. Dense and packed run the per-model chain,
-    depth x M launches per call."""
+    depth x M launches per call. The other options behave as in
+    `compile_cuda`; tuning records for stacked plans are keyed on the
+    stacked shape (model count included)."""
     if not plan.stacked:
         raise ValueError("compile_cuda_multi needs a stacked ExecutionPlan")
-    form = _resolve_form(packed, planes, fusednet)
-    blocks = {"bm": bm, "bn": bn}
+    form, blocks, prebuilt = _resolve_datapath(
+        plan, packed=packed, planes=planes, fusednet=fusednet, tuned=tuned,
+        explored=explored, bm=bm, bn=bn, bkw=bkw, tuner=_tuner,
+        device=device, multi=True)
+    if prebuilt is not None:
+        return prebuilt
     plan = _in_form(plan, form)
     if form in ("planes", "fusednet"):
         try:
@@ -291,12 +552,15 @@ def compile_cuda_multi(plan: ExecutionPlan, *, device: torch.device,
 
 
 def compile_fused(circuit: Circuit, *, device: torch.device,
-                  bm: int | None = None):
+                  tuned: bool = False, bm: int | None = None, _tuner=None):
     """The paper's 2-layer net as ONE `fused_mlp_predict` launch per call
     over the dense plan's weights; a plan of any other depth raises
     IrregularCircuitError. `bm` pins the rows per block of the scalar
-    route; a net whose activations the route's shared memory cannot hold
-    raises ValueError here, on every device."""
+    route; `fused[tuned=true]` searches it per plan shape through the
+    persistent autotuner (on the int8 tensor-core route every `bm` is
+    the same 16-row kernel, so one candidate is measured). A net whose
+    activations the route's shared memory cannot hold raises ValueError
+    here, on every device."""
     from repro_torch.kernels.fused_mlp import ops as fused
 
     plan = lower_circuit(circuit)
@@ -310,14 +574,34 @@ def compile_fused(circuit: Circuit, *, device: torch.device,
     else:
         w1, w2 = (torch.as_tensor(l.weights, dtype=torch.int32, device=device)
                   for l in plan.layers)
-    kbm = fused.check_fused(w1.shape[0], w1.shape[1], w2.shape[1], bm, mma=mma)
     thr = plan.input_threshold
 
-    def predict(x_uint8):
-        telemetry.kernel_launches("fused").inc()
-        return fused.fused_mlp_predict(as_device_images(x_uint8, device),
-                                       w1, w2, threshold=thr, bm=kbm)
+    def build(bm):
+        kbm = fused.check_fused(w1.shape[0], w1.shape[1], w2.shape[1], bm, mma=mma)
 
-    return _finish_predictor(predict, plan=plan, arrays=(w1, w2), datapath="fused",
+        def predict(x_uint8):
+            telemetry.kernel_launches("fused").inc()
+            return fused.fused_mlp_predict(as_device_images(x_uint8, device),
+                                           w1, w2, threshold=thr, bm=kbm)
+
+        return predict
+
+    if tuned and bm is None:
+        from repro_torch.netgen.analysis import tile_legality
+        from repro_torch.netgen.tune import device_kind
+
+        x = np.zeros((_TUNE_BATCH, plan.n_inputs), np.uint8)
+        candidates = [{"bm": b} for b in _FUSED_TUNE_BM]
+        legal = tile_legality(plan, batch=_TUNE_BATCH)
+        bm = _tuner_or_default(_tuner).get_or_tune({
+            "target": "fused",
+            "device_kind": device_kind(device),
+            "batch": _TUNE_BATCH,
+            "signature": _plan_signature(plan),
+            "candidates": candidates,
+        }, candidates, lambda cand: _host_seconds(build(cand["bm"]), x),
+            legal=lambda cand: legal({"form": "fused", **cand}))["bm"]
+
+    return _finish_predictor(build(bm), plan=plan, arrays=(w1, w2), datapath="fused",
                              blocks={} if bm is None else {"bm": int(bm)},
                              launches=1)

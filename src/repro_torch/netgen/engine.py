@@ -286,7 +286,8 @@ class ServingEngine:
                  target: str | None = None, pipeline=None,
                  slot_capacity: int = 256, warmup: bool = True,
                  max_batch_delay: float = 0.002,
-                 max_queue_depth: int = 4096):
+                 max_queue_depth: int = 4096,
+                 prefer_explored: bool = True):
         if max_batch_delay < 0:
             raise ValueError(
                 f"max_batch_delay must be >= 0, got {max_batch_delay}")
@@ -303,7 +304,7 @@ class ServingEngine:
                 session=session,
                 target=target if target is not None else "torch",
                 pipeline=pipeline, slot_capacity=slot_capacity,
-                warmup=warmup)
+                warmup=warmup, prefer_explored=prefer_explored)
         self._core = _EngineCore(server, max_batch_delay, max_queue_depth)
         self._thread: threading.Thread | None = None
         self._finalizer = None

@@ -1,7 +1,7 @@
 """Compile-cache serving of netgen-compiled predictors.
 
-Counterpart of `repro/netgen/serve.py`, without mesh sharding and the
-design-space explorer's records (later slices):
+Counterpart of `repro/netgen/serve.py`, without mesh sharding (a later
+slice):
 
   CompileCache — the in-memory tier of the Session API, for one device.
       The key is the sha256 digest of the quantized weights + input
@@ -193,12 +193,13 @@ class CompileCache:
     while it serves."""
 
     def __init__(self, capacity: int = 32, store: ArtifactStore | None = None,
-                 *, device=None):
+                 *, device=None, tuner=None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.device = resolve_device(device)
         self.capacity = int(capacity)
         self.store = store
+        self.tuner = tuner       # forwarded to wants_tuner target compiles
         self._lock = threading.RLock()
         self._entries: "OrderedDict[CacheKey, Artifact]" = OrderedDict()
         self._inflight: dict[CacheKey, _InFlight] = {}
@@ -286,7 +287,7 @@ class CompileCache:
         try:
             compiled, dt = load_or_compile(
                 self.store, self._counters, self.device, ws, thr,
-                key.digest, spec, tgt, opts)
+                key.digest, spec, tgt, opts, tuner=self.tuner)
         except BaseException as e:
             with self._lock:
                 self._inflight.pop(key, None)
@@ -387,12 +388,17 @@ class NetServer:
     a `CompileCache`; with neither, the server makes a `CompileCache()`
     on the default device (the card; raises without CUDA).
     `target=`/`pipeline=` select what to compile; the target must
-    produce a callable artifact.
+    produce a callable artifact. With `prefer_explored` (the default) a
+    target that declares `explored` builds its stacked dispatch with
+    `explored=true` unless the caller pinned it, so a design-space
+    explorer's recorded winner serves the stacked rounds (inert without
+    a record).
     """
 
     def __init__(self, *, session=None, target: str | None = None,
                  pipeline=None, cache: CompileCache | None = None,
-                 slot_capacity: int = 256, warmup: bool = True):
+                 slot_capacity: int = 256, warmup: bool = True,
+                 prefer_explored: bool = True):
         self._target, self._opts = resolve_target(
             target if target is not None else "torch")
         if not self._target.callable:
@@ -413,6 +419,11 @@ class NetServer:
             self.cache = cache if cache is not None else CompileCache()
         self.session = session
         self.device = self.cache.device
+        # tuned=true stacked dispatch builds reuse the same persistent
+        # tuning records as the single-version compiles
+        self._tuner = self.cache.tuner
+        self.prefer_explored = bool(prefer_explored) and \
+            any(name == "explored" for name, _ in self._target.opts)
         self.backend = self._target.name
         self.pipeline = pipeline
         self.slot_capacity = int(slot_capacity)
@@ -651,8 +662,12 @@ class NetServer:
                     try:
                         plan = stack_plans(
                             [lower_circuit(c) for c in circuits])
+                        opts = dict(self._opts)
+                        if self.prefer_explored and "explored" not in opts:
+                            opts["explored"] = True
                         fn = compile_multi(plan, backend=self._target.name,
-                                           device=self.device, **self._opts)
+                                           device=self.device,
+                                           tuner=self._tuner, **opts)
                         report = None
                     except (IrregularCircuitError, ValueError) as e:
                         report = analysis.StackReport(

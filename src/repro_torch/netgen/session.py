@@ -1,7 +1,6 @@
 """Session API: compile once per content, persist artifacts across processes.
 
-Counterpart of `repro/netgen/session.py`, without the kernel tuner and
-the design-space explorer (later slices):
+Counterpart of `repro/netgen/session.py`:
 
   compile_artifact — the full driver: frontend -> `PipelineSpec` ->
       range analysis -> `Target`, returning an `Artifact` that carries
@@ -22,17 +21,28 @@ the design-space explorer (later slices):
 
   Session — the object users hold: an in-memory tier (the serving
       layer's `CompileCache`) over an optional `ArtifactStore`, the
-      device every callable artifact runs on, and a background compile
-      queue.
+      device every callable artifact runs on, the kernel-tuning tier
+      (`tune_store`), the design-space explorer, and a background
+      compile queue.
 
-      session = Session(store=ArtifactStore("~/.cache/netgen"))  # cuda:0
+      session = Session(store=ArtifactStore("~/.cache/netgen"),  # cuda:0
+                        tune_store="~/.cache/netgen-tune")
       art = session.compile(qnet, target="cuda[planes=true]")
+      art = session.compile(qnet, target="cuda[tuned=true]")
+      rep = session.explore(qnet, objective="latency", budget=8)
       art(images)                   # int32 class ids on the card
       print(art.report())           # pass savings + cell estimate
       handle = session.compile_async(qnet2, target="cuda[planes=true]")
       ...                           # keep serving while it compiles
       handle.result()               # the Artifact, store now warm
       engine = session.engine(target="cuda[planes=true]")
+
+Tuning records (`repro_torch.netgen.tune`) ride the same lifecycle as
+artifacts: `tuned=true` targets receive the session's `KernelTuner`,
+and so do the store's rebuilds and the serving layer's stacked
+dispatch, so a second process over the same `tune_store` measures
+nothing; the artifact key names the target string (`cuda[tuned=true]`)
+and never the tuner's choice.
 
 `Session(device="cpu")` runs the kernels' plain versions on the CPU;
 without it every entry point wants CUDA and raises when it is absent.
@@ -215,8 +225,8 @@ def compile_artifact(net, *, target="torch", pipeline=None,
 
 
 def compile_resolved(ws, thr: int, digest: str, spec: PipelineSpec,
-                     tgt, opts: dict, device: torch.device | None
-                     ) -> Artifact:
+                     tgt, opts: dict, device: torch.device | None,
+                     tuner=None) -> Artifact:
     """The compile driver proper, for callers (the cache tiers) that
     already extracted the weights and computed the digest. Records the
     pass trace for targets that want it, always runs the pre-backend
@@ -224,7 +234,9 @@ def compile_resolved(ws, thr: int, digest: str, spec: PipelineSpec,
     `analysis.strict_verify()`, otherwise counting
     `netgen_verify_failures_total{phase=compile}` and proceeding), and
     hands the analysis to targets that want it. Only callable targets
-    receive `device`."""
+    receive `device`; `tuner` reaches targets that declare `wants_tuner`
+    (as `_tuner`), so `tuned=true` kernel builds hit the session's
+    persistent tuning records instead of re-measuring."""
     tstring = target_string(tgt, opts)
     tel = telemetry.get_registry()
 
@@ -262,6 +274,8 @@ def compile_resolved(ws, thr: int, digest: str, spec: PipelineSpec,
             kwargs["_pass_trace"] = tuple(trace)
         if tgt.wants_analysis:
             kwargs["_analysis"] = ranges
+        if tgt.wants_tuner:
+            kwargs["_tuner"] = tuner
         with tel.span("netgen.backend", target=tstring):
             raw = tgt.compile(circuit, **kwargs)
         t_backend = time.perf_counter()
@@ -346,7 +360,7 @@ class ArtifactStore:
     """
 
     def __init__(self, root, *, max_entries: int | None = None,
-                 max_bytes: int | None = None):
+                 max_bytes: int | None = None, tuner=None):
         if max_entries is not None and max_entries < 1:
             raise ValueError(f"max_entries must be >= 1, got {max_entries}")
         if max_bytes is not None and max_bytes < 1:
@@ -355,6 +369,10 @@ class ArtifactStore:
         self.root.mkdir(parents=True, exist_ok=True)
         self.max_entries = max_entries
         self.max_bytes = max_bytes
+        # Rebuilding a tuned=true callable re-invokes its backend, which
+        # consults this tuner's store — a warm-started artifact must not
+        # re-measure block shapes the first process already searched.
+        self.tuner = tuner
         self._tel = telemetry.get_registry()
         scope = telemetry.new_scope("store")
         self._c_saves = self._tel.counter(
@@ -540,7 +558,12 @@ class ArtifactStore:
         elif meta["kind"] == "report":
             raw = CostReport.from_dict(meta["cost_report"])
         else:
+            if tgt.wants_tuner:
+                opts = {**opts, "_tuner": self.tuner}
             raw = tgt.compile(circuit, device=device, **opts)
+            # a tuned=true rebuild may pick another datapath than the
+            # first process (another device kind, an evicted record):
+            # trust what was built over the stored meta
             meta["plan_form"] = getattr(raw, "plan_form",
                                         meta.get("plan_form"))
         stats = tuple(
@@ -573,7 +596,7 @@ class ArtifactStore:
 
 def load_or_compile(store: "ArtifactStore | None", counters, device,
                     ws, thr: int, digest: str, spec: PipelineSpec, tgt,
-                    opts: dict) -> tuple[Artifact, float | None]:
+                    opts: dict, tuner=None) -> tuple[Artifact, float | None]:
     """Resolve one compile-tier miss: the store when it holds the
     artifact, else a full compile that is then persisted. Updates
     `counters` (a `serve.CacheCounters`) so that every miss the caller
@@ -588,7 +611,8 @@ def load_or_compile(store: "ArtifactStore | None", counters, device,
                 counters.load_seconds.observe(art.timings.get("load_s", 0.0))
                 return art, None
         t0 = time.perf_counter()
-        art = compile_resolved(ws, thr, digest, spec, tgt, opts, device)
+        art = compile_resolved(ws, thr, digest, spec, tgt, opts, device,
+                               tuner=tuner)
         dt = time.perf_counter() - t0
     except BaseException:
         counters.failures.inc()
@@ -609,31 +633,46 @@ def _shutdown_executor(executor) -> None:
 class Session:
     """The compiler's stateful front door for one device: an in-memory
     LRU tier (the serving layer's `CompileCache`) over an optional
-    persistent `ArtifactStore` (a path or a store), and a background
-    compile queue (`compile_async`). `device` defaults to `cuda:0` and
-    raises without CUDA; pass `device="cpu"` to run the plain versions
-    on the CPU. `capacity=0` disables in-memory retention (every compile
-    still reads/writes the store when one is configured).
+    persistent `ArtifactStore` (a path or a store), the kernel-tuning
+    tier (`tune_store`), and a background compile queue
+    (`compile_async`). `device` defaults to `cuda:0` and raises without
+    CUDA; pass `device="cpu"` to run the plain versions on the CPU.
+    `capacity=0` disables in-memory retention (every compile still
+    reads/writes the store when one is configured). `tune_store` points
+    `tuned=true` kernel builds at a persistent
+    `repro_torch.netgen.tune.TuneStore` directory; without it the
+    process-wide in-memory tuner is used.
 
     Sessions are context managers (`with Session(...) as s:`); exiting
     calls `shutdown()`. A session that is simply dropped is safe too:
     the async executor is tied to the object with a weakref finalizer,
     so its worker threads are joined at GC or interpreter exit."""
 
-    def __init__(self, *, device=None, store=None, capacity: int = 64):
+    def __init__(self, *, device=None, store=None, capacity: int = 64,
+                 tune_store=None):
         from repro_torch.netgen.serve import CacheCounters, CompileCache
+        from repro_torch.netgen.tune import KernelTuner, TuneStore
         if capacity < 0:
             raise ValueError(f"capacity must be >= 0, got {capacity}")
         self.device = resolve_device(device)
         if store is not None and not isinstance(store, ArtifactStore):
             store = ArtifactStore(store)
         self.store = store
+        if tune_store is not None and not isinstance(tune_store, TuneStore):
+            tune_store = TuneStore(tune_store)
+        self.tuner = KernelTuner(store=tune_store) if tune_store is not None \
+            else None
+        if store is not None and self.tuner is not None \
+                and store.tuner is None:
+            # don't re-wire a shared store another session already
+            # attached its tuner to — first configuration wins
+            store.tuner = self.tuner
         self._executor = None
         self._executor_lock = threading.Lock()
         self._finalizer = None
         if capacity > 0:
             self.cache: "CompileCache | None" = CompileCache(
-                capacity, store=store, device=self.device)
+                capacity, store=store, device=self.device, tuner=self.tuner)
             self._counters = None
         else:
             self.cache = None
@@ -657,7 +696,7 @@ class Session:
         self._counters.misses.inc()
         art, _ = load_or_compile(self.store, self._counters, self.device,
                                  ws, thr, weights_digest(ws, thr), spec,
-                                 tgt, opts)
+                                 tgt, opts, tuner=self.tuner)
         return art
 
     def compile_async(self, net, *, target="torch", pipeline="default",
@@ -701,6 +740,32 @@ class Session:
             max_batch_delay=max_batch_delay,
             max_queue_depth=max_queue_depth)
 
+    def explore(self, net=None, *, nets=None, space=None,
+                objective="latency", strategy: str = "anneal",
+                budget: int = 24, seed: int = 0, batch: int = 256,
+                reps: int = 2, cells_weight: float = 0.01,
+                input_threshold: int | None = None):
+        """Jointly search pipeline x datapath x block shapes for `net`
+        (or a `nets` mapping — the ladder-depth axis) on this session's
+        device and return an `ExplorationReport` (see
+        `repro_torch.netgen.explore`).
+
+        Every evaluation compiles through this session — artifacts land
+        in the memory tier and the `ArtifactStore` — and the finished
+        search persists through the session's `TuneStore`, so a second
+        process with the same stores replays the exploration with zero
+        compiles and zero measurements. The winner also publishes the
+        `cuda-explored` datapath record that `cuda[explored=true]` (and
+        the serving layer's stacked dispatch) resolve by plan
+        signature."""
+        from repro_torch.netgen.explore import Explorer
+
+        return Explorer(
+            self, net=net, nets=nets, space=space, objective=objective,
+            strategy=strategy, budget=budget, seed=seed, batch=batch,
+            reps=reps, cells_weight=cells_weight,
+            input_threshold=input_threshold).run()
+
     def shutdown(self, wait: bool = True) -> None:
         """Stop the async compile executor (idempotent; queued compiles
         finish when `wait`)."""
@@ -727,3 +792,8 @@ class Session:
 
     def store_stats(self) -> StoreStats | None:
         return None if self.store is None else self.store.stats
+
+    def tune_stats(self):
+        """The tuner's hit/measurement counters (None without a
+        tune_store; see `repro_torch.netgen.tune.TuneStats`)."""
+        return None if self.tuner is None else self.tuner.stats

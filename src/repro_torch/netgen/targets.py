@@ -10,16 +10,22 @@ same `name[opt=value,...]` item syntax as pipeline passes:
     cuda[packed=true]        per-layer chain over bit-packed activations
     cuda[planes=true]        per-layer bit-plane kernel chain
     cuda[fusednet=true]      the whole planes-form net in one kernel launch
+    cuda[tuned=true]         the datapath and block shapes searched per plan
+                             shape and device kind, the winner persisted
+    cuda[explored=true]      the design-space explorer's winner for the
+                             plan shape, when one is recorded
     fused                    the 2-layer paper net in one kernel launch
+                             (`fused[tuned=true]` searches its bm)
     verilog[style=legacy]    the paper's combinational module source (text)
     cost                     IR walk -> logic-cell estimate vs Figure 7
 
 `resolve_target` parses an item string (or takes a bare name plus an
 opts dict), validates options against the target's declaration, and
 returns (Target, opts). `target_string` renders the canonical form.
-Options of the JAX targets that later slices bring (`tuned`,
-`explored`, `bkw`) and `interpret`, which has no counterpart on the
-card, are undeclared, so they raise "unknown option" like any other.
+`interpret`, which has no counterpart on the card, is undeclared, so it
+raises "unknown option" like any other; `bkw` is declared on `cuda` so
+that it raises the backend's own ValueError, which names the deviation
+(no port kernel blocks K).
 """
 from __future__ import annotations
 
@@ -49,7 +55,10 @@ class Target:
     `wants_analysis` asks it to hand its pre-backend
     `analysis.RangeAnalysis` as `_analysis`, so width-consuming backends
     (verilog, cost) emit the proven widths instead of re-deriving
-    them."""
+    them; `wants_tuner` asks every compile entry point (single and
+    multi) to receive the caller's `repro_torch.netgen.tune.KernelTuner`
+    as `_tuner` — how `Session(tune_store=...)` threads persisted tuning
+    records into `tuned=true` kernel builds."""
     name: str
     kind: str
     description: str
@@ -58,6 +67,7 @@ class Target:
     compile_multi: Callable | None = None
     wants_pass_trace: bool = False
     wants_analysis: bool = False
+    wants_tuner: bool = False
 
     @property
     def callable(self) -> bool:
@@ -190,17 +200,25 @@ register_target(Target(
                 "(binary_matmul_planes), fusednet=true runs the whole "
                 "planes-form net as ONE binary_forward_planes launch "
                 "(stacked multi-net dispatch prefers it for planes=true "
-                "too); bm/bn pin rows/columns per block",
+                "too); bm/bn pin rows/columns per block; tuned=true "
+                "grid-searches the form and the bm/bn block shapes per "
+                "plan shape and device kind and persists the winner; "
+                "explored=true resolves the design-space explorer's "
+                "persisted winner for the plan shape when one exists, "
+                "see Session.explore; bkw raises (no port kernel blocks K)",
     compile=_compile_cuda,
     opts=(("packed", bool), ("planes", bool), ("fusednet", bool),
-          ("bm", int), ("bn", int)),
-    compile_multi=_compile_cuda_multi))
+          ("tuned", bool), ("explored", bool),
+          ("bm", int), ("bn", int), ("bkw", int)),
+    compile_multi=_compile_cuda_multi, wants_tuner=True))
 register_target(Target(
     name="fused", kind="callable",
     description="single-launch whole-net CUDA kernel fused_mlp_predict "
-                "(2-layer only; bm pins the rows per block)",
+                "(2-layer only; bm pins the rows per block, tuned=true "
+                "searches it)",
     compile=_compile_fused,
-    opts=(("bm", int),)))
+    opts=(("tuned", bool), ("bm", int)),
+    wants_tuner=True))
 register_target(Target(
     name="verilog", kind="text",
     description="the paper's clockless combinational Verilog module",

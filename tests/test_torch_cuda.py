@@ -819,3 +819,85 @@ def test_engine_prefill_launches_ssd_once_per_layer(cuda):
                    use_kernel=False).generate(prompts)
     assert sops.ssd.launches == cfg.n_layers
     assert out.shape == plain.shape
+
+
+# ---------------------------------------------------------------------------
+# The tuner's Hopper grid and the tuned/explored targets on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def paper_circuit():
+    """A 784-500-10 net with |w| <= 9 (int8 weights, 4 bit-planes), its
+    optimized circuit, and 256 images."""
+    net = _net(40, (784, 500, 10), lo=-9, hi=9)
+    return net, netgen.lower(net), _images(40, 256, 784)
+
+
+def _launches():
+    wrappers = (ops.binary_forward_planes, ops.binary_matmul_planes, ops.binary_matmul,
+                ops.binary_matmul_packed, fops.fused_mlp_predict)
+    return sum(w.launches for w in wrappers)
+
+
+@pytest.mark.parametrize("form", ["dense", "packed", "planes", "fusednet"])
+def test_every_hopper_grid_tile_launches_at_full_width(cuda, paper_circuit, form):
+    """Every tile of the tuner's grid launches its form's kernels at
+    784-500-10, and the answers equal `predict_quantized`; every launch of
+    the int8-weight net takes a tensor-core route."""
+    from repro_torch.netgen.backends import cuda as backend
+
+    net, circuit, x = paper_circuit
+    want = quantize.predict_quantized(net, device=cuda)(x)
+    for tile in backend._TUNE_BLOCKS:
+        flags = {} if form == "dense" else {form: True}
+        fn = backend.compile_cuda(circuit, device=cuda, **tile, **flags)
+        before = _launches()
+        mma = ops.binary_forward_planes.mma_launches + ops.binary_matmul.mma_launches \
+            + ops.binary_matmul_packed.mma_launches
+        got = fn(x)
+        torch.cuda.synchronize()
+        assert _launches() - before == fn.launches_per_call > 0, tile
+        if form != "planes":
+            assert ops.binary_forward_planes.mma_launches + ops.binary_matmul.mma_launches \
+                + ops.binary_matmul_packed.mma_launches - mma == fn.launches_per_call, tile
+        assert fn.blocks == tile and torch.equal(got, want), tile
+
+
+def test_tuned_targets_launch_and_answer_on_the_card(cuda, paper_circuit, tmp_path):
+    """`cuda[tuned=true]`, `cuda[tuned=true,planes=true]` and
+    `fused[tuned=true]` on the card: every measured candidate launches,
+    the winners' answers equal `predict_quantized`, and a second session
+    over the tune store measures nothing."""
+    net, _, x = paper_circuit
+    want = quantize.predict_quantized(net, device=cuda)(x)
+    targets = ("cuda[tuned=true]", "cuda[tuned=true,planes=true]", "fused[tuned=true]")
+    session = netgen.Session(device=cuda, tune_store=tmp_path / "tune")
+    for target in targets:
+        before = _launches()
+        art = session.compile(net, target=target)
+        assert _launches() > before, target            # the search ran the kernels
+        before = _launches()
+        assert torch.equal(art(x), want), target
+        assert _launches() - before == art.artifact.launches_per_call, target
+    stats = session.tune_stats()
+    assert stats.tunes == 3 and stats.measurements >= 14 + 4 + 1
+    warm = netgen.Session(device=cuda, tune_store=tmp_path / "tune")
+    for target in targets:
+        assert torch.equal(warm.compile(net, target=target)(x), want), target
+    assert (warm.tune_stats().measurements, warm.tune_stats().tunes) == (0, 0)
+    assert "sm_" in netgen.tune.device_kind(cuda)
+
+
+def test_explored_winner_serves_on_the_card(cuda, paper_circuit, tmp_path):
+    net, _, x = paper_circuit
+    want = quantize.predict_quantized(net, device=cuda)(x)
+    session = netgen.Session(device=cuda, tune_store=tmp_path / "tune")
+    rep = session.explore(net, objective="latency", budget=4, seed=0, reps=1,
+                          space=netgen.SearchSpace(pipelines=("default",)))
+    measured = session.tune_stats().measurements
+    art = session.compile(net, target="cuda[explored=true]", pipeline=rep.best.pipeline)
+    assert session.tune_stats().measurements == measured
+    assert art.artifact.datapath == rep.best.form
+    before = _launches()
+    assert torch.equal(art(x), want)
+    assert _launches() - before == art.artifact.launches_per_call

@@ -207,9 +207,18 @@ def test_targets_declare_only_ported_options():
     assert t.name == "cuda" and opts == {"packed": True, "bn": 64}
     t, opts = resolve_target("fused[bm=4]")
     assert t.name == "fused" and opts == {"bm": 4} and t.compile_multi is None
-    for bad in ("cuda[tuned=true]", "cuda[explored=true]", "cuda[bkw=8]",
-                "cuda[interpret=false]", "cuda[planes=3]", "torch[planes=true]",
-                "fused[tuned=true]", "fused[interpret=true]", "fused[bn=32]",
+    # tuned and explored are ported; bkw is declared on cuda only so that
+    # its compile raises the backend's error naming the deviation
+    t, opts = resolve_target("cuda[tuned=true,explored=true,bkw=8]")
+    assert opts == {"tuned": True, "explored": True, "bkw": 8} and t.wants_tuner
+    t, opts = resolve_target("fused[tuned=true]")
+    assert opts == {"tuned": True} and t.wants_tuner
+    with pytest.raises(ValueError, match="bkw has no counterpart"):
+        netgen.Session(device="cpu").compile(_port(random_net(0, (12, 9, 4))),
+                                             target="cuda[bkw=8]")
+    for bad in ("cuda[interpret=false]", "cuda[planes=3]", "torch[planes=true]",
+                "torch[tuned=true]", "fused[bkw=8]", "fused[explored=true]",
+                "fused[interpret=true]", "fused[bn=32]",
                 "pallas", "verilog[bm=8]", "cost[style=x]"):
         with pytest.raises(ValueError):
             resolve_target(bad)
