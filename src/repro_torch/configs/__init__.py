@@ -3,7 +3,8 @@
 `get_config(name)` returns the full published config; `smoke(name)` a
 reduced same-family variant for CPU tests, with exactly the reductions
 of `repro/configs/__init__.py`. Only the LM families the port runs are
-registered (ssm); the others come with their family (ROADMAP.md, A.10).
+registered (dense and ssm); the others come with their family
+(ROADMAP.md: A.2 zamba2, A.3 the MoE configs, A.4 qwen2-vl and musicgen).
 `mnist_fpga`, the paper's own net (family "mlp"), is imported but left
 out of `ARCHS`, as in the reference, so `get_config("mnist-fpga")`
 raises in both packages; `repro_torch.core` runs it.
@@ -12,18 +13,23 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import mamba2_2_7b, mnist_fpga  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    gemma_2b, llama3_2_3b, mamba2_2_7b, mnist_fpga, qwen1_5_4b, qwen2_72b,
+)
 from repro_torch.models.base import ArchConfig
 
 __all__ = ["ARCHS", "get_config", "smoke"]
 
-ARCHS: dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in (mamba2_2_7b,)}
+ARCHS: dict[str, ArchConfig] = {
+    m.CONFIG.name: m.CONFIG
+    for m in (qwen1_5_4b, qwen2_72b, gemma_2b, llama3_2_3b, mamba2_2_7b)
+}
 
 
 def get_config(name: str) -> ArchConfig:
     if name not in ARCHS:
-        raise KeyError(f"{name!r} is not ported (ported: {sorted(ARCHS)}); "
-                       "see ROADMAP.md, A.10")
+        raise KeyError(f"{name!r} is not ported (ported: {sorted(ARCHS)}); see "
+                       "ROADMAP.md: A.2 zamba2, A.3 the MoE configs, A.4 qwen2-vl and musicgen")
     return ARCHS[name]
 
 

@@ -1,0 +1,19 @@
+"""Qwen2-72B [dense] — GQA kv=8, QKV bias. [arXiv:2407.10671; hf]"""
+from repro_torch.models.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-72b",
+    family="dense",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=29568,
+    vocab=152064,
+    act="swiglu",
+    norm="rmsnorm",
+    norm_eps=1e-6,
+    qkv_bias=True,
+    rope_theta=1.0e6,
+)

@@ -1,11 +1,13 @@
 """LM serving launcher of the port.
 
-  python -m repro_torch.launch.serve --arch mamba2-2.7b [--smoke] \
+  python -m repro_torch.launch.serve --arch qwen1.5-4b [--smoke] \
       [--batch 8] [--prompt-len 16] [--new-tokens 16] [--w8] [--device cuda]
 
-Counterpart of `repro/launch/serve.py` on one card (no mesh). Without
---smoke the full published config is served; weights are random from a
-`torch.Generator` seeded 0, made on the device. --w8 serves the int8
+Counterpart of `repro/launch/serve.py` on one card (no mesh), for every
+config the port registers (`configs.ARCHS`: qwen1.5-4b, gemma-2b,
+llama3.2-3b, qwen2-72b, mamba2-2.7b). Without --smoke the full published
+config is served (qwen2-72b does not fit one card: use --smoke); weights
+are random from a `torch.Generator` seeded 0, made on the device. --w8 serves the int8
 checkpoint (`quantize_params_for_serving`, every matmul weight).
 Prints the same summary line as the reference.
 """

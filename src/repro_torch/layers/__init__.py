@@ -1,2 +1,3 @@
-"""Normalization, weight access, embedding and the Mamba2 mixer of the
-port's LM stack."""
+"""The layers of the port's LM stack: normalization, weight access,
+embedding, rotary positions, the gated MLPs, attention with its KV cache,
+flash attention, and the Mamba2 mixer."""

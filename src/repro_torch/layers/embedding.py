@@ -1,9 +1,9 @@
-"""Token embedding, LM head and input assembly, for the `text` modality.
+"""Token embedding, LM head and input assembly.
 
-Counterpart of `repro/layers/embedding.py` for the ported families: a
-separate head (`tie_embeddings` False) and no embedding scale. Tied
-embeddings, gemma's scale and the `vlm` and `audio` modalities come
-with their families (ROADMAP.md, A.10).
+Counterpart of `repro/layers/embedding.py` for the `text` modality: a
+separate head or tied embeddings (no `head` leaf; the head is `tokᵀ`),
+gemma's embedding scale, and W8 leaves for both. The `vlm` and `audio`
+modalities are not ported yet (ROADMAP.md, A.4).
 """
 from __future__ import annotations
 
@@ -16,27 +16,35 @@ __all__ = ["embed_params", "embed", "lm_head", "assemble_inputs"]
 
 
 def embed_params(cfg: ArchConfig) -> dict:
-    if cfg.tie_embeddings or cfg.scale_embedding:
-        raise NotImplementedError(
-            "tied or scaled embeddings are not ported yet (ROADMAP.md, A.10)")
-    return {"tok": ParamInfo((cfg.vocab, cfg.d_model), torch.float32, scale=1.0),
-            "head": ParamInfo((cfg.d_model, cfg.vocab), torch.float32)}
+    p = {"tok": ParamInfo((cfg.vocab, cfg.d_model), torch.float32, scale=1.0)}
+    if not cfg.tie_embeddings:
+        p["head"] = ParamInfo((cfg.d_model, cfg.vocab), torch.float32)
+    return p
 
 
 def embed(cfg: ArchConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) -> (B, S, D) in compute dtype."""
     tok = p["tok"]
     if is_q(tok):
-        return (tok["q"][tokens].float() * tok["s"]).to(cfg.cdtype())
-    return tok[tokens].to(cfg.cdtype())     # gather, then cast: the same values
+        h = (tok["q"][tokens].float() * tok["s"]).to(cfg.cdtype())
+    else:
+        h = tok[tokens].to(cfg.cdtype())     # gather, then cast: the same values
+    if cfg.scale_embedding:
+        # the scale is rounded to h's dtype before the product, as in the
+        # reference (sqrt(2048) = 45.2548... is 45.25 in bf16)
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype, device=h.device)
+    return h
 
 
 def lm_head(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
     """h (B, S, D) -> logits (B, S, V) in h's dtype."""
-    w = p["head"]
+    w = p["tok"] if cfg.tie_embeddings else p["head"]
     if is_q(w):
+        if cfg.tie_embeddings:
+            # w = q * s with per-d_model scales: fold s into h, matmul int8ᵀ
+            return torch.matmul(h * w["s"].to(h.dtype), w["q"].to(h.dtype).T)
         return torch.matmul(h, (w["q"].float() * w["s"]).to(h.dtype))
-    return torch.matmul(h, w.to(h.dtype))
+    return torch.matmul(h, w.to(h.dtype).T if cfg.tie_embeddings else w.to(h.dtype))
 
 
 def assemble_inputs(cfg: ArchConfig, p: dict, batch: dict) -> torch.Tensor:
@@ -45,6 +53,6 @@ def assemble_inputs(cfg: ArchConfig, p: dict, batch: dict) -> torch.Tensor:
         return embed(cfg, p, batch["tokens"])
     if cfg.modality in ("vlm", "audio"):
         raise NotImplementedError(
-            f"modality {cfg.modality!r} is not ported yet (ROADMAP.md, A.10: "
-            "the transformer and hybrid families)")
+            f"modality {cfg.modality!r} is not ported yet (ROADMAP.md, A.4: the "
+            "vlm and audio modalities)")
     raise ValueError(cfg.modality)

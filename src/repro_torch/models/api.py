@@ -6,28 +6,29 @@ Counterpart of `repro/models/api.py`, with the same entry points:
   forward(cfg, params, batch)           -> (logits, aux)
   prefill(cfg, params, batch, cache)    -> (last_logits, cache)
   decode_step(cfg, params, tok, pos, c) -> (logits, cache)
-Only the `ssm` family is ported; the others raise (ROADMAP.md, A.10).
-`prefill` and `forward` take `use_kernel`, which sends every SSD through
-the `ssd_scan` kernel.
+The `ssm` and `dense` families are ported; `moe` and `hybrid` raise
+(ROADMAP.md, A.2 and A.3). `prefill` and `forward` take `use_kernel`,
+which sends every SSD of the `ssm` family through the `ssd_scan`
+kernel; the `dense` family reaches no kernel and ignores it.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import mamba
+from repro_torch.models import mamba, transformer
 from repro_torch.models.base import ArchConfig
 
 __all__ = ["module_for", "abstract_params", "abstract_cache", "forward", "prefill",
            "decode_step", "loss_fn"]
 
-_FAMILY = {"ssm": mamba}
+_FAMILY = {"dense": transformer, "ssm": mamba}
+_NOT_PORTED = {"moe": "A.3: the MoE family", "hybrid": "A.2: the hybrid family, zamba2"}
 
 
 def module_for(cfg: ArchConfig):
-    if cfg.family not in _FAMILY:
+    if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, A.10: the "
-            "transformer, MoE and hybrid families)")
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md, {_NOT_PORTED[cfg.family]})")
     return _FAMILY[cfg.family]
 
 
@@ -53,7 +54,8 @@ def decode_step(cfg: ArchConfig, params, tokens, pos, cache, extras=None):
 
 def loss_fn(cfg: ArchConfig, params, batch, *, use_kernel: bool = False):
     """Next-token cross-entropy. Returns (loss, metrics). The MoE
-    auxiliary losses come with that family."""
+    auxiliary losses come with that family (ROADMAP.md, A.3); the dense
+    family's are zero."""
     logits, _ = forward(cfg, params, batch, use_kernel=use_kernel)
     targets = batch["targets"]
     mask = batch.get("loss_mask")

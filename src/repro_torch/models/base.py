@@ -18,7 +18,7 @@ import torch
 
 from repro_torch._device import resolve_device
 
-__all__ = ["ArchConfig", "ShapeConfig", "ParamInfo", "tree_map", "tree_init",
+__all__ = ["ArchConfig", "ShapeConfig", "ParamInfo", "tree_map", "layer", "tree_init",
            "count_params"]
 
 
@@ -40,6 +40,7 @@ class ArchConfig:
     qkv_bias: bool = False
     tie_embeddings: bool = False
     scale_embedding: bool = False   # gemma: h *= sqrt(d_model)
+    norm_plus_one: bool = False     # gemma: RMSNorm scale (1 + w), w initialized to 0
     pos: str = "rope"           # rope | mrope | sin
     rope_theta: float = 1e6
     mrope_sections: tuple = ()  # (t, h, w) half-dims, sum == head_dim // 2
@@ -98,6 +99,12 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def layer(tree, i: int):
+    """Layer i's slice of a tree of stacked per-layer tensors (the step of
+    the reference's `lax.scan` over layers)."""
+    return tree_map(lambda t: t[i], tree)
 
 
 def tree_init(tree, generator: torch.Generator, device=None):

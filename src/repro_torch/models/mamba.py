@@ -3,7 +3,7 @@
 Counterpart of `repro/models/mamba.py`. Parameters of the layers are
 stacked on a leading (n_layers,) axis, as in the reference; its
 `lax.scan` over them is a Python loop that takes layer i's slice of
-every leaf (`[i]`). Attention-free: the decode state is O(1) in
+every leaf (`base.layer`). Attention-free: the decode state is O(1) in
 sequence length.
 """
 from __future__ import annotations
@@ -13,7 +13,7 @@ import torch
 from repro_torch.layers import embedding as emb_lib
 from repro_torch.layers import mamba2 as m2
 from repro_torch.layers import norms
-from repro_torch.models.base import ArchConfig, ParamInfo, tree_map
+from repro_torch.models.base import ArchConfig, ParamInfo, layer, tree_map
 
 __all__ = ["abstract_params", "abstract_cache", "backbone", "forward", "prefill",
            "decode_step", "layer"]
@@ -35,11 +35,6 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     info = m2.ssm_cache_info(cfg, batch)
     return tree_map(lambda i: ParamInfo((cfg.n_layers,) + i.shape, i.dtype, init="zeros"),
                     info)
-
-
-def layer(tree, i: int):
-    """Layer i's slice of a tree of stacked per-layer tensors."""
-    return tree_map(lambda t: t[i], tree)
 
 
 def backbone(cfg: ArchConfig, params: dict, h: torch.Tensor, *,

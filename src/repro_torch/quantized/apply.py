@@ -7,7 +7,7 @@ is `torch.round`, half to even, as `np.round` in the reference. Leaves
 of a quantized tree are tensors or `{"q": int8, "s": fp32}`; paths are
 named as the reference names them (`['layers']['mixer']['in_proj']`),
 so the same filters select the same leaves. `abstract_quantized_params`
-is not ported yet (ROADMAP.md, A.10).
+is not ported yet (ROADMAP.md, A.5).
 """
 from __future__ import annotations
 

@@ -5,10 +5,11 @@ batches of prompts: prefill once, then one greedy token per step for the
 whole batch (`serve_step`). Greedy decoding is all the reference does:
 `ServeConfig` carries its `temperature` and `seed` fields, in its order
 and with its defaults, and, as there, nothing reads them. It runs
-on `device` (the card unless the caller names the CPU). On the card, prefill sends every SSD through the
-`ssd_scan` kernel; `use_kernel=False` exists only so that tests and
-`chip_smoke.py` can compare the two routes, and nothing switches to it
-on a failure.
+on `device` (the card unless the caller names the CPU). On the card, a
+Mamba2 prefill sends every SSD through the `ssd_scan` kernel;
+`use_kernel=False` exists only so that tests and `chip_smoke.py` can
+compare the two routes, and nothing switches to it on a failure. The
+dense family reaches no kernel and ignores the flag.
 """
 from __future__ import annotations
 

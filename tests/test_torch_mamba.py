@@ -209,18 +209,24 @@ def test_engine_needs_a_device(model, monkeypatch):
 def test_configs_and_abstract_tree():
     cfg = configs.get_config(ARCH)
     jcfg = jconfigs.get_config(ARCH)
-    for f in dataclasses.fields(cfg):
+    # every field of the reference; the port's one more, `norm_plus_one`,
+    # is the reference's name switch (gemma's (1 + w) norm scale)
+    for f in dataclasses.fields(jcfg):
         assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    assert cfg.norm_plus_one is False
     assert (cfg.d_inner, cfg.ssm_heads, cfg.conv_dim) == (5120, 80, 5376)
     assert cfg.cdtype() == torch.bfloat16
     assert base.count_params(api.abstract_params(cfg)) == \
         jbase.count_params(japi.abstract_params(jcfg))
     small = configs.smoke(ARCH)
-    assert dataclasses.asdict(small) == dataclasses.asdict(jconfigs.smoke(ARCH))
-    with pytest.raises(KeyError):
-        configs.get_config("llama3.2-3b")
-    with pytest.raises(NotImplementedError):
-        api.abstract_params(dataclasses.replace(small, family="dense"))
+    assert {f.name: getattr(small, f.name) for f in dataclasses.fields(jcfg)} == \
+        dataclasses.asdict(jconfigs.smoke(ARCH))
+    for unported in ("zamba2-2.7b", "granite-moe-1b-a400m", "qwen2-vl-2b"):
+        with pytest.raises(KeyError):
+            configs.get_config(unported)
+    for family in ("moe", "hybrid"):
+        with pytest.raises(NotImplementedError):
+            api.abstract_params(dataclasses.replace(small, family=family))
 
 
 def test_tree_init_is_seeded_and_follows_the_rules():
@@ -263,14 +269,17 @@ def test_launcher_serves_the_smoke_config(capsys):
 
 
 def test_unported_features_raise():
+    """What is still unported raises, naming its ROADMAP item: the moe and
+    hybrid families, and the vlm and audio modalities."""
     small = configs.smoke(ARCH)
-    for repl in ({"tie_embeddings": True}, {"scale_embedding": True}, {"norm": "layernorm"}):
-        with pytest.raises(NotImplementedError):
-            api.abstract_params(dataclasses.replace(small, **repl))
-    cfg = dataclasses.replace(small, modality="vlm")
+    for family, item in (("moe", "A.3"), ("hybrid", "A.2")):
+        with pytest.raises(NotImplementedError, match=item):
+            api.abstract_params(dataclasses.replace(small, family=family))
     p = base.tree_init(api.abstract_params(small), torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError):
-        api.forward(cfg, p, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    for modality in ("vlm", "audio"):
+        cfg = dataclasses.replace(small, modality=modality)
+        with pytest.raises(NotImplementedError, match="A.4"):
+            api.forward(cfg, p, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
 
 
 def test_serve_config_fields_equal_the_reference():
