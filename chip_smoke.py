@@ -31,7 +31,7 @@ Phases, each raising on failure (nothing is caught):
    (mamba2-2.7b at batch 4 x 512 tokens, chunk 128) within 1e-4 in fp32
    (the scalar route), and in bf16 (which must take the tensor-core
    route) within one bf16 ulp on y (plus 1e-5 for fp32 summation order)
-   and 1e-4 on the fp32 state.
+   and 1e-4 on the fp32 state; once more in bf16 at zamba2-2.7b's N = 64.
 4. Main paths. (a) Three seeded 784-500-10 nets served by `NetServer` on
    `Session(device="cuda")`, once per target: `cuda[planes=true]` (one
    `predict` through the per-layer `binary_matmul_planes` chain, two
@@ -122,6 +122,25 @@ Phases, each raising on failure (nothing is caught):
    gemma-2b and llama3.2-3b served at 4 x 512 + 8 and teacher-forced;
    qwen2-72b counted abstractly; a profile of a qwen prefill and decode
    step. The dense path reaches no TPU kernel: every count must stay 0.
+   (f) The hybrid family: zamba2-2.7b at full width (2.41 B parameters,
+   54 Mamba2 layers with N = 64, the shared attention+MLP block at 9
+   sites) served by `Engine` (`use_kernel=True`) from fp32 and W8 at
+   4 x 512 + 32; each prefill must launch `ssd` 54 times, all on the
+   tensor cores, and no other kernel; each checkpoint's kernel route is
+   held to its plain route as mamba2's is (per layer 4 bf16 ulps, end to
+   end in fp32 compute 1e-3); fp32 teacher forcing; a profile. (g) The
+   MoE family: granite-moe-1b-a400m at full width (1.33 B parameters, 32
+   experts of d_ff 512, top 8) served from fp32 at 4 x 512 + 32; its W8
+   form must raise, as the reference's W8 MoE fails; prefill against
+   forward (2e-2); one fp32 decode step on the card against the same step
+   on the host from the same weights and cache (1e-3 of the largest
+   |logit|, routings that differ counted); a bf16 step against fp32
+   (0.15), and two bf16 prefills of one prompt against each other (0.15:
+   the combine's bf16 `index_add_` adds in no fixed order); `loss_fn`'s
+   aux losses; the share of routed pairs dropped at
+   prefill and at decode (capacity 1 at 4 tokens); a profile;
+   qwen3-moe-30b-a3b abstract (fp32, bf16 and W8 bytes). Every count must
+   stay 0.
    Every launch count is set to 0 just before a path runs and read just
    after it; each of the path's kernels must have launched.
 5. Times: CUDA events, median of 20 runs after warmup, per kernel (both
@@ -261,6 +280,31 @@ ROUTE_ULPS = 4.0
 # |logit| and |state|, elementwise; greedy tokens must be equal wherever
 # the plain route's top-2 margin exceeds twice the logit bound.
 FP32_ROUTE_RTOL = 1e-3
+# The hybrid family (phase 4(f)): zamba2-2.7b as published (54 Mamba2 layers,
+# the shared attention+MLP block after every 6; N = 64), fp32 and W8 at
+# 4 x 512 + 32 through `Engine(use_kernel=True)`, every mixer's SSD through
+# ssd_scan; the kernel route held to the plain route with the bounds above;
+# fp32 teacher forcing on 4 x 64 + 16, as the dense family's.
+HYBRID_ARCH, HYBRID_PARAMS, HYBRID_SSM_STATE = "zamba2-2.7b", 2_409_563_040, 64
+# The MoE family (phase 4(g)): granite-moe-1b-a400m as published (24 layers,
+# 32 experts of d_ff 512, top 8), fp32 at 4 x 512 + 32; qwen3-moe-30b-a3b
+# abstract only. A decode step's capacity (1 at T = 4) is not a prefill's,
+# so teacher forcing does not hold; instead: prefill against forward at the
+# same T (PREFILL_TOL); one fp32-compute decode step on the card against
+# the same step on the host from the same weights and cache, within
+# MOE_HOST_RTOL of the largest |logit| (fp32 summation order, TF32 off, as
+# long as no routing flips; the routings that differ are counted); and one
+# bf16 step against the fp32 one within MOE_BF16_RTOL. That bound was set
+# before the first card reading, from the CPU: 0.008-0.011 at granite's
+# width over 4 and 8 layers (2-6 of 16 routings changed at 4 layers),
+# 0.008-0.050 at the smoke size over 9 seeds; 24 layers and capacity-1
+# drops may flip more, so three times the worst CPU reading. The combine's
+# bf16 `index_add_` is atomic on the card, in no fixed order, so two bf16
+# prefills of one prompt may differ: a reordered bf16 sum is a bf16
+# rounding, held to the same bound.
+MOE_ARCH, MOE_ABSTRACT = "granite-moe-1b-a400m", "qwen3-moe-30b-a3b"
+MOE_PARAMS = {"granite-moe-1b-a400m": 1_334_628_352, "qwen3-moe-30b-a3b": 30_532_110_336}
+MOE_HOST_RTOL, MOE_BF16_RTOL = 1e-3, 0.15
 
 
 def _smi(query: str) -> str:
@@ -445,12 +489,13 @@ def _qmm_args(rng, m, k, n, dev):
     return xq, wq, sx, sw
 
 
-def _ssd_args(rng, dev, dtype):
-    """Seeded SSD inputs at mamba2-2.7b's width (H=80, P=64, G=1, N=128),
-    batch 4 x 512 tokens, distributed as the JAX package's kernel tests."""
+def _ssd_args(rng, dev, dtype, n: int = 128):
+    """Seeded SSD inputs at mamba2-2.7b's width (H=80, P=64, G=1, N=128;
+    zamba2-2.7b's is the same with N=64), batch 4 x 512 tokens,
+    distributed as the JAX package's kernel tests."""
     import numpy as np
     import torch
-    b, l, h, p, g, n = LM_BATCH, LM_PROMPT, 80, 64, 1, 128
+    b, l, h, p, g = LM_BATCH, LM_PROMPT, 80, 64, 1
 
     def t(a):
         return torch.from_numpy(a.astype(np.float32)).to(dev)
@@ -1351,17 +1396,18 @@ def _prefill(cfg, params, tokens, dev, use_kernel: bool):
     """(last-position logits in fp32, final SSM states) of `api.prefill`."""
     import torch
     from repro_torch.models import api, base
-    cache = base.tree_init(api.abstract_cache(cfg, tokens.shape[0], 0),
+    cache = base.tree_init(api.abstract_cache(cfg, tokens.shape[0], tokens.shape[1]),
                            torch.Generator(device=dev), dev)
     logits, state = api.prefill(cfg, params, {"tokens": tokens}, cache, use_kernel=use_kernel)
-    return logits.float(), state["ssm"]
+    return logits.float(), state["ssm"]["ssm"] if cfg.family == "hybrid" else state["ssm"]
 
 
-def _check_routes(cfg, params, prompts, out, dev, label: str) -> dict:
+def _check_routes(cfg, params, prompts, out, dev, label: str, tag: str = "lm path") -> dict:
     """The kernel route against `use_kernel=False`; returns the readings.
 
     1. Per layer, in bf16 as served: both mixers take the same input (the
-       plain route's residual stream); each layer's output and final SSM
+       plain route's residual stream, through zamba's shared block after
+       every `attn_every` layers); each layer's output and final SSM
        state must lie within ROUTE_ULPS bf16 ulps (eps_bf16 x the plain
        value's largest magnitude) of the plain route's.
     2. End to end in fp32 compute (`compute_dtype="float32"`), where the
@@ -1384,7 +1430,7 @@ def _check_routes(cfg, params, prompts, out, dev, label: str) -> dict:
     from repro_torch.kernels.ssd_scan import ref as sref
     from repro_torch.layers import embedding, norms
     from repro_torch.layers import mamba2 as m2
-    from repro_torch.models import mamba
+    from repro_torch.models import mamba, zamba
 
     def rel(a, b) -> float:
         return ((a - b).abs().max() / b.abs().max()).item()
@@ -1394,7 +1440,8 @@ def _check_routes(cfg, params, prompts, out, dev, label: str) -> dict:
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     with torch.inference_mode():
         tokens = torch.as_tensor(prompts, device=dev).long()
-        h = embedding.embed(cfg, params["embed"], tokens)
+        h = emb0 = embedding.embed(cfg, params["embed"], tokens)
+        positions = torch.arange(tokens.shape[1], device=dev)[None].expand(*tokens.shape)
         for i in range(cfg.n_layers):
             lp = mamba.layer(params["layers"], i)
             hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
@@ -1404,6 +1451,8 @@ def _check_routes(cfg, params, prompts, out, dev, label: str) -> dict:
                 ulps = ((k - p).abs().max() / (eps * p.abs().max())).item()
                 worst[key] = max(worst[key], ulps)
             h = h + op
+            if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+                h, _ = zamba._shared_block(cfg, params["shared"], h, emb0, positions, None, None)
         kern, plain = (_prefill(cfg, params, tokens, dev, uk) for uk in (True, False))
         with mock.patch.object(sops, "ssd", sref.ssd):
             dt_bf16 = _prefill(cfg, params, tokens, dev, True)
@@ -1425,7 +1474,7 @@ def _check_routes(cfg, params, prompts, out, dev, label: str) -> dict:
                                     ("plain~plain_fp32_compute", plain, plain32))},
         "bf16_greedy_equal": int((kern[0].argmax(-1) == plain[0].argmax(-1)).sum()),
     }
-    print(f"[4 lm path] {label} kernel vs plain route: per layer (bf16) outputs within "
+    print(f"[4 {tag}] {label} kernel vs plain route: per layer (bf16) outputs within "
           f"{worst['out']:.3g} and states within {worst['ssm']:.3g} bf16 ulps of the "
           f"layer's scale (bound {ROUTE_ULPS}); end to end in fp32 compute "
           f"{json.dumps(readings['fp32_compute'])} (bound {FP32_ROUTE_RTOL}); "
@@ -1486,12 +1535,26 @@ def _qlinear_path(cfg, w8, prompts, dev, reset_launches) -> int:
     return n
 
 
-def _dense_generate(cfg, params, prompts, new: int, dev, label: str) -> dict:
-    """`Engine.generate` of `new` tokens after `prompts`; checks the tokens'
-    shape and range and returns the run's times and KV cache bytes."""
+def _cache_bytes(cfg, batch: int, max_len: int) -> int:
+    """Bytes of `api.abstract_cache`: the KV cache, and zamba's SSM cache."""
     import math
+    from repro_torch.models import api, base
+    total = 0
+
+    def add(info):
+        nonlocal total
+        total += math.prod(info.shape) * info.dtype.itemsize
+
+    base.tree_map(add, api.abstract_cache(cfg, batch, max_len))
+    return total
+
+
+def _dense_generate(cfg, params, prompts, new: int, dev, label: str,
+                    tag: str = "dense path") -> dict:
+    """`Engine.generate` of `new` tokens after `prompts`; checks the tokens'
+    shape and range and returns the run's times, cache bytes and first
+    tokens."""
     import torch
-    from repro_torch.models import api
     from repro_torch.serve.engine import Engine, ServeConfig
 
     B, P = prompts.shape
@@ -1503,18 +1566,18 @@ def _dense_generate(cfg, params, prompts, new: int, dev, label: str) -> dict:
     wall = time.perf_counter() - t0
     if out.shape != (B, new) or out.min() < 0 or out.max() >= cfg.vocab:
         raise AssertionError(f"{cfg.name} {label}: bad tokens, shape {out.shape}")
-    cache = api.abstract_cache(cfg, B, sc.max_len)
-    kv_bytes = sum(math.prod(i.shape) * i.dtype.itemsize for i in cache.values())
+    kv_bytes = _cache_bytes(cfg, B, sc.max_len)
     rec = {"prefill_ms": engine.stats["prefill_s"] * 1e3,
            "decode_ms_per_token": statistics.median(engine.stats["decode_s"]) * 1e3,
-           "generate_s": wall, "kv_cache_bytes": kv_bytes}
-    print(f"[4 dense path] {cfg.name} {label} {B}x{P} + {new} tokens: {wall:.2f} s, "
+           "generate_s": wall, "kv_cache_bytes": kv_bytes, "first_tokens": out[:, 0].tolist()}
+    what = "KV + SSM cache" if cfg.family == "hybrid" else "KV cache"
+    print(f"[4 {tag}] {cfg.name} {label} {B}x{P} + {new} tokens: {wall:.2f} s, "
           f"prefill {rec['prefill_ms']:.1f} ms, decode {rec['decode_ms_per_token']:.2f} "
-          f"ms/token, KV cache {kv_bytes / 1e9:.3f} GB ({cfg.compute_dtype})")
+          f"ms/token, {what} {kv_bytes / 1e9:.3f} GB ({cfg.compute_dtype})")
     return rec
 
 
-def _teacher_forcing(cfg, params, prompts, dev) -> dict:
+def _teacher_forcing(cfg, params, prompts, dev, tag: str = "dense path") -> dict:
     """In fp32 compute: the engine's greedy tokens against the argmax of a
     teacher-forced `api.forward` over prompt + generation (position P+i-1
     predicts token i). A token may differ only where the forward's top-2
@@ -1545,7 +1608,7 @@ def _teacher_forcing(cfg, params, prompts, dev) -> dict:
     prefill_err = (last - logits[:, 0]).abs().max().item()
     rec = {"tokens": int(differ.numel()), "differ": int(differ.sum()), "excused": excused,
            "margin_bound": bound.item(), "prefill_vs_forward_max_abs": prefill_err}
-    print(f"[4 dense path] {cfg.name} fp32 teacher forcing {B}x{P} + {TF_NEW}: "
+    print(f"[4 {tag}] {cfg.name} fp32 teacher forcing {B}x{P} + {TF_NEW}: "
           f"{rec['tokens'] - rec['differ']} of {rec['tokens']} greedy tokens equal the forward's "
           f"argmax, {excused} excused (top-2 margin < {rec['margin_bound']:.3g}); prefill vs "
           f"forward max |diff| {prefill_err:.3g} (bound {PREFILL_TOL})")
@@ -1596,7 +1659,8 @@ def _rel_max(got, want) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
-def _bf16_decode_check(cfg, params, prompts, dev) -> float:
+def _bf16_decode_check(cfg, params, prompts, dev, tag: str = "dense path",
+                       bound: float = BF16_DECODE_RTOL) -> float:
     """One decode step in the configured bf16 compute against the same step
     in fp32 compute: both prefill `prompts`, then decode the fp32 path's
     greedy token at position P. Returns the logits' `_rel_max`."""
@@ -1617,11 +1681,11 @@ def _bf16_decode_check(cfg, params, prompts, dev) -> float:
                 nxt = last.argmax(-1, keepdim=True)
             logits[c.compute_dtype] = api.decode_step(c, params, nxt, pos, cache)[0]
     err = _rel_max(logits["bfloat16"], logits["float32"])
-    print(f"[4 dense path] {cfg.name} one decode step {B}x1 at position {P}, bf16 compute vs "
-          f"fp32: max |diff| {err:.4g} of the largest |logit| (bound {BF16_DECODE_RTOL})")
-    if not err < BF16_DECODE_RTOL:
+    print(f"[4 {tag}] {cfg.name} one decode step {B}x1 at position {P}, bf16 compute vs "
+          f"fp32: max |diff| {err:.4g} of the largest |logit| (bound {bound})")
+    if not err < bound:
         raise AssertionError(f"{cfg.name}: the bf16 decode step is not within "
-                             f"{BF16_DECODE_RTOL} of the fp32 one")
+                             f"{bound} of the fp32 one")
     return err
 
 
@@ -1755,6 +1819,243 @@ def _dense_path(dev, wrappers, reset_launches, smi) -> dict:
                       "phase_s": seconds, "device": torch.cuda.get_device_name(dev),
                       "power": smi}))
     return runs
+
+
+def _hybrid_path(dev, wrappers, reset_launches, smi) -> int:
+    """Phase 4(f): zamba2-2.7b at full width. Served from fp32 and W8
+    (4 x 512 + 32) by `Engine` with `use_kernel=True`: every prefill must
+    launch ssd_scan once per Mamba2 layer, all on the tensor cores, and no
+    other kernel; each checkpoint's kernel route held to its plain route
+    (`_check_routes`); fp32 teacher forcing; a profile of a prefill and a
+    decode step. Returns ssd_scan's launches in one served prefill."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import api, base, zamba
+    from repro_torch.quantized import apply as qapply
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(HYBRID_ARCH)
+    n = base.count_params(api.abstract_params(cfg))
+    if n != HYBRID_PARAMS:
+        raise AssertionError(f"{HYBRID_ARCH}: {n} parameters, want {HYBRID_PARAMS}")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params = base.tree_init(api.abstract_params(cfg),
+                                torch.Generator(device=dev).manual_seed(SEED), dev)
+        w8 = qapply.quantize_params_for_serving(cfg, params, min_size=0)
+    torch.cuda.synchronize()
+    print(f"[4 hybrid path] {HYBRID_ARCH}: {n} parameters, {cfg.n_layers} Mamba2 layers "
+          f"(N {cfg.ssm_state}, {cfg.ssm_heads} heads of {cfg.ssm_headdim}) and the shared "
+          f"block at {zamba.n_sites(cfg)} sites (heads {cfg.n_heads} x {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}), d_model {cfg.d_model}, vocab {cfg.vocab}, compute "
+          f"{cfg.compute_dtype}; init and W8 {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB allocated")
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab, size=(DENSE_BATCH, DENSE_PROMPT)).astype(np.int32)
+    _dense_generate(cfg, params, prompts, 2, dev, "warm-up", tag="hybrid path")
+    runs, routes = {}, {}
+    for ckpt, p in (("fp32", params), ("w8", w8)):
+        reset_launches()
+        rec = _dense_generate(cfg, p, prompts, DENSE_NEW, dev, ckpt, tag="hybrid path")
+        counts = {name: w.launches for name, w in wrappers.items()}
+        mma = wrappers["ssd_scan"].mma_launches
+        print(f"[4 hybrid path] {ckpt}: {mma} of {counts['ssd_scan']} ssd_scan launches on the "
+              f"tensor cores in one prefill; launches {counts}")
+        if not counts.pop("ssd_scan") == mma == cfg.n_layers or any(counts.values()):
+            raise AssertionError(f"{ckpt}: want {cfg.n_layers} ssd_scan launches, all on the "
+                                 "tensor cores, and no other kernel in one generate")
+        runs[f"{ckpt} 4x512"] = {**rec, "ssd_launches": mma}
+        routes[ckpt] = _check_routes(cfg, p, prompts, np.array(rec["first_tokens"])[:, None],
+                                     dev, ckpt, tag="hybrid path")
+    tf = rng.integers(0, cfg.vocab, size=(DENSE_BATCH, TF_PROMPT)).astype(np.int32)
+    checks = {"routes": routes,
+              "teacher_forcing": _teacher_forcing(cfg, params, tf, dev, tag="hybrid path")}
+    trace = _lm_profile(cfg, params, prompts, dev, tag="hybrid path")
+    del params, w8
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[4 hybrid path] phase {seconds:.1f} s")
+    print(json.dumps({"hybrid_ms": runs, "hybrid_checks": checks, "hybrid_profile": trace,
+                      "phase_s": seconds, "device": torch.cuda.get_device_name(dev),
+                      "power": smi}))
+    return cfg.n_layers
+
+
+def _moe_path(dev, wrappers, reset_launches, smi) -> None:
+    """Phase 4(g): granite-moe-1b-a400m at full width, served from fp32 at
+    4 x 512 + 32 (bf16 compute); its W8 form refused as the reference's
+    fails; prefill against forward, a decode step on the card against the
+    host's, a bf16 step against fp32; loss_fn's aux losses; the share of
+    routed pairs dropped at prefill and at decode; a profile;
+    qwen3-moe-30b-a3b counted abstractly. No TPU kernel: every count 0."""
+    import dataclasses
+    import gc
+    import math
+    from unittest import mock
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.layers import moe
+    from repro_torch.models import api, base
+    from repro_torch.quantized import apply as qapply
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    reset_launches()
+    cfg = configs.get_config(MOE_ARCH)
+    n = base.count_params(api.abstract_params(cfg))
+    if n != MOE_PARAMS[MOE_ARCH]:
+        raise AssertionError(f"{MOE_ARCH}: {n} parameters, want {MOE_PARAMS[MOE_ARCH]}")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params = base.tree_init(api.abstract_params(cfg),
+                                torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    print(f"[4 moe path] {MOE_ARCH}: {n} parameters, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_experts} experts of d_ff {cfg.d_ff}, top "
+          f"{cfg.experts_per_token}, heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, "
+          f"vocab {cfg.vocab}, tied {cfg.tie_embeddings}, compute {cfg.compute_dtype}; init "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB allocated")
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab, size=(DENSE_BATCH, DENSE_PROMPT)).astype(np.int32)
+    _dense_generate(cfg, params, prompts, 2, dev, "warm-up", tag="moe path")
+    runs = {"fp32 4x512": _dense_generate(cfg, params, prompts, DENSE_NEW, dev, "fp32",
+                                          tag="moe path")}
+    toks = torch.as_tensor(prompts, device=dev).long()
+    with torch.inference_mode():
+        w8 = qapply.quantize_params_for_serving(cfg, params, min_size=0)
+        try:
+            api.forward(cfg, w8, {"tokens": toks[:1, :8]})
+        except TypeError as e:
+            print(f"[4 moe path] W8 checkpoint refused, as the reference fails: {e}")
+        else:
+            raise AssertionError("the W8 MoE checkpoint was served")
+        del w8
+
+    # routings and dispatch, recorded through the layer's two steps
+    seen = {"route": [], "dispatch": []}
+
+    def recorder(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            seen[name].append(out)
+            return out
+        return call
+
+    def recorded(fn):
+        for v in seen.values():
+            v.clear()
+        with mock.patch.object(moe, "route", recorder("route", moe.route)), \
+                mock.patch.object(moe, "dispatch", recorder("dispatch", moe.dispatch)):
+            out = fn()
+        dropped = sum(int((~d[3]).sum()) for d in seen["dispatch"])
+        pairs = sum(d[3].numel() for d in seen["dispatch"])
+        return out, [torch.sort(r[3], dim=-1).values for r in seen["route"]], dropped / pairs
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    B, P = prompts.shape
+    pos = torch.full((B,), P, dtype=torch.int32, device=dev)
+    checks = {}
+    with torch.inference_mode():
+        # 1. prefill's last logits against forward's last position, same T
+        cache = base.tree_init(api.abstract_cache(cfg32, B, P + 1), torch.Generator(device=dev),
+                               dev)
+        (last, cache), _, drop_prefill = recorded(
+            lambda: api.prefill(cfg32, params, {"tokens": toks}, cache))
+        full = api.forward(cfg32, params, {"tokens": toks})[0][:, -1]
+        err = (last - full).abs().max().item()
+        checks["prefill_vs_forward_max_abs"] = err
+        print(f"[4 moe path] {MOE_ARCH} fp32 prefill {B}x{P} vs forward's last position: max "
+              f"|diff| {err:.3g} (bound {PREFILL_TOL}); capacity "
+              f"{moe.capacity(B * P, cfg.experts_per_token, cfg.n_experts)} pairs an expert, "
+              f"{drop_prefill:.4f} of routed pairs dropped")
+        if not torch.allclose(last, full, rtol=PREFILL_TOL, atol=PREFILL_TOL):
+            raise AssertionError("MoE prefill's last logits differ from forward's")
+        # 2. one fp32 decode step on the card against the host's, same weights and cache
+        nxt = last.argmax(-1, keepdim=True)
+        card, ids_card, drop_decode = recorded(
+            lambda: api.decode_step(cfg32, params, nxt, pos, cache)[0])
+        host_params = base.tree_map(lambda t: t.cpu(), params)
+        host, ids_host, _ = recorded(lambda: api.decode_step(
+            cfg32, host_params, nxt.cpu(), pos.cpu(), base.tree_map(lambda t: t.cpu(), cache))[0])
+        del host_params
+        err = _rel_max(card.cpu(), host)
+        flips = sum(int((a.cpu() != b).any(-1).sum()) for a, b in zip(ids_card, ids_host))
+        checks["decode_card_vs_host_rel_max"] = err
+        checks["decode_routings_differ"] = flips
+        print(f"[4 moe path] {MOE_ARCH} one fp32 decode step {B}x1 at position {P}, card vs "
+              f"host: max |diff| {err:.3g} of the largest |logit| (bound {MOE_HOST_RTOL}); "
+              f"{flips} of {B * cfg.n_layers} (token, layer) routings differ; capacity "
+              f"{moe.capacity(B, cfg.experts_per_token, cfg.n_experts)}, {drop_decode:.4f} of "
+              "routed pairs dropped")
+        if not err < MOE_HOST_RTOL:
+            raise AssertionError("the card's MoE decode step is not the host's")
+        checks["drop_share"] = {"prefill": drop_prefill, "decode": drop_decode}
+    # 3. the bf16 step against the fp32 one
+    tf = rng.integers(0, cfg.vocab, size=(DENSE_BATCH, TF_PROMPT)).astype(np.int32)
+    checks["bf16_decode_rel_max"] = _bf16_decode_check(cfg, params, tf, dev, tag="moe path",
+                                                       bound=MOE_BF16_RTOL)
+    # 4. the combine's bf16 `index_add_` adds atomically, in no fixed order:
+    # two bf16 prefills of the same prompts may differ; bounded as a bf16 step
+    with torch.inference_mode():
+        runs2 = [api.prefill(cfg, params, {"tokens": toks}, base.tree_init(
+            api.abstract_cache(cfg, B, P), torch.Generator(device=dev), dev))[0].float()
+            for _ in range(2)]
+    err = _rel_max(runs2[1], runs2[0])
+    checks["bf16_prefill_rerun_rel_max"] = err
+    print(f"[4 moe path] {MOE_ARCH} two bf16 prefills {B}x{P} of the same prompts: "
+          f"{'bitwise equal' if torch.equal(*runs2) else 'not bitwise equal'}, max |diff| "
+          f"{err:.3g} of the largest |logit| (bound {MOE_BF16_RTOL}, a bf16 rounding)")
+    if not err < MOE_BF16_RTOL:
+        raise AssertionError("two bf16 MoE prefills differ beyond a bf16 rounding")
+    batch = {k: torch.as_tensor(v, device=dev).long() for k, v in make_batch(
+        cfg, base.ShapeConfig("eval", TF_PROMPT, DENSE_BATCH, "train"), 0, seed=3).items()}
+    with torch.inference_mode():
+        loss, metrics = api.loss_fn(cfg32, params, batch)
+    checks["loss_fn"] = {k: v.item() for k, v in metrics.items()}
+    print(f"[4 moe path] {MOE_ARCH} loss_fn on make_batch {DENSE_BATCH}x{TF_PROMPT} (fp32 "
+          f"compute): " + ", ".join(f"{k} {v:.4f}" for k, v in checks["loss_fn"].items()))
+    if not all(math.isfinite(v) for v in checks["loss_fn"].values()):
+        raise AssertionError("MoE loss_fn is not finite")
+    trace = _lm_profile(cfg, params, prompts, dev, tag="moe path")
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # qwen3-moe-30b-a3b, abstract only: fp32 fits no card
+    big = configs.get_config(MOE_ABSTRACT)
+    n = base.count_params(api.abstract_params(big))
+    if n != MOE_PARAMS[MOE_ABSTRACT]:
+        raise AssertionError(f"{MOE_ABSTRACT}: {n} parameters")
+    w8_bytes = 0
+
+    def add(info):
+        nonlocal w8_bytes
+        w8_bytes += math.prod(info.shape) * info.dtype.itemsize
+
+    base.tree_map(add, qapply.abstract_quantized_params(big))
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    print(f"[4 moe path] {MOE_ABSTRACT} (abstract only): {n} parameters, fp32 {4 * n / 1e9:.1f} "
+          f"GB, bf16 {2 * n / 1e9:.1f} GB, W8 tree {w8_bytes / 1e9:.2f} GB "
+          f"(abstract_quantized_params) against the card's {card_bytes / 1e9:.1f} GB")
+    counts = {name: w.launches for name, w in wrappers.items()}
+    print(f"[4 moe path] launches {counts} (the MoE path reaches no TPU kernel)")
+    if any(counts.values()):
+        raise AssertionError("the MoE path launched a kernel")
+    seconds = time.perf_counter() - t_phase
+    print(f"[4 moe path] phase {seconds:.1f} s")
+    print(json.dumps({"moe_ms": runs, "moe_checks": checks, "moe_profile": trace,
+                      "abstract": {MOE_ABSTRACT: {"params": n, "w8_bytes": w8_bytes}},
+                      "phase_s": seconds, "device": torch.cuda.get_device_name(dev),
+                      "power": smi}))
 
 
 def main() -> int:
@@ -1938,8 +2239,10 @@ def main() -> int:
             raise AssertionError(f"quant_matmul[{label}] took the {tile} tile at M={m}")
         lm_cases["quant_matmul"][label] = args
     ssd_routes = {}
-    for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        args = _ssd_args(rng, dev, dtype)
+    # mamba2-2.7b's N = 128 on both routes, then zamba2-2.7b's N = 64 in bf16
+    for label, dtype, n in (("bf16", torch.bfloat16, 128), ("fp32", torch.float32, 128),
+                            ("bf16_zamba", torch.bfloat16, HYBRID_SSM_STATE)):
+        args = _ssd_args(rng, dev, dtype, n)
         mma = sops.ssd.mma_launches
         (y, s), (yp, sp) = sops.ssd(*args, chunk=LM_CHUNK), sref.ssd(*args, chunk=LM_CHUNK)
         torch.cuda.synchronize()
@@ -1952,8 +2255,8 @@ def main() -> int:
               f"state {s_err:.3g}")
         if not _ssd_agrees(y, s, yp, sp):
             raise AssertionError(f"ssd_scan[{label}] disagrees with its plain version")
-        if label == "bf16" and ssd_routes[label] != "tensor cores":
-            raise AssertionError("ssd_scan[bf16] did not take the tensor-core route")
+        if dtype == torch.bfloat16 and ssd_routes[label] != "tensor cores":
+            raise AssertionError(f"ssd_scan[{label}] did not take the tensor-core route")
         lm_cases["ssd_scan"][label] = args
 
     # -- 4. main paths --------------------------------------------------------
@@ -2035,6 +2338,12 @@ def main() -> int:
     mma_launches["ssd_scan"] = lm_launches.pop("ssd_scan mma")
     launches.update(lm_launches)
     _dense_path(dev, wrappers, reset_launches, smi)
+    # one prefill's launches of each family that runs ssd_scan
+    ssd_per_prefill = {"bf16": launches["ssd_scan"],
+                       "bf16_zamba": _hybrid_path(dev, wrappers, reset_launches, smi)}
+    launches["ssd_scan"] += ssd_per_prefill["bf16_zamba"]
+    mma_launches["ssd_scan"] += ssd_per_prefill["bf16_zamba"]
+    _moe_path(dev, wrappers, reset_launches, smi)
 
     # -- 5. times -------------------------------------------------------------
     def nbytes(tensors):
@@ -2111,6 +2420,8 @@ def main() -> int:
                                                       rates["fp32"])[0]}
             moved = nbytes(args) + nbytes(out)
             bound_ms, bound_by = _bound(moved, work, rate)
+            if name == "ssd_scan" and label in ssd_per_prefill:
+                extra["launches_per_prefill"] = ssd_per_prefill[label]
             rec = {
                 "shape": label, "ms": _time_ms(kernel, clock_hz),
                 "plain_ms": _time_ms(plain, clock_hz), **library,

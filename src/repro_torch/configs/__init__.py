@@ -2,9 +2,9 @@
 
 `get_config(name)` returns the full published config; `smoke(name)` a
 reduced same-family variant for CPU tests, with exactly the reductions
-of `repro/configs/__init__.py`. Only the LM families the port runs are
-registered (dense and ssm); the others come with their family
-(ROADMAP.md: A.2 zamba2, A.3 the MoE configs, A.4 qwen2-vl and musicgen).
+of `repro/configs/__init__.py`. Every LM family is registered (dense,
+moe, ssm, hybrid); the vlm and audio configs, qwen2-vl and musicgen,
+come with their modalities (ROADMAP.md, A.4).
 `mnist_fpga`, the paper's own net (family "mlp"), is imported but left
 out of `ARCHS`, as in the reference, so `get_config("mnist-fpga")`
 raises in both packages; `repro_torch.core` runs it.
@@ -14,7 +14,8 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs import (  # noqa: F401
-    gemma_2b, llama3_2_3b, mamba2_2_7b, mnist_fpga, qwen1_5_4b, qwen2_72b,
+    gemma_2b, granite_moe_1b_a400m, llama3_2_3b, mamba2_2_7b, mnist_fpga, qwen1_5_4b,
+    qwen2_72b, qwen3_moe_30b_a3b, zamba2_2_7b,
 )
 from repro_torch.models.base import ArchConfig
 
@@ -22,14 +23,15 @@ __all__ = ["ARCHS", "get_config", "smoke"]
 
 ARCHS: dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (qwen1_5_4b, qwen2_72b, gemma_2b, llama3_2_3b, mamba2_2_7b)
+    for m in (qwen1_5_4b, qwen2_72b, gemma_2b, llama3_2_3b, granite_moe_1b_a400m,
+              qwen3_moe_30b_a3b, mamba2_2_7b, zamba2_2_7b)
 }
 
 
 def get_config(name: str) -> ArchConfig:
     if name not in ARCHS:
         raise KeyError(f"{name!r} is not ported (ported: {sorted(ARCHS)}); see "
-                       "ROADMAP.md: A.2 zamba2, A.3 the MoE configs, A.4 qwen2-vl and musicgen")
+                       "ROADMAP.md, A.4: qwen2-vl and musicgen")
     return ARCHS[name]
 
 

@@ -5,10 +5,13 @@
 
 Counterpart of `repro/launch/serve.py` on one card (no mesh), for every
 config the port registers (`configs.ARCHS`: qwen1.5-4b, gemma-2b,
-llama3.2-3b, qwen2-72b, mamba2-2.7b). Without --smoke the full published
-config is served (qwen2-72b does not fit one card: use --smoke); weights
-are random from a `torch.Generator` seeded 0, made on the device. --w8 serves the int8
-checkpoint (`quantize_params_for_serving`, every matmul weight).
+llama3.2-3b, qwen2-72b, granite-moe-1b-a400m, qwen3-moe-30b-a3b,
+mamba2-2.7b, zamba2-2.7b). Without --smoke the full published config is
+served (qwen2-72b and qwen3-moe-30b-a3b do not fit one card in fp32: use
+--smoke); weights are random from a `torch.Generator` seeded 0, made on
+the device. --w8 serves the int8 checkpoint (`quantize_params_for_serving`,
+every matmul weight); a MoE model raises there, as the reference's W8
+MoE fails (`layers/moe.py`).
 Prints the same summary line as the reference.
 """
 from __future__ import annotations

@@ -3,6 +3,16 @@
 Counterpart of `repro/layers/common.py`. A parameter leaf is either a
 tensor or `{"q": int8, "s": fp32}` (per-output-channel scales over the
 LAST dim); `wx(w, dtype)` returns the compute-dtype weight either way.
+
+`quantize_params_for_serving` gives every weight of three or more dims
+per-(first dim, last dim) scales, meant for a stack of layers whose slice
+reaches `wx` with scales over its last dim alone. An un-stacked weight of
+three dims (zamba's shared attention `wq`/`wk`/`wv` (d, H, hd) and `wo`
+(H, hd, d)) reaches `wx` whole, with its (first, last) scales; `wx`
+broadcasts them over the middle dims. The reference multiplies them as
+they are, which raises a broadcasting error (`repro/layers/common.py:25`):
+its W8 zamba2 runs only while those weights stay below the quantization's
+size floor, as at the smoke size (ROADMAP.md, C).
 """
 from __future__ import annotations
 
@@ -18,5 +28,8 @@ def is_q(w) -> bool:
 def wx(w, dtype: torch.dtype) -> torch.Tensor:
     """Materialize a weight in compute dtype (dequantizing in fp32 first)."""
     if is_q(w):
-        return (w["q"].float() * w["s"]).to(dtype)
+        q, s = w["q"], w["s"]
+        if q.dim() >= 3 and s.dim() == 2:      # an un-stacked weight: (first, last) scales
+            s = s.reshape(s.shape[0], *([1] * (q.dim() - 2)), s.shape[1])
+        return (q.float() * s).to(dtype)
     return w.to(dtype)

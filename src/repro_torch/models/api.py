@@ -6,29 +6,29 @@ Counterpart of `repro/models/api.py`, with the same entry points:
   forward(cfg, params, batch)           -> (logits, aux)
   prefill(cfg, params, batch, cache)    -> (last_logits, cache)
   decode_step(cfg, params, tok, pos, c) -> (logits, cache)
-The `ssm` and `dense` families are ported; `moe` and `hybrid` raise
-(ROADMAP.md, A.2 and A.3). `prefill` and `forward` take `use_kernel`,
-which sends every SSD of the `ssm` family through the `ssd_scan`
-kernel; the `dense` family reaches no kernel and ignores it.
+Every LM family is ported: `dense` and `moe` (models/transformer.py),
+`ssm` (models/mamba.py) and `hybrid` (models/zamba.py). `prefill` and
+`forward` take `use_kernel`, which sends every SSD of the `ssm` and
+`hybrid` families through the `ssd_scan` kernel; the transformer
+families reach no kernel and ignore it.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import mamba, transformer
+from repro_torch.models import mamba, transformer, zamba
 from repro_torch.models.base import ArchConfig
 
-__all__ = ["module_for", "abstract_params", "abstract_cache", "forward", "prefill",
-           "decode_step", "loss_fn"]
+__all__ = ["LB_WEIGHT", "Z_WEIGHT", "module_for", "abstract_params", "abstract_cache",
+           "forward", "prefill", "decode_step", "loss_fn"]
 
-_FAMILY = {"dense": transformer, "ssm": mamba}
-_NOT_PORTED = {"moe": "A.3: the MoE family", "hybrid": "A.2: the hybrid family, zamba2"}
+_FAMILY = {"dense": transformer, "moe": transformer, "ssm": mamba, "hybrid": zamba}
+
+LB_WEIGHT = 0.01
+Z_WEIGHT = 1e-3
 
 
 def module_for(cfg: ArchConfig):
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, {_NOT_PORTED[cfg.family]})")
     return _FAMILY[cfg.family]
 
 
@@ -53,10 +53,10 @@ def decode_step(cfg: ArchConfig, params, tokens, pos, cache, extras=None):
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, use_kernel: bool = False):
-    """Next-token cross-entropy. Returns (loss, metrics). The MoE
-    auxiliary losses come with that family (ROADMAP.md, A.3); the dense
-    family's are zero."""
-    logits, _ = forward(cfg, params, batch, use_kernel=use_kernel)
+    """Next-token cross-entropy, plus the weighted auxiliary losses where
+    `forward` returns any (every transformer: zeros for dense, the router's
+    for MoE). Returns (loss, metrics), the aux losses among the metrics."""
+    logits, aux = forward(cfg, params, batch, use_kernel=use_kernel)
     targets = batch["targets"]
     mask = batch.get("loss_mask")
     if mask is None:
@@ -69,4 +69,9 @@ def loss_fn(cfg: ArchConfig, params, batch, *, use_kernel: bool = False):
     nll = (lse - tgt) * mask
     denom = torch.clamp_min(mask.sum(), 1.0)
     loss = nll.sum() / denom
-    return loss, {"nll": loss, "loss": loss}
+    metrics = {"nll": loss}
+    if aux:
+        loss = loss + LB_WEIGHT * aux["lb_loss"] + Z_WEIGHT * aux["z_loss"]
+        metrics.update(aux)
+    metrics["loss"] = loss
+    return loss, metrics

@@ -1,15 +1,19 @@
-"""Decoder-only transformer, dense family (qwen/llama/gemma), text modality.
+"""Decoder-only transformer: dense (qwen/llama/gemma) and MoE
+(granite/qwen3-moe), text modality — one implementation, config-switched.
 
 Counterpart of `repro/models/transformer.py`. Parameters of the layers are
 stacked on a leading (n_layers,) axis, as in the reference; its
 `lax.scan` over them is a Python loop that takes layer i's slice of
-every leaf (`base.layer`). gemma's (1 + w) norm scale is the config's
-`norm_plus_one` field, where the reference tests the config's name, so
-a renamed or derived config keeps it.
+every leaf (`base.layer`). A MoE block's feed-forward is `layers/moe.py`;
+its auxiliary losses are summed over the layers and divided by their
+number, and a dense model's are zero, as in the reference. gemma's
+(1 + w) norm scale is the config's `norm_plus_one` field, where the
+reference tests the config's name, so a renamed or derived config keeps
+it.
 
 `forward` and `prefill` take the port's `use_kernel` keyword, which the
-`Engine` passes to every family: the dense path reaches no kernel, as
-the reference's reaches no Pallas kernel, so it has no effect here.
+`Engine` passes to every family: the transformer path reaches no kernel,
+as the reference's reaches no Pallas kernel, so it has no effect here.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import embedding as emb_lib
 from repro_torch.layers import mlp as mlp_lib
+from repro_torch.layers import moe as moe_lib
 from repro_torch.layers import norms
 from repro_torch.models.base import ArchConfig, ParamInfo, layer, tree_map
 
@@ -28,16 +33,20 @@ __all__ = ["abstract_params", "abstract_cache", "backbone", "forward", "prefill"
 def abstract_params(cfg: ArchConfig) -> dict:
     L = cfg.n_layers
     plus_one = cfg.norm_plus_one
-    return {
+    p = {
         "embed": emb_lib.embed_params(cfg),
         "layers": {
             "ln_attn": norms.norm_params(cfg.norm, cfg.d_model, L, plus_one=plus_one),
             "attn": attn_lib.attn_params(cfg, L),
             "ln_mlp": norms.norm_params(cfg.norm, cfg.d_model, L, plus_one=plus_one),
-            "mlp": mlp_lib.mlp_params(cfg, L),
         },
         "final_norm": norms.norm_params(cfg.norm, cfg.d_model, plus_one=plus_one),
     }
+    if cfg.family == "moe":
+        p["layers"]["moe"] = moe_lib.moe_params(cfg, L)
+    else:
+        p["layers"]["mlp"] = mlp_lib.mlp_params(cfg, L)
+    return p
 
 
 def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
@@ -48,33 +57,40 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
 
 
 def _block(cfg: ArchConfig, lp: dict, h, positions, cache_layer, cache_pos, causal: bool):
-    """One transformer block. Returns (h, new_cache_layer)."""
+    """One transformer block. Returns (h, new_cache_layer, aux)."""
     plus_one = cfg.norm_plus_one
     hn = norms.apply_norm(cfg.norm, lp["ln_attn"], h, eps=cfg.norm_eps, plus_one=plus_one)
     a, new_cache = attn_lib.attention(cfg, lp["attn"], hn, positions, cache=cache_layer,
                                       cache_pos=cache_pos, causal=causal)
     h = h + a
     hn = norms.apply_norm(cfg.norm, lp["ln_mlp"], h, eps=cfg.norm_eps, plus_one=plus_one)
-    return h + mlp_lib.mlp(cfg, lp["mlp"], hn), new_cache
+    if cfg.family == "moe":
+        m, aux = moe_lib.moe(cfg, lp["moe"], hn)
+    else:
+        m, aux = mlp_lib.mlp(cfg, lp["mlp"], hn), None
+    return h + m, new_cache, aux
 
 
 def backbone(cfg: ArchConfig, params: dict, h: torch.Tensor, positions: torch.Tensor, *,
              cache: dict | None = None, cache_pos: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, dict | None, dict]:
-    """Run all layers. Returns (h, new_cache, aux_losses); the dense
-    family's auxiliary losses are zero, as in the reference."""
+    """Run all layers. Returns (h, new_cache, aux_losses): the MoE losses
+    averaged over the layers; a dense model's are zero, as in the reference."""
     ks, vs = [], []
+    lb = torch.zeros((), dtype=torch.float32, device=h.device)
+    zl = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
-        h, new = _block(cfg, layer(params["layers"], i), h, positions,
-                        None if cache is None else layer(cache, i), cache_pos, True)
+        h, new, aux = _block(cfg, layer(params["layers"], i), h, positions,
+                             None if cache is None else layer(cache, i), cache_pos, True)
         if new is not None:
             ks.append(new["k"])
             vs.append(new["v"])
+        if aux is not None:
+            lb, zl = lb + aux["lb_loss"], zl + aux["z_loss"]
     new_cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if cache is not None else None
     h = norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps,
                          plus_one=cfg.norm_plus_one)
-    zero = torch.zeros((), dtype=torch.float32, device=h.device)
-    return h, new_cache, {"lb_loss": zero, "z_loss": zero}
+    return h, new_cache, {"lb_loss": lb / cfg.n_layers, "z_loss": zl / cfg.n_layers}
 
 
 def _positions_for(cfg: ArchConfig, batch: dict, B: int, S: int, device) -> torch.Tensor:

@@ -7,16 +7,20 @@ is `torch.round`, half to even, as `np.round` in the reference. Leaves
 of a quantized tree are tensors or `{"q": int8, "s": fp32}`; paths are
 named as the reference names them (`['layers']['mixer']['in_proj']`),
 so the same filters select the same leaves. `abstract_quantized_params`
-is not ported yet (ROADMAP.md, A.5).
+declares the W8 serving tree without making a tensor.
 """
 from __future__ import annotations
 
+import math
 import re
 
 import torch
 
+from repro_torch.models import api
+from repro_torch.models.base import ParamInfo
+
 __all__ = ["QUANT_MIN_SIZE", "quantize_leaf", "quantize_tree", "dequantize_tree",
-           "quantize_params_for_serving", "prune_stats"]
+           "abstract_quantized_params", "quantize_params_for_serving", "prune_stats"]
 
 QUANT_MIN_SIZE = 1 << 14      # don't quantize tiny tensors (norms, biases)
 
@@ -95,11 +99,32 @@ def dequantize_tree(qtree, dtype=torch.float32):
                     if _is_q(leaf) else leaf)
 
 
+def _served_as_int8(path: str, shape, min_size: int) -> bool:
+    """Whether the serving checkpoint stores this leaf as int8 + scales."""
+    return len(shape) >= 2 and math.prod(shape) >= min_size and bool(_QUANT_NAMES.search(path))
+
+
+def abstract_quantized_params(cfg, *, min_size: int = QUANT_MIN_SIZE) -> dict:
+    """The abstract (ParamInfo) tree of the W8 serving checkpoint, made
+    without allocating: the leaves `quantize_params_for_serving` quantizes
+    become {"q": int8, "s": fp32 scales}, with per-(stack, out-channel)
+    scales, (L, last), for stacked weights."""
+    def one(path, info):
+        if not _served_as_int8(path, info.shape, min_size):
+            return info
+        sshape = ((info.shape[0], info.shape[-1]) if len(info.shape) >= 3
+                  else (info.shape[-1],))
+        return {"q": ParamInfo(info.shape, torch.int8, init="zeros"),
+                "s": ParamInfo(sshape, torch.float32, init="ones")}
+
+    return _rebuild(api.abstract_params(cfg), one)
+
+
 def quantize_params_for_serving(cfg, params, *, min_size: int = QUANT_MIN_SIZE):
     """Real int8 + scales for the big matmul weights, with per-(layer,
     out-channel) scales for stacked weights (ndim >= 3)."""
     def one(path, arr):
-        if not (arr.dim() >= 2 and arr.numel() >= min_size and _QUANT_NAMES.search(path)):
+        if not _served_as_int8(path, arr.shape, min_size):
             return arr
         if arr.dim() >= 3:
             flatw = arr.reshape(arr.shape[0], -1, arr.shape[-1])

@@ -6,10 +6,10 @@ whole batch (`serve_step`). Greedy decoding is all the reference does:
 `ServeConfig` carries its `temperature` and `seed` fields, in its order
 and with its defaults, and, as there, nothing reads them. It runs
 on `device` (the card unless the caller names the CPU). On the card, a
-Mamba2 prefill sends every SSD through the `ssd_scan` kernel;
+Mamba2 or zamba2 prefill sends every SSD through the `ssd_scan` kernel;
 `use_kernel=False` exists only so that tests and `chip_smoke.py` can
 compare the two routes, and nothing switches to it on a failure. The
-dense family reaches no kernel and ignores the flag.
+dense and MoE families reach no kernel and ignore the flag.
 """
 from __future__ import annotations
 

@@ -221,12 +221,13 @@ def test_configs_and_abstract_tree():
     small = configs.smoke(ARCH)
     assert {f.name: getattr(small, f.name) for f in dataclasses.fields(jcfg)} == \
         dataclasses.asdict(jconfigs.smoke(ARCH))
-    for unported in ("zamba2-2.7b", "granite-moe-1b-a400m", "qwen2-vl-2b"):
-        with pytest.raises(KeyError):
+    for unported in ("qwen2-vl-2b", "musicgen-medium"):
+        with pytest.raises(KeyError, match="A.4"):
             configs.get_config(unported)
-    for family in ("moe", "hybrid"):
-        with pytest.raises(NotImplementedError):
-            api.abstract_params(dataclasses.replace(small, family=family))
+    for name, family in (("zamba2-2.7b", "hybrid"), ("granite-moe-1b-a400m", "moe"),
+                         ("qwen3-moe-30b-a3b", "moe")):
+        assert configs.get_config(name).family == family
+        assert api.abstract_params(dataclasses.replace(small, family=family))
 
 
 def test_tree_init_is_seeded_and_follows_the_rules():
@@ -269,17 +270,15 @@ def test_launcher_serves_the_smoke_config(capsys):
 
 
 def test_unported_features_raise():
-    """What is still unported raises, naming its ROADMAP item: the moe and
-    hybrid families, and the vlm and audio modalities."""
-    small = configs.smoke(ARCH)
-    for family, item in (("moe", "A.3"), ("hybrid", "A.2")):
-        with pytest.raises(NotImplementedError, match=item):
-            api.abstract_params(dataclasses.replace(small, family=family))
-    p = base.tree_init(api.abstract_params(small), torch.Generator(), "cpu")
-    for modality in ("vlm", "audio"):
-        cfg = dataclasses.replace(small, modality=modality)
-        with pytest.raises(NotImplementedError, match="A.4"):
-            api.forward(cfg, p, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    """What is still unported raises, naming its ROADMAP item: the vlm and
+    audio modalities (A.4), in the ssm family and in the hybrid one."""
+    for arch in (ARCH, "zamba2-2.7b"):
+        small = configs.smoke(arch)
+        p = base.tree_init(api.abstract_params(small), torch.Generator(), "cpu")
+        for modality in ("vlm", "audio"):
+            cfg = dataclasses.replace(small, modality=modality)
+            with pytest.raises(NotImplementedError, match="A.4"):
+                api.forward(cfg, p, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
 
 
 def test_serve_config_fields_equal_the_reference():
