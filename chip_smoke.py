@@ -140,7 +140,31 @@ Phases, each raising on failure (nothing is caught):
    aux losses; the share of routed pairs dropped at
    prefill and at decode (capacity 1 at 4 tokens); a profile;
    qwen3-moe-30b-a3b abstract (fp32, bf16 and W8 bytes). Every count must
-   stay 0.
+   stay 0. (h) The vlm and audio modalities: qwen2-vl-2b (1.54 B
+   parameters, M-RoPE, the first 128 positions of a 512-token prompt image
+   patches) and musicgen-medium (1.37 B, LayerNorm, GELU, sinusoidal
+   positions, frame embeddings) at full width, served from fp32 at
+   4 x 512 + 32 by `Engine.generate(prompts, extras)` with `make_batch`'s
+   numpy extras; fp32 teacher forcing with those extras (zero extras and a
+   false mask over the generated positions, as `decode_step` supplies
+   them), prefill against forward (2e-2), a bf16 decode step against fp32
+   (0.05); a profile. Every count must stay 0. (i) The training stack:
+   gemma-2b at full width (2.51 B parameters; 40.1 GB of fp32 parameters,
+   gradients and AdamW moments) through `trainer.run`, 4 x 512 in two
+   microbatches with remat, 6 steps: every loss and grad_norm finite, the
+   first loss within 0.5 nat of ln 256,000, the last below the first, and
+   the step-1 batch scored again after training below its first loss;
+   step wall, tokens/s, model FLOP utilisation, peak memory and a profile
+   of one step; remat against none on one 1 x 512 microbatch (the same
+   loss, grad_norm within 1e-3); the card against the host at the smoke
+   size for the dense, MoE, ssm, hybrid, vlm and audio configs (3 steps in
+   fp32: losses within 1e-5 relative, step-1 gradients within 1e-5 of
+   their largest |g|); a run killed at step 6 and resumed from its
+   emergency checkpoint, bit-identical to an uninterrupted one under
+   deterministic algorithms (in a subprocess, `chip_smoke.py --kill-resume
+   DIR`, whose CUBLAS_WORKSPACE_CONFIG is set before CUDA starts; the
+   default algorithms' result is reported); and the training launcher as
+   a subprocess. Every count must stay 0.
    Every launch count is set to 0 just before a path runs and read just
    after it; each of the path's kernels must have launched.
 5. Times: CUDA events, median of 20 runs after warmup, per kernel (both
@@ -305,6 +329,40 @@ HYBRID_ARCH, HYBRID_PARAMS, HYBRID_SSM_STATE = "zamba2-2.7b", 2_409_563_040, 64
 MOE_ARCH, MOE_ABSTRACT = "granite-moe-1b-a400m", "qwen3-moe-30b-a3b"
 MOE_PARAMS = {"granite-moe-1b-a400m": 1_334_628_352, "qwen3-moe-30b-a3b": 30_532_110_336}
 MOE_HOST_RTOL, MOE_BF16_RTOL = 1e-3, 0.15
+# The vlm and audio modalities (phase 4(h)): qwen2-vl-2b and musicgen-medium
+# as published, served from fp32 (bf16 compute) at 4 x 512 + 32 with the
+# prompt extras of `data.pipeline.make_batch` (vlm: the first 128
+# positions are image patches, M-RoPE positions (B, 3, S); audio: frame
+# embeddings ~ N(0, 0.02) and sinusoidal positions); held as the dense
+# family is: teacher forcing, prefill vs forward, a bf16 decode step.
+# make_batch gives the three M-RoPE sections one arange, which reduces
+# M-RoPE to RoPE; so the vlm checks run on distinct (t, h, w) positions
+# over the image prefix (`_grid_positions`), and layer 0's M-RoPE is held
+# to a plain per-section rotation in fp64 within MROPE_RTOL of max |q|
+# (fp32 angles at positions < 100: ~1e-5 of a unit rotation), where the
+# same positions with the sections' order reversed must miss it by 100x.
+MODALITY_PARAMS = {"qwen2-vl-2b": 1_543_714_304, "musicgen-medium": 1_365_543_936}
+MROPE_RTOL = 1e-4
+# The LM training stack (phase 4(i)): gemma-2b as published through
+# `trainer.run` at 4 x 512 (2 microbatches), remat, 6 steps of AdamW; the
+# first loss within TRAIN_LOSS0_NAT of ln(vocab) (tied head, init std
+# 1/sqrt(vocab): logits ~0.09 at random init), the last below the first,
+# and the step-1 batch, scored again after the 6 steps, below its first
+# loss. Each step sees a new batch of a bigram map over 256,000 tokens that
+# 6 steps cannot learn, so the last loss moves by the batches' spread
+# (~0.002 nat; 0.0005 below the first on an H100 80GB HBM3, 700 W, seed 0)
+# and shows little; the rescored step-1 batch shows the optimizer fitting
+# what it saw (0.098 nat lower on that card). Remat against none on one
+# 1 x 512 microbatch: the same loss, grad_norm within REMAT_GNORM_RTOL.
+# Card against host at the smoke size, fp32, TF32 off, for each family and
+# modality: losses within HOST_LOSS_RTOL relative, step-1 gradients within
+# HOST_GRAD_RTOL of their largest |g| (fp32 summation order; Adam turns a
+# near-zero gradient's sign into +-lr, so parameters are not compared).
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = "gemma-2b", 512, 4, 2, 6
+TRAIN_LOSS0_NAT, REMAT_GNORM_RTOL = 0.5, 1e-3
+HOST_ARCHS = {"dense": "gemma-2b", "moe": "granite-moe-1b-a400m", "ssm": "mamba2-2.7b",
+              "hybrid": "zamba2-2.7b", "vlm": "qwen2-vl-2b", "audio": "musicgen-medium"}
+HOST_LOSS_RTOL, HOST_GRAD_RTOL = 1e-5, 1e-5
 
 
 def _smi(query: str) -> str:
@@ -1342,54 +1400,72 @@ def _lm_main_path(dev, wrappers, reset_launches):
     return launches, times, trace
 
 
-def _lm_profile(cfg, params, prompts, dev, tag: str = "lm path") -> dict:
-    """Where an LM path's time goes: one warm prefill (kernel route, where
-    the family has one) and one decode step of the fp32 checkpoint. Wall
-    time from a run without the profiler; then `torch.profiler` over a
-    second run for the device busy time (the sum of the kernels' spans on
-    the one stream), the kernel launches, and the kernels that take
-    longest, summed by name."""
+def _profile_call(fn) -> dict:
+    """Where one warm call's time goes: wall time from a run without the
+    profiler (after one untimed run), then `torch.profiler` over another
+    run for the device busy time (the sum of the kernels' spans on the one
+    stream), the kernel launches, and the kernels that take longest,
+    summed by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1 - busy / wall_ms), "kernel_launches": len(kernels),
+            "top_ms": [[n[:70], ms] for n, ms in top]}
+
+
+def _print_profile(tag: str, name: str, rec: dict) -> None:
+    print(f"[4 {tag}] profile {name}: wall {rec['wall_ms']:.1f} ms, device busy "
+          f"{rec['device_busy_ms']:.1f} ms (idle {rec['idle_share']:.3f}), "
+          f"{rec['kernel_launches']} kernel launches; longest: "
+          + ", ".join(f"{n[:40]} {ms:.1f} ms" for n, ms in rec["top_ms"][:3]))
+
+
+def _lm_profile(cfg, params, prompts, dev, tag: str = "lm path", extras=None) -> dict:
+    """Where an LM path's time goes (`_profile_call`): one warm prefill
+    (kernel route, where the family has one; with the prompt's modality
+    `extras`) and one decode step of the fp32 checkpoint."""
+    import torch
     from repro_torch.models import api, base
 
     out = {}
     with torch.inference_mode():
         B, P = prompts.shape
-        tokens = torch.as_tensor(prompts, device=dev).long()
+        batch = {"tokens": torch.as_tensor(prompts, device=dev).long(),
+                 **_on(extras or {}, dev)}
         cache = base.tree_init(api.abstract_cache(cfg, B, P + 1),
                                torch.Generator(device=dev), dev)
-        logits, state = api.prefill(cfg, params, {"tokens": tokens}, cache, use_kernel=True)
+        logits, state = api.prefill(cfg, params, batch, cache, use_kernel=True)
         nxt = logits.argmax(-1)[:, None]
         pos = torch.full((B,), P, dtype=torch.int32, device=dev)
-        steps = {"prefill": lambda: api.prefill(cfg, params, {"tokens": tokens}, cache,
-                                                use_kernel=True),
+        steps = {"prefill": lambda: api.prefill(cfg, params, batch, cache, use_kernel=True),
                  "decode_step": lambda: api.decode_step(cfg, params, nxt, pos, state)}
         for name, fn in steps.items():
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            by_name: dict = {}
-            kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-            for e in kernels:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-            busy = sum(by_name.values())
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-            out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy,
-                         "idle_share": max(0.0, 1 - busy / wall_ms),
-                         "kernel_launches": len(kernels),
-                         "top_ms": [[n[:70], ms] for n, ms in top]}
-            print(f"[4 {tag}] profile {name}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
-                  f"(idle {out[name]['idle_share']:.3f}), {len(kernels)} kernel launches; "
-                  "longest: " + ", ".join(f"{n[:40]} {ms:.1f} ms" for n, ms in top[:3]))
+            out[name] = _profile_call(fn)
+            _print_profile(tag, name, out[name])
     return out
+
+
+def _on(arrays: dict, dev) -> dict:
+    """numpy arrays -> tensors on `dev`, their dtypes kept."""
+    import torch
+    return {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
 
 
 def _prefill(cfg, params, tokens, dev, use_kernel: bool):
@@ -1550,10 +1626,10 @@ def _cache_bytes(cfg, batch: int, max_len: int) -> int:
 
 
 def _dense_generate(cfg, params, prompts, new: int, dev, label: str,
-                    tag: str = "dense path") -> dict:
-    """`Engine.generate` of `new` tokens after `prompts`; checks the tokens'
-    shape and range and returns the run's times, cache bytes and first
-    tokens."""
+                    tag: str = "dense path", extras=None) -> dict:
+    """`Engine.generate` of `new` tokens after `prompts` (and the prompt's
+    modality `extras`, numpy); checks the tokens' shape and range and
+    returns the run's times, cache bytes and first tokens."""
     import torch
     from repro_torch.serve.engine import Engine, ServeConfig
 
@@ -1561,7 +1637,7 @@ def _dense_generate(cfg, params, prompts, new: int, dev, label: str,
     sc = ServeConfig(max_len=P + new + 8, max_new_tokens=new)
     engine = Engine(cfg, params, sc, device=dev)
     t0 = time.perf_counter()
-    out = engine.generate(prompts)
+    out = engine.generate(prompts, extras)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if out.shape != (B, new) or out.min() < 0 or out.max() >= cfg.vocab:
@@ -1577,14 +1653,18 @@ def _dense_generate(cfg, params, prompts, new: int, dev, label: str,
     return rec
 
 
-def _teacher_forcing(cfg, params, prompts, dev, tag: str = "dense path") -> dict:
+def _teacher_forcing(cfg, params, prompts, dev, tag: str = "dense path",
+                     extras=None) -> dict:
     """In fp32 compute: the engine's greedy tokens against the argmax of a
     teacher-forced `api.forward` over prompt + generation (position P+i-1
     predicts token i). A token may differ only where the forward's top-2
     margin is below TF_MARGIN_RTOL of the largest |logit| (a near tie
     that fp32 summation order can flip); such positions are counted. The
     forward's position P-1 is the prefill's last position, so `prefill`'s
-    logits are held to it within the reference's PREFILL_TOL."""
+    logits are held to it within the reference's PREFILL_TOL. The prompt's
+    modality `extras` reach the engine and the prefill; the forward gets
+    them extended over the generated positions as `decode_step` supplies
+    them (`_extend_extras`)."""
     import dataclasses
     import numpy as np
     import torch
@@ -1593,13 +1673,15 @@ def _teacher_forcing(cfg, params, prompts, dev, tag: str = "dense path") -> dict
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     B, P = prompts.shape
+    extras = extras or {}
     gen = Engine(cfg32, params, ServeConfig(max_len=P + TF_NEW + 8, max_new_tokens=TF_NEW),
-                 device=dev).generate(prompts)
+                 device=dev).generate(prompts, extras)
     with torch.inference_mode():
         seq = torch.as_tensor(np.concatenate([prompts, gen], axis=1), device=dev).long()
-        logits = api.forward(cfg32, params, {"tokens": seq})[0][:, P - 1:-1]   # (B, new, V)
+        logits = api.forward(cfg32, params, {"tokens": seq, **_on(
+            _extend_extras(extras, P, TF_NEW), dev)})[0][:, P - 1:-1]          # (B, new, V)
         cache = base.tree_init(api.abstract_cache(cfg32, B, P), torch.Generator(device=dev), dev)
-        last, _ = api.prefill(cfg32, params, {"tokens": seq[:, :P]}, cache)
+        last, _ = api.prefill(cfg32, params, {"tokens": seq[:, :P], **_on(extras, dev)}, cache)
     top2 = logits.topk(2, dim=-1).values
     margin = top2[..., 0] - top2[..., 1]
     bound = TF_MARGIN_RTOL * logits.abs().max()
@@ -1618,6 +1700,23 @@ def _teacher_forcing(cfg, params, prompts, dev, tag: str = "dense path") -> dict
     if not torch.allclose(last, logits[:, 0], rtol=PREFILL_TOL, atol=PREFILL_TOL):
         raise AssertionError(f"{cfg.name}: prefill's last logits differ from forward's")
     return rec
+
+
+def _extend_extras(extras: dict, P: int, new: int) -> dict:
+    """A prompt's modality inputs (numpy, (B, P, ...)) extended over `new`
+    generated positions with what `decode_step` supplies there: zero
+    `pixel_embeds`/`frame_embeds`, a false `pixel_mask`, and M-RoPE
+    `positions` (B, 3, P) continued with each position's index."""
+    import numpy as np
+    out = {}
+    for k, v in extras.items():
+        if k == "positions":
+            tail = np.broadcast_to(np.arange(P, P + new, dtype=v.dtype), v.shape[:-1] + (new,))
+            out[k] = np.concatenate([v, tail], axis=-1)
+        else:
+            out[k] = np.concatenate([v, np.zeros((v.shape[0], new) + v.shape[2:], v.dtype)],
+                                    axis=1)
+    return out
 
 
 def _flash_check(cfg, params, tokens, dev) -> dict:
@@ -1660,10 +1759,11 @@ def _rel_max(got, want) -> float:
 
 
 def _bf16_decode_check(cfg, params, prompts, dev, tag: str = "dense path",
-                       bound: float = BF16_DECODE_RTOL) -> float:
+                       bound: float = BF16_DECODE_RTOL, extras=None) -> float:
     """One decode step in the configured bf16 compute against the same step
-    in fp32 compute: both prefill `prompts`, then decode the fp32 path's
-    greedy token at position P. Returns the logits' `_rel_max`."""
+    in fp32 compute: both prefill `prompts` (with the prompt's modality
+    `extras`), then decode the fp32 path's greedy token at position P.
+    Returns the logits' `_rel_max`."""
     import dataclasses
     import torch
     from repro_torch.models import api, base
@@ -1676,7 +1776,8 @@ def _bf16_decode_check(cfg, params, prompts, dev, tag: str = "dense path",
         for c in (dataclasses.replace(cfg, compute_dtype="float32"), cfg):
             cache = base.tree_init(api.abstract_cache(c, B, P + 1),
                                    torch.Generator(device=dev), dev)
-            last, cache = api.prefill(c, params, {"tokens": toks}, cache)
+            last, cache = api.prefill(c, params, {"tokens": toks, **_on(extras or {}, dev)},
+                                      cache)
             if not logits:
                 nxt = last.argmax(-1, keepdim=True)
             logits[c.compute_dtype] = api.decode_step(c, params, nxt, pos, cache)[0]
@@ -2058,6 +2159,415 @@ def _moe_path(dev, wrappers, reset_launches, smi) -> None:
                       "power": smi}))
 
 
+def _modality_path(dev, wrappers, reset_launches, smi) -> None:
+    """Phase 4(h): qwen2-vl-2b (vlm) and musicgen-medium (audio) at full
+    width, served from fp32 (bf16 compute) at 4 x 512 + 32 with the prompt
+    extras of `make_batch` passed to `Engine.generate` as numpy arrays;
+    fp32 teacher forcing with those extras (zero extras and a false mask
+    over the generated positions, as `decode_step` supplies them; for
+    vlm on distinct M-RoPE positions, `_grid_positions`, with layer 0's
+    M-RoPE held to its plain rotation), prefill vs forward, a bf16 decode
+    step against fp32; a profile. No TPU kernel: each model's counts,
+    read after its generate, checks and profile, stay 0."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import api, base
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    reset_launches()
+    runs, checks, trace = {}, {}, {}
+    for name, want in MODALITY_PARAMS.items():
+        tag = "modality path"
+        cfg = configs.get_config(name)
+        n = base.count_params(api.abstract_params(cfg))
+        if n != want:
+            raise AssertionError(f"{name}: {n} parameters, want {want}")
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            params = base.tree_init(api.abstract_params(cfg),
+                                    torch.Generator(device=dev).manual_seed(SEED), dev)
+        torch.cuda.synchronize()
+        print(f"[4 {tag}] {name} ({cfg.modality}): {n} parameters, {cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, "
+              f"d_ff {cfg.d_ff} ({cfg.act}, {cfg.norm}), positions {cfg.pos}, vocab "
+              f"{cfg.vocab}, compute {cfg.compute_dtype}; init {time.perf_counter() - t0:.2f} s, "
+              f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB allocated")
+
+        def prompt(seq: int, step: int):
+            b = make_batch(cfg, base.ShapeConfig("serve", seq, DENSE_BATCH, "prefill"), step,
+                           seed=SEED)
+            return b["tokens"], {k: v for k, v in b.items()
+                                 if k not in ("tokens", "targets", "loss_mask")}
+
+        prompts, extras = prompt(DENSE_PROMPT, 0)
+        print(f"[4 {tag}] {name} prompt extras: " + ", ".join(
+            f"{k} {v.shape} {v.dtype}" for k, v in extras.items())
+            + (f"; {int(extras['pixel_mask'][0].sum())} image positions a prompt"
+               if "pixel_mask" in extras else
+               f"; frame_embeds std {float(extras['frame_embeds'].std()):.4f}"))
+        _dense_generate(cfg, params, prompts, 2, dev, "warm-up", tag, extras)
+        reset_launches()
+        runs[name] = _dense_generate(cfg, params, prompts, DENSE_NEW, dev, "fp32", tag, extras)
+        tf, tf_extras = prompt(TF_PROMPT, 1)
+        checks[name] = {}
+        if cfg.pos == "mrope":
+            tf_extras["positions"] = _grid_positions(tf_extras["pixel_mask"])
+            checks[name]["mrope_rel_max"] = _mrope_check(cfg, params, tf, tf_extras, dev)
+        checks[name].update({
+            "teacher_forcing": _teacher_forcing(cfg, params, tf, dev, tag, extras=tf_extras),
+            "bf16_decode_rel_max": _bf16_decode_check(cfg, params, tf, dev, tag,
+                                                      extras=tf_extras)})
+        trace[name] = _lm_profile(cfg, params, prompts, dev, tag, extras)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        print(f"[4 {tag}] {name} launches over its generate, checks and profile {counts} "
+              f"(the {cfg.modality} path reaches no TPU kernel)")
+        if any(counts.values()):
+            raise AssertionError(f"the {cfg.modality} path of {name} launched a kernel")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[4 modality path] phase {seconds:.1f} s")
+    print(json.dumps({"modality_ms": runs, "modality_checks": checks, "modality_profile": trace,
+                      "phase_s": seconds, "device": torch.cuda.get_device_name(dev),
+                      "power": smi}))
+
+
+def _grid_positions(pixel_mask):
+    """Distinct M-RoPE positions (B, 3, S) for a prompt whose first n
+    positions are image patches (`pixel_mask`, the same prefix in every
+    row): patch i of a W-wide grid (W = ceil(sqrt(n))) at (t, h, w) =
+    (0, i // W, i % W); the text after it at one index in all three
+    sections, from the grid's largest index + 1 on, as Qwen2-VL places
+    text after an image."""
+    import math
+    import numpy as np
+    B, S = pixel_mask.shape
+    n = int(pixel_mask[0].sum())
+    if not (pixel_mask[:, :n].all() and not pixel_mask[:, n:].any()):
+        raise AssertionError("the image patches are not one prefix of every prompt")
+    W = math.ceil(math.sqrt(n))
+    i = np.arange(n)
+    grid = np.stack([np.zeros(n, np.int64), i // W, i % W])                   # (3, n)
+    text = np.broadcast_to(grid.max() + 1 + np.arange(S - n), (3, S - n))
+    pos = np.concatenate([grid, text], axis=1).astype(np.int32)               # (3, S)
+    return np.ascontiguousarray(np.broadcast_to(pos, (B, 3, S)))
+
+
+def _mrope_check(cfg, params, tokens, extras, dev) -> float:
+    """Layer 0's query, rotated by `rotary.mrope` (fp32) at the distinct
+    positions of `extras`, against a plain per-section rotation in fp64:
+    band j of the head's half-dim turns by position[section(j)] *
+    theta^(-j / half). Returns max |diff| over max |q|; fails above
+    MROPE_RTOL, or if the sections' reversed order lands within 100x of
+    it (positions that would not show a wrong split)."""
+    import dataclasses
+    import torch
+    from repro_torch.layers import attention, embedding, norms, rotary
+    from repro_torch.models import base
+
+    c = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.inference_mode():
+        lp = base.layer(params["layers"], 0)
+        batch = {"tokens": torch.as_tensor(tokens, device=dev).long(), **_on(extras, dev)}
+        hn = norms.apply_norm(c.norm, lp["ln_attn"],
+                              embedding.assemble_inputs(c, params["embed"], batch),
+                              eps=c.norm_eps, plus_one=c.norm_plus_one)
+        q = attention._project(hn, lp["attn"]["wq"], lp["attn"].get("bq"))   # (B, S, H, hd)
+        pos = batch["positions"].transpose(0, 1)                               # (3, B, S)
+        got = rotary.mrope(q, pos, c.rope_theta, c.mrope_sections)
+
+        def plain(sections):
+            half = q.shape[-1] // 2
+            freqs = c.rope_theta ** (-torch.arange(half, dtype=torch.float64, device=dev) / half)
+            bands, lo = [], 0
+            for k, n in enumerate(sections):
+                bands.append(pos[k].double()[..., None] * freqs[lo:lo + n])
+                lo += n
+            ang = torch.cat(bands, dim=-1)[:, :, None, :]                       # (B, S, 1, half)
+            x1, x2 = q[..., :half].double(), q[..., half:].double()
+            return torch.cat([x1 * ang.cos() - x2 * ang.sin(),
+                              x2 * ang.cos() + x1 * ang.sin()], dim=-1)
+
+        scale = q.abs().max().double()
+        want = plain(c.mrope_sections)
+        err = ((got.double() - want).abs().max() / scale).item()
+        wrong = ((plain(c.mrope_sections[::-1]) - want).abs().max() / scale).item()
+    print(f"[4 modality path] {cfg.name} layer 0 M-RoPE {tuple(q.shape)} at distinct (t, h, w) "
+          f"positions vs a plain per-section rotation: max |diff| {err:.3g} of max |q| (bound "
+          f"{MROPE_RTOL}); the sections reversed miss it by {wrong:.3g}")
+    if not err < MROPE_RTOL:
+        raise AssertionError(f"{cfg.name}: M-RoPE differs from its per-section rotation")
+    if not wrong > 100 * MROPE_RTOL:
+        raise AssertionError(f"{cfg.name}: the M-RoPE positions do not tell the sections apart")
+    return err
+
+
+def _train_path(dev, wrappers, reset_launches, smi) -> None:
+    """Phase 4(i): the LM training stack. (a) gemma-2b as published through
+    `trainer.run`: 4 x 512 in two microbatches, remat, AdamW, 6 steps; each
+    step's loss, grad_norm and wall; tokens/s, model FLOP utilisation,
+    peak memory; a profile of one step. (b) Remat against none on one
+    1 x 512 microbatch at full width. (c) Card against host at the smoke
+    size for each family and modality. (d) Kill and resume on the card
+    (`_kill_resume_child`, in a subprocess). (e) The training launcher as
+    a subprocess. No TPU kernel: every count stays 0."""
+    import dataclasses
+    import gc
+    import math
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import api, base
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+    from repro_torch.train import trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    reset_launches()
+    tag = "train path"
+    out, checks = {}, {}
+    scratch = ROOT / "build" / "train_path"
+    shutil.rmtree(scratch, ignore_errors=True)
+
+    # (a) gemma-2b at full width through the trainer
+    cfg = configs.get_config(TRAIN_ARCH)
+    n = base.count_params(api.abstract_params(cfg))
+    shape = base.ShapeConfig("chip", TRAIN_SEQ, TRAIN_BATCH, "train", accum=TRAIN_ACCUM)
+    oc = adamw.OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    tc = trainer.TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS + 1,
+                               ckpt_dir=str(scratch / "gemma"), seed=SEED, remat="full")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, hist = trainer.run(cfg, shape, oc, tc, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    step_s = statistics.median(hist["step_s"][1:])
+    mfu = 6 * n * tokens / step_s / BF16_TC_FLOP_PER_S
+    for i, (loss, gn, dt) in enumerate(zip(hist["loss"], hist["grad_norm"], hist["step_s"])):
+        print(f"[4 {tag}] {TRAIN_ARCH} step {i + 1}: loss {loss:.5f}, grad_norm {gn:.4f}, "
+              f"{dt * 1e3:.1f} ms")
+    ln_v = math.log(cfg.vocab)
+    with torch.no_grad():
+        batch0 = _on(make_batch(cfg, shape, 0, seed=tc.data_seed), dev)
+        seen0 = api.loss_fn(cfg, state["params"], batch0)[0].item()
+    print(f"[4 {tag}] {TRAIN_ARCH} ({n} parameters, state {16 * n / 1e9:.1f} GB fp32 params + "
+          f"grads + m + v), {TRAIN_BATCH}x{TRAIN_SEQ} in {TRAIN_ACCUM} microbatches, remat "
+          f"full: {TRAIN_STEPS} steps in {run_s:.1f} s; median step (2-{TRAIN_STEPS}) "
+          f"{step_s * 1e3:.1f} ms, {tokens / step_s:.0f} tokens/s, model FLOP utilisation "
+          f"{mfu:.3f} (6 N tokens / step s / {BF16_TC_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16); "
+          f"peak {peak / 1e9:.1f} GB allocated of the card's "
+          f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.1f} GB")
+    print(f"[4 {tag}] {TRAIN_ARCH} first loss {hist['loss'][0]:.5f} vs ln(vocab) {ln_v:.5f} "
+          f"(bound {TRAIN_LOSS0_NAT} nat); last {hist['loss'][-1]:.5f}; the step-1 batch after "
+          f"{TRAIN_STEPS} steps: {seen0:.5f}")
+    out["gemma"] = {"params": n, "loss": hist["loss"], "grad_norm": hist["grad_norm"],
+                    "step_s": hist["step_s"], "median_step_ms": step_s * 1e3,
+                    "tokens_per_s": tokens / step_s, "mfu": mfu, "peak_bytes": peak,
+                    "run_s": run_s, "step1_batch_loss_after": seen0,
+                    "stragglers": len(hist["stragglers"])}
+    if not all(math.isfinite(v) for v in hist["loss"] + hist["grad_norm"]):
+        raise AssertionError("a training loss or grad_norm is not finite")
+    if not abs(hist["loss"][0] - ln_v) < TRAIN_LOSS0_NAT:
+        raise AssertionError(f"the first loss {hist['loss'][0]} is not within "
+                             f"{TRAIN_LOSS0_NAT} of ln(vocab) {ln_v}")
+    if not hist["loss"][-1] < hist["loss"][0]:
+        raise AssertionError("the last training loss is not below the first")
+    if not seen0 < hist["loss"][0]:
+        raise AssertionError("the step-1 batch scores no better after training")
+    train_step = step_lib.make_train_step(cfg, shape, oc, remat="full")
+    batch = _on(make_batch(cfg, shape, TRAIN_STEPS, seed=tc.data_seed), dev)
+    out["profile_step"] = _profile_call(lambda: train_step(state, batch))
+    _print_profile(tag, f"{TRAIN_ARCH} train step", out["profile_step"])
+    del train_step, batch, batch0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) remat against none on one 1 x 512 microbatch at full width
+    one = base.ShapeConfig("remat", TRAIN_SEQ, 1, "train")
+    batch = _on(make_batch(cfg, one, 100, seed=tc.data_seed), dev)
+    remat = {}
+    for mode in ("full", "none"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_bytes = torch.cuda.memory_allocated(dev)
+        loss, _, grads = step_lib.make_grad_fn(cfg, one, remat=mode)(state["params"], batch)
+        remat[mode] = {"loss": loss.item(), "grad_norm": adamw.global_norm(grads).item(),
+                       "peak_above_state_bytes": torch.cuda.max_memory_allocated(dev)
+                       - base_bytes}
+        del grads
+    rel = abs(remat["full"]["grad_norm"] - remat["none"]["grad_norm"]) / remat["none"]["grad_norm"]
+    print(f"[4 {tag}] {TRAIN_ARCH} 1x{TRAIN_SEQ} remat full vs none: loss "
+          f"{remat['full']['loss']:.6f} / {remat['none']['loss']:.6f} "
+          f"({'equal' if remat['full']['loss'] == remat['none']['loss'] else 'NOT equal'}), "
+          f"grad_norm {remat['full']['grad_norm']:.6f} / {remat['none']['grad_norm']:.6f} "
+          f"(relative {rel:.3g}, bound {REMAT_GNORM_RTOL}); peak above the state "
+          f"{remat['full']['peak_above_state_bytes'] / 1e9:.2f} / "
+          f"{remat['none']['peak_above_state_bytes'] / 1e9:.2f} GB")
+    checks["remat"] = {**remat, "grad_norm_rel": rel}
+    if remat["full"]["loss"] != remat["none"]["loss"] or not rel < REMAT_GNORM_RTOL:
+        raise AssertionError("remat changed the loss or the gradients")
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) card against host at the smoke size, fp32 (TF32 is off)
+    host = torch.device("cpu")
+    checks["card_vs_host"] = {}
+    for kind, arch in HOST_ARCHS.items():
+        c = dataclasses.replace(configs.smoke(arch), compute_dtype="float32")
+        shp = base.ShapeConfig("smoke", 32, 4, "train", accum=2)
+        o = adamw.OptConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+        where = {"host": host, "card": dev}
+        states = {"host": base.tree_init(step_lib.abstract_state(c),
+                                         torch.Generator().manual_seed(SEED), host)}
+        states["card"] = base.tree_map(lambda t: t.to(dev, copy=True), states["host"])
+        b0 = make_batch(c, shp, 0, seed=SEED)
+        grads = {k: step_lib.make_grad_fn(c, shp)(states[k]["params"], _on(b0, d))[2]
+                 for k, d in where.items()}
+        gmax = max(g.abs().max().item() for _, g in base.tree_items(grads["host"]))
+        gerr = max((a.cpu() - b).abs().max().item() for (_, a), (_, b) in
+                   zip(base.tree_items(grads["card"]), base.tree_items(grads["host"])))
+        losses = {k: [] for k in where}
+        for k, d in where.items():
+            fn = step_lib.make_train_step(c, shp, o)
+            for i in range(3):
+                losses[k].append(fn(states[k], _on(make_batch(c, shp, i, seed=SEED), d))[1]
+                                 ["loss"].item())
+        lrel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["host"]))
+        checks["card_vs_host"][kind] = {"arch": c.name, "loss_rel_max": lrel,
+                                        "grad_err_of_max": gerr / gmax, "losses": losses}
+        print(f"[4 {tag}] card vs host, {kind} {c.name}, 3 steps of 4x32 (2 microbatches, "
+              f"fp32): card losses {', '.join(f'{v:.6f}' for v in losses['card'])}, max relative "
+              f"{lrel:.3g} (bound {HOST_LOSS_RTOL}); step-1 gradients max |diff| "
+              f"{gerr / gmax:.3g} of the largest |g| (bound {HOST_GRAD_RTOL})")
+        if not (lrel < HOST_LOSS_RTOL and gerr <= HOST_GRAD_RTOL * gmax):
+            raise AssertionError(f"{kind}: the card's training step is not the host's")
+
+    # (d) kill and resume on the card, in a subprocess (cuBLAS's workspace
+    # setting must precede CUDA's start for deterministic algorithms)
+    child = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--kill-resume", str(scratch / "kr")],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    print("\n".join(f"    {line}" for line in child.stdout.splitlines()))
+    if child.returncode != 0:
+        print(child.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"the kill/resume run failed (exit {child.returncode})")
+    kr = json.loads(child.stdout.strip().splitlines()[-1])["kill_resume"]
+    checks["kill_resume"] = kr
+    if not kr["deterministic"]["bit_identical"]:
+        raise AssertionError("kill and resume did not end bit-identical under deterministic "
+                             "algorithms")
+
+    # (e) the training launcher
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--smoke",
+         "--steps", "5", "--ckpt-dir", str(scratch / "cli")],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    line = cli.stdout.strip().splitlines()[-1] if cli.stdout.strip() else ""
+    print(f"[4 {tag}] python -m repro_torch.launch.train --arch {TRAIN_ARCH} --smoke --steps 5:"
+          f" exit {cli.returncode}, '{line}'")
+    if cli.returncode != 0 or not line.startswith("steps=5 loss "):
+        print(cli.stderr[-4000:], file=sys.stderr)
+        raise AssertionError("the training launcher did not print its summary line")
+    checks["cli"] = line
+    shutil.rmtree(scratch, ignore_errors=True)
+
+    counts = {k: w.launches for k, w in wrappers.items()}
+    print(f"[4 {tag}] launches {counts} (the training path reaches no TPU kernel)")
+    if any(counts.values()):
+        raise AssertionError("the training path launched a kernel")
+    seconds = time.perf_counter() - t_phase
+    print(f"[4 {tag}] phase {seconds:.1f} s")
+    print(json.dumps({"train": out, "train_checks": checks, "phase_s": seconds,
+                      "device": torch.cuda.get_device_name(dev), "power": smi}))
+
+
+def _kill_resume_child(root: Path) -> int:
+    """`chip_smoke.py --kill-resume DIR`, run by phase 4(i) in a process
+    whose CUBLAS_WORKSPACE_CONFIG is set: llama3.2-3b at the smoke size,
+    as tests/test_checkpoint.py runs it. An uninterrupted 10-step run
+    against a run killed at step 6 and resumed from its emergency
+    checkpoint, first with the default algorithms, then under
+    `torch.use_deterministic_algorithms(True)`; and the two backward ops of
+    the path that add into one element from many (the embedding gather's
+    and the loss's `take_along_dim`'s), each run twice on the same inputs.
+    Prints one JSON line."""
+    import shutil
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.models import base
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.smoke("llama3.2-3b")
+    shape = base.ShapeConfig("smoke", 16, 4, "train")
+    oc = adamw.OptConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    result = {}
+    for mode in ("default", "deterministic"):
+        torch.use_deterministic_algorithms(mode == "deterministic")
+
+        def tc(name, fail=-1):
+            return trainer.TrainerConfig(total_steps=10, ckpt_every=4, seed=3, data_seed=11,
+                                         ckpt_dir=str(root / mode / name), fail_at_step=fail)
+
+        state_a, _ = trainer.run(cfg, shape, oc, tc("a"), device=dev)
+        tc_b = tc("b", fail=6)
+        try:
+            trainer.run(cfg, shape, oc, tc_b, device=dev)
+        except trainer.InjectedFailure:
+            pass
+        else:
+            raise AssertionError("the injected failure did not fire")
+        tc_b.fail_at_step = -1
+        state_b, hist_b = trainer.run(cfg, shape, oc, tc_b, resume=True, device=dev)
+        differ = [base.keystr(p) for (p, a), (_, b) in zip(base.tree_items(state_a["params"]),
+                                                          base.tree_items(state_b["params"]))
+                  if not torch.equal(a, b)]
+        result[mode] = {"bit_identical": not differ, "leaves_differ": differ,
+                        "resumed_at_step": hist_b["steps"][0]}
+        print(f"[4 train path] kill at step 6 and resume, {mode} algorithms: resumed at step "
+              f"{hist_b['steps'][0]}, {'bit-identical' if not differ else 'differ in '} "
+              f"{', '.join(differ)}")
+    torch.use_deterministic_algorithms(False)
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(0, 64, size=(4, 512)), device=dev)
+    tok = torch.randn(64, 256, device=dev, requires_grad=True)
+    up = torch.randn(4, 512, 256, device=dev)
+    lf = torch.randn(4, 512, 512, device=dev, requires_grad=True)
+    probes = {"embedding gather backward (index_put_ accumulate)":
+              lambda: torch.autograd.grad((tok[tokens] * up).sum(), tok)[0],
+              "take_along_dim backward (scatter_add)":
+              lambda: torch.autograd.grad(torch.take_along_dim(
+                  lf, tokens[..., None], dim=-1).sum(), lf)[0]}
+    result["ops_repeatable"] = {k: bool(torch.equal(f(), f())) for k, f in probes.items()}
+    print(f"[4 train path] the same backward twice on the same inputs, default algorithms: "
+          + ", ".join(f"{k}: {'bitwise equal' if v else 'NOT equal'}"
+                      for k, v in result["ops_repeatable"].items()))
+    shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"kill_resume": result}))
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2344,6 +2854,8 @@ def main() -> int:
     launches["ssd_scan"] += ssd_per_prefill["bf16_zamba"]
     mma_launches["ssd_scan"] += ssd_per_prefill["bf16_zamba"]
     _moe_path(dev, wrappers, reset_launches, smi)
+    _modality_path(dev, wrappers, reset_launches, smi)
+    _train_path(dev, wrappers, reset_launches, smi)
 
     # -- 5. times -------------------------------------------------------------
     def nbytes(tensors):
@@ -2505,4 +3017,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--kill-resume"]:
+        sys.exit(_kill_resume_child(Path(sys.argv[2])))
     sys.exit(main())

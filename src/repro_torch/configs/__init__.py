@@ -2,9 +2,10 @@
 
 `get_config(name)` returns the full published config; `smoke(name)` a
 reduced same-family variant for CPU tests, with exactly the reductions
-of `repro/configs/__init__.py`. Every LM family is registered (dense,
-moe, ssm, hybrid); the vlm and audio configs, qwen2-vl and musicgen,
-come with their modalities (ROADMAP.md, A.4).
+of `repro/configs/__init__.py`; `all_cells()` every supported
+(architecture x input shape) pair. Every config of the reference is
+registered: every LM family (dense, moe, ssm, hybrid) and the vlm and
+audio modalities (qwen2-vl-2b, musicgen-medium).
 `mnist_fpga`, the paper's own net (family "mlp"), is imported but left
 out of `ARCHS`, as in the reference, so `get_config("mnist-fpga")`
 raises in both packages; `repro_torch.core` runs it.
@@ -14,24 +15,25 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs import (  # noqa: F401
-    gemma_2b, granite_moe_1b_a400m, llama3_2_3b, mamba2_2_7b, mnist_fpga, qwen1_5_4b,
-    qwen2_72b, qwen3_moe_30b_a3b, zamba2_2_7b,
+    gemma_2b, granite_moe_1b_a400m, llama3_2_3b, mamba2_2_7b, mnist_fpga, musicgen_medium,
+    qwen1_5_4b, qwen2_72b, qwen2_vl_2b, qwen3_moe_30b_a3b, zamba2_2_7b,
 )
-from repro_torch.models.base import ArchConfig
+from repro_torch.models.base import SHAPES, ArchConfig, ShapeConfig, supports_shape
 
-__all__ = ["ARCHS", "get_config", "smoke"]
+__all__ = ["ARCHS", "get_config", "smoke", "all_cells"]
 
 ARCHS: dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (qwen1_5_4b, qwen2_72b, gemma_2b, llama3_2_3b, granite_moe_1b_a400m,
-              qwen3_moe_30b_a3b, mamba2_2_7b, zamba2_2_7b)
+    for m in (qwen1_5_4b, qwen2_72b, gemma_2b, llama3_2_3b, qwen2_vl_2b,
+              granite_moe_1b_a400m, qwen3_moe_30b_a3b, mamba2_2_7b, zamba2_2_7b,
+              musicgen_medium)
 }
 
 
 def get_config(name: str) -> ArchConfig:
     if name not in ARCHS:
-        raise KeyError(f"{name!r} is not ported (ported: {sorted(ARCHS)}); see "
-                       "ROADMAP.md, A.4: qwen2-vl and musicgen")
+        raise KeyError(f"{name!r} is not a registered config (registered: {sorted(ARCHS)}); "
+                       "mnist-fpga, the paper's net, runs through repro_torch.core")
     return ARCHS[name]
 
 
@@ -58,3 +60,9 @@ def smoke(name: str) -> ArchConfig:
     if c.pos == "mrope":
         repl.update(mrope_sections=(2, 3, 3))
     return dataclasses.replace(c, **repl)
+
+
+def all_cells() -> list[tuple[ArchConfig, ShapeConfig]]:
+    """Every supported (architecture x input-shape) pair (the dry-run grid)."""
+    return [(cfg, shp) for cfg in ARCHS.values() for shp in SHAPES.values()
+            if supports_shape(cfg, shp)]

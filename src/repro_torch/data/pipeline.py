@@ -3,8 +3,9 @@
 The port's own copy of `repro/data/pipeline.py` (numpy only; the port
 imports nothing of the JAX package): the batch for step N is a pure
 function of (seed, step, shape), so a restarted run replays the exact
-stream. The token stream is a learnable bigram chain: token t+1 is a
-fixed affine map of token t, replaced by a uniform draw 10 % of the time.
+stream (`batch_iterator` starts at any step). The token stream is a
+learnable bigram chain: token t+1 is a fixed affine map of token t,
+replaced by a uniform draw 10 % of the time.
 Batches are numpy arrays; the caller moves them to its device.
 """
 from __future__ import annotations
@@ -13,7 +14,7 @@ import numpy as np
 
 from repro_torch.models.base import ArchConfig, ShapeConfig
 
-__all__ = ["make_batch"]
+__all__ = ["make_batch", "batch_iterator"]
 
 
 def _rng(seed: int, step: int) -> np.random.Generator:
@@ -57,3 +58,12 @@ def make_batch(cfg: ArchConfig, shape: ShapeConfig, step: int, *,
             0, 0.02, size=(B, S, cfg.d_model)).astype(np.float32)
     return batch
 
+
+
+def batch_iterator(cfg: ArchConfig, shape: ShapeConfig, *, seed: int = 1234,
+                   start_step: int = 0):
+    """Infinite deterministic stream of (step, batch), resumable at any step."""
+    step = start_step
+    while True:
+        yield step, make_batch(cfg, shape, step, seed=seed)
+        step += 1

@@ -1,14 +1,16 @@
 """Token embedding, LM head and input assembly.
 
-Counterpart of `repro/layers/embedding.py` for the `text` modality: a
-separate head or tied embeddings (no `head` leaf; the head is `tokᵀ`),
-gemma's embedding scale, and W8 leaves for both. The `vlm` and `audio`
-modalities are not ported yet (ROADMAP.md, A.4).
+Counterpart of `repro/layers/embedding.py`: a separate head or tied
+embeddings (no `head` leaf; the head is `tokᵀ`), gemma's embedding
+scale, W8 leaves for both, and the backbone input of each modality
+(`text`, `vlm`, `audio`), whose frontends are stubs that hand over
+precomputed embeddings.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.layers import rotary
 from repro_torch.layers.common import is_q
 from repro_torch.models.base import ArchConfig, ParamInfo
 
@@ -48,11 +50,31 @@ def lm_head(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
 
 
 def assemble_inputs(cfg: ArchConfig, p: dict, batch: dict) -> torch.Tensor:
-    """The backbone input (B, S, D): embed(tokens) for `text`."""
+    """Build the backbone input (B, S, D) per modality.
+
+    text : embed(tokens)
+    vlm  : embed(tokens) with the image positions (`pixel_mask`, (B, S)
+           bool) overwritten by the stub frontend's patch embeddings
+           (`pixel_embeds`, (B, S, D))
+    audio: embed(tokens) plus the stub frontend's EnCodec frame
+           embeddings (`frame_embeds`, (B, S, D)), plus sinusoidal
+           positions (fp32, then cast) when `cfg.pos == "sin"`; the
+           positions default to arange(S)
+    """
     if cfg.modality == "text":
         return embed(cfg, p, batch["tokens"])
-    if cfg.modality in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"modality {cfg.modality!r} is not ported yet (ROADMAP.md, A.4: the "
-            "vlm and audio modalities)")
+    if cfg.modality == "vlm":
+        h = embed(cfg, p, batch["tokens"])
+        pe = batch["pixel_embeds"].to(h.dtype)
+        return torch.where(batch["pixel_mask"][:, :, None], pe, h)
+    if cfg.modality == "audio":
+        h = embed(cfg, p, batch["tokens"])
+        h = h + batch["frame_embeds"].to(h.dtype)
+        if cfg.pos == "sin":
+            B, S = batch["tokens"].shape
+            pos = batch.get("positions")
+            if pos is None:
+                pos = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
+            h = h + rotary.sinusoidal_embedding(pos, cfg.d_model).to(h.dtype)
+        return h
     raise ValueError(cfg.modality)

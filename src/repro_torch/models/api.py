@@ -7,10 +7,14 @@ Counterpart of `repro/models/api.py`, with the same entry points:
   prefill(cfg, params, batch, cache)    -> (last_logits, cache)
   decode_step(cfg, params, tok, pos, c) -> (logits, cache)
 Every LM family is ported: `dense` and `moe` (models/transformer.py),
-`ssm` (models/mamba.py) and `hybrid` (models/zamba.py). `prefill` and
-`forward` take `use_kernel`, which sends every SSD of the `ssm` and
-`hybrid` families through the `ssd_scan` kernel; the transformer
-families reach no kernel and ignore it.
+`ssm` (models/mamba.py) and `hybrid` (models/zamba.py), in every
+modality (`text`, `vlm`, `audio`). `forward` and `loss_fn` take the
+reference's `remat` ("none" or "full": recompute each layer in the
+backward pass); `prefill` serves and does not (the reference's takes it
+and no caller sets it). All three take the port's `use_kernel`, which
+sends every SSD of the `ssm` and `hybrid` families through the
+`ssd_scan` kernel (it has no backward: training leaves it off); the
+transformer families reach no kernel and ignore it.
 """
 from __future__ import annotations
 
@@ -40,8 +44,8 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_len: int):
     return module_for(cfg).abstract_cache(cfg, batch, max_len)
 
 
-def forward(cfg: ArchConfig, params, batch, *, use_kernel: bool = False):
-    return module_for(cfg).forward(cfg, params, batch, use_kernel=use_kernel)
+def forward(cfg: ArchConfig, params, batch, *, remat: str = "none", use_kernel: bool = False):
+    return module_for(cfg).forward(cfg, params, batch, remat=remat, use_kernel=use_kernel)
 
 
 def prefill(cfg: ArchConfig, params, batch, cache, *, use_kernel: bool = False):
@@ -52,11 +56,11 @@ def decode_step(cfg: ArchConfig, params, tokens, pos, cache, extras=None):
     return module_for(cfg).decode_step(cfg, params, tokens, pos, cache, extras)
 
 
-def loss_fn(cfg: ArchConfig, params, batch, *, use_kernel: bool = False):
+def loss_fn(cfg: ArchConfig, params, batch, *, remat: str = "none", use_kernel: bool = False):
     """Next-token cross-entropy, plus the weighted auxiliary losses where
     `forward` returns any (every transformer: zeros for dense, the router's
     for MoE). Returns (loss, metrics), the aux losses among the metrics."""
-    logits, aux = forward(cfg, params, batch, use_kernel=use_kernel)
+    logits, aux = forward(cfg, params, batch, remat=remat, use_kernel=use_kernel)
     targets = batch["targets"]
     mask = batch.get("loss_mask")
     if mask is None:

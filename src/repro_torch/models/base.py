@@ -4,9 +4,16 @@ Counterpart of `repro/models/base.py`. Each model declares its
 parameters abstractly as a tree (nested dicts) of `ParamInfo(shape,
 dtype, init)`; `tree_init` materializes it on a device from one
 `torch.Generator`. The logical sharding axes of the reference have no
-counterpart on one card and are dropped. The same seed gives other bits
-than `jax.random`, so the tests carry weights across with
+counterpart on one card and are dropped, and with them `tree_specs`
+(ROADMAP.md, A.7); `tree_sds` gives the abstract tree as tensors on the
+`meta` device (shape and dtype, no storage). The same seed gives other
+bits than `jax.random`, so the tests carry weights across with
 `models.convert.from_jax_params` instead.
+
+Trees are nested dicts. `tree_items` walks one in the reference's
+flatten order (sorted keys at every level) and names each leaf by its
+path, written as `jax.tree_util.keystr` writes it (`['opt']['m']...`),
+so checkpoints of the two packages share their leaf names.
 """
 from __future__ import annotations
 
@@ -15,11 +22,13 @@ import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch._device import resolve_device
 
-__all__ = ["ArchConfig", "ShapeConfig", "ParamInfo", "tree_map", "layer", "tree_init",
-           "count_params"]
+__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "supports_shape", "ParamInfo", "is_info",
+           "tree_map", "tree_items", "tree_unflatten", "keystr", "layer", "unstack",
+           "remat_call", "tree_sds", "tree_init", "count_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +94,22 @@ class ShapeConfig:
     accum: int = 1               # gradient-accumulation microbatch steps
 
 
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train", accum=8),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def supports_shape(cfg: ArchConfig, shape: ShapeConfig) -> bool:
+    """long_500k needs a sub-quadratic sequence path: SSM/hybrid only.
+    Everything else runs everywhere (every architecture is decoder-style)."""
+    if shape.name == "long_500k":
+        return cfg.family in ("ssm", "hybrid")
+    return True
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamInfo:
     shape: tuple
@@ -94,6 +119,10 @@ class ParamInfo:
     fan: int = 0                 # index of the fan-in dim (1 for stacked (L, in, out))
 
 
+def is_info(x) -> bool:
+    return isinstance(x, ParamInfo)
+
+
 def tree_map(fn, tree):
     """Apply `fn` to every leaf of a tree of nested dicts."""
     if isinstance(tree, dict):
@@ -101,10 +130,65 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def keystr(path: tuple) -> str:
+    """A leaf's path as `jax.tree_util.keystr` writes a dict path."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def tree_items(tree, path: tuple = ()):
+    """(path, leaf) for every leaf, in the reference's flatten order:
+    sorted keys at every level."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def tree_unflatten(paths, leaves) -> dict:
+    """The nested-dict tree with `leaves` at `paths` (`tree_items`'s)."""
+    out: dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
 def layer(tree, i: int):
-    """Layer i's slice of a tree of stacked per-layer tensors (the step of
-    the reference's `lax.scan` over layers)."""
+    """Layer i's slice of a tree of stacked per-layer tensors: a decode
+    cache's, or one layer's parameters for a check. The models' loops
+    over parameters use `unstack`."""
     return tree_map(lambda t: t[i], tree)
+
+
+def unstack(tree, n: int) -> list:
+    """The n per-layer slices of a tree of stacked tensors (the steps of
+    the reference's `lax.scan` over layers), each leaf split once by
+    `torch.unbind`. Under autograd the slices' gradients are
+    stacked once into the leaf's, where n `layer` slices would each
+    write a zero-filled gradient of the whole stack."""
+    parts = tree_map(torch.unbind, tree)       # leaves: tuples of n slices
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
+
+
+def remat_call(remat: str, fn, *args):
+    """fn(*args); with remat "full" its activations are not kept but
+    recomputed in the backward pass (`torch.utils.checkpoint`), the
+    counterpart of the reference's `jax.checkpoint(..., nothing_saveable)`
+    on a layer body. "none" keeps them."""
+    if remat == "full":
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    if remat != "none":
+        raise ValueError(f"remat {remat!r} (want 'none' or 'full')")
+    return fn(*args)
+
+
+def tree_sds(tree):
+    """Abstract tree -> the same tree of `meta`-device tensors (shape and
+    dtype, no storage)."""
+    return tree_map(lambda i: torch.empty(i.shape, dtype=i.dtype, device="meta"), tree)
 
 
 def tree_init(tree, generator: torch.Generator, device=None):

@@ -2,8 +2,10 @@
 
 Counterpart of `repro/models/mamba.py`. Parameters of the layers are
 stacked on a leading (n_layers,) axis, as in the reference; its
-`lax.scan` over them is a Python loop that takes layer i's slice of
-every leaf (`base.layer`). Attention-free: the decode state is O(1) in
+`lax.scan` over them is a Python loop over the layers' slices
+(`base.unstack`); the cache's slices are `base.layer`'s. `remat="full"`
+recomputes each layer of `forward` in the backward pass
+(`base.remat_call`). Attention-free: the decode state is O(1) in
 sequence length.
 """
 from __future__ import annotations
@@ -13,10 +15,10 @@ import torch
 from repro_torch.layers import embedding as emb_lib
 from repro_torch.layers import mamba2 as m2
 from repro_torch.layers import norms
-from repro_torch.models.base import ArchConfig, ParamInfo, layer, tree_map
+from repro_torch.models.base import ArchConfig, ParamInfo, layer, remat_call, tree_map, unstack
 
-__all__ = ["abstract_params", "abstract_cache", "backbone", "forward", "prefill",
-           "decode_step", "layer"]
+__all__ = ["abstract_params", "abstract_cache", "layer_body", "backbone", "forward",
+           "prefill", "decode_step", "layer"]
 
 
 def abstract_params(cfg: ArchConfig) -> dict:
@@ -37,19 +39,24 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
                     info)
 
 
-def backbone(cfg: ArchConfig, params: dict, h: torch.Tensor, *,
+def layer_body(cfg: ArchConfig, lp: dict, h: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+    """One Mamba2 layer (norm, mixer, residual) on layer slice `lp`; the
+    hybrid family's mixers run it too."""
+    hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
+    return h + m2.mamba_mixer(cfg, lp["mixer"], hn, use_kernel=use_kernel)
+
+
+def backbone(cfg: ArchConfig, params: dict, h: torch.Tensor, *, remat: str = "none",
              use_kernel: bool = False) -> torch.Tensor:
-    for i in range(cfg.n_layers):
-        lp = layer(params["layers"], i)
-        hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
-        h = h + m2.mamba_mixer(cfg, lp["mixer"], hn, use_kernel=use_kernel)
+    for lp in unstack(params["layers"], cfg.n_layers):
+        h = remat_call(remat, layer_body, cfg, lp, h, use_kernel)
     return norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict, *,
+def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: str = "none",
             use_kernel: bool = False) -> tuple[torch.Tensor, dict]:
     h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
-    h = backbone(cfg, params, h, use_kernel=use_kernel)
+    h = backbone(cfg, params, h, remat=remat, use_kernel=use_kernel)
     return emb_lib.lm_head(cfg, params["embed"], h), {}
 
 
@@ -60,8 +67,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
     through the whole prompt (a new tree; `cache` gives the dtypes)."""
     h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
     convs, ssms = [], []
-    for i in range(cfg.n_layers):
-        lp = layer(params["layers"], i)
+    for lp in unstack(params["layers"], cfg.n_layers):
         hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
         out, state = m2.mamba_mixer(cfg, lp["mixer"], hn, return_state=True,
                                     use_kernel=use_kernel)
@@ -81,8 +87,7 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
         batch.update(extras)
     h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
     convs, ssms = [], []
-    for i in range(cfg.n_layers):
-        lp = layer(params["layers"], i)
+    for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
         hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
         out, new = m2.mamba_decode_step(cfg, lp["mixer"], hn, layer(cache, i))
         h = h + out

@@ -1,10 +1,13 @@
-"""Decoder-only transformer: dense (qwen/llama/gemma) and MoE
-(granite/qwen3-moe), text modality — one implementation, config-switched.
+"""Decoder-only transformer: dense (qwen/llama/gemma/musicgen), MoE
+(granite/qwen3-moe), VLM backbone (qwen2-vl) — one implementation,
+config-switched.
 
 Counterpart of `repro/models/transformer.py`. Parameters of the layers are
 stacked on a leading (n_layers,) axis, as in the reference; its
-`lax.scan` over them is a Python loop that takes layer i's slice of
-every leaf (`base.layer`). A MoE block's feed-forward is `layers/moe.py`;
+`lax.scan` over them is a Python loop over the layers' slices
+(`base.unstack`); the KV cache's slices are `base.layer`'s. `remat="full"`
+recomputes each block of `forward` in the backward pass
+(`base.remat_call`). A MoE block's feed-forward is `layers/moe.py`;
 its auxiliary losses are summed over the layers and divided by their
 number, and a dense model's are zero, as in the reference. gemma's
 (1 + w) norm scale is the config's `norm_plus_one` field, where the
@@ -24,7 +27,7 @@ from repro_torch.layers import embedding as emb_lib
 from repro_torch.layers import mlp as mlp_lib
 from repro_torch.layers import moe as moe_lib
 from repro_torch.layers import norms
-from repro_torch.models.base import ArchConfig, ParamInfo, layer, tree_map
+from repro_torch.models.base import ArchConfig, ParamInfo, layer, remat_call, tree_map, unstack
 
 __all__ = ["abstract_params", "abstract_cache", "backbone", "forward", "prefill",
            "decode_step"]
@@ -72,16 +75,16 @@ def _block(cfg: ArchConfig, lp: dict, h, positions, cache_layer, cache_pos, caus
 
 
 def backbone(cfg: ArchConfig, params: dict, h: torch.Tensor, positions: torch.Tensor, *,
-             cache: dict | None = None, cache_pos: torch.Tensor | None = None
-             ) -> tuple[torch.Tensor, dict | None, dict]:
+             cache: dict | None = None, cache_pos: torch.Tensor | None = None,
+             remat: str = "none") -> tuple[torch.Tensor, dict | None, dict]:
     """Run all layers. Returns (h, new_cache, aux_losses): the MoE losses
     averaged over the layers; a dense model's are zero, as in the reference."""
     ks, vs = [], []
     lb = torch.zeros((), dtype=torch.float32, device=h.device)
     zl = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(cfg.n_layers):
-        h, new, aux = _block(cfg, layer(params["layers"], i), h, positions,
-                             None if cache is None else layer(cache, i), cache_pos, True)
+    for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
+        h, new, aux = remat_call(remat, _block, cfg, lp, h, positions,
+                                 None if cache is None else layer(cache, i), cache_pos, True)
         if new is not None:
             ks.append(new["k"])
             vs.append(new["v"])
@@ -105,14 +108,14 @@ def _positions_for(cfg: ArchConfig, batch: dict, B: int, S: int, device) -> torc
     return pos
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict, *,
+def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: str = "none",
             use_kernel: bool = False) -> tuple[torch.Tensor, dict]:
     """Training/eval forward. Returns (logits, aux). `use_kernel` has no
     effect on this family (see the module's docstring)."""
     B, S = batch["tokens"].shape
     h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
     positions = _positions_for(cfg, batch, B, S, h.device)
-    h, _, aux = backbone(cfg, params, h, positions)
+    h, _, aux = backbone(cfg, params, h, positions, remat=remat)
     return emb_lib.lm_head(cfg, params["embed"], h), aux
 
 
@@ -131,10 +134,23 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
 def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, pos: torch.Tensor,
                 cache: dict, extras: dict | None = None) -> tuple[torch.Tensor, dict]:
     """One decode step. tokens: (B, 1); pos: (B,) current write index.
-    Returns (logits (B, V), new cache)."""
+    Returns (logits (B, V), new cache). The modality inputs the caller
+    leaves out are the reference's defaults: no image patch (zero
+    `pixel_embeds`, a false `pixel_mask`) for vlm; zero `frame_embeds` at
+    `positions` pos for audio."""
+    B = tokens.shape[0]
     batch = {"tokens": tokens}
     if extras:
         batch.update(extras)
+    if cfg.modality == "vlm":
+        batch.setdefault("pixel_embeds", torch.zeros((B, 1, cfg.d_model), dtype=cfg.cdtype(),
+                                                     device=tokens.device))
+        batch.setdefault("pixel_mask", torch.zeros((B, 1), dtype=torch.bool,
+                                                   device=tokens.device))
+    if cfg.modality == "audio":
+        batch.setdefault("frame_embeds", torch.zeros((B, 1, cfg.d_model), dtype=cfg.cdtype(),
+                                                     device=tokens.device))
+        batch.setdefault("positions", pos[:, None])
     h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
     positions = torch.stack([pos[:, None]] * 3) if cfg.pos == "mrope" else pos[:, None]
     h, new_cache, _ = backbone(cfg, params, h, positions, cache=cache, cache_pos=pos)

@@ -9,9 +9,12 @@ adapters of the paper are omitted, as in the reference.
 
 Structure: n_layers Mamba2 layers in groups of `attn_every`; after each
 group the shared block runs. The reference's `lax.scan` over each group
-is a Python loop over `base.layer` slices, as in `models/mamba.py`. The
-decode state is the SSM cache stacked over all layers and the KV cache
-stacked over the n_layers / attn_every sites.
+is a Python loop over the layers' slices (`base.unstack`), as in
+`models/mamba.py`; `remat="full"` recomputes each Mamba2 layer of
+`forward` in the backward pass, as the reference remats the group's scan
+body and not the shared block. The decode state is the SSM cache
+stacked over all layers and the KV cache stacked over the n_layers /
+attn_every sites.
 
 `use_kernel` sends every mixer's SSD through the `ssd_scan` kernel, as
 in `models/mamba.py`; the reference's zamba never passes it, and the
@@ -27,7 +30,8 @@ from repro_torch.layers import mamba2 as m2
 from repro_torch.layers import mlp as mlp_lib
 from repro_torch.layers import norms
 from repro_torch.layers.common import wx
-from repro_torch.models.base import ArchConfig, ParamInfo, layer, tree_map
+from repro_torch.models.base import ArchConfig, ParamInfo, layer, remat_call, tree_map, unstack
+from repro_torch.models.mamba import layer_body
 
 __all__ = ["n_sites", "abstract_params", "abstract_cache", "forward", "prefill",
            "decode_step"]
@@ -90,16 +94,15 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict, *,
+def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: str = "none",
             use_kernel: bool = False) -> tuple[torch.Tensor, dict]:
     B, S = batch["tokens"].shape
     h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
     emb0, positions = h, _positions(B, S, h.device)
+    layers = unstack(params["layers"], cfg.n_layers)
     for group in _groups(cfg):
         for i in group:
-            lp = layer(params["layers"], i)
-            hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
-            h = h + m2.mamba_mixer(cfg, lp["mixer"], hn, use_kernel=use_kernel)
+            h = remat_call(remat, layer_body, cfg, layers[i], h, use_kernel)
         h, _ = _shared_block(cfg, params["shared"], h, emb0, positions, None, None)
     h = norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
     return emb_lib.lm_head(cfg, params["embed"], h), {}
@@ -114,9 +117,10 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
     h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
     emb0, positions = h, _positions(B, S, h.device)
     convs, ssms, ks, vs = [], [], [], []
+    layers = unstack(params["layers"], cfg.n_layers)
     for g, group in enumerate(_groups(cfg)):
         for i in group:
-            lp = layer(params["layers"], i)
+            lp = layers[i]
             hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
             out, state = m2.mamba_mixer(cfg, lp["mixer"], hn, return_state=True,
                                         use_kernel=use_kernel)
@@ -144,9 +148,10 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
     emb0, positions = h, pos[:, None]
     convs, ssms, ks, vs = [], [], [], []
+    layers = unstack(params["layers"], cfg.n_layers)
     for g, group in enumerate(_groups(cfg)):
         for i in group:
-            lp = layer(params["layers"], i)
+            lp = layers[i]
             hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
             out, new = m2.mamba_decode_step(cfg, lp["mixer"], hn, layer(cache["ssm"], i))
             h = h + out

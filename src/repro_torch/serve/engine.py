@@ -61,7 +61,10 @@ class Engine:
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, extras: dict | None = None) -> np.ndarray:
-        """prompts: (B, P) int32 token ids (uniform length). Returns
+        """prompts: (B, P) int32 token ids (uniform length); `extras` the
+        prompt's modality inputs (`pixel_embeds`/`pixel_mask`/`positions`
+        for vlm, `frame_embeds` for audio), numpy arrays or tensors, moved
+        to the engine's device with their dtypes. Returns
         (B, max_new_tokens) int32."""
         B, P = prompts.shape
         sc, dev = self.sc, self.device
@@ -69,7 +72,7 @@ class Engine:
                           torch.Generator(device=dev).manual_seed(0), dev)
         batch = {"tokens": torch.as_tensor(np.asarray(prompts), device=dev).long()}
         if extras:
-            batch.update(extras)
+            batch.update({k: torch.as_tensor(v).to(dev) for k, v in extras.items()})
         t0 = time.perf_counter()
         logits, cache = api.prefill(self.cfg, self.params, batch, cache,
                                     use_kernel=self.use_kernel)

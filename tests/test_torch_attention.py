@@ -363,8 +363,23 @@ def test_scaled_embedding_rounds_its_scale_in_bf16():
 
 
 def test_unported_modalities_raise():
-    _, cfg, _, pt = _embed_cfgs("qwen1.5-4b")
-    for modality in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="A.4"):
-            embedding.assemble_inputs(dataclasses.replace(cfg, modality=modality), pt,
-                                      {"tokens": torch.zeros((1, 2), dtype=torch.long)})
+    """The vlm and audio inputs of a dense config switched to each modality
+    equal the reference's (patches where the mask is set; frames plus
+    sinusoidal positions where `pos` is "sin"); a modality neither
+    package has raises ValueError in both."""
+    for modality, pos in (("vlm", "mrope"), ("audio", "sin"), ("audio", "rope")):
+        jcfg, cfg = _cfgs("qwen1.5-4b", modality=modality, pos=pos,
+                          mrope_sections=(2, 3, 3) if pos == "mrope" else ())
+        pj, pt = _carry(jbase.tree_init(jemb.embed_params(jcfg), jax.random.PRNGKey(6)))
+        rng = np.random.default_rng(9)
+        batch = {"tokens": rng.integers(0, cfg.vocab, size=(2, 7)).astype(np.int32),
+                 "pixel_embeds": rng.normal(size=(2, 7, 64)).astype(np.float32),
+                 "pixel_mask": rng.random((2, 7)) < 0.5,
+                 "frame_embeds": (rng.normal(size=(2, 7, 64)) * 0.02).astype(np.float32)}
+        got = embedding.assemble_inputs(cfg, pt, {k: _t(v) for k, v in batch.items()})
+        _close(got.numpy(), _jit(lambda p, b: jemb.assemble_inputs(jcfg, p, b), pj, batch))
+    for c in (cfg, jcfg):
+        with pytest.raises(ValueError):
+            (embedding if c is cfg else jemb).assemble_inputs(
+                dataclasses.replace(c, modality="video"), pt if c is cfg else pj,
+                {"tokens": _t(batch["tokens"]) if c is cfg else batch["tokens"]})

@@ -221,9 +221,12 @@ def test_configs_and_abstract_tree():
     small = configs.smoke(ARCH)
     assert {f.name: getattr(small, f.name) for f in dataclasses.fields(jcfg)} == \
         dataclasses.asdict(jconfigs.smoke(ARCH))
-    for unported in ("qwen2-vl-2b", "musicgen-medium"):
-        with pytest.raises(KeyError, match="A.4"):
-            configs.get_config(unported)
+    for name in ("qwen2-vl-2b", "musicgen-medium"):      # every reference config
+        got = configs.get_config(name)
+        assert {f.name: getattr(got, f.name) for f in dataclasses.fields(jcfg)} == \
+            dataclasses.asdict(jconfigs.get_config(name))
+    with pytest.raises(KeyError, match="registered"):
+        configs.get_config("mnist-fpga")                 # the paper's net, as there
     for name, family in (("zamba2-2.7b", "hybrid"), ("granite-moe-1b-a400m", "moe"),
                          ("qwen3-moe-30b-a3b", "moe")):
         assert configs.get_config(name).family == family
@@ -270,15 +273,32 @@ def test_launcher_serves_the_smoke_config(capsys):
 
 
 def test_unported_features_raise():
-    """What is still unported raises, naming its ROADMAP item: the vlm and
-    audio modalities (A.4), in the ssm family and in the hybrid one."""
+    """What is still unported raises, naming its ROADMAP item: the
+    collective of `compressed_psum` and the training launcher's
+    --multi-pod wait for meshes (A.7). The vlm and audio modalities run in
+    the ssm and hybrid families; their decode steps, which the reference
+    gives no modality defaults, raise KeyError without extras there too."""
+    from repro_torch.launch import train
+    from repro_torch.optim import compression
+    with pytest.raises(NotImplementedError, match="A.7"):
+        compression.compressed_psum(torch.zeros(3), "pod", torch.zeros(3))
+    with pytest.raises(NotImplementedError, match="A.7"):
+        train.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--multi-pod"])
     for arch in (ARCH, "zamba2-2.7b"):
         small = configs.smoke(arch)
         p = base.tree_init(api.abstract_params(small), torch.Generator(), "cpu")
         for modality in ("vlm", "audio"):
             cfg = dataclasses.replace(small, modality=modality)
-            with pytest.raises(NotImplementedError, match="A.4"):
-                api.forward(cfg, p, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+            extras = {"pixel_embeds": torch.ones((1, 4, 64)),
+                      "pixel_mask": torch.tensor([[True, False, True, False]]),
+                      "frame_embeds": torch.ones((1, 4, 64))}
+            logits, _ = api.forward(cfg, p, {"tokens": torch.zeros((1, 4), dtype=torch.long),
+                                             **extras})
+            assert logits.shape == (1, 4, 512) and bool(torch.isfinite(logits).all())
+            cache = base.tree_init(api.abstract_cache(cfg, 1, 8), torch.Generator(), "cpu")
+            with pytest.raises(KeyError):
+                api.decode_step(cfg, p, torch.zeros((1, 1), dtype=torch.long),
+                                torch.zeros((1,), dtype=torch.int32), cache)
 
 
 def test_serve_config_fields_equal_the_reference():

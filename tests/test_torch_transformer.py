@@ -222,16 +222,23 @@ def test_from_jax_params_carries_a_dense_w8_tree(model):
 
 @pytest.mark.parametrize("modality,arch", [("vlm", "qwen2-vl-2b"), ("audio", "musicgen-medium")])
 def test_unported_families_raise(modality, arch):
-    """Every LM family is ported; what still raises, naming ROADMAP item
-    A.4, is the vlm and audio kinds of transformer: their configs, and a
-    dense or MoE config switched to their modality."""
-    with pytest.raises(KeyError, match="A.4"):
-        configs.get_config(arch)
+    """The vlm and audio kinds of transformer: their configs equal the
+    reference's, and a dense and a MoE config switched to their modality
+    run `forward` on the pipeline's extras equal to the reference; one
+    switched to a modality neither package has raises ValueError."""
+    assert _reference_fields(configs.get_config(arch)) == \
+        dataclasses.asdict(jconfigs.get_config(arch))
     for name in ("qwen1.5-4b", "granite-moe-1b-a400m"):
-        small = dataclasses.replace(configs.smoke(name), modality=modality)
-        params = base.tree_init(api.abstract_params(small), torch.Generator(), "cpu")
-        with pytest.raises(NotImplementedError, match="A.4"):
-            api.forward(small, params, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+        jcfg, cfg = (dataclasses.replace(c, modality=modality) for c in _cfgs(name))
+        pj = jbase.tree_init(japi.abstract_params(jcfg), jax.random.PRNGKey(3))
+        pt = convert.from_jax_params(jax.tree.map(np.asarray, pj), device="cpu")
+        b = jpipeline.make_batch(jcfg, jbase.ShapeConfig("t", 12, 2, "train"), 0, seed=1)
+        b = {k: v for k, v in b.items() if k != "positions"}    # rope, not M-RoPE
+        logits, _ = api.forward(cfg, pt, {k: torch.from_numpy(v) for k, v in b.items()})
+        _close(logits.numpy(), jax.jit(lambda p, x: japi.forward(jcfg, p, x))(pj, b)[0])
+        with pytest.raises(ValueError):
+            api.forward(dataclasses.replace(cfg, modality="video"), pt,
+                        {"tokens": torch.zeros((1, 4), dtype=torch.long)})
 
 
 @pytest.mark.parametrize("w8", [False, True])
