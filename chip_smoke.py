@@ -164,7 +164,24 @@ Phases, each raising on failure (nothing is caught):
    deterministic algorithms (in a subprocess, `chip_smoke.py --kill-resume
    DIR`, whose CUBLAS_WORKSPACE_CONFIG is set before CUDA starts; the
    default algorithms' result is reported); and the training launcher as
-   a subprocess. Every count must stay 0.
+   a subprocess. Every count must stay 0. (j) Meshes, on a one-rank mesh
+   (`launch.mesh.make_host_mesh()`: NCCL at world size 1, so every
+   collective runs and sums one rank): the three 784-500-10 versions
+   served in stacked rounds by `NetServer` on `cuda[fusednet=true]` under
+   the mesh, through the sharded dispatch (`dispatch_counts["sharded"]`
+   must move), equal to `predict_quantized` and to the unsharded
+   dispatch, with B1 launching on the 1-bit tensor cores; granite-moe-
+   1b-a400m's full-width prefill in fp32 through `moe_impl=shardmap`
+   against the plain layer at capacity factor 4 (1e-4 of the largest
+   |logit|); `compressed_psum` equal to `compress_decompress`; a smoke
+   train state restored under the mesh, every leaf a `DTensor` placed by
+   its spec and equal to the save; a layer recomputed by remat="full"
+   (for CUDA tensors on autograd's device thread) seeing its forward's
+   mesh, flags and reduction group; and two full-width granite-moe
+   training steps at 1 x 512 under the mesh against the same steps
+   without it, bitwise (a subprocess, `chip_smoke.py --mesh-train DIR`,
+   under deterministic algorithms, run before this process opens its
+   group). The phase destroys its process group.
    Every launch count is set to 0 just before a path runs and read just
    after it; each of the path's kernels must have launched.
 5. Times: CUDA events, median of 20 runs after warmup, per kernel (both
@@ -363,6 +380,19 @@ TRAIN_LOSS0_NAT, REMAT_GNORM_RTOL = 0.5, 1e-3
 HOST_ARCHS = {"dense": "gemma-2b", "moe": "granite-moe-1b-a400m", "ssm": "mamba2-2.7b",
               "hybrid": "zamba2-2.7b", "vlm": "qwen2-vl-2b", "audio": "musicgen-medium"}
 HOST_LOSS_RTOL, HOST_GRAD_RTOL = 1e-5, 1e-5
+# The mesh path (phase 4(j)): a one-rank mesh on the card (NCCL at world
+# size 1), every collective of the port's mesh code run. granite-moe's
+# full-width prefill in fp32 through moe_impl=shardmap against the plain
+# layer, both at capacity factor MESH_MOE_CF, where neither drops a routed
+# pair (the plain layer's capacity is then T; the shardmap one's per-expert
+# 2T): the same products in other buffers and another order of the
+# combine's adds, held to MESH_MOE_RTOL of the largest |logit|. Two
+# full-width training steps at 1 x MESH_TRAIN_SEQ under the mesh and
+# without, under deterministic algorithms (a subprocess, as the kill/resume
+# run): at world size 1 every reduction of the data-parallel step is a sum
+# of one, so losses and parameters must be bitwise equal.
+MESH_MOE_CF, MESH_MOE_RTOL, MESH_PREFILL = 4.0, 1e-4, (2, 512)
+MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 512, 2
 
 
 def _smi(query: str) -> str:
@@ -2568,6 +2598,276 @@ def _kill_resume_child(root: Path) -> int:
     return 0
 
 
+def _mesh_path(dev, wrappers, reset_launches, smi, session, nets, images, rounds) -> dict:
+    """Phase 4(j): the port's mesh code on a one-rank mesh on the card.
+    Returns the netgen kernels' launches under the mesh (and B1's on the
+    tensor cores)."""
+    import dataclasses
+    import gc
+    import os
+    import shutil
+    import threading
+    from unittest import mock
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import quantize
+    from repro_torch.kernels.binary_matvec import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.layers import moe as moe_lib
+    from repro_torch.models import api, base, runtime
+    from repro_torch.netgen import NetServer
+    from repro_torch.optim import compression
+    from repro_torch.parallel import data_parallel as dp
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import step as step_lib
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag = "mesh path"
+    out = {}
+    scratch = ROOT / "build" / "mesh_path"
+    shutil.rmtree(scratch, ignore_errors=True)
+
+    # two full-width training steps under the mesh and without, first, in
+    # a subprocess (before this process opens a process group)
+    child = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-train", str(scratch / "train")],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    print("\n".join(f"    {line}" for line in child.stdout.splitlines()))
+    if child.returncode != 0:
+        print(child.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"the mesh training run failed (exit {child.returncode})")
+    out["train"] = json.loads(child.stdout.strip().splitlines()[-1])["mesh_train"]
+    if not out["train"]["bitwise"]:
+        raise AssertionError("the training steps under the mesh differ from those without")
+
+    mesh = make_host_mesh()
+    print(f"[4 {tag}] make_host_mesh(): {mesh}, backend {dist.get_backend()}, world "
+          f"{dist.get_world_size()}")
+
+    # (a) the stacked rounds through the sharded dispatch
+    server = NetServer(session=session, target="cuda[fusednet=true]", slot_capacity=BATCH)
+    for v, net in enumerate(nets):
+        server.register(f"v{v}", net)
+    plain = [server.predict_many(req) for req in rounds]
+    reset_launches()
+    t0 = time.perf_counter()
+    with shd.use_mesh(mesh):
+        served = [server.predict_many(req) for req in rounds]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = {name: w.launches for name, w in wrappers.items()}
+    b1, b1_mma = counts["binary_forward_planes"], ops.binary_forward_planes.mma_launches
+    n_answers = 0
+    for req, got, unsharded in zip(rounds, served, plain):
+        for v, x in req.items():
+            want = quantize.predict_quantized(nets[int(v[1:])], device=dev)(x).cpu().numpy()
+            if not (np.array_equal(got[v], want) and np.array_equal(got[v], unsharded[v])):
+                raise AssertionError(f"mesh {v}: answers != predict_quantized / unsharded")
+            n_answers += x.shape[0]
+    dispatch = server.dispatch_counts
+    print(f"[4 {tag}] cuda[fusednet=true] stacked rounds under the mesh: {serve_s:.2f} s, "
+          f"{n_answers} answers equal predict_quantized and the unsharded dispatch; dispatch "
+          f"{dispatch}; launches {counts}")
+    print(f"[4 {tag}] {b1_mma} of {b1} binary_forward_planes launches on the 1-bit tensor "
+          "cores")
+    if dispatch["sharded"] < 1 or not 0 < b1_mma == b1:
+        raise AssertionError("the mesh rounds were not sharded, or B1 left its tensor cores")
+    out["serve"] = {"answers": n_answers, "dispatch": dispatch, "launches": counts,
+                    "s": serve_s}
+    launched = {name: n for name, n in counts.items() if n}
+    launched["binary_forward_planes mma"] = b1_mma
+    del server
+
+    # (b) granite-moe's full-width prefill through moe_impl=shardmap
+    cfg = dataclasses.replace(configs.get_config(MOE_ARCH), compute_dtype="float32")
+    with torch.inference_mode():
+        params = base.tree_init(api.abstract_params(cfg),
+                                torch.Generator(device=dev).manual_seed(SEED), dev)
+        B, P = MESH_PREFILL
+        toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, (B, P)),
+                               device=dev)
+
+        def prefill():
+            cache = base.tree_init(api.abstract_cache(cfg, B, P), torch.Generator(device=dev),
+                                   dev)
+            return api.prefill(cfg, params, {"tokens": toks}, cache)[0].float()
+
+        def timed():                  # a warm-up call, then one timed
+            prefill()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = prefill()
+            torch.cuda.synchronize()
+            return logits, time.perf_counter() - t0
+
+        with mock.patch.object(moe_lib, "moe",
+                               functools.partial(moe_lib.moe, capacity_factor=MESH_MOE_CF)):
+            want, plain_s = timed()
+            with shd.use_mesh(mesh), runtime.with_flags(moe_impl="shardmap"):
+                got, shardmap_s = timed()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"[4 {tag}] {MOE_ARCH} fp32 prefill {B}x{P} at capacity factor {MESH_MOE_CF}, "
+          f"moe_impl=shardmap ({shardmap_s * 1e3:.1f} ms) vs plain ({plain_s * 1e3:.1f} ms): "
+          f"max |dlogit| / max |logit| = {rel:.3g} (bound {MESH_MOE_RTOL})")
+    out["moe_prefill"] = {"rel": rel, "shardmap_ms": shardmap_s * 1e3,
+                          "plain_ms": plain_s * 1e3}
+    if not rel <= MESH_MOE_RTOL:
+        raise AssertionError("moe_shardmap's prefill is not the plain layer's")
+    del params, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) compressed_psum over the data axis
+    g = torch.randn(1 << 24, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    err = torch.randn(g.shape, generator=torch.Generator(device=dev).manual_seed(SEED + 1),
+                      device=dev) * 1e-3
+    with shd.use_mesh(mesh):
+        total, new_err = compression.compressed_psum(g, "data", err)
+    want, want_err = compression.compress_decompress(g, err)
+    same = bool(torch.equal(total, want) and torch.equal(new_err, want_err))
+    print(f"[4 {tag}] compressed_psum over data of {g.numel()} fp32 values: "
+          f"{'equal' if same else 'NOT equal'} to compress_decompress (sum and error buffer)")
+    out["compressed_psum_equal"] = same
+    if not same:
+        raise AssertionError("compressed_psum is not compress_decompress at world size 1")
+    del g, err, total, new_err, want, want_err
+
+    # (d) a train state restored under the mesh
+    small = configs.smoke(MOE_ARCH)
+    abstract = step_lib.abstract_state(small)
+    state = base.tree_init(abstract, torch.Generator(device=dev).manual_seed(SEED), dev)
+    path = ckpt.save(str(scratch / "ckpt"), 1, state)
+    rules = {"batch": ("data",)}
+    with shd.use_mesh(mesh, rules):
+        restored = ckpt.restore(path, abstract, device=dev)
+        specs = {base.keystr(p): shd.named_sharding(tuple(i.shape), i.logical)
+                 for p, i in base.tree_items(abstract)}
+    n_shard, bad = 0, []
+    for (p, got), (_, saved) in zip(base.tree_items(restored), base.tree_items(state)):
+        key = base.keystr(p)
+        if not (tuple(got.placements) == specs[key].placements
+                and torch.equal(got.full_tensor(), saved)):
+            bad.append(key)
+        n_shard += any(type(pl).__name__ == "Shard" for pl in got.placements)
+    tok = "['params']['embed']['tok']"
+    print(f"[4 {tag}] restore of a {small.name} train state under the mesh: "
+          f"{len(specs)} leaves as DTensors, {n_shard} of them sharded, placements as their "
+          f"specs, full tensors equal to the save: {not bad} (e.g. {tok}: "
+          f"{specs[tok].spec} -> {tuple(restored['params']['embed']['tok'].placements)})")
+    out["restore"] = {"leaves": len(specs), "sharded": n_shard, "bad": bad}
+    if bad:
+        raise AssertionError(f"restored leaves off their specs: {bad}")
+    del state, restored
+
+    # (e) a layer that remat="full" recomputes runs where autograd runs the
+    # backward, for CUDA tensors its device thread: it must see its
+    # forward's mesh, flags and data-parallel reduction group there
+    seen = []
+
+    def body(x):
+        seen.append((threading.get_ident(), shd.active_mesh() is mesh,
+                     runtime.flag("moe_impl"), dp.group() is group))
+        return torch.sin(x * 2)
+
+    group = mesh.group(("data",))
+    x = torch.ones(1024, device=dev, requires_grad=True)
+    with shd.use_mesh(mesh), runtime.with_flags(moe_impl="shardmap"), dp.reducing(group):
+        base.remat_call("full", body, x).sum().backward()
+    same_state = len(seen) == 2 and seen[0][1:] == seen[1][1:] == (True, "shardmap", True)
+    elsewhere = len(seen) == 2 and seen[0][0] != seen[1][0]
+    print(f"[4 {tag}] remat recompute on "
+          f"{'another thread than its forward' if elsewhere else 'its forward thread'}: "
+          f"sees the forward's mesh, flags and reduction group: {same_state}")
+    out["remat_recompute"] = {"other_thread": elsewhere, "same_state": same_state}
+    if not same_state:
+        raise AssertionError("a recomputed layer lost its forward's mesh, flags or group")
+    dist.destroy_process_group()
+    shutil.rmtree(scratch, ignore_errors=True)
+
+    seconds = time.perf_counter() - t_phase
+    print(f"[4 {tag}] phase {seconds:.1f} s")
+    print(json.dumps({"mesh": out, "phase_s": seconds,
+                      "device": torch.cuda.get_device_name(dev), "power": smi}))
+    return launched
+
+
+def _mesh_train_child(root: Path) -> int:
+    """`chip_smoke.py --mesh-train DIR`, run by phase 4(j) in a process
+    whose CUBLAS_WORKSPACE_CONFIG is set: granite-moe-1b-a400m at full
+    width through `trainer.run`, 2 steps at 1 x 512 with remat, without a
+    mesh and then under `make_host_mesh()`, under deterministic
+    algorithms. Prints the losses, the peak memory and whether the two
+    runs' parameters are bitwise equal; the last line is JSON."""
+    import gc
+    import shutil
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api, base
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import trainer
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.init()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    cfg = configs.get_config(MOE_ARCH)
+    n = base.count_params(api.abstract_params(cfg))
+    shape = base.ShapeConfig("mesh", MESH_TRAIN_SEQ, 1, "train")
+    oc = adamw.OptConfig(lr=3e-4, warmup_steps=2, total_steps=MESH_TRAIN_STEPS)
+    runs = {}
+    for label in ("no mesh", "mesh"):
+        mesh = make_host_mesh() if label == "mesh" else None
+        tc = trainer.TrainerConfig(total_steps=MESH_TRAIN_STEPS,
+                                   ckpt_every=MESH_TRAIN_STEPS + 1,
+                                   ckpt_dir=str(root / label.replace(" ", "_")), seed=SEED,
+                                   remat="full")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with shd.use_mesh(mesh, {"batch": ("data",)}):
+            state, hist = trainer.run(cfg, shape, oc, tc, device=dev)
+        torch.cuda.synchronize()
+        runs[label] = {"loss": hist["loss"], "s": time.perf_counter() - t0,
+                       "peak": torch.cuda.max_memory_allocated(dev),
+                       "params": state["params"]}
+        del state, hist
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[4 mesh path] {MOE_ARCH} ({n} parameters, fp32 state {16 * n / 1e9:.1f} GB) "
+              f"{label}: {MESH_TRAIN_STEPS} steps of 1x{MESH_TRAIN_SEQ} in "
+              f"{runs[label]['s']:.2f} s, losses "
+              f"{', '.join(f'{v:.7f}' for v in runs[label]['loss'])}, peak "
+              f"{runs[label]['peak'] / 1e9:.1f} GB allocated")
+    a, b = runs["no mesh"], runs["mesh"]
+    differ = [base.keystr(p) for (p, x), (_, y) in zip(base.tree_items(a["params"]),
+                                                      base.tree_items(b["params"]))
+              if not torch.equal(x, y)]
+    scale = max(x.abs().max().item() for _, x in base.tree_items(a["params"]))
+    diff = max((x - y).abs().max().item() for (_, x), (_, y) in
+               zip(base.tree_items(a["params"]), base.tree_items(b["params"])))
+    bitwise = a["loss"] == b["loss"] and not differ
+    print(f"[4 mesh path] under the mesh vs without, deterministic algorithms: losses "
+          f"{'equal' if a['loss'] == b['loss'] else 'differ'}, parameters "
+          f"{'bitwise equal' if not differ else f'differ in {len(differ)} leaves'} "
+          f"(max |diff| {diff:.3g} of the largest |p| {scale:.3g})")
+    dist.destroy_process_group()
+    shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"mesh_train": {
+        "bitwise": bitwise, "leaves_differ": differ, "max_abs_diff": diff,
+        **{k.replace(" ", "_"): {"loss": r["loss"], "s": r["s"], "peak_bytes": r["peak"]}
+           for k, r in runs.items()}}}))
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2856,6 +3156,10 @@ def main() -> int:
     _moe_path(dev, wrappers, reset_launches, smi)
     _modality_path(dev, wrappers, reset_launches, smi)
     _train_path(dev, wrappers, reset_launches, smi)
+    meshed = _mesh_path(dev, wrappers, reset_launches, smi, session, nets, images, rounds)
+    mma_launches["binary_forward_planes"] += meshed.pop("binary_forward_planes mma")
+    for name, n in meshed.items():
+        launches[name] += n
 
     # -- 5. times -------------------------------------------------------------
     def nbytes(tensors):
@@ -3019,4 +3323,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--kill-resume"]:
         sys.exit(_kill_resume_child(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--mesh-train"]:
+        sys.exit(_mesh_train_child(Path(sys.argv[2])))
     sys.exit(main())

@@ -14,7 +14,12 @@ the other. Write protocol: serialize into `<root>/.tmp-step_<N>`, fsync
 the metadata, then rename: a partly written checkpoint is never visible
 under its final name. `restore` loads onto the device given (the card
 unless the caller names the CPU), checking each leaf's shape and
-casting it to the abstract tree's dtype.
+casting it to the abstract tree's dtype. Under an active mesh it
+reshards, as the reference's does: each leaf comes back as a `DTensor`
+on the mesh, placed by its spec (a `ParamInfo`'s logical axes under the
+active rules; a tensor leaf of the abstract tree is replicated), each rank
+holding its slice of the saved array. A state saved whole, from any
+topology, restores onto the current one (elastic).
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.models.base import keystr, tree_items, tree_unflatten
+from repro_torch.models.base import is_info, keystr, tree_items, tree_unflatten
+from repro_torch.parallel import sharding as shd
 
 __all__ = ["save", "restore", "latest_step", "CheckpointManager"]
 
@@ -60,10 +66,36 @@ def save(root: str, step: int, state, *, metadata: dict | None = None) -> str:
     return final
 
 
+def _placements(leaf, mesh) -> tuple:
+    from torch.distributed.tensor import Replicate
+
+    if is_info(leaf):
+        return shd.named_sharding(tuple(leaf.shape), leaf.logical).placements
+    return (Replicate(),) * len(mesh.shape)
+
+
+def _on_mesh(full: torch.Tensor, placements, mesh, device):
+    """`full` as a DTensor on `mesh`: this rank keeps its slice, split in
+    the mesh's axis order as `DTensor` splits."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    local = full
+    for axis, pl in zip(mesh.shape, placements):
+        if isinstance(pl, Shard):
+            n = local.shape[pl.dim] // mesh.shape[axis]
+            local = local.narrow(pl.dim, mesh.coordinate(axis) * n, n)
+    return DTensor.from_local(local.contiguous().to(device), mesh.device_mesh, placements,
+                              run_check=False, shape=full.shape, stride=full.stride())
+
+
 def restore(path: str, abstract_state, *, device=None):
     """Load a checkpoint into the structure of `abstract_state` (a
-    ParamInfo tree or a tensor tree), on `device`."""
+    ParamInfo tree or a tensor tree), on `device`; under an active mesh
+    as `DTensor`s placed by their specs on it (see the module doc)."""
     device = resolve_device(device)
+    mesh = shd.active_mesh()
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(f"restore onto {device} under a {mesh.device_type} mesh")
     with np.load(os.path.join(path, "arrays.npz")) as z:
         data = {k: z[k] for k in z.files}
 
@@ -76,7 +108,9 @@ def restore(path: str, abstract_state, *, device=None):
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: ckpt shape {arr.shape} != {tuple(leaf.shape)}")
         paths.append(p)
-        out.append(torch.from_numpy(arr).to(device))
+        full = torch.from_numpy(arr)
+        out.append(full.to(device) if mesh is None
+                   else _on_mesh(full, _placements(leaf, mesh), mesh, device))
     return tree_unflatten(paths, out)
 
 

@@ -1,7 +1,10 @@
 """Multi-head attention with GQA/MQA, RoPE/M-RoPE, and a KV cache.
 
-Counterpart of `repro/layers/attention.py` on one card (its logical
-sharding annotations have no counterpart here). The cache layout is
+Counterpart of `repro/layers/attention.py`. The parameters and the KV
+cache carry the reference's logical axes (`models.base.tree_specs`); the
+reference's activation annotations (`shard`) are left out, as they would
+compute nothing on plain tensors, and head and sequence parallelism over
+a model axis is ROADMAP.md A.7's remainder. The cache layout is
 (B, KV, S_max, hd); `cache_pos` is a per-sequence write index, which
 lets the serving engine decode a batch whose sequences stand at other
 positions. Every function returns new tensors and leaves its inputs as
@@ -32,24 +35,28 @@ def attn_params(cfg: ArchConfig, n_layers: int | None = None) -> dict:
     """Abstract attention params; leading n_layers dim when stacked."""
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     L = () if n_layers is None else (n_layers,)
+    nl = (None,) * len(L)
     fan = len(L)
-    p = {"wq": ParamInfo(L + (d, H, hd), torch.float32, fan=fan),
-         "wk": ParamInfo(L + (d, KV, hd), torch.float32, fan=fan),
-         "wv": ParamInfo(L + (d, KV, hd), torch.float32, fan=fan),
-         "wo": ParamInfo(L + (H, hd, d), torch.float32, fan=fan)}
+    f32 = torch.float32
+    p = {"wq": ParamInfo(L + (d, H, hd), f32, nl + ("fsdp", "heads", None), fan=fan),
+         "wk": ParamInfo(L + (d, KV, hd), f32, nl + ("fsdp", "kv_heads", None), fan=fan),
+         "wv": ParamInfo(L + (d, KV, hd), f32, nl + ("fsdp", "kv_heads", None), fan=fan),
+         "wo": ParamInfo(L + (H, hd, d), f32, nl + ("heads", None, "fsdp"), fan=fan)}
     if cfg.qkv_bias:
-        p["bq"] = ParamInfo(L + (H, hd), torch.float32, init="zeros")
-        p["bk"] = ParamInfo(L + (KV, hd), torch.float32, init="zeros")
-        p["bv"] = ParamInfo(L + (KV, hd), torch.float32, init="zeros")
+        p["bq"] = ParamInfo(L + (H, hd), f32, nl + ("heads", None), init="zeros")
+        p["bk"] = ParamInfo(L + (KV, hd), f32, nl + ("kv_heads", None), init="zeros")
+        p["bv"] = ParamInfo(L + (KV, hd), f32, nl + ("kv_heads", None), init="zeros")
     return p
 
 
 def init_cache_info(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     """Abstract KV cache for one attention site (stacked over sites by the
-    caller), in the compute dtype."""
+    caller), in the compute dtype; its sequence dim shards over the model
+    axis (kv_seq)."""
     shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    return {"k": ParamInfo(shape, cfg.cdtype(), init="zeros"),
-            "v": ParamInfo(shape, cfg.cdtype(), init="zeros")}
+    logical = ("batch", "kv_heads", "kv_seq", None)
+    return {"k": ParamInfo(shape, cfg.cdtype(), logical, init="zeros"),
+            "v": ParamInfo(shape, cfg.cdtype(), logical, init="zeros")}
 
 
 def _project(x: torch.Tensor, w, b=None) -> torch.Tensor:

@@ -18,9 +18,10 @@ __all__ = ["embed_params", "embed", "lm_head", "assemble_inputs"]
 
 
 def embed_params(cfg: ArchConfig) -> dict:
-    p = {"tok": ParamInfo((cfg.vocab, cfg.d_model), torch.float32, scale=1.0)}
+    p = {"tok": ParamInfo((cfg.vocab, cfg.d_model), torch.float32, ("vocab", "fsdp"),
+                          scale=1.0)}
     if not cfg.tie_embeddings:
-        p["head"] = ParamInfo((cfg.d_model, cfg.vocab), torch.float32)
+        p["head"] = ParamInfo((cfg.d_model, cfg.vocab), torch.float32, ("fsdp", "vocab"))
     return p
 
 

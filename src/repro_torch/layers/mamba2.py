@@ -8,9 +8,13 @@ Counterpart of `repro/layers/mamba2.py`. Block structure
   gated RMSNorm: norm(y * silu(z)); out_proj: d_inner -> d
 
 Decode keeps (conv_state (B, W-1, conv_dim), ssm_state (B, H, N, P)) and
-advances the recurrence one token at a time. The reference's sharding
-annotations (`shard`, `shard_hidden`, the `ssm_shard` flag) place
-tensors on a mesh; on one card they are no-ops and are left out.
+advances the recurrence one token at a time. The parameters and the
+cache carry the reference's logical axes (`models.base.tree_specs`).
+The reference's activation annotations (`shard`, `shard_hidden`, the
+`ssm_shard` flag) only constrain layouts; on the port's plain tensors
+they would compute nothing and are left out (ROADMAP.md, C). Tensor and
+sequence parallelism of the mixer over a model axis is ROADMAP.md A.7's
+remainder.
 """
 from __future__ import annotations
 
@@ -28,18 +32,20 @@ def mamba_params(cfg: ArchConfig, n_layers: int | None = None) -> dict:
     di, G, N, H = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     proj_out = 2 * di + 2 * G * N + H
     L = () if n_layers is None else (n_layers,)
+    nl = (None,) * len(L)
     fan = len(L)
     f32 = torch.float32
     return {
-        "in_proj": ParamInfo(L + (d, proj_out), f32, fan=fan),
-        "conv_w": ParamInfo(L + (cfg.conv_width, cfg.conv_dim), f32, scale=0.5, fan=fan),
-        "conv_b": ParamInfo(L + (cfg.conv_dim,), f32, init="zeros"),
+        "in_proj": ParamInfo(L + (d, proj_out), f32, nl + ("fsdp", "ffn"), fan=fan),
+        "conv_w": ParamInfo(L + (cfg.conv_width, cfg.conv_dim), f32, nl + (None, "ffn"),
+                            scale=0.5, fan=fan),
+        "conv_b": ParamInfo(L + (cfg.conv_dim,), f32, nl + ("ffn",), init="zeros"),
         # A stored as log(-A): a = -exp(a_log); dt bias for softplus
-        "a_log": ParamInfo(L + (H,), f32, init="zeros"),
-        "dt_bias": ParamInfo(L + (H,), f32, init="zeros"),
-        "d_skip": ParamInfo(L + (H,), f32, init="ones"),
-        "norm_scale": ParamInfo(L + (di,), f32, init="ones"),
-        "out_proj": ParamInfo(L + (di, d), f32, fan=fan),
+        "a_log": ParamInfo(L + (H,), f32, nl + (None,), init="zeros"),
+        "dt_bias": ParamInfo(L + (H,), f32, nl + (None,), init="zeros"),
+        "d_skip": ParamInfo(L + (H,), f32, nl + (None,), init="ones"),
+        "norm_scale": ParamInfo(L + (di,), f32, nl + (None,), init="ones"),
+        "out_proj": ParamInfo(L + (di, d), f32, nl + ("ffn", "fsdp"), fan=fan),
     }
 
 
@@ -47,8 +53,9 @@ def ssm_cache_info(cfg: ArchConfig, batch: int) -> dict:
     H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim
     return {
         "conv": ParamInfo((batch, cfg.conv_width - 1, cfg.conv_dim), torch.float32,
-                          init="zeros"),
-        "ssm": ParamInfo((batch, H, N, P), torch.float32, init="zeros"),
+                          ("batch", None, "ffn"), init="zeros"),
+        "ssm": ParamInfo((batch, H, N, P), torch.float32, ("batch", "heads", None, None),
+                         init="zeros"),
     }
 
 

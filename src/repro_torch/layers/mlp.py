@@ -18,11 +18,12 @@ __all__ = ["mlp_params", "mlp"]
 def mlp_params(cfg: ArchConfig, n_layers: int | None = None) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     L = () if n_layers is None else (n_layers,)
+    nl = (None,) * len(L)
     fan = len(L)
-    p = {"wi": ParamInfo(L + (d, f), torch.float32, fan=fan),
-         "wo": ParamInfo(L + (f, d), torch.float32, fan=fan)}
+    p = {"wi": ParamInfo(L + (d, f), torch.float32, nl + ("fsdp", "ffn"), fan=fan),
+         "wo": ParamInfo(L + (f, d), torch.float32, nl + ("ffn", "fsdp"), fan=fan)}
     if cfg.act in ("swiglu", "geglu"):
-        p["wg"] = ParamInfo(L + (d, f), torch.float32, fan=fan)
+        p["wg"] = ParamInfo(L + (d, f), torch.float32, nl + ("fsdp", "ffn"), fan=fan)
     return p
 
 

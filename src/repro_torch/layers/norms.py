@@ -15,13 +15,14 @@ __all__ = ["rmsnorm_params", "layernorm_params", "norm_params", "apply_norm"]
 def rmsnorm_params(d: int, n_layers: int | None = None, *, plus_one: bool = False) -> dict:
     shape = (d,) if n_layers is None else (n_layers, d)
     # gemma parameterizes scale as (1 + w) with w init 0; others init 1.
-    return {"scale": ParamInfo(shape, torch.float32, init="zeros" if plus_one else "ones")}
+    return {"scale": ParamInfo(shape, torch.float32, (None,) * len(shape),
+                               init="zeros" if plus_one else "ones")}
 
 
 def layernorm_params(d: int, n_layers: int | None = None) -> dict:
     shape = (d,) if n_layers is None else (n_layers, d)
-    return {"scale": ParamInfo(shape, torch.float32, init="ones"),
-            "bias": ParamInfo(shape, torch.float32, init="zeros")}
+    return {"scale": ParamInfo(shape, torch.float32, (None,) * len(shape), init="ones"),
+            "bias": ParamInfo(shape, torch.float32, (None,) * len(shape), init="zeros")}
 
 
 def norm_params(kind: str, d: int, n_layers: int | None = None, *,

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.models import mamba, transformer, zamba
 from repro_torch.models.base import ArchConfig
+from repro_torch.parallel import data_parallel as dp
 
 __all__ = ["LB_WEIGHT", "Z_WEIGHT", "module_for", "abstract_params", "abstract_cache",
            "forward", "prefill", "decode_step", "loss_fn"]
@@ -59,7 +60,11 @@ def decode_step(cfg: ArchConfig, params, tokens, pos, cache, extras=None):
 def loss_fn(cfg: ArchConfig, params, batch, *, remat: str = "none", use_kernel: bool = False):
     """Next-token cross-entropy, plus the weighted auxiliary losses where
     `forward` returns any (every transformer: zeros for dense, the router's
-    for MoE). Returns (loss, metrics), the aux losses among the metrics."""
+    for MoE). Returns (loss, metrics), the aux losses among the metrics.
+    Inside `data_parallel.reducing` (a data-parallel train step) the nll
+    sum and the token count are the global batch's, reduced separately:
+    the loss is the global batch's, and each rank's backward gives its
+    rows' share of the gradient."""
     logits, aux = forward(cfg, params, batch, remat=remat, use_kernel=use_kernel)
     targets = batch["targets"]
     mask = batch.get("loss_mask")
@@ -71,8 +76,9 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: str = "none", use_kernel: 
     lse = torch.logsumexp(lf, dim=-1)                               # (B, S)
     tgt = torch.take_along_dim(lf, targets[..., None].long(), dim=-1)[..., 0]
     nll = (lse - tgt) * mask
-    denom = torch.clamp_min(mask.sum(), 1.0)
-    loss = nll.sum() / denom
+    # the global batch's sums inside a data-parallel train step
+    denom = torch.clamp_min(dp.global_sum(mask.sum()), 1.0)
+    loss = dp.global_sum(nll.sum()) / denom
     metrics = {"nll": loss}
     if aux:
         loss = loss + LB_WEIGHT * aux["lb_loss"] + Z_WEIGHT * aux["z_loss"]

@@ -3,10 +3,14 @@
 Counterpart of `repro/models/base.py`. Each model declares its
 parameters abstractly as a tree (nested dicts) of `ParamInfo(shape,
 dtype, init)`; `tree_init` materializes it on a device from one
-`torch.Generator`. The logical sharding axes of the reference have no
-counterpart on one card and are dropped, and with them `tree_specs`
-(ROADMAP.md, A.7); `tree_sds` gives the abstract tree as tensors on the
-`meta` device (shape and dtype, no storage). The same seed gives other
+`torch.Generator`. Each `ParamInfo` carries the reference's logical
+sharding axes (`logical`, one name or None per dim); `tree_specs` maps
+them to `PartitionSpec`s under the active mesh and rules
+(`parallel/sharding.py`), and `tree_sds` gives the abstract tree as
+tensors on the `meta` device (shape and dtype, no storage), each with a
+`sharding` attribute: its `sharding.NamedSharding` under an active mesh
+(spec and `torch.distributed.tensor` placements), None outside one. The
+same seed gives other
 bits than `jax.random`, so the tests carry weights across with
 `models.convert.from_jax_params` instead.
 
@@ -17,6 +21,7 @@ so checkpoints of the two packages share their leaf names.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
@@ -25,10 +30,13 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch._device import resolve_device
+from repro_torch.models import runtime
+from repro_torch.parallel import data_parallel as dp
+from repro_torch.parallel import sharding as shd
 
 __all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "supports_shape", "ParamInfo", "is_info",
            "tree_map", "tree_items", "tree_unflatten", "keystr", "layer", "unstack",
-           "remat_call", "tree_sds", "tree_init", "count_params"]
+           "remat_call", "sds", "tree_sds", "tree_specs", "tree_init", "count_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +122,7 @@ def supports_shape(cfg: ArchConfig, shape: ShapeConfig) -> bool:
 class ParamInfo:
     shape: tuple
     dtype: Any = torch.float32
+    logical: tuple = ()          # logical sharding per dim (None = replicated)
     init: str = "normal"         # normal | zeros | ones | uniform
     scale: float = 1.0           # stddev multiplier for normal init
     fan: int = 0                 # index of the fan-in dim (1 for stacked (L, in, out))
@@ -177,18 +186,60 @@ def remat_call(remat: str, fn, *args):
     """fn(*args); with remat "full" its activations are not kept but
     recomputed in the backward pass (`torch.utils.checkpoint`), the
     counterpart of the reference's `jax.checkpoint(..., nothing_saveable)`
-    on a layer body. "none" keeps them."""
+    on a layer body. "none" keeps them.
+
+    The recompute runs where autograd runs the backward, which for CUDA
+    tensors is its device thread, not the caller's: it re-enters the
+    forward's thread-local state there (the active mesh and rules, the
+    runtime flags, the data-parallel reduction group), so it computes
+    what the forward computed."""
     if remat == "full":
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 context_fn=_forward_state)
     if remat != "none":
         raise ValueError(f"remat {remat!r} (want 'none' or 'full')")
     return fn(*args)
 
 
+def _forward_state():
+    """checkpoint's (forward, recompute) contexts: nothing for the forward;
+    for the recompute, the thread-local state the forward ran under."""
+    return contextlib.nullcontext(), _entered(shd.snapshot(), runtime.snapshot(),
+                                              dp.snapshot())
+
+
+@contextlib.contextmanager
+def _entered(*ctxs):
+    with contextlib.ExitStack() as stack:
+        for ctx in ctxs:
+            stack.enter_context(ctx)
+        yield
+
+
+def sds(shape, dtype, logical) -> torch.Tensor:
+    """A `meta` tensor of `shape` and `dtype` whose `sharding` attribute is
+    its `NamedSharding` under the active mesh (None outside one)."""
+    t = torch.empty(shape, dtype=dtype, device="meta")
+    t.sharding = shd.named_sharding(tuple(shape), logical)
+    return t
+
+
+def _map_in_order(fn, tree):
+    """tree_map visiting the leaves in the reference's flatten order, so
+    `sharding.fallbacks()` records them in its order."""
+    items = list(tree_items(tree))
+    return tree_unflatten([p for p, _ in items], [fn(i) for _, i in items])
+
+
 def tree_sds(tree):
-    """Abstract tree -> the same tree of `meta`-device tensors (shape and
-    dtype, no storage)."""
-    return tree_map(lambda i: torch.empty(i.shape, dtype=i.dtype, device="meta"), tree)
+    """Abstract tree -> the same tree of `meta`-device tensors (shape,
+    dtype and `sharding`, no storage)."""
+    return _map_in_order(lambda i: sds(i.shape, i.dtype, i.logical), tree)
+
+
+def tree_specs(tree):
+    """Abstract tree -> PartitionSpec tree under the active rules."""
+    return _map_in_order(lambda i: shd.spec(i.shape, i.logical), tree)
 
 
 def tree_init(tree, generator: torch.Generator, device=None):

@@ -35,8 +35,8 @@ def abstract_params(cfg: ArchConfig) -> dict:
 
 def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     info = m2.ssm_cache_info(cfg, batch)
-    return tree_map(lambda i: ParamInfo((cfg.n_layers,) + i.shape, i.dtype, init="zeros"),
-                    info)
+    return tree_map(lambda i: ParamInfo((cfg.n_layers,) + i.shape, i.dtype,
+                                        (None,) + i.logical, init="zeros"), info)
 
 
 def layer_body(cfg: ArchConfig, lp: dict, h: torch.Tensor, use_kernel: bool) -> torch.Tensor:

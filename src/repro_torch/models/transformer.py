@@ -55,8 +55,8 @@ def abstract_params(cfg: ArchConfig) -> dict:
 def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     """KV cache stacked over layers: (L, B, KV, S, hd)."""
     info = attn_lib.init_cache_info(cfg, batch, max_len)
-    return tree_map(lambda i: ParamInfo((cfg.n_layers,) + i.shape, i.dtype, init="zeros"),
-                    info)
+    return tree_map(lambda i: ParamInfo((cfg.n_layers,) + i.shape, i.dtype,
+                                        (None,) + i.logical, init="zeros"), info)
 
 
 def _block(cfg: ArchConfig, lp: dict, h, positions, cache_layer, cache_pos, causal: bool):

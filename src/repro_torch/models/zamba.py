@@ -50,7 +50,8 @@ def abstract_params(cfg: ArchConfig) -> dict:
             "mixer": m2.mamba_params(cfg, L),
         },
         "shared": {
-            "in_proj": ParamInfo((2 * cfg.d_model, cfg.d_model), torch.float32),
+            "in_proj": ParamInfo((2 * cfg.d_model, cfg.d_model), torch.float32,
+                                 ("fsdp", None)),
             "ln_attn": norms.norm_params(cfg.norm, cfg.d_model),
             "attn": attn_lib.attn_params(cfg),
             "ln_mlp": norms.norm_params(cfg.norm, cfg.d_model),
@@ -63,7 +64,8 @@ def abstract_params(cfg: ArchConfig) -> dict:
 def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     """SSM cache stacked over layers + KV cache stacked over shared sites."""
     def stack(n):
-        return lambda i: ParamInfo((n,) + i.shape, i.dtype, init="zeros")
+        return lambda i: ParamInfo((n,) + i.shape, i.dtype, (None,) + i.logical,
+                                   init="zeros")
 
     return {"ssm": tree_map(stack(cfg.n_layers), m2.ssm_cache_info(cfg, batch)),
             "kv": tree_map(stack(n_sites(cfg)), attn_lib.init_cache_info(cfg, batch, max_len))}

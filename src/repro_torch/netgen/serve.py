@@ -1,7 +1,6 @@
 """Compile-cache serving of netgen-compiled predictors.
 
-Counterpart of `repro/netgen/serve.py`, without mesh sharding (a later
-slice):
+Counterpart of `repro/netgen/serve.py`:
 
   CompileCache — the in-memory tier of the Session API, for one device.
       The key is the sha256 digest of the quantized weights + input
@@ -33,6 +32,15 @@ slice):
       records which path served each request; every slot round is a
       `netgen.kernel` span that closes after the answers reach the host.
 
+  Under a mesh with a data axis (`parallel.sharding.use_mesh`) the
+      stacked dispatch is sharded over the slot dimension
+      (`_shard_stacked`): each rank of the data axes serves cap / n_data
+      slot rows of every version, and an `all_gather` over the data axes
+      assembles the whole answer on every rank. "sharded" counts beside
+      "stacked", not instead of it. The multi-net builds are cached per
+      (version set, mesh), so leaving the mesh serves the single-device
+      build again.
+
 Hidden-width padding used for stacking is exact: a zero-padded column is
 an empty accumulator, step(0) = 0, and its outgoing row is zero-padded
 too. Predictions come back as numpy arrays on the host.
@@ -47,6 +55,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 from repro_torch.core.quantize import weights_digest
@@ -60,6 +69,7 @@ from repro_torch.netgen.session import (
     Artifact, ArtifactStore, _validate_batch, load_or_compile,
 )
 from repro_torch.netgen.targets import resolve_target
+from repro_torch.parallel.sharding import active_mesh
 from repro_torch.serve.slots import pad_slots
 
 # DEFAULT_CACHE is left out: a star import would make it, and it wants
@@ -370,6 +380,39 @@ def _kernel_attrs(fn) -> dict:
     return attrs
 
 
+def _shard_stacked(fn, mesh, capacity: int, device: torch.device):
+    """Wrap a stacked dispatch ((M, cap, n_in) -> (M, cap)) so that each
+    rank of the mesh's data axes serves cap / n_data slot rows of every
+    version and an `all_gather` over those axes assembles the (M, cap)
+    answer. Returns None (the single-device build serves) when the mesh
+    has no data axis or the capacity does not divide across it. The
+    wrapper keeps `datapath`, `launches_per_call` and `plan_form`, which
+    the kernel spans read (`_kernel_attrs`)."""
+    data_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    if not data_axes:
+        return None
+    n = mesh.size(data_axes)
+    if capacity % n != 0:
+        return None
+    if mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot shard a server on {device}")
+    group = mesh.group(data_axes)
+    rows = capacity // n
+    lo = dist.get_rank(group) * rows
+
+    def sharded(block):
+        local = fn(block[:, lo:lo + rows]).contiguous()        # (M, rows)
+        parts = [torch.empty_like(local) for _ in range(n)]
+        dist.all_gather(parts, local, group=group)
+        return torch.cat(parts, dim=1)                          # (M, cap)
+
+    for attr in ("datapath", "launches_per_call", "plan_form"):
+        if hasattr(fn, attr):
+            setattr(sharded, attr, getattr(fn, attr))
+    sharded.sharded = True
+    return sharded
+
+
 # ---------------------------------------------------------------------------
 # Multi-version server
 # ---------------------------------------------------------------------------
@@ -392,7 +435,8 @@ class NetServer:
     target that declares `explored` builds its stacked dispatch with
     `explored=true` unless the caller pinned it, so a design-space
     explorer's recorded winner serves the stacked rounds (inert without
-    a record).
+    a record). Under a mesh with a data axis the stacked dispatch is
+    sharded over the slot rows (see the module's docstring).
     """
 
     def __init__(self, *, session=None, target: str | None = None,
@@ -439,7 +483,7 @@ class NetServer:
         self._dispatch = {
             path: self._tel.counter(
                 "netgen_dispatch_total", server=self._scope, path=path)
-            for path in ("single", "stacked", "fallback")}
+            for path in ("single", "stacked", "sharded", "fallback")}
         self._h_occupancy = self._tel.histogram(
             "netgen_slot_occupancy", server=self._scope)
 
@@ -493,12 +537,13 @@ class NetServer:
         """Why a version set fell back to per-version dispatch: the
         `analysis.StackReport` recorded when `_stacked_fn` diagnosed the
         set (None for sets that stacked fine or were never requested).
-        With `names`, the report for that version set; without,
-        {version-name tuple: report} for every diagnosed set."""
+        With `names`, the report for that version set under the active
+        mesh; without, {version-name tuple: report} for every diagnosed
+        set."""
         with self._lock:
             if names is None:
-                return dict(self._stack_reports)
-            return self._stack_reports.get(tuple(sorted(names)))
+                return {k[0]: r for k, r in self._stack_reports.items()}
+            return self._stack_reports.get((tuple(sorted(names)), active_mesh()))
 
     def versions(self) -> list[str]:
         with self._lock:
@@ -566,11 +611,14 @@ class NetServer:
             return out
 
         self._dispatch["stacked"].inc()
+        sharded = getattr(fn, "sharded", False)
+        if sharded:
+            self._dispatch["sharded"].inc()
         cap = self.slot_capacity
         rounds = max((x.shape[0] + cap - 1) // cap for x in xs.values())
         out: dict[str, list] = {v: [] for v in names}
         service = {v: 0.0 for v in names}
-        with self._tel.span("netgen.dispatch", path="stacked",
+        with self._tel.span("netgen.dispatch", path="sharded" if sharded else "stacked",
                             versions=len(names), rounds=rounds):
             for r in range(rounds):
                 active = tuple(v for v in names if xs[v].shape[0] > r * cap)
@@ -638,14 +686,18 @@ class NetServer:
         None when the set cannot be stacked, with the reason recorded as
         a `StackReport` (the static `analysis.diagnose_stack`, or the
         build error when compilation itself fails) and counted in
-        `netgen_stack_incompat_total{server,reason}`. Compilation
-        happens outside the lock; a generation check before storing
-        keeps a stale build (a concurrent register/unregister) out of
-        `_multi`."""
+        `netgen_stack_incompat_total{server,reason}`. Under a mesh with
+        a data axis the build is wrapped by `_shard_stacked`; builds are
+        cached per (names, mesh), so leaving the mesh finds the
+        single-device build. Compilation happens outside the lock; a
+        generation check before storing keeps a stale build (a
+        concurrent register/unregister) out of `_multi`."""
+        mesh = active_mesh()
+        key = (names, mesh)
         while True:
             with self._lock:
-                if names in self._multi:
-                    return self._multi[names]
+                if key in self._multi:
+                    return self._multi[key]
                 generation = self._generation
                 circuits = [self._versions[v].compiled.circuit for v in names]
             fn = None
@@ -668,6 +720,9 @@ class NetServer:
                         fn = compile_multi(plan, backend=self._target.name,
                                            device=self.device,
                                            tuner=self._tuner, **opts)
+                        if mesh is not None:
+                            fn = _shard_stacked(fn, mesh, self.slot_capacity,
+                                                self.device) or fn
                         report = None
                     except (IrregularCircuitError, ValueError) as e:
                         report = analysis.StackReport(
@@ -676,9 +731,9 @@ class NetServer:
                                 check="stack.build", message=str(e)),))
             with self._lock:
                 if self._generation == generation:
-                    self._multi[names] = fn
+                    self._multi[key] = fn
                     if report is not None:
-                        self._stack_reports[names] = report
+                        self._stack_reports[key] = report
                         self._tel.counter(
                             "netgen_stack_incompat_total",
                             server=self._scope, reason=report.reason).inc()

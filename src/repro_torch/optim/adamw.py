@@ -43,14 +43,14 @@ class OptConfig:
 
 
 def abstract_opt_state(abstract_params) -> dict:
-    """m and v mirror the parameter tree (same shapes, fp32); step is an
-    int32 scalar."""
+    """m and v mirror the parameter tree (same shapes and logical axes,
+    fp32); step is an int32 scalar."""
     def zero_like(i: ParamInfo) -> ParamInfo:
-        return ParamInfo(i.shape, torch.float32, init="zeros")
+        return ParamInfo(i.shape, torch.float32, i.logical, init="zeros")
 
     return {"m": tree_map(zero_like, abstract_params),
             "v": tree_map(zero_like, abstract_params),
-            "step": ParamInfo((), torch.int32, init="zeros")}
+            "step": ParamInfo((), torch.int32, (), init="zeros")}
 
 
 def schedule(oc: OptConfig, step) -> torch.Tensor:

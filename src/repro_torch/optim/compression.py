@@ -8,14 +8,18 @@ back at the next step, so the compression is unbiased over time
 `compress_decompress` (one error-feedback round, the lossy channel
 modelled locally) are the reference's arithmetic: blocks of 2048,
 scale = max(max |x|, 1e-12) / 127, round half to even, clip to +-127.
-`compressed_psum` needs a collective over a mesh axis and waits for the
-port's meshes (ROADMAP.md, A.7).
+`compressed_psum` is that round followed by a sum over one axis of the
+active mesh (`parallel.sharding.use_mesh`): an all-reduce over the
+axis's process group, as the reference's `psum` inside its `shard_map`.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.parallel import sharding as shd
 
 __all__ = ["BLOCK", "quantize_int8", "dequantize_int8", "compress_decompress",
            "compressed_psum"]
@@ -50,7 +54,14 @@ def compress_decompress(x: torch.Tensor, err: torch.Tensor):
 
 
 def compressed_psum(x: torch.Tensor, axis_name: str, err: torch.Tensor):
-    """The int8-compressed sum over a mesh axis: not ported."""
-    raise NotImplementedError(
-        "compressed_psum needs a collective over a device mesh, which the port does not "
-        "have yet (ROADMAP.md, A.7: meshes)")
+    """int8-compressed sum over the active mesh's `axis_name` with error
+    feedback. Returns (the sum of every rank's decoded values, in x's
+    dtype; this rank's new error buffer)."""
+    mesh = shd.active_mesh()
+    if mesh is None or axis_name not in mesh.shape:
+        raise ValueError(f"compressed_psum over {axis_name!r} needs an active mesh with "
+                         f"that axis, got {mesh}")
+    decoded, new_err = compress_decompress(x.float(), err)
+    total = decoded.contiguous()
+    dist.all_reduce(total, group=mesh.group(axis_name))
+    return total.to(x.dtype), new_err

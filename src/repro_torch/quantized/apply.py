@@ -108,14 +108,15 @@ def abstract_quantized_params(cfg, *, min_size: int = QUANT_MIN_SIZE) -> dict:
     """The abstract (ParamInfo) tree of the W8 serving checkpoint, made
     without allocating: the leaves `quantize_params_for_serving` quantizes
     become {"q": int8, "s": fp32 scales}, with per-(stack, out-channel)
-    scales, (L, last), for stacked weights."""
+    scales, (L, last), for stacked weights, and the same logical axes."""
     def one(path, info):
         if not _served_as_int8(path, info.shape, min_size):
             return info
-        sshape = ((info.shape[0], info.shape[-1]) if len(info.shape) >= 3
-                  else (info.shape[-1],))
-        return {"q": ParamInfo(info.shape, torch.int8, init="zeros"),
-                "s": ParamInfo(sshape, torch.float32, init="ones")}
+        three = len(info.shape) >= 3
+        sshape = (info.shape[0], info.shape[-1]) if three else (info.shape[-1],)
+        slogical = (info.logical[0], info.logical[-1]) if three else (info.logical[-1],)
+        return {"q": ParamInfo(info.shape, torch.int8, info.logical, init="zeros"),
+                "s": ParamInfo(sshape, torch.float32, slogical, init="ones")}
 
     return _rebuild(api.abstract_params(cfg), one)
 

@@ -1,6 +1,6 @@
 """Fault-tolerant training loop.
 
-Counterpart of `repro/train/trainer.py` on one card:
+Counterpart of `repro/train/trainer.py`:
 
   * checkpoint/restart: periodic atomic checkpoints and resume from the
     latest; the data pipeline is a pure function of the step, so replayed
@@ -19,6 +19,12 @@ zeros, so the parameters are those of `tree_init(abstract_params)` for
 that seed). The state is updated in place (`train.step`). The history
 has the reference's keys and two more: `grad_norm` and `step_s` (each
 step's wall seconds, ending when its loss has reached the host).
+
+Under an active mesh the step is data parallel (`train/step.py`): every
+rank makes the same initial state from the seed and feeds the step the
+same global batches; a resumed state is restored whole on every rank
+(outside the mesh, so `ckpt.restore` does not shard it). Rank 0 writes the
+checkpoints and the others wait for it at a barrier.
 """
 from __future__ import annotations
 
@@ -28,12 +34,14 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.data import pipeline
 from repro_torch.models.base import ArchConfig, ShapeConfig, tree_init
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding as shd
 from repro_torch.train import step as step_lib
 
 __all__ = ["TrainerConfig", "InjectedFailure", "run"]
@@ -63,12 +71,20 @@ def run(cfg: ArchConfig, shape: ShapeConfig, oc: adamw.OptConfig, tc: TrainerCon
     """Train on `device` (the card unless the caller names the CPU);
     returns (final_state, history dict)."""
     dev = resolve_device(device)
+    meshed = shd.active_mesh() is not None
     mgr = ckpt_lib.CheckpointManager(tc.ckpt_dir, keep=tc.keep)
     abstract = step_lib.abstract_state(cfg)
 
+    def save(step, state, **kw):
+        if not meshed or dist.get_rank() == 0:
+            mgr.save(step, state, **kw)
+        if meshed:
+            dist.barrier()
+
     start_step, state = 0, None
     if resume:
-        s, restored = mgr.restore_latest(abstract, device=dev)
+        with shd.use_mesh(None):
+            s, restored = mgr.restore_latest(abstract, device=dev)
         if restored is not None:
             start_step, state = int(s), restored
     if state is None:
@@ -100,11 +116,12 @@ def run(cfg: ArchConfig, shape: ShapeConfig, oc: adamw.OptConfig, tc: TrainerCon
             history["grad_norm"].append(float(metrics["grad_norm"]))
             history["step_s"].append(dt)
             if (step + 1) % tc.ckpt_every == 0:
-                mgr.save(step + 1, state, metadata={"loss": loss})
+                save(step + 1, state, metadata={"loss": loss})
     except InjectedFailure as e:
         # emergency checkpoint of the last good state, then surface the
         # failure to the supervisor (tests re-enter with resume=True)
         history["failures"].append(str(e))
-        mgr.save(step, state, tag="emergency")
+        save(step, state, tag="emergency")
         raise
     return state, history
+

@@ -273,16 +273,17 @@ def test_launcher_serves_the_smoke_config(capsys):
 
 
 def test_unported_features_raise():
-    """What is still unported raises, naming its ROADMAP item: the
-    collective of `compressed_psum` and the training launcher's
-    --multi-pod wait for meshes (A.7). The vlm and audio modalities run in
-    the ssm and hybrid families; their decode steps, which the reference
-    gives no modality defaults, raise KeyError without extras there too."""
+    """What cannot run here raises: `compressed_psum` outside a mesh with
+    its axis, and the training launcher's --multi-pod, whose 2x16x16 mesh
+    needs 512 ranks (the reference fails on one device too). The vlm and
+    audio modalities run in the ssm and hybrid families; their decode
+    steps, which the reference gives no modality defaults, raise KeyError
+    without extras there too."""
     from repro_torch.launch import train
     from repro_torch.optim import compression
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(ValueError, match="active mesh"):
         compression.compressed_psum(torch.zeros(3), "pod", torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(RuntimeError, match="needs 512 ranks; this world has 1"):
         train.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--multi-pod"])
     for arch in (ARCH, "zamba2-2.7b"):
         small = configs.smoke(arch)

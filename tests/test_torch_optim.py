@@ -221,8 +221,25 @@ def test_error_feedback_unbiased_over_time():
 
 
 def test_compressed_psum_waits_for_meshes():
-    with pytest.raises(NotImplementedError, match="A.7"):
+    """Outside a mesh with its axis `compressed_psum` raises; on a one-rank
+    CPU mesh the sum over "data" is the rank's own decoded values, and
+    the error buffer is `compress_decompress`'s (several ranks:
+    tests/test_torch_mesh.py)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding as shd
+    with pytest.raises(ValueError, match="active mesh"):
         compression.compressed_psum(torch.zeros(4), "data", torch.zeros(4))
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(5000,)).astype(np.float32))
+    err = torch.full((5000,), 1e-3)
+    want, want_err = compression.compress_decompress(x, err)
+    try:
+        with shd.use_mesh(make_host_mesh(device="cpu")):
+            total, new_err = compression.compressed_psum(x, "data", err)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(total, want) and torch.equal(new_err, want_err)
 
 
 def test_data_deterministic_and_resumable():

@@ -148,7 +148,7 @@ def test_netserver_dense_packed_fused_match_jax_server(target, jtarget):
     counts, jcounts = server.dispatch_counts, jserver.dispatch_counts
     assert counts == {k: jcounts[k] for k in counts}
     stacked = target != "fused"
-    assert counts == {"single": 1, "stacked": 2 * stacked,
+    assert counts == {"single": 1, "stacked": 2 * stacked, "sharded": 0,
                       "fallback": 2 * (not stacked)}
     names = tuple(sorted(jnets))
     fn, (jfn, _) = server._stacked_fn(names), jserver._stacked_fn(names)
@@ -183,7 +183,7 @@ def test_netserver_matches_jax_server():
             np.testing.assert_array_equal(got[v], _ref(jnets[v], req[v]))
     counts, jcounts = server.dispatch_counts, jserver.dispatch_counts
     assert counts == {k: jcounts[k] for k in counts} and jcounts["sharded"] == 0
-    assert counts == {"single": 1, "stacked": 2, "fallback": 0}
+    assert counts == {"single": 1, "stacked": 2, "sharded": 0, "fallback": 0}
 
     names = tuple(sorted(jnets))
     fn, (jfn, _) = server._stacked_fn(names), jserver._stacked_fn(names)

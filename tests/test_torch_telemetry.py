@@ -482,7 +482,7 @@ def test_concurrent_serving_invariants(stackable):
     _hammer(server, reqs, n_threads, per_thread)
     n = n_threads * per_thread
     path = "stacked" if stackable else "fallback"
-    assert server.dispatch_counts == {"single": 0, "stacked": n * stackable,
+    assert server.dispatch_counts == {"single": 0, "stacked": n * stackable, "sharded": 0,
                                       "fallback": n * (not stackable)}
     reg = telemetry.get_registry()
     for v in ("v0", "v1"):

@@ -178,8 +178,10 @@ def test_trainer_wants_the_card(monkeypatch):
 
 def test_launcher_trains_the_smoke_config(capsys, tmp_path):
     """`python -m repro_torch.launch.train --arch gemma-2b --smoke`: the
-    reference's summary line; --resume continues from its checkpoint;
-    --multi-pod waits for the port's meshes."""
+    reference's summary line, trained under a one-rank host mesh;
+    --resume continues from its checkpoint (restored onto the mesh, then
+    gathered whole); --multi-pod raises its world-size error, as the
+    reference fails on one device."""
     from repro_torch.launch import train
     args = ["--arch", "gemma-2b", "--smoke", "--device", "cpu", "--ckpt-dir", str(tmp_path)]
     hist = train.main(args + ["--steps", "26"])
@@ -188,7 +190,7 @@ def test_launcher_trains_the_smoke_config(capsys, tmp_path):
     assert os.listdir(tmp_path) == ["step_00000025"]
     hist = train.main(args + ["--steps", "27", "--resume"])
     assert hist["steps"] == [25, 26]
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(RuntimeError, match="needs 512 ranks; this world has 1"):
         train.main(args + ["--multi-pod"])
 
 
