@@ -181,7 +181,18 @@ Phases, each raising on failure (nothing is caught):
    training steps at 1 x 512 under the mesh against the same steps
    without it, bitwise (a subprocess, `chip_smoke.py --mesh-train DIR`,
    under deterministic algorithms, run before this process opens its
-   group). The phase destroys its process group.
+   group). The phase destroys its process group. (k) The roofline, at
+   world size 1 (`launch/cost.py`'s counting mode, `launch/roofline.py`):
+   mamba2-2.7b's prefill at 4 x 512 and the train path's gemma-2b step,
+   each counted on the card and again on `meta` tensors, FLOPs and bytes
+   equal; the prefill's 64 `ssd_scan` launches all on the tensor cores
+   and counted as 64 x `ssd_correction`'s per-layer forward; its wall
+   beside t_compute, t_memory and the roofline fraction; the step's
+   `model_flops`, counted matmul FLOPs and their ratio, counted peak
+   against `max_memory_allocated`; one `qlinear` counted by B6's formula
+   on the card and on `meta`; and `python -m repro_torch.launch.dryrun`
+   on mamba2-2.7b `prefill_32k` over a fake 16 x 16 world on `meta`, in a
+   subprocess that sees no card.
    Every launch count is set to 0 just before a path runs and read just
    after it; each of the path's kernels must have launched.
 5. Times: CUDA events, median of 20 runs after warmup, per kernel (both
@@ -2356,6 +2367,7 @@ def _train_path(dev, wrappers, reset_launches, smi) -> None:
     import torch
     from repro_torch import configs
     from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import roofline as rl
     from repro_torch.models import api, base
     from repro_torch.optim import adamw
     from repro_torch.train import step as step_lib
@@ -2385,7 +2397,8 @@ def _train_path(dev, wrappers, reset_launches, smi) -> None:
     peak = torch.cuda.max_memory_allocated(dev)
     tokens = TRAIN_SEQ * TRAIN_BATCH
     step_s = statistics.median(hist["step_s"][1:])
-    mfu = 6 * n * tokens / step_s / BF16_TC_FLOP_PER_S
+    mfu = rl.model_flops(cfg, shape) / step_s / BF16_TC_FLOP_PER_S
+    mfu_all = 6 * n * tokens / step_s / BF16_TC_FLOP_PER_S     # over all parameters
     for i, (loss, gn, dt) in enumerate(zip(hist["loss"], hist["grad_norm"], hist["step_s"])):
         print(f"[4 {tag}] {TRAIN_ARCH} step {i + 1}: loss {loss:.5f}, grad_norm {gn:.4f}, "
               f"{dt * 1e3:.1f} ms")
@@ -2397,7 +2410,9 @@ def _train_path(dev, wrappers, reset_launches, smi) -> None:
           f"grads + m + v), {TRAIN_BATCH}x{TRAIN_SEQ} in {TRAIN_ACCUM} microbatches, remat "
           f"full: {TRAIN_STEPS} steps in {run_s:.1f} s; median step (2-{TRAIN_STEPS}) "
           f"{step_s * 1e3:.1f} ms, {tokens / step_s:.0f} tokens/s, model FLOP utilisation "
-          f"{mfu:.3f} (6 N tokens / step s / {BF16_TC_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16); "
+          f"{mfu:.3f} (roofline.model_flops: 6 x {rl.active_param_count(cfg):.0f} active "
+          f"parameters x tokens / step s / {BF16_TC_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16; with "
+          f"all {n} parameters {mfu_all:.3f}); "
           f"peak {peak / 1e9:.1f} GB allocated of the card's "
           f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.1f} GB")
     print(f"[4 {tag}] {TRAIN_ARCH} first loss {hist['loss'][0]:.5f} vs ln(vocab) {ln_v:.5f} "
@@ -2405,7 +2420,8 @@ def _train_path(dev, wrappers, reset_launches, smi) -> None:
           f"{TRAIN_STEPS} steps: {seen0:.5f}")
     out["gemma"] = {"params": n, "loss": hist["loss"], "grad_norm": hist["grad_norm"],
                     "step_s": hist["step_s"], "median_step_ms": step_s * 1e3,
-                    "tokens_per_s": tokens / step_s, "mfu": mfu, "peak_bytes": peak,
+                    "tokens_per_s": tokens / step_s, "mfu": mfu, "mfu_all_params": mfu_all,
+                    "peak_bytes": peak,
                     "run_s": run_s, "step1_batch_loss_after": seen0,
                     "stragglers": len(hist["stragglers"])}
     if not all(math.isfinite(v) for v in hist["loss"] + hist["grad_norm"]):
@@ -2868,6 +2884,175 @@ def _mesh_train_child(root: Path) -> int:
     return 0
 
 
+ROOF_PREFILL = (4, 512)                  # mamba2-2.7b prefill through B7 (rows, tokens)
+ROOF_WALL_RUNS = 3                       # uncounted prefills timed after one warm-up
+DRYRUN_TIMEOUT_S = 300
+
+
+def _roofline_path(dev, wrappers, reset_launches, smi) -> dict:
+    """Phase 4(k): the counting mode (`launch/cost.py`) and the roofline
+    (`launch/roofline.py`) on the card, at world size 1. (a) mamba2-2.7b
+    prefill 4 x 512 through B7, counted on the card and the same step on
+    `meta`: FLOPs and bytes equal, B7's counted FLOPs 64 x
+    `ssd_correction`'s per-layer forward, its 64 launches all on the
+    tensor cores; the uncounted prefill's wall beside t_compute, t_memory
+    and the roofline fraction. (b) The gemma-2b train step of the train
+    path, counted the same way: `model_flops` (active parameters, the
+    embedding gather excluded), the counted matmul FLOPs with the remat
+    recompute, their ratio, the counted peak against
+    `max_memory_allocated`. (c) One `qlinear` at the W8 `in_proj` shape,
+    B6 counted by its formula on the card and on `meta`. (d) The dry run
+    in a subprocess with no card (`CUDA_VISIBLE_DEVICES=`): mamba2-2.7b
+    `prefill_32k` on a fake 16 x 16 world on `meta`; its record. Returns
+    the phase's launches."""
+    import dataclasses
+    import gc
+    import os
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.launch import cost, dryrun
+    from repro_torch.launch import roofline as rl
+    from repro_torch.models.base import ShapeConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag = "roofline path"
+    out = {}
+
+    def both(cfg, shape, remat="full"):
+        """(card counter, meta counter, the card's built step)."""
+        run = dryrun.build_step(cfg, shape, device=dev, remat=remat)
+        torch.cuda.synchronize()
+        card = dryrun.count_step(run)
+        torch.cuda.synchronize()
+        meta = dryrun.count_step(dryrun.build_step(cfg, shape, device="meta", remat=remat))
+        if (card.flops, card.bytes) != (meta.flops, meta.bytes):
+            raise AssertionError(f"{cfg.name} {shape.kind}: card counts {card.flops} FLOP, "
+                                 f"{card.bytes} B; meta {meta.flops}, {meta.bytes}")
+        return card, meta, run
+
+    # (a) mamba2-2.7b prefill through B7
+    cfg = configs.get_config(LM_ARCH)
+    shape = ShapeConfig("chip", ROOF_PREFILL[1], ROOF_PREFILL[0], "prefill")
+    reset_launches()
+    card, meta, run = both(cfg, shape)
+    n_ssd, n_mma = wrappers["ssd_scan"].launches, wrappers["ssd_scan"].mma_launches
+    per_layer = rl.ssd_correction(dataclasses.replace(cfg, n_layers=1), batch=shape.global_batch,
+                                  seq=shape.seq_len, kind="prefill")
+    b7 = card.kernels.get("ssd_scan", {})
+    if not (n_ssd == n_mma == cfg.n_layers == b7.get("calls")):
+        raise AssertionError(f"ssd_scan: {n_ssd} launches, {n_mma} on the tensor cores, "
+                             f"{b7.get('calls')} counted; want {cfg.n_layers} of each")
+    if b7["flops"] != cfg.n_layers * per_layer["flops"] or b7 != meta.kernels["ssd_scan"]:
+        raise AssertionError(f"ssd_scan counted {b7}; want {cfg.n_layers} x {per_layer}")
+    run()                                                  # warm, uncounted
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(ROOF_WALL_RUNS):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    roof = rl.Roofline(cfg.name, "prefill 4x512", "1", 1, card.flops, card.bytes, 0.0,
+                       rl.collective_stats(card.collective_ops), rl.model_flops(cfg, shape),
+                       float(card.peak_bytes))
+    print(f"[4 {tag}] {cfg.name} prefill {shape.global_batch}x{shape.seq_len} (bf16 compute, "
+          f"fp32 weights) counted on the card = on meta: {card.flops:.6e} FLOP, "
+          f"{card.bytes:.6e} B ({card.n_ops} aten ops); ssd_scan {n_mma} of {n_ssd} launches on "
+          f"the tensor cores, counted {b7['flops']:.0f} FLOP = {cfg.n_layers} x "
+          f"ssd_correction's {per_layer['flops']:.0f}")
+    print(f"[4 {tag}] {cfg.name} prefill: wall {wall * 1e3:.2f} ms (median of "
+          f"{ROOF_WALL_RUNS}, host clock, uncounted); t_compute {roof.t_compute * 1e3:.3f} ms, "
+          f"t_memory {roof.t_memory * 1e3:.3f} ms (unfused bytes), bottleneck {roof.bottleneck}, "
+          f"roofline fraction {roof.roofline_fraction:.3f}, model_flops "
+          f"{roof.model_flops:.6e}; wall / largest term "
+          f"{wall / max(roof.t_compute, roof.t_memory):.2f} ({smi})")
+    out["prefill"] = {**roof.as_dict(), "wall_s": wall, "walls_s": walls,
+                      "ssd_launches": n_ssd, "ssd_mma_launches": n_mma, "ssd_scan": b7}
+    del run, card, meta
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the gemma-2b train step of the train path
+    cfg = configs.get_config(TRAIN_ARCH)
+    shape = ShapeConfig("chip", TRAIN_SEQ, TRAIN_BATCH, "train", accum=TRAIN_ACCUM)
+    torch.cuda.reset_peak_memory_stats(dev)
+    card, meta, run = both(cfg, shape)
+    peak = torch.cuda.max_memory_allocated(dev)
+    mf = rl.model_flops(cfg, shape)
+    print(f"[4 {tag}] {cfg.name} train step {TRAIN_BATCH}x{TRAIN_SEQ}, {TRAIN_ACCUM} "
+          f"microbatches, remat full, counted on the card = on meta: matmul {card.flops:.6e} "
+          f"FLOP (remat recompute included), {card.bytes:.6e} B ({card.n_ops} aten ops); "
+          f"model_flops {mf:.6e} (6 x {rl.active_param_count(cfg):.0f} active x "
+          f"{TRAIN_BATCH * TRAIN_SEQ} tokens); counted / model {card.flops / mf:.4f}; counted "
+          f"peak {card.peak_bytes / 1e9:.2f} GB (arguments {card.arg_bytes / 1e9:.2f}) vs "
+          f"max_memory_allocated {peak / 1e9:.2f} GB ({smi})")
+    out["train"] = {"flops": card.flops, "bytes": card.bytes, "model_flops": mf,
+                    "ratio": card.flops / mf, "peak_counted": card.peak_bytes,
+                    "arg_bytes": card.arg_bytes, "max_memory_allocated": peak,
+                    "aten_ops": card.n_ops}
+    del run, card, meta
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) one qlinear at the W8 in_proj shape: B6 by its formula
+    m, k, n = QMM_SHAPES["in_proj"]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((m, k), generator=g, device=dev, dtype=torch.bfloat16)
+    w_q = qops.qmm_weights(torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                                         dtype=torch.int8))
+    sw = torch.rand((n,), generator=g, device=dev)
+    reset_launches()
+    counts = {}
+    for where, args in (("card", (x, w_q, sw)), ("meta", tuple(t.to("meta") for t in
+                                                             (x, w_q, sw)))):
+        with cost.Counter() as c:
+            qops.qlinear(*args)
+        counts[where] = c.kernels.get("quant_matmul")
+    torch.cuda.synchronize()
+    n_qmm = wrappers["quant_matmul"].launches
+    ops_, bytes_ = qops.work(m, k, n)
+    want = {"calls": 1, "flops": float(ops_), "bytes": float(bytes_)}
+    if counts["card"] != want or counts["meta"] != want or n_qmm != 1:
+        raise AssertionError(f"qlinear counted {counts}, {n_qmm} launches; want {want}, 1")
+    print(f"[4 {tag}] qlinear {m}x{k} x {k}x{n}: quant_matmul counted once on the card and on "
+          f"meta, {ops_} operations (2MKN + 2MN), {bytes_} B; {n_qmm} launch")
+    del x, w_q, sw
+
+    # (d) the dry run on a fake 16 x 16 world, meta tensors, no card
+    path = ROOT / "build" / "roofline" / "dryrun_mamba2_prefill_32k.json"
+    path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "single_pod", "--arch",
+         LM_ARCH, "--shape", "prefill_32k", "--out", str(path)],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""},
+        cwd=ROOT, capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+    dry_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"dryrun exit {proc.returncode}: {proc.stderr[-2000:]}")
+    (rec,) = json.loads(path.read_text())
+    if not (rec["ok"] and rec["chips"] == 256 and rec["kernels"]["ssd_scan"]["calls"] == 64):
+        raise AssertionError(f"dryrun record: {rec}")
+    print(f"[4 {tag}] dryrun --mesh single_pod --arch {LM_ARCH} --shape prefill_32k ({dry_s:.1f} "
+          f"s, fake 16x16 world, meta, no card): flops/device {rec['flops_per_device']:.6e}, "
+          f"bytes/device {rec['bytes_per_device']:.6e}, peak {rec['peak_mem_per_device'] / 2**30:.3f} "
+          f"GiB, t_compute {rec['t_compute'] * 1e3:.2f} ms, t_memory {rec['t_memory'] * 1e3:.2f} "
+          f"ms, bottleneck {rec['bottleneck']}, useful_flops_ratio "
+          f"{rec['useful_flops_ratio']:.4f}, roofline_fraction {rec['roofline_fraction']:.4f}")
+    out["dryrun"] = {k: rec[k] for k in ("flops_per_device", "bytes_per_device",
+                                         "peak_mem_per_device", "useful_flops_ratio",
+                                         "roofline_fraction", "bottleneck")}
+    out["dryrun"]["wall_s"] = dry_s
+    seconds = time.perf_counter() - t_phase
+    print(f"[4 {tag}] phase {seconds:.1f} s")
+    print(json.dumps({"roofline": out, "phase_s": seconds, "power": smi}))
+    return {"ssd_scan": n_ssd, "ssd_scan mma": n_mma, "quant_matmul": n_qmm}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3159,6 +3344,10 @@ def main() -> int:
     meshed = _mesh_path(dev, wrappers, reset_launches, smi, session, nets, images, rounds)
     mma_launches["binary_forward_planes"] += meshed.pop("binary_forward_planes mma")
     for name, n in meshed.items():
+        launches[name] += n
+    roofed = _roofline_path(dev, wrappers, reset_launches, smi)
+    mma_launches["ssd_scan"] += roofed.pop("ssd_scan mma")
+    for name, n in roofed.items():
         launches[name] += n
 
     # -- 5. times -------------------------------------------------------------

@@ -1,7 +1,8 @@
 """What every kernel wrapper of the port checks before a launch.
 
 A wrapper sends CPU tensors to its plain version and CUDA tensors to its
-kernel (`placement`); the kernel takes contiguous operands
+kernel (`placement`), and those that have a fake send `meta` tensors to
+it; the kernel takes contiguous operands
 (`check_contiguous`), launches on PyTorch's current stream
 (`stream_args`), and reports its launch error, which the wrapper raises
 (`check_launch`).
@@ -19,13 +20,15 @@ BLOCK_ROWS = (1, 2, 4, 8, 16, 32)
 SMEM_LIMIT = 232_448                    # bytes a block may opt in to (H100)
 
 
-def placement(name: str, tensors) -> str:
-    """'cpu' or 'cuda' for a set of operands that must share a device."""
+def placement(name: str, tensors, *, fake: bool = False) -> str:
+    """'cpu' or 'cuda' for a set of operands that must share a device;
+    also 'meta' where the wrapper has a fake (`fake=True`: empty outputs
+    of the kernel's shapes and dtypes, for the counting mode)."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: operands on several devices {devices}")
     kind = devices.pop().type
-    if kind not in ("cpu", "cuda"):
+    if kind not in ("cpu", "cuda") and not (fake and kind == "meta"):
         raise ValueError(f"{name}: unsupported device type {kind!r}")
     return kind
 

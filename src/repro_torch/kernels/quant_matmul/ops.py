@@ -12,8 +12,14 @@ tensor, runs the int8 product against pre-quantized weights and returns
 x's dtype. Launches are counted in `quant_matmul.launches`, those of the
 narrow tile also in `quant_matmul.narrow_launches`; `reset_launches()`
 sets both back to 0.
+
+On `meta` tensors `quant_matmul` returns its fake, an empty fp32 (M, N).
+Under the counting mode (`launch/cost.py`) each call records `work(M, K,
+N)` once, whichever of the kernel, its plain version or its fake ran.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -21,7 +27,7 @@ from repro_torch.kernels.launch import check_contiguous, check_launch, placement
 from repro_torch.kernels.quant_matmul import ref
 
 __all__ = ["NARROW_M", "qmm_weights", "quant_matmul", "quantize_act", "quantize_weight",
-           "qlinear", "reset_launches"]
+           "qlinear", "reset_launches", "work"]
 
 NARROW_M = 64           # largest M that takes the 64 x 64 tile
 
@@ -73,8 +79,32 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, sx, sw: torch.Tensor
         sx = torch.tensor(sx, dtype=torch.float32, device=x_q.device)
     if sx.numel() != 1:
         raise ValueError(f"{name}: sx must be one scale, got shape {tuple(sx.shape)}")
-    if placement(name, (x_q, w_q, sx, sw)) == "cpu":
-        return ref.quant_matmul_ref(x_q, w_q, sx.reshape(()), sw)
+    kind = placement(name, (x_q, w_q, sx, sw), fake=True)
+    with _counted(*x_q.shape, w_q.shape[1]):
+        if kind == "cpu":
+            return ref.quant_matmul_ref(x_q, w_q, sx.reshape(()), sw)
+        if kind == "meta":
+            return torch.empty((x_q.shape[0], w_q.shape[1]), dtype=torch.float32,
+                               device="meta")
+        return _launch(name, x_q, w_q, sx, sw)
+
+
+def work(m: int, k: int, n: int) -> tuple[int, int]:
+    """(operations, bytes) of one (m, k) x (k, n) call: 2mkn integer
+    multiply-adds and the epilogue's two multiplies per output; int8 x
+    and w, the fp32 scales and the fp32 output."""
+    return 2 * m * k * n + 2 * m * n, m * k + k * n + 4 * (n + 1) + 4 * m * n
+
+
+def _counted(m, k, n):
+    from repro_torch.launch import cost
+    if not cost.active():
+        return contextlib.nullcontext()
+    ops, bytes_ = work(m, k, n)
+    return cost.kernel("quant_matmul", flops=ops, bytes_=bytes_)
+
+
+def _launch(name, x_q, w_q, sx, sw):
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise TypeError(f"{name}: x_q and w_q must be int8, got {x_q.dtype}, {w_q.dtype}")
     if sx.dtype != torch.float32 or sw.dtype != torch.float32:

@@ -20,8 +20,16 @@ block); fp32 inputs and other shapes to the
 scalar kernel (`ssd_scan_kernel`). `ssd.launches` counts both routes,
 `ssd.mma_launches` the tensor-core launches alone; `reset_launches()`
 sets both back to 0.
+
+On `meta` tensors the wrapper returns its fake: empty y and s of the
+kernel's shapes and dtypes. Under the counting mode (`launch/cost.py`)
+each call records the reference's SSD forward formula
+(`launch/roofline.py` `ssd_forward`) once, whichever of the kernel, its
+plain version or its fake ran.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -66,8 +74,30 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_per_head: torch.Tensor,
             f"{name}: shapes disagree: x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
             f"a {tuple(a_per_head.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}")
     assert L % chunk == 0, (L, chunk)
-    if placement(name, (x, dt, a_per_head, b, c)) == "cpu":
-        return ref.ssd(x, dt, a_per_head, b, c, chunk=chunk)
+    kind = placement(name, (x, dt, a_per_head, b, c), fake=True)
+    with _counted(B, L, H, P, N, G, chunk):
+        if kind == "cpu":
+            return ref.ssd(x, dt, a_per_head, b, c, chunk=chunk)
+        if kind == "meta":
+            return (torch.empty((B, L, H, P), dtype=x.dtype, device="meta"),
+                    torch.empty((B, H, N, P), dtype=torch.float32, device="meta"))
+        return _launch(name, x, dt, a_per_head, b, c, chunk)
+
+
+def _counted(B, L, H, P, N, G, chunk):
+    """The active counters' record of one call (`launch/cost.py`): the
+    reference's per-layer SSD forward formula, at this call's chunk."""
+    from repro_torch.launch import cost
+    if not cost.active():
+        return contextlib.nullcontext()
+    from repro_torch.launch.roofline import ssd_forward
+    flops, bytes_ = ssd_forward(B, L, H, P, N, G, chunk)
+    return cost.kernel("ssd_scan", flops=flops, bytes_=bytes_)
+
+
+def _launch(name, x, dt, a_per_head, b, c, chunk):
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (dt, b, c)):
         raise TypeError(f"{name}: x, dt, b, c must share one dtype of {_DTYPES}; got "
                         f"{x.dtype}, {dt.dtype}, {b.dtype}, {c.dtype}")

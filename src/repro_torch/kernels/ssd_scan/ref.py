@@ -106,7 +106,8 @@ def ssd(x, dt, a_per_head, b, c, *, chunk: int = 64):
     """`ops.ssd`'s contract on plain tensors: x (B, L, H, P), dt (B, L, H),
     a (H,), b/c (B, L, G, N). Flattens (B, H), repeats B/C over the heads
     of their group, runs the chunked scan in fp32. Returns (y (B, L, H, P)
-    in x's dtype, s_final (B, H, N, P) fp32)."""
+    in x's dtype, contiguous as the kernel writes it, s_final (B, H, N, P)
+    fp32)."""
     B, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     rep = H // G
@@ -116,5 +117,5 @@ def ssd(x, dt, a_per_head, b, c, *, chunk: int = 64):
     bf = b.repeat_interleave(rep, dim=2).permute(0, 2, 1, 3).reshape(B * H, L, N)
     cf = c.repeat_interleave(rep, dim=2).permute(0, 2, 1, 3).reshape(B * H, L, N)
     y, s = chunked_scan(xf, dtf, af, bf, cf, chunk=chunk)
-    y = y.reshape(B, H, L, P).permute(0, 2, 1, 3).to(x.dtype)
+    y = y.reshape(B, H, L, P).permute(0, 2, 1, 3).to(x.dtype).contiguous()
     return y, s.reshape(B, H, N, P)

@@ -13,6 +13,12 @@ in-memory `HashStore`, with NCCL on the card, or gloo when the caller
 passes `device="cpu"`. A world of several processes must open its group
 before (`torch.distributed.init_process_group`, as the tests do from a
 `FileStore`). The mesh takes the first `prod(shape)` ranks of the world.
+
+Under a counting world, a process group of the `fake` backend opened by
+`launch/dryrun.py` (`open_fake_world`: 256 or 512 ranks in one process,
+whose collectives move nothing), a mesh of any device is built over it,
+`meta` included: the dry run's steps run on storage-free tensors and
+count rank 0's view.
 """
 from __future__ import annotations
 
@@ -22,7 +28,10 @@ import os
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_mesh_compat", "make_production_mesh", "make_host_mesh", "HW"]
+__all__ = ["Mesh", "make_mesh_compat", "make_production_mesh", "make_host_mesh", "HW",
+           "FAKE_BACKEND"]
+
+FAKE_BACKEND = "fake"       # launch/dryrun.py's counting world
 
 
 class Mesh:
@@ -66,8 +75,10 @@ def make_mesh_compat(shape, axes, *, device=None) -> Mesh:
     the card (NCCL) unless `device="cpu"` (gloo)."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     device_type = "cuda" if device is None else torch.device(device).type
-    if device_type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device} (want cuda or cpu)")
+    fake = dist.is_initialized() and str(dist.get_backend()) == FAKE_BACKEND
+    if device_type not in ("cuda", "cpu") and not (fake and device_type == "meta"):
+        raise ValueError(f"unsupported device {device} (want cuda or cpu; meta in a "
+                         "counting world)")
     if device_type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: a mesh runs on the GPU unless the caller "
                            "passes device='cpu'")
@@ -77,7 +88,7 @@ def make_mesh_compat(shape, axes, *, device=None) -> Mesh:
             raise RuntimeError("WORLD_SIZE > 1 but no process group: call "
                                "torch.distributed.init_process_group first")
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
-    elif backend not in str(dist.get_backend()):
+    elif not fake and backend not in str(dist.get_backend()):
         raise RuntimeError(f"a {device_type} mesh needs the {backend} backend; the "
                            f"process group has {dist.get_backend()}")
     n, world = math.prod(shape), dist.get_world_size()
@@ -86,7 +97,10 @@ def make_mesh_compat(shape, axes, *, device=None) -> Mesh:
     if device_type == "cuda":
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
     from torch.distributed.device_mesh import DeviceMesh
-    return Mesh(DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=axes))
+    mesh = Mesh(DeviceMesh("cpu" if device_type == "meta" else device_type,
+                           torch.arange(n).reshape(shape), mesh_dim_names=axes))
+    mesh.device_type = device_type
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:

@@ -30,7 +30,9 @@ the global batch's, so the losses equal the single-process step's; so
 are the capacity and each expert's queue (`dispatch`'s `first`), so the
 same routed pairs are kept or dropped. Each rank's expert buffer holds
 only its own kept pairs, so a rank does its share of the expert
-products, not the global batch's.
+products, not the global batch's. On `meta` tensors (the dry run's
+counting step) that most cannot be read, and the buffer holds `cap`
+rows per expert, the bound it cannot exceed.
 """
 from __future__ import annotations
 
@@ -137,11 +139,14 @@ def moe(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     if dp.size() > 1:
         first = dp.exclusive_sum(local_counts).long()
         kept = torch.minimum((cap - first).clamp(min=0), local_counts.long())
-        rows = max(1, int(kept.max()))
+        # on meta (launch/dryrun.py) there is no value to read: the bound
+        rows = cap if kept.is_meta else max(1, int(kept.max()))
     stok, sgate, slot, keep = dispatch(ids, gates, E, cap, first, rows)
-    buf_tok = torch.zeros(E * rows, dtype=torch.long, device=x.device)
-    buf_tok[slot[keep]] = stok[keep]
-    xe = xt[buf_tok].reshape(E, rows, D)
+    # every dropped pair lands in the overflow slot, which is cut off (no
+    # boolean mask: the shapes stay data-independent, meta tensors too)
+    buf_tok = torch.zeros(E * rows + 1, dtype=torch.long, device=x.device)
+    buf_tok[slot] = stok
+    xe = xt[buf_tok[:E * rows]].reshape(E, rows, D)
 
     h = torch.bmm(xe, p["wi"].to(dt))
     g = torch.bmm(xe, p["wg"].to(dt))

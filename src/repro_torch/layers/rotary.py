@@ -41,7 +41,8 @@ def mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         raise ValueError(f"mrope sections {sections} do not sum to head_dim/2 = {half}")
     freqs = _freqs(x.shape[-1], theta, x.device)
     sec_id = torch.repeat_interleave(torch.arange(len(sections), device=x.device),
-                                     torch.tensor(sections, device=x.device))
+                                     torch.tensor(sections, device=x.device),
+                                     output_size=half)
     pos = positions.float()                                  # (3, B, S)
     ang = torch.zeros(pos.shape[1:] + (half,), dtype=torch.float32, device=x.device)
     for k in range(len(sections)):

@@ -42,7 +42,20 @@ parent runs the JAX reference and passes inputs and results as files.
     key bias `bk`, whose gradients run from ~4e-8 to ~1e-2 and so reach
     AdamW's eps, where the summation order of two ranks against one
     moves its step by a few per cent of lr (~1.7e-5 after two steps of
-    lr 1e-3, against 1e-6 of the largest parameter, 2.1e-6).
+    lr 1e-3, against 1e-6 of the largest parameter, 2.1e-6). The
+    trainer's parameters are held so where the reference's gradient
+    stayed above 1e-6 in both steps, and within 2 lr elsewhere: the
+    embedding rows of rare tokens reach AdamW's eps too, and over hash
+    seeds 0-6 of the initial state (CPU runs of this file) their
+    elements differed by up to 1.15e-6 of the largest parameter in two
+    draws of seven.
+
+  The initial state, the reference's steps and the one-process trainer
+  are made in processes of their own, on one intra-op thread as the ranks
+  run and with a fixed hash seed (tests/_pinned_parent.py): made in this
+  process, the state followed its hash salt and the sums its thread
+  count, and granite-moe's comparisons crossed their bounds on some runs
+  and not on others.
 
   Also granite-moe's remat="full" gradients on the two ranks with the
   backward run on another thread, as autograd runs a CUDA backward on
@@ -54,7 +67,6 @@ parent runs the JAX reference and passes inputs and results as files.
 And in this process, on a one-rank CPU mesh: a restore under 1x1 whose
 `full_tensor()` equals the save.
 """
-import dataclasses
 import json
 import os
 import subprocess
@@ -69,12 +81,12 @@ import torch
 import torch.distributed as dist
 
 from _mesh_child import MOE_ARCH, TRAIN_ARCHS, flat, train_setup
+from _pinned_parent import ENV as PINNED_ENV
+from _pinned_parent import unpack
 from repro import configs as jconfigs
 from repro.core import quantize as jquantize
-from repro.data import pipeline as jpipeline
 from repro.layers import moe as jmoe
 from repro.models import base as jbase
-from repro.optim import adamw as jadamw
 from repro.optim import compression as jcompression
 from repro.parallel import sharding as jshd
 from repro.train import step as jstep
@@ -82,12 +94,13 @@ from repro_torch import configs
 from repro_torch.checkpoint import ckpt
 from repro_torch.data.pipeline import make_batch
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models import base, convert
+from repro_torch.models import base
 from repro_torch.parallel import sharding as shd
-from repro_torch.train import step, trainer
+from repro_torch.train import step
 
 ROOT = Path(__file__).resolve().parents[1]
 CHILD = Path(__file__).with_name("_mesh_child.py")
+PINNED = Path(__file__).with_name("_pinned_parent.py")
 TIMEOUT = 240
 LR = 1e-3           # train_setup's
 EPS_REGIME = 1e-6   # |g| below 100 x AdamW's eps of 1e-8 (module doc)
@@ -259,64 +272,48 @@ def _vlm_batches():
     return out
 
 
-def _jax_setup(arch: str):
-    jcfg = dataclasses.replace(jconfigs.smoke(arch), compute_dtype="float32")
-    return (jcfg, jbase.ShapeConfig("s", 16, 4, "train", accum=2),
-            jadamw.OptConfig(lr=1e-3, warmup_steps=2, total_steps=50))
+def _pinned(job: str, d: Path) -> subprocess.Popen:
+    """Start tests/_pinned_parent.py's `job` on <d>, on one intra-op thread
+    and a fixed hash seed (its module doc)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), **PINNED_ENV}
+    log = open(d / f"pinned_{job}.log", "w")
+    return subprocess.Popen([sys.executable, str(PINNED), job, str(d)], env=env,
+                            stdout=log, stderr=subprocess.STDOUT)
 
 
-def _jflat(tree) -> dict:
-    return {jax.tree_util.keystr(k): np.asarray(v)
-            for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
-
-
-def _reference_steps(arch: str, jstate, batches) -> dict:
-    """The reference's train step (`repro.train.step`) on `batches`: its
-    losses, its parameters after them and, per element, the smallest
-    |gradient| over the steps (its `adamw.apply_updates` is wrapped to
-    return the gradients beside the metrics, as in test_torch_train.py)."""
-    jcfg, jshape, joc = _jax_setup(arch)
-    real = jadamw.apply_updates
-
-    def with_grads(params, grads, opt_state, o):
-        new_p, new_o, metrics = real(params, grads, opt_state, o)
-        return new_p, new_o, {**metrics, "grads": grads}
-
-    losses, gmin = [], None
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jadamw, "apply_updates", with_grads)
-        train_step = jax.jit(jstep.make_train_step(jcfg, jshape, joc, remat="none"))
-        for b in batches:
-            jstate, m = train_step(jstate, {k: jnp.asarray(v) for k, v in b.items()})
-            losses.append(float(m["loss"]))
-            g = {k: np.abs(v) for k, v in _jflat(m["grads"]).items()}
-            gmin = g if gmin is None else {k: np.minimum(gmin[k], v) for k, v in g.items()}
-    return {"loss": np.array(losses), "params": _jflat(jstate["params"]), "gmin": gmin}
+def _wait(proc: subprocess.Popen, job: str, d: Path) -> None:
+    try:
+        proc.wait(timeout=TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    if proc.returncode:
+        raise AssertionError(f"pinned {job}: exit code {proc.returncode}\n"
+                             + (d / f"pinned_{job}.log").read_text()[-3000:])
 
 
 @pytest.fixture(scope="module")
 def two(tmp_path_factory):
     """Every run starts from the reference's initial state of its arch,
     saved as step 0 of ckpt_<arch> (the ranks' trainers resume from it) and
-    of single_<arch> (this process's)."""
+    of single_<arch> (the one-process trainer's). That state, the
+    reference's steps and the one-process trainer are made in processes of
+    their own, on one intra-op thread as the ranks run and with a fixed
+    hash seed (tests/_pinned_parent.py), so that every run of the
+    comparison, on any machine, compares the same numbers."""
     d = tmp_path_factory.mktemp("two")
     batches = _vlm_batches()
     np.savez(d / "vlm_batches.npz", **batches)
-    ref = {}
-    for arch in TRAIN_ARCHS:
-        jcfg, jshape, _ = _jax_setup(arch)
-        jstate = jbase.tree_init(jstep.abstract_state(jcfg), jax.random.PRNGKey(3))
-        init = convert.from_jax_params(jax.tree.map(np.asarray, jstate), device="cpu")
-        for prefix in ("ckpt", "single"):
-            ckpt.save(str(d / f"{prefix}_{arch}"), 0, init)
-        _, _, _, kw = train_setup(arch)
-        ref[arch] = _reference_steps(arch, jstate, [
-            jpipeline.make_batch(jcfg, jshape, s, seed=kw["data_seed"]) for s in range(2)])
-        if arch == "qwen2-vl-2b":
-            ref["mask"] = _reference_steps(arch, jstate, [
-                {k.split("/")[1]: v for k, v in batches.items() if k.startswith(f"{i}/")}
-                for i in range(2)])
-    return {"ranks": _spawn("train", 2, d), "batches": batches, "dir": d, "ref": ref}
+    _wait(_pinned("init", d), "init", d)
+    pinned = _pinned("steps", d)
+    try:
+        ranks = _spawn("train", 2, d)
+    finally:
+        _wait(pinned, "steps", d)
+    z = np.load(d / "pinned.npz")
+    ref = {name: unpack(z, f"ref/{name}") for name in (*TRAIN_ARCHS, "mask")}
+    single = {arch: unpack(z, f"single/{arch}") for arch in TRAIN_ARCHS}
+    return {"ranks": ranks, "batches": batches, "dir": d, "ref": ref, "single": single}
 
 
 def _init(two, arch: str) -> dict:
@@ -328,23 +325,28 @@ def _init(two, arch: str) -> dict:
 NOISE = ("['layers']['attn']['bk']",)     # gradients at AdamW's eps (module doc)
 
 
-def _close(got: dict, want: dict, prefix: str):
+def _close(got: dict, want: dict, prefix: str, gmin: dict | None = None):
+    """Losses within 1e-6 relative; parameters but NOISE within 1e-6 of
+    their largest magnitude; with `gmin` (the reference's smallest
+    |gradient| per element over the steps), only where it stayed above
+    EPS_REGIME, and within the two steps' 2 lr elsewhere (module doc)."""
     losses = got[f"{prefix}/loss"]
     np.testing.assert_allclose(losses, want["loss"], rtol=1e-6, atol=0)
     scale = max(np.abs(v).max() for v in want["params"].values())
     for k, v in want["params"].items():
         if k not in NOISE:
-            assert np.abs(got[f"{prefix}/{k}"] - v).max() <= 1e-6 * scale, (prefix, k)
+            d = np.abs(got[f"{prefix}/{k}"] - v)
+            sure = np.ones(v.shape, bool) if gmin is None else gmin[k] > EPS_REGIME
+            assert d[sure].max(initial=0) <= 1e-6 * scale, (prefix, k)
+            assert d.max() <= 2 * LR, (prefix, k)
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_two_data_parallel_trainer_steps_equal_one_process(two, arch):
-    cfg, shape, oc, kw = train_setup(arch)
-    tc = trainer.TrainerConfig(ckpt_dir=str(two["dir"] / f"single_{arch}"), **kw)
-    state, hist = trainer.run(cfg, shape, oc, tc, resume=True, device="cpu")
-    want = {"loss": np.array(hist["loss"]), "params": flat(state["params"])}
+    """The one-process `trainer.run` (in the pinned process, fixture `two`),
+    held where the reference's gradient stayed above EPS_REGIME."""
     for r in two["ranks"]:
-        _close(r, want, arch)
+        _close(r, two["single"][arch], arch, two["ref"][arch]["gmin"])
 
 
 def _close_to_reference(got: dict, ref: dict, prefix: str):
