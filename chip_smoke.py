@@ -192,7 +192,22 @@ Phases, each raising on failure (nothing is caught):
    against `max_memory_allocated`; one `qlinear` counted by B6's formula
    on the card and on `meta`; and `python -m repro_torch.launch.dryrun`
    on mamba2-2.7b `prefill_32k` over a fake 16 x 16 world on `meta`, in a
-   subprocess that sees no card.
+   subprocess that sees no card. (l) Dense serving split over a model
+   axis of 2 (`parallel/tensor.py`), last: two `chip_smoke.py --tp-child`
+   ranks on the one card in a gloo world (NCCL refuses two ranks on one
+   GPU; the collectives go through host memory) under a (1, 2) mesh and
+   the serving rules, each drawing the whole tree from the seed leaf by
+   leaf and keeping its shards: qwen1.5-4b at full width through
+   `Engine` at 4 x 512 + 32 in bf16 (heads and kv heads split, the cache
+   by kv heads) and gemma-2b at 4 x 512 + 8 (one kv head: the cache by
+   positions, the log-sum-exp decode, the tied head split by vocab),
+   each rank's parameter and cache bytes, prefill and decode times and
+   fallbacks; then this process runs the same weights unmeshed: the
+   bf16 prefill's last logits within 0.05 of the largest |logit|, the
+   split fp32 greedy tokens at 4 x 64 + 16 against a teacher-forced
+   fp32 forward; and qwen1.5-4b at 4 layers in fp32 (TF32 off), prefill
+   and 8 greedy steps split against unmeshed within 1e-5 of the largest
+   |logit|, tokens equal. Every count, the ranks' too, must stay 0.
    Every launch count is set to 0 just before a path runs and read just
    after it; each of the path's kernels must have launched.
 5. Times: CUDA events, median of 20 runs after warmup, per kernel (both
@@ -404,6 +419,28 @@ HOST_LOSS_RTOL, HOST_GRAD_RTOL = 1e-5, 1e-5
 # of one, so losses and parameters must be bitwise equal.
 MESH_MOE_CF, MESH_MOE_RTOL, MESH_PREFILL = 4.0, 1e-4, (2, 512)
 MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 512, 2
+# Phase 4(l), dense serving split over a model axis of 2 (`parallel/tensor.py`):
+# two ranks on the one card, a gloo world (NCCL refuses two ranks on one GPU,
+# so every collective goes through host memory) and a (1, 2) cuda mesh under
+# the serving rules, each rank a `chip_smoke.py --tp-child` process that draws
+# the whole tree from the seed leaf by leaf and keeps its shards. (a)
+# qwen1.5-4b at full width, 4 x 512 + 32 in bf16 through `Engine`: heads and
+# kv heads split, the cache by kv heads; (b) gemma-2b at full width, 4 x 512 +
+# 8: its one kv head does not divide 2, so the cache goes by positions, decode
+# combines the ranks' partial attention by log-sum-exp, and the tied head is
+# vocab-split; each held to the same weights unmeshed on the card: the bf16
+# prefill's last logits within TP_BF16_RTOL of the largest |logit| (each
+# rank's partial sums are rounded to bf16 before the all-reduce, one rounding
+# more per split product than one process makes), and the split path's fp32
+# greedy tokens at 4 x 64 + 16 against a teacher-forced fp32 forward, as the
+# dense path holds its own. (c) qwen1.5-4b at full width and 4 layers in fp32
+# with TF32 off, prefill and TP_FP32_STEPS greedy steps: every step's logits
+# within TP_FP32_RTOL of the largest |logit| of the unmeshed run's, the
+# tokens equal.
+TP_RANKS, TP_TIMEOUT_S = 2, 600
+TP_SERVED = (("a", DENSE_ARCH, DENSE_NEW), ("b", "gemma-2b", DENSE_OTHER_NEW))
+TP_FP32_LAYERS, TP_FP32_STEPS = 4, 8
+TP_BF16_RTOL, TP_FP32_RTOL = 0.05, 1e-5
 
 
 def _smi(query: str) -> str:
@@ -1697,17 +1734,11 @@ def _dense_generate(cfg, params, prompts, new: int, dev, label: str,
 def _teacher_forcing(cfg, params, prompts, dev, tag: str = "dense path",
                      extras=None) -> dict:
     """In fp32 compute: the engine's greedy tokens against the argmax of a
-    teacher-forced `api.forward` over prompt + generation (position P+i-1
-    predicts token i). A token may differ only where the forward's top-2
-    margin is below TF_MARGIN_RTOL of the largest |logit| (a near tie
-    that fp32 summation order can flip); such positions are counted. The
-    forward's position P-1 is the prefill's last position, so `prefill`'s
-    logits are held to it within the reference's PREFILL_TOL. The prompt's
-    modality `extras` reach the engine and the prefill; the forward gets
-    them extended over the generated positions as `decode_step` supplies
-    them (`_extend_extras`)."""
+    teacher-forced `api.forward` over prompt + generation (`_forced`).
+    The forward's position P-1 is the prefill's last position, so
+    `prefill`'s logits are held to it within the reference's PREFILL_TOL.
+    The prompt's modality `extras` reach the engine and the prefill."""
     import dataclasses
-    import numpy as np
     import torch
     from repro_torch.models import api, base
     from repro_torch.serve.engine import Engine, ServeConfig
@@ -1717,30 +1748,50 @@ def _teacher_forcing(cfg, params, prompts, dev, tag: str = "dense path",
     extras = extras or {}
     gen = Engine(cfg32, params, ServeConfig(max_len=P + TF_NEW + 8, max_new_tokens=TF_NEW),
                  device=dev).generate(prompts, extras)
+    rec, logits = _forced(cfg32, params, prompts, gen, dev, extras)
     with torch.inference_mode():
-        seq = torch.as_tensor(np.concatenate([prompts, gen], axis=1), device=dev).long()
-        logits = api.forward(cfg32, params, {"tokens": seq, **_on(
-            _extend_extras(extras, P, TF_NEW), dev)})[0][:, P - 1:-1]          # (B, new, V)
         cache = base.tree_init(api.abstract_cache(cfg32, B, P), torch.Generator(device=dev), dev)
-        last, _ = api.prefill(cfg32, params, {"tokens": seq[:, :P], **_on(extras, dev)}, cache)
-    top2 = logits.topk(2, dim=-1).values
-    margin = top2[..., 0] - top2[..., 1]
-    bound = TF_MARGIN_RTOL * logits.abs().max()
-    differ = logits.argmax(-1) != torch.as_tensor(gen, device=dev).long()
-    excused = int((differ & (margin < bound)).sum())
+        last, _ = api.prefill(cfg32, params, {"tokens": torch.as_tensor(
+            prompts, device=dev).long(), **_on(extras, dev)}, cache)
     prefill_err = (last - logits[:, 0]).abs().max().item()
-    rec = {"tokens": int(differ.numel()), "differ": int(differ.sum()), "excused": excused,
-           "margin_bound": bound.item(), "prefill_vs_forward_max_abs": prefill_err}
+    rec["prefill_vs_forward_max_abs"] = prefill_err
     print(f"[4 {tag}] {cfg.name} fp32 teacher forcing {B}x{P} + {TF_NEW}: "
           f"{rec['tokens'] - rec['differ']} of {rec['tokens']} greedy tokens equal the forward's "
-          f"argmax, {excused} excused (top-2 margin < {rec['margin_bound']:.3g}); prefill vs "
-          f"forward max |diff| {prefill_err:.3g} (bound {PREFILL_TOL})")
-    if rec["differ"] != excused:
+          f"argmax, {rec['excused']} excused (top-2 margin < {rec['margin_bound']:.3g}); "
+          f"prefill vs forward max |diff| {prefill_err:.3g} (bound {PREFILL_TOL})")
+    if rec["differ"] != rec["excused"]:
         raise AssertionError(f"{cfg.name}: engine tokens differ from teacher forcing where "
                              "the margin decides them")
     if not torch.allclose(last, logits[:, 0], rtol=PREFILL_TOL, atol=PREFILL_TOL):
         raise AssertionError(f"{cfg.name}: prefill's last logits differ from forward's")
     return rec
+
+
+def _forced(cfg32, params, prompts, gen, dev, extras=None) -> tuple:
+    """Greedy tokens `gen` (B, new) after `prompts` against the argmax of
+    an fp32 teacher-forced `api.forward` over prompt + generation
+    (position P+i-1 predicts token i). A token may differ only where the
+    forward's top-2 margin is below TF_MARGIN_RTOL of the largest |logit|
+    (a near tie that fp32 summation order can flip); such positions are
+    counted. The forward gets the prompt's modality `extras` extended over
+    the generated positions as `decode_step` supplies them
+    (`_extend_extras`). Returns (record, the forward's (B, new, V) logits)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+
+    P, new = prompts.shape[1], gen.shape[1]
+    with torch.inference_mode():
+        seq = torch.as_tensor(np.concatenate([prompts, gen], axis=1), device=dev).long()
+        logits = api.forward(cfg32, params, {"tokens": seq, **_on(
+            _extend_extras(extras or {}, P, new), dev)})[0][:, P - 1:-1]      # (B, new, V)
+    top2 = logits.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    bound = TF_MARGIN_RTOL * logits.abs().max()
+    differ = logits.argmax(-1) != torch.as_tensor(gen, device=dev).long()
+    excused = int((differ & (margin < bound)).sum())
+    return ({"tokens": int(differ.numel()), "differ": int(differ.sum()), "excused": excused,
+             "margin_bound": bound.item()}, logits)
 
 
 def _extend_extras(extras: dict, P: int, new: int) -> dict:
@@ -2884,6 +2935,320 @@ def _mesh_train_child(root: Path) -> int:
     return 0
 
 
+def _tp_prompts(vocab: int, batch: int, prompt: int):
+    """The phase's prompts, the same in every process."""
+    import numpy as np
+    return np.random.default_rng(SEED + 1).integers(0, vocab, size=(batch, prompt)).astype(
+        np.int32)
+
+
+def _tp_config(arch: str, dtype: str, layers: int | None = None):
+    import dataclasses
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get_config(arch), compute_dtype=dtype)
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+
+
+def _device_name(dev) -> str:
+    import torch
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev)
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.models import base
+    return sum(t.numel() * t.element_size() for _, t in base.tree_items(tree))
+
+
+def _tp_steps(cfg, params, cache, prompts, steps: int, dev) -> dict:
+    """Prefill and `steps` greedy decode steps: each step's logits and
+    tokens (numpy)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    B, P = prompts.shape
+    logits, tokens = [], []
+    with torch.inference_mode():
+        out, cache = api.prefill(cfg, params, {"tokens": torch.as_tensor(
+            prompts, device=dev).long()}, cache)
+        pos = torch.full((B,), P, dtype=torch.int32, device=dev)
+        for i in range(steps + 1):
+            tok = torch.argmax(out, dim=-1)
+            logits.append(out.float().cpu().numpy())
+            tokens.append(tok.cpu().numpy())
+            if i < steps:
+                out, cache = api.decode_step(cfg, params, tok[:, None], pos, cache)
+                pos = pos + 1
+    return {"logits": np.stack(logits), "tokens": np.stack(tokens, axis=1)}
+
+
+def _tp_path(dev, wrappers, reset_launches, smi) -> None:
+    """Phase 4(l): dense serving split over a model axis of 2 on the card
+    (the constants' comment above `TP_RANKS`). Two `--tp-child` ranks run
+    the split paths first, while this process holds nothing; then this
+    process draws each model whole from the same seed, runs it unmeshed
+    and holds the ranks' results to it. The dense path reaches no TPU
+    kernel: every count, the ranks' too, must stay 0."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.models import api, base
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag = "tp path"
+    reset_launches()
+    root = ROOT / "build" / "tp_path"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    logs = [open(root / f"rank{r}.log", "w") for r in range(TP_RANKS)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-child",
+                               str(r), str(root), str(dev)], stdout=log,
+                              stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=TP_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    text = [(root / f"rank{r}.log").read_text() for r in range(TP_RANKS)]
+    print("\n".join(f"    {line}" for line in text[0].splitlines()))
+    if any(p.returncode for p in procs):
+        for r in range(1, TP_RANKS):
+            print(f"--- rank {r}:\n{text[r][-4000:]}", file=sys.stderr)
+        raise AssertionError(f"the tensor-parallel ranks failed (exit codes "
+                             f"{[p.returncode for p in procs]})")
+    ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in range(TP_RANKS)]
+    arrays = [dict(np.load(root / f"rank{r}.npz")) for r in range(TP_RANKS)]
+    for r, rec in enumerate(ranks):
+        for label in rec["cases"]:
+            c = rec["cases"][label]
+            print(f"[4 {tag}] rank {r} ({label}) {c['arch']}: parameters "
+                  f"{c['param_bytes'] / 1e9:.3f} GB, KV cache {c['cache_bytes'] / 1e9:.4f} GB "
+                  f"({c['dtype']})")
+    out = {"ranks": ranks}
+
+    # (a), (b): the bf16 prefill's last logits; the fp32 greedy tokens
+    # against a teacher-forced forward
+    for label, arch, new in TP_SERVED:
+        cfg = _tp_config(arch, "bfloat16")
+        prompts = _tp_prompts(cfg.vocab, DENSE_BATCH, DENSE_PROMPT)
+        with torch.inference_mode():
+            params = base.tree_init(api.abstract_params(cfg),
+                                    torch.Generator(device=dev).manual_seed(SEED), dev)
+            cache = base.tree_init(api.abstract_cache(cfg, DENSE_BATCH, DENSE_PROMPT),
+                                   torch.Generator(device=dev), dev)
+            want, _ = api.prefill(cfg, params, {"tokens": torch.as_tensor(
+                prompts, device=dev).long()}, cache)
+        want = want.float().cpu().numpy()
+        scale = float(np.abs(want).max())
+        errs = [float(np.abs(a[f"{label}/prefill"] - want).max()) for a in arrays]
+        same = all(np.array_equal(a[f"{label}/prefill"], arrays[0][f"{label}/prefill"])
+                   for a in arrays)
+        print(f"[4 {tag}] ({label}) {arch} bf16 prefill {DENSE_BATCH}x{DENSE_PROMPT}, split "
+              f"over 2 ranks vs unmeshed: last logits max |diff| "
+              f"{', '.join(f'{e:.4g}' for e in errs)} (ranks 0, 1) of the largest |logit| "
+              f"{scale:.4g}: {max(errs) / scale:.4g} (bound {TP_BF16_RTOL}); ranks bitwise "
+              f"equal: {same}")
+        if max(errs) > TP_BF16_RTOL * scale or not same:
+            raise AssertionError(f"{arch}: the split prefill's logits differ from unmeshed")
+        cfg32 = _tp_config(arch, "float32")
+        gen = arrays[0][f"{label}/tf_tokens"]
+        if not all(np.array_equal(a[f"{label}/tf_tokens"], gen) for a in arrays):
+            raise AssertionError(f"{arch}: the ranks' greedy tokens differ")
+        rec, _ = _forced(cfg32, params, _tp_prompts(cfg.vocab, DENSE_BATCH, TF_PROMPT), gen,
+                         dev)
+        print(f"[4 {tag}] ({label}) {arch} split fp32 generate {DENSE_BATCH}x{TF_PROMPT} + "
+              f"{TF_NEW}: {rec['tokens'] - rec['differ']} of {rec['tokens']} greedy tokens "
+              f"equal the unmeshed teacher-forced forward's argmax, {rec['excused']} excused "
+              f"(top-2 margin < {rec['margin_bound']:.3g})")
+        if rec["differ"] != rec["excused"]:
+            raise AssertionError(f"{arch}: split tokens differ from teacher forcing where "
+                                 "the margin decides them")
+        out[label] = {"prefill_max_abs": errs, "logit_scale": scale,
+                      "teacher_forcing": rec}
+        del params, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) fp32, TF32 off, 4 layers: every step's logits
+    cfg = _tp_config(DENSE_ARCH, "float32", TP_FP32_LAYERS)
+    prompts = _tp_prompts(cfg.vocab, DENSE_BATCH, DENSE_PROMPT)
+    with torch.inference_mode():
+        params = base.tree_init(api.abstract_params(cfg),
+                                torch.Generator(device=dev).manual_seed(SEED), dev)
+        cache = base.tree_init(api.abstract_cache(cfg, DENSE_BATCH,
+                                                  DENSE_PROMPT + TP_FP32_STEPS + 8),
+                               torch.Generator(device=dev), dev)
+    want = _tp_steps(cfg, params, cache, prompts, TP_FP32_STEPS, dev)
+    scale = float(np.abs(want["logits"]).max())
+    errs = [float(np.abs(a["c/logits"] - want["logits"]).max()) for a in arrays]
+    equal = all(np.array_equal(a["c/tokens"], want["tokens"]) for a in arrays)
+    print(f"[4 {tag}] (c) {DENSE_ARCH} {TP_FP32_LAYERS} layers fp32 (TF32 off) prefill "
+          f"{DENSE_BATCH}x{DENSE_PROMPT} + {TP_FP32_STEPS} steps, split vs unmeshed: max |diff| "
+          f"{', '.join(f'{e:.3g}' for e in errs)} (ranks 0, 1) of the largest |logit| "
+          f"{scale:.4g}: {max(errs) / scale:.3g} (bound {TP_FP32_RTOL}); greedy tokens "
+          f"{'equal' if equal else 'differ'}")
+    if max(errs) > TP_FP32_RTOL * scale or not equal:
+        raise AssertionError("the fp32 split path differs from the unmeshed path")
+    out["c"] = {"max_abs": errs, "logit_scale": scale}
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    counts = {name: w.launches for name, w in wrappers.items()}
+    children = [rec["launches"] for rec in ranks]
+    print(f"[4 {tag}] launches {counts}, ranks {children} (the dense path reaches no TPU "
+          f"kernel)")
+    if any(counts.values()) or any(any(c.values()) for c in children):
+        raise AssertionError("a kernel launched on the dense path")
+    seconds = time.perf_counter() - t_phase
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[4 {tag}] phase {seconds:.1f} s")
+    print(json.dumps({"tp": out, "phase_s": seconds, "device": _device_name(dev),
+                      "power": smi}))
+
+
+def _tp_child(rank: int, root: Path, device: str) -> int:
+    """`chip_smoke.py --tp-child RANK DIR DEVICE`, one of phase 4(l)'s two
+    ranks, on the parent's DEVICE (both ranks on the one card): a gloo
+    world over a `FileStore` in DIR, a (1, 2) mesh under the serving
+    rules, the split paths of (a), (b) and (c) on this rank's shards;
+    writes DIR/rank<RANK>.{json,npz}."""
+    import gc
+    import math
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.binary_matvec import ops
+    from repro_torch.kernels.fused_mlp import ops as fops
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import api, base
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lead = rank == 0
+    dist.init_process_group("gloo", store=dist.FileStore(str(root / "store"), TP_RANKS),
+                            rank=rank, world_size=TP_RANKS)
+    rec, arrays = {"cases": {}}, {}
+    try:
+        mesh = make_mesh_compat((1, TP_RANKS), ("data", "model"), device=dev.type)
+        group = mesh.group("model")
+        probe = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.full((3,), rank + 1.0, dtype=dtype, device=dev)
+            probe[str(dtype)] = (tensor.all_reduce(x, group).tolist(),
+                                 tensor.all_reduce(x, group, dist.ReduceOp.MAX).tolist(),
+                                 tensor.all_gather(x, group).tolist())
+        if lead:
+            print(f"[4 tp path] {mesh}, backend {dist.get_backend()}, world "
+                  f"{dist.get_world_size()}, both ranks on {_device_name(dev)}; "
+                  f"gloo on cuda tensors (sum, max, gather of rank + 1): {probe}")
+
+        def shards(cfg):
+            """The whole tree drawn leaf by leaf from the seed, as
+            `tree_init` draws it, each leaf cut to this rank's shard."""
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            paths, leaves = [], []
+            with torch.inference_mode():
+                for path, info in base.tree_items(api.abstract_params(cfg)):
+                    whole = base.tree_init(base.tree_unflatten([path], [info]), gen, dev)
+                    (_, leaf), = base.tree_items(tensor.shard_params(cfg, whole))
+                    paths.append(path)
+                    leaves.append(leaf)
+                    del whole
+            return base.tree_unflatten(paths, leaves)
+
+        for label, arch, new in TP_SERVED:
+            cfg = _tp_config(arch, "bfloat16")
+            with shd.use_mesh(mesh, tensor.serving_rules()):
+                t0 = time.perf_counter()
+                params = shards(cfg)
+                fallbacks = shd.fallbacks()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                init_s = time.perf_counter() - t0
+                prompts = _tp_prompts(cfg.vocab, DENSE_BATCH, DENSE_PROMPT)
+                sc = ServeConfig(max_len=DENSE_PROMPT + new + 8, max_new_tokens=new)
+                engine = Engine(cfg, params, sc, device=dev)
+                engine.generate(prompts[:, :16])                 # warm-up
+                t0 = time.perf_counter()
+                gen = engine.generate(prompts)
+                wall = time.perf_counter() - t0
+                if gen.shape != (DENSE_BATCH, new) or gen.min() < 0 or gen.max() >= cfg.vocab:
+                    raise AssertionError(f"{arch}: bad tokens, shape {gen.shape}")
+                cache_info = tensor.local_tree(cfg, api.abstract_cache(
+                    cfg, DENSE_BATCH, tensor.cache_len(cfg, sc.max_len)))
+                with torch.inference_mode():
+                    cache = base.tree_init(cache_info, torch.Generator(device=dev), dev)
+                    last, _ = api.prefill(cfg, engine.params, {"tokens": torch.as_tensor(
+                        prompts, device=dev).long()}, cache)
+                arrays[f"{label}/prefill"] = last.float().cpu().numpy()
+                del cache
+                cfg32 = _tp_config(arch, "float32")
+                tf = Engine(cfg32, params, ServeConfig(max_len=TF_PROMPT + TF_NEW + 8,
+                                                       max_new_tokens=TF_NEW), device=dev)
+                arrays[f"{label}/tf_tokens"] = tf.generate(
+                    _tp_prompts(cfg.vocab, DENSE_BATCH, TF_PROMPT))
+                c = {"arch": arch, "dtype": cfg.compute_dtype, "init_s": init_s,
+                     "param_bytes": _tree_bytes(params),
+                     "cache_bytes": sum(i.dtype.itemsize * math.prod(i.shape)
+                                        for _, i in base.tree_items(cache_info)),
+                     "cache_shape": list(cache_info["k"].shape),
+                     "generate_s": wall,
+                     "prefill_ms": engine.stats["prefill_s"] * 1e3,
+                     "decode_ms_per_token": statistics.median(engine.stats["decode_s"]) * 1e3,
+                     "fallbacks": [list(f) for f in fallbacks],
+                     "first_tokens": gen[:, 0].tolist()}
+                rec["cases"][label] = c
+                if lead:
+                    print(f"[4 tp path] ({label}) {arch} split over 2 ranks: shards drawn in "
+                          f"{init_s:.2f} s, cache {c['cache_shape']} a rank; bf16 "
+                          f"{DENSE_BATCH}x{DENSE_PROMPT} + {new} tokens: {wall:.2f} s, prefill "
+                          f"{c['prefill_ms']:.1f} ms, decode {c['decode_ms_per_token']:.2f} "
+                          f"ms/token (gloo through host memory); fallbacks {c['fallbacks']}")
+                del params, engine, tf
+                gc.collect()
+                torch.cuda.empty_cache()
+
+        cfg = _tp_config(DENSE_ARCH, "float32", TP_FP32_LAYERS)
+        with shd.use_mesh(mesh, tensor.serving_rules()):
+            params = shards(cfg)
+            cache_info = tensor.local_tree(cfg, api.abstract_cache(
+                cfg, DENSE_BATCH, tensor.cache_len(cfg, DENSE_PROMPT + TP_FP32_STEPS + 8)))
+            with torch.inference_mode():
+                cache = base.tree_init(cache_info, torch.Generator(device=dev), dev)
+            got = _tp_steps(cfg, params, cache, _tp_prompts(cfg.vocab, DENSE_BATCH,
+                                                            DENSE_PROMPT), TP_FP32_STEPS, dev)
+        arrays["c/logits"], arrays["c/tokens"] = got["logits"], got["tokens"]
+        rec["cases"]["c"] = {"arch": DENSE_ARCH, "dtype": "float32",
+                             "param_bytes": _tree_bytes(params),
+                             "cache_bytes": _tree_bytes(cache)}
+        rec["launches"] = {"binary_matvec": sum(f.launches for f in (
+            ops.binary_matmul_planes, ops.binary_forward_planes, ops.binary_matmul,
+            ops.binary_matmul_packed)), "fused_mlp_predict": fops.fused_mlp_predict.launches,
+            "quant_matmul": qops.quant_matmul.launches, "ssd_scan": sops.ssd.launches}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    (root / f"rank{rank}.json").write_text(json.dumps(rec))
+    np.savez(root / f"rank{rank}.npz", **arrays)
+    return 0
+
+
 ROOF_PREFILL = (4, 512)                  # mamba2-2.7b prefill through B7 (rows, tokens)
 ROOF_WALL_RUNS = 3                       # uncounted prefills timed after one warm-up
 DRYRUN_TIMEOUT_S = 300
@@ -3349,6 +3714,7 @@ def main() -> int:
     mma_launches["ssd_scan"] += roofed.pop("ssd_scan mma")
     for name, n in roofed.items():
         launches[name] += n
+    _tp_path(dev, wrappers, reset_launches, smi)
 
     # -- 5. times -------------------------------------------------------------
     def nbytes(tensors):
@@ -3514,4 +3880,6 @@ if __name__ == "__main__":
         sys.exit(_kill_resume_child(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--mesh-train"]:
         sys.exit(_mesh_train_child(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--tp-child"]:
+        sys.exit(_tp_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -21,11 +21,15 @@ and SSD chunk, and the `ssd_scan` kernel reports its own work.
 
 What a rank runs is what the port runs: a train step is data parallel
 over the data axes and refuses a model axis above 1 (`train/step.py`,
-ROADMAP.md A.7), which the sweep records as `{"ok": false, "error": ...}`
+ROADMAP.md A.7b), which the sweep records as `{"ok": false, "error": ...}`
 and goes on; a prefill or decode step takes its rank's rows of the
-batch (all of them when the data ranks do not divide it) and runs
-them whole, parameters replicated, so under model = 16 each rank does
-its data group's whole work. On `meta` a data-parallel MoE layer cannot
+batch (all of them when the data ranks do not divide it). The dense
+family serves them split over the model axis (`parallel/tensor.py`,
+A.7a: heads, ffn and vocab shards, the cache by kv heads or by
+positions; `serve_trees`), and the record lists the axes that stayed
+whole (`fallbacks`). The other families run their rows whole, parameters
+replicated (A.7c, A.7d), so under model = 16 each rank does its data
+group's whole work. On `meta` a data-parallel MoE layer cannot
 read how many pairs each expert keeps and sizes its buffer at the
 capacity (`layers/moe.py`); the cell's record says so (`moe_rows`).
 Prefill sends every SSD through the `ssd_scan` kernel, as serving does.
@@ -57,11 +61,12 @@ from repro_torch.models import api, runtime
 from repro_torch.models.base import ParamInfo, tree_init, tree_map, tree_sds
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor
 from repro_torch.serve.engine import make_serve_step
 from repro_torch.train import step as step_lib
 
-__all__ = ["open_fake_world", "build_step", "count_step", "analysis_layers", "analyze_cell",
-           "run_cell", "main"]
+__all__ = ["open_fake_world", "serve_trees", "build_step", "count_step", "analysis_layers",
+           "analyze_cell", "run_cell", "main"]
 
 ROOT = Path(__file__).resolve().parents[3]
 MESHES = {"single_pod": 256, "multi_pod": 512}
@@ -85,6 +90,12 @@ def _rules_for(mesh) -> dict:
     if mesh is None or "pod" in mesh.shape:
         return {}                       # default rules already include pod
     return {"batch": ("data",)}
+
+
+def _cell_rules(mesh, variant: dict | None) -> dict:
+    rules = dict(_rules_for(mesh))
+    rules.update((variant or {}).get("rules", {}))
+    return rules
 
 
 def _serve_params_tree(cfg, variant: dict):
@@ -130,6 +141,29 @@ def serve_rows(shape, mesh) -> int:
     return B // n if B % n == 0 else B
 
 
+def serve_trees(cfg, shape, mesh, rules: dict, variant: dict | None = None) -> tuple:
+    """A serve cell's abstract (params, cache) at one rank's shapes, and
+    the fallbacks of their split (None where nothing is split). The
+    dense family under a model axis above 1 holds its shards
+    (`parallel/tensor.py`): the specs are taken at the global batch, as
+    the reference places its arrays, and the cache then holds the rank's
+    rows. Every other cell holds its parameters whole and a cache of its
+    rows."""
+    variant = variant or {}
+    rows = serve_rows(shape, mesh)
+    with shd.use_mesh(mesh, rules) if mesh is not None else contextlib.nullcontext():
+        if tensor.group_for(cfg) is None:
+            return (_serve_params_tree(cfg, variant),
+                    api.abstract_cache(cfg, rows, shape.seq_len), None)
+        params = tensor.local_tree(cfg, _serve_params_tree(cfg, variant))
+        whole = api.abstract_cache(cfg, shape.global_batch,
+                                   tensor.cache_len(cfg, shape.seq_len))
+        cache = tree_map(lambda i: dataclasses.replace(i, shape=(i.shape[0], rows)
+                                                       + tuple(i.shape[2:])),
+                         tensor.local_tree(cfg, whole))
+        return params, cache, shd.fallbacks()
+
+
 def build_step(cfg, shape, mesh=None, *, remat: str = "full", variant: dict | None = None,
                device="meta"):
     """One cell's step, ready to run: returns `run()`, which runs it once
@@ -139,8 +173,7 @@ def build_step(cfg, shape, mesh=None, *, remat: str = "full", variant: dict | No
     rule overrides, "serve_dtype": "bfloat16", "quant": True}."""
     variant = variant or {}
     device = torch.device(device)
-    rules = dict(_rules_for(mesh))
-    rules.update(variant.get("rules", {}))
+    rules = _cell_rules(mesh, variant)
 
     def under_mesh(fn):
         def run():
@@ -159,8 +192,9 @@ def build_step(cfg, shape, mesh=None, *, remat: str = "full", variant: dict | No
         raise ValueError(shape.kind)
     rows = serve_rows(shape, mesh)
     local = dataclasses.replace(shape, global_batch=rows)
-    params = _materialize(_serve_params_tree(cfg, variant), device)
-    cache = _materialize(api.abstract_cache(cfg, rows, shape.seq_len), device)
+    ptree, ctree, _ = serve_trees(cfg, shape, mesh, rules, variant)
+    params = _materialize(ptree, device)
+    cache = _materialize(ctree, device)
     batch = _batch(cfg, local, device)
     if shape.kind == "prefill":
         return under_mesh(lambda: api.prefill(cfg, params, batch, cache, use_kernel=True))
@@ -176,10 +210,16 @@ def count_step(run) -> cost.Counter:
 
 
 def analysis_layers(cfg) -> tuple:
-    """(L1, L2): the layer counts `analyze_cell` counts a cell at (whole
-    attention groups for the hybrid family)."""
+    """(L1, L2): the layer counts `analyze_cell` counts a cell at: whole
+    attention groups for the hybrid family; layers 2 and 3 for the dense
+    family, whose live high-water mark lies on one line only from layer
+    2 on (layer 1's is lower by about one activation (rows, S, D), so a
+    line through layers 1 and 2 adds that activation once a layer);
+    layers 1 and 2 for the MoE family, as before."""
     if cfg.family == "hybrid":
         return cfg.attn_every, 2 * cfg.attn_every
+    if cfg.family == "dense":
+        return 2, 3
     return 1, 2
 
 
@@ -271,6 +311,9 @@ def run_cell(cfg, shape, mesh, *, remat: str = "full", analysis: bool = True,
         "rows_per_rank": (shape.global_batch if shape.kind == "train"
                           else serve_rows(shape, mesh)),
     }
+    if shape.kind != "train":
+        fallbacks = serve_trees(cfg, shape, mesh, _cell_rules(mesh, variant), variant)[2]
+        meta["fallbacks"] = None if fallbacks is None else [list(f) for f in fallbacks]
     if analysis:
         meta["extended_from_layers"] = analysis_layers(cfg) if eff["extended"] else None
         meta["reference_corrections_per_device"] = eff["reference_corrections_per_device"]

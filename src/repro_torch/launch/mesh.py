@@ -12,7 +12,10 @@ exists and the world is one process (no `WORLD_SIZE` above 1): over an
 in-memory `HashStore`, with NCCL on the card, or gloo when the caller
 passes `device="cpu"`. A world of several processes must open its group
 before (`torch.distributed.init_process_group`, as the tests do from a
-`FileStore`). The mesh takes the first `prod(shape)` ranks of the world.
+`FileStore`). A card's mesh runs over NCCL, or over gloo where the caller
+opened a gloo world: several ranks on one card, which NCCL refuses
+(`chip_smoke.py`'s tensor-parallel phase). It never picks gloo itself.
+The mesh takes the first `prod(shape)` ranks of the world.
 
 Under a counting world, a process group of the `fake` backend opened by
 `launch/dryrun.py` (`open_fake_world`: 256 or 512 ranks in one process,
@@ -88,9 +91,10 @@ def make_mesh_compat(shape, axes, *, device=None) -> Mesh:
             raise RuntimeError("WORLD_SIZE > 1 but no process group: call "
                                "torch.distributed.init_process_group first")
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
-    elif not fake and backend not in str(dist.get_backend()):
-        raise RuntimeError(f"a {device_type} mesh needs the {backend} backend; the "
-                           f"process group has {dist.get_backend()}")
+    elif not fake and not any(b in str(dist.get_backend()) for b in {backend, "gloo"}):
+        raise RuntimeError(f"a {device_type} mesh needs the {backend} backend (or, opened "
+                           f"by the caller, gloo); the process group has "
+                           f"{dist.get_backend()}")
     n, world = math.prod(shape), dist.get_world_size()
     if n > world:
         raise ValueError(f"a mesh of {shape} needs {n} ranks; this world has {world}")

@@ -3,8 +3,11 @@
   python -m repro_torch.launch.serve --arch qwen1.5-4b [--smoke] \
       [--batch 8] [--prompt-len 16] [--new-tokens 16] [--w8] [--device cuda]
 
-Counterpart of `repro/launch/serve.py` on one card (no mesh), for every
-config the port registers (`configs.ARCHS`: qwen1.5-4b, gemma-2b,
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch qwen1.5-4b --smoke \
+      --device cpu
+
+Counterpart of `repro/launch/serve.py`, for every config the port
+registers (`configs.ARCHS`: qwen1.5-4b, gemma-2b,
 llama3.2-3b, qwen2-72b, granite-moe-1b-a400m, qwen3-moe-30b-a3b,
 mamba2-2.7b, zamba2-2.7b). Without --smoke the full published config is
 served (qwen2-72b and qwen3-moe-30b-a3b do not fit one card in fp32: use
@@ -12,19 +15,36 @@ served (qwen2-72b and qwen3-moe-30b-a3b do not fit one card in fp32: use
 the device. --w8 serves the int8 checkpoint (`quantize_params_for_serving`,
 every matmul weight); a MoE model raises there, as the reference's W8
 MoE fails (`layers/moe.py`).
-Prints the same summary line as the reference.
+
+One process serves on one card (or the CPU) with no mesh. Under
+`torchrun` (`WORLD_SIZE` above 1) every process joins the world (NCCL on
+the card, gloo with --device cpu) and serves under the reference's mesh
+branch: `make_host_mesh(model=world)` with the TP-only serving rules
+(`parallel/tensor.py`: batch over data, fsdp replicated). A dense model
+is split over the model axis (ROADMAP.md A.7a: its heads, ffn and vocab
+shards, the KV cache by kv heads or by positions); the other families
+keep their parameters whole (A.7c, A.7d), and W8 leaves under the split
+raise (A.7e). Every rank draws the whole tree from the same seed and
+keeps its shards.
+Rank 0 prints the same summary line as the reference.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch._device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import api, base
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor
 from repro_torch.quantized import apply as qapply
 from repro_torch.serve.engine import Engine, ServeConfig
 
@@ -42,6 +62,26 @@ def main(argv=None):
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     dev = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    mesh, lead = None, True
+    if world > 1:
+        dist.init_process_group("gloo" if dev.type == "cpu" else "nccl")
+        mesh = make_host_mesh(model=world, device=dev)
+        dev = resolve_device(dev.type)          # the rank's card, set by the mesh
+        lead = dist.get_rank() == 0
+    try:
+        with shd.use_mesh(mesh, tensor.serving_rules()) if mesh else contextlib.nullcontext():
+            out, dt = _serve(cfg, args, dev)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+    if lead:
+        print(f"generated {out.size} tokens in {dt:.2f}s "
+              f"({out.size/dt:.1f} tok/s); sample: {out[0][:12].tolist()}")
+    return out
+
+
+def _serve(cfg, args, dev):
     with torch.inference_mode():
         params = base.tree_init(api.abstract_params(cfg),
                                 torch.Generator(device=dev).manual_seed(0), dev)
@@ -51,14 +91,12 @@ def main(argv=None):
     eng = Engine(cfg, params, ServeConfig(
         max_len=args.prompt_len + args.new_tokens + 8,
         max_new_tokens=args.new_tokens), device=dev)
+    del params
     prompts = (np.arange(args.batch * args.prompt_len, dtype=np.int32)
                .reshape(args.batch, args.prompt_len) * 17) % cfg.vocab
     t0 = time.time()
     out = eng.generate(prompts)
-    dt = time.time() - t0
-    print(f"generated {out.size} tokens in {dt:.2f}s "
-          f"({out.size/dt:.1f} tok/s); sample: {out[0][:12].tolist()}")
-    return out
+    return out, time.time() - t0
 
 
 if __name__ == "__main__":

@@ -3,8 +3,10 @@
 Counterpart of `repro/layers/attention.py`. The parameters and the KV
 cache carry the reference's logical axes (`models.base.tree_specs`); the
 reference's activation annotations (`shard`) are left out, as they would
-compute nothing on plain tensors, and head and sequence parallelism over
-a model axis is ROADMAP.md A.7's remainder. The cache layout is
+compute nothing on plain tensors. Dense serving under a model axis above
+1 (ROADMAP.md A.7a) splits the heads and the cache explicitly: `group`
+below, with the shards and collectives of `parallel/tensor.py`; training
+under it is A.7b. The cache layout is
 (B, KV, S_max, hd); `cache_pos` is a per-sequence write index, which
 lets the serving engine decode a batch whose sequences stand at other
 positions. Every function returns new tensors and leaves its inputs as
@@ -20,11 +22,13 @@ ported.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.layers import rotary
-from repro_torch.layers.common import wx
+from repro_torch.layers.common import is_q, wx
 from repro_torch.layers.flash import NEG_INF, flash_attention
 from repro_torch.models.base import ArchConfig, ParamInfo
+from repro_torch.parallel import tensor
 
 __all__ = ["NEG_INF", "FLASH_MIN_SEQ", "attn_params", "init_cache_info", "attention"]
 
@@ -73,6 +77,29 @@ def _causal(S: int, T: int, device) -> torch.Tensor:
     return torch.arange(T, device=device)[None, :] <= torch.arange(S, device=device)[:, None]
 
 
+def _slots(n: int, first: int, device) -> torch.Tensor:
+    """The positions of a cache's n slots, from `first`."""
+    slots = torch.arange(n, device=device)
+    return slots + first if first else slots
+
+
+def _width(w) -> int:
+    """Heads of a (D, heads, hd) projection leaf (its shard's, when split)."""
+    return (w["q"] if is_q(w) else w).shape[-2]
+
+
+def _kv_for(H: int, KV: int, first: int, n: int) -> tuple[int, int, list | None]:
+    """The kv heads that query heads [first, first + n) use (h // (H/KV)):
+    (first kv head, how many, None when the query heads group evenly
+    over them, else each query head's index among them)."""
+    rep = H // KV
+    kvs = [h // rep for h in range(first, first + n)]
+    k0, used = kvs[0], kvs[-1] - kvs[0] + 1
+    if n % used == 0 and kvs == [k0 + i // (n // used) for i in range(n)]:
+        return k0, used, None
+    return k0, used, [k - k0 for k in kvs]
+
+
 def attention(
     cfg: ArchConfig,
     p: dict,
@@ -82,13 +109,33 @@ def attention(
     cache: dict | None = None,             # {"k","v"} (B, KV, S_max, hd)
     cache_pos: torch.Tensor | None = None,  # (B,) write index for decode
     causal: bool = True,
+    group=None,                            # the model group when p holds shards
 ) -> tuple[torch.Tensor, dict | None]:
-    """Returns (out (B, S, D), updated cache or None)."""
-    B, S, D = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    """Returns (out (B, S, D), updated cache or None).
 
-    q = _project(x, p["wq"], p.get("bq"))            # (B, S, H, hd)
-    k = _project(x, p["wk"], p.get("bk"))            # (B, S, KV, hd)
+    With `group` (dense serving under a model axis above 1,
+    `parallel/tensor.py`) p holds this rank's shards and the cache its
+    slice: the local head counts are the shards' widths. Heads split:
+    wq and wo are this rank's heads and rows, and one all-reduce sums
+    the output; heads whole: both replicated, no reduction. kv heads
+    split: wk, wv and the cache are this rank's kv heads. kv heads whole:
+    wk and wv are replicated, the rank attends with the kv head(s) its
+    query heads use, and the cache holds this rank's slice of positions:
+    prefill writes that slice of the whole prompt's K/V; decode writes
+    the new K/V where its position falls and combines each rank's
+    partial attention over its positions by log-sum-exp in fp32 (the
+    query heads gathered first when they are split)."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Hl, KVl, r = H, KV, 0
+    if group is not None:
+        Hl, KVl, r = _width(p["wq"]), _width(p["wk"]), dist.get_rank(group)
+    heads_split = Hl < H
+    by_seq = group is not None and cache is not None and KVl == KV
+    h0 = r * Hl if heads_split else 0                # this rank's first query head
+
+    q = _project(x, p["wq"], p.get("bq"))            # (B, S, Hl, hd)
+    k = _project(x, p["wk"], p.get("bk"))            # (B, S, KVl, hd)
     v = _project(x, p["wv"], p.get("bv"))
 
     if cfg.pos == "rope":
@@ -99,36 +146,55 @@ def attention(
         k = rotary.mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     # cfg.pos == "sin": absolute embeddings added at the input; nothing here.
 
-    q = q.transpose(1, 2)                            # (B, H, S, hd)
-    k = k.transpose(1, 2)                            # (B, KV, S, hd)
+    q = q.transpose(1, 2)                            # (B, Hl, S, hd)
+    k = k.transpose(1, 2)                            # (B, KVl, S, hd)
     v = v.transpose(1, 2)
 
     new_cache = None
     valid = None
     k_full, v_full, kv_len = k, v, S
     if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        first = r * ck.shape[2] if by_seq else 0     # the cache's first position
         if cache_pos is not None:
             # decode: write this step's K/V at each sequence's position
             if S != 1:
                 raise ValueError("cache_pos decode expects S == 1")
-            ck, cv = cache["k"], cache["v"]
             pos = cache_pos.long()
-            at = (torch.arange(ck.shape[2], device=x.device)[None, None, :, None]
+            at = (_slots(ck.shape[2], first, x.device)[None, None, :, None]
                   == pos[:, None, None, None])       # (B, 1, S_max, 1)
             ck = torch.where(at, k.to(ck.dtype), ck)
             cv = torch.where(at, v.to(cv.dtype), cv)
             k_full, v_full, kv_len = ck, cv, ck.shape[2]
             new_cache = {"k": ck, "v": cv}
             # attention mask: only positions <= cache_pos are valid
-            valid = (torch.arange(kv_len, device=x.device)[None, None, None, :]
+            valid = (_slots(kv_len, first, x.device)[None, None, None, :]
                      <= pos[:, None, None, None])    # (B, 1, 1, T)
+            if by_seq:
+                ctx = _decode_by_seq(q, ck, cv, valid, group, heads_split, H, KV, h0, Hl)
+                return _out(p, ctx, x, group if heads_split else None), new_cache
         else:
-            # prefill: the computed K/V into a zeroed copy of the cache buffer
-            ck = torch.zeros_like(cache["k"])
-            cv = torch.zeros_like(cache["v"])
-            ck[:, :, :S] = k.to(ck.dtype)
-            cv[:, :, :S] = v.to(cv.dtype)
+            # prefill: the computed K/V (this rank's positions of them, when
+            # the cache holds a slice) into a zeroed copy of the cache buffer
+            ck = torch.zeros_like(ck)
+            cv = torch.zeros_like(cv)
+            if by_seq:
+                n = max(0, min(S, first + ck.shape[2]) - first)
+                ck[:, :, :n] = k[:, :, first:first + n].to(ck.dtype)
+                cv[:, :, :n] = v[:, :, first:first + n].to(cv.dtype)
+            else:
+                ck[:, :, :S] = k.to(ck.dtype)
+                cv[:, :, :S] = v.to(cv.dtype)
             new_cache = {"k": ck, "v": cv}
+
+    # the kv heads this rank's query heads use, relative to those it holds
+    k0, used, gather = _kv_for(H, KV, h0, Hl)
+    k0 -= r * KVl if KVl < KV else 0
+    if used < k_full.shape[1]:
+        k_full, v_full = k_full[:, k0:k0 + used], v_full[:, k0:k0 + used]
+    if gather is not None:                           # uneven groups: one kv row a head
+        idx = torch.tensor(gather, device=x.device)
+        k_full, v_full, used = k_full[:, idx], v_full[:, idx], Hl
 
     scale = hd ** -0.5
     if valid is None and causal and S >= FLASH_MIN_SEQ:
@@ -136,14 +202,43 @@ def attention(
         ctx = flash_attention(q, k_full, v_full, causal=True)
     else:
         # grouped GQA: query heads reshaped (KV, rep); K/V in their stored layout
-        qg = q.reshape(B, KV, H // KV, S, hd)
+        qg = q.reshape(B, used, Hl // used, S, hd)
         scores = torch.einsum("bgrsk,bgtk->bgrst", qg, k_full).float() * scale
         if valid is not None:
             scores = torch.where(valid[:, :, None], scores, NEG_INF)
         elif causal and S > 1:
             scores = torch.where(_causal(S, kv_len, x.device), scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        ctx = torch.einsum("bgrst,bgtk->bgrsk", probs, v_full).reshape(B, H, S, hd)
-    ctx = ctx.transpose(1, 2).reshape(B, S, H * hd)  # (B, S, H·hd)
-    out = torch.matmul(ctx, wx(p["wo"], x.dtype).reshape(H * hd, D))
-    return out, new_cache
+        ctx = torch.einsum("bgrst,bgtk->bgrsk", probs, v_full).reshape(B, Hl, S, hd)
+    return _out(p, ctx, x, group if heads_split else None), new_cache
+
+
+def _decode_by_seq(q, ck, cv, valid, group, heads_split: bool, H: int, KV: int, h0: int,
+                   Hl: int) -> torch.Tensor:
+    """One decode step's attention over a cache split by positions: every
+    query head against this rank's positions, then the ranks' partial
+    softmaxes combined by log-sum-exp (an all-reduce of the max, then one
+    of the rescaled sums and contexts), in fp32. Returns this rank's
+    heads' context (B, Hl, 1, hd) in q's dtype."""
+    B, _, _, hd = q.shape
+    if heads_split:
+        q = tensor.all_gather(q, group, dim=1)       # (B, H, 1, hd)
+    qg = q.reshape(B, KV, H // KV, 1, hd)
+    scores = torch.einsum("bgrsk,bgtk->bgrst", qg, ck).float() * hd ** -0.5
+    scores = torch.where(valid[:, :, None], scores, NEG_INF)            # (B, KV, rep, 1, T)
+    top = tensor.all_reduce(scores.amax(dim=-1, keepdim=True), group, dist.ReduceOp.MAX)
+    e = torch.exp(scores - top)
+    part = torch.cat([torch.einsum("bgrst,bgtk->bgrsk", e, cv.float()),
+                      e.sum(dim=-1, keepdim=True)], dim=-1)
+    part = tensor.all_reduce(part, group)
+    ctx = (part[..., :hd] / part[..., hd:]).to(q.dtype).reshape(B, H, 1, hd)
+    return ctx[:, h0:h0 + Hl]
+
+
+def _out(p: dict, ctx: torch.Tensor, x: torch.Tensor, group) -> torch.Tensor:
+    """ctx (B, Hl, S, hd) through wo (this rank's rows), summed over
+    `group` when the heads are split."""
+    B, Hl, S, hd = ctx.shape
+    ctx = ctx.transpose(1, 2).reshape(B, S, Hl * hd)  # (B, S, Hl·hd)
+    out = torch.matmul(ctx, wx(p["wo"], x.dtype).reshape(Hl * hd, x.shape[-1]))
+    return out if group is None else tensor.all_reduce(out, group)

@@ -5,14 +5,24 @@ embeddings (no `head` leaf; the head is `tokᵀ`), gemma's embedding
 scale, W8 leaves for both, and the backbone input of each modality
 (`text`, `vlm`, `audio`), whose frontends are stubs that hand over
 precomputed embeddings.
+
+Under a model axis above 1 (`group`, `parallel/tensor.py`) a vocab that
+divides the axis is split: `tok` holds this rank's rows and `head` its
+columns. The embedding gathers the ids in its rows, zeroes the others
+and all-reduces (one non-zero term a position: the sum is exact), then
+applies gemma's scale; the head's local logits are all-gathered into the
+whole vocab. A tied head splits the same `tok` leaf. A vocab that does
+not divide stays whole.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.layers import rotary
 from repro_torch.layers.common import is_q
 from repro_torch.models.base import ArchConfig, ParamInfo
+from repro_torch.parallel import tensor
 
 __all__ = ["embed_params", "embed", "lm_head", "assemble_inputs"]
 
@@ -25,11 +35,18 @@ def embed_params(cfg: ArchConfig) -> dict:
     return p
 
 
-def embed(cfg: ArchConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) -> (B, S, D) in compute dtype."""
+def embed(cfg: ArchConfig, p: dict, tokens: torch.Tensor, group=None) -> torch.Tensor:
+    """tokens (B, S) -> (B, S, D) in compute dtype; `group` the model
+    group when p holds shards."""
     tok = p["tok"]
     if is_q(tok):
         h = (tok["q"][tokens].float() * tok["s"]).to(cfg.cdtype())
+    elif group is not None and tok.shape[0] < cfg.vocab:
+        rows = tok.shape[0]
+        ids = tokens - dist.get_rank(group) * rows
+        mine = (ids >= 0) & (ids < rows)
+        h = tok[ids.clamp(0, rows - 1)].to(cfg.cdtype())
+        h = tensor.all_reduce(torch.where(mine[..., None], h, torch.zeros_like(h)), group)
     else:
         h = tok[tokens].to(cfg.cdtype())     # gather, then cast: the same values
     if cfg.scale_embedding:
@@ -39,18 +56,22 @@ def embed(cfg: ArchConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def lm_head(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
-    """h (B, S, D) -> logits (B, S, V) in h's dtype."""
+def lm_head(cfg: ArchConfig, p: dict, h: torch.Tensor, group=None) -> torch.Tensor:
+    """h (B, S, D) -> logits (B, S, V) in h's dtype; `group` the model
+    group when p holds shards."""
     w = p["tok"] if cfg.tie_embeddings else p["head"]
     if is_q(w):
         if cfg.tie_embeddings:
             # w = q * s with per-d_model scales: fold s into h, matmul int8ᵀ
             return torch.matmul(h * w["s"].to(h.dtype), w["q"].to(h.dtype).T)
         return torch.matmul(h, (w["q"].float() * w["s"]).to(h.dtype))
-    return torch.matmul(h, w.to(h.dtype).T if cfg.tie_embeddings else w.to(h.dtype))
+    logits = torch.matmul(h, w.to(h.dtype).T if cfg.tie_embeddings else w.to(h.dtype))
+    if group is not None and logits.shape[-1] < cfg.vocab:
+        logits = tensor.all_gather(logits, group)
+    return logits
 
 
-def assemble_inputs(cfg: ArchConfig, p: dict, batch: dict) -> torch.Tensor:
+def assemble_inputs(cfg: ArchConfig, p: dict, batch: dict, group=None) -> torch.Tensor:
     """Build the backbone input (B, S, D) per modality.
 
     text : embed(tokens)
@@ -61,15 +82,16 @@ def assemble_inputs(cfg: ArchConfig, p: dict, batch: dict) -> torch.Tensor:
            embeddings (`frame_embeds`, (B, S, D)), plus sinusoidal
            positions (fp32, then cast) when `cfg.pos == "sin"`; the
            positions default to arange(S)
+    `group` is the embedding's (`embed`).
     """
     if cfg.modality == "text":
-        return embed(cfg, p, batch["tokens"])
+        return embed(cfg, p, batch["tokens"], group)
     if cfg.modality == "vlm":
-        h = embed(cfg, p, batch["tokens"])
+        h = embed(cfg, p, batch["tokens"], group)
         pe = batch["pixel_embeds"].to(h.dtype)
         return torch.where(batch["pixel_mask"][:, :, None], pe, h)
     if cfg.modality == "audio":
-        h = embed(cfg, p, batch["tokens"])
+        h = embed(cfg, p, batch["tokens"], group)
         h = h + batch["frame_embeds"].to(h.dtype)
         if cfg.pos == "sin":
             B, S = batch["tokens"].shape

@@ -2,7 +2,10 @@
 
 Counterpart of `repro/layers/mlp.py`. The activation is computed in fp32
 and cast to the compute dtype before the product; GELU is the tanh
-approximation, as the reference's `approximate=True`.
+approximation, as the reference's `approximate=True`. Under a model axis
+above 1 (`group`, `parallel/tensor.py`) `wi` and `wg` hold this rank's
+ffn columns and `wo` its rows, and one all-reduce sums the output; an
+ffn that does not divide the axis stays whole and is not reduced.
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.layers.common import wx
 from repro_torch.models.base import ArchConfig, ParamInfo
+from repro_torch.parallel import tensor
 
 __all__ = ["mlp_params", "mlp"]
 
@@ -27,8 +31,9 @@ def mlp_params(cfg: ArchConfig, n_layers: int | None = None) -> dict:
     return p
 
 
-def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D)."""
+def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor, group=None) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D); `group` the model group when p holds
+    shards."""
     dt = x.dtype
     h = torch.matmul(x, wx(p["wi"], dt))
     if cfg.act == "swiglu":
@@ -41,4 +46,7 @@ def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(h.float(), approximate="tanh").to(dt)
     else:
         raise ValueError(cfg.act)
-    return torch.matmul(h, wx(p["wo"], dt))
+    out = torch.matmul(h, wx(p["wo"], dt))
+    if group is not None and h.shape[-1] < cfg.d_ff:
+        out = tensor.all_reduce(out, group)
+    return out

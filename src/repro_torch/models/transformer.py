@@ -14,6 +14,14 @@ number, and a dense model's are zero, as in the reference. gemma's
 reference tests the config's name, so a renamed or derived config keeps
 it.
 
+`prefill` and `decode_step` of the dense family under a model axis above
+1 (ROADMAP.md A.7a) run the split layers on parameter shards and a cache
+slice (`parallel/tensor.py`: `shard_params`, `local_tree`, `cache_len`),
+with the model group (`tensor.group_for`); the MoE family's parameters
+stay whole and its layers take their whole path. `forward`, which
+training runs, takes the whole path (training refuses a model axis above
+1: `train/step.py`, A.7b).
+
 `forward` and `prefill` take the port's `use_kernel` keyword, which the
 `Engine` passes to every family: the transformer path reaches no kernel,
 as the reference's reaches no Pallas kernel, so it has no effect here.
@@ -28,6 +36,7 @@ from repro_torch.layers import mlp as mlp_lib
 from repro_torch.layers import moe as moe_lib
 from repro_torch.layers import norms
 from repro_torch.models.base import ArchConfig, ParamInfo, layer, remat_call, tree_map, unstack
+from repro_torch.parallel import tensor
 
 __all__ = ["abstract_params", "abstract_cache", "backbone", "forward", "prefill",
            "decode_step"]
@@ -59,32 +68,35 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
                                         (None,) + i.logical, init="zeros"), info)
 
 
-def _block(cfg: ArchConfig, lp: dict, h, positions, cache_layer, cache_pos, causal: bool):
+def _block(cfg: ArchConfig, lp: dict, h, positions, cache_layer, cache_pos, causal: bool,
+           group=None):
     """One transformer block. Returns (h, new_cache_layer, aux)."""
     plus_one = cfg.norm_plus_one
     hn = norms.apply_norm(cfg.norm, lp["ln_attn"], h, eps=cfg.norm_eps, plus_one=plus_one)
     a, new_cache = attn_lib.attention(cfg, lp["attn"], hn, positions, cache=cache_layer,
-                                      cache_pos=cache_pos, causal=causal)
+                                      cache_pos=cache_pos, causal=causal, group=group)
     h = h + a
     hn = norms.apply_norm(cfg.norm, lp["ln_mlp"], h, eps=cfg.norm_eps, plus_one=plus_one)
     if cfg.family == "moe":
         m, aux = moe_lib.moe(cfg, lp["moe"], hn)
     else:
-        m, aux = mlp_lib.mlp(cfg, lp["mlp"], hn), None
+        m, aux = mlp_lib.mlp(cfg, lp["mlp"], hn, group), None
     return h + m, new_cache, aux
 
 
 def backbone(cfg: ArchConfig, params: dict, h: torch.Tensor, positions: torch.Tensor, *,
              cache: dict | None = None, cache_pos: torch.Tensor | None = None,
-             remat: str = "none") -> tuple[torch.Tensor, dict | None, dict]:
+             remat: str = "none", group=None) -> tuple[torch.Tensor, dict | None, dict]:
     """Run all layers. Returns (h, new_cache, aux_losses): the MoE losses
-    averaged over the layers; a dense model's are zero, as in the reference."""
+    averaged over the layers; a dense model's are zero, as in the reference.
+    `group`: the model group when `params` are shards (`_block`)."""
     ks, vs = [], []
     lb = torch.zeros((), dtype=torch.float32, device=h.device)
     zl = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
         h, new, aux = remat_call(remat, _block, cfg, lp, h, positions,
-                                 None if cache is None else layer(cache, i), cache_pos, True)
+                                 None if cache is None else layer(cache, i), cache_pos, True,
+                                 group)
         if new is not None:
             ks.append(new["k"])
             vs.append(new["v"])
@@ -124,10 +136,11 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
     """Prefill: full-sequence forward, fills `cache`, returns only the
     last-position logits (B, V). `use_kernel` has no effect on this family."""
     B, S = batch["tokens"].shape
-    h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
+    group = tensor.group_for(cfg)
+    h = emb_lib.assemble_inputs(cfg, params["embed"], batch, group)
     positions = _positions_for(cfg, batch, B, S, h.device)
-    h, new_cache, _ = backbone(cfg, params, h, positions, cache=cache)
-    logits = emb_lib.lm_head(cfg, params["embed"], h[:, -1:, :])[:, 0]
+    h, new_cache, _ = backbone(cfg, params, h, positions, cache=cache, group=group)
+    logits = emb_lib.lm_head(cfg, params["embed"], h[:, -1:, :], group)[:, 0]
     return logits, new_cache
 
 
@@ -151,7 +164,9 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, pos: torch.
         batch.setdefault("frame_embeds", torch.zeros((B, 1, cfg.d_model), dtype=cfg.cdtype(),
                                                      device=tokens.device))
         batch.setdefault("positions", pos[:, None])
-    h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
+    group = tensor.group_for(cfg)
+    h = emb_lib.assemble_inputs(cfg, params["embed"], batch, group)
     positions = torch.stack([pos[:, None]] * 3) if cfg.pos == "mrope" else pos[:, None]
-    h, new_cache, _ = backbone(cfg, params, h, positions, cache=cache, cache_pos=pos)
-    return emb_lib.lm_head(cfg, params["embed"], h)[:, 0], new_cache
+    h, new_cache, _ = backbone(cfg, params, h, positions, cache=cache, cache_pos=pos,
+                               group=group)
+    return emb_lib.lm_head(cfg, params["embed"], h, group)[:, 0], new_cache

@@ -10,6 +10,15 @@ Mamba2 or zamba2 prefill sends every SSD through the `ssd_scan` kernel;
 `use_kernel=False` exists only so that tests and `chip_smoke.py` can
 compare the two routes, and nothing switches to it on a failure. The
 dense and MoE families reach no kernel and ignore the flag.
+
+Under an active mesh whose model axis is above 1 (`sharding.use_mesh`,
+around both the construction and `generate`, as the reference's launcher
+does), a dense model serves split (`parallel/tensor.py`): the engine
+keeps this rank's parameter shards (`shard_params`, from whole leaves or
+shards) and builds its cache at its shards' shapes (`local_tree`), its
+length rounded up to a multiple of the axis where the cache goes by
+positions (`cache_len`). Every rank of the model group runs `generate`
+on the same prompts and returns the same tokens.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.models import api
 from repro_torch.models.base import ArchConfig, tree_init, tree_map
+from repro_torch.parallel import tensor
 
 __all__ = ["ServeConfig", "make_serve_step", "Engine"]
 
@@ -55,7 +65,7 @@ class Engine:
                  use_kernel: bool = True):
         self.device = resolve_device(device)
         self.cfg, self.sc, self.use_kernel = cfg, sc, use_kernel
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.params = tensor.shard_params(cfg, tree_map(lambda t: t.to(self.device), params))
         self._step = make_serve_step(cfg)
         self.stats: dict = {}
 
@@ -68,7 +78,8 @@ class Engine:
         (B, max_new_tokens) int32."""
         B, P = prompts.shape
         sc, dev = self.sc, self.device
-        cache = tree_init(api.abstract_cache(self.cfg, B, sc.max_len),
+        cache_info = api.abstract_cache(self.cfg, B, tensor.cache_len(self.cfg, sc.max_len))
+        cache = tree_init(tensor.local_tree(self.cfg, cache_info),
                           torch.Generator(device=dev).manual_seed(0), dev)
         batch = {"tokens": torch.as_tensor(np.asarray(prompts), device=dev).long()}
         if extras:

@@ -8,8 +8,10 @@ timeout:
 
 * a fake 2 x 4 (data, model) world, smoke llama3.2-3b: prefill and
   decode are `ok` with FLOPs and peak memory above 0, each rank running
-  its 8 / 2 rows; train is refused with the port's item-7 error (a
-  model axis above 1);
+  its 8 / 2 rows split over the model axis, their collectives those of
+  `_tp_formula.split_collectives` and their fallbacks kv_heads' (the
+  parameters' wk and wv, the cache's k and v); train is refused with
+  the port's item-7 error (a model axis above 1);
 * a fake 8 x 1 world: train is `ok`, and its all-reduce bytes are what
   the data-parallel step reduces: every fp32 gradient once (4 bytes a
   parameter), and per microbatch the loss's two fp32 sums (the nll and
@@ -25,6 +27,9 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+
+from _tp_formula import split_collectives
+from repro_torch import configs
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT = 300
@@ -64,11 +69,15 @@ print(json.dumps(out, default=float))
 
 def test_small_mesh_dryrun_subprocess():
     rec = json.loads(_run(SMALL).stdout.strip().splitlines()[-1])
+    cfg = configs.smoke("llama3.2-3b")
     for kind in ("prefill", "decode"):
         r = rec[f"2x4/{kind}"]
         assert r["ok"] and r["flops_per_device"] > 0 and r["peak_mem_per_device"] > 0, kind
         assert r["chips"] == 8 and r["mesh"] == "2x4" and r["rows_per_rank"] == 4
-        assert r["collective_breakdown"]["_num_ops"] == 0
+        # heads 4, ffn 96 and vocab 512 split over model 4; kv 1 does not, so
+        # the cache goes by positions (parallel/tensor.py)
+        assert r["collective_breakdown"] == split_collectives(cfg, kind, 4, 64, 4)
+        assert r["fallbacks"] == [["kv_heads", 1, ["model"], None]] * 4
     train = rec["2x4/train"]
     assert not train["ok"]
     assert "model axis 4" in train["error"] and "(ROADMAP.md, A.7)" in train["error"]
