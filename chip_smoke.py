@@ -193,7 +193,7 @@ Phases, each raising on failure (nothing is caught):
    on the card and on `meta`; and `python -m repro_torch.launch.dryrun`
    on mamba2-2.7b `prefill_32k` over a fake 16 x 16 world on `meta`, in a
    subprocess that sees no card. (l) Dense serving split over a model
-   axis of 2 (`parallel/tensor.py`), last: two `chip_smoke.py --tp-child`
+   axis of 2 (`parallel/tensor.py`): two `chip_smoke.py --tp-child`
    ranks on the one card in a gloo world (NCCL refuses two ranks on one
    GPU; the collectives go through host memory) under a (1, 2) mesh and
    the serving rules, each drawing the whole tree from the seed leaf by
@@ -207,7 +207,22 @@ Phases, each raising on failure (nothing is caught):
    split fp32 greedy tokens at 4 x 64 + 16 against a teacher-forced
    fp32 forward; and qwen1.5-4b at 4 layers in fp32 (TF32 off), prefill
    and 8 greedy steps split against unmeshed within 1e-5 of the largest
-   |logit|, tokens equal. Every count, the ranks' too, must stay 0.
+   |logit|, tokens equal. Every count, the ranks' too, must stay 0. (m)
+   Dense training split over a (2, 2) (data, model) mesh, last
+   (`parallel/{tensor,fsdp}.py`, `train/step.py`): four `chip_smoke.py
+   --tp-train-child` ranks on the one card in a gloo world under the
+   trainer's rules, each `trainer.run` drawing the whole state from the
+   seed leaf by leaf and keeping its shards (heads, ffn and the tied
+   vocab over "model", every fsdp dim over "data"; gemma's one kv head
+   whole, its gradient summed over "model"): gemma-2b as published, 2
+   steps of 4 x 512 in 2 microbatches with remat in bf16, and cut to 4
+   layers in fp32 (TF32 off), each rank's state bytes, peak memory, step
+   walls, losses, grad norms and fallbacks; then this process runs the
+   same steps unmeshed: bf16 losses and grad norms within the stated
+   relative bounds, fp32 losses and grad norms within 1e-5 relative and
+   every rank's parameter shards within 1e-5 of the largest |p| of the
+   spec's slice of the unmeshed result where |g| stayed above 1e-6.
+   Every count, the ranks' too, must stay 0.
    Every launch count is set to 0 just before a path runs and read just
    after it; each of the path's kernels must have launched.
 5. Times: CUDA events, median of 20 runs after warmup, per kernel (both
@@ -237,6 +252,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -441,6 +457,33 @@ TP_RANKS, TP_TIMEOUT_S = 2, 600
 TP_SERVED = (("a", DENSE_ARCH, DENSE_NEW), ("b", "gemma-2b", DENSE_OTHER_NEW))
 TP_FP32_LAYERS, TP_FP32_STEPS = 4, 8
 TP_BF16_RTOL, TP_FP32_RTOL = 0.05, 1e-5
+# Phase 4(m), dense training under a model axis above 1 with FSDP over
+# "data" (`parallel/{tensor,fsdp}.py`, `train/step.py`): four ranks on the
+# one card, a gloo world and a (2, 2) (data, model) cuda mesh under the
+# trainer's rules, each rank a `chip_smoke.py --tp-train-child` process
+# whose `trainer.run` draws the whole state from the seed leaf by leaf and
+# keeps its shards. gemma-2b as published, the train path's shape (4 x 512
+# in 2 microbatches, remat full, AdamW), 2 steps: under model 2 its 8 heads,
+# ffn and tied vocab split and its one kv head stays whole (so the k and v
+# gradients are summed over "model"); under data 2 every fsdp dim (2048)
+# splits. After the ranks have exited this process runs the same steps
+# unmeshed from the same seed on the same batches. (a) bf16 compute at full
+# depth: losses within TP_TRAIN_LOSS_RTOL and grad norms within
+# TP_TRAIN_GNORM_RTOL relative. Each rank rounds its partial sums to bf16
+# before the all-reduce, one rounding more per split product than one
+# process makes, as for serving; read on an H100 80GB HBM3 (700 W) at seed
+# 0: losses 2.2e-6 (the mean over 2,048 tokens averages the roundings out),
+# grad norms 5.4e-4, about a quarter of a bf16 ulp (2**-9); the bounds are
+# ~45x and two bf16 ulps. (b) TP_TRAIN_FP32_LAYERS layers in fp32
+# with TF32 off: losses and grad norms within TP_TRAIN_FP32_RTOL relative,
+# and every rank's parameter shards after the 2 steps within
+# TP_TRAIN_FP32_RTOL of the largest |parameter| of the spec's slice of the
+# unmeshed result wherever |g| stayed above EPS_REGIME (100 x AdamW's eps:
+# below it an element's step follows the fp32 summation order of its
+# gradient), within 2 lr elsewhere.
+TP_TRAIN_SHAPE, TP_TRAIN_RANKS, TP_TRAIN_STEPS = (4, 512, 2), (2, 2), 2
+TP_TRAIN_FP32_LAYERS, TP_TRAIN_FP32_RTOL, EPS_REGIME = 4, 1e-5, 1e-6
+TP_TRAIN_LOSS_RTOL, TP_TRAIN_GNORM_RTOL, TP_TRAIN_LR = 1e-4, 2 ** -8, 3e-4
 
 
 def _smi(query: str) -> str:
@@ -3249,6 +3292,268 @@ def _tp_child(rank: int, root: Path, device: str) -> int:
     return 0
 
 
+def _tp_train_setup(fp32: bool):
+    """(cfg, shape, OptConfig, TrainerConfig kwargs) of phase 4(m)'s runs."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import base
+    from repro_torch.optim import adamw
+    cfg = configs.get_config(TRAIN_ARCH)
+    if fp32:
+        cfg = dataclasses.replace(cfg, n_layers=TP_TRAIN_FP32_LAYERS, compute_dtype="float32")
+    B, S, accum = TP_TRAIN_SHAPE
+    shape = base.ShapeConfig("tp_train", S, B, "train", accum=accum)
+    oc = adamw.OptConfig(lr=TP_TRAIN_LR, warmup_steps=2, total_steps=TP_TRAIN_STEPS)
+    return cfg, shape, oc, {"total_steps": TP_TRAIN_STEPS, "ckpt_every": TP_TRAIN_STEPS + 1,
+                            "seed": SEED, "remat": "full"}
+
+
+class _Coordinate:
+    """A mesh's shape and one rank's coordinate on it, for `tensor.shard_leaf`
+    outside the rank's world: the slice that rank holds."""
+
+    def __init__(self, shape: dict, coord: dict):
+        self.shape, self._coord = shape, coord
+
+    def coordinate(self, axis: str) -> int:
+        return self._coord[axis]
+
+    def size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in axes if a in self.shape)
+
+
+def _tp_train_path(dev, wrappers, reset_launches, smi) -> None:
+    """Phase 4(m): dense training split over a (2, 2) (data, model) mesh on
+    the card (the constants' comment above `TP_TRAIN_SHAPE`). Four
+    `--tp-train-child` ranks train first, while this process holds
+    nothing; then this process runs the same steps unmeshed and holds the
+    ranks' results to them. The dense path reaches no TPU kernel: every
+    count, the ranks' too, must stay 0."""
+    import gc
+    import shutil
+    import torch
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import base
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor
+    from repro_torch.train import step as step_lib
+    from repro_torch.train import trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag = "tp train path"
+    reset_launches()
+    root = ROOT / "build" / "tp_train_path"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    n_ranks = math.prod(TP_TRAIN_RANKS)
+    logs = [open(root / f"rank{r}.log", "w") for r in range(n_ranks)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--tp-train-child", str(r), str(root), str(dev)], stdout=log,
+                              stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=TP_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    text = [(root / f"rank{r}.log").read_text() for r in range(n_ranks)]
+    print("\n".join(f"    {line}" for line in text[0].splitlines()))
+    if any(p.returncode for p in procs):
+        for r in range(1, n_ranks):
+            print(f"--- rank {r}:\n{text[r][-4000:]}", file=sys.stderr)
+        raise AssertionError(f"the tensor-parallel training ranks failed (exit codes "
+                             f"{[p.returncode for p in procs]})")
+    ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in range(n_ranks)]
+    for r, rec in enumerate(ranks):
+        for label, c in rec["cases"].items():
+            print(f"[4 {tag}] rank {r} {c['coordinate']} ({label}): state "
+                  f"{c['state_bytes'] / 1e9:.3f} GB, peak {c['peak_bytes'] / 1e9:.2f} GB "
+                  f"allocated, steps {', '.join(f'{v:.2f}' for v in c['step_s'])} s, losses "
+                  f"{', '.join(f'{v:.6f}' for v in c['loss'])}, grad norms "
+                  f"{', '.join(f'{v:.6f}' for v in c['grad_norm'])}")
+    out = {"ranks": ranks}
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    # (a) bf16 at full depth: the unmeshed trainer from the same seed
+    cfg, shape, oc, kw = _tp_train_setup(fp32=False)
+    tc = trainer.TrainerConfig(ckpt_dir=str(root / "plain_a"), **kw)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    _, hist = trainer.run(cfg, shape, oc, tc, device=dev)
+    run_s = time.perf_counter() - t0
+    lrel = max(rel(rec["cases"]["a"]["loss"], hist["loss"]) for rec in ranks)
+    grel = max(rel(rec["cases"]["a"]["grad_norm"], hist["grad_norm"]) for rec in ranks)
+    same = all(rec["cases"]["a"]["loss"] == ranks[0]["cases"]["a"]["loss"] for rec in ranks)
+    print(f"[4 {tag}] (a) {TRAIN_ARCH} bf16, {TP_TRAIN_STEPS} steps of "
+          f"{shape.global_batch}x{shape.seq_len} in {shape.accum} microbatches unmeshed: "
+          f"{run_s:.1f} s, losses {', '.join(f'{v:.6f}' for v in hist['loss'])}, grad norms "
+          f"{', '.join(f'{v:.6f}' for v in hist['grad_norm'])}, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB; split over 2x2 vs unmeshed: "
+          f"losses within {lrel:.3g} relative (bound {TP_TRAIN_LOSS_RTOL}), grad norms within "
+          f"{grel:.3g} (bound {TP_TRAIN_GNORM_RTOL}); ranks' losses equal: {same}")
+    out["a"] = {"loss": hist["loss"], "grad_norm": hist["grad_norm"], "step_s": hist["step_s"],
+                "loss_rel": lrel, "grad_norm_rel": grel}
+    if not (lrel <= TP_TRAIN_LOSS_RTOL and grel <= TP_TRAIN_GNORM_RTOL and same):
+        raise AssertionError("the split bf16 training steps differ from unmeshed")
+    del hist
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) fp32, TF32 off, TP_TRAIN_FP32_LAYERS layers: the unmeshed steps with
+    # each element's smallest |g|, then every rank's shards
+    cfg, shape, oc, kw = _tp_train_setup(fp32=True)
+    state = base.tree_init(step_lib.abstract_state(cfg),
+                           torch.Generator(device=dev).manual_seed(SEED), dev)
+    grad_fn = step_lib.make_grad_fn(cfg, shape, remat="full")
+    losses, norms, gmin = [], [], None
+    for i in range(TP_TRAIN_STEPS):
+        batch = _on(make_batch(cfg, shape, i, seed=trainer.TrainerConfig().data_seed), dev)
+        loss, _, grads = grad_fn(state["params"], batch)
+        g = [t.abs() for _, t in base.tree_items(grads)]
+        gmin = g if gmin is None else [torch.minimum(a, b) for a, b in zip(gmin, g)]
+        _, _, m = adamw.apply_updates(state["params"], grads, state["opt"], oc)
+        losses.append(loss.item())
+        norms.append(m["grad_norm"].item())
+        del grads, g
+    lrel = max(rel(rec["cases"]["b"]["loss"], losses) for rec in ranks)
+    grel = max(rel(rec["cases"]["b"]["grad_norm"], norms) for rec in ranks)
+    scale = max(t.abs().max().item() for _, t in base.tree_items(state["params"]))
+    infos = dict(base.tree_items(step_lib.abstract_state(cfg)["params"]))
+    worst, worst_any, n_sure, n_all = 0.0, 0.0, 0, 0
+    for r, rec in enumerate(ranks):
+        shards = torch.load(root / f"rank{r}_b.pt")
+        mesh = _Coordinate(dict(zip(("data", "model"), TP_TRAIN_RANKS)),
+                           rec["cases"]["b"]["coordinate"])
+        with shd.use_mesh(mesh, tensor.training_rules(mesh)):
+            for (path, whole), gm in zip(base.tree_items(state["params"]), gmin):
+                want = tensor.shard_leaf(infos[path], whole, tensor.TRAIN_AXES)
+                sure = tensor.shard_leaf(infos[path], gm, tensor.TRAIN_AXES) > EPS_REGIME
+                d = (shards[base.keystr(path)].to(dev) - want).abs()
+                worst = max(worst, d[sure].max().item() if sure.any() else 0.0)
+                worst_any = max(worst_any, d.max().item())
+                n_sure, n_all = n_sure + int(sure.sum()), n_all + sure.numel()
+        del shards
+    print(f"[4 {tag}] (b) {TRAIN_ARCH} {TP_TRAIN_FP32_LAYERS} layers fp32 (TF32 off) unmeshed: "
+          f"losses {', '.join(f'{v:.7f}' for v in losses)}, grad norms "
+          f"{', '.join(f'{v:.7f}' for v in norms)}; split over 2x2 vs unmeshed: losses within "
+          f"{lrel:.3g} relative, grad norms within {grel:.3g} (bound {TP_TRAIN_FP32_RTOL}); "
+          f"every rank's parameter shards after {TP_TRAIN_STEPS} steps within "
+          f"{worst / scale:.3g} of the largest |p| {scale:.4g} where |g| stayed above "
+          f"{EPS_REGIME} ({n_sure / n_all:.4f} of the elements; bound {TP_TRAIN_FP32_RTOL}), "
+          f"{worst_any:.3g} elsewhere (bound 2 lr {2 * oc.lr:.3g})")
+    out["b"] = {"loss": losses, "grad_norm": norms, "loss_rel": lrel, "grad_norm_rel": grel,
+                "param_err_of_max": worst / scale, "param_err_any": worst_any,
+                "share_held": n_sure / n_all}
+    if not (lrel <= TP_TRAIN_FP32_RTOL and grel <= TP_TRAIN_FP32_RTOL
+            and worst <= TP_TRAIN_FP32_RTOL * scale and worst_any <= 2 * oc.lr):
+        raise AssertionError("the split fp32 training steps differ from unmeshed")
+    del state, gmin, grad_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    counts = {name: w.launches for name, w in wrappers.items()}
+    children = [rec["launches"] for rec in ranks]
+    print(f"[4 {tag}] launches {counts}, ranks {children} (the dense path reaches no TPU "
+          f"kernel)")
+    if any(counts.values()) or any(any(c.values()) for c in children):
+        raise AssertionError("a kernel launched on the dense training path")
+    seconds = time.perf_counter() - t_phase
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[4 {tag}] phase {seconds:.1f} s")
+    print(json.dumps({"tp_train": out, "phase_s": seconds, "device": _device_name(dev),
+                      "power": smi}))
+
+
+def _tp_train_child(rank: int, root: Path, device: str) -> int:
+    """`chip_smoke.py --tp-train-child RANK DIR DEVICE`, one of phase 4(m)'s
+    four ranks, on the parent's DEVICE (all on the one card): a gloo world
+    over a `FileStore` in DIR, a (2, 2) (data, model) mesh under the
+    trainer's rules, `trainer.run` of (a) and (b) on this rank's shards;
+    writes DIR/rank<RANK>.json and (b)'s final parameter shards to
+    DIR/rank<RANK>_b.pt."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.binary_matvec import ops
+    from repro_torch.kernels.fused_mlp import ops as fops
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import api, base
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor
+    from repro_torch.train import trainer
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n_ranks = math.prod(TP_TRAIN_RANKS)
+    lead = rank == 0
+    dist.init_process_group("gloo", store=dist.FileStore(str(root / "store"), n_ranks),
+                            rank=rank, world_size=n_ranks)
+    rec = {"cases": {}}
+    try:
+        mesh = make_mesh_compat(TP_TRAIN_RANKS, ("data", "model"), device=dev.type)
+        coordinate = {a: mesh.coordinate(a) for a in mesh.shape}
+        if lead:
+            print(f"[4 tp train path] {mesh}, backend {dist.get_backend()}, world "
+                  f"{dist.get_world_size()}, all ranks on {_device_name(dev)}")
+        for label, fp32 in (("a", False), ("b", True)):
+            cfg, shape, oc, kw = _tp_train_setup(fp32)
+            tc = trainer.TrainerConfig(ckpt_dir=str(root / f"ckpt_{label}_{rank}"), **kw)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            with shd.use_mesh(mesh, tensor.training_rules(mesh)):
+                state, hist = trainer.run(cfg, shape, oc, tc, device=dev)
+            torch.cuda.synchronize(dev)
+            with shd.use_mesh(mesh, tensor.training_rules(mesh)):
+                tensor.local_tree(cfg, api.abstract_params(cfg), tensor.TRAIN_AXES)
+                fallbacks = shd.fallbacks()
+            c = {"arch": cfg.name, "dtype": cfg.compute_dtype, "layers": cfg.n_layers,
+                 "coordinate": coordinate, "run_s": time.perf_counter() - t0,
+                 "state_bytes": _tree_bytes(state),
+                 "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                 "loss": hist["loss"], "grad_norm": hist["grad_norm"],
+                 "step_s": hist["step_s"], "fallbacks": [list(f) for f in fallbacks]}
+            rec["cases"][label] = c
+            if lead:
+                print(f"[4 tp train path] ({label}) {cfg.name} {cfg.n_layers} layers "
+                      f"{cfg.compute_dtype}, {TP_TRAIN_STEPS} steps of "
+                      f"{shape.global_batch}x{shape.seq_len} in {shape.accum} microbatches, "
+                      f"remat full, split over {mesh.shape}: {c['run_s']:.1f} s, steps "
+                      f"{', '.join(f'{v:.2f}' for v in c['step_s'])} s (gloo through host "
+                      f"memory); state {c['state_bytes'] / 1e9:.3f} GB a rank (whole "
+                      f"{16 * base.count_params(api.abstract_params(cfg)) / 1e9:.1f} GB of "
+                      f"parameters, m, v and gradient sums), peak "
+                      f"{c['peak_bytes'] / 1e9:.2f} GB; fallbacks {c['fallbacks']}")
+            if label == "b":
+                torch.save({base.keystr(p): t.cpu() for p, t in
+                            base.tree_items(state["params"])}, root / f"rank{rank}_b.pt")
+            del state, hist
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec["launches"] = {"binary_matvec": sum(f.launches for f in (
+            ops.binary_matmul_planes, ops.binary_forward_planes, ops.binary_matmul,
+            ops.binary_matmul_packed)), "fused_mlp_predict": fops.fused_mlp_predict.launches,
+            "quant_matmul": qops.quant_matmul.launches, "ssd_scan": sops.ssd.launches}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    (root / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
 ROOF_PREFILL = (4, 512)                  # mamba2-2.7b prefill through B7 (rows, tokens)
 ROOF_WALL_RUNS = 3                       # uncounted prefills timed after one warm-up
 DRYRUN_TIMEOUT_S = 300
@@ -3715,6 +4020,7 @@ def main() -> int:
     for name, n in roofed.items():
         launches[name] += n
     _tp_path(dev, wrappers, reset_launches, smi)
+    _tp_train_path(dev, wrappers, reset_launches, smi)
 
     # -- 5. times -------------------------------------------------------------
     def nbytes(tensors):
@@ -3882,4 +4188,6 @@ if __name__ == "__main__":
         sys.exit(_mesh_train_child(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--tp-child"]:
         sys.exit(_tp_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--tp-train-child"]:
+        sys.exit(_tp_train_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -19,17 +19,21 @@ full depth instead; the extended live high-water mark is an estimate).
 No inner-scan correction is added: the counter sees every flash block
 and SSD chunk, and the `ssd_scan` kernel reports its own work.
 
-What a rank runs is what the port runs: a train step is data parallel
-over the data axes and refuses a model axis above 1 (`train/step.py`,
-ROADMAP.md A.7b), which the sweep records as `{"ok": false, "error": ...}`
-and goes on; a prefill or decode step takes its rank's rows of the
-batch (all of them when the data ranks do not divide it). The dense
-family serves them split over the model axis (`parallel/tensor.py`,
-A.7a: heads, ffn and vocab shards, the cache by kv heads or by
-positions; `serve_trees`), and the record lists the axes that stayed
-whole (`fallbacks`). The other families run their rows whole, parameters
-replicated (A.7c, A.7d), so under model = 16 each rank does its data
-group's whole work. On `meta` a data-parallel MoE layer cannot
+What a rank runs is what the port runs. A train step takes the rank's
+rows of the global batch over the data axes (`rows_per_rank`); the dense
+family trains split over the model axis and holds its state cut over
+"data" (FSDP) and "model" (`train/step.py` `local_state`, ROADMAP.md
+A.7b), and the record lists the axes that stayed whole (`fallbacks`).
+The MoE, ssm and hybrid families refuse a model axis above 1 in the
+train step (A.7d, A.7c), which the sweep records as `{"ok": false,
+"error": ...}` and goes on. A prefill or decode step takes its rank's
+rows of the batch (all of them when the data ranks do not divide it).
+The dense family serves them split over the model axis alone
+(`parallel/tensor.py`, A.7a: heads, ffn and vocab shards, the cache by
+kv heads or by positions; `serve_trees`), with its `fallbacks`. The
+other families serve their rows whole, parameters replicated (A.7c,
+A.7d), so under model = 16 each rank does its data group's whole work.
+On `meta` a data-parallel MoE layer cannot
 read how many pairs each expert keeps and sizes its buffer at the
 capacity (`layers/moe.py`); the cell's record says so (`moe_rows`).
 Prefill sends every SSD through the `ssd_scan` kernel, as serving does.
@@ -65,8 +69,8 @@ from repro_torch.parallel import tensor
 from repro_torch.serve.engine import make_serve_step
 from repro_torch.train import step as step_lib
 
-__all__ = ["open_fake_world", "serve_trees", "build_step", "count_step", "analysis_layers",
-           "analyze_cell", "run_cell", "main"]
+__all__ = ["open_fake_world", "serve_trees", "train_tree", "build_step", "count_step",
+           "analysis_layers", "analyze_cell", "run_cell", "main"]
 
 ROOT = Path(__file__).resolve().parents[3]
 MESHES = {"single_pod": 256, "multi_pod": 512}
@@ -164,6 +168,16 @@ def serve_trees(cfg, shape, mesh, rules: dict, variant: dict | None = None) -> t
         return params, cache, shd.fallbacks()
 
 
+def train_tree(cfg, mesh, rules: dict) -> tuple:
+    """A train cell's abstract state at one rank's shapes
+    (`step.local_state`: the dense family's cut over "data" and "model"),
+    and the fallbacks of its cut (None where nothing is cut)."""
+    with shd.use_mesh(mesh, rules) if mesh is not None else contextlib.nullcontext():
+        state = step_lib.local_state(cfg)
+        cut = mesh is not None and tensor.splits(cfg, tensor.TRAIN_AXES)
+        return state, (shd.fallbacks() if cut else None)
+
+
 def build_step(cfg, shape, mesh=None, *, remat: str = "full", variant: dict | None = None,
                device="meta"):
     """One cell's step, ready to run: returns `run()`, which runs it once
@@ -185,7 +199,7 @@ def build_step(cfg, shape, mesh=None, *, remat: str = "full", variant: dict | No
     if shape.kind == "train":
         oc = adamw.OptConfig()
         train_step = step_lib.make_train_step(cfg, shape, oc, remat=remat)
-        state = _materialize(step_lib.abstract_state(cfg), device)
+        state = _materialize(train_tree(cfg, mesh, rules)[0], device)
         batch = _batch(cfg, shape, device)
         return under_mesh(lambda: train_step(state, batch))
     if shape.kind not in ("prefill", "decode"):
@@ -272,6 +286,10 @@ def analyze_cell(cfg, shape, mesh, *, remat: str = "full", variant: dict | None 
     return out
 
 
+def _data_ranks(mesh) -> int:
+    return 1 if mesh is None else mesh.size(("pod", "data"))
+
+
 def _chips(mesh) -> int:
     return 1 if mesh is None else mesh.size(tuple(mesh.shape))
 
@@ -308,17 +326,17 @@ def run_cell(cfg, shape, mesh, *, remat: str = "full", analysis: bool = True,
         "peak_live_bytes": eff["peak_live"],    # an estimate when extended
         "aten_ops": eff["ops"],
         "kernels": eff["kernels"],
-        "rows_per_rank": (shape.global_batch if shape.kind == "train"
+        "rows_per_rank": (shape.global_batch // _data_ranks(mesh) if shape.kind == "train"
                           else serve_rows(shape, mesh)),
     }
-    if shape.kind != "train":
-        fallbacks = serve_trees(cfg, shape, mesh, _cell_rules(mesh, variant), variant)[2]
-        meta["fallbacks"] = None if fallbacks is None else [list(f) for f in fallbacks]
+    rules = _cell_rules(mesh, variant)
+    fallbacks = (train_tree(cfg, mesh, rules)[1] if shape.kind == "train"
+                 else serve_trees(cfg, shape, mesh, rules, variant)[2])
+    meta["fallbacks"] = None if fallbacks is None else [list(f) for f in fallbacks]
     if analysis:
         meta["extended_from_layers"] = analysis_layers(cfg) if eff["extended"] else None
         meta["reference_corrections_per_device"] = eff["reference_corrections_per_device"]
-    data_ranks = 1 if mesh is None else mesh.size(("pod", "data"))
-    if (cfg.family == "moe" and shape.kind == "train" and data_ranks > 1
+    if (cfg.family == "moe" and shape.kind == "train" and _data_ranks(mesh) > 1
             and torch.device(device).type == "meta"):
         meta["moe_rows"] = "capacity (meta: the kept pairs per expert cannot be read)"
     if verbose:

@@ -3,10 +3,11 @@
 Counterpart of `repro/layers/attention.py`. The parameters and the KV
 cache carry the reference's logical axes (`models.base.tree_specs`); the
 reference's activation annotations (`shard`) are left out, as they would
-compute nothing on plain tensors. Dense serving under a model axis above
-1 (ROADMAP.md A.7a) splits the heads and the cache explicitly: `group`
-below, with the shards and collectives of `parallel/tensor.py`; training
-under it is A.7b. The cache layout is
+compute nothing on plain tensors. The dense family under a model axis
+above 1 splits the heads (and, serving, the cache) explicitly: `group`
+below, with the shards and the autograd collectives of
+`parallel/tensor.py`, for serving (ROADMAP.md A.7a) and training (A.7b)
+alike. The cache layout is
 (B, KV, S_max, hd); `cache_pos` is a per-sequence write index, which
 lets the serving engine decode a batch whose sequences stand at other
 positions. Every function returns new tensors and leaves its inputs as
@@ -124,7 +125,15 @@ def attention(
     prefill writes that slice of the whole prompt's K/V; decode writes
     the new K/V where its position falls and combines each rank's
     partial attention over its positions by log-sum-exp in fp32 (the
-    query heads gathered first when they are split)."""
+    query heads gathered first when they are split).
+
+    Gradients (training): where the heads split, x enters the projections
+    through `copy_to`, which sums its gradient over the group, and `_out`
+    sums the output with `reduce_from`. Where the kv heads stay whole
+    under split query heads, k and v are projected from x itself and pass
+    `copy_to` instead: each rank uses only its query heads' kv heads, so
+    their gradients are summed there, once, and reach wk, wv, bk, bv and
+    x whole on every rank. The flash path runs on the local heads."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     Hl, KVl, r = H, KV, 0
@@ -134,9 +143,14 @@ def attention(
     by_seq = group is not None and cache is not None and KVl == KV
     h0 = r * Hl if heads_split else 0                # this rank's first query head
 
-    q = _project(x, p["wq"], p.get("bq"))            # (B, S, Hl, hd)
-    k = _project(x, p["wk"], p.get("bk"))            # (B, S, KVl, hd)
-    v = _project(x, p["wv"], p.get("bv"))
+    xs = tensor.copy_to(x, group) if heads_split else x
+    q = _project(xs, p["wq"], p.get("bq"))           # (B, S, Hl, hd)
+    if heads_split and KVl == KV:                    # whole kv heads: their gradient summed
+        k = tensor.copy_to(_project(x, p["wk"], p.get("bk")), group)
+        v = tensor.copy_to(_project(x, p["wv"], p.get("bv")), group)
+    else:
+        k = _project(xs, p["wk"], p.get("bk"))       # (B, S, KVl, hd)
+        v = _project(xs, p["wv"], p.get("bv"))
 
     if cfg.pos == "rope":
         q = rotary.rope(q, positions, cfg.rope_theta)
@@ -241,4 +255,4 @@ def _out(p: dict, ctx: torch.Tensor, x: torch.Tensor, group) -> torch.Tensor:
     B, Hl, S, hd = ctx.shape
     ctx = ctx.transpose(1, 2).reshape(B, S, Hl * hd)  # (B, S, Hl·hd)
     out = torch.matmul(ctx, wx(p["wo"], x.dtype).reshape(Hl * hd, x.shape[-1]))
-    return out if group is None else tensor.all_reduce(out, group)
+    return out if group is None else tensor.reduce_from(out, group)

@@ -9,10 +9,16 @@ precomputed embeddings.
 Under a model axis above 1 (`group`, `parallel/tensor.py`) a vocab that
 divides the axis is split: `tok` holds this rank's rows and `head` its
 columns. The embedding gathers the ids in its rows, zeroes the others
-and all-reduces (one non-zero term a position: the sum is exact), then
-applies gemma's scale; the head's local logits are all-gathered into the
-whole vocab. A tied head splits the same `tok` leaf. A vocab that does
-not divide stays whole.
+and all-reduces (`reduce_from`: one non-zero term a position, so the sum
+is exact; the backward hands each rank the whole gradient, which the
+masked gather scatters into its own rows only), then applies gemma's
+scale. The head takes h through `copy_to` (its gradient summed over the
+group); serving all-gathers the local logits into the whole vocab
+(`gather_from`), training keeps this rank's slice (`gather=False`) for
+the vocab-split loss (`tensor.vocab_nll`). A tied head splits the same
+`tok` leaf, whose gradient then sums the embedding's and the head's on
+the same rows, as one process's does. A vocab that does not divide stays
+whole.
 """
 from __future__ import annotations
 
@@ -46,7 +52,7 @@ def embed(cfg: ArchConfig, p: dict, tokens: torch.Tensor, group=None) -> torch.T
         ids = tokens - dist.get_rank(group) * rows
         mine = (ids >= 0) & (ids < rows)
         h = tok[ids.clamp(0, rows - 1)].to(cfg.cdtype())
-        h = tensor.all_reduce(torch.where(mine[..., None], h, torch.zeros_like(h)), group)
+        h = tensor.reduce_from(torch.where(mine[..., None], h, torch.zeros_like(h)), group)
     else:
         h = tok[tokens].to(cfg.cdtype())     # gather, then cast: the same values
     if cfg.scale_embedding:
@@ -56,18 +62,23 @@ def embed(cfg: ArchConfig, p: dict, tokens: torch.Tensor, group=None) -> torch.T
     return h
 
 
-def lm_head(cfg: ArchConfig, p: dict, h: torch.Tensor, group=None) -> torch.Tensor:
+def lm_head(cfg: ArchConfig, p: dict, h: torch.Tensor, group=None, *,
+            gather: bool = True) -> torch.Tensor:
     """h (B, S, D) -> logits (B, S, V) in h's dtype; `group` the model
-    group when p holds shards."""
+    group when p holds shards. With the vocab split, `gather=False` gives
+    this rank's slice (B, S, V / m) instead of the whole vocab."""
     w = p["tok"] if cfg.tie_embeddings else p["head"]
     if is_q(w):
         if cfg.tie_embeddings:
             # w = q * s with per-d_model scales: fold s into h, matmul int8ᵀ
             return torch.matmul(h * w["s"].to(h.dtype), w["q"].to(h.dtype).T)
         return torch.matmul(h, (w["q"].float() * w["s"]).to(h.dtype))
+    split = group is not None and w.shape[0 if cfg.tie_embeddings else 1] < cfg.vocab
+    if split:
+        h = tensor.copy_to(h, group)
     logits = torch.matmul(h, w.to(h.dtype).T if cfg.tie_embeddings else w.to(h.dtype))
-    if group is not None and logits.shape[-1] < cfg.vocab:
-        logits = tensor.all_gather(logits, group)
+    if split and gather:
+        logits = tensor.gather_from(logits, group)
     return logits
 
 

@@ -4,15 +4,17 @@ Counterpart of `repro/layers/mlp.py`. The activation is computed in fp32
 and cast to the compute dtype before the product; GELU is the tanh
 approximation, as the reference's `approximate=True`. Under a model axis
 above 1 (`group`, `parallel/tensor.py`) `wi` and `wg` hold this rank's
-ffn columns and `wo` its rows, and one all-reduce sums the output; an
-ffn that does not divide the axis stays whole and is not reduced.
+ffn columns and `wo` its rows: x enters through `copy_to` (its gradient
+summed over the group) and one all-reduce sums the output
+(`reduce_from`). An ffn that does not divide the axis stays whole and
+runs whole, with neither.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.layers.common import wx
+from repro_torch.layers.common import is_q, wx
 from repro_torch.models.base import ArchConfig, ParamInfo
 from repro_torch.parallel import tensor
 
@@ -35,6 +37,9 @@ def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor, group=None) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D); `group` the model group when p holds
     shards."""
     dt = x.dtype
+    split = group is not None and not is_q(p["wi"]) and p["wi"].shape[-1] < cfg.d_ff
+    if split:
+        x = tensor.copy_to(x, group)
     h = torch.matmul(x, wx(p["wi"], dt))
     if cfg.act == "swiglu":
         g = torch.matmul(x, wx(p["wg"], dt))
@@ -47,6 +52,4 @@ def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor, group=None) -> torch.Tensor:
     else:
         raise ValueError(cfg.act)
     out = torch.matmul(h, wx(p["wo"], dt))
-    if group is not None and h.shape[-1] < cfg.d_ff:
-        out = tensor.all_reduce(out, group)
-    return out
+    return tensor.reduce_from(out, group) if split else out

@@ -23,6 +23,7 @@ import torch
 from repro_torch.models import mamba, transformer, zamba
 from repro_torch.models.base import ArchConfig
 from repro_torch.parallel import data_parallel as dp
+from repro_torch.parallel import tensor
 
 __all__ = ["LB_WEIGHT", "Z_WEIGHT", "module_for", "abstract_params", "abstract_cache",
            "forward", "prefill", "decode_step", "loss_fn"]
@@ -64,8 +65,15 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: str = "none", use_kernel: 
     Inside `data_parallel.reducing` (a data-parallel train step) the nll
     sum and the token count are the global batch's, reduced separately:
     the loss is the global batch's, and each rank's backward gives its
-    rows' share of the gradient."""
-    logits, aux = forward(cfg, params, batch, remat=remat, use_kernel=use_kernel)
+    rows' share of the gradient. On dense shards under a model axis above 1
+    the logits stay split over the vocab and the nll is taken over the
+    model group (`tensor.vocab_nll`); the sums over the data group are as
+    above."""
+    group = tensor.group_for(cfg)
+    if group is None:
+        logits, aux = forward(cfg, params, batch, remat=remat, use_kernel=use_kernel)
+    else:
+        logits, aux = transformer.forward(cfg, params, batch, remat=remat, local_vocab=True)
     targets = batch["targets"]
     mask = batch.get("loss_mask")
     if mask is None:
@@ -73,9 +81,12 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: str = "none", use_kernel: 
     mask = mask.float()
 
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)                               # (B, S)
-    tgt = torch.take_along_dim(lf, targets[..., None].long(), dim=-1)[..., 0]
-    nll = (lse - tgt) * mask
+    if logits.shape[-1] < cfg.vocab:
+        nll = tensor.vocab_nll(lf, targets, group) * mask
+    else:
+        lse = torch.logsumexp(lf, dim=-1)                           # (B, S)
+        tgt = torch.take_along_dim(lf, targets[..., None].long(), dim=-1)[..., 0]
+        nll = (lse - tgt) * mask
     # the global batch's sums inside a data-parallel train step
     denom = torch.clamp_min(dp.global_sum(mask.sum()), 1.0)
     loss = dp.global_sum(nll.sum()) / denom

@@ -14,13 +14,17 @@ number, and a dense model's are zero, as in the reference. gemma's
 reference tests the config's name, so a renamed or derived config keeps
 it.
 
-`prefill` and `decode_step` of the dense family under a model axis above
-1 (ROADMAP.md A.7a) run the split layers on parameter shards and a cache
-slice (`parallel/tensor.py`: `shard_params`, `local_tree`, `cache_len`),
-with the model group (`tensor.group_for`); the MoE family's parameters
-stay whole and its layers take their whole path. `forward`, which
-training runs, takes the whole path (training refuses a model axis above
-1: `train/step.py`, A.7b).
+Under a model axis above 1 the dense family runs its split layers on
+parameter shards with the model group (`tensor.group_for`;
+`parallel/tensor.py`): `prefill` and `decode_step` with a cache slice
+(`local_tree`, `cache_len`; ROADMAP.md A.7a), and `forward`, which
+training runs (A.7b), with the layers' autograd collectives; its
+`local_vocab=True` keeps the head's logits split over the vocab for
+`api.loss_fn`. A train state cut over "data" too (FSDP,
+`parallel/fsdp.py`) is gathered a layer at a time inside the function
+that `remat_call` checkpoints, so the recompute gathers again; the
+embedding's leaves are gathered where `forward` uses them. The MoE
+family's parameters stay whole and its layers take their whole path.
 
 `forward` and `prefill` take the port's `use_kernel` keyword, which the
 `Engine` passes to every family: the transformer path reaches no kernel,
@@ -36,7 +40,7 @@ from repro_torch.layers import mlp as mlp_lib
 from repro_torch.layers import moe as moe_lib
 from repro_torch.layers import norms
 from repro_torch.models.base import ArchConfig, ParamInfo, layer, remat_call, tree_map, unstack
-from repro_torch.parallel import tensor
+from repro_torch.parallel import fsdp, tensor
 
 __all__ = ["abstract_params", "abstract_cache", "backbone", "forward", "prefill",
            "decode_step"]
@@ -69,8 +73,10 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
 
 
 def _block(cfg: ArchConfig, lp: dict, h, positions, cache_layer, cache_pos, causal: bool,
-           group=None):
-    """One transformer block. Returns (h, new_cache_layer, aux)."""
+           group=None, dims=None):
+    """One transformer block. Returns (h, new_cache_layer, aux). `dims`:
+    the fsdp dims of lp's shards, gathered here (`fsdp.gather_tree`)."""
+    lp = fsdp.gather_tree(lp, dims)
     plus_one = cfg.norm_plus_one
     hn = norms.apply_norm(cfg.norm, lp["ln_attn"], h, eps=cfg.norm_eps, plus_one=plus_one)
     a, new_cache = attn_lib.attention(cfg, lp["attn"], hn, positions, cache=cache_layer,
@@ -86,17 +92,20 @@ def _block(cfg: ArchConfig, lp: dict, h, positions, cache_layer, cache_pos, caus
 
 def backbone(cfg: ArchConfig, params: dict, h: torch.Tensor, positions: torch.Tensor, *,
              cache: dict | None = None, cache_pos: torch.Tensor | None = None,
-             remat: str = "none", group=None) -> tuple[torch.Tensor, dict | None, dict]:
+             remat: str = "none", group=None,
+             dims: dict | None = None) -> tuple[torch.Tensor, dict | None, dict]:
     """Run all layers. Returns (h, new_cache, aux_losses): the MoE losses
     averaged over the layers; a dense model's are zero, as in the reference.
-    `group`: the model group when `params` are shards (`_block`)."""
+    `group`: the model group when `params` are shards (`_block`); `dims`:
+    `fsdp.shard_dims` of `params`, whose layer shards each block gathers."""
+    ldims = fsdp.layer_dims(dims)
     ks, vs = [], []
     lb = torch.zeros((), dtype=torch.float32, device=h.device)
     zl = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
         h, new, aux = remat_call(remat, _block, cfg, lp, h, positions,
                                  None if cache is None else layer(cache, i), cache_pos, True,
-                                 group)
+                                 group, ldims)
         if new is not None:
             ks.append(new["k"])
             vs.append(new["v"])
@@ -121,14 +130,19 @@ def _positions_for(cfg: ArchConfig, batch: dict, B: int, S: int, device) -> torc
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: str = "none",
-            use_kernel: bool = False) -> tuple[torch.Tensor, dict]:
-    """Training/eval forward. Returns (logits, aux). `use_kernel` has no
-    effect on this family (see the module's docstring)."""
+            use_kernel: bool = False, local_vocab: bool = False) -> tuple[torch.Tensor, dict]:
+    """Training/eval forward. Returns (logits, aux). On shards under a
+    model axis above 1, `local_vocab` gives this rank's slice of a split
+    vocab's logits instead of the whole (see the module's docstring).
+    `use_kernel` has no effect on this family."""
     B, S = batch["tokens"].shape
-    h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
+    group = tensor.group_for(cfg)
+    dims = fsdp.shard_dims(cfg, params)
+    emb = fsdp.gather_tree(params["embed"], fsdp.embed_dims(dims))
+    h = emb_lib.assemble_inputs(cfg, emb, batch, group)
     positions = _positions_for(cfg, batch, B, S, h.device)
-    h, _, aux = backbone(cfg, params, h, positions, remat=remat)
-    return emb_lib.lm_head(cfg, params["embed"], h), aux
+    h, _, aux = backbone(cfg, params, h, positions, remat=remat, group=group, dims=dims)
+    return emb_lib.lm_head(cfg, emb, h, group, gather=not local_vocab), aux
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,

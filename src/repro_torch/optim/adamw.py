@@ -1,8 +1,10 @@
 """AdamW with fp32 moments, global gradient clipping and a warmup-cosine
 schedule.
 
-Counterpart of `repro/optim/adamw.py` on one card: the reference's
-moments inherit the parameters' sharding; here they sit beside them.
+Counterpart of `repro/optim/adamw.py`. The moments inherit the
+parameters' logical axes (`abstract_opt_state`), so a train state cut
+over a mesh holds m and v at the parameters' shards' shapes, and the
+update runs on the shards.
 fp32 master parameters and fp32 moments; the forward casts to the
 compute dtype at use sites. The update is the reference's arithmetic in
 its order of operations: the clip scale min(1, clip / (|g| + 1e-9)),
@@ -23,6 +25,7 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.base import ParamInfo, tree_items, tree_map
 
@@ -65,21 +68,34 @@ def schedule(oc: OptConfig, step) -> torch.Tensor:
     return oc.lr * torch.where(s < oc.warmup_steps, warm, decayed)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, groups: list | None = None) -> torch.Tensor:
     """sqrt of the sum over the leaves (in flatten order) of each leaf's
-    sum of squares, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for _, g in tree_items(tree)))
+    sum of squares, in fp32. For a tree of shards, `groups` gives each
+    leaf's process group (flatten order): the ranks over which its shards
+    make the whole leaf, or None for a leaf held whole (counted once).
+    Each leaf's sum is summed over its group first (one all-reduce a
+    group), so every rank gets the whole tree's norm."""
+    sums = [torch.sum(torch.square(g.float())) for _, g in tree_items(tree)]
+    if groups is not None:
+        for grp in {id(g): g for g in groups if g is not None}.values():
+            idx = [i for i, g in enumerate(groups) if g is grp]
+            part = torch.stack([sums[i] for i in idx])
+            dist.all_reduce(part, group=grp)
+            for j, i in enumerate(idx):
+                sums[i] = part[j]
+    return torch.sqrt(sum(sums))
 
 
 @torch.no_grad()
-def apply_updates(params, grads, opt_state, oc: OptConfig):
+def apply_updates(params, grads, opt_state, oc: OptConfig, *, groups: list | None = None):
     """One AdamW step, in place. Returns (params, opt_state, metrics):
-    `grad_norm` (before the clip) and `lr`."""
+    `grad_norm` (before the clip) and `lr`. On a tree of shards, `groups`
+    are `global_norm`'s; the update itself is elementwise on the shards."""
     step = opt_state["step"].add_(1)
     s = step.float()
     lr = schedule(oc, step)
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, groups)
     # a true division, as the reference's (a Python float over a tensor
     # would be a reciprocal times the float)
     scale = torch.clamp_max(gnorm.new_tensor(oc.clip_norm) / (gnorm + 1e-9), 1.0)

@@ -1,12 +1,18 @@
 """Data parallelism of the port's training step.
 
 Under a mesh whose data axes ("pod", "data") span n ranks, each rank
-takes its B / n rows of the global batch (`local_rows`), computes the
-loss of the global batch and its own share of the gradient, and the
-shares are summed over the data group (`reduce_grads`). Parameters and
-optimizer state stay whole on every rank, so every rank applies the
-same update, and the step equals the single-process step up to the
-order of fp32 sums.
+takes its B / n rows of the global batch (`local_rows`; every rank of a
+model group the same rows), computes the loss of the global batch and
+its own share of the gradient, and the shares are summed over the data
+group: by `reduce_grads` after the accumulation for a leaf held whole
+over "data", and in the backward for a leaf the dense family holds as a
+shard of its fsdp dim (`parallel/fsdp.py`, whose gradient is
+reduce-scattered; `reduce_grads` then sums it over "pod" alone).
+Parameters and optimizer state are whole over "data" in the MoE, ssm
+and hybrid families and where an fsdp dim does not divide the axis, and
+the dense family's are this rank's shards elsewhere; either way each
+rank applies the update to what it holds, and the step equals the
+single-process step up to the order of fp32 sums.
 
 The loss of the global batch needs sums over every rank's rows wherever
 the loss divides or multiplies by them: `loss_fn`'s nll sum and token

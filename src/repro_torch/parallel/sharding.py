@@ -48,7 +48,7 @@ import math
 import threading
 
 __all__ = ["DEFAULT_RULES", "PartitionSpec", "NamedSharding", "use_mesh", "active_mesh",
-           "snapshot", "fallbacks", "spec", "named_sharding"]
+           "snapshot", "fallbacks", "rule_axes", "spec", "named_sharding"]
 
 DEFAULT_RULES: dict[str | None, tuple[str, ...]] = {
     "batch": ("pod", "data"),
@@ -152,6 +152,15 @@ def fallbacks() -> list:
     """Logical axes that degraded to a prefix or to replicated:
     (logical, dim, axes, kept axes or None)."""
     return list(_state().fallbacks)
+
+
+def rule_axes(logical: str | None) -> tuple[str, ...]:
+    """The mesh axes the active rules map `logical` to, those the active
+    mesh has (before any divisibility fallback); () without a mesh."""
+    st = _state()
+    if st.mesh is None:
+        return ()
+    return tuple(a for a in st.rules.get(logical, ()) if a in st.mesh.shape)
 
 
 def _axes_for(logical: str | None, dim: int, mesh) -> tuple[str, ...] | None:

@@ -1,19 +1,23 @@
-"""Tensor parallelism of dense serving over the model axis.
+"""Tensor parallelism of the dense family over the model axis, and the
+cut of its leaves over every mesh axis.
 
 The port's own module, as `parallel/data_parallel.py` is. The reference
-serves under a mesh with TP-only rules (`repro/launch/serve.py`: batch
-over "data", fsdp replicated) and lets GSPMD place each array by its
-logical axes. The port's tensors are local, so the split is explicit:
+places each array by its logical axes under a mesh and lets GSPMD insert
+the collectives. The port's tensors are local, so the split is explicit:
 
-* Parameters. Under a mesh whose "model" axis spans m > 1 ranks, each
-  leaf of the dense family is cut along every dimension that
-  `sharding.spec` maps to "model" (heads, kv_heads, ffn, vocab) into m
-  contiguous slices, and rank r holds slice r: the shard the reference's
-  `NamedSharding` places on model coordinate r (`shard_params`,
-  `local_info`). A dimension that does not divide stays whole on every
-  rank and is recorded in `sharding.fallbacks()`, entry for entry as the
-  reference records it. The MoE, ssm and hybrid families keep their
-  leaves whole (ROADMAP.md A.7c, A.7d).
+* Parameters. Under a mesh, each leaf of the dense family is cut along
+  every dimension that `sharding.spec` maps to a mesh axis of `axes`
+  into contiguous slices, and a rank holds the slice at its coordinate
+  along those axes: the shard the reference's `NamedSharding` places
+  there (`shard_params`, `local_info`, `local_tree`; `gather_leaf`
+  puts the whole leaf back together). Serving cuts "model" alone (heads,
+  kv_heads, ffn, vocab; its rules keep `fsdp` empty); training cuts
+  "model" and "data" (`TRAIN_AXES`, the reference's `fsdp` rule: the
+  d_model dim of each matrix, gathered a layer at a time by
+  `parallel/fsdp.py`). A dimension that does not divide stays whole on
+  every rank and is recorded in `sharding.fallbacks()`, entry for entry
+  as the reference records it. The MoE, ssm and hybrid families keep
+  their leaves whole (ROADMAP.md A.7c, A.7d).
 * The KV cache follows spec(cache, ("batch", "kv_heads", "kv_seq",
   None)): by kv heads where they divide the axis, else by positions, rank
   r holding positions [r S/m, (r + 1) S/m). `cache_len` rounds a cache's
@@ -21,17 +25,22 @@ logical axes. The port's tensors are local, so the split is explicit:
   tell the two layouts apart from the cache's shape: a cache by kv heads
   has fewer heads than the config.
 * The layers (`layers/{attention,mlp,embedding}.py`) read their split
-  from their shards' shapes and reduce over `model_group()` with the two
-  collectives here: `all_reduce` after each product whose contraction
-  is split (attention's and the MLP's output projections, the
-  vocab-split embedding), and `all_gather` of vocab-split logits. gloo,
-  which holds several ranks on one card and on the CPU, has no
-  reduce-scatter for CUDA tensors.
+  from their shards' shapes and reduce over the model group with the
+  Megatron pair of autograd collectives here: `copy_to` (identity
+  forward, all-reduce backward) on the input of each product whose
+  output is split (the q/k/v projections, the MLP's `wi`/`wg`, the
+  vocab-split head), and `reduce_from` (all-reduce forward, identity
+  backward) after each product whose contraction is split (attention's
+  and the MLP's output projections, the vocab-split embedding).
+  Serving's head all-gathers its logits (`gather_from`); training keeps
+  them split and takes the loss over the vocab with `vocab_nll`. Under
+  `torch.no_grad()` these run the forward collectives and nothing else.
 
-Only the "model" axis is cut here: a rank's rows of the batch are its
-caller's (`Engine.generate`'s batch, the dry run's `serve_rows`), and
-parameters are replicated over "data". W8 leaves under a model axis above
-1 raise (ROADMAP.md A.7e).
+gloo, which holds several ranks on one card and on the CPU, has no
+reduce-scatter for CUDA tensors: `reduce_scatter` all-reduces and keeps
+this rank's slice under gloo, and calls `reduce_scatter_tensor` under
+NCCL (and the dry run's `fake` backend), picked by the group's backend.
+W8 leaves under a split raise (ROADMAP.md A.7e).
 """
 from __future__ import annotations
 
@@ -44,10 +53,15 @@ from repro_torch.models import base
 from repro_torch.models.base import ParamInfo, tree_items, tree_unflatten
 from repro_torch.parallel import sharding as shd
 
-__all__ = ["serving_rules", "model_group", "group_for", "local_info", "local_tree",
-           "cache_len", "shard_params", "all_reduce", "all_gather"]
+__all__ = ["MODEL", "DATA", "TRAIN_AXES", "serving_rules", "training_rules", "model_group",
+           "group_for", "splits", "local_info", "local_tree", "cache_len", "shard_leaf",
+           "shard_params", "gather_leaf", "split_axes", "all_reduce",
+           "all_gather", "reduce_scatter", "copy_to", "reduce_from", "gather_from",
+           "vocab_nll"]
 
 MODEL = "model"
+DATA = "data"
+TRAIN_AXES = (DATA, MODEL)     # what a train state is cut over
 
 
 _W8 = ("q", "s")     # the keys of a W8 leaf: int8 values, scales
@@ -65,6 +79,13 @@ def serving_rules() -> dict:
     return {"batch": ("data",), "fsdp": ()}
 
 
+def training_rules(mesh) -> dict:
+    """The reference trainer's rules (`repro/launch/train.py`): the batch
+    over "data" on a single pod; the defaults (batch over ("pod",
+    "data"), fsdp over "data") on a mesh with a "pod" axis."""
+    return {} if "pod" in mesh.shape else {"batch": ("data",)}
+
+
 def _model_size(mesh) -> int:
     return 1 if mesh is None else mesh.shape.get(MODEL, 1)
 
@@ -77,42 +98,59 @@ def model_group():
 
 
 def group_for(cfg):
-    """The group a model of `cfg` serves split over: the model group for
+    """The group a model of `cfg` runs split over: the model group for
     the dense family, None for the others (their leaves stay whole)."""
     return model_group() if cfg.family == "dense" else None
 
 
-def _split_dims(info: ParamInfo) -> list[int]:
-    """Dims of `info` that the active rules map onto "model"."""
-    spec = tuple(shd.spec(tuple(info.shape), tuple(info.logical)))
-    return [d for d, part in enumerate(spec)
-            if part == MODEL or (isinstance(part, tuple) and MODEL in part)]
+def splits(cfg, axes=(MODEL,)) -> bool:
+    """Whether a dense tree of `cfg` is cut over `axes` under the active
+    mesh: the dense family and one of `axes` above 1."""
+    mesh = shd.active_mesh()
+    return (cfg.family == "dense" and mesh is not None
+            and any(mesh.shape.get(a, 1) > 1 for a in axes))
 
 
-def _local_shape(info: ParamInfo, dims: list[int], m: int) -> tuple:
-    return tuple(n // m if d in dims else n for d, n in enumerate(info.shape))
+def _cuts(info: ParamInfo, axes) -> list[tuple[int, tuple[str, ...]]]:
+    """(dim, mesh axes) of each dim of `info` that the active rules cut
+    over axes of `axes` above 1."""
+    mesh = shd.active_mesh()
+    out = []
+    for d, part in enumerate(shd.spec(tuple(info.shape), tuple(info.logical))):
+        names = (part,) if isinstance(part, str) else tuple(part or ())
+        names = tuple(a for a in names if a in axes and mesh.shape[a] > 1)
+        if names:
+            out.append((d, names))
+    return out
 
 
-def local_info(info: ParamInfo) -> ParamInfo:
-    """`info` at the shape of one rank's shard along "model" under the
+def _local_shape(info: ParamInfo, cuts, mesh) -> tuple:
+    shape = list(info.shape)
+    for d, names in cuts:
+        shape[d] //= mesh.size(names)
+    return tuple(shape)
+
+
+def local_info(info: ParamInfo, axes=(MODEL,)) -> ParamInfo:
+    """`info` at the shape of one rank's shard along `axes` under the
     active mesh and rules."""
-    m = _model_size(shd.active_mesh())
-    if m == 1:
+    mesh = shd.active_mesh()
+    if mesh is None or all(mesh.shape.get(a, 1) == 1 for a in axes):
         return info
-    return dataclasses.replace(info, shape=_local_shape(info, _split_dims(info), m))
+    return dataclasses.replace(info, shape=_local_shape(info, _cuts(info, axes), mesh))
 
 
-def local_tree(cfg, tree) -> dict:
-    """An abstract tree (parameters or cache) of `cfg` at its shards'
-    shapes, visited in the reference's flatten order (so `fallbacks()`
-    lists its entries in that order); unchanged outside the dense family
-    or a model axis above 1."""
-    if group_for(cfg) is None:
+def local_tree(cfg, tree, axes=(MODEL,)) -> dict:
+    """An abstract tree (parameters, optimizer moments or cache) of `cfg`
+    at its shards' shapes along `axes`, visited in the reference's
+    flatten order (so `fallbacks()` lists its entries in that order);
+    unchanged unless `splits(cfg, axes)`."""
+    if not splits(cfg, axes):
         return tree
     items = list(tree_items(tree))
     if any(p[-1] in _W8 for p, _ in items):
         raise _w8_refused()
-    return tree_unflatten([p for p, _ in items], [local_info(i) for _, i in items])
+    return tree_unflatten([p for p, _ in items], [local_info(i, axes) for _, i in items])
 
 
 def cache_len(cfg, max_len: int) -> int:
@@ -126,37 +164,80 @@ def cache_len(cfg, max_len: int) -> int:
     return -(-max_len // m) * m
 
 
-def shard_params(cfg, params) -> dict:
-    """This rank's shards of a dense parameter tree under the active mesh
-    (leaves whole, or already at their shard's shape, which are kept):
-    contiguous slices along each split dim, at the rank's model
-    coordinate. Returns `params` unchanged outside the dense family or a
-    model axis above 1. W8 leaves raise NotImplementedError."""
-    if group_for(cfg) is None:
+def _index(mesh, names) -> int:
+    """This rank's index along `names` (mixed radix, in their order)."""
+    i = 0
+    for a in names:
+        i = i * mesh.shape[a] + mesh.coordinate(a)
+    return i
+
+
+def shard_leaf(info: ParamInfo, leaf: torch.Tensor, axes=(MODEL,), name: str = "") -> torch.Tensor:
+    """This rank's shard of `leaf` (whole, or already at its shard's
+    shape, which is kept): contiguous slices along each cut dim."""
+    mesh = shd.active_mesh()
+    cuts = _cuts(info, axes)
+    if tuple(leaf.shape) == tuple(info.shape):
+        for d, names in cuts:
+            n = leaf.shape[d] // mesh.size(names)
+            leaf = leaf.narrow(d, _index(mesh, names) * n, n)
+        if cuts:                               # a copy: the whole leaf can be freed
+            leaf = leaf.clone(memory_format=torch.contiguous_format)
+    elif tuple(leaf.shape) != _local_shape(info, cuts, mesh):
+        raise ValueError(f"{name}: shape {tuple(leaf.shape)} is neither the leaf's "
+                         f"{info.shape} nor its shard's")
+    return leaf
+
+
+def shard_params(cfg, params, axes=(MODEL,)) -> dict:
+    """This rank's shards of a dense parameter tree (or of a tree of the
+    same shapes: AdamW's moments) under the active mesh, along `axes`:
+    `shard_leaf` of every leaf. Returns `params` unchanged unless
+    `splits(cfg, axes)`. W8 leaves raise NotImplementedError."""
+    if not splits(cfg, axes):
         return params
     from repro_torch.models import api
-    mesh = shd.active_mesh()
-    m, r = _model_size(mesh), mesh.coordinate(MODEL)
     infos = dict(tree_items(api.abstract_params(cfg)))
     paths, leaves = [], []
     for path, leaf in tree_items(params):
         if path[-1] in _W8:
             raise _w8_refused()
-        info = infos[path]
-        dims = _split_dims(info)
-        if tuple(leaf.shape) == tuple(info.shape):
-            for d in dims:
-                n = leaf.shape[d] // m
-                leaf = leaf.narrow(d, r * n, n)
-            if dims:                            # a copy: the whole leaf can be freed
-                leaf = leaf.clone(memory_format=torch.contiguous_format)
-        elif tuple(leaf.shape) != _local_shape(info, dims, m):
-            raise ValueError(f"{base.keystr(path)}: shape {tuple(leaf.shape)} is neither "
-                             f"the leaf's {info.shape} nor its shard's")
         paths.append(path)
-        leaves.append(leaf)
+        leaves.append(shard_leaf(infos[path], leaf, axes, base.keystr(path)))
     return tree_unflatten(paths, leaves)
 
+
+def gather_leaf(info: ParamInfo, leaf: torch.Tensor, axes=(MODEL,)) -> torch.Tensor:
+    """The whole leaf from every rank's shard (an all-gather over each cut
+    dim's axes); a whole leaf is returned as it is."""
+    mesh = shd.active_mesh()
+    for d, names in _cuts(info, axes):
+        if leaf.shape[d] < info.shape[d]:
+            leaf = all_gather(leaf, mesh.group(names), dim=d)
+    return leaf
+
+
+def split_axes(cfg, tree) -> list[tuple[str, ...]]:
+    """For each leaf of a parameter-shaped tree (in flatten order), the
+    mesh axes its shape is cut over, read from the leaf's shape against
+    the whole one: a dim shorter than the whole is cut over the axes the
+    active rules map its logical axis to. () for a whole leaf."""
+    mesh = shd.active_mesh()
+    if mesh is None or cfg.family != "dense":
+        return [()] * len(list(tree_items(tree)))
+    from repro_torch.models import api
+    infos = dict(tree_items(api.abstract_params(cfg)))
+    out = []
+    for path, leaf in tree_items(tree):
+        info, axes = infos[path], set()
+        for d, n in enumerate(info.shape):
+            if leaf.shape[d] < n:
+                axes.update(shd.rule_axes(info.logical[d]))
+        out.append(tuple(a for a in mesh.shape if a in axes))
+    return out
+
+
+# -- collectives ---------------------------------------------------------------
 
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """The elementwise reduction of x over `group` (a new tensor)."""
@@ -171,3 +252,105 @@ def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's slice along `dim` of the sum of x over `group`: NCCL's
+    (and the `fake` backend's) reduce-scatter, or under gloo, which has
+    none for CUDA tensors, an all-reduce and this rank's slice."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    size = x.shape[dim] // n
+    if "gloo" in str(dist.get_backend(group)):
+        return all_reduce(x, group).narrow(dim, r * size, size).contiguous()
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((size,) + tuple(xt.shape[1:]))
+    dist.reduce_scatter_tensor(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """x, whose gradient is summed over `group`: the input of a product
+    whose output is split over the group (each rank's gradient is its
+    share of the whole). Without autograd (serving), x itself."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over `group` (the output of a product whose
+    contraction is split); its gradient goes to x unchanged."""
+    return _ReduceFrom.apply(x, group)
+
+
+def gather_from(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """Every rank's x along `dim`, in rank order; the gradient of this
+    rank's slice goes to x."""
+    return _GatherFrom.apply(x, group, dim)
+
+
+class _VocabNLL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lf, targets, group):
+        Vl = lf.shape[-1]
+        ids = targets.long() - dist.get_rank(group) * Vl
+        mine = (ids >= 0) & (ids < Vl)
+        ids = ids.clamp(0, Vl - 1)
+        top = all_reduce(lf.amax(dim=-1, keepdim=True), group, dist.ReduceOp.MAX)
+        e = torch.exp(lf - top)
+        total = all_reduce(e.sum(dim=-1, keepdim=True), group)
+        tgt = torch.take_along_dim(lf, ids[..., None], dim=-1)
+        tgt = all_reduce(torch.where(mine[..., None], tgt, torch.zeros_like(tgt)), group)
+        ctx.save_for_backward(e, total, ids, mine)
+        return (torch.log(total) + top - tgt)[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        e, total, ids, mine = ctx.saved_tensors
+        d = e / total                                   # this rank's columns of the softmax
+        d.scatter_add_(-1, ids[..., None], -mine[..., None].to(d.dtype))
+        return d.mul_(g[..., None]), None, None
+
+
+def vocab_nll(lf: torch.Tensor, targets: torch.Tensor, group) -> torch.Tensor:
+    """The next-token negative log-likelihood from vocab-split fp32
+    logits: lf (..., V / m) holds this rank's contiguous slice of the
+    vocab over `group`. The log-sum-exp takes the max over the group (an
+    all-reduce MAX, no gradient) and the sum of the exponentials over it;
+    the target's logit comes from the rank that holds it (masked, summed).
+    The backward is local: this rank's columns of softmax minus the
+    one-hot, times the upstream gradient."""
+    return _VocabNLL.apply(lf, targets, group)

@@ -18,12 +18,23 @@ Under an active mesh (`parallel.sharding.use_mesh`) the step is data
 parallel over the mesh's data axes ("pod", "data"), which may span one
 rank: each rank takes its B / n rows of the global batch
 (`data_parallel.local_rows`, whose microbatches are shares of the global
-microbatches), computes the global batch's loss inside
-`data_parallel.reducing` and its share of the gradients, and the
-accumulated gradients are summed over the data group before the global
-norm and the update. Parameters and optimizer state stay whole on every
-rank. The mesh's model axis must be 1: tensor, sequence and expert
-parallelism of the LM layers is not ported (ROADMAP.md, A.7).
+microbatches; every rank of a model group takes the same rows), and
+computes the global batch's loss inside `data_parallel.reducing` and its
+share of the gradients. The dense family also runs under a model axis
+above 1 (ROADMAP.md A.7b): its layers split over "model" with autograd
+collectives (`parallel/tensor.py`), so every rank of a model group
+computes the same loss and its shards' whole gradients. Its train state
+may be cut over "data" too (FSDP, `parallel/fsdp.py`; `shard_state`,
+`local_state`, `whole_state`): a leaf held as a data shard gets its
+gradient reduce-scattered over "data" in each microbatch's backward.
+After the accumulation the step sums only what the backward has not:
+every other leaf over the data group (`data_parallel.reduce_grads`), and
+the data shards over "pod" where the mesh has one. The global norm sums
+each leaf's squares over the axes that cut it (`adamw.global_norm`), and
+AdamW updates the shards in place. What a leaf is, whole or a shard, is
+read from its shape, so a whole state under a mesh trains data parallel
+as before. The MoE, ssm and hybrid families refuse a model axis above 1
+(ROADMAP.md A.7d, A.7c) and keep their state whole.
 """
 from __future__ import annotations
 
@@ -31,12 +42,15 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models import api
-from repro_torch.models.base import ArchConfig, ShapeConfig, tree_items, tree_map, tree_unflatten
+from repro_torch.models.base import (ArchConfig, ShapeConfig, keystr, tree_items, tree_map,
+                                     tree_unflatten)
 from repro_torch.optim import adamw
 from repro_torch.parallel import data_parallel as dp
+from repro_torch.parallel import fsdp, tensor
 from repro_torch.parallel import sharding as shd
 
-__all__ = ["make_grad_fn", "make_train_step", "abstract_state"]
+__all__ = ["make_grad_fn", "make_train_step", "abstract_state", "local_state", "shard_leaf",
+           "shard_state", "whole_state"]
 
 
 def make_grad_fn(cfg: ArchConfig, shape: ShapeConfig, *, remat: str = "full"):
@@ -45,15 +59,15 @@ def make_grad_fn(cfg: ArchConfig, shape: ShapeConfig, *, remat: str = "full"):
     accumulated as the reference's train step accumulates them. With one
     microbatch, `metrics` are `loss_fn`'s; with more, they are empty, as
     in the reference. Under an active mesh, the global batch's loss and
-    gradients from this rank's rows and a sum over the data group (see
-    the module's docstring)."""
+    this rank's leaves' gradients, summed where the backward does not sum
+    them (see the module's docstring)."""
     accum = max(shape.accum, 1)
 
     def grad_fn(params, batch):
         group = None
         mesh = shd.active_mesh()
         if mesh is not None:
-            group, batch = _data_parallel(mesh, batch, accum)
+            group, batch = _data_parallel(cfg, mesh, batch, accum)
         B = batch["tokens"].shape[0]
         if B % accum:
             raise ValueError(f"batch {B} is not a multiple of accum {accum}")
@@ -80,20 +94,42 @@ def make_grad_fn(cfg: ArchConfig, shape: ShapeConfig, *, remat: str = "full"):
                     loss_sum = loss_sum + loss / accum
                 del grads
         if group is not None:
-            dp.reduce_grads(gsum, group)
+            _reduce(cfg, mesh, params, gsum, group)
         return loss_sum, metrics, tree_unflatten(paths, gsum)
 
     return grad_fn
 
 
-def _data_parallel(mesh, batch: dict, accum: int):
+def _reduce(cfg, mesh, params, gsum: list, group) -> None:
+    """Sum the accumulated gradients where the backward has not: a leaf
+    held as a data shard was reduce-scattered over the fsdp axes, so it
+    is summed over the data axes left ("pod"); every other leaf over the
+    whole data group, as `data_parallel.reduce_grads` does."""
+    dims = fsdp.shard_dims(cfg, params)
+    if not dims:
+        dp.reduce_grads(gsum, group)
+        return
+    sharded = [p in dims for p, _ in tree_items(params)]
+    dp.reduce_grads([g for g, s in zip(gsum, sharded) if not s], group)
+    rest = tuple(a for a in _DATA_AXES if a in mesh.shape and a not in shd.rule_axes(fsdp.FSDP))
+    if mesh.size(rest) > 1:
+        dp.reduce_grads([g for g, s in zip(gsum, sharded) if s], mesh.group(rest))
+
+
+_DATA_AXES = ("pod", "data")
+_REFUSED = {"moe": "expert parallelism (ROADMAP.md, A.7d)",
+            "ssm": "the Mamba2 mixer's split (ROADMAP.md, A.7c)",
+            "hybrid": "the Mamba2 mixer's split (ROADMAP.md, A.7c)"}
+
+
+def _data_parallel(cfg: ArchConfig, mesh, batch: dict, accum: int):
     """(the data group, this rank's rows of `batch`) under `mesh`."""
-    if mesh.shape.get("model", 1) != 1:
+    if mesh.shape.get("model", 1) != 1 and cfg.family != "dense":
         raise NotImplementedError(
-            f"training under a mesh with model axis {mesh.shape['model']}: tensor, sequence "
-            "and expert parallelism of the LM layers is not ported (ROADMAP.md, A.7); "
-            "the port trains data parallel under model = 1")
-    axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+            f"training {cfg.family} under a mesh with model axis {mesh.shape['model']}: "
+            f"{_REFUSED[cfg.family]} is not ported; the port trains this family data "
+            "parallel under model = 1, and the dense family under any model axis")
+    axes = tuple(a for a in _DATA_AXES if a in mesh.shape)
     if not axes:
         raise ValueError(f"a training mesh needs a data axis, got {mesh.shape}")
     group = mesh.group(axes)
@@ -104,14 +140,16 @@ def make_train_step(cfg: ArchConfig, shape: ShapeConfig, oc: adamw.OptConfig,
                     *, remat: str = "full"):
     """Returns train_step(state, batch) -> (state, metrics).
 
-    state = {"params", "opt": {m, v, step}}, updated in place; batch per
-    data.pipeline, as tensors on the state's device. The metrics are
-    `loss_fn`'s (one microbatch only), `grad_norm`, `lr` and `loss`."""
+    state = {"params", "opt": {m, v, step}}, whole or this rank's shards
+    (`shard_state`), updated in place; batch per data.pipeline, as tensors
+    on the state's device. The metrics are `loss_fn`'s (one microbatch
+    only), `grad_norm`, `lr` and `loss`."""
     grad_fn = make_grad_fn(cfg, shape, remat=remat)
 
     def train_step(state, batch):
         loss, metrics, grads = grad_fn(state["params"], batch)
-        _, _, opt_metrics = adamw.apply_updates(state["params"], grads, state["opt"], oc)
+        _, _, opt_metrics = adamw.apply_updates(state["params"], grads, state["opt"], oc,
+                                                groups=_norm_groups(cfg, state["params"]))
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
@@ -120,7 +158,74 @@ def make_train_step(cfg: ArchConfig, shape: ShapeConfig, oc: adamw.OptConfig,
     return train_step
 
 
+def _norm_groups(cfg: ArchConfig, params) -> list | None:
+    """Per leaf (flatten order), the group its squares are summed over in
+    the global norm: the mesh axes that cut it; None for a whole leaf, and
+    None for all when nothing is cut."""
+    axes = tensor.split_axes(cfg, params)
+    if not any(axes):
+        return None
+    mesh = shd.active_mesh()
+    return [mesh.group(a) if a else None for a in axes]
+
+
 def abstract_state(cfg: ArchConfig) -> dict:
     """Abstract train state (ParamInfo trees): parameters and AdamW state."""
     ap = api.abstract_params(cfg)
     return {"params": ap, "opt": adamw.abstract_opt_state(ap)}
+
+
+def _sharded(cfg: ArchConfig) -> bool:
+    return tensor.splits(cfg, tensor.TRAIN_AXES)
+
+
+def _infos(cfg: ArchConfig, path: tuple):
+    """The parameter ParamInfo a state leaf at `path` mirrors (params, m,
+    v), or None (the step count)."""
+    if path[0] == "params":
+        return dict(tree_items(api.abstract_params(cfg)))[path[1:]]
+    if path[:2] in (("opt", "m"), ("opt", "v")):
+        return dict(tree_items(api.abstract_params(cfg)))[path[2:]]
+    return None
+
+
+def local_state(cfg: ArchConfig) -> dict:
+    """The abstract train state at one rank's shards' shapes under the
+    active mesh and rules: the dense family's parameters, m and v cut
+    over "data" (fsdp) and "model"; the whole state otherwise."""
+    st = abstract_state(cfg)
+    if not _sharded(cfg):
+        return st
+    cut = lambda tree: tensor.local_tree(cfg, tree, tensor.TRAIN_AXES)  # noqa: E731
+    return {"params": cut(st["params"]),
+            "opt": {"m": cut(st["opt"]["m"]), "v": cut(st["opt"]["v"]),
+                    "step": st["opt"]["step"]}}
+
+
+def shard_leaf(cfg: ArchConfig, path: tuple, leaf: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of the state leaf at `path` (whole, or already a
+    shard), as `local_state` cuts it."""
+    info = _infos(cfg, path) if _sharded(cfg) else None
+    if info is None:
+        return leaf
+    return tensor.shard_leaf(info, leaf, tensor.TRAIN_AXES, keystr(path))
+
+
+def shard_state(cfg: ArchConfig, state) -> dict:
+    """This rank's shards of a whole train state (leaves already at their
+    shards' shapes are kept)."""
+    items = list(tree_items(state))
+    return tree_unflatten([p for p, _ in items], [shard_leaf(cfg, p, t) for p, t in items])
+
+
+def whole_state(cfg: ArchConfig, state) -> dict:
+    """The whole train state from every rank's shards (an all-gather over
+    each leaf's axes; every rank of the mesh takes part and gets it)."""
+    if not _sharded(cfg):
+        return state
+    items = list(tree_items(state))
+    out = []
+    for p, t in items:
+        info = _infos(cfg, p)
+        out.append(t if info is None else tensor.gather_leaf(info, t, tensor.TRAIN_AXES))
+    return tree_unflatten([p for p, _ in items], out)

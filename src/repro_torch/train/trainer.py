@@ -20,11 +20,15 @@ that seed). The state is updated in place (`train.step`). The history
 has the reference's keys and two more: `grad_norm` and `step_s` (each
 step's wall seconds, ending when its loss has reached the host).
 
-Under an active mesh the step is data parallel (`train/step.py`): every
-rank makes the same initial state from the seed and feeds the step the
-same global batches; a resumed state is restored whole on every rank
-(outside the mesh, so `ckpt.restore` does not shard it). Rank 0 writes the
-checkpoints and the others wait for it at a barrier.
+Under an active mesh (`train/step.py`) every rank draws the same initial
+state from the seed, leaf by leaf, and keeps its shards of each
+(`step.shard_leaf`: the dense family's leaves cut over "data" and
+"model", every other family's whole), and feeds the step the same
+global batches; a resumed state is restored whole (outside the mesh, so
+`ckpt.restore` does not reshard it) and then cut the same way. A
+checkpoint stays the whole tree: every rank takes part in gathering its
+shards (`step.whole_state`), rank 0 writes it and the others wait for
+it at a barrier. The returned state is this rank's shards.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ import torch.distributed as dist
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.data import pipeline
-from repro_torch.models.base import ArchConfig, ShapeConfig, tree_init
+from repro_torch.models.base import ArchConfig, ShapeConfig, tree_init, tree_items, tree_unflatten
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as shd
 from repro_torch.train import step as step_lib
@@ -66,6 +70,19 @@ class InjectedFailure(RuntimeError):
     pass
 
 
+def _init(cfg: ArchConfig, abstract, gen: torch.Generator, dev) -> dict:
+    """`tree_init(abstract, gen, dev)`, each leaf cut to this rank's shard
+    as it is drawn (so one whole leaf is alive at a time); the same draws
+    in the same order, so the shards are slices of the whole draw."""
+    if shd.active_mesh() is None:
+        return tree_init(abstract, gen, dev)
+    paths, leaves = [], []
+    for path, info in tree_items(abstract):
+        paths.append(path)
+        leaves.append(step_lib.shard_leaf(cfg, path, tree_init(info, gen, dev)))
+    return tree_unflatten(paths, leaves)
+
+
 def run(cfg: ArchConfig, shape: ShapeConfig, oc: adamw.OptConfig, tc: TrainerConfig, *,
         resume: bool = False, device=None):
     """Train on `device` (the card unless the caller names the CPU);
@@ -76,8 +93,10 @@ def run(cfg: ArchConfig, shape: ShapeConfig, oc: adamw.OptConfig, tc: TrainerCon
     abstract = step_lib.abstract_state(cfg)
 
     def save(step, state, **kw):
+        whole = step_lib.whole_state(cfg, state) if meshed else state
         if not meshed or dist.get_rank() == 0:
-            mgr.save(step, state, **kw)
+            mgr.save(step, whole, **kw)
+        del whole
         if meshed:
             dist.barrier()
 
@@ -86,9 +105,9 @@ def run(cfg: ArchConfig, shape: ShapeConfig, oc: adamw.OptConfig, tc: TrainerCon
         with shd.use_mesh(None):
             s, restored = mgr.restore_latest(abstract, device=dev)
         if restored is not None:
-            start_step, state = int(s), restored
+            start_step, state = int(s), step_lib.shard_state(cfg, restored)
     if state is None:
-        state = tree_init(abstract, torch.Generator(device=dev).manual_seed(tc.seed), dev)
+        state = _init(cfg, abstract, torch.Generator(device=dev).manual_seed(tc.seed), dev)
         start_step = 0
 
     train_step = step_lib.make_train_step(cfg, shape, oc, remat=tc.remat)

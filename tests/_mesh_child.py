@@ -193,6 +193,7 @@ def _train(d: Path, rank: int) -> dict:
         tc = trainer.TrainerConfig(ckpt_dir=str(d / f"ckpt_{arch}"), **kw)
         with shd.use_mesh(mesh, {"batch": ("data",)}):
             state, hist = trainer.run(cfg, shape, oc, tc, resume=True, device="cpu")
+            state = step.whole_state(cfg, state)     # the dense family's FSDP shards, gathered
         out[f"{arch}/loss"] = np.array(hist["loss"])
         out.update({f"{arch}/{k}": v for k, v in flat(state["params"]).items()})
     cfg, shape, oc, _ = train_setup("qwen2-vl-2b")

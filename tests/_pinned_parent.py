@@ -3,6 +3,7 @@ made the same on every machine.
 
     python tests/_pinned_parent.py init <dir>
     python tests/_pinned_parent.py steps <dir>
+    python tests/_pinned_parent.py tp <dir>
 
 Started with `ENV`: one intra-op thread (`OMP_NUM_THREADS=1`, XLA's
 Eigen pool off, `torch.set_num_threads(1)` below), as the gloo ranks run
@@ -21,7 +22,9 @@ unless the seed is fixed.
   and, per element, the smallest |gradient| over them; and the port's
   one-process `trainer.run` resumed from <dir>/single_<arch>: its losses
   and parameters. Written to <dir>/pinned.npz as
-  `ref/<name>/{loss,params/k,gmin/k}` and `single/<arch>/{loss,params/k}`.
+  `ref/<name>/{loss,params/k,gmin/k}` and `single/<arch>/{loss,params/k}`;
+* `tp`: tests/test_torch_tp_train.py's reference, the same train step on
+  the cases of <dir>/cases.json (`tp` below), to <dir>/tp_ref.npz.
 
 Run in the pytest process instead, the initial state followed the
 process's hash salt and both computations' fp32 sums its thread count;
@@ -55,16 +58,17 @@ def _jflat(tree) -> dict:
             for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def _reference_steps(arch: str, jstate, batches) -> dict:
+def _reference_steps(arch: str, jstate, batches, setup=None) -> dict:
     """The reference's train step on `batches` (its `adamw.apply_updates`
     wrapped to return the gradients beside the metrics, as in
-    test_torch_train.py)."""
+    test_torch_train.py); `setup` (jcfg, jshape, joc) defaults to
+    `jax_setup(arch)`'s."""
     import jax
     import jax.numpy as jnp
     import numpy as np
     from repro.optim import adamw as jadamw
     from repro.train import step as jstep
-    jcfg, jshape, joc = jax_setup(arch)
+    jcfg, jshape, joc = setup or jax_setup(arch)
     real = jadamw.apply_updates
 
     def with_grads(params, grads, opt_state, o):
@@ -156,11 +160,61 @@ def steps(d: Path) -> None:
     np.savez(d / "pinned.npz", **out)
 
 
+def tp(d: Path) -> None:
+    """tests/test_torch_tp_train.py's reference: for each case of
+    <d>/cases.json, the reference's two train steps from the state in
+    <d>/<case>.npz (`w/<keystr>`: parameters; m, v and step zero) on
+    `make_batch`'s batches 0 and 1 (or the case's own, `b<i>/<key>`), to
+    <d>/tp_ref.npz as `<case>/{loss,params/k,gmin/k}`."""
+    import json
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro import configs as jconfigs
+    from repro.data import pipeline as jpipeline
+    from repro.models import base as jbase
+    from repro.optim import adamw as jadamw
+    from repro.train import step as jstep
+    out = {}
+    for case in json.loads((d / "cases.json").read_text()):
+        name = case["name"]
+        if name in {k.split("/")[0] for k in out}:
+            continue
+        jcfg = dataclasses.replace(jconfigs.smoke(case["arch"]), compute_dtype="float32",
+                                   **case["over"])
+        jshape = jbase.ShapeConfig("s", case["seq"], case["batch"], "train", accum=case["accum"])
+        joc = jadamw.OptConfig(lr=case["lr"], warmup_steps=2, total_steps=50)
+        z = np.load(d / f"{name}.npz")
+        paths, treedef = jax.tree_util.tree_flatten_with_path(
+            jax.eval_shape(lambda: jbase.tree_init(jstep.abstract_state(jcfg),
+                                                   jax.random.PRNGKey(0))))
+        leaves = []
+        for k, sds in paths:
+            key = jax.tree_util.keystr(k)
+            if key.startswith("['params']"):
+                leaves.append(jnp.asarray(z["w/" + key[len("['params']"):]]))
+            else:
+                leaves.append(jnp.zeros(sds.shape, sds.dtype))
+        jstate = jax.tree_util.tree_unflatten(treedef, leaves)
+        if case.get("own_batches"):
+            batches = [{k.split("/")[1]: z[k] for k in z.files if k.startswith(f"b{i}/")}
+                       for i in range(2)]
+        else:
+            batches = [jpipeline.make_batch(jcfg, jshape, s, seed=case["data_seed"])
+                       for s in range(2)]
+        res = _reference_steps(case["arch"], jstate, batches, (jcfg, jshape, joc))
+        out[f"{name}/loss"] = res["loss"]
+        for part in ("params", "gmin"):
+            out.update({f"{name}/{part}/{k}": v for k, v in res[part].items()})
+    np.savez(d / "tp_ref.npz", **out)
+
+
 def main(argv) -> int:
     import torch
     torch.set_num_threads(1)
     job, d = argv[0], Path(argv[1])
-    {"init": init, "steps": steps}[job](d)
+    {"init": init, "steps": steps, "tp": tp}[job](d)
     return 0
 
 

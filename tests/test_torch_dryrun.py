@@ -10,16 +10,23 @@ timeout:
   decode are `ok` with FLOPs and peak memory above 0, each rank running
   its 8 / 2 rows split over the model axis, their collectives those of
   `_tp_formula.split_collectives` and their fallbacks kv_heads' (the
-  parameters' wk and wv, the cache's k and v); train is refused with
-  the port's item-7 error (a model axis above 1);
-* a fake 8 x 1 world: train is `ok`, and its all-reduce bytes are what
-  the data-parallel step reduces: every fp32 gradient once (4 bytes a
-  parameter), and per microbatch the loss's two fp32 sums (the nll and
-  the token count), so 4 N + 8 accum bytes in N + 2 accum ops;
+  parameters' wk and wv, the cache's k and v); train is `ok` too, each
+  rank training its 8 rows split over the model axis with its state cut
+  over "data" (FSDP) and "model", its collectives those of
+  `_tp_formula.train_collectives` and its fallbacks kv_heads' (wk and wv
+  of the parameters, m and v);
+* a fake 8 x 1 world: train is `ok`, and its collectives are what the
+  FSDP step moves (`_tp_formula.train_collectives` at model 1): each
+  layer's fp32 shards all-gathered in the forward and again in remat's
+  recompute and reduce-scattered in the backward, the embedding's once
+  each, the norm scales' gradients all-reduced, per microbatch the
+  loss's two fp32 sums (the nll and the token count), and the global
+  norm's one sum over "data";
 * the command line on the 16 x 16 production world, full-width
   mamba2-2.7b on `meta` tensors: a record for each of its four cells,
   train refused, the others `ok` with 64 `ssd_scan` calls counted by
-  formula in the prefill;
+  formula in the prefill (mamba2's train cell keeps its refusal under a
+  model axis above 1, ROADMAP.md A.7c);
 * `make_production_mesh` over 256 and 512 fake ranks on `meta`.
 """
 import json
@@ -28,7 +35,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-from _tp_formula import split_collectives
+from _tp_formula import split_collectives, train_collectives
 from repro_torch import configs
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -79,15 +86,15 @@ def test_small_mesh_dryrun_subprocess():
         assert r["collective_breakdown"] == split_collectives(cfg, kind, 4, 64, 4)
         assert r["fallbacks"] == [["kv_heads", 1, ["model"], None]] * 4
     train = rec["2x4/train"]
-    assert not train["ok"]
-    assert "model axis 4" in train["error"] and "(ROADMAP.md, A.7)" in train["error"]
+    assert train["ok"] and train["flops_per_device"] > 0 and train["rows_per_rank"] == 8
+    assert train["collective_breakdown"] == train_collectives(cfg, data=2, model=4, batch=16,
+                                                              seq=64, accum=2)
+    assert train["fallbacks"] == [["kv_heads", 1, ["model"], None]] * 6
     r = rec["8x1/train"]
     assert r["ok"] and r["flops_per_device"] > 0 and r["peak_mem_per_device"] > 0
-    accum = 2
-    assert r["collective_breakdown"] == {
-        "all-reduce": 4 * rec["n_params"] + 8 * accum, "all-gather": 0, "reduce-scatter": 0,
-        "all-to-all": 0, "collective-permute": 0, "_num_ops": r["collective_breakdown"]["_num_ops"]}
-    assert r["collective_bytes"] == 4 * rec["n_params"] + 8 * accum
+    want = train_collectives(cfg, data=8, model=1, batch=16, seq=64, accum=2)
+    assert r["collective_breakdown"] == want and r["rows_per_rank"] == 2
+    assert r["collective_bytes"] == sum(v for k, v in want.items() if not k.startswith("_"))
 
 
 def test_dryrun_command_line_on_the_production_world(tmp_path):
