@@ -208,7 +208,7 @@ Phases, each raising on failure (nothing is caught):
    fp32 forward; and qwen1.5-4b at 4 layers in fp32 (TF32 off), prefill
    and 8 greedy steps split against unmeshed within 1e-5 of the largest
    |logit|, tokens equal. Every count, the ranks' too, must stay 0. (m)
-   Dense training split over a (2, 2) (data, model) mesh, last
+   Dense training split over a (2, 2) (data, model) mesh
    (`parallel/{tensor,fsdp}.py`, `train/step.py`): four `chip_smoke.py
    --tp-train-child` ranks on the one card in a gloo world under the
    trainer's rules, each `trainer.run` drawing the whole state from the
@@ -222,7 +222,27 @@ Phases, each raising on failure (nothing is caught):
    relative bounds, fp32 losses and grad norms within 1e-5 relative and
    every rank's parameter shards within 1e-5 of the largest |p| of the
    spec's slice of the unmeshed result where |g| stayed above 1e-6.
-   Every count, the ranks' too, must stay 0.
+   Every count, the ranks' too, must stay 0. (n) The ssm and hybrid
+   families served split over a model axis of 2, last
+   (`parallel/tensor.py`, `layers/mamba2.py`): two `chip_smoke.py
+   --tp-ssm-child` ranks on the one card in a gloo world under a (1, 2)
+   mesh and the serving rules, each drawing the whole tree from the seed
+   leaf by leaf and keeping its shards (every Mamba2 mixer by heads, 40
+   of 80 a rank; the vocab; zamba2's shared block as the dense layers,
+   its KV cache by kv heads): mamba2-2.7b and zamba2-2.7b as published
+   through `Engine` at 4 x 512 + 32 in bf16, each rank's measured
+   generate launching `ssd_scan` once a mixer (64, 54), all on the
+   tensor cores, and no other kernel; each rank's parameter and cache
+   bytes, prefill and decode times; then this process runs the same
+   weights unmeshed: layer 0's split mixer within 4 bf16 ulps, the last
+   prefill logits within the larger of 0.05 and 3 x the unmeshed kernel
+   route's distance from the plain route (the stack of random layers
+   grows one rounding a layer), the ranks' logits and tokens bitwise
+   equal; mamba2 at 4 layers and zamba2 at 6 in fp32 (TF32 off),
+   prefill and 8 greedy steps within 1e-5 of the largest |logit| of
+   unmeshed, tokens equal; and `ssd_scan` at a rank's shape (40 heads)
+   against its plain version, timed beside its bound. The ranks'
+   launches join the `kernels` line's.
    Every launch count is set to 0 just before a path runs and read just
    after it; each of the path's kernels must have launched.
 5. Times: CUDA events, median of 20 runs after warmup, per kernel (both
@@ -484,6 +504,37 @@ TP_BF16_RTOL, TP_FP32_RTOL = 0.05, 1e-5
 TP_TRAIN_SHAPE, TP_TRAIN_RANKS, TP_TRAIN_STEPS = (4, 512, 2), (2, 2), 2
 TP_TRAIN_FP32_LAYERS, TP_TRAIN_FP32_RTOL, EPS_REGIME = 4, 1e-5, 1e-6
 TP_TRAIN_LOSS_RTOL, TP_TRAIN_GNORM_RTOL, TP_TRAIN_LR = 1e-4, 2 ** -8, 3e-4
+# Phase 4(n), the ssm and hybrid families served split over a model axis of
+# 2 (`parallel/tensor.py`, `layers/mamba2.py`): two ranks on the one card in
+# a gloo world under a (1, 2) cuda mesh and the serving rules, each a
+# `chip_smoke.py --tp-ssm-child` process that draws the whole tree from the
+# seed leaf by leaf and keeps its shards: every Mamba2 mixer by heads (40 of
+# the 80 a rank; the one group's B and C columns on both), the vocab split
+# (50,280 and 32,000 divide 2), zamba2's shared block as the dense layers
+# (16 of its 32 heads and kv heads, half its ffn; the KV cache by kv heads).
+# (a) mamba2-2.7b and (b) zamba2-2.7b as published, 4 x 512 + 32 in bf16
+# through `Engine` (use_kernel=True): each rank's prefill launches ssd_scan
+# once a mixer on its 40 heads, all on the tensor cores; held to the same
+# weights unmeshed on the card: layer 0's split mixer on the prompt within
+# ROUTE_ULPS bf16 ulps of the layer's scale (each rank rounds its partial
+# sums to bf16 before the all-reduce: one rounding more), and the ranks'
+# logits and tokens bitwise equal. End to end that one rounding a layer
+# grows through the stack of random layers: a CPU rehearsal at d_model 256
+# over 64 mamba2 layers read the split's last logits 0.31 of the largest
+# |logit| from unmeshed, where the kernel route against the plain route,
+# another rounding a layer, read 0.20 (54 zamba2 layers: 0.039 and 0.033).
+# So the last prefill logits are held within the larger of TP_BF16_RTOL and
+# TP_SSM_WITNESS times that witness, read on the card from the same
+# weights unmeshed. (c) fp32 with TF32 off, mamba2 cut to 4 layers and zamba2
+# to 6 (one shared site), through the kernel route (its fp32 scalar
+# kernel): prefill and TP_FP32_STEPS greedy steps within TP_FP32_RTOL of
+# the largest |logit| of unmeshed, the tokens equal. (d) ssd_scan at a
+# rank's shape (TP_SSM_SSD_HEADS heads, bf16, N 128) against its plain
+# version (`_ssd_agrees`), timed beside its bound.
+TP_SSM_SERVED = (("a", "mamba2-2.7b"), ("b", HYBRID_ARCH))
+TP_SSM_FP32_LAYERS = {"mamba2-2.7b": 4, HYBRID_ARCH: 6}
+TP_SSM_SSD_HEADS = 40
+TP_SSM_WITNESS = 3.0
 
 
 def _smi(query: str) -> str:
@@ -668,13 +719,14 @@ def _qmm_args(rng, m, k, n, dev):
     return xq, wq, sx, sw
 
 
-def _ssd_args(rng, dev, dtype, n: int = 128):
+def _ssd_args(rng, dev, dtype, n: int = 128, h: int = 80):
     """Seeded SSD inputs at mamba2-2.7b's width (H=80, P=64, G=1, N=128;
-    zamba2-2.7b's is the same with N=64), batch 4 x 512 tokens,
-    distributed as the JAX package's kernel tests."""
+    zamba2-2.7b's is the same with N=64; a rank of a model axis of 2 holds
+    h=40 heads), batch 4 x 512 tokens, distributed as the JAX package's
+    kernel tests."""
     import numpy as np
     import torch
-    b, l, h, p, g = LM_BATCH, LM_PROMPT, 80, 64, 1
+    b, l, p, g = LM_BATCH, LM_PROMPT, 64, 1
 
     def t(a):
         return torch.from_numpy(a.astype(np.float32)).to(dev)
@@ -3002,7 +3054,7 @@ def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for _, t in base.tree_items(tree))
 
 
-def _tp_steps(cfg, params, cache, prompts, steps: int, dev) -> dict:
+def _tp_steps(cfg, params, cache, prompts, steps: int, dev, use_kernel: bool = False) -> dict:
     """Prefill and `steps` greedy decode steps: each step's logits and
     tokens (numpy)."""
     import numpy as np
@@ -3012,7 +3064,7 @@ def _tp_steps(cfg, params, cache, prompts, steps: int, dev) -> dict:
     logits, tokens = [], []
     with torch.inference_mode():
         out, cache = api.prefill(cfg, params, {"tokens": torch.as_tensor(
-            prompts, device=dev).long()}, cache)
+            prompts, device=dev).long()}, cache, use_kernel=use_kernel)
         pos = torch.full((B,), P, dtype=torch.int32, device=dev)
         for i in range(steps + 1):
             tok = torch.argmax(out, dim=-1)
@@ -3022,6 +3074,34 @@ def _tp_steps(cfg, params, cache, prompts, steps: int, dev) -> dict:
                 out, cache = api.decode_step(cfg, params, tok[:, None], pos, cache)
                 pos = pos + 1
     return {"logits": np.stack(logits), "tokens": np.stack(tokens, axis=1)}
+
+
+def _run_ranks(flag: str, n_ranks: int, root: Path, dev, what: str) -> list[dict]:
+    """Run `chip_smoke.py FLAG RANK ROOT DEVICE` for every rank at once,
+    each killed at TP_TIMEOUT_S; print rank 0's log indented; raise if a
+    rank failed. Returns each rank's ROOT/rank<r>.json."""
+    logs = [open(root / f"rank{r}.log", "w") for r in range(n_ranks)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag, str(r),
+                               str(root), str(dev)], stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=TP_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    text = [(root / f"rank{r}.log").read_text() for r in range(n_ranks)]
+    print("\n".join(f"    {line}" for line in text[0].splitlines()))
+    if any(p.returncode for p in procs):
+        for r in range(1, n_ranks):
+            print(f"--- rank {r}:\n{text[r][-4000:]}", file=sys.stderr)
+        raise AssertionError(f"the {what} ranks failed (exit codes "
+                             f"{[p.returncode for p in procs]})")
+    return [json.loads((root / f"rank{r}.json").read_text()) for r in range(n_ranks)]
 
 
 def _tp_path(dev, wrappers, reset_launches, smi) -> None:
@@ -3045,29 +3125,7 @@ def _tp_path(dev, wrappers, reset_launches, smi) -> None:
     root = ROOT / "build" / "tp_path"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
-    logs = [open(root / f"rank{r}.log", "w") for r in range(TP_RANKS)]
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-child",
-                               str(r), str(root), str(dev)], stdout=log,
-                              stderr=subprocess.STDOUT)
-             for r, log in enumerate(logs)]
-    try:
-        for p in procs:
-            p.wait(timeout=TP_TIMEOUT_S)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for log in logs:
-            log.close()
-    text = [(root / f"rank{r}.log").read_text() for r in range(TP_RANKS)]
-    print("\n".join(f"    {line}" for line in text[0].splitlines()))
-    if any(p.returncode for p in procs):
-        for r in range(1, TP_RANKS):
-            print(f"--- rank {r}:\n{text[r][-4000:]}", file=sys.stderr)
-        raise AssertionError(f"the tensor-parallel ranks failed (exit codes "
-                             f"{[p.returncode for p in procs]})")
-    ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in range(TP_RANKS)]
+    ranks = _run_ranks("--tp-child", TP_RANKS, root, dev, "tensor-parallel")
     arrays = [dict(np.load(root / f"rank{r}.npz")) for r in range(TP_RANKS)]
     for r, rec in enumerate(ranks):
         for label in rec["cases"]:
@@ -3158,6 +3216,24 @@ def _tp_path(dev, wrappers, reset_launches, smi) -> None:
                       "power": smi}))
 
 
+def _tp_shards(cfg, dev):
+    """The whole tree drawn leaf by leaf from the seed, as `tree_init`
+    draws it, each leaf cut to this rank's shard (under the active mesh)."""
+    import torch
+    from repro_torch.models import api, base
+    from repro_torch.parallel import tensor
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    paths, leaves = [], []
+    with torch.inference_mode():
+        for path, info in base.tree_items(api.abstract_params(cfg)):
+            whole = base.tree_init(base.tree_unflatten([path], [info]), gen, dev)
+            (_, leaf), = base.tree_items(tensor.shard_params(cfg, whole))
+            paths.append(path)
+            leaves.append(leaf)
+            del whole
+    return base.tree_unflatten(paths, leaves)
+
+
 def _tp_child(rank: int, root: Path, device: str) -> int:
     """`chip_smoke.py --tp-child RANK DIR DEVICE`, one of phase 4(l)'s two
     ranks, on the parent's DEVICE (both ranks on the one card): a gloo
@@ -3170,10 +3246,6 @@ def _tp_child(rank: int, root: Path, device: str) -> int:
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.binary_matvec import ops
-    from repro_torch.kernels.fused_mlp import ops as fops
-    from repro_torch.kernels.quant_matmul import ops as qops
-    from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.models import api, base
     from repro_torch.parallel import sharding as shd
@@ -3201,25 +3273,11 @@ def _tp_child(rank: int, root: Path, device: str) -> int:
                   f"{dist.get_world_size()}, both ranks on {_device_name(dev)}; "
                   f"gloo on cuda tensors (sum, max, gather of rank + 1): {probe}")
 
-        def shards(cfg):
-            """The whole tree drawn leaf by leaf from the seed, as
-            `tree_init` draws it, each leaf cut to this rank's shard."""
-            gen = torch.Generator(device=dev).manual_seed(SEED)
-            paths, leaves = [], []
-            with torch.inference_mode():
-                for path, info in base.tree_items(api.abstract_params(cfg)):
-                    whole = base.tree_init(base.tree_unflatten([path], [info]), gen, dev)
-                    (_, leaf), = base.tree_items(tensor.shard_params(cfg, whole))
-                    paths.append(path)
-                    leaves.append(leaf)
-                    del whole
-            return base.tree_unflatten(paths, leaves)
-
         for label, arch, new in TP_SERVED:
             cfg = _tp_config(arch, "bfloat16")
             with shd.use_mesh(mesh, tensor.serving_rules()):
                 t0 = time.perf_counter()
-                params = shards(cfg)
+                params = _tp_shards(cfg, dev)
                 fallbacks = shd.fallbacks()
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
@@ -3269,7 +3327,7 @@ def _tp_child(rank: int, root: Path, device: str) -> int:
 
         cfg = _tp_config(DENSE_ARCH, "float32", TP_FP32_LAYERS)
         with shd.use_mesh(mesh, tensor.serving_rules()):
-            params = shards(cfg)
+            params = _tp_shards(cfg, dev)
             cache_info = tensor.local_tree(cfg, api.abstract_cache(
                 cfg, DENSE_BATCH, tensor.cache_len(cfg, DENSE_PROMPT + TP_FP32_STEPS + 8)))
             with torch.inference_mode():
@@ -3280,10 +3338,7 @@ def _tp_child(rank: int, root: Path, device: str) -> int:
         rec["cases"]["c"] = {"arch": DENSE_ARCH, "dtype": "float32",
                              "param_bytes": _tree_bytes(params),
                              "cache_bytes": _tree_bytes(cache)}
-        rec["launches"] = {"binary_matvec": sum(f.launches for f in (
-            ops.binary_matmul_planes, ops.binary_forward_planes, ops.binary_matmul,
-            ops.binary_matmul_packed)), "fused_mlp_predict": fops.fused_mlp_predict.launches,
-            "quant_matmul": qops.quant_matmul.launches, "ssd_scan": sops.ssd.launches}
+        rec["launches"] = _rank_launches()
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -3349,29 +3404,7 @@ def _tp_train_path(dev, wrappers, reset_launches, smi) -> None:
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     n_ranks = math.prod(TP_TRAIN_RANKS)
-    logs = [open(root / f"rank{r}.log", "w") for r in range(n_ranks)]
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                               "--tp-train-child", str(r), str(root), str(dev)], stdout=log,
-                              stderr=subprocess.STDOUT)
-             for r, log in enumerate(logs)]
-    try:
-        for p in procs:
-            p.wait(timeout=TP_TIMEOUT_S)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for log in logs:
-            log.close()
-    text = [(root / f"rank{r}.log").read_text() for r in range(n_ranks)]
-    print("\n".join(f"    {line}" for line in text[0].splitlines()))
-    if any(p.returncode for p in procs):
-        for r in range(1, n_ranks):
-            print(f"--- rank {r}:\n{text[r][-4000:]}", file=sys.stderr)
-        raise AssertionError(f"the tensor-parallel training ranks failed (exit codes "
-                             f"{[p.returncode for p in procs]})")
-    ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in range(n_ranks)]
+    ranks = _run_ranks("--tp-train-child", n_ranks, root, dev, "tensor-parallel training")
     for r, rec in enumerate(ranks):
         for label, c in rec["cases"].items():
             print(f"[4 {tag}] rank {r} {c['coordinate']} ({label}): state "
@@ -3485,10 +3518,6 @@ def _tp_train_child(rank: int, root: Path, device: str) -> int:
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.binary_matvec import ops
-    from repro_torch.kernels.fused_mlp import ops as fops
-    from repro_torch.kernels.quant_matmul import ops as qops
-    from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.models import api, base
     from repro_torch.parallel import sharding as shd
@@ -3543,14 +3572,304 @@ def _tp_train_child(rank: int, root: Path, device: str) -> int:
             del state, hist
             gc.collect()
             torch.cuda.empty_cache()
-        rec["launches"] = {"binary_matvec": sum(f.launches for f in (
-            ops.binary_matmul_planes, ops.binary_forward_planes, ops.binary_matmul,
-            ops.binary_matmul_packed)), "fused_mlp_predict": fops.fused_mlp_predict.launches,
-            "quant_matmul": qops.quant_matmul.launches, "ssd_scan": sops.ssd.launches}
+        rec["launches"] = _rank_launches()
         dist.barrier()
     finally:
         dist.destroy_process_group()
     (root / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def _rank_launches(reset: bool = False) -> dict:
+    """This process's launch count of each kernel family (after setting
+    every count to 0, with `reset`)."""
+    from repro_torch.kernels.binary_matvec import ops
+    from repro_torch.kernels.fused_mlp import ops as fops
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    if reset:
+        for mod in (ops, fops, qops, sops):
+            mod.reset_launches()
+    return {"binary_matvec": sum(f.launches for f in (
+        ops.binary_matmul_planes, ops.binary_forward_planes, ops.binary_matmul,
+        ops.binary_matmul_packed)), "fused_mlp_predict": fops.fused_mlp_predict.launches,
+        "quant_matmul": qops.quant_matmul.launches, "ssd_scan": sops.ssd.launches,
+        "ssd_scan mma": sops.ssd.mma_launches}
+
+
+def _tp_ssm_path(dev, wrappers, reset_launches, smi, clock_hz: float) -> dict:
+    """Phase 4(n): the ssm and hybrid families served split over a model
+    axis of 2 on the card (the constants' comment above `TP_SSM_SERVED`).
+    Two `--tp-ssm-child` ranks serve first, each counting its own kernel
+    launches in its measured generate, while this process holds nothing;
+    then this process draws each model whole from the same seed, runs it
+    unmeshed, holds the ranks' results to it, and holds ssd_scan at a
+    rank's shape to its plain version. Returns the ranks' ssd_scan
+    launches (and tensor-core launches) in their measured generates, and
+    the rank shape's kernel record."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ref as sref
+    from repro_torch.models import api, base
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag = "tp ssm path"
+    reset_launches()
+    root = ROOT / "build" / "tp_ssm_path"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ranks = _run_ranks("--tp-ssm-child", TP_RANKS, root, dev, "ssm tensor-parallel")
+    arrays = [dict(np.load(root / f"rank{r}.npz")) for r in range(TP_RANKS)]
+    served = {"ssd_scan": 0, "ssd_scan mma": 0}
+    for r, rec in enumerate(ranks):
+        for label, arch in TP_SSM_SERVED:
+            c = rec["cases"][label]
+            n = _tp_config(arch, "bfloat16").n_layers
+            counts = dict(c["launches"])
+            ssd, mma = counts.pop("ssd_scan"), counts.pop("ssd_scan mma")
+            print(f"[4 {tag}] rank {r} ({label}) {arch}: parameters "
+                  f"{c['param_bytes'] / 1e9:.3f} GB, cache {c['cache_bytes'] / 1e9:.4f} GB "
+                  f"{c['cache_shapes']}; {mma} of {ssd} ssd_scan launches on the tensor cores "
+                  f"in the measured generate (one prefill), other launches {counts}")
+            if not ssd == mma == n or any(counts.values()):
+                raise AssertionError(f"rank {r} {arch}: want {n} ssd_scan launches, all on "
+                                     "the tensor cores, and no other kernel in one generate")
+            served["ssd_scan"] += ssd
+            served["ssd_scan mma"] += mma
+    out = {"ranks": ranks}
+
+    # (a), (b): layer 0 and the bf16 prefill's last logits; the ranks' tokens
+    eps = torch.finfo(torch.bfloat16).eps
+    for label, arch in TP_SSM_SERVED:
+        cfg = _tp_config(arch, "bfloat16")
+        prompts = _tp_prompts(cfg.vocab, DENSE_BATCH, DENSE_PROMPT)
+        with torch.inference_mode():
+            params = base.tree_init(api.abstract_params(cfg),
+                                    torch.Generator(device=dev).manual_seed(SEED), dev)
+            want, witness = (_prefill(cfg, params, torch.as_tensor(prompts, device=dev).long(),
+                                      dev, uk)[0].float().cpu().numpy() for uk in (True, False))
+        layer0 = _layer0(cfg, params, prompts, dev, None)
+        ulps = [float(np.abs(a[f"{label}/layer0"] - layer0).max() / (eps * np.abs(layer0).max()))
+                for a in arrays]
+        scale = float(np.abs(want).max())
+        errs = [float(np.abs(a[f"{label}/prefill"] - want).max()) for a in arrays]
+        route = float(np.abs(witness - want).max()) / scale
+        bound = max(TP_BF16_RTOL, TP_SSM_WITNESS * route)
+        same = all(np.array_equal(a[f"{label}/{k}"], arrays[0][f"{label}/{k}"])
+                   for a in arrays for k in ("prefill", "tokens"))
+        print(f"[4 {tag}] ({label}) {arch} bf16, split over 2 ranks vs unmeshed: layer 0's "
+              f"mixer on the {DENSE_BATCH}x{DENSE_PROMPT} prompt within "
+              f"{', '.join(f'{u:.3g}' for u in ulps)} bf16 ulps of its scale (ranks 0, 1; "
+              f"bound {ROUTE_ULPS}); the prefill's last logits max |diff| "
+              f"{', '.join(f'{e:.4g}' for e in errs)} of the largest |logit| {scale:.4g}: "
+              f"{max(errs) / scale:.4g} (bound {bound:.4g}: the larger of {TP_BF16_RTOL} and "
+              f"{TP_SSM_WITNESS:g} x the unmeshed kernel route against the plain route, "
+              f"{route:.4g}); the ranks' logits and {DENSE_NEW} greedy tokens bitwise equal: "
+              f"{same}")
+        if max(ulps) > ROUTE_ULPS or max(errs) > bound * scale or not same:
+            raise AssertionError(f"{arch}: the split prefill differs from unmeshed, or the "
+                                 "ranks differ")
+        out[label] = {"layer0_ulps": ulps, "prefill_max_abs": errs, "logit_scale": scale,
+                      "witness_rel": route, "bound_rel": bound}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) fp32, TF32 off, cut depth: every step's logits
+    for label, arch in TP_SSM_SERVED:
+        cfg = _tp_config(arch, "float32", TP_SSM_FP32_LAYERS[arch])
+        prompts = _tp_prompts(cfg.vocab, DENSE_BATCH, DENSE_PROMPT)
+        with torch.inference_mode():
+            params = base.tree_init(api.abstract_params(cfg),
+                                    torch.Generator(device=dev).manual_seed(SEED), dev)
+            cache = base.tree_init(api.abstract_cache(cfg, DENSE_BATCH,
+                                                      DENSE_PROMPT + TP_FP32_STEPS + 8),
+                                   torch.Generator(device=dev), dev)
+        want = _tp_steps(cfg, params, cache, prompts, TP_FP32_STEPS, dev, use_kernel=True)
+        scale = float(np.abs(want["logits"]).max())
+        errs = [float(np.abs(a[f"c{label}/logits"] - want["logits"]).max()) for a in arrays]
+        equal = all(np.array_equal(a[f"c{label}/tokens"], want["tokens"]) for a in arrays)
+        print(f"[4 {tag}] (c{label}) {arch} {cfg.n_layers} layers fp32 (TF32 off) prefill "
+              f"{DENSE_BATCH}x{DENSE_PROMPT} + {TP_FP32_STEPS} steps, split vs unmeshed: max "
+              f"|diff| {', '.join(f'{e:.3g}' for e in errs)} (ranks 0, 1) of the largest "
+              f"|logit| {scale:.4g}: {max(errs) / scale:.3g} (bound {TP_FP32_RTOL}); greedy "
+              f"tokens {'equal' if equal else 'differ'}")
+        if max(errs) > TP_FP32_RTOL * scale or not equal:
+            raise AssertionError(f"{arch}: the fp32 split path differs from unmeshed")
+        out[f"c{label}"] = {"max_abs": errs, "logit_scale": scale}
+        del params, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (d) ssd_scan at a rank's shape against its plain version
+    args = _ssd_args(np.random.default_rng(SEED + 2), dev, torch.bfloat16, 128,
+                     TP_SSM_SSD_HEADS)
+    mma = sops.ssd.mma_launches
+    (y, s), (yp, sp) = sops.ssd(*args, chunk=LM_CHUNK), sref.ssd(*args, chunk=LM_CHUNK)
+    torch.cuda.synchronize()
+    route = "tensor cores" if sops.ssd.mma_launches > mma else "scalar"
+    err = float((y.float() - yp.float()).abs().max().item())
+    moved = sum(t.numel() * t.element_size() for t in (*args, y, s))
+    flop = _ssd_flop(args[0], args[3], LM_CHUNK)
+    bound_ms, bound_by = _bound(moved, flop, BF16_TC_FLOP_PER_S)
+    record = {"shape": f"bf16_rank_of_2: H={TP_SSM_SSD_HEADS}",
+              "ms": _time_ms(lambda: sops.ssd(*args, chunk=LM_CHUNK), clock_hz),
+              "plain_ms": _time_ms(lambda: sref.ssd(*args, chunk=LM_CHUNK), clock_hz),
+              "library_ms": None, "library": None, "bound_ms": bound_ms,
+              "bound_by": bound_by, "bytes": moved, "flop": flop, "path": route,
+              "cuda_core_bound_ms": _bound(moved, flop, 2 * FMA_PER_CLOCK_PER_SM * clock_hz
+                                           * torch.cuda.get_device_properties(dev)
+                                           .multi_processor_count)[0],
+              "launches_per_prefill": _tp_config("mamba2-2.7b", "bfloat16").n_layers,
+              "max_abs_err": err}
+    print(f"[4 {tag}] (d) ssd_scan {tuple(y.shape)} (a rank's {TP_SSM_SSD_HEADS} heads) on the "
+          f"{route} route max_abs_err={err:.3g} (|y| <= {yp.float().abs().max().item():.3g}), "
+          f"state {float((s - sp).abs().max().item()):.3g}; {record['ms']:.4f} ms, plain "
+          f"{record['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if not _ssd_agrees(y, s, yp, sp) or route != "tensor cores":
+        raise AssertionError("ssd_scan at a rank's shape disagrees with its plain version or "
+                             "left the tensor cores")
+    out["d"] = record
+    del args, y, s, yp, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    seconds = time.perf_counter() - t_phase
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[4 {tag}] the ranks' ssd_scan launches in their measured generates: "
+          f"{served['ssd_scan']} ({served['ssd_scan mma']} on the tensor cores)")
+    print(f"[4 {tag}] phase {seconds:.1f} s")
+    print(json.dumps({"tp_ssm": out, "phase_s": seconds, "device": _device_name(dev),
+                      "power": smi}))
+    return {**served, "rank_shape": record}
+
+
+def _layer0(cfg, params, prompts, dev, group):
+    """Layer 0's mixer output (numpy, fp32) on the prompt's normed
+    embedding, through the kernel route; split over `group` when params
+    are shards."""
+    import torch
+    from repro_torch.layers import embedding, norms
+    from repro_torch.layers import mamba2 as m2
+    from repro_torch.models import base
+    with torch.inference_mode():
+        tokens = torch.as_tensor(prompts, device=dev).long()
+        lp = base.layer(params["layers"], 0)
+        h = embedding.embed(cfg, params["embed"], tokens, group)
+        hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
+        y = m2.mamba_mixer(cfg, lp["mixer"], hn, use_kernel=True, group=group)
+    return y.float().cpu().numpy()
+
+
+def _tp_ssm_child(rank: int, root: Path, device: str) -> int:
+    """`chip_smoke.py --tp-ssm-child RANK DIR DEVICE`, one of phase 4(n)'s
+    two ranks, on the parent's DEVICE (both ranks on the one card): a gloo
+    world over a `FileStore` in DIR, a (1, 2) mesh under the serving
+    rules, the split paths of (a), (b) and (c) on this rank's shards;
+    every launch count set to 0 just before each measured generate and
+    read just after; writes DIR/rank<RANK>.{json,npz}."""
+    import gc
+    import math
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import api, base
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lead = rank == 0
+    dist.init_process_group("gloo", store=dist.FileStore(str(root / "store"), TP_RANKS),
+                            rank=rank, world_size=TP_RANKS)
+    rec, arrays = {"cases": {}}, {}
+    try:
+        mesh = make_mesh_compat((1, TP_RANKS), ("data", "model"), device=dev.type)
+        if lead:
+            print(f"[4 tp ssm path] {mesh}, backend {dist.get_backend()}, world "
+                  f"{dist.get_world_size()}, both ranks on {_device_name(dev)}")
+        for label, arch in TP_SSM_SERVED:
+            cfg = _tp_config(arch, "bfloat16")
+            with shd.use_mesh(mesh, tensor.serving_rules()):
+                t0 = time.perf_counter()
+                params = _tp_shards(cfg, dev)
+                fallbacks = shd.fallbacks()
+                torch.cuda.synchronize(dev)
+                init_s = time.perf_counter() - t0
+                prompts = _tp_prompts(cfg.vocab, DENSE_BATCH, DENSE_PROMPT)
+                sc = ServeConfig(max_len=DENSE_PROMPT + DENSE_NEW + 8, max_new_tokens=DENSE_NEW)
+                engine = Engine(cfg, params, sc, device=dev)
+                engine.generate(prompts[:, :16])                 # warm-up
+                _rank_launches(reset=True)
+                t0 = time.perf_counter()
+                gen = engine.generate(prompts)
+                wall = time.perf_counter() - t0
+                launches = _rank_launches()
+                if gen.shape != (DENSE_BATCH, DENSE_NEW) or gen.min() < 0 or gen.max() >= cfg.vocab:
+                    raise AssertionError(f"{arch}: bad tokens, shape {gen.shape}")
+                cache_info = tensor.local_tree(cfg, api.abstract_cache(
+                    cfg, DENSE_BATCH, tensor.cache_len(cfg, sc.max_len)))
+                with torch.inference_mode():
+                    cache = base.tree_init(cache_info, torch.Generator(device=dev), dev)
+                    last, _ = api.prefill(cfg, engine.params, {"tokens": torch.as_tensor(
+                        prompts, device=dev).long()}, cache, use_kernel=True)
+                arrays[f"{label}/prefill"] = last.float().cpu().numpy()
+                arrays[f"{label}/tokens"] = gen
+                arrays[f"{label}/layer0"] = _layer0(cfg, engine.params, prompts, dev,
+                                                    tensor.group_for(cfg))
+                del cache
+                c = {"arch": arch, "dtype": cfg.compute_dtype, "init_s": init_s,
+                     "param_bytes": _tree_bytes(params),
+                     "cache_bytes": sum(i.dtype.itemsize * math.prod(i.shape)
+                                        for _, i in base.tree_items(cache_info)),
+                     "cache_shapes": {base.keystr(p): list(i.shape)
+                                      for p, i in base.tree_items(cache_info)},
+                     "in_proj_shape": list(params["layers"]["mixer"]["in_proj"].shape),
+                     "generate_s": wall,
+                     "prefill_ms": engine.stats["prefill_s"] * 1e3,
+                     "decode_ms_per_token": statistics.median(engine.stats["decode_s"]) * 1e3,
+                     "fallbacks": [list(f) for f in fallbacks], "launches": launches}
+                rec["cases"][label] = c
+                if lead:
+                    print(f"[4 tp ssm path] ({label}) {arch} split over 2 ranks: shards drawn "
+                          f"in {init_s:.2f} s, in_proj {c['in_proj_shape']} a rank; bf16 "
+                          f"{DENSE_BATCH}x{DENSE_PROMPT} + {DENSE_NEW} tokens: {wall:.2f} s, "
+                          f"prefill {c['prefill_ms']:.1f} ms, decode "
+                          f"{c['decode_ms_per_token']:.2f} ms/token (gloo through host "
+                          f"memory); fallbacks {c['fallbacks']}")
+                del params, engine
+                gc.collect()
+                torch.cuda.empty_cache()
+
+        for label, arch in TP_SSM_SERVED:
+            cfg = _tp_config(arch, "float32", TP_SSM_FP32_LAYERS[arch])
+            with shd.use_mesh(mesh, tensor.serving_rules()):
+                params = _tp_shards(cfg, dev)
+                cache_info = tensor.local_tree(cfg, api.abstract_cache(
+                    cfg, DENSE_BATCH, tensor.cache_len(cfg, DENSE_PROMPT + TP_FP32_STEPS + 8)))
+                with torch.inference_mode():
+                    cache = base.tree_init(cache_info, torch.Generator(device=dev), dev)
+                got = _tp_steps(cfg, params, cache, _tp_prompts(cfg.vocab, DENSE_BATCH,
+                                                                DENSE_PROMPT),
+                                TP_FP32_STEPS, dev, use_kernel=True)
+            arrays[f"c{label}/logits"], arrays[f"c{label}/tokens"] = got["logits"], got["tokens"]
+            del params, cache
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    (root / f"rank{rank}.json").write_text(json.dumps(rec))
+    np.savez(root / f"rank{rank}.npz", **arrays)
     return 0
 
 
@@ -4021,6 +4340,9 @@ def main() -> int:
         launches[name] += n
     _tp_path(dev, wrappers, reset_launches, smi)
     _tp_train_path(dev, wrappers, reset_launches, smi)
+    tp_ssm = _tp_ssm_path(dev, wrappers, reset_launches, smi, clock_hz)
+    launches["ssd_scan"] += tp_ssm["ssd_scan"]
+    mma_launches["ssd_scan"] += tp_ssm["ssd_scan mma"]
 
     # -- 5. times -------------------------------------------------------------
     def nbytes(tensors):
@@ -4108,6 +4430,9 @@ def main() -> int:
             per_shape.append(rec)
             print(json.dumps({"kernel": name, **rec}))
         head = per_shape[0]
+        if name == "ssd_scan":                    # a rank's shape (phase 4(n))
+            per_shape.append(tp_ssm["rank_shape"])
+            print(json.dumps({"kernel": name, **tp_ssm["rank_shape"]}))
         records.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
@@ -4190,4 +4515,6 @@ if __name__ == "__main__":
         sys.exit(_tp_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--tp-train-child"]:
         sys.exit(_tp_train_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--tp-ssm-child"]:
+        sys.exit(_tp_ssm_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -30,9 +30,12 @@ train step (A.7d, A.7c), which the sweep records as `{"ok": false,
 rows of the batch (all of them when the data ranks do not divide it).
 The dense family serves them split over the model axis alone
 (`parallel/tensor.py`, A.7a: heads, ffn and vocab shards, the cache by
-kv heads or by positions; `serve_trees`), with its `fallbacks`. The
-other families serve their rows whole, parameters replicated (A.7c,
-A.7d), so under model = 16 each rank does its data group's whole work.
+kv heads or by positions; `serve_trees`), with its `fallbacks`; so do
+the ssm and hybrid families (A.7c's serving half: each Mamba2 mixer by
+heads, the hybrid's shared block as the dense layers, the vocab where
+it divides). The MoE family serves its rows whole, parameters
+replicated (A.7d), so under model = 16 each rank does its data group's
+whole work.
 On `meta` a data-parallel MoE layer cannot
 read how many pairs each expert keeps and sizes its buffer at the
 capacity (`layers/moe.py`); the cell's record says so (`moe_rows`).
@@ -148,11 +151,11 @@ def serve_rows(shape, mesh) -> int:
 def serve_trees(cfg, shape, mesh, rules: dict, variant: dict | None = None) -> tuple:
     """A serve cell's abstract (params, cache) at one rank's shapes, and
     the fallbacks of their split (None where nothing is split). The
-    dense family under a model axis above 1 holds its shards
-    (`parallel/tensor.py`): the specs are taken at the global batch, as
-    the reference places its arrays, and the cache then holds the rank's
-    rows. Every other cell holds its parameters whole and a cache of its
-    rows."""
+    dense, ssm and hybrid families under a model axis above 1 hold their
+    shards (`parallel/tensor.py`): the specs are taken at the global
+    batch, as the reference places its arrays, and the cache then holds
+    the rank's rows. Every other cell holds its parameters whole and a
+    cache of its rows."""
     variant = variant or {}
     rows = serve_rows(shape, mesh)
     with shd.use_mesh(mesh, rules) if mesh is not None else contextlib.nullcontext():

@@ -22,10 +22,12 @@ the card, gloo with --device cpu) and serves under the reference's mesh
 branch: `make_host_mesh(model=world)` with the TP-only serving rules
 (`parallel/tensor.py`: batch over data, fsdp replicated). A dense model
 is split over the model axis (ROADMAP.md A.7a: its heads, ffn and vocab
-shards, the KV cache by kv heads or by positions); the other families
-keep their parameters whole (A.7c, A.7d), and W8 leaves under the split
-raise (A.7e). Every rank draws the whole tree from the same seed and
-keeps its shards.
+shards, the KV cache by kv heads or by positions), and so are mamba2 and
+zamba2 (A.7c: each Mamba2 mixer by heads, zamba2's shared block as a
+dense layer, the vocab where it divides); the MoE family keeps its
+parameters whole (A.7d), and W8 leaves under the split raise (A.7e).
+Every rank draws the whole tree from the same seed and keeps its
+shards.
 Rank 0 prints the same summary line as the reference.
 """
 from __future__ import annotations

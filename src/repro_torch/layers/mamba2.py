@@ -12,17 +12,37 @@ advances the recurrence one token at a time. The parameters and the
 cache carry the reference's logical axes (`models.base.tree_specs`).
 The reference's activation annotations (`shard`, `shard_hidden`, the
 `ssm_shard` flag) only constrain layouts; on the port's plain tensors
-they would compute nothing and are left out (ROADMAP.md, C). Tensor and
-sequence parallelism of the mixer over a model axis is ROADMAP.md A.7's
-remainder.
+they would compute nothing and are left out (ROADMAP.md, C).
+
+Under a model axis above 1 (`group`, `parallel/tensor.py`) the mixer
+serves split by heads: its shards hold this rank's heads' columns of z,
+x and dt, the B and C columns of the groups they use, those channels of
+the conv and its cache, its heads' rows of `out_proj` and its heads of
+the SSM cache; the whole per-head vectors are indexed at the rank's
+heads. The SSD (the `ssd_scan` kernel or the chunked plain route) runs
+on those heads and groups alone; the gated norm's mean over d_inner sums
+its squares over the group (`tensor.sum_over`), and one all-reduce sums
+the output (`reduce_from`). The split is read from the shards' shapes.
+Gradients: the whole in_proj product takes `copy_to(xin)`, so xin's
+gradient is the sum of every rank's share, B and C's included (each
+rank's B and C gradient is its heads' part of the whole). A leaf that
+a rank holds whole or shares with other ranks (the per-head vectors;
+B and C's columns and conv channels where m > G) gets only this rank's
+heads' part of its gradient: the training slice sums those over the
+ranks that hold them (ROADMAP.md A.7c). Sequence parallelism between
+layers is not ported (ROADMAP.md, C).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.layers.common import wx
+from repro_torch.layers.common import is_q, wx
 from repro_torch.models.base import ArchConfig, ParamInfo
+from repro_torch.parallel import tensor
 
 __all__ = ["mamba_params", "ssm_cache_info", "mamba_mixer", "mamba_decode_step"]
 
@@ -31,51 +51,114 @@ def mamba_params(cfg: ArchConfig, n_layers: int | None = None) -> dict:
     d = cfg.d_model
     di, G, N, H = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     proj_out = 2 * di + 2 * G * N + H
+    P = cfg.ssm_headdim
     L = () if n_layers is None else (n_layers,)
     nl = (None,) * len(L)
     fan = len(L)
     f32 = torch.float32
     return {
-        "in_proj": ParamInfo(L + (d, proj_out), f32, nl + ("fsdp", "ffn"), fan=fan),
+        "in_proj": ParamInfo(L + (d, proj_out), f32, nl + ("fsdp", "ffn"), fan=fan,
+                             segments=_segments(cfg, ("heads", P), ("heads", P), ("groups", N),
+                                                ("groups", N), ("heads", 1))),
         "conv_w": ParamInfo(L + (cfg.conv_width, cfg.conv_dim), f32, nl + (None, "ffn"),
-                            scale=0.5, fan=fan),
-        "conv_b": ParamInfo(L + (cfg.conv_dim,), f32, nl + ("ffn",), init="zeros"),
+                            scale=0.5, fan=fan, segments=_conv_segments(cfg)),
+        "conv_b": ParamInfo(L + (cfg.conv_dim,), f32, nl + ("ffn",), init="zeros",
+                            segments=_conv_segments(cfg)),
         # A stored as log(-A): a = -exp(a_log); dt bias for softplus
         "a_log": ParamInfo(L + (H,), f32, nl + (None,), init="zeros"),
         "dt_bias": ParamInfo(L + (H,), f32, nl + (None,), init="zeros"),
         "d_skip": ParamInfo(L + (H,), f32, nl + (None,), init="ones"),
         "norm_scale": ParamInfo(L + (di,), f32, nl + (None,), init="ones"),
-        "out_proj": ParamInfo(L + (di, d), f32, nl + ("ffn", "fsdp"), fan=fan),
+        "out_proj": ParamInfo(L + (di, d), f32, nl + ("ffn", "fsdp"), fan=fan,
+                              segments=_segments(cfg, ("heads", P))),
     }
+
+
+def _segments(cfg: ArchConfig, *segments) -> tuple:
+    """`ParamInfo.segments`: the head-aligned cut of a leaf's "ffn" or
+    "heads" dim (`parallel/tensor.py`)."""
+    return (cfg.ssm_heads, cfg.ssm_groups, segments)
+
+
+def _conv_segments(cfg: ArchConfig) -> tuple:
+    N = cfg.ssm_state
+    return _segments(cfg, ("heads", cfg.ssm_headdim), ("groups", N), ("groups", N))
 
 
 def ssm_cache_info(cfg: ArchConfig, batch: int) -> dict:
     H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim
     return {
         "conv": ParamInfo((batch, cfg.conv_width - 1, cfg.conv_dim), torch.float32,
-                          ("batch", None, "ffn"), init="zeros"),
+                          ("batch", None, "ffn"), init="zeros", segments=_conv_segments(cfg)),
         "ssm": ParamInfo((batch, H, N, P), torch.float32, ("batch", "heads", None, None),
-                         init="zeros"),
+                         init="zeros", segments=_segments(cfg, ("heads", 1))),
     }
 
 
-def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
-    di, G, N, H = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
-    return torch.split(zxbcdt, [di, di, G * N, G * N, H], dim=-1)
+@dataclasses.dataclass(frozen=True)
+class _Local:
+    """The mixer's widths on this rank (its shards'), its first head, and
+    the model group when split (None: the whole mixer)."""
+    di: int
+    H: int
+    G: int
+    h0: int
+    group: object
 
 
-def _gated_norm(p, y: torch.Tensor, z: torch.Tensor, eps: float) -> torch.Tensor:
+def _local(cfg: ArchConfig, p: dict, group) -> _Local:
+    """Read the split from the shards' shapes: `out_proj`'s rows are the
+    rank's heads, the conv's channels beyond them its groups' B and C."""
+    w = p["out_proj"]
+    di = (w["q"] if is_q(w) else w).shape[-2]
+    if group is None or di == cfg.d_inner:
+        return _Local(cfg.d_inner, cfg.ssm_heads, cfg.ssm_groups, 0, None)
+    H = di // cfg.ssm_headdim
+    G = (p["conv_w"].shape[-1] - di) // (2 * cfg.ssm_state)
+    return _Local(di, H, G, dist.get_rank(group) * H, group)
+
+
+def _heads(loc: _Local, v: torch.Tensor, width: int = 1) -> torch.Tensor:
+    """This rank's slice of a whole per-head vector (width entries a head)."""
+    if loc.group is None:
+        return v
+    return v[..., loc.h0 * width:(loc.h0 + loc.H) * width]
+
+
+def _project(cfg: ArchConfig, p: dict, xin: torch.Tensor, loc: _Local):
+    """in_proj: (z, x, B, C, dt) at the rank's widths, from `copy_to(xin)`
+    when split (see the module's docstring)."""
+    N = cfg.ssm_state
+    xs = xin if loc.group is None else tensor.copy_to(xin, loc.group)
+    zxbcdt = torch.matmul(xs, wx(p["in_proj"], xin.dtype))
+    return torch.split(zxbcdt, [loc.di, loc.di, loc.G * N, loc.G * N, loc.H], dim=-1)
+
+
+def _gated_norm(cfg: ArchConfig, p, y: torch.Tensor, z: torch.Tensor, loc: _Local
+                ) -> torch.Tensor:
+    """norm(y * silu(z)) over the whole d_inner: split, each rank sums its
+    channels' squares in fp32 and the sums are summed over the group."""
     g = y * F.silu(z.float()).to(y.dtype)
     gf = g.float()
-    var = torch.mean(gf * gf, dim=-1, keepdim=True)
-    return (gf * torch.rsqrt(var + eps) * p["norm_scale"]).to(y.dtype)
+    if loc.group is None:
+        var = torch.mean(gf * gf, dim=-1, keepdim=True)
+    else:
+        var = tensor.sum_over(torch.sum(gf * gf, dim=-1, keepdim=True), loc.group) / cfg.d_inner
+    scale = _heads(loc, p["norm_scale"], cfg.ssm_headdim)
+    return (gf * torch.rsqrt(var + cfg.norm_eps) * scale).to(y.dtype)
+
+
+def _out(p: dict, y: torch.Tensor, loc: _Local) -> torch.Tensor:
+    out = torch.matmul(y, wx(p["out_proj"], y.dtype))
+    return out if loc.group is None else tensor.reduce_from(out, loc.group)
 
 
 def mamba_mixer(cfg: ArchConfig, p: dict, xin: torch.Tensor, *, chunk: int = 128,
-                use_kernel: bool = False, return_state: bool = False):
+                use_kernel: bool = False, return_state: bool = False, group=None):
     """Prefill path. xin: (B, S, D) -> (B, S, D). With return_state=True
     also returns the decode cache {conv, ssm} advanced through the whole
-    sequence (used by prefill).
+    sequence (used by prefill). `group`: the model group when p holds
+    this rank's shards (the cache returned is then its slice).
 
     use_kernel=True runs the SSD through `kernels.ssd_scan.ops.ssd` (the
     CUDA kernel on the card, its plain version on the CPU), with dt cast to
@@ -85,12 +168,11 @@ def mamba_mixer(cfg: ArchConfig, p: dict, xin: torch.Tensor, *, chunk: int = 128
     dt = 0, so it adds nothing to y and leaves the state undecayed, and
     the result equals the unpadded scan."""
     B, S, D = xin.shape
-    di, G, N, H, P = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state,
-                      cfg.ssm_heads, cfg.ssm_headdim)
+    loc = _local(cfg, p, group)
+    di, G, N, H, P = loc.di, loc.G, cfg.ssm_state, loc.H, cfg.ssm_headdim
     dt_ = xin.dtype
 
-    zxbcdt = torch.matmul(xin, wx(p["in_proj"], dt_))
-    z, xbc_x, bmat, cmat, dt_raw = _split_proj(cfg, zxbcdt)
+    z, xbc_x, bmat, cmat, dt_raw = _project(cfg, p, xin, loc)
 
     # causal conv over [x, B, C] channels
     xbc = torch.cat([xbc_x, bmat, cmat], dim=-1)                  # (B, S, conv_dim)
@@ -105,8 +187,8 @@ def mamba_mixer(cfg: ArchConfig, p: dict, xin: torch.Tensor, *, chunk: int = 128
     xh = x.reshape(B, S, H, P)
     bh = bmat.reshape(B, S, G, N)
     ch = cmat.reshape(B, S, G, N)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])                 # (B, S, H)
-    a = -torch.exp(p["a_log"].float())                             # (H,)
+    dt = F.softplus(dt_raw.float() + _heads(loc, p["dt_bias"]))    # (B, S, H)
+    a = -torch.exp(_heads(loc, p["a_log"]).float())                # (H,)
 
     if use_kernel:
         from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -123,10 +205,9 @@ def mamba_mixer(cfg: ArchConfig, p: dict, xin: torch.Tensor, *, chunk: int = 128
         y, s_fin = _ssd_chunked_batch(xh.float(), dt, a, bh.float(), ch.float(),
                                       chunk=chunk)
         y = y.to(dt_)
-    y = y + xh * p["d_skip"].to(dt_)[None, None, :, None]
+    y = y + xh * _heads(loc, p["d_skip"]).to(dt_)[None, None, :, None]
     y = y.reshape(B, S, di)
-    y = _gated_norm(p, y, z, cfg.norm_eps)
-    out = torch.matmul(y, wx(p["out_proj"], dt_))
+    out = _out(p, _gated_norm(cfg, p, y, z, loc), loc)
     if not return_state:
         return out
     W = cfg.conv_width
@@ -173,18 +254,19 @@ def _ssd_chunked_batch(x, dt, a, b, c, *, chunk: int):
     return y[:, :S], s
 
 
-def mamba_decode_step(cfg: ArchConfig, p: dict, xin: torch.Tensor, cache: dict
-                      ) -> tuple[torch.Tensor, dict]:
+def mamba_decode_step(cfg: ArchConfig, p: dict, xin: torch.Tensor, cache: dict,
+                      group=None) -> tuple[torch.Tensor, dict]:
     """Single-token decode. xin: (B, 1, D); cache: {conv (B,W-1,C), ssm
-    (B,H,N,P)}. Returns (out (B, 1, D), new cache). O(1) in sequence."""
+    (B,H,N,P)}. Returns (out (B, 1, D), new cache). O(1) in sequence.
+    `group`: the model group when p holds shards and the cache its
+    slice."""
     B, S, D = xin.shape
     assert S == 1
-    di, G, N, H, P = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state,
-                      cfg.ssm_heads, cfg.ssm_headdim)
+    loc = _local(cfg, p, group)
+    di, G, N, H, P = loc.di, loc.G, cfg.ssm_state, loc.H, cfg.ssm_headdim
     dt_ = xin.dtype
 
-    zxbcdt = torch.matmul(xin, wx(p["in_proj"], dt_))
-    z, xbc_x, bmat, cmat, dt_raw = _split_proj(cfg, zxbcdt)
+    z, xbc_x, bmat, cmat, dt_raw = _project(cfg, p, xin, loc)
     xbc = torch.cat([xbc_x, bmat, cmat], dim=-1)[:, 0]             # (B, conv_dim)
 
     conv_state = cache["conv"].to(dt_)                             # (B, W-1, C)
@@ -198,15 +280,14 @@ def mamba_decode_step(cfg: ArchConfig, p: dict, xin: torch.Tensor, cache: dict
     xh = x.reshape(B, H, P).float()
     bh = bmat.reshape(B, G, N).repeat_interleave(H // G, dim=1).float()
     ch = cmat.reshape(B, G, N).repeat_interleave(H // G, dim=1).float()
-    dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])           # (B, H)
-    a = -torch.exp(p["a_log"].float())
+    dt = F.softplus(dt_raw[:, 0].float() + _heads(loc, p["dt_bias"]))   # (B, H)
+    a = -torch.exp(_heads(loc, p["a_log"]).float())
 
     s = cache["ssm"]                                               # (B,H,N,P) fp32
     decay = torch.exp(dt * a[None, :])                             # (B,H)
     s_new = s * decay[:, :, None, None] + torch.einsum("bhn,bh,bhp->bhnp", bh, dt, xh)
     y = torch.einsum("bhn,bhnp->bhp", ch, s_new)                   # (B,H,P)
-    y = y + xh * p["d_skip"][None, :, None]
+    y = y + xh * _heads(loc, p["d_skip"])[None, :, None]
     y = y.reshape(B, 1, di).to(dt_)
-    y = _gated_norm(p, y, z, cfg.norm_eps)
-    out = torch.matmul(y, wx(p["out_proj"], dt_))
+    out = _out(p, _gated_norm(cfg, p, y, z, loc), loc)
     return out, {"conv": new_conv_state.to(cache["conv"].dtype), "ssm": s_new}

@@ -68,8 +68,8 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: str = "none", use_kernel: 
     rows' share of the gradient. On dense shards under a model axis above 1
     the logits stay split over the vocab and the nll is taken over the
     model group (`tensor.vocab_nll`); the sums over the data group are as
-    above."""
-    group = tensor.group_for(cfg)
+    above. The other families' `forward` runs whole (ROADMAP.md A.7c, A.7d)."""
+    group = tensor.group_for(cfg) if cfg.family == "dense" else None
     if group is None:
         logits, aux = forward(cfg, params, batch, remat=remat, use_kernel=use_kernel)
     else:

@@ -126,6 +126,10 @@ class ParamInfo:
     init: str = "normal"         # normal | zeros | ones | uniform
     scale: float = 1.0           # stddev multiplier for normal init
     fan: int = 0                 # index of the fan-in dim (1 for stacked (L, in, out))
+    # a Mamba2 leaf's head-aligned cut over "model" (`parallel/tensor.py`):
+    # (H, G, ((kind, width), ...)), the segments of its "ffn" or "heads"
+    # dim, each H ("heads") or G ("groups") units of `width`
+    segments: tuple = ()
 
 
 def is_info(x) -> bool:

@@ -7,15 +7,24 @@ stacked on a leading (n_layers,) axis, as in the reference; its
 recomputes each layer of `forward` in the backward pass
 (`base.remat_call`). Attention-free: the decode state is O(1) in
 sequence length.
+
+Under a model axis above 1 `prefill` and `decode_step` serve split over
+the model group (`tensor.group_for`; ROADMAP.md A.7c): every mixer on
+its heads (`layers/mamba2.py`), the embedding and head on a vocab that
+divides the axis, with the cache's slice (`tensor.local_tree`).
+`forward`, which training runs, keeps its whole path.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.layers import embedding as emb_lib
 from repro_torch.layers import mamba2 as m2
 from repro_torch.layers import norms
-from repro_torch.models.base import ArchConfig, ParamInfo, layer, remat_call, tree_map, unstack
+from repro_torch.models.base import ArchConfig, layer, remat_call, tree_map, unstack
+from repro_torch.parallel import tensor
 
 __all__ = ["abstract_params", "abstract_cache", "layer_body", "backbone", "forward",
            "prefill", "decode_step", "layer"]
@@ -35,8 +44,8 @@ def abstract_params(cfg: ArchConfig) -> dict:
 
 def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     info = m2.ssm_cache_info(cfg, batch)
-    return tree_map(lambda i: ParamInfo((cfg.n_layers,) + i.shape, i.dtype,
-                                        (None,) + i.logical, init="zeros"), info)
+    return tree_map(lambda i: dataclasses.replace(i, shape=(cfg.n_layers,) + i.shape,
+                                                  logical=(None,) + i.logical), info)
 
 
 def layer_body(cfg: ArchConfig, lp: dict, h: torch.Tensor, use_kernel: bool) -> torch.Tensor:
@@ -65,17 +74,18 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
     """Run the chunked scan over the prompt and build the decode state.
     Returns the last position's logits (B, V) and a cache advanced
     through the whole prompt (a new tree; `cache` gives the dtypes)."""
-    h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
+    group = tensor.group_for(cfg)
+    h = emb_lib.assemble_inputs(cfg, params["embed"], batch, group)
     convs, ssms = [], []
     for lp in unstack(params["layers"], cfg.n_layers):
         hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
         out, state = m2.mamba_mixer(cfg, lp["mixer"], hn, return_state=True,
-                                    use_kernel=use_kernel)
+                                    use_kernel=use_kernel, group=group)
         h = h + out
         convs.append(state["conv"].to(cache["conv"].dtype))
         ssms.append(state["ssm"].to(cache["ssm"].dtype))
     h = norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
-    logits = emb_lib.lm_head(cfg, params["embed"], h[:, -1:, :])[:, 0]
+    logits = emb_lib.lm_head(cfg, params["embed"], h[:, -1:, :], group)[:, 0]
     return logits, {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
 
 
@@ -85,14 +95,15 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     batch = {"tokens": tokens}
     if extras:
         batch.update(extras)
-    h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
+    group = tensor.group_for(cfg)
+    h = emb_lib.assemble_inputs(cfg, params["embed"], batch, group)
     convs, ssms = [], []
     for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
         hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
-        out, new = m2.mamba_decode_step(cfg, lp["mixer"], hn, layer(cache, i))
+        out, new = m2.mamba_decode_step(cfg, lp["mixer"], hn, layer(cache, i), group)
         h = h + out
         convs.append(new["conv"])
         ssms.append(new["ssm"])
     h = norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
-    logits = emb_lib.lm_head(cfg, params["embed"], h)[:, 0]
+    logits = emb_lib.lm_head(cfg, params["embed"], h, group)[:, 0]
     return logits, {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}

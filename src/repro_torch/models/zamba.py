@@ -19,8 +19,19 @@ attn_every sites.
 `use_kernel` sends every mixer's SSD through the `ssd_scan` kernel, as
 in `models/mamba.py`; the reference's zamba never passes it, and the
 port's kernel route is held to the plain route (`chip_smoke.py`).
+
+Under a model axis above 1 `prefill` and `decode_step` serve split over
+the model group (`tensor.group_for`; ROADMAP.md A.7c): every mixer on
+its heads, as in `models/mamba.py`; the shared block's attention and MLP
+on the dense family's split (heads, kv heads and ffn that divide the
+axis; the KV cache by kv heads, else by positions, `tensor.cache_len`);
+the embedding and head on a vocab that divides it. The shared block's
+`in_proj` ("fsdp", None) stays whole on every rank. `forward` keeps its
+whole path.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -32,6 +43,7 @@ from repro_torch.layers import norms
 from repro_torch.layers.common import wx
 from repro_torch.models.base import ArchConfig, ParamInfo, layer, remat_call, tree_map, unstack
 from repro_torch.models.mamba import layer_body
+from repro_torch.parallel import tensor
 
 __all__ = ["n_sites", "abstract_params", "abstract_cache", "forward", "prefill",
            "decode_step"]
@@ -64,8 +76,8 @@ def abstract_params(cfg: ArchConfig) -> dict:
 def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     """SSM cache stacked over layers + KV cache stacked over shared sites."""
     def stack(n):
-        return lambda i: ParamInfo((n,) + i.shape, i.dtype, (None,) + i.logical,
-                                   init="zeros")
+        return lambda i: dataclasses.replace(i, shape=(n,) + i.shape,
+                                             logical=(None,) + i.logical, init="zeros")
 
     return {"ssm": tree_map(stack(cfg.n_layers), m2.ssm_cache_info(cfg, batch)),
             "kv": tree_map(stack(n_sites(cfg)), attn_lib.init_cache_info(cfg, batch, max_len))}
@@ -80,15 +92,17 @@ def _groups(cfg: ArchConfig):
     return [range(g * k, (g + 1) * k) for g in range(n_sites(cfg))]
 
 
-def _shared_block(cfg: ArchConfig, sp: dict, h, emb0, positions, cache_kv, cache_pos):
-    """The shared attention+MLP block. Returns (h, new_kv_cache)."""
+def _shared_block(cfg: ArchConfig, sp: dict, h, emb0, positions, cache_kv, cache_pos,
+                  group=None):
+    """The shared attention+MLP block. Returns (h, new_kv_cache). `group`:
+    the model group when sp holds shards."""
     x = torch.matmul(torch.cat([h, emb0], dim=-1), wx(sp["in_proj"], h.dtype))
     xn = norms.apply_norm(cfg.norm, sp["ln_attn"], x, eps=cfg.norm_eps)
     a, new_kv = attn_lib.attention(cfg, sp["attn"], xn, positions, cache=cache_kv,
-                                   cache_pos=cache_pos)
+                                   cache_pos=cache_pos, group=group)
     x = x + a
     xn = norms.apply_norm(cfg.norm, sp["ln_mlp"], x, eps=cfg.norm_eps)
-    x = x + mlp_lib.mlp(cfg, sp["mlp"], xn)
+    x = x + mlp_lib.mlp(cfg, sp["mlp"], xn, group)
     return h + x, new_kv
 
 
@@ -116,7 +130,8 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
     layer's SSM state (cast to the cache's dtypes). Returns the last
     position's logits (B, V) and the new cache."""
     B, S = batch["tokens"].shape
-    h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
+    mg = tensor.group_for(cfg)
+    h = emb_lib.assemble_inputs(cfg, params["embed"], batch, mg)
     emb0, positions = h, _positions(B, S, h.device)
     convs, ssms, ks, vs = [], [], [], []
     layers = unstack(params["layers"], cfg.n_layers)
@@ -125,16 +140,16 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
             lp = layers[i]
             hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
             out, state = m2.mamba_mixer(cfg, lp["mixer"], hn, return_state=True,
-                                        use_kernel=use_kernel)
+                                        use_kernel=use_kernel, group=mg)
             h = h + out
             convs.append(state["conv"].to(cache["ssm"]["conv"].dtype))
             ssms.append(state["ssm"].to(cache["ssm"]["ssm"].dtype))
         h, kv = _shared_block(cfg, params["shared"], h, emb0, positions,
-                              layer(cache["kv"], g), None)
+                              layer(cache["kv"], g), None, mg)
         ks.append(kv["k"])
         vs.append(kv["v"])
     h = norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
-    logits = emb_lib.lm_head(cfg, params["embed"], h[:, -1:, :])[:, 0]
+    logits = emb_lib.lm_head(cfg, params["embed"], h[:, -1:, :], mg)[:, 0]
     return logits, {"ssm": {"conv": torch.stack(convs), "ssm": torch.stack(ssms)},
                     "kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
 
@@ -147,7 +162,8 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     batch = {"tokens": tokens}
     if extras:
         batch.update(extras)
-    h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
+    mg = tensor.group_for(cfg)
+    h = emb_lib.assemble_inputs(cfg, params["embed"], batch, mg)
     emb0, positions = h, pos[:, None]
     convs, ssms, ks, vs = [], [], [], []
     layers = unstack(params["layers"], cfg.n_layers)
@@ -155,15 +171,15 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
         for i in group:
             lp = layers[i]
             hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
-            out, new = m2.mamba_decode_step(cfg, lp["mixer"], hn, layer(cache["ssm"], i))
+            out, new = m2.mamba_decode_step(cfg, lp["mixer"], hn, layer(cache["ssm"], i), mg)
             h = h + out
             convs.append(new["conv"])
             ssms.append(new["ssm"])
         h, kv = _shared_block(cfg, params["shared"], h, emb0, positions,
-                              layer(cache["kv"], g), pos)
+                              layer(cache["kv"], g), pos, mg)
         ks.append(kv["k"])
         vs.append(kv["v"])
     h = norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
-    logits = emb_lib.lm_head(cfg, params["embed"], h)[:, 0]
+    logits = emb_lib.lm_head(cfg, params["embed"], h, mg)[:, 0]
     return logits, {"ssm": {"conv": torch.stack(convs), "ssm": torch.stack(ssms)},
                     "kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}

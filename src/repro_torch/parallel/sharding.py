@@ -48,7 +48,8 @@ import math
 import threading
 
 __all__ = ["DEFAULT_RULES", "PartitionSpec", "NamedSharding", "use_mesh", "active_mesh",
-           "snapshot", "fallbacks", "rule_axes", "spec", "named_sharding"]
+           "snapshot", "fallbacks", "record_fallback", "rule_axes", "spec",
+           "named_sharding"]
 
 DEFAULT_RULES: dict[str | None, tuple[str, ...]] = {
     "batch": ("pod", "data"),
@@ -152,6 +153,12 @@ def fallbacks() -> list:
     """Logical axes that degraded to a prefix or to replicated:
     (logical, dim, axes, kept axes or None)."""
     return list(_state().fallbacks)
+
+
+def record_fallback(logical: str, dim: int, axes: tuple, kept) -> None:
+    """Add an entry to `fallbacks()`: a split that the port's own code
+    (not `spec`) leaves whole (`parallel/tensor.py`, the Mamba2 mixer)."""
+    _state().fallbacks.append((logical, dim, axes, kept))
 
 
 def rule_axes(logical: str | None) -> tuple[str, ...]:

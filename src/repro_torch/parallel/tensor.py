@@ -1,5 +1,6 @@
-"""Tensor parallelism of the dense family over the model axis, and the
-cut of its leaves over every mesh axis.
+"""Tensor parallelism over the model axis (the dense family, and the ssm
+and hybrid families serving), and the cut of their leaves over every
+mesh axis.
 
 The port's own module, as `parallel/data_parallel.py` is. The reference
 places each array by its logical axes under a mesh and lets GSPMD insert
@@ -16,8 +17,24 @@ the collectives. The port's tensors are local, so the split is explicit:
   d_model dim of each matrix, gathered a layer at a time by
   `parallel/fsdp.py`). A dimension that does not divide stays whole on
   every rank and is recorded in `sharding.fallbacks()`, entry for entry
-  as the reference records it. The MoE, ssm and hybrid families keep
-  their leaves whole (ROADMAP.md A.7c, A.7d).
+  as the reference records it. The MoE family keeps its leaves whole
+  (ROADMAP.md A.7d).
+* The Mamba2 mixer (ssm and hybrid serving, over "model" alone) is cut
+  by heads, not by the spec's contiguous slices: the spec's "ffn" slice
+  of `in_proj`'s concatenated [z | x | B | C | dt] columns (and of the
+  conv's [x | B | C] channels) would straddle the segments. Rank r of m
+  holds heads [r H/m, (r + 1) H/m): their columns of z, x and dt, and
+  the B and C columns of the groups they use (G/m groups a rank when m
+  divides G; the one group ⌊r G/m⌋, shared with m/G - 1 other ranks,
+  when G divides m); in the conv and its cache, those x, B and C
+  channels. `out_proj`'s rows and the SSM cache's heads are the spec's
+  slices, which are already head-aligned. Each such leaf carries its
+  segments (`ParamInfo.segments`). When H % m != 0, or neither of G and
+  m divides the other, the mixer stays whole on every rank, recorded in
+  `fallbacks()` as ("ssm_heads", H, ...) or ("ssm_groups", G, ...).
+  The per-head vectors (`a_log`, `dt_bias`, `d_skip`, `norm_scale`) are
+  whole in the reference's spec and stay whole; the mixer indexes its
+  heads.
 * The KV cache follows spec(cache, ("batch", "kv_heads", "kv_seq",
   None)): by kv heads where they divide the axis, else by positions, rank
   r holding positions [r S/m, (r + 1) S/m). `cache_len` rounds a cache's
@@ -33,8 +50,10 @@ the collectives. The port's tensors are local, so the split is explicit:
   backward) after each product whose contraction is split (attention's
   and the MLP's output projections, the vocab-split embedding).
   Serving's head all-gathers its logits (`gather_from`); training keeps
-  them split and takes the loss over the vocab with `vocab_nll`. Under
-  `torch.no_grad()` these run the forward collectives and nothing else.
+  them split and takes the loss over the vocab with `vocab_nll`. The
+  mixer's gated norm sums its squares over the group with `sum_over`
+  (all-reduce forward and backward). Under `torch.no_grad()` these run
+  the forward collectives and nothing else.
 
 gloo, which holds several ranks on one card and on the CPU, has no
 reduce-scatter for CUDA tensors: `reduce_scatter` all-reduces and keeps
@@ -55,13 +74,16 @@ from repro_torch.parallel import sharding as shd
 
 __all__ = ["MODEL", "DATA", "TRAIN_AXES", "serving_rules", "training_rules", "model_group",
            "group_for", "splits", "local_info", "local_tree", "cache_len", "shard_leaf",
-           "shard_params", "gather_leaf", "split_axes", "all_reduce",
-           "all_gather", "reduce_scatter", "copy_to", "reduce_from", "gather_from",
-           "vocab_nll"]
+           "shard_params", "gather_leaf", "split_axes", "ssm_splits", "ssm_runs",
+           "all_reduce", "all_gather", "reduce_scatter", "copy_to", "reduce_from",
+           "gather_from", "sum_over", "vocab_nll"]
 
 MODEL = "model"
 DATA = "data"
 TRAIN_AXES = (DATA, MODEL)     # what a train state is cut over
+# the mesh axes each family's trees are cut over: the ssm and hybrid
+# families serve split over "model" and train whole (ROADMAP.md A.7c)
+_FAMILY_AXES = {"dense": TRAIN_AXES, "ssm": (MODEL,), "hybrid": (MODEL,)}
 
 
 _W8 = ("q", "s")     # the keys of a W8 leaf: int8 values, scales
@@ -99,35 +121,83 @@ def model_group():
 
 def group_for(cfg):
     """The group a model of `cfg` runs split over: the model group for
-    the dense family, None for the others (their leaves stay whole)."""
-    return model_group() if cfg.family == "dense" else None
+    the dense, ssm and hybrid families, None for MoE (its leaves stay
+    whole)."""
+    return model_group() if cfg.family in _FAMILY_AXES else None
 
 
 def splits(cfg, axes=(MODEL,)) -> bool:
-    """Whether a dense tree of `cfg` is cut over `axes` under the active
-    mesh: the dense family and one of `axes` above 1."""
+    """Whether a tree of `cfg` is cut over `axes` under the active mesh:
+    one of `axes` above 1, and the family cut over every axis of `axes`
+    (the dense family over "data" and "model", the ssm and hybrid
+    families over "model" alone)."""
     mesh = shd.active_mesh()
-    return (cfg.family == "dense" and mesh is not None
+    return (mesh is not None and set(axes) <= set(_FAMILY_AXES.get(cfg.family, ()))
             and any(mesh.shape.get(a, 1) > 1 for a in axes))
 
 
-def _cuts(info: ParamInfo, axes) -> list[tuple[int, tuple[str, ...]]]:
-    """(dim, mesh axes) of each dim of `info` that the active rules cut
-    over axes of `axes` above 1."""
+def ssm_splits(H: int, G: int, m: int) -> bool:
+    """Whether a Mamba2 mixer of H heads in G groups splits by heads over
+    m ranks: H % m == 0, and m divides G or G divides m."""
+    return H % m == 0 and (G % m == 0 or m % G == 0)
+
+
+def ssm_runs(segments: tuple, H: int, G: int, m: int, r: int) -> list[tuple[int, int]]:
+    """(start, length) of each run of indices that rank r of m holds along
+    a Mamba2 leaf's cut dim: per segment ("heads" or "groups", `width`
+    indices a unit), its heads [r H/m, (r + 1) H/m), or the groups those
+    heads use (head h is in group h // (H/G))."""
+    hl = H // m
+    h0, rep = r * hl, H // G
+    g0, g1 = h0 // rep, (h0 + hl - 1) // rep + 1
+    runs, off = [], 0
+    for kind, width in segments:
+        n, (a, b) = (H, (h0, h0 + hl)) if kind == "heads" else (G, (g0, g1))
+        runs.append((off + a * width, (b - a) * width))
+        off += n * width
+    return runs
+
+
+def _seg_cut(info: ParamInfo, mesh, names: tuple):
+    """The cut of a Mamba2 leaf's segmented dim over `names`: the runs
+    this rank holds, or () when the mixer stays whole (recorded)."""
+    H, G, segments = info.segments
+    m = mesh.size(names)
+    if not ssm_splits(H, G, m):
+        shd.record_fallback(*(("ssm_heads", H) if H % m else ("ssm_groups", G)), names, None)
+        return ()
+    return ssm_runs(segments, H, G, m, _index(mesh, names))
+
+
+def _cuts(info: ParamInfo, axes) -> list[tuple[int, tuple[str, ...], list | None]]:
+    """(dim, mesh axes, runs) of each dim of `info` that the active rules
+    cut over axes of `axes` above 1: runs None for the spec's contiguous
+    slice, else the (start, length) runs of a Mamba2 leaf's head-aligned
+    cut (`ssm_runs`), which may leave the dim whole."""
     mesh = shd.active_mesh()
     out = []
-    for d, part in enumerate(shd.spec(tuple(info.shape), tuple(info.logical))):
+    spec = tuple(shd.spec(tuple(info.shape), tuple(info.logical)))
+    for d, part in enumerate(spec + (None,) * (len(info.shape) - len(spec))):
+        if info.segments and info.logical[d] in ("ffn", "heads"):
+            # the spec's record is kept; the cut is by heads, whatever
+            # the spec's divisibility of the whole dim
+            names = tuple(a for a in shd.rule_axes(info.logical[d])
+                          if a in axes and mesh.shape[a] > 1)
+            runs = _seg_cut(info, mesh, names) if names else ()
+            if runs:
+                out.append((d, names, runs))
+            continue
         names = (part,) if isinstance(part, str) else tuple(part or ())
         names = tuple(a for a in names if a in axes and mesh.shape[a] > 1)
         if names:
-            out.append((d, names))
+            out.append((d, names, None))
     return out
 
 
 def _local_shape(info: ParamInfo, cuts, mesh) -> tuple:
     shape = list(info.shape)
-    for d, names in cuts:
-        shape[d] //= mesh.size(names)
+    for d, names, runs in cuts:
+        shape[d] = shape[d] // mesh.size(names) if runs is None else sum(n for _, n in runs)
     return tuple(shape)
 
 
@@ -144,7 +214,8 @@ def local_tree(cfg, tree, axes=(MODEL,)) -> dict:
     """An abstract tree (parameters, optimizer moments or cache) of `cfg`
     at its shards' shapes along `axes`, visited in the reference's
     flatten order (so `fallbacks()` lists its entries in that order);
-    unchanged unless `splits(cfg, axes)`."""
+    unchanged unless `splits(cfg, axes)`. W8 leaves raise
+    NotImplementedError."""
     if not splits(cfg, axes):
         return tree
     items = list(tree_items(tree))
@@ -174,13 +245,17 @@ def _index(mesh, names) -> int:
 
 def shard_leaf(info: ParamInfo, leaf: torch.Tensor, axes=(MODEL,), name: str = "") -> torch.Tensor:
     """This rank's shard of `leaf` (whole, or already at its shard's
-    shape, which is kept): contiguous slices along each cut dim."""
+    shape, which is kept): contiguous slices along each cut dim, or a
+    Mamba2 leaf's head-aligned runs."""
     mesh = shd.active_mesh()
     cuts = _cuts(info, axes)
     if tuple(leaf.shape) == tuple(info.shape):
-        for d, names in cuts:
-            n = leaf.shape[d] // mesh.size(names)
-            leaf = leaf.narrow(d, _index(mesh, names) * n, n)
+        for d, names, runs in cuts:
+            if runs is None:
+                n = leaf.shape[d] // mesh.size(names)
+                leaf = leaf.narrow(d, _index(mesh, names) * n, n)
+            else:
+                leaf = torch.cat([leaf.narrow(d, a, n) for a, n in runs], dim=d)
         if cuts:                               # a copy: the whole leaf can be freed
             leaf = leaf.clone(memory_format=torch.contiguous_format)
     elif tuple(leaf.shape) != _local_shape(info, cuts, mesh):
@@ -190,8 +265,8 @@ def shard_leaf(info: ParamInfo, leaf: torch.Tensor, axes=(MODEL,), name: str = "
 
 
 def shard_params(cfg, params, axes=(MODEL,)) -> dict:
-    """This rank's shards of a dense parameter tree (or of a tree of the
-    same shapes: AdamW's moments) under the active mesh, along `axes`:
+    """This rank's shards of a parameter tree (or of a tree of the same
+    shapes: AdamW's moments) under the active mesh, along `axes`:
     `shard_leaf` of every leaf. Returns `params` unchanged unless
     `splits(cfg, axes)`. W8 leaves raise NotImplementedError."""
     if not splits(cfg, axes):
@@ -209,11 +284,28 @@ def shard_params(cfg, params, axes=(MODEL,)) -> dict:
 
 def gather_leaf(info: ParamInfo, leaf: torch.Tensor, axes=(MODEL,)) -> torch.Tensor:
     """The whole leaf from every rank's shard (an all-gather over each cut
-    dim's axes); a whole leaf is returned as it is."""
+    dim's axes; a Mamba2 leaf's runs put back in place, a group that
+    several ranks hold taken from the last of them); a whole leaf is
+    returned as it is."""
     mesh = shd.active_mesh()
-    for d, names in _cuts(info, axes):
-        if leaf.shape[d] < info.shape[d]:
+    for d, names, runs in _cuts(info, axes):
+        if leaf.shape[d] == info.shape[d]:
+            continue
+        if runs is None:
             leaf = all_gather(leaf, mesh.group(names), dim=d)
+            continue
+        H, G, segments = info.segments
+        m = mesh.size(names)
+        parts = _gather_parts(leaf, mesh.group(names))
+        shape = list(leaf.shape)
+        shape[d] = info.shape[d]
+        whole = leaf.new_empty(shape)
+        for q, part in enumerate(parts):
+            at = 0
+            for a, n in ssm_runs(segments, H, G, m, q):
+                whole.narrow(d, a, n).copy_(part.narrow(d, at, n))
+                at += n
+        leaf = whole
     return leaf
 
 
@@ -246,12 +338,16 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return y
 
 
-def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
-    """Every rank's x along `dim`, in rank order."""
+def _gather_parts(x: torch.Tensor, group) -> list[torch.Tensor]:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=dim)
+    return parts
+
+
+def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """Every rank's x along `dim`, in rank order."""
+    return torch.cat(_gather_parts(x, group), dim=dim)
 
 
 def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -289,6 +385,17 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
 class _GatherFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -314,6 +421,14 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of x over `group` (the output of a product whose
     contraction is split); its gradient goes to x unchanged."""
     return _ReduceFrom.apply(x, group)
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over `group`, where every rank's result feeds only its
+    own share of what follows (the mixer's gated norm: each rank's
+    channels read the sum of all ranks' squares): the gradient is summed
+    over the group too."""
+    return _SumOver.apply(x, group)
 
 
 def gather_from(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:

@@ -110,3 +110,23 @@ def train_collectives(cfg, *, data: int, model: int, batch: int, seq: int, accum
     n_ar += len(norm_sets)
     return {"all-reduce": ar, "all-gather": ag, "reduce-scatter": rs, "all-to-all": 0,
             "collective-permute": 0, "_num_ops": n_ar + n_ag + n_rs}
+
+
+def ssm_split_collectives(cfg, kind: str, rows: int, S: int, m: int) -> dict:
+    """The collectives of an ssm or hybrid serving step split over a model
+    axis of m (`layers/mamba2.py`): per Mamba2 mixer whose heads split
+    (`tensor.ssm_splits`) one all-reduce of its output (rows, S, D) and
+    one of the gated norm's fp32 sums of squares (rows, S, 1); the
+    hybrid's shared block at each of its n_layers / attn_every sites as a
+    dense layer, and the vocab's embedding and head, as
+    `split_collectives` counts them. bf16 compute."""
+    import dataclasses
+
+    from repro_torch.parallel import tensor
+    sites = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    out = split_collectives(dataclasses.replace(cfg, n_layers=sites), kind, rows, S, m)
+    S = 1 if kind == "decode" else S
+    mixers = cfg.n_layers * tensor.ssm_splits(cfg.ssm_heads, cfg.ssm_groups, m)
+    out["all-reduce"] += mixers * (rows * S * cfg.d_model * 2 + rows * S * 4)
+    out["_num_ops"] += 2 * mixers
+    return out

@@ -26,7 +26,10 @@ timeout:
   mamba2-2.7b on `meta` tensors: a record for each of its four cells,
   train refused, the others `ok` with 64 `ssd_scan` calls counted by
   formula in the prefill (mamba2's train cell keeps its refusal under a
-  model axis above 1, ROADMAP.md A.7c);
+  model axis above 1, ROADMAP.md A.7c); the serve cells split over the
+  model axis (its 80 heads by 16; its 50,280-entry vocab whole, a
+  recorded fallback), each counting fewer FLOPs a rank than the whole
+  mixer did (`WHOLE_MIXER_FLOPS`);
 * `make_production_mesh` over 256 and 512 fake ranks on `meta`.
 """
 import json
@@ -40,6 +43,10 @@ from repro_torch import configs
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT = 300
+# mamba2-2.7b's serve cells' FLOPs a rank on the 16 x 16 world while every
+# rank ran its data group's whole mixer (the port's dry run before its
+# split, ROADMAP.md A.7c)
+WHOLE_MIXER_FLOPS = {"prefill_32k": 3.647e14, "decode_32k": 4.390e10, "long_500k": 5.487e9}
 
 
 def _run(script: str, *args) -> subprocess.CompletedProcess:
@@ -114,6 +121,10 @@ def test_dryrun_command_line_on_the_production_world(tmp_path):
     for cell in ("decode_32k", "long_500k"):
         r = recs[f"mamba2-2.7b/{cell}"]
         assert r["ok"] and r["flops_per_device"] > 0 and r["kernels"] == {}
+    for cell, whole in WHOLE_MIXER_FLOPS.items():
+        r = recs[f"mamba2-2.7b/{cell}"]
+        assert ["vocab", 50280, ["model"], None] in r["fallbacks"], cell
+        assert 0 < r["flops_per_device"] < whole, cell
 
 
 PROD = r"""
