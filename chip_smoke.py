@@ -270,6 +270,7 @@ result. Imports nothing of JAX or of the JAX package `repro`.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -460,7 +461,9 @@ MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 512, 2
 # so every collective goes through host memory) and a (1, 2) cuda mesh under
 # the serving rules, each rank a `chip_smoke.py --tp-child` process that draws
 # the whole tree from the seed leaf by leaf and keeps its shards. (a)
-# qwen1.5-4b at full width, 4 x 512 + 32 in bf16 through `Engine`: heads and
+# qwen1.5-4b at full width, cut to TP_SERVED_LAYERS of its 40 layers (to
+# keep the script inside its time once phase 4(o) joined it), 4 x 512 + 32
+# in bf16 through `Engine`: heads and
 # kv heads split, the cache by kv heads; (b) gemma-2b at full width, 4 x 512 +
 # 8: its one kv head does not divide 2, so the cache goes by positions, decode
 # combines the ranks' partial attention by log-sum-exp, and the tied head is
@@ -475,6 +478,7 @@ MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 512, 2
 # tokens equal.
 TP_RANKS, TP_TIMEOUT_S = 2, 600
 TP_SERVED = (("a", DENSE_ARCH, DENSE_NEW), ("b", "gemma-2b", DENSE_OTHER_NEW))
+TP_SERVED_LAYERS = {DENSE_ARCH: 10}      # else as published
 TP_FP32_LAYERS, TP_FP32_STEPS = 4, 8
 TP_BF16_RTOL, TP_FP32_RTOL = 0.05, 1e-5
 # Phase 4(m), dense training under a model axis above 1 with FSDP over
@@ -487,11 +491,13 @@ TP_BF16_RTOL, TP_FP32_RTOL = 0.05, 1e-5
 # ffn and tied vocab split and its one kv head stays whole (so the k and v
 # gradients are summed over "model"); under data 2 every fsdp dim (2048)
 # splits. After the ranks have exited this process runs the same steps
-# unmeshed from the same seed on the same batches. (a) bf16 compute at full
-# depth: losses within TP_TRAIN_LOSS_RTOL and grad norms within
-# TP_TRAIN_GNORM_RTOL relative. Each rank rounds its partial sums to bf16
-# before the all-reduce, one rounding more per split product than one
-# process makes, as for serving; read on an H100 80GB HBM3 (700 W) at seed
+# unmeshed from the same seed on the same batches. (a) bf16 compute at
+# TP_TRAIN_BF16_LAYERS of its 18 layers (the full width; the depth cut to
+# keep the script inside its time once phase 4(o) joined it): losses
+# within TP_TRAIN_LOSS_RTOL and grad norms within TP_TRAIN_GNORM_RTOL
+# relative. Each rank rounds its partial sums to bf16 before the
+# all-reduce, one rounding more per split product than one process makes,
+# as for serving; read at full depth on an H100 80GB HBM3 (700 W) at seed
 # 0: losses 2.2e-6 (the mean over 2,048 tokens averages the roundings out),
 # grad norms 5.4e-4, about a quarter of a bf16 ulp (2**-9); the bounds are
 # ~45x and two bf16 ulps. (b) TP_TRAIN_FP32_LAYERS layers in fp32
@@ -503,6 +509,7 @@ TP_BF16_RTOL, TP_FP32_RTOL = 0.05, 1e-5
 # gradient), within 2 lr elsewhere.
 TP_TRAIN_SHAPE, TP_TRAIN_RANKS, TP_TRAIN_STEPS = (4, 512, 2), (2, 2), 2
 TP_TRAIN_FP32_LAYERS, TP_TRAIN_FP32_RTOL, EPS_REGIME = 4, 1e-5, 1e-6
+TP_TRAIN_BF16_LAYERS = 6
 TP_TRAIN_LOSS_RTOL, TP_TRAIN_GNORM_RTOL, TP_TRAIN_LR = 1e-4, 2 ** -8, 3e-4
 # Phase 4(n), the ssm and hybrid families served split over a model axis of
 # 2 (`parallel/tensor.py`, `layers/mamba2.py`): two ranks on the one card in
@@ -512,8 +519,12 @@ TP_TRAIN_LOSS_RTOL, TP_TRAIN_GNORM_RTOL, TP_TRAIN_LR = 1e-4, 2 ** -8, 3e-4
 # the 80 a rank; the one group's B and C columns on both), the vocab split
 # (50,280 and 32,000 divide 2), zamba2's shared block as the dense layers
 # (16 of its 32 heads and kv heads, half its ffn; the KV cache by kv heads).
-# (a) mamba2-2.7b and (b) zamba2-2.7b as published, 4 x 512 + 32 in bf16
-# through `Engine` (use_kernel=True): each rank's prefill launches ssd_scan
+# (a) mamba2-2.7b and (b) zamba2-2.7b at full width, cut to
+# TP_SSM_SERVED_LAYERS (16 of 64 mixers; 12 of 54, two shared sites: the
+# depth cut to keep the script inside its time once phase 4(o) joined it,
+# since a decode step's collectives through gloo grow with the layers), 4 x
+# 512 + 32 in bf16 through `Engine` (use_kernel=True): each rank's prefill
+# launches ssd_scan
 # once a mixer on its 40 heads, all on the tensor cores; held to the same
 # weights unmeshed on the card: layer 0's split mixer on the prompt within
 # ROUTE_ULPS bf16 ulps of the layer's scale (each rank rounds its partial
@@ -532,9 +543,61 @@ TP_TRAIN_LOSS_RTOL, TP_TRAIN_GNORM_RTOL, TP_TRAIN_LR = 1e-4, 2 ** -8, 3e-4
 # rank's shape (TP_SSM_SSD_HEADS heads, bf16, N 128) against its plain
 # version (`_ssd_agrees`), timed beside its bound.
 TP_SSM_SERVED = (("a", "mamba2-2.7b"), ("b", HYBRID_ARCH))
+TP_SSM_SERVED_LAYERS = {"mamba2-2.7b": 16, HYBRID_ARCH: 12}
 TP_SSM_FP32_LAYERS = {"mamba2-2.7b": 4, HYBRID_ARCH: 6}
 TP_SSM_SSD_HEADS = 40
 TP_SSM_WITNESS = 3.0
+# Phase 4(o), the ssm and hybrid families trained under a model axis above 1
+# with FSDP over "data" (`layers/mamba2.py` `sum_partial_grads`,
+# `parallel/{tensor,fsdp}.py`, `train/step.py`): four ranks on the one card,
+# a gloo world and a (2, 2) (data, model) cuda mesh under the trainer's
+# rules, each a `chip_smoke.py --tp-ssm-train-child` process whose
+# `trainer.run` draws the whole state from the seed leaf by leaf and keeps
+# its shards: every Mamba2 mixer by heads (40 of mamba2's 80 a rank, the one
+# group's B and C on both model ranks, its gradient summed over them once a
+# step, as are the whole per-head vectors'), in_proj's and out_proj's d
+# rows, the embedding and head over "data", both vocabs (50,280, 32,000)
+# and zamba2's shared block split over "model" as the dense layers. The
+# train path's shape (4 x 512 in 2 microbatches, remat full, AdamW), 2
+# steps; training takes the SSD's chunked plain route (no kernel has a
+# backward, in either package), so every kernel count, the ranks' too,
+# must stay 0. After the ranks have exited this process runs the same
+# steps unmeshed from the same seed on the same batches. (a) mamba2-2.7b
+# as published and (b) zamba2-2.7b at full width cut to 12 mixers (2
+# shared sites), bf16: losses and grad norms within the larger of
+# TP_TRAIN_LOSS_RTOL / TP_TRAIN_GNORM_RTOL and TP_SSM_WITNESS x a witness,
+# read in this run from the same weights unmeshed with the roundings the
+# split adds (`_one_rounding_more`: out_proj's contraction, in_proj's
+# columns and the head's vocab each in two halves, as the two model ranks
+# take them: one rounding more a layer in the forward, one in xin's
+# gradient, one in the head's), and every rank's losses equal. A CPU
+# rehearsal at d_model 256 over 64 mamba2 layers (bf16, the same shape
+# and steps) read the (2, 2) split 1.22e-3 of the loss and 2.08e-2 of the
+# grad norm from unmeshed, at step 2 (above both bounds: Adam's first step
+# is about lr x sign(g), so every element whose gradient a rounding moves
+# across 0 moves by 2 lr), (1, 2) 1.14e-3 and (2, 1) 8.3e-5: the model
+# split's roundings, not the data split's; the witness read 4.9e-4 and
+# 1.7e-2, out_proj's halves alone 2.2e-4 and 1.5e-2. zamba2 at 12 layers
+# read 3.0e-5 and 1.4e-3, inside the plain bounds. (c) fp32 with TF32 off,
+# mamba2 at 4 layers and zamba2 at 6 (one shared site): as
+# `[4 tp train path]` (b), losses and grad norms within
+# TP_TRAIN_FP32_RTOL relative and every rank's parameter shards within the
+# larger of TP_TRAIN_FP32_RTOL and TP_SSM_WITNESS x a witness of the largest
+# |p| where |g| stayed above EPS_REGIME, within 2 lr elsewhere. The witness
+# is the same steps unmeshed in the split's summation orders
+# (`_one_rounding_more`, each microbatch's rows in two halves as the data
+# ranks sum them): Adam's second step, where its first moment nearly
+# cancels, turns the last bits of a gradient into 1e-5 of the largest
+# parameter here. On an H100 80GB HBM3 (700 W) the split read 9.7e-6 and
+# 1.05e-5 against the dense bound of 1e-5, unmeshed runs in other fp32
+# summation orders 7.6e-6 to 1.2e-5 and 1.4e-5 to 2.0e-5 from the plain
+# one, so that bound holds no split to fp32 here; the losses and grad
+# norms stay within 1e-5. And the copies that ranks share bitwise equal:
+# the B and C columns of in_proj and channels of the conv on the two
+# model ranks of each data coordinate, the per-head vectors on all four.
+TP_SSM_TRAIN_CASES = {"a": ("mamba2-2.7b", None, "bfloat16"), "b": (HYBRID_ARCH, 12, "bfloat16"),
+                      "ca": ("mamba2-2.7b", 4, "float32"), "cb": (HYBRID_ARCH, 6, "float32")}
+TP_SSM_TRAIN_MEMORY = 0.225      # of the card a rank may take (4 x 17.8 GiB of 79.2)
 
 
 def _smi(query: str) -> str:
@@ -3138,7 +3201,7 @@ def _tp_path(dev, wrappers, reset_launches, smi) -> None:
     # (a), (b): the bf16 prefill's last logits; the fp32 greedy tokens
     # against a teacher-forced forward
     for label, arch, new in TP_SERVED:
-        cfg = _tp_config(arch, "bfloat16")
+        cfg = _tp_config(arch, "bfloat16", TP_SERVED_LAYERS.get(arch))
         prompts = _tp_prompts(cfg.vocab, DENSE_BATCH, DENSE_PROMPT)
         with torch.inference_mode():
             params = base.tree_init(api.abstract_params(cfg),
@@ -3159,7 +3222,7 @@ def _tp_path(dev, wrappers, reset_launches, smi) -> None:
               f"equal: {same}")
         if max(errs) > TP_BF16_RTOL * scale or not same:
             raise AssertionError(f"{arch}: the split prefill's logits differ from unmeshed")
-        cfg32 = _tp_config(arch, "float32")
+        cfg32 = _tp_config(arch, "float32", TP_SERVED_LAYERS.get(arch))
         gen = arrays[0][f"{label}/tf_tokens"]
         if not all(np.array_equal(a[f"{label}/tf_tokens"], gen) for a in arrays):
             raise AssertionError(f"{arch}: the ranks' greedy tokens differ")
@@ -3274,7 +3337,7 @@ def _tp_child(rank: int, root: Path, device: str) -> int:
                   f"gloo on cuda tensors (sum, max, gather of rank + 1): {probe}")
 
         for label, arch, new in TP_SERVED:
-            cfg = _tp_config(arch, "bfloat16")
+            cfg = _tp_config(arch, "bfloat16", TP_SERVED_LAYERS.get(arch))
             with shd.use_mesh(mesh, tensor.serving_rules()):
                 t0 = time.perf_counter()
                 params = _tp_shards(cfg, dev)
@@ -3299,7 +3362,7 @@ def _tp_child(rank: int, root: Path, device: str) -> int:
                         prompts, device=dev).long()}, cache)
                 arrays[f"{label}/prefill"] = last.float().cpu().numpy()
                 del cache
-                cfg32 = _tp_config(arch, "float32")
+                cfg32 = _tp_config(arch, "float32", TP_SERVED_LAYERS.get(arch))
                 tf = Engine(cfg32, params, ServeConfig(max_len=TF_PROMPT + TF_NEW + 8,
                                                        max_new_tokens=TF_NEW), device=dev)
                 arrays[f"{label}/tf_tokens"] = tf.generate(
@@ -3353,7 +3416,7 @@ def _tp_train_setup(fp32: bool):
     from repro_torch import configs
     from repro_torch.models import base
     from repro_torch.optim import adamw
-    cfg = configs.get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH), n_layers=TP_TRAIN_BF16_LAYERS)
     if fp32:
         cfg = dataclasses.replace(cfg, n_layers=TP_TRAIN_FP32_LAYERS, compute_dtype="float32")
     B, S, accum = TP_TRAIN_SHAPE
@@ -3417,7 +3480,7 @@ def _tp_train_path(dev, wrappers, reset_launches, smi) -> None:
     def rel(a, b):
         return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
-    # (a) bf16 at full depth: the unmeshed trainer from the same seed
+    # (a) bf16, TP_TRAIN_BF16_LAYERS layers: the unmeshed trainer from the same seed
     cfg, shape, oc, kw = _tp_train_setup(fp32=False)
     tc = trainer.TrainerConfig(ckpt_dir=str(root / "plain_a"), **kw)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3427,7 +3490,7 @@ def _tp_train_path(dev, wrappers, reset_launches, smi) -> None:
     lrel = max(rel(rec["cases"]["a"]["loss"], hist["loss"]) for rec in ranks)
     grel = max(rel(rec["cases"]["a"]["grad_norm"], hist["grad_norm"]) for rec in ranks)
     same = all(rec["cases"]["a"]["loss"] == ranks[0]["cases"]["a"]["loss"] for rec in ranks)
-    print(f"[4 {tag}] (a) {TRAIN_ARCH} bf16, {TP_TRAIN_STEPS} steps of "
+    print(f"[4 {tag}] (a) {TRAIN_ARCH} {cfg.n_layers} layers bf16, {TP_TRAIN_STEPS} steps of "
           f"{shape.global_batch}x{shape.seq_len} in {shape.accum} microbatches unmeshed: "
           f"{run_s:.1f} s, losses {', '.join(f'{v:.6f}' for v in hist['loss'])}, grad norms "
           f"{', '.join(f'{v:.6f}' for v in hist['grad_norm'])}, peak "
@@ -3629,7 +3692,7 @@ def _tp_ssm_path(dev, wrappers, reset_launches, smi, clock_hz: float) -> dict:
     for r, rec in enumerate(ranks):
         for label, arch in TP_SSM_SERVED:
             c = rec["cases"][label]
-            n = _tp_config(arch, "bfloat16").n_layers
+            n = TP_SSM_SERVED_LAYERS[arch]
             counts = dict(c["launches"])
             ssd, mma = counts.pop("ssd_scan"), counts.pop("ssd_scan mma")
             print(f"[4 {tag}] rank {r} ({label}) {arch}: parameters "
@@ -3646,7 +3709,7 @@ def _tp_ssm_path(dev, wrappers, reset_launches, smi, clock_hz: float) -> dict:
     # (a), (b): layer 0 and the bf16 prefill's last logits; the ranks' tokens
     eps = torch.finfo(torch.bfloat16).eps
     for label, arch in TP_SSM_SERVED:
-        cfg = _tp_config(arch, "bfloat16")
+        cfg = _tp_config(arch, "bfloat16", TP_SSM_SERVED_LAYERS[arch])
         prompts = _tp_prompts(cfg.vocab, DENSE_BATCH, DENSE_PROMPT)
         with torch.inference_mode():
             params = base.tree_init(api.abstract_params(cfg),
@@ -3725,7 +3788,7 @@ def _tp_ssm_path(dev, wrappers, reset_launches, smi, clock_hz: float) -> dict:
               "cuda_core_bound_ms": _bound(moved, flop, 2 * FMA_PER_CLOCK_PER_SM * clock_hz
                                            * torch.cuda.get_device_properties(dev)
                                            .multi_processor_count)[0],
-              "launches_per_prefill": _tp_config("mamba2-2.7b", "bfloat16").n_layers,
+              "launches_per_prefill": TP_SSM_SERVED_LAYERS["mamba2-2.7b"],
               "max_abs_err": err}
     print(f"[4 {tag}] (d) ssd_scan {tuple(y.shape)} (a rank's {TP_SSM_SSD_HEADS} heads) on the "
           f"{route} route max_abs_err={err:.3g} (|y| <= {yp.float().abs().max().item():.3g}), "
@@ -3798,7 +3861,7 @@ def _tp_ssm_child(rank: int, root: Path, device: str) -> int:
             print(f"[4 tp ssm path] {mesh}, backend {dist.get_backend()}, world "
                   f"{dist.get_world_size()}, both ranks on {_device_name(dev)}")
         for label, arch in TP_SSM_SERVED:
-            cfg = _tp_config(arch, "bfloat16")
+            cfg = _tp_config(arch, "bfloat16", TP_SSM_SERVED_LAYERS[arch])
             with shd.use_mesh(mesh, tensor.serving_rules()):
                 t0 = time.perf_counter()
                 params = _tp_shards(cfg, dev)
@@ -3870,6 +3933,325 @@ def _tp_ssm_child(rank: int, root: Path, device: str) -> int:
         dist.destroy_process_group()
     (root / f"rank{rank}.json").write_text(json.dumps(rec))
     np.savez(root / f"rank{rank}.npz", **arrays)
+    return 0
+
+
+def _tp_ssm_train_setup(label: str):
+    """(cfg, shape, OptConfig, TrainerConfig kwargs) of phase 4(o)'s run
+    `label`."""
+    from repro_torch.models import base
+    from repro_torch.optim import adamw
+    arch, layers, dtype = TP_SSM_TRAIN_CASES[label]
+    B, S, accum = TP_TRAIN_SHAPE
+    shape = base.ShapeConfig("tp_ssm_train", S, B, "train", accum=accum)
+    oc = adamw.OptConfig(lr=TP_TRAIN_LR, warmup_steps=2, total_steps=TP_TRAIN_STEPS)
+    return _tp_config(arch, dtype, layers), shape, oc, {
+        "total_steps": TP_TRAIN_STEPS, "ckpt_every": TP_TRAIN_STEPS + 1, "seed": SEED,
+        "remat": "full"}
+
+
+@contextlib.contextmanager
+def _one_rounding_more():
+    """Within: every Mamba2 mixer takes out_proj's contraction in two
+    halves, each rounded to the compute dtype and then added, and in_proj's
+    columns in two halves, so that xin's gradient is the sum of two
+    rounded partial products; the LM head takes its vocab in two halves,
+    so that h's gradient is too: the roundings a split over two model
+    ranks adds, unmeshed (phase 4(o)'s witness)."""
+    import torch
+    from repro_torch.layers import embedding as emb
+    from repro_torch.layers import mamba2 as m2
+    from repro_torch.layers.common import wx
+
+    def column_halves(x, w):
+        k = w.shape[-1] // 2
+        return torch.cat([torch.matmul(x, w[..., :k]), torch.matmul(x, w[..., k:])], -1)
+
+    def out(p, y, loc):
+        w, k = wx(p["out_proj"], y.dtype), y.shape[-1] // 2
+        return torch.matmul(y[..., :k], w[:k]) + torch.matmul(y[..., k:], w[k:])
+
+    def project(cfg, p, xin, loc):
+        zxbcdt = column_halves(xin, wx(p["in_proj"], xin.dtype))
+        N = cfg.ssm_state
+        return torch.split(zxbcdt, [loc.di, loc.di, loc.G * N, loc.G * N, loc.H], dim=-1)
+
+    def head(cfg, p, h, group=None, *, gather=True):
+        return column_halves(h, (p["tok"].T if cfg.tie_embeddings else p["head"]).to(h.dtype))
+
+    saved = m2._out, m2._project, emb.lm_head
+    m2._out, m2._project, emb.lm_head = out, project, head
+    try:
+        yield
+    finally:
+        m2._out, m2._project, emb.lm_head = saved
+
+
+def _tp_ssm_train_path(dev, wrappers, reset_launches, smi) -> None:
+    """Phase 4(o): the ssm and hybrid families trained split over a (2, 2)
+    (data, model) mesh on the card (the constants' comment above
+    `TP_SSM_TRAIN_CASES`). Four `--tp-ssm-train-child` ranks train first,
+    while this process holds nothing; then this process runs the same
+    steps unmeshed, and the witness, and holds the ranks' results to them.
+    Training reaches no TPU kernel: every count, the ranks' too, must stay
+    0."""
+    import dataclasses
+    import gc
+    import shutil
+    import torch
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import base
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor
+    from repro_torch.train import step as step_lib
+    from repro_torch.train import trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag = "tp ssm train path"
+    reset_launches()
+    root = ROOT / "build" / "tp_ssm_train_path"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    print(f"[4 {tag}] this process holds {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+          f"allocated, {torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved, while the ranks "
+          "train")
+    n_ranks = math.prod(TP_TRAIN_RANKS)
+    ranks = _run_ranks("--tp-ssm-train-child", n_ranks, root, dev, "ssm tensor-parallel training")
+    for r, rec in enumerate(ranks):
+        for label, c in rec["cases"].items():
+            print(f"[4 {tag}] rank {r} {c['coordinate']} ({label}): state "
+                  f"{c['state_bytes'] / 1e9:.3f} GB, peak {c['peak_bytes'] / 1e9:.2f} GB "
+                  f"allocated, steps {', '.join(f'{v:.2f}' for v in c['step_s'])} s, losses "
+                  f"{', '.join(f'{v:.6f}' for v in c['loss'])}, grad norms "
+                  f"{', '.join(f'{v:.6f}' for v in c['grad_norm'])}")
+    out = {"ranks": ranks}
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    # (a), (b) bf16: the unmeshed trainer from the same seed, and the witness
+    for label in ("a", "b"):
+        cfg, shape, oc, kw = _tp_ssm_train_setup(label)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        hist = trainer.run(cfg, shape, oc, trainer.TrainerConfig(
+            ckpt_dir=str(root / f"plain_{label}"), **kw), device=dev)[1]
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with _one_rounding_more():
+            wit = trainer.run(cfg, shape, oc, trainer.TrainerConfig(
+                ckpt_dir=str(root / f"witness_{label}"), **kw), device=dev)[1]
+        gc.collect()
+        torch.cuda.empty_cache()
+        got = [rec["cases"][label] for rec in ranks]
+        lrel = max(rel(c["loss"], hist["loss"]) for c in got)
+        grel = max(rel(c["grad_norm"], hist["grad_norm"]) for c in got)
+        wl, wg = rel(wit["loss"], hist["loss"]), rel(wit["grad_norm"], hist["grad_norm"])
+        lbound = max(TP_TRAIN_LOSS_RTOL, TP_SSM_WITNESS * wl)
+        gbound = max(TP_TRAIN_GNORM_RTOL, TP_SSM_WITNESS * wg)
+        same = all(c["loss"] == got[0]["loss"] for c in got)
+        finite = all(math.isfinite(v) for c in got for v in c["loss"] + c["grad_norm"])
+        print(f"[4 {tag}] ({label}) {cfg.name} {cfg.n_layers} layers bf16, {TP_TRAIN_STEPS} "
+              f"steps of {shape.global_batch}x{shape.seq_len} in {shape.accum} microbatches "
+              f"unmeshed: {run_s:.1f} s, losses {', '.join(f'{v:.6f}' for v in hist['loss'])}, "
+              f"grad norms {', '.join(f'{v:.6f}' for v in hist['grad_norm'])}, peak "
+              f"{peak / 1e9:.1f} GB; the witness (the split's roundings): losses within "
+              f"{wl:.3g}, grad norms within {wg:.3g}; split over 2x2 vs unmeshed: losses within "
+              f"{lrel:.3g} relative (bound {lbound:.3g}: the larger of {TP_TRAIN_LOSS_RTOL} and "
+              f"{TP_SSM_WITNESS:g} x the witness), grad norms within {grel:.3g} (bound "
+              f"{gbound:.3g}); finite: {finite}; ranks' losses equal: {same}")
+        out[label] = {"loss": hist["loss"], "grad_norm": hist["grad_norm"],
+                      "step_s": hist["step_s"], "peak_bytes": peak, "loss_rel": lrel,
+                      "grad_norm_rel": grel, "witness_loss_rel": wl, "witness_grad_norm_rel": wg,
+                      "loss_bound": lbound, "grad_norm_bound": gbound}
+        if not (finite and lrel <= lbound and grel <= gbound and same):
+            raise AssertionError(f"{cfg.name}: the split bf16 training steps differ from "
+                                 "unmeshed")
+        del hist, wit
+
+    # (c) fp32, TF32 off: the unmeshed steps with each element's smallest |g|,
+    # and the witness's; then every rank's shards, and the copies that ranks
+    # share
+    def fp32_steps(cfg, shape, oc):
+        state = base.tree_init(step_lib.abstract_state(cfg),
+                               torch.Generator(device=dev).manual_seed(SEED), dev)
+        grad_fn = step_lib.make_grad_fn(cfg, shape, remat="full")
+        losses, norms, gmin = [], [], None
+        for i in range(TP_TRAIN_STEPS):
+            batch = _on(make_batch(cfg, shape, i, seed=trainer.TrainerConfig().data_seed), dev)
+            loss, _, grads = grad_fn(state["params"], batch)
+            g = [t.abs() for _, t in base.tree_items(grads)]
+            gmin = g if gmin is None else [torch.minimum(a, b) for a, b in zip(gmin, g)]
+            _, _, m = adamw.apply_updates(state["params"], grads, state["opt"], oc)
+            losses.append(loss.item())
+            norms.append(m["grad_norm"].item())
+            del grads, g
+        return state, losses, norms, gmin
+
+    for label in ("ca", "cb"):
+        cfg, shape, oc, kw = _tp_ssm_train_setup(label)
+        with _one_rounding_more():
+            wstate = fp32_steps(cfg, dataclasses.replace(shape, accum=2 * shape.accum), oc)[0]
+        state, losses, norms, gmin = fp32_steps(cfg, shape, oc)
+        got = [rec["cases"][label] for rec in ranks]
+        lrel = max(rel(c["loss"], losses) for c in got)
+        grel = max(rel(c["grad_norm"], norms) for c in got)
+        scale = max(t.abs().max().item() for _, t in base.tree_items(state["params"]))
+        witness = max(((a - b).abs()[gm > EPS_REGIME].max().item() if (gm > EPS_REGIME).any()
+                       else 0.0) for (_, a), (_, b), gm in zip(
+            base.tree_items(state["params"]), base.tree_items(wstate["params"]), gmin)) / scale
+        bound = max(TP_TRAIN_FP32_RTOL, TP_SSM_WITNESS * witness)
+        del wstate
+        infos = dict(base.tree_items(step_lib.abstract_state(cfg)["params"]))
+        shards = [torch.load(root / f"rank{r}_{label}.pt") for r in range(n_ranks)]
+        worst, worst_any, n_sure, n_all = 0.0, 0.0, 0, 0
+        for r, rec in enumerate(ranks):
+            mesh = _Coordinate(dict(zip(("data", "model"), TP_TRAIN_RANKS)),
+                               rec["cases"][label]["coordinate"])
+            with shd.use_mesh(mesh, tensor.training_rules(mesh)):
+                for (path, whole), gm in zip(base.tree_items(state["params"]), gmin):
+                    want = tensor.shard_leaf(infos[path], whole, tensor.TRAIN_AXES)
+                    sure = tensor.shard_leaf(infos[path], gm, tensor.TRAIN_AXES) > EPS_REGIME
+                    d = (shards[r][base.keystr(path)].to(dev) - want).abs()
+                    worst = max(worst, d[sure].max().item() if sure.any() else 0.0)
+                    worst_any = max(worst_any, d.max().item())
+                    n_sure, n_all = n_sure + int(sure.sum()), n_all + sure.numel()
+        # the shared copies: B and C (the one group, G = 1) on both model
+        # ranks of a data coordinate; the per-head vectors on every rank
+        di, N = cfg.d_inner // TP_TRAIN_RANKS[1], cfg.ssm_state
+        mixer = "['layers']['mixer']"
+        copies = {f"{mixer}['in_proj']": (2 * di, 2 * N), f"{mixer}['conv_w']": (di, 2 * N),
+                  f"{mixer}['conv_b']": (di, 2 * N)}
+        by_data: dict = {}
+        for r, rec in enumerate(ranks):
+            by_data.setdefault(rec["cases"][label]["coordinate"]["data"], []).append(r)
+        shared = all(torch.equal(shards[a][k].narrow(-1, at, n), shards[b][k].narrow(-1, at, n))
+                     for k, (at, n) in copies.items() for a, b in by_data.values())
+        shared &= all(torch.equal(sh[f"{mixer}['{k}']"], shards[0][f"{mixer}['{k}']"])
+                      for sh in shards for k in ("a_log", "dt_bias", "d_skip", "norm_scale"))
+        print(f"[4 {tag}] ({label}) {cfg.name} {cfg.n_layers} layers fp32 (TF32 off) unmeshed: "
+              f"losses {', '.join(f'{v:.7f}' for v in losses)}, grad norms "
+              f"{', '.join(f'{v:.7f}' for v in norms)}; split over 2x2 vs unmeshed: losses "
+              f"within {lrel:.3g} relative, grad norms within {grel:.3g} (bound "
+              f"{TP_TRAIN_FP32_RTOL}); every rank's parameter shards after {TP_TRAIN_STEPS} "
+              f"steps within {worst / scale:.3g} of the largest |p| {scale:.4g} where |g| stayed "
+              f"above {EPS_REGIME} ({n_sure / n_all:.4f} of the elements; bound {bound:.3g}: the "
+              f"larger of {TP_TRAIN_FP32_RTOL} and {TP_SSM_WITNESS:g} x the witness's "
+              f"{witness:.3g}), {worst_any:.3g} elsewhere (bound 2 lr {2 * oc.lr:.3g}); shared B, "
+              f"C and per-head copies bitwise equal across the ranks: {shared}")
+        out[label] = {"loss": losses, "grad_norm": norms, "loss_rel": lrel, "grad_norm_rel": grel,
+                      "param_err_of_max": worst / scale, "param_err_any": worst_any,
+                      "witness_param_err_of_max": witness, "param_bound": bound,
+                      "share_held": n_sure / n_all, "shared_copies_equal": shared}
+        if not (lrel <= TP_TRAIN_FP32_RTOL and grel <= TP_TRAIN_FP32_RTOL and shared
+                and worst <= bound * scale and worst_any <= 2 * oc.lr):
+            raise AssertionError(f"{cfg.name}: the split fp32 training steps differ from "
+                                 "unmeshed, or the ranks' shared copies differ")
+        del state, gmin, shards
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    counts = {name: w.launches for name, w in wrappers.items()}
+    children = [rec["launches"] for rec in ranks]
+    print(f"[4 {tag}] launches {counts}, ranks {children} (training takes the SSD's chunked "
+          f"plain route: no TPU kernel)")
+    if any(counts.values()) or any(any(c.values()) for c in children):
+        raise AssertionError("a kernel launched on the ssm training path")
+    seconds = time.perf_counter() - t_phase
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[4 {tag}] phase {seconds:.1f} s")
+    print(json.dumps({"tp_ssm_train": out, "phase_s": seconds, "device": _device_name(dev),
+                      "power": smi}))
+
+
+def _tp_ssm_train_child(rank: int, root: Path, device: str) -> int:
+    """`chip_smoke.py --tp-ssm-train-child RANK DIR DEVICE`, one of phase
+    4(o)'s four ranks, on the parent's DEVICE (all on the one card): a gloo
+    world over a `FileStore` in DIR, a (2, 2) (data, model) mesh under the
+    trainer's rules, `trainer.run` of (a), (b), (ca) and (cb) on this rank's
+    shards; writes DIR/rank<RANK>.json and (ca)'s and (cb)'s final parameter
+    shards to DIR/rank<RANK>_<label>.pt."""
+    import gc
+    import os
+    # four ranks of mamba2, each allocating up to ~16.8 GiB, share the card
+    # with this script's parent: segments that grow in place keep what a
+    # rank reserves near what it allocates, and a cap on each rank's share
+    # makes its allocator free its cache before it takes more, which leaves
+    # room for what cuBLAS allocates outside it
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import api, base
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor
+    from repro_torch.train import trainer
+
+    dev = torch.device(device)
+    torch.cuda.set_per_process_memory_fraction(TP_SSM_TRAIN_MEMORY, dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n_ranks = math.prod(TP_TRAIN_RANKS)
+    lead = rank == 0
+    dist.init_process_group("gloo", store=dist.FileStore(str(root / "store"), n_ranks),
+                            rank=rank, world_size=n_ranks)
+    rec = {"cases": {}}
+    try:
+        mesh = make_mesh_compat(TP_TRAIN_RANKS, ("data", "model"), device=dev.type)
+        coordinate = {a: mesh.coordinate(a) for a in mesh.shape}
+        if lead:
+            print(f"[4 tp ssm train path] {mesh}, backend {dist.get_backend()}, world "
+                  f"{dist.get_world_size()}, all ranks on {_device_name(dev)}")
+        _rank_launches(reset=True)
+        for label in TP_SSM_TRAIN_CASES:
+            cfg, shape, oc, kw = _tp_ssm_train_setup(label)
+            tc = trainer.TrainerConfig(ckpt_dir=str(root / f"ckpt_{label}_{rank}"), **kw)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            with shd.use_mesh(mesh, tensor.training_rules(mesh)):
+                state, hist = trainer.run(cfg, shape, oc, tc, device=dev)
+            torch.cuda.synchronize(dev)
+            with shd.use_mesh(mesh, tensor.training_rules(mesh)):
+                tensor.local_tree(cfg, api.abstract_params(cfg), tensor.TRAIN_AXES)
+                fallbacks = shd.fallbacks()
+            c = {"arch": cfg.name, "dtype": cfg.compute_dtype, "layers": cfg.n_layers,
+                 "coordinate": coordinate, "run_s": time.perf_counter() - t0,
+                 "state_bytes": _tree_bytes(state),
+                 "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                 "peak_reserved": torch.cuda.max_memory_reserved(dev),
+                 "in_proj_shape": list(state["params"]["layers"]["mixer"]["in_proj"].shape),
+                 "loss": hist["loss"], "grad_norm": hist["grad_norm"],
+                 "step_s": hist["step_s"], "fallbacks": [list(f) for f in fallbacks]}
+            rec["cases"][label] = c
+            if lead:
+                print(f"[4 tp ssm train path] ({label}) {cfg.name} {cfg.n_layers} layers "
+                      f"{cfg.compute_dtype}, {TP_TRAIN_STEPS} steps of "
+                      f"{shape.global_batch}x{shape.seq_len} in {shape.accum} microbatches, "
+                      f"remat full, split over {mesh.shape}: {c['run_s']:.1f} s, steps "
+                      f"{', '.join(f'{v:.2f}' for v in c['step_s'])} s (gloo through host "
+                      f"memory); in_proj {c['in_proj_shape']} a rank, state "
+                      f"{c['state_bytes'] / 1e9:.3f} GB a rank (whole "
+                      f"{12 * base.count_params(api.abstract_params(cfg)) / 1e9:.1f} GB of "
+                      f"parameters, m and v), peak {c['peak_bytes'] / 1e9:.2f} GB allocated, "
+                      f"{c['peak_reserved'] / 1e9:.2f} GB reserved; fallbacks "
+                      f"{c['fallbacks']}")
+            if label.startswith("c"):
+                torch.save({base.keystr(p): t.cpu() for p, t in
+                            base.tree_items(state["params"])}, root / f"rank{rank}_{label}.pt")
+            del state, hist
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec["launches"] = _rank_launches()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    (root / f"rank{rank}.json").write_text(json.dumps(rec))
     return 0
 
 
@@ -4343,6 +4725,7 @@ def main() -> int:
     tp_ssm = _tp_ssm_path(dev, wrappers, reset_launches, smi, clock_hz)
     launches["ssd_scan"] += tp_ssm["ssd_scan"]
     mma_launches["ssd_scan"] += tp_ssm["ssd_scan mma"]
+    _tp_ssm_train_path(dev, wrappers, reset_launches, smi)
 
     # -- 5. times -------------------------------------------------------------
     def nbytes(tensors):
@@ -4517,4 +4900,6 @@ if __name__ == "__main__":
         sys.exit(_tp_train_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--tp-ssm-child"]:
         sys.exit(_tp_ssm_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--tp-ssm-train-child"]:
+        sys.exit(_tp_ssm_train_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -20,14 +20,16 @@ No inner-scan correction is added: the counter sees every flash block
 and SSD chunk, and the `ssd_scan` kernel reports its own work.
 
 What a rank runs is what the port runs. A train step takes the rank's
-rows of the global batch over the data axes (`rows_per_rank`); the dense
-family trains split over the model axis and holds its state cut over
-"data" (FSDP) and "model" (`train/step.py` `local_state`, ROADMAP.md
-A.7b), and the record lists the axes that stayed whole (`fallbacks`).
-The MoE, ssm and hybrid families refuse a model axis above 1 in the
-train step (A.7d, A.7c), which the sweep records as `{"ok": false,
-"error": ...}` and goes on. A prefill or decode step takes its rank's
-rows of the batch (all of them when the data ranks do not divide it).
+rows of the global batch over the data axes (`rows_per_rank`); the
+dense, ssm and hybrid families train split over the model axis and hold
+their state cut over "data" (FSDP) and "model" (`train/step.py`
+`local_state`, ROADMAP.md A.7b, A.7c: each Mamba2 mixer by heads, its
+per-head vectors and shared B and C summed once a step), and the record
+lists the axes that stayed whole (`fallbacks`). The MoE family refuses
+a model axis above 1 in the train step (A.7d), which the sweep records
+as `{"ok": false, "error": ...}` and goes on. A prefill or decode step
+takes its rank's rows of the batch (all of them when the data ranks do
+not divide it).
 The dense family serves them split over the model axis alone
 (`parallel/tensor.py`, A.7a: heads, ffn and vocab shards, the cache by
 kv heads or by positions; `serve_trees`), with its `fallbacks`; so do
@@ -173,8 +175,9 @@ def serve_trees(cfg, shape, mesh, rules: dict, variant: dict | None = None) -> t
 
 def train_tree(cfg, mesh, rules: dict) -> tuple:
     """A train cell's abstract state at one rank's shapes
-    (`step.local_state`: the dense family's cut over "data" and "model"),
-    and the fallbacks of its cut (None where nothing is cut)."""
+    (`step.local_state`: the dense, ssm and hybrid families' cut over
+    "data" and "model"), and the fallbacks of its cut (None where nothing
+    is cut)."""
     with shd.use_mesh(mesh, rules) if mesh is not None else contextlib.nullcontext():
         state = step_lib.local_state(cfg)
         cut = mesh is not None and tensor.splits(cfg, tensor.TRAIN_AXES)
@@ -247,11 +250,21 @@ def _extend(a, b, k: float):
     return a + k * (b - a)
 
 
+def _chunked_ssd(cfg, shape) -> bool:
+    """Whether a step runs the SSD's chunked plain route over many chunks:
+    a train step of the ssm or hybrid family (no kernel has a backward)
+    of 2048 tokens or more, a dozen ops a chunk of 128 in each layer's
+    forward, recompute and backward."""
+    return (shape.kind == "train" and cfg.family in ("ssm", "hybrid")
+            and shape.seq_len >= 16 * rl.SSD_CHUNK)
+
+
 def analyze_cell(cfg, shape, mesh, *, remat: str = "full", variant: dict | None = None,
                  device="meta") -> dict:
     """Per-rank totals of a cell's step at its full depth. A step that runs
     flash attention (a prefill or train step of 2048 tokens or more with
-    attention layers: thousands of block ops a layer) is counted at L1
+    attention layers: thousands of block ops a layer) or the SSD's
+    chunked route over many chunks (`_chunked_ssd`) is counted at L1
     and L2 layers and extended along the line through them: its FLOPs,
     bytes, collectives and argument bytes are exactly linear in n_layers
     (the layer loops repeat the same ops; held by
@@ -272,7 +285,7 @@ def analyze_cell(cfg, shape, mesh, *, remat: str = "full", variant: dict | None 
 
     L1, L2 = analysis_layers(cfg)
     flash = rl.flash_correction(cfg, batch=1, seq=shape.seq_len, kind=shape.kind)["flops"]
-    if cfg.n_layers <= L2 or not flash:
+    if cfg.n_layers <= L2 or not (flash or _chunked_ssd(cfg, shape)):
         out = measure(cfg.n_layers)
         out["extended"] = False
     else:

@@ -28,9 +28,11 @@ gradient is the sum of every rank's share, B and C's included (each
 rank's B and C gradient is its heads' part of the whole). A leaf that
 a rank holds whole or shares with other ranks (the per-head vectors;
 B and C's columns and conv channels where m > G) gets only this rank's
-heads' part of its gradient: the training slice sums those over the
-ranks that hold them (ROADMAP.md A.7c). Sequence parallelism between
-layers is not ported (ROADMAP.md, C).
+heads' part of its gradient: `sum_partial_grads` sums those over the
+ranks that hold them, once a train step (`train/step.py`), and
+`norm_weights` counts each shared B or C column once in the global
+norm. Sequence parallelism between layers is not ported (ROADMAP.md,
+C).
 """
 from __future__ import annotations
 
@@ -44,7 +46,14 @@ from repro_torch.layers.common import is_q, wx
 from repro_torch.models.base import ArchConfig, ParamInfo
 from repro_torch.parallel import tensor
 
-__all__ = ["mamba_params", "ssm_cache_info", "mamba_mixer", "mamba_decode_step"]
+__all__ = ["mamba_params", "ssm_cache_info", "mamba_mixer", "mamba_decode_step",
+           "sum_partial_grads", "norm_weights"]
+
+# the whole leaves the mixer indexes at its heads (width 1, or P a head)
+_HEAD_VECTORS = ("a_log", "dt_bias", "d_skip", "norm_scale")
+# the leaves that hold B and C (adjacent, G N each), and how many of the
+# rank's x widths (d_inner on it) lie before them along the last dim
+_BC_AT = {"in_proj": 2, "conv_w": 1, "conv_b": 1}
 
 
 def mamba_params(cfg: ArchConfig, n_layers: int | None = None) -> dict:
@@ -123,6 +132,71 @@ def _heads(loc: _Local, v: torch.Tensor, width: int = 1) -> torch.Tensor:
     if loc.group is None:
         return v
     return v[..., loc.h0 * width:(loc.h0 + loc.H) * width]
+
+
+def _shared_group(cfg: ArchConfig, loc: _Local) -> int | None:
+    """The one group whose B and C this rank shares with the m/G - 1 other
+    ranks whose heads use it (m > G), or None (each rank's groups are its
+    own, or the mixer is whole)."""
+    if loc.group is None or dist.get_world_size(loc.group) <= cfg.ssm_groups:
+        return None
+    return loc.h0 // (cfg.ssm_heads // cfg.ssm_groups)
+
+
+def sum_partial_grads(cfg: ArchConfig, p: dict, grads: dict, group) -> None:
+    """Complete in place the gradients that a split mixer's backward leaves
+    partial: `grads` (the layer-stacked mixer leaves' gradients, leaf for
+    leaf of `p`, the rank's shards). The per-head vectors are whole on
+    every rank and each rank's gradient is its heads' part (zero
+    elsewhere), so they are summed over `group`. Where m > G, the B and C
+    columns of `in_proj` and channels of `conv_w` and `conv_b` are one
+    group shared by m/G ranks, each holding its heads' part: each rank
+    writes its part at its group's place in a zero tensor G groups wide,
+    so that the sum over the whole group adds only the parts of the
+    ranks that share a group, and takes its group's sum back. One
+    all-reduce of all of it; nothing when the mixer is whole."""
+    loc = _local(cfg, p, group)
+    if loc.group is None:
+        return
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    g = _shared_group(cfg, loc)
+    parts = [grads[k] for k in _HEAD_VECTORS]
+    bcs = []
+    if g is not None:
+        for k, n in _BC_AT.items():
+            bc = grads[k].narrow(-1, n * loc.di, 2 * N)
+            wide = bc.new_zeros(bc.shape[:-1] + (2, G, N))
+            wide[..., g, :] = bc.unflatten(-1, (2, N))
+            parts.append(wide)
+            bcs.append(bc)
+    flat = torch.cat([t.reshape(-1) for t in parts])
+    dist.all_reduce(flat, group=group)
+    at = 0
+    for i, t in enumerate(parts):
+        got = flat[at:at + t.numel()].view(t.shape)
+        at += t.numel()
+        if i < len(_HEAD_VECTORS):
+            t.copy_(got)
+        else:
+            bcs[i - len(_HEAD_VECTORS)].copy_(got[..., g, :].flatten(-2))
+
+
+def norm_weights(cfg: ArchConfig, p: dict, group) -> dict:
+    """{leaf: 0/1 weights along its last dim} for a global norm over the
+    rank's shards: where m > G, zero at the shared B and C on every rank
+    but the first that holds the group, so each is counted once; {} on
+    that rank and where nothing is shared."""
+    loc = _local(cfg, p, group)
+    if _shared_group(cfg, loc) is None:
+        return {}
+    if dist.get_rank(group) % (dist.get_world_size(group) // cfg.ssm_groups) == 0:
+        return {}
+    out = {}
+    for k, n in _BC_AT.items():
+        w = torch.ones(p[k].shape[-1], dtype=torch.float32, device=p[k].device)
+        w[n * loc.di:n * loc.di + 2 * cfg.ssm_state] = 0
+        out[k] = w
+    return out
 
 
 def _project(cfg: ArchConfig, p: dict, xin: torch.Tensor, loc: _Local):
@@ -219,7 +293,10 @@ def _ssd_chunked_batch(x, dt, a, b, c, *, chunk: int):
     """Chunk-sequential SSD (fp32). x: (B,S,H,P); dt: (B,S,H); a: (H,);
     b/c: (B,S,G,N). Returns (y (B,S,H,P), s_final (B,H,N,P)). S is
     zero-padded to a chunk multiple (exact: padded rows have dt = 0), and
-    the quadratic (Q x Q per head) tensors exist one chunk at a time."""
+    the quadratic (Q x Q per head) tensors exist one chunk at a time.
+    The intra-chunk decay is masked before its exp, so its gradient stays
+    finite where the decay over a chunk passes fp32's range (the
+    reference's gives NaN there: ROADMAP.md C)."""
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     rep = H // G
@@ -240,9 +317,11 @@ def _ssd_chunked_batch(x, dt, a, b, c, *, chunk: int):
         bc, cc = bh[:, q0:q0 + chunk], ch[:, q0:q0 + chunk]       # (B,Q,H,N)
         da = dc * a[None, None, :]
         cum = torch.cumsum(da, dim=1)
-        lmat = torch.where(tri[None, :, :, None],
-                           torch.exp(cum[:, :, None, :] - cum[:, None, :, :]),
-                           torch.zeros((), device=x.device))
+        # masked before the exp: above the diagonal cum_q - cum_k > 0 may
+        # pass exp's fp32 range, and a mask after it would make the
+        # gradient there 0 x inf = NaN (the reference masks after it)
+        lmat = torch.exp((cum[:, :, None, :] - cum[:, None, :, :]).masked_fill(
+            ~tri[None, :, :, None], float("-inf")))
         scores = torch.einsum("bqhs,bkhs->bqkh", cc, bc) * lmat    # (B,Q,Q,H)
         y = torch.einsum("bqkh,bkhp->bqhp", scores, xc * dc[..., None])
         y = y + torch.einsum("bqhs,bhsp->bqhp", cc * torch.exp(cum)[..., None], s)

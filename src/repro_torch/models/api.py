@@ -65,15 +65,18 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: str = "none", use_kernel: 
     Inside `data_parallel.reducing` (a data-parallel train step) the nll
     sum and the token count are the global batch's, reduced separately:
     the loss is the global batch's, and each rank's backward gives its
-    rows' share of the gradient. On dense shards under a model axis above 1
-    the logits stay split over the vocab and the nll is taken over the
-    model group (`tensor.vocab_nll`); the sums over the data group are as
-    above. The other families' `forward` runs whole (ROADMAP.md A.7c, A.7d)."""
-    group = tensor.group_for(cfg) if cfg.family == "dense" else None
+    rows' share of the gradient. On dense, ssm or hybrid shards under a
+    model axis above 1 the logits stay split over a vocab that divides the
+    axis and the nll is taken over the model group (`tensor.vocab_nll`); a
+    vocab that does not divide stays whole on every rank. The sums over
+    the data group are as above. The MoE family's `forward` runs whole
+    (ROADMAP.md A.7d)."""
+    group = tensor.group_for(cfg)
     if group is None:
         logits, aux = forward(cfg, params, batch, remat=remat, use_kernel=use_kernel)
     else:
-        logits, aux = transformer.forward(cfg, params, batch, remat=remat, local_vocab=True)
+        logits, aux = module_for(cfg).forward(cfg, params, batch, remat=remat,
+                                              use_kernel=use_kernel, local_vocab=True)
     targets = batch["targets"]
     mask = batch.get("loss_mask")
     if mask is None:

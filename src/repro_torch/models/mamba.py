@@ -8,11 +8,18 @@ recomputes each layer of `forward` in the backward pass
 (`base.remat_call`). Attention-free: the decode state is O(1) in
 sequence length.
 
-Under a model axis above 1 `prefill` and `decode_step` serve split over
-the model group (`tensor.group_for`; ROADMAP.md A.7c): every mixer on
-its heads (`layers/mamba2.py`), the embedding and head on a vocab that
-divides the axis, with the cache's slice (`tensor.local_tree`).
-`forward`, which training runs, keeps its whole path.
+Under a model axis above 1 every entry point runs split over the model
+group (`tensor.group_for`; ROADMAP.md A.7c): every mixer on its heads
+(`layers/mamba2.py`), the embedding and head on a vocab that divides the
+axis; `prefill` and `decode_step` with the cache's slice
+(`tensor.local_tree`), and `forward`, which training runs, with the
+mixer's autograd collectives; its `local_vocab=True` keeps the head's
+logits split over the vocab for `api.loss_fn`. A train state cut over
+"data" too (FSDP, `parallel/fsdp.py`: `in_proj`'s and `out_proj`'s d
+rows, the embedding's and head's d) is gathered a layer at a time
+inside the function that `remat_call` checkpoints, so the recompute
+gathers again, as `models/transformer.py` does; the embedding's leaves
+where `forward` uses them.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ from repro_torch.layers import embedding as emb_lib
 from repro_torch.layers import mamba2 as m2
 from repro_torch.layers import norms
 from repro_torch.models.base import ArchConfig, layer, remat_call, tree_map, unstack
-from repro_torch.parallel import tensor
+from repro_torch.parallel import fsdp, tensor
 
 __all__ = ["abstract_params", "abstract_cache", "layer_body", "backbone", "forward",
            "prefill", "decode_step", "layer"]
@@ -48,25 +55,38 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
                                                   logical=(None,) + i.logical), info)
 
 
-def layer_body(cfg: ArchConfig, lp: dict, h: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+def layer_body(cfg: ArchConfig, lp: dict, h: torch.Tensor, use_kernel: bool, group=None,
+               dims=None) -> torch.Tensor:
     """One Mamba2 layer (norm, mixer, residual) on layer slice `lp`; the
-    hybrid family's mixers run it too."""
+    hybrid family's mixers run it too. `group`: the model group when lp
+    holds shards; `dims`: the fsdp dims of lp's shards, gathered here
+    (`fsdp.gather_tree`)."""
+    lp = fsdp.gather_tree(lp, dims)
     hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
-    return h + m2.mamba_mixer(cfg, lp["mixer"], hn, use_kernel=use_kernel)
+    return h + m2.mamba_mixer(cfg, lp["mixer"], hn, use_kernel=use_kernel, group=group)
 
 
 def backbone(cfg: ArchConfig, params: dict, h: torch.Tensor, *, remat: str = "none",
-             use_kernel: bool = False) -> torch.Tensor:
+             use_kernel: bool = False, group=None, dims: dict | None = None) -> torch.Tensor:
+    """Every layer, then the final norm. `group` and `dims` (`fsdp.shard_dims`
+    of `params`) as `layer_body`'s."""
+    ldims = fsdp.layer_dims(dims)
     for lp in unstack(params["layers"], cfg.n_layers):
-        h = remat_call(remat, layer_body, cfg, lp, h, use_kernel)
+        h = remat_call(remat, layer_body, cfg, lp, h, use_kernel, group, ldims)
     return norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: str = "none",
-            use_kernel: bool = False) -> tuple[torch.Tensor, dict]:
-    h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
-    h = backbone(cfg, params, h, remat=remat, use_kernel=use_kernel)
-    return emb_lib.lm_head(cfg, params["embed"], h), {}
+            use_kernel: bool = False, local_vocab: bool = False) -> tuple[torch.Tensor, dict]:
+    """Training/eval forward: (logits, {}). On shards under a model axis
+    above 1, `local_vocab` gives this rank's slice of a split vocab's
+    logits instead of the whole (see the module's docstring)."""
+    group = tensor.group_for(cfg)
+    dims = fsdp.shard_dims(cfg, params)
+    emb = fsdp.gather_tree(params["embed"], fsdp.sub_dims(dims, "embed"))
+    h = emb_lib.assemble_inputs(cfg, emb, batch, group)
+    h = backbone(cfg, params, h, remat=remat, use_kernel=use_kernel, group=group, dims=dims)
+    return emb_lib.lm_head(cfg, emb, h, group, gather=not local_vocab), {}
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,

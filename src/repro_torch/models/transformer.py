@@ -138,7 +138,7 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: str = "none",
     B, S = batch["tokens"].shape
     group = tensor.group_for(cfg)
     dims = fsdp.shard_dims(cfg, params)
-    emb = fsdp.gather_tree(params["embed"], fsdp.embed_dims(dims))
+    emb = fsdp.gather_tree(params["embed"], fsdp.sub_dims(dims, "embed"))
     h = emb_lib.assemble_inputs(cfg, emb, batch, group)
     positions = _positions_for(cfg, batch, B, S, h.device)
     h, _, aux = backbone(cfg, params, h, positions, remat=remat, group=group, dims=dims)

@@ -20,14 +20,20 @@ attn_every sites.
 in `models/mamba.py`; the reference's zamba never passes it, and the
 port's kernel route is held to the plain route (`chip_smoke.py`).
 
-Under a model axis above 1 `prefill` and `decode_step` serve split over
-the model group (`tensor.group_for`; ROADMAP.md A.7c): every mixer on
-its heads, as in `models/mamba.py`; the shared block's attention and MLP
-on the dense family's split (heads, kv heads and ffn that divide the
-axis; the KV cache by kv heads, else by positions, `tensor.cache_len`);
-the embedding and head on a vocab that divides it. The shared block's
-`in_proj` ("fsdp", None) stays whole on every rank. `forward` keeps its
-whole path.
+Under a model axis above 1 every entry point runs split over the model
+group (`tensor.group_for`; ROADMAP.md A.7c): every mixer on its heads,
+as in `models/mamba.py`; the shared block's attention and MLP on the
+dense family's split (heads, kv heads and ffn that divide the axis; the
+KV cache by kv heads, else by positions, `tensor.cache_len`); the
+embedding and head on a vocab that divides it. The shared block's
+`in_proj` ("fsdp", None) stays whole over "model". `forward`, which
+training runs, takes the mixers' and the block's autograd collectives
+and `local_vocab`, as in `models/mamba.py`. Under FSDP each mixer's
+layer is gathered inside its checkpointed function, as in mamba; the
+shared block, which is not remat'd, is gathered once a forward and
+reused at every site, so its gathered weights are saved for the
+backward once (not once a site) and its gradient, summed over the
+sites by autograd, is reduce-scattered once.
 """
 from __future__ import annotations
 
@@ -43,7 +49,7 @@ from repro_torch.layers import norms
 from repro_torch.layers.common import wx
 from repro_torch.models.base import ArchConfig, ParamInfo, layer, remat_call, tree_map, unstack
 from repro_torch.models.mamba import layer_body
-from repro_torch.parallel import tensor
+from repro_torch.parallel import fsdp, tensor
 
 __all__ = ["n_sites", "abstract_params", "abstract_cache", "forward", "prefill",
            "decode_step"]
@@ -111,17 +117,24 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: str = "none",
-            use_kernel: bool = False) -> tuple[torch.Tensor, dict]:
+            use_kernel: bool = False, local_vocab: bool = False) -> tuple[torch.Tensor, dict]:
+    """Training/eval forward: (logits, {}); `local_vocab` as in
+    `models/mamba.py`."""
     B, S = batch["tokens"].shape
-    h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
+    mg = tensor.group_for(cfg)
+    dims = fsdp.shard_dims(cfg, params)
+    emb = fsdp.gather_tree(params["embed"], fsdp.sub_dims(dims, "embed"))
+    shared = fsdp.gather_tree(params["shared"], fsdp.sub_dims(dims, "shared"))
+    ldims = fsdp.layer_dims(dims)
+    h = emb_lib.assemble_inputs(cfg, emb, batch, mg)
     emb0, positions = h, _positions(B, S, h.device)
     layers = unstack(params["layers"], cfg.n_layers)
     for group in _groups(cfg):
         for i in group:
-            h = remat_call(remat, layer_body, cfg, layers[i], h, use_kernel)
-        h, _ = _shared_block(cfg, params["shared"], h, emb0, positions, None, None)
+            h = remat_call(remat, layer_body, cfg, layers[i], h, use_kernel, mg, ldims)
+        h, _ = _shared_block(cfg, shared, h, emb0, positions, None, None, mg)
     h = norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
-    return emb_lib.lm_head(cfg, params["embed"], h), {}
+    return emb_lib.lm_head(cfg, emb, h, mg, gather=not local_vocab), {}
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,

@@ -46,10 +46,11 @@ class OptConfig:
 
 
 def abstract_opt_state(abstract_params) -> dict:
-    """m and v mirror the parameter tree (same shapes and logical axes,
+    """m and v mirror the parameter tree (same shapes, logical axes and
+    Mamba2 segments, so a cut over the mesh cuts them as the parameters;
     fp32); step is an int32 scalar."""
     def zero_like(i: ParamInfo) -> ParamInfo:
-        return ParamInfo(i.shape, torch.float32, i.logical, init="zeros")
+        return ParamInfo(i.shape, torch.float32, i.logical, init="zeros", segments=i.segments)
 
     return {"m": tree_map(zero_like, abstract_params),
             "v": tree_map(zero_like, abstract_params),
@@ -68,14 +69,24 @@ def schedule(oc: OptConfig, step) -> torch.Tensor:
     return oc.lr * torch.where(s < oc.warmup_steps, warm, decayed)
 
 
-def global_norm(tree, groups: list | None = None) -> torch.Tensor:
+def _squares(g: torch.Tensor, w) -> torch.Tensor:
+    sq = torch.square(g.float())
+    return torch.sum(sq if w is None else sq * w)
+
+
+def global_norm(tree, groups: list | None = None, weights: list | None = None
+                ) -> torch.Tensor:
     """sqrt of the sum over the leaves (in flatten order) of each leaf's
     sum of squares, in fp32. For a tree of shards, `groups` gives each
     leaf's process group (flatten order): the ranks over which its shards
     make the whole leaf, or None for a leaf held whole (counted once).
     Each leaf's sum is summed over its group first (one all-reduce a
-    group), so every rank gets the whole tree's norm."""
-    sums = [torch.sum(torch.square(g.float())) for _, g in tree_items(tree)]
+    group), so every rank gets the whole tree's norm. `weights` (flatten
+    order, None or per leaf None or a tensor that broadcasts against it)
+    weigh a leaf's squares: 0 where another rank of the group counts the
+    same values (a copy that several ranks hold)."""
+    leaves = [g for _, g in tree_items(tree)]
+    sums = [_squares(g, w) for g, w in zip(leaves, weights or [None] * len(leaves))]
     if groups is not None:
         for grp in {id(g): g for g in groups if g is not None}.values():
             idx = [i for i, g in enumerate(groups) if g is grp]
@@ -87,15 +98,17 @@ def global_norm(tree, groups: list | None = None) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(params, grads, opt_state, oc: OptConfig, *, groups: list | None = None):
+def apply_updates(params, grads, opt_state, oc: OptConfig, *, groups: list | None = None,
+                  weights: list | None = None):
     """One AdamW step, in place. Returns (params, opt_state, metrics):
     `grad_norm` (before the clip) and `lr`. On a tree of shards, `groups`
-    are `global_norm`'s; the update itself is elementwise on the shards."""
+    and `weights` are `global_norm`'s; the update itself is elementwise on
+    the shards."""
     step = opt_state["step"].add_(1)
     s = step.float()
     lr = schedule(oc, step)
 
-    gnorm = global_norm(grads, groups)
+    gnorm = global_norm(grads, groups, weights)
     # a true division, as the reference's (a Python float over a tensor
     # would be a reciprocal times the float)
     scale = torch.clamp_max(gnorm.new_tensor(oc.clip_norm) / (gnorm + 1e-9), 1.0)

@@ -8,9 +8,9 @@ group: by `reduce_grads` after the accumulation for a leaf held whole
 over "data", and in the backward for a leaf the dense family holds as a
 shard of its fsdp dim (`parallel/fsdp.py`, whose gradient is
 reduce-scattered; `reduce_grads` then sums it over "pod" alone).
-Parameters and optimizer state are whole over "data" in the MoE, ssm
-and hybrid families and where an fsdp dim does not divide the axis, and
-the dense family's are this rank's shards elsewhere; either way each
+Parameters and optimizer state are whole over "data" in the MoE family
+and where an fsdp dim does not divide the axis, and the dense, ssm and
+hybrid families' are this rank's shards elsewhere; either way each
 rank applies the update to what it holds, and the step equals the
 single-process step up to the order of fp32 sums.
 

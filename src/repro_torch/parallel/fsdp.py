@@ -1,4 +1,5 @@
-"""Fully sharded parameters of the dense family over "data" (FSDP).
+"""Fully sharded parameters of the dense, ssm and hybrid families over
+"data" (FSDP).
 
 The port's own module, as `parallel/data_parallel.py` is. The reference
 declares each matrix's d_model dim `fsdp` and maps it to "data"
@@ -14,18 +15,18 @@ leaves were cut over "data" (`parallel/tensor.py` `shard_params` with
   is already summed over "data".
 * `shard_dims(cfg, params)` reads which leaves are such shards from
   their shapes (a leaf shorter than whole along its `fsdp` dim), and
-  `gather_tree` gathers them. `models/transformer.py` calls it on a
-  layer's slices inside the function that `remat_call`
+  `gather_tree` gathers them. `models/{transformer,mamba}.py` call it
+  on a layer's slices inside the function that `remat_call`
   checkpoints, so only one layer's gathered weights are alive at a time
   and the recompute gathers again, as the reference's remat over its
   layer scan does; the embedding and head are gathered where they are
-  used.
+  used, and zamba2's shared block once a forward (`models/zamba.py`).
 
 A leaf whose fsdp dim does not divide the axis stays whole over "data"
 (a `sharding.fallbacks()` entry) and its gradient is summed over the
 data group after the step's accumulation (`train/step.py`), as every
-leaf's is at a data axis of 1 and in the MoE, ssm and hybrid families,
-whose parameters stay whole over "data".
+leaf's is at a data axis of 1 and in the MoE family, whose parameters
+stay whole over "data".
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from repro_torch.models.base import tree_items, tree_unflatten
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor
 
-__all__ = ["FSDP", "group", "gather", "shard_dims", "gather_tree", "layer_dims", "embed_dims"]
+__all__ = ["FSDP", "group", "gather", "shard_dims", "gather_tree", "layer_dims", "sub_dims"]
 
 FSDP = "fsdp"       # the logical axis of a leaf's FSDP dim
 
@@ -86,9 +87,10 @@ def shard_dims(cfg, params) -> dict | None:
     return out or None
 
 
-def _sub(dims: dict | None, key: str, drop: int = 0) -> dict | None:
-    """The entries of `dims` under `key`, their paths without it and their
-    dims less `drop` (a layer slice has no layer dim)."""
+def sub_dims(dims: dict | None, key: str, drop: int = 0) -> dict | None:
+    """The entries of `dims` under `key` (`params[key]`'s leaves: "embed",
+    zamba2's "shared"), their paths without it and their dims less `drop`
+    (a layer slice has no layer dim)."""
     if not dims:
         return None
     out = {p[1:]: d - drop for p, d in dims.items() if p[0] == key}
@@ -108,9 +110,4 @@ def gather_tree(tree: dict, dims: dict | None) -> dict:
 def layer_dims(dims: dict | None) -> dict | None:
     """The fsdp dims of a layer's slices of `params["layers"]` (a stacked
     leaf's fsdp dim less its layer dim)."""
-    return _sub(dims, "layers", drop=1)
-
-
-def embed_dims(dims: dict | None) -> dict | None:
-    """The fsdp dims of `params["embed"]`'s leaves."""
-    return _sub(dims, "embed")
+    return sub_dims(dims, "layers", drop=1)

@@ -1,6 +1,5 @@
-"""Tensor parallelism over the model axis (the dense family, and the ssm
-and hybrid families serving), and the cut of their leaves over every
-mesh axis.
+"""Tensor parallelism over the model axis (the dense, ssm and hybrid
+families), and the cut of their leaves over every mesh axis.
 
 The port's own module, as `parallel/data_parallel.py` is. The reference
 places each array by its logical axes under a mesh and lets GSPMD insert
@@ -19,8 +18,8 @@ the collectives. The port's tensors are local, so the split is explicit:
   every rank and is recorded in `sharding.fallbacks()`, entry for entry
   as the reference records it. The MoE family keeps its leaves whole
   (ROADMAP.md A.7d).
-* The Mamba2 mixer (ssm and hybrid serving, over "model" alone) is cut
-  by heads, not by the spec's contiguous slices: the spec's "ffn" slice
+* The Mamba2 mixer (ssm and hybrid) is cut over "model" by heads, not by
+  the spec's contiguous slices: the spec's "ffn" slice
   of `in_proj`'s concatenated [z | x | B | C | dt] columns (and of the
   conv's [x | B | C] channels) would straddle the segments. Rank r of m
   holds heads [r H/m, (r + 1) H/m): their columns of z, x and dt, and
@@ -34,7 +33,9 @@ the collectives. The port's tensors are local, so the split is explicit:
   `fallbacks()` as ("ssm_heads", H, ...) or ("ssm_groups", G, ...).
   The per-head vectors (`a_log`, `dt_bias`, `d_skip`, `norm_scale`) are
   whole in the reference's spec and stay whole; the mixer indexes its
-  heads.
+  heads. In a train state the fsdp dim of `in_proj` and `out_proj` (d)
+  is cut over "data" besides: a contiguous slice of rows, whatever the
+  head-aligned cut of the other dim.
 * The KV cache follows spec(cache, ("batch", "kv_heads", "kv_seq",
   None)): by kv heads where they divide the axis, else by positions, rank
   r holding positions [r S/m, (r + 1) S/m). `cache_len` rounds a cache's
@@ -81,9 +82,8 @@ __all__ = ["MODEL", "DATA", "TRAIN_AXES", "serving_rules", "training_rules", "mo
 MODEL = "model"
 DATA = "data"
 TRAIN_AXES = (DATA, MODEL)     # what a train state is cut over
-# the mesh axes each family's trees are cut over: the ssm and hybrid
-# families serve split over "model" and train whole (ROADMAP.md A.7c)
-_FAMILY_AXES = {"dense": TRAIN_AXES, "ssm": (MODEL,), "hybrid": (MODEL,)}
+# the families whose trees are cut over the mesh (MoE's stay whole, A.7d)
+_SPLIT_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 _W8 = ("q", "s")     # the keys of a W8 leaf: int8 values, scales
@@ -123,16 +123,15 @@ def group_for(cfg):
     """The group a model of `cfg` runs split over: the model group for
     the dense, ssm and hybrid families, None for MoE (its leaves stay
     whole)."""
-    return model_group() if cfg.family in _FAMILY_AXES else None
+    return model_group() if cfg.family in _SPLIT_FAMILIES else None
 
 
 def splits(cfg, axes=(MODEL,)) -> bool:
     """Whether a tree of `cfg` is cut over `axes` under the active mesh:
-    one of `axes` above 1, and the family cut over every axis of `axes`
-    (the dense family over "data" and "model", the ssm and hybrid
-    families over "model" alone)."""
+    one of `axes` above 1, and the family one that is cut (dense, ssm,
+    hybrid)."""
     mesh = shd.active_mesh()
-    return (mesh is not None and set(axes) <= set(_FAMILY_AXES.get(cfg.family, ()))
+    return (mesh is not None and cfg.family in _SPLIT_FAMILIES
             and any(mesh.shape.get(a, 1) > 1 for a in axes))
 
 
@@ -315,7 +314,7 @@ def split_axes(cfg, tree) -> list[tuple[str, ...]]:
     the whole one: a dim shorter than the whole is cut over the axes the
     active rules map its logical axis to. () for a whole leaf."""
     mesh = shd.active_mesh()
-    if mesh is None or cfg.family != "dense":
+    if mesh is None or cfg.family not in _SPLIT_FAMILIES:
         return [()] * len(list(tree_items(tree)))
     from repro_torch.models import api
     infos = dict(tree_items(api.abstract_params(cfg)))

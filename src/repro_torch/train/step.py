@@ -20,27 +20,35 @@ rank: each rank takes its B / n rows of the global batch
 (`data_parallel.local_rows`, whose microbatches are shares of the global
 microbatches; every rank of a model group takes the same rows), and
 computes the global batch's loss inside `data_parallel.reducing` and its
-share of the gradients. The dense family also runs under a model axis
-above 1 (ROADMAP.md A.7b): its layers split over "model" with autograd
-collectives (`parallel/tensor.py`), so every rank of a model group
-computes the same loss and its shards' whole gradients. Its train state
-may be cut over "data" too (FSDP, `parallel/fsdp.py`; `shard_state`,
-`local_state`, `whole_state`): a leaf held as a data shard gets its
-gradient reduce-scattered over "data" in each microbatch's backward.
-After the accumulation the step sums only what the backward has not:
-every other leaf over the data group (`data_parallel.reduce_grads`), and
+share of the gradients. The dense, ssm and hybrid families also run
+under a model axis above 1 (ROADMAP.md A.7b, A.7c): their layers split
+over "model" with autograd collectives (`parallel/tensor.py`; the
+Mamba2 mixer by heads, `layers/mamba2.py`), so every rank of a model
+group computes the same loss and its shards' gradients. Their train
+state may be cut over "data" too (FSDP, `parallel/fsdp.py`;
+`shard_state`, `local_state`, `whole_state`): a leaf held as a data
+shard gets its gradient reduce-scattered over "data" in each
+microbatch's backward. After the accumulation the step sums only what
+the backward has not: first, over the model group, the mixer's leaves
+that a rank holds whole or shares with other ranks, whose backward
+gives each rank only its heads' part (`mamba2.sum_partial_grads`: the
+per-head vectors, and B and C where m > G); then every leaf that is not
+a data shard over the data group (`data_parallel.reduce_grads`), and
 the data shards over "pod" where the mesh has one. The global norm sums
-each leaf's squares over the axes that cut it (`adamw.global_norm`), and
-AdamW updates the shards in place. What a leaf is, whole or a shard, is
-read from its shape, so a whole state under a mesh trains data parallel
-as before. The MoE, ssm and hybrid families refuse a model axis above 1
-(ROADMAP.md A.7d, A.7c) and keep their state whole.
+each leaf's squares over the axes that cut it (`adamw.global_norm`),
+counting a B or C column that m/G ranks share once
+(`mamba2.norm_weights`), and AdamW updates the shards in place: the
+shared copies get the same summed gradient and stay equal. What a leaf
+is, whole or a shard, is read from its shape, so a whole state under a
+mesh trains data parallel as before. The MoE family refuses a model
+axis above 1 (ROADMAP.md A.7d) and keeps its state whole.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.layers import mamba2
 from repro_torch.models import api
 from repro_torch.models.base import (ArchConfig, ShapeConfig, keystr, tree_items, tree_map,
                                      tree_unflatten)
@@ -94,10 +102,31 @@ def make_grad_fn(cfg: ArchConfig, shape: ShapeConfig, *, remat: str = "full"):
                     loss_sum = loss_sum + loss / accum
                 del grads
         if group is not None:
+            _sum_partial(cfg, params, gsum)
             _reduce(cfg, mesh, params, gsum, group)
         return loss_sum, metrics, tree_unflatten(paths, gsum)
 
     return grad_fn
+
+
+_MIXER = ("layers", "mixer")      # the ssm and hybrid families' stacked mixer leaves
+
+
+def _mixer_leaves(cfg: ArchConfig, tree) -> dict | None:
+    """{name: index in flatten order} of the stacked mixer's leaves of a
+    parameter-shaped tree under a model group; None otherwise."""
+    if cfg.family not in ("ssm", "hybrid") or tensor.model_group() is None:
+        return None
+    return {p[-1]: i for i, (p, _) in enumerate(tree_items(tree)) if p[:2] == _MIXER}
+
+
+def _sum_partial(cfg, params, gsum: list) -> None:
+    """Sum over the model group the mixer's gradients that each rank holds
+    only its heads' part of (`mamba2.sum_partial_grads`)."""
+    idx = _mixer_leaves(cfg, params)
+    if idx:
+        mamba2.sum_partial_grads(cfg, params["layers"]["mixer"],
+                                 {k: gsum[i] for k, i in idx.items()}, tensor.model_group())
 
 
 def _reduce(cfg, mesh, params, gsum: list, group) -> None:
@@ -117,18 +146,17 @@ def _reduce(cfg, mesh, params, gsum: list, group) -> None:
 
 
 _DATA_AXES = ("pod", "data")
-_REFUSED = {"moe": "expert parallelism (ROADMAP.md, A.7d)",
-            "ssm": "the Mamba2 mixer's split (ROADMAP.md, A.7c)",
-            "hybrid": "the Mamba2 mixer's split (ROADMAP.md, A.7c)"}
+_REFUSED = {"moe": "expert parallelism (ROADMAP.md, A.7d)"}
 
 
 def _data_parallel(cfg: ArchConfig, mesh, batch: dict, accum: int):
     """(the data group, this rank's rows of `batch`) under `mesh`."""
-    if mesh.shape.get("model", 1) != 1 and cfg.family != "dense":
+    if mesh.shape.get("model", 1) != 1 and cfg.family in _REFUSED:
         raise NotImplementedError(
             f"training {cfg.family} under a mesh with model axis {mesh.shape['model']}: "
             f"{_REFUSED[cfg.family]} is not ported; the port trains this family data "
-            "parallel under model = 1, and the dense family under any model axis")
+            "parallel under model = 1, and the dense, ssm and hybrid families under any "
+            "model axis")
     axes = tuple(a for a in _DATA_AXES if a in mesh.shape)
     if not axes:
         raise ValueError(f"a training mesh needs a data axis, got {mesh.shape}")
@@ -149,7 +177,8 @@ def make_train_step(cfg: ArchConfig, shape: ShapeConfig, oc: adamw.OptConfig,
     def train_step(state, batch):
         loss, metrics, grads = grad_fn(state["params"], batch)
         _, _, opt_metrics = adamw.apply_updates(state["params"], grads, state["opt"], oc,
-                                                groups=_norm_groups(cfg, state["params"]))
+                                                groups=_norm_groups(cfg, state["params"]),
+                                                weights=_norm_weights(cfg, state["params"]))
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
@@ -167,6 +196,20 @@ def _norm_groups(cfg: ArchConfig, params) -> list | None:
         return None
     mesh = shd.active_mesh()
     return [mesh.group(a) if a else None for a in axes]
+
+
+def _norm_weights(cfg: ArchConfig, params) -> list | None:
+    """Per leaf (flatten order), the weights of its squares in the global
+    norm along its last dim (`mamba2.norm_weights`: a shared B or C column
+    counted on one rank), or None; None for all when none has any."""
+    idx = _mixer_leaves(cfg, params)
+    w = mamba2.norm_weights(cfg, params["layers"]["mixer"], tensor.model_group()) if idx else {}
+    if not w:
+        return None
+    out = [None] * len(list(tree_items(params)))
+    for k, t in w.items():
+        out[idx[k]] = t
+    return out
 
 
 def abstract_state(cfg: ArchConfig) -> dict:
@@ -191,8 +234,9 @@ def _infos(cfg: ArchConfig, path: tuple):
 
 def local_state(cfg: ArchConfig) -> dict:
     """The abstract train state at one rank's shards' shapes under the
-    active mesh and rules: the dense family's parameters, m and v cut
-    over "data" (fsdp) and "model"; the whole state otherwise."""
+    active mesh and rules: the dense, ssm and hybrid families' parameters,
+    m and v cut over "data" (fsdp) and "model"; the whole state
+    otherwise."""
     st = abstract_state(cfg)
     if not _sharded(cfg):
         return st

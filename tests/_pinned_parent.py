@@ -75,18 +75,21 @@ def _reference_steps(arch: str, jstate, batches, setup=None) -> dict:
         new_p, new_o, metrics = real(params, grads, opt_state, o)
         return new_p, new_o, {**metrics, "grads": grads}
 
-    losses, gmin = [], None
+    losses, gmin, grad0 = [], None, None
     jadamw.apply_updates = with_grads
     try:
         train_step = jax.jit(jstep.make_train_step(jcfg, jshape, joc, remat="none"))
         for b in batches:
             jstate, m = train_step(jstate, {k: jnp.asarray(v) for k, v in b.items()})
             losses.append(float(m["loss"]))
-            g = {k: np.abs(v) for k, v in _jflat(m["grads"]).items()}
+            grads = _jflat(m["grads"])
+            grad0 = grads if grad0 is None else grad0
+            g = {k: np.abs(v) for k, v in grads.items()}
             gmin = g if gmin is None else {k: np.minimum(gmin[k], v) for k, v in g.items()}
     finally:
         jadamw.apply_updates = real
-    return {"loss": np.array(losses), "params": _jflat(jstate["params"]), "gmin": gmin}
+    return {"loss": np.array(losses), "params": _jflat(jstate["params"]), "gmin": gmin,
+            "grad0": grad0}
 
 
 def initial_jstate(arch: str):
@@ -165,7 +168,8 @@ def tp(d: Path) -> None:
     <d>/cases.json, the reference's two train steps from the state in
     <d>/<case>.npz (`w/<keystr>`: parameters; m, v and step zero) on
     `make_batch`'s batches 0 and 1 (or the case's own, `b<i>/<key>`), to
-    <d>/tp_ref.npz as `<case>/{loss,params/k,gmin/k}`."""
+    <d>/tp_ref.npz as `<case>/{loss,params/k,gmin/k,grad0/k}` (grad0: the
+    first batch's gradient)."""
     import json
 
     import jax
@@ -205,7 +209,7 @@ def tp(d: Path) -> None:
                        for s in range(2)]
         res = _reference_steps(case["arch"], jstate, batches, (jcfg, jshape, joc))
         out[f"{name}/loss"] = res["loss"]
-        for part in ("params", "gmin"):
+        for part in ("params", "gmin", "grad0"):
             out.update({f"{name}/{part}/{k}": v for k, v in res[part].items()})
     np.savez(d / "tp_ref.npz", **out)
 

@@ -1,4 +1,5 @@
-"""One rank of the gloo worlds that tests/test_torch_tp_train.py starts.
+"""One rank of the gloo worlds that tests/test_torch_tp_train.py and
+tests/test_torch_tp_ssm_train.py start.
 
     python tests/_tp_train_child.py <rank> <data> <model> <dir>
 
@@ -19,7 +20,9 @@ state saved as step 0 of <dir>/ckpt_<case>, the cases as
 * keeps its initial and final shards (`init/`, `shard/`), the whole final
   parameters gathered from every rank's (`whole/`, rank 0), the losses
   and grad norms, the fallbacks of the parameter tree's cut,
-  `global_norm` of the initial parameters' shards and of the whole tree,
+  `global_norm` of the initial parameters' shards (each leaf's squares
+  summed over the axes that cut it, a shared Mamba2 B or C column
+  counted once) and of the whole tree,
   and the first batch's gradients from the initial shards, gathered,
   beside one process's (`grad/whole/`, `grad/plain/`, rank 0); that
   backward runs on another thread, as autograd runs a CUDA backward on
@@ -115,7 +118,8 @@ def run_case(case: dict, d: Path, mesh, lead: bool) -> dict:
             torch.autograd.grad = _GRAD
         grads = step.whole_state(cfg, {"params": grads})["params"]
         groups = step._norm_groups(cfg, init["params"])
-        out[f"{name}/norm/shards"] = adamw.global_norm(init["params"], groups).numpy()
+        weights = step._norm_weights(cfg, init["params"])
+        out[f"{name}/norm/shards"] = adamw.global_norm(init["params"], groups, weights).numpy()
         out[f"{name}/norm/whole"] = adamw.global_norm(whole["params"]).numpy()
         if case.get("own_batches"):
             train_step = step.make_train_step(cfg, shape, oc, remat="full")

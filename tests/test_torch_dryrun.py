@@ -23,13 +23,15 @@ timeout:
   loss's two fp32 sums (the nll and the token count), and the global
   norm's one sum over "data";
 * the command line on the 16 x 16 production world, full-width
-  mamba2-2.7b on `meta` tensors: a record for each of its four cells,
-  train refused, the others `ok` with 64 `ssd_scan` calls counted by
-  formula in the prefill (mamba2's train cell keeps its refusal under a
-  model axis above 1, ROADMAP.md A.7c); the serve cells split over the
-  model axis (its 80 heads by 16; its 50,280-entry vocab whole, a
-  recorded fallback), each counting fewer FLOPs a rank than the whole
-  mixer did (`WHOLE_MIXER_FLOPS`);
+  mamba2-2.7b on `meta` tensors: a record for each of its four cells, all
+  `ok`, with 64 `ssd_scan` calls counted by formula in the prefill; the
+  serve cells split over the model axis (its 80 heads by 16; its
+  50,280-entry vocab whole, a recorded fallback), each counting fewer
+  FLOPs a rank than the whole mixer did (`WHOLE_MIXER_FLOPS`); the train
+  cell split over "model" with its state cut over "data" too (ROADMAP.md
+  A.7c), under 74.5 GiB a rank, the vocab's fallbacks recorded, no
+  kernel counted (training takes the SSD's chunked route) and its
+  collectives those of `_tp_formula.ssm_train_collectives`;
 * `make_production_mesh` over 256 and 512 fake ranks on `meta`.
 """
 import json
@@ -38,7 +40,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-from _tp_formula import split_collectives, train_collectives
+from _tp_formula import split_collectives, ssm_train_collectives, train_collectives
 from repro_torch import configs
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -108,12 +110,17 @@ def test_dryrun_command_line_on_the_production_world(tmp_path):
     path = tmp_path / "dry.json"
     out = _run("", "-m", "repro_torch.launch.dryrun", "--mesh", "single_pod",
                "--arch", "mamba2-2.7b", "--out", str(path))
-    assert "== 3/4 cells OK (0 new failures)" in out.stdout
+    assert "== 4/4 cells OK (0 new failures)" in out.stdout
     recs = {r["cell"]: r for r in json.loads(path.read_text())}
     assert set(recs) == {f"mamba2-2.7b/{s}"
                          for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")}
-    assert not recs["mamba2-2.7b/train_4k"]["ok"]
-    assert "NotImplementedError" in recs["mamba2-2.7b/train_4k"]["error"]
+    train = recs["mamba2-2.7b/train_4k"]
+    assert train["ok"] and train["mesh"] == "16x16" and train["rows_per_rank"] == 16
+    assert 0 < train["peak_mem_per_device"] < 74.5 * 2**30 and train["kernels"] == {}
+    assert ["vocab", 50280, ["model"], None] in train["fallbacks"]
+    cfg = configs.get_config("mamba2-2.7b")
+    assert train["collective_breakdown"] == ssm_train_collectives(
+        cfg, data=16, model=16, batch=256, seq=4096, accum=8)
     pre = recs["mamba2-2.7b/prefill_32k"]
     assert pre["ok"] and pre["mesh"] == "16x16" and pre["chips"] == 256
     assert pre["rows_per_rank"] == 2 and pre["kernels"]["ssd_scan"]["calls"] == 64

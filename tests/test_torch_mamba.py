@@ -310,3 +310,82 @@ def test_serve_config_fields_equal_the_reference():
     sc = ServeConfig(64, 4, 0.0, -1, 0)
     assert (sc.temperature, sc.seed) == (0.0, 0)
     assert ServeConfig(temperature=0.0, seed=0) == ServeConfig()
+
+
+def _overflowing_ssd_inputs(B=1, S=256, H=2, P=4, N=8, G=1, seed=3):
+    """SSD inputs whose decay over a chunk of 128 passes exp's fp32 range:
+    dt about 1 with a = -1 and -0.75 (the reference's init: a_log 0, dt
+    a softplus of an O(1) projection, about 0.7 on average), so that
+    exp(cum_q - cum_k) above the chunk's diagonal is inf."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, S, H, P)).astype(np.float32)
+    dt = (1.0 + 0.2 * rng.random((B, S, H))).astype(np.float32)
+    a = np.array([-1.0, -0.75], np.float32)[:H]
+    b, c = (rng.normal(size=(B, S, G, N)).astype(np.float32) for _ in range(2))
+    ct = rng.normal(size=(B, S, H, P)).astype(np.float32)
+    return x, dt, a, b, c, ct
+
+
+def test_chunked_ssd_gradient_is_finite_where_the_decay_overflows():
+    """The chunked route's intra-chunk decay exp(cum_q - cum_k) is masked
+    below the diagonal. Masked after the exp (the reference's
+    `jnp.where(tri, exp(diff), 0)`, and the port's before its repair), the
+    entries above it overflow to inf, and their gradient, 0 x inf, is NaN
+    in every input; masked before the exp (exp(-inf) = 0), the forward is
+    the same and the gradient finite. Held to the JAX package's exact
+    recurrence (`ssd_sequential_ref`, through lax.scan, whose decays are
+    at most 1) per batch row and head: y and every input's gradient within
+    1e-4 of their largest magnitude (another algorithm's fp32 sums: a's
+    gradient, a sum over 256 positions, differs by 4e-5 relative, the
+    others by under 1e-5, CPU run); and the reference mixer's chunked
+    route (`repro.layers.mamba2._ssd_chunked_batch`) is shown to give NaN
+    on these inputs."""
+    from repro.kernels.ssd_scan import ref as jref
+    x, dt, a, b, c, ct = _overflowing_ssd_inputs()
+    B, S, H, P = x.shape
+    rep = H // b.shape[2]
+    ts = [torch.tensor(v, requires_grad=True) for v in (x, dt, a, b, c)]
+    y, _ = m2._ssd_chunked_batch(*ts, chunk=128)
+    grads = torch.autograd.grad((y * torch.from_numpy(ct)).sum(), ts)
+    assert all(torch.isfinite(g).all() for g in grads)
+
+    def loss(xh, dth, ah, bh, ch, cth):
+        return jnp.sum(jref.ssd_sequential_ref(xh, dth, ah, bh, ch)[0] * cth)
+
+    want_y = np.zeros_like(x)
+    want = [np.zeros_like(v) for v in (x, dt, a, b, c)]
+    for bi in range(B):
+        for h in range(H):
+            g = h // rep
+            args = (x[bi, :, h], dt[bi, :, h], a[h], b[bi, :, g], c[bi, :, g], ct[bi, :, h])
+            want_y[bi, :, h] = np.asarray(jref.ssd_sequential_ref(*args[:5])[0])
+            gx, gdt, ga, gb, gc = jax.grad(loss, argnums=range(5))(*args)
+            want[0][bi, :, h] += np.asarray(gx)
+            want[1][bi, :, h] += np.asarray(gdt)
+            want[2][h] += np.asarray(ga)
+            want[3][bi, :, g] += np.asarray(gb)
+            want[4][bi, :, g] += np.asarray(gc)
+    # the reference mixer's chunked route (what its train step runs)
+    ref = jax.grad(lambda *v: jnp.sum(jm2._ssd_chunked_batch(*v, chunk=128)[0] * ct),
+                   argnums=range(5))(x, dt, a, b, c)
+    assert any(np.isnan(np.asarray(g)).any() for g in ref)
+    np.testing.assert_allclose(y.detach().numpy(), want_y, rtol=0,
+                               atol=TOL * np.abs(want_y).max())
+    for got, w in zip(grads, want):
+        np.testing.assert_allclose(got.numpy(), w, rtol=0, atol=TOL * np.abs(w).max())
+
+
+def test_lm_gradient_is_finite_at_a_chunk_of_128():
+    """The port's one-process train step of the smoke model at 256
+    tokens (two chunks of 128, where the decay overflows exp's fp32 range
+    above the diagonal): a finite loss and finite gradients."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.train import step
+    _, cfg = _cfgs()
+    shape = base.ShapeConfig("s", 256, 2, "train", accum=1)
+    params = base.tree_init(api.abstract_params(cfg), torch.Generator().manual_seed(0), "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(cfg, shape, 0, seed=1).items()}
+    loss, _, grads = step.make_grad_fn(cfg, shape, remat="full")(params, batch)
+    assert torch.isfinite(loss)
+    for path, g in base.tree_items(grads):
+        assert torch.isfinite(g).all(), base.keystr(path)

@@ -50,8 +50,9 @@ case:
 
 Each world also holds `copy_to`, `reduce_from`, `gather_from`,
 `fsdp.gather` and `vocab_nll` to one process (outputs and input
-gradients within 1e-6). In this process: the MoE, ssm and hybrid
-families refuse a model axis above 1, naming ROADMAP.md A.7d and A.7c.
+gradients within 1e-6). In this process: the MoE family refuses a model
+axis above 1, naming ROADMAP.md A.7d, and the ssm and hybrid families
+take it (their split training is tests/test_torch_tp_ssm_train.py's).
 And on a fake world of 4 ranks on `meta` (a subprocess): the counted
 argument bytes of a dense train step under (2, 2) equal its state
 shards' and its inputs' (and the scalars the step makes), and its
@@ -349,12 +350,35 @@ def test_autograd_collectives_equal_one_process(run, world):
         assert len(units) == 9 and max(units.values()) <= 1e-6, units
 
 
+class _GroupMesh(FakeMesh):
+    """A (data, model) mesh shape whose `group` names its axes."""
+
+    def group(self, axes):
+        return ("group", tuple(axes))
+
+    def size(self, axes):
+        return math.prod(self.shape[a] for a in axes)
+
+
 @pytest.mark.parametrize("arch,item", [("granite-moe-1b-a400m", "A.7d"),
-                                       ("mamba2-2.7b", "A.7c"), ("zamba2-2.7b", "A.7c")])
-def test_other_families_refuse_a_model_axis(arch, item):
+                                       ("mamba2-2.7b", None), ("zamba2-2.7b", None)])
+def test_moe_refuses_a_model_axis_and_ssm_and_hybrid_take_it(arch, item, monkeypatch):
+    """The MoE family refuses a model axis above 1, naming ROADMAP.md
+    A.7d; the ssm and hybrid families train under it: `_data_parallel`
+    gives the data group and this rank's rows (rank 1 of 2 data ranks)."""
     cfg = configs.smoke(arch)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md, {item}"):
-        step._data_parallel(cfg, FakeMesh({"data": 1, "model": 2}), {}, 1)
+    mesh = _GroupMesh({"data": 2, "model": 2})
+    batch = {"tokens": torch.arange(8 * 3).reshape(8, 3)}
+    if item:
+        with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md, {item}"):
+            step._data_parallel(cfg, mesh, batch, 2)
+        return
+    monkeypatch.setattr(step.dist, "get_rank", lambda group=None: 1)
+    group, rows = step._data_parallel(cfg, mesh, batch, 2)
+    assert group == ("group", ("data",))
+    # microbatch i of the global batch is rows [4 i, 4 i + 4); rank 1 takes
+    # the second half of each
+    assert torch.equal(rows["tokens"], batch["tokens"][[2, 3, 6, 7]])
 
 
 # -- counts on a fake world of 4 ranks, on meta ------------------------------
