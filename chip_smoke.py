@@ -223,7 +223,7 @@ Phases, each raising on failure (nothing is caught):
    every rank's parameter shards within 1e-5 of the largest |p| of the
    spec's slice of the unmeshed result where |g| stayed above 1e-6.
    Every count, the ranks' too, must stay 0. (n) The ssm and hybrid
-   families served split over a model axis of 2, last
+   families served split over a model axis of 2
    (`parallel/tensor.py`, `layers/mamba2.py`): two `chip_smoke.py
    --tp-ssm-child` ranks on the one card in a gloo world under a (1, 2)
    mesh and the serving rules, each drawing the whole tree from the seed
@@ -242,7 +242,25 @@ Phases, each raising on failure (nothing is caught):
    prefill and 8 greedy steps within 1e-5 of the largest |logit| of
    unmeshed, tokens equal; and `ssd_scan` at a rank's shape (40 heads)
    against its plain version, timed beside its bound. The ranks'
-   launches join the `kernels` line's.
+   launches join the `kernels` line's. (o) The ssm and hybrid families
+   trained split over a (2, 2) (data, model) mesh: four `chip_smoke.py
+   --tp-ssm-train-child` ranks, mamba2-2.7b at full width cut to 8
+   layers and zamba2-2.7b to 6, 2 steps of 4 x 512 in bf16, and at 4
+   and 6 layers in fp32, held to unmeshed and to witnesses of the
+   split's roundings; the shared B, C and per-head copies bitwise equal.
+   (p) The MoE family split over the model axis, last (expert
+   parallelism, `layers/moe.py`): two `chip_smoke.py --tp-moe-child`
+   ranks serve granite-moe-1b-a400m as published (16 of its 32 experts
+   a rank, heads and kv heads split, the vocab whole) at 4 x 512 + 32
+   in bf16 through `Engine`, then the prefill and 8 greedy steps in
+   bf16 and in fp32; four `chip_smoke.py --tp-moe-train-child` ranks
+   train it on a (2, 2) mesh at full width (4 layers in bf16, 2 and 4 in
+   fp32); this process runs the same weights unmeshed: fp32 logits
+   within 1e-5 of the largest |logit| with the same routings and drops,
+   bf16 within the larger of 0.05 and 3 x a witness of the split's
+   roundings (the routings that differ counted), the training steps as
+   in (o), and the router's copies on the model ranks bitwise equal
+   after each step. Every count, the ranks' too, must stay 0.
    Every launch count is set to 0 just before a path runs and read just
    after it; each of the path's kernels must have launched.
 5. Times: CUDA events, median of 20 runs after warmup, per kernel (both
@@ -462,7 +480,7 @@ MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 512, 2
 # the serving rules, each rank a `chip_smoke.py --tp-child` process that draws
 # the whole tree from the seed leaf by leaf and keeps its shards. (a)
 # qwen1.5-4b at full width, cut to TP_SERVED_LAYERS of its 40 layers (to
-# keep the script inside its time once phase 4(o) joined it), 4 x 512 + 32
+# keep the script inside its time once phases 4(o) and 4(p) joined it), 4 x 512 + 32
 # in bf16 through `Engine`: heads and
 # kv heads split, the cache by kv heads; (b) gemma-2b at full width, 4 x 512 +
 # 8: its one kv head does not divide 2, so the cache goes by positions, decode
@@ -478,7 +496,7 @@ MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 512, 2
 # tokens equal.
 TP_RANKS, TP_TIMEOUT_S = 2, 600
 TP_SERVED = (("a", DENSE_ARCH, DENSE_NEW), ("b", "gemma-2b", DENSE_OTHER_NEW))
-TP_SERVED_LAYERS = {DENSE_ARCH: 10}      # else as published
+TP_SERVED_LAYERS = {DENSE_ARCH: 6}       # else as published
 TP_FP32_LAYERS, TP_FP32_STEPS = 4, 8
 TP_BF16_RTOL, TP_FP32_RTOL = 0.05, 1e-5
 # Phase 4(m), dense training under a model axis above 1 with FSDP over
@@ -563,8 +581,9 @@ TP_SSM_WITNESS = 3.0
 # backward, in either package), so every kernel count, the ranks' too,
 # must stay 0. After the ranks have exited this process runs the same
 # steps unmeshed from the same seed on the same batches. (a) mamba2-2.7b
-# as published and (b) zamba2-2.7b at full width cut to 12 mixers (2
-# shared sites), bf16: losses and grad norms within the larger of
+# at full width cut to 8 of its 64 mixers and (b) zamba2-2.7b at full
+# width cut to 6 mixers (1 shared site; the depths cut to keep the script
+# inside its time once phase 4(p) joined it), bf16: losses and grad norms within the larger of
 # TP_TRAIN_LOSS_RTOL / TP_TRAIN_GNORM_RTOL and TP_SSM_WITNESS x a witness,
 # read in this run from the same weights unmeshed with the roundings the
 # split adds (`_one_rounding_more`: out_proj's contraction, in_proj's
@@ -595,9 +614,53 @@ TP_SSM_WITNESS = 3.0
 # norms stay within 1e-5. And the copies that ranks share bitwise equal:
 # the B and C columns of in_proj and channels of the conv on the two
 # model ranks of each data coordinate, the per-head vectors on all four.
-TP_SSM_TRAIN_CASES = {"a": ("mamba2-2.7b", None, "bfloat16"), "b": (HYBRID_ARCH, 12, "bfloat16"),
+TP_SSM_TRAIN_CASES = {"a": ("mamba2-2.7b", 8, "bfloat16"), "b": (HYBRID_ARCH, 6, "bfloat16"),
                       "ca": ("mamba2-2.7b", 4, "float32"), "cb": (HYBRID_ARCH, 6, "float32")}
 TP_SSM_TRAIN_MEMORY = 0.225      # of the card a rank may take (4 x 17.8 GiB of 79.2)
+# Phase 4(p), the MoE family served and trained under a model axis above 1:
+# expert parallelism (`layers/moe.py`, `parallel/{tensor,fsdp}.py`). Every
+# rank of a model group routes all of its data shard's tokens from the
+# replicated input, so the capacity and the kept pairs are the unmeshed
+# layer's; it runs its own experts' rows and the partial outputs are summed
+# over the group. granite-moe-1b-a400m as published: 16 of its 32 experts a
+# rank, its 16 heads and 8 kv heads split (the KV cache by kv heads), its
+# 49,155-entry tied vocab whole (a recorded fallback). Serving: two
+# `chip_smoke.py --tp-moe-child` ranks on the one card in a gloo world
+# under a (1, 2) cuda mesh and the serving rules, each drawing the whole
+# tree from the seed leaf by leaf and keeping its shards: (a) 24 layers in
+# bf16 through `Engine` at 4 x 512 + 32, then the prefill and
+# TP_MOE_STEPS greedy decode steps with their logits, routings and the
+# share of routed pairs dropped (capacity 640 at prefill, 1 at decode); (b)
+# the same in fp32 with TF32 off. This process then runs the same weights
+# unmeshed, decoding the split's tokens: in fp32 every step's logits within
+# TP_FP32_RTOL of the largest |logit|, the greedy tokens, the routings and
+# the dropped shares equal (the dispatch is the same); in bf16 within the
+# larger of TP_BF16_RTOL and TP_MOE_WITNESS times a witness, the same
+# weights unmeshed with the roundings the split adds
+# (`_moe_split_roundings`: attention's output contraction and the experts
+# in two halves, each rounded and then added, as the two ranks take them),
+# and the routings that differ counted (a near-tie in the router may flip
+# under other roundings). Training: four `chip_smoke.py --tp-moe-train-child`
+# ranks under a (2, 2) (data, model) cuda mesh and the trainer's rules,
+# `trainer.run` at the train path's shape (4 x 512 in 2 microbatches,
+# remat full, AdamW, 2 steps): the experts over "model", every d over
+# "data" (the router's too). (a) bf16 at TP_MOE_TRAIN_CASES' depth (the
+# full width; the depth cut to keep the script inside its time): losses
+# and grad norms within the larger of the dense bounds and TP_MOE_WITNESS
+# x the witness's distance from unmeshed; (ca), (cb) fp32 (TF32 off) at 2
+# and 4 layers: losses and grad norms within TP_TRAIN_FP32_RTOL, every
+# rank's shards within the larger of TP_TRAIN_FP32_RTOL and TP_MOE_WITNESS
+# x the witness's distance of the largest |p| where |g| stayed above
+# EPS_REGIME, within 2 lr elsewhere (the witness keeps the microbatches
+# whole: a MoE layer's capacity is its global microbatch's, so halves
+# would drop other pairs). The router, whole over "model", must be bitwise
+# equal on the two model ranks of each data coordinate after each step.
+# The MoE path reaches no kernel, as the reference's reaches no Pallas
+# kernel: every count, the ranks' too, must stay 0.
+TP_MOE_STEPS, TP_MOE_WITNESS = 8, 3.0
+TP_MOE_TRAIN_CASES = {"a": (MOE_ARCH, 4, "bfloat16"), "ca": (MOE_ARCH, 2, "float32"),
+                      "cb": (MOE_ARCH, 4, "float32")}
+TP_MOE_TRAIN_MEMORY = 0.2        # of the card a rank may take
 
 
 def _smi(query: str) -> str:
@@ -2247,7 +2310,6 @@ def _moe_path(dev, wrappers, reset_launches, smi) -> None:
     import dataclasses
     import gc
     import math
-    from unittest import mock
     import numpy as np
     import torch
     from repro_torch import configs
@@ -2292,24 +2354,10 @@ def _moe_path(dev, wrappers, reset_launches, smi) -> None:
         del w8
 
     # routings and dispatch, recorded through the layer's two steps
-    seen = {"route": [], "dispatch": []}
-
-    def recorder(name, fn):
-        def call(*args, **kw):
-            out = fn(*args, **kw)
-            seen[name].append(out)
-            return out
-        return call
-
     def recorded(fn):
-        for v in seen.values():
-            v.clear()
-        with mock.patch.object(moe, "route", recorder("route", moe.route)), \
-                mock.patch.object(moe, "dispatch", recorder("dispatch", moe.dispatch)):
+        with _moe_recorded() as seen:
             out = fn()
-        dropped = sum(int((~d[3]).sum()) for d in seen["dispatch"])
-        pairs = sum(d[3].numel() for d in seen["dispatch"])
-        return out, [torch.sort(r[3], dim=-1).values for r in seen["route"]], dropped / pairs
+        return out, seen["ids"], float((~torch.cat(seen["keep"])).float().mean())
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     B, P = prompts.shape
@@ -3450,12 +3498,7 @@ def _tp_train_path(dev, wrappers, reset_launches, smi) -> None:
     import gc
     import shutil
     import torch
-    from repro_torch.data.pipeline import make_batch
     from repro_torch.models import base
-    from repro_torch.optim import adamw
-    from repro_torch.parallel import sharding as shd
-    from repro_torch.parallel import tensor
-    from repro_torch.train import step as step_lib
     from repro_torch.train import trainer
 
     gc.collect()
@@ -3508,37 +3551,14 @@ def _tp_train_path(dev, wrappers, reset_launches, smi) -> None:
     # (b) fp32, TF32 off, TP_TRAIN_FP32_LAYERS layers: the unmeshed steps with
     # each element's smallest |g|, then every rank's shards
     cfg, shape, oc, kw = _tp_train_setup(fp32=True)
-    state = base.tree_init(step_lib.abstract_state(cfg),
-                           torch.Generator(device=dev).manual_seed(SEED), dev)
-    grad_fn = step_lib.make_grad_fn(cfg, shape, remat="full")
-    losses, norms, gmin = [], [], None
-    for i in range(TP_TRAIN_STEPS):
-        batch = _on(make_batch(cfg, shape, i, seed=trainer.TrainerConfig().data_seed), dev)
-        loss, _, grads = grad_fn(state["params"], batch)
-        g = [t.abs() for _, t in base.tree_items(grads)]
-        gmin = g if gmin is None else [torch.minimum(a, b) for a, b in zip(gmin, g)]
-        _, _, m = adamw.apply_updates(state["params"], grads, state["opt"], oc)
-        losses.append(loss.item())
-        norms.append(m["grad_norm"].item())
-        del grads, g
+    state, losses, norms, gmin = _fp32_steps(cfg, shape, oc, dev)
     lrel = max(rel(rec["cases"]["b"]["loss"], losses) for rec in ranks)
     grel = max(rel(rec["cases"]["b"]["grad_norm"], norms) for rec in ranks)
     scale = max(t.abs().max().item() for _, t in base.tree_items(state["params"]))
-    infos = dict(base.tree_items(step_lib.abstract_state(cfg)["params"]))
-    worst, worst_any, n_sure, n_all = 0.0, 0.0, 0, 0
-    for r, rec in enumerate(ranks):
-        shards = torch.load(root / f"rank{r}_b.pt")
-        mesh = _Coordinate(dict(zip(("data", "model"), TP_TRAIN_RANKS)),
-                           rec["cases"]["b"]["coordinate"])
-        with shd.use_mesh(mesh, tensor.training_rules(mesh)):
-            for (path, whole), gm in zip(base.tree_items(state["params"]), gmin):
-                want = tensor.shard_leaf(infos[path], whole, tensor.TRAIN_AXES)
-                sure = tensor.shard_leaf(infos[path], gm, tensor.TRAIN_AXES) > EPS_REGIME
-                d = (shards[base.keystr(path)].to(dev) - want).abs()
-                worst = max(worst, d[sure].max().item() if sure.any() else 0.0)
-                worst_any = max(worst_any, d.max().item())
-                n_sure, n_all = n_sure + int(sure.sum()), n_all + sure.numel()
-        del shards
+    shards = [torch.load(root / f"rank{r}_b.pt") for r in range(n_ranks)]
+    worst, worst_any, n_sure, n_all = _shard_errors(
+        cfg, state, gmin, shards, [rec["cases"]["b"]["coordinate"] for rec in ranks], dev)
+    del shards
     print(f"[4 {tag}] (b) {TRAIN_ARCH} {TP_TRAIN_FP32_LAYERS} layers fp32 (TF32 off) unmeshed: "
           f"losses {', '.join(f'{v:.7f}' for v in losses)}, grad norms "
           f"{', '.join(f'{v:.7f}' for v in norms)}; split over 2x2 vs unmeshed: losses within "
@@ -3553,7 +3573,7 @@ def _tp_train_path(dev, wrappers, reset_launches, smi) -> None:
     if not (lrel <= TP_TRAIN_FP32_RTOL and grel <= TP_TRAIN_FP32_RTOL
             and worst <= TP_TRAIN_FP32_RTOL * scale and worst_any <= 2 * oc.lr):
         raise AssertionError("the split fp32 training steps differ from unmeshed")
-    del state, gmin, grad_fn
+    del state, gmin
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3987,6 +4007,66 @@ def _one_rounding_more():
         m2._out, m2._project, emb.lm_head = saved
 
 
+def _fp32_steps(cfg, shape, oc, dev):
+    """The unmeshed train steps (TP_TRAIN_STEPS of them, remat full) from
+    the seed's state on the trainer's batches: (state, losses, grad norms,
+    each parameter element's smallest |g| over the steps)."""
+    import torch
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import base
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+    from repro_torch.train import trainer
+    state = base.tree_init(step_lib.abstract_state(cfg),
+                           torch.Generator(device=dev).manual_seed(SEED), dev)
+    grad_fn = step_lib.make_grad_fn(cfg, shape, remat="full")
+    losses, norms, gmin = [], [], None
+    for i in range(TP_TRAIN_STEPS):
+        batch = _on(make_batch(cfg, shape, i, seed=trainer.TrainerConfig().data_seed), dev)
+        loss, _, grads = grad_fn(state["params"], batch)
+        g = [t.abs() for _, t in base.tree_items(grads)]
+        gmin = g if gmin is None else [torch.minimum(a, b) for a, b in zip(gmin, g)]
+        _, _, m = adamw.apply_updates(state["params"], grads, state["opt"], oc)
+        losses.append(loss.item())
+        norms.append(m["grad_norm"].item())
+        del grads, g
+    return state, losses, norms, gmin
+
+
+def _held_rel(state, other, gmin) -> float:
+    """The largest |difference| of two states' parameters where |g| stayed
+    above EPS_REGIME."""
+    from repro_torch.models import base
+    return max(((a - b).abs()[gm > EPS_REGIME].max().item() if (gm > EPS_REGIME).any()
+                else 0.0) for (_, a), (_, b), gm in zip(
+        base.tree_items(state["params"]), base.tree_items(other["params"]), gmin))
+
+
+def _shard_errors(cfg, state, gmin, shards: list, coordinates: list, dev) -> tuple:
+    """Every rank's parameter shards ({keystr: tensor}, at its (data,
+    model) coordinate of TP_TRAIN_RANKS) against the slices of the whole
+    `state` that the trainer's rules give it: (the largest |difference|
+    where |g| stayed above EPS_REGIME, the largest anywhere, the elements
+    held so, all elements)."""
+    from repro_torch.models import base
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor
+    from repro_torch.train import step as step_lib
+    infos = dict(base.tree_items(step_lib.abstract_state(cfg)["params"]))
+    worst, worst_any, n_sure, n_all = 0.0, 0.0, 0, 0
+    for shard, coordinate in zip(shards, coordinates):
+        mesh = _Coordinate(dict(zip(("data", "model"), TP_TRAIN_RANKS)), coordinate)
+        with shd.use_mesh(mesh, tensor.training_rules(mesh)):
+            for (path, whole), gm in zip(base.tree_items(state["params"]), gmin):
+                want = tensor.shard_leaf(infos[path], whole, tensor.TRAIN_AXES)
+                sure = tensor.shard_leaf(infos[path], gm, tensor.TRAIN_AXES) > EPS_REGIME
+                d = (shard[base.keystr(path)].to(dev) - want).abs()
+                worst = max(worst, d[sure].max().item() if sure.any() else 0.0)
+                worst_any = max(worst_any, d.max().item())
+                n_sure, n_all = n_sure + int(sure.sum()), n_all + sure.numel()
+    return worst, worst_any, n_sure, n_all
+
+
 def _tp_ssm_train_path(dev, wrappers, reset_launches, smi) -> None:
     """Phase 4(o): the ssm and hybrid families trained split over a (2, 2)
     (data, model) mesh on the card (the constants' comment above
@@ -3999,12 +4079,7 @@ def _tp_ssm_train_path(dev, wrappers, reset_launches, smi) -> None:
     import gc
     import shutil
     import torch
-    from repro_torch.data.pipeline import make_batch
     from repro_torch.models import base
-    from repro_torch.optim import adamw
-    from repro_torch.parallel import sharding as shd
-    from repro_torch.parallel import tensor
-    from repro_torch.train import step as step_lib
     from repro_torch.train import trainer
 
     gc.collect()
@@ -4077,50 +4152,22 @@ def _tp_ssm_train_path(dev, wrappers, reset_launches, smi) -> None:
     # (c) fp32, TF32 off: the unmeshed steps with each element's smallest |g|,
     # and the witness's; then every rank's shards, and the copies that ranks
     # share
-    def fp32_steps(cfg, shape, oc):
-        state = base.tree_init(step_lib.abstract_state(cfg),
-                               torch.Generator(device=dev).manual_seed(SEED), dev)
-        grad_fn = step_lib.make_grad_fn(cfg, shape, remat="full")
-        losses, norms, gmin = [], [], None
-        for i in range(TP_TRAIN_STEPS):
-            batch = _on(make_batch(cfg, shape, i, seed=trainer.TrainerConfig().data_seed), dev)
-            loss, _, grads = grad_fn(state["params"], batch)
-            g = [t.abs() for _, t in base.tree_items(grads)]
-            gmin = g if gmin is None else [torch.minimum(a, b) for a, b in zip(gmin, g)]
-            _, _, m = adamw.apply_updates(state["params"], grads, state["opt"], oc)
-            losses.append(loss.item())
-            norms.append(m["grad_norm"].item())
-            del grads, g
-        return state, losses, norms, gmin
-
     for label in ("ca", "cb"):
         cfg, shape, oc, kw = _tp_ssm_train_setup(label)
         with _one_rounding_more():
-            wstate = fp32_steps(cfg, dataclasses.replace(shape, accum=2 * shape.accum), oc)[0]
-        state, losses, norms, gmin = fp32_steps(cfg, shape, oc)
+            wstate = _fp32_steps(cfg, dataclasses.replace(shape, accum=2 * shape.accum), oc,
+                                 dev)[0]
+        state, losses, norms, gmin = _fp32_steps(cfg, shape, oc, dev)
         got = [rec["cases"][label] for rec in ranks]
         lrel = max(rel(c["loss"], losses) for c in got)
         grel = max(rel(c["grad_norm"], norms) for c in got)
         scale = max(t.abs().max().item() for _, t in base.tree_items(state["params"]))
-        witness = max(((a - b).abs()[gm > EPS_REGIME].max().item() if (gm > EPS_REGIME).any()
-                       else 0.0) for (_, a), (_, b), gm in zip(
-            base.tree_items(state["params"]), base.tree_items(wstate["params"]), gmin)) / scale
+        witness = _held_rel(state, wstate, gmin) / scale
         bound = max(TP_TRAIN_FP32_RTOL, TP_SSM_WITNESS * witness)
         del wstate
-        infos = dict(base.tree_items(step_lib.abstract_state(cfg)["params"]))
         shards = [torch.load(root / f"rank{r}_{label}.pt") for r in range(n_ranks)]
-        worst, worst_any, n_sure, n_all = 0.0, 0.0, 0, 0
-        for r, rec in enumerate(ranks):
-            mesh = _Coordinate(dict(zip(("data", "model"), TP_TRAIN_RANKS)),
-                               rec["cases"][label]["coordinate"])
-            with shd.use_mesh(mesh, tensor.training_rules(mesh)):
-                for (path, whole), gm in zip(base.tree_items(state["params"]), gmin):
-                    want = tensor.shard_leaf(infos[path], whole, tensor.TRAIN_AXES)
-                    sure = tensor.shard_leaf(infos[path], gm, tensor.TRAIN_AXES) > EPS_REGIME
-                    d = (shards[r][base.keystr(path)].to(dev) - want).abs()
-                    worst = max(worst, d[sure].max().item() if sure.any() else 0.0)
-                    worst_any = max(worst_any, d.max().item())
-                    n_sure, n_all = n_sure + int(sure.sum()), n_all + sure.numel()
+        worst, worst_any, n_sure, n_all = _shard_errors(
+            cfg, state, gmin, shards, [rec["cases"][label]["coordinate"] for rec in ranks], dev)
         # the shared copies: B and C (the one group, G = 1) on both model
         # ranks of a data coordinate; the per-head vectors on every rank
         di, N = cfg.d_inner // TP_TRAIN_RANKS[1], cfg.ssm_state
@@ -4245,6 +4292,535 @@ def _tp_ssm_train_child(rank: int, root: Path, device: str) -> int:
                 torch.save({base.keystr(p): t.cpu() for p, t in
                             base.tree_items(state["params"])}, root / f"rank{rank}_{label}.pt")
             del state, hist
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec["launches"] = _rank_launches()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    (root / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+@contextlib.contextmanager
+def _moe_recorded():
+    """Within: each MoE layer's routing (every token's expert ids, sorted)
+    and its dispatch's kept pairs, appended to the lists yielded."""
+    from unittest import mock
+    import torch
+    from repro_torch.layers import moe
+    seen = {"ids": [], "keep": []}
+    route, dispatch = moe.route, moe.dispatch
+
+    def routed(*args, **kw):
+        out = route(*args, **kw)
+        seen["ids"].append(torch.sort(out[3], dim=-1).values)
+        return out
+
+    def dispatched(*args, **kw):
+        out = dispatch(*args, **kw)
+        seen["keep"].append(out[3])
+        return out
+
+    with mock.patch.object(moe, "route", routed), mock.patch.object(moe, "dispatch", dispatched):
+        yield seen
+
+
+@contextlib.contextmanager
+def _moe_split_roundings():
+    """Within: every attention layer takes its output contraction in two
+    halves of its heads, each rounded to the compute dtype and then added,
+    and every MoE block runs its two halves of the experts apart through
+    the expert-parallel path of `layers/moe.py` (rank 0's, then rank 1's,
+    the group's collectives left out) and adds their partial outputs, the
+    aux losses taken once: the roundings and orders of sums that a split
+    over two model ranks adds, unmeshed (phase 4(p)'s witness). granite's
+    vocab does not divide 2, so its embedding and head stay whole, as in
+    the split."""
+    from unittest import mock
+    import torch
+    from repro_torch.layers import attention as attn
+    from repro_torch.layers import moe as moe_lib
+    from repro_torch.layers.common import wx
+    real = moe_lib.moe
+
+    def out(p, ctx, x, group):
+        B, Hl, S, hd = ctx.shape
+        ctx = ctx.transpose(1, 2).reshape(B, S, Hl * hd)
+        w, k = wx(p["wo"], x.dtype).reshape(Hl * hd, x.shape[-1]), Hl * hd // 2
+        return torch.matmul(ctx[..., :k], w[:k]) + torch.matmul(ctx[..., k:], w[k:])
+
+    def moe(cfg, p, x, *, capacity_factor=1.25, group=None):
+        half, parts, aux = p["wi"].shape[-3] // 2, [], None
+        for r in range(2):
+            shard = dict(p, **{k: p[k][r * half:(r + 1) * half] for k in ("wi", "wg", "wo")})
+            with mock.patch.object(moe_lib.dist, "get_rank", lambda group=None, r=r: r), \
+                    mock.patch.object(moe_lib.tensor, "copy_to", lambda t, g: t), \
+                    mock.patch.object(moe_lib.tensor, "reduce_from", lambda t, g: t):
+                y, a = real(cfg, shard, x, capacity_factor=capacity_factor, group="witness")
+            parts.append(y)
+            aux = aux or a
+        return parts[0] + parts[1], aux
+
+    with mock.patch.object(attn, "_out", out), mock.patch.object(moe_lib, "moe", moe):
+        yield
+
+
+def _moe_steps(cfg, params, prompts, steps: int, dev, tokens=None) -> dict:
+    """Prefill and `steps` decode steps on `params` (whole, or this rank's
+    shards under the active mesh), each step fed the greedy token of the
+    step before, or column i of `tokens` (B, steps + 1) at step i: every
+    step's logits (fp32), the greedy tokens, each layer's routing (sorted
+    expert ids) at prefill and at each step, and the share of routed pairs
+    dropped at prefill and over the decode steps."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api, base
+    from repro_torch.parallel import tensor
+    B, P = prompts.shape
+    cache = base.tree_init(tensor.local_tree(cfg, api.abstract_cache(
+        cfg, B, tensor.cache_len(cfg, P + steps + 8))), torch.Generator(device=dev), dev)
+    logits, greedy, ids, keep = [], [], [], []
+    pos = torch.full((B,), P, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        with _moe_recorded() as seen:
+            out, cache = api.prefill(cfg, params, {"tokens": torch.as_tensor(
+                prompts, device=dev).long()}, cache)
+        prefill = (torch.stack(seen["ids"]).cpu().numpy().astype(np.uint8),
+                   torch.cat(seen["keep"]))
+        for i in range(steps + 1):
+            tok = torch.argmax(out, dim=-1)
+            logits.append(out.float().cpu().numpy())
+            greedy.append(tok.cpu().numpy())
+            if i == steps:
+                break
+            feed = tok if tokens is None else torch.as_tensor(tokens[:, i], device=dev)
+            with _moe_recorded() as seen:
+                out, cache = api.decode_step(cfg, params, feed[:, None].long(), pos, cache)
+            ids.append(torch.stack(seen["ids"]).cpu().numpy().astype(np.uint8))
+            keep.append(torch.cat(seen["keep"]))
+            pos = pos + 1
+    keep = torch.cat(keep)
+    return {"logits": np.stack(logits), "tokens": np.stack(greedy, axis=1),
+            "ids_prefill": prefill[0], "ids_decode": np.stack(ids),
+            "drop_prefill": float((~prefill[1]).float().mean()),
+            "drop_decode": float((~keep).float().mean())}
+
+
+def _tp_moe_path(dev, wrappers, reset_launches, smi) -> None:
+    """Phase 4(p): granite-moe-1b-a400m served split over a model axis of 2
+    and trained split over a (2, 2) (data, model) mesh on the card (the
+    constants' comment above `TP_MOE_STEPS`). The ranks run first, while
+    this process holds nothing; then this process runs the same weights
+    and steps unmeshed, and the witnesses, and holds the ranks' results to
+    them. The MoE path reaches no TPU kernel: every count, the ranks' too,
+    must stay 0."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.layers import moe
+    from repro_torch.models import api, base
+    from repro_torch.train import trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag = "tp moe path"
+    reset_launches()
+    root = ROOT / "build" / "tp_moe_path"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "serve").mkdir(parents=True)
+    (root / "train").mkdir()
+    print(f"[4 {tag}] this process holds {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+          f"allocated, {torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved, while the "
+          "ranks run")
+    served = _run_ranks("--tp-moe-child", TP_RANKS, root / "serve", dev,
+                        "MoE expert-parallel serving")
+    n_ranks = math.prod(TP_TRAIN_RANKS)
+    trained = _run_ranks("--tp-moe-train-child", n_ranks, root / "train", dev,
+                         "MoE expert-parallel training")
+    arrays = [dict(np.load(root / "serve" / f"rank{r}.npz")) for r in range(TP_RANKS)]
+    for r, rec in enumerate(served):
+        for label, c in rec["cases"].items():
+            print(f"[4 {tag}] serving rank {r} ({label}) {c['arch']} {c['dtype']}: parameters "
+                  f"{c['param_bytes'] / 1e9:.3f} GB a rank (experts {c['experts']}), KV cache "
+                  f"{c['cache_bytes'] / 1e9:.4f} GB; dropped shares: prefill "
+                  f"{c['drop_prefill']:.4f}, decode {c['drop_decode']:.4f}")
+    for r, rec in enumerate(trained):
+        for label, c in rec["cases"].items():
+            print(f"[4 {tag}] training rank {r} {c['coordinate']} ({label}): state "
+                  f"{c['state_bytes'] / 1e9:.3f} GB, peak {c['peak_bytes'] / 1e9:.2f} GB "
+                  f"allocated, steps {', '.join(f'{v:.2f}' for v in c['step_s'])} s, losses "
+                  f"{', '.join(f'{v:.6f}' for v in c['loss'])}, grad norms "
+                  f"{', '.join(f'{v:.6f}' for v in c['grad_norm'])}")
+    out = {"serve": served, "train": trained}
+
+    # serving: (a) bf16 and (b) fp32 unmeshed on the split's tokens
+    for label, dtype in (("a", "bfloat16"), ("b", "float32")):
+        cfg = _tp_config(MOE_ARCH, dtype)
+        prompts = _tp_prompts(cfg.vocab, DENSE_BATCH, DENSE_PROMPT)
+        split = {k[2:]: v for k, v in arrays[0].items() if k.startswith(f"{label}/")}
+        with torch.inference_mode():
+            params = base.tree_init(api.abstract_params(cfg),
+                                    torch.Generator(device=dev).manual_seed(SEED), dev)
+        want = _moe_steps(cfg, params, prompts, TP_MOE_STEPS, dev, tokens=split["tokens"])
+        wit = None
+        if dtype == "bfloat16":
+            with _moe_split_roundings():
+                wit = _moe_steps(cfg, params, prompts, TP_MOE_STEPS, dev, tokens=split["tokens"])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        scale = float(np.abs(want["logits"]).max())
+        errs = [float(np.abs(a[f"{label}/logits"] - want["logits"]).max()) for a in arrays]
+        same = all(np.array_equal(a[f"{label}/{k}"], arrays[0][f"{label}/{k}"])
+                   for a in arrays for k in ("logits", "tokens"))
+        flips = sum(int((split[k] != want[k]).any(-1).sum()) for k in ("ids_prefill",
+                                                                        "ids_decode"))
+        routings = sum(want[k].size // cfg.experts_per_token for k in ("ids_prefill",
+                                                                       "ids_decode"))
+        tokens_equal = int((split["tokens"] == want["tokens"]).sum())
+        caps = [moe.capacity(n, cfg.experts_per_token, cfg.n_experts)
+                for n in (DENSE_BATCH * DENSE_PROMPT, DENSE_BATCH)]
+        drops = {k: (served[0]["cases"][label][k], want[k]) for k in ("drop_prefill",
+                                                                      "drop_decode")}
+        if wit is None:
+            bound, witness = TP_FP32_RTOL, None
+            held = (max(errs) <= bound * scale and flips == 0
+                    and tokens_equal == want["tokens"].size
+                    and all(a == b for a, b in drops.values()))
+        else:
+            witness = float(np.abs(wit["logits"] - want["logits"]).max()) / scale
+            bound = max(TP_BF16_RTOL, TP_MOE_WITNESS * witness)
+            held = max(errs) <= bound * scale
+        print(f"[4 {tag}] ({label}) {MOE_ARCH} {cfg.n_layers} layers {dtype}, prefill "
+              f"{DENSE_BATCH}x{DENSE_PROMPT} + {TP_MOE_STEPS} decode steps split over 2 ranks "
+              f"vs unmeshed (fed the split's tokens): logits max |diff| "
+              f"{', '.join(f'{e:.4g}' for e in errs)} (ranks 0, 1) of the largest |logit| "
+              f"{scale:.4g}: {max(errs) / scale:.4g} (bound {bound:.4g}"
+              + ("" if witness is None else f": the larger of {TP_BF16_RTOL} and "
+                 f"{TP_MOE_WITNESS:g} x the witness's {witness:.4g}")
+              + f"); {flips} of {routings} (token, layer) routings differ; greedy tokens "
+              f"{tokens_equal} of {want['tokens'].size} equal; dropped at prefill "
+              f"{drops['drop_prefill'][0]:.4f} split, {drops['drop_prefill'][1]:.4f} unmeshed "
+              f"(capacity {caps[0]}), at decode {drops['drop_decode'][0]:.4f} split, "
+              f"{drops['drop_decode'][1]:.4f} unmeshed (capacity {caps[1]}); ranks' logits "
+              f"and tokens bitwise equal: {same}")
+        out[label] = {"max_abs": errs, "logit_scale": scale, "bound_rel": bound,
+                      "witness_rel": witness, "routings_differ": flips,
+                      "routings": routings, "tokens_equal": tokens_equal, "drops": drops}
+        if not (held and same):
+            raise AssertionError(f"{MOE_ARCH} {dtype}: the split serving differs from "
+                                 "unmeshed, or the ranks differ")
+        del want, wit
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    def routers_equal(label) -> bool:
+        """The router's copies on the model ranks of each data coordinate,
+        after each step, bitwise equal."""
+        by_data: dict = {}
+        for r, rec in enumerate(trained):
+            copies = torch.load(root / "train" / f"rank{r}_{label}_router.pt")
+            by_data.setdefault(rec["cases"][label]["coordinate"]["data"], []).append(copies)
+        return all(len(c) == TP_TRAIN_STEPS and all(torch.equal(a, b) for a, b in zip(c, cs[0]))
+                   for cs in by_data.values() for c in cs)
+
+    # training: (a) bf16 unmeshed from the same seed, and the witness
+    cfg, shape, oc, kw = _tp_moe_train_setup("a")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    hist = trainer.run(cfg, shape, oc, trainer.TrainerConfig(
+        ckpt_dir=str(root / "plain_a"), **kw), device=dev)[1]
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _moe_split_roundings():
+        wit = trainer.run(cfg, shape, oc, trainer.TrainerConfig(
+            ckpt_dir=str(root / "witness_a"), **kw), device=dev)[1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = [rec["cases"]["a"] for rec in trained]
+    lrel = max(rel(c["loss"], hist["loss"]) for c in got)
+    grel = max(rel(c["grad_norm"], hist["grad_norm"]) for c in got)
+    wl, wg = rel(wit["loss"], hist["loss"]), rel(wit["grad_norm"], hist["grad_norm"])
+    lbound = max(TP_TRAIN_LOSS_RTOL, TP_MOE_WITNESS * wl)
+    gbound = max(TP_TRAIN_GNORM_RTOL, TP_MOE_WITNESS * wg)
+    same = all(c["loss"] == got[0]["loss"] for c in got)
+    finite = all(math.isfinite(v) for c in got for v in c["loss"] + c["grad_norm"])
+    routers = routers_equal("a")
+    print(f"[4 {tag}] (train a) {MOE_ARCH} {cfg.n_layers} layers bf16, {TP_TRAIN_STEPS} steps "
+          f"of {shape.global_batch}x{shape.seq_len} in {shape.accum} microbatches unmeshed: "
+          f"{run_s:.1f} s, losses {', '.join(f'{v:.6f}' for v in hist['loss'])}, grad norms "
+          f"{', '.join(f'{v:.6f}' for v in hist['grad_norm'])}, peak {peak / 1e9:.1f} GB; the "
+          f"witness (the split's roundings): losses within {wl:.3g}, grad norms within "
+          f"{wg:.3g}; split over 2x2 vs unmeshed: losses within {lrel:.3g} relative (bound "
+          f"{lbound:.3g}: the larger of {TP_TRAIN_LOSS_RTOL} and {TP_MOE_WITNESS:g} x the "
+          f"witness), grad norms within {grel:.3g} (bound {gbound:.3g}); finite: {finite}; "
+          f"ranks' losses equal: {same}; the router's copies on the model ranks bitwise "
+          f"equal after each step: {routers}")
+    out["train a"] = {"loss": hist["loss"], "grad_norm": hist["grad_norm"],
+                      "step_s": hist["step_s"], "peak_bytes": peak, "loss_rel": lrel,
+                      "grad_norm_rel": grel, "witness_loss_rel": wl,
+                      "witness_grad_norm_rel": wg, "loss_bound": lbound,
+                      "grad_norm_bound": gbound, "routers_equal": routers}
+    if not (finite and lrel <= lbound and grel <= gbound and same and routers):
+        raise AssertionError(f"{MOE_ARCH}: the split bf16 training steps differ from "
+                             "unmeshed, or the router's copies differ")
+    del hist, wit
+
+    # (ca), (cb) fp32, TF32 off: the unmeshed steps and the witness's, then
+    # every rank's shards
+    for label in ("ca", "cb"):
+        cfg, shape, oc, kw = _tp_moe_train_setup(label)
+        # the same microbatches: a MoE layer's capacity is its microbatch's
+        with _moe_split_roundings():
+            wstate = _fp32_steps(cfg, shape, oc, dev)[0]
+        state, losses, norms, gmin = _fp32_steps(cfg, shape, oc, dev)
+        got = [rec["cases"][label] for rec in trained]
+        lrel = max(rel(c["loss"], losses) for c in got)
+        grel = max(rel(c["grad_norm"], norms) for c in got)
+        scale = max(t.abs().max().item() for _, t in base.tree_items(state["params"]))
+        witness = _held_rel(state, wstate, gmin) / scale
+        bound = max(TP_TRAIN_FP32_RTOL, TP_MOE_WITNESS * witness)
+        del wstate
+        shards = [torch.load(root / "train" / f"rank{r}_{label}.pt") for r in range(n_ranks)]
+        worst, worst_any, n_sure, n_all = _shard_errors(
+            cfg, state, gmin, shards, [rec["cases"][label]["coordinate"] for rec in trained],
+            dev)
+        routers = routers_equal(label)
+        print(f"[4 {tag}] (train {label}) {MOE_ARCH} {cfg.n_layers} layers fp32 (TF32 off) "
+              f"unmeshed: losses {', '.join(f'{v:.7f}' for v in losses)}, grad norms "
+              f"{', '.join(f'{v:.7f}' for v in norms)}; split over 2x2 vs unmeshed: losses "
+              f"within {lrel:.3g} relative, grad norms within {grel:.3g} (bound "
+              f"{TP_TRAIN_FP32_RTOL}); every rank's parameter shards after {TP_TRAIN_STEPS} "
+              f"steps within {worst / scale:.3g} of the largest |p| {scale:.4g} where |g| "
+              f"stayed above {EPS_REGIME} ({n_sure / n_all:.4f} of the elements; bound "
+              f"{bound:.3g}: the larger of {TP_TRAIN_FP32_RTOL} and {TP_MOE_WITNESS:g} x the "
+              f"witness's {witness:.3g}), {worst_any:.3g} elsewhere (bound 2 lr "
+              f"{2 * oc.lr:.3g}); the router's copies on the model ranks bitwise equal after "
+              f"each step: {routers}")
+        out[f"train {label}"] = {"loss": losses, "grad_norm": norms, "loss_rel": lrel,
+                                 "grad_norm_rel": grel, "param_err_of_max": worst / scale,
+                                 "param_err_any": worst_any, "witness_param_err_of_max": witness,
+                                 "param_bound": bound, "share_held": n_sure / n_all,
+                                 "routers_equal": routers}
+        if not (lrel <= TP_TRAIN_FP32_RTOL and grel <= TP_TRAIN_FP32_RTOL and routers
+                and worst <= bound * scale and worst_any <= 2 * oc.lr):
+            raise AssertionError(f"{MOE_ARCH}: the split fp32 training steps differ from "
+                                 "unmeshed, or the router's copies differ")
+        del state, gmin, shards
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    counts = {name: w.launches for name, w in wrappers.items()}
+    children = [rec["launches"] for rec in served + trained]
+    print(f"[4 {tag}] launches {counts}, ranks {children} (the MoE path reaches no TPU "
+          f"kernel)")
+    if any(counts.values()) or any(any(c.values()) for c in children):
+        raise AssertionError("a kernel launched on the MoE expert-parallel path")
+    seconds = time.perf_counter() - t_phase
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[4 {tag}] phase {seconds:.1f} s")
+    print(json.dumps({"tp_moe": out, "phase_s": seconds, "device": _device_name(dev),
+                      "power": smi}))
+
+
+def _tp_moe_child(rank: int, root: Path, device: str) -> int:
+    """`chip_smoke.py --tp-moe-child RANK DIR DEVICE`, one of phase 4(p)'s two
+    serving ranks, on the parent's DEVICE (both on the one card): a gloo
+    world over a `FileStore` in DIR, a (1, 2) mesh under the serving rules,
+    (a) a bf16 generate through `Engine` and the bf16 steps, (b) the fp32
+    steps, on this rank's shards; writes DIR/rank<RANK>.{json,npz}."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import api, base
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lead = rank == 0
+    dist.init_process_group("gloo", store=dist.FileStore(str(root / "store"), TP_RANKS),
+                            rank=rank, world_size=TP_RANKS)
+    rec, arrays = {"cases": {}}, {}
+    try:
+        mesh = make_mesh_compat((1, TP_RANKS), ("data", "model"), device=dev.type)
+        if lead:
+            print(f"[4 tp moe path] {mesh}, backend {dist.get_backend()}, world "
+                  f"{dist.get_world_size()}, both ranks on {_device_name(dev)}")
+        _rank_launches(reset=True)
+        for label, dtype in (("a", "bfloat16"), ("b", "float32")):
+            cfg = _tp_config(MOE_ARCH, dtype)
+            prompts = _tp_prompts(cfg.vocab, DENSE_BATCH, DENSE_PROMPT)
+            with shd.use_mesh(mesh, tensor.serving_rules()):
+                t0 = time.perf_counter()
+                params = _tp_shards(cfg, dev)
+                fallbacks = shd.fallbacks()
+                torch.cuda.synchronize(dev)
+                c = {"arch": cfg.name, "dtype": dtype, "init_s": time.perf_counter() - t0,
+                     "param_bytes": _tree_bytes(params),
+                     "experts": list(params["layers"]["moe"]["wi"].shape),
+                     "fallbacks": [list(f) for f in fallbacks]}
+                sc = ServeConfig(max_len=DENSE_PROMPT + DENSE_NEW + 8, max_new_tokens=DENSE_NEW)
+                cache_info = tensor.local_tree(cfg, api.abstract_cache(
+                    cfg, DENSE_BATCH, tensor.cache_len(cfg, sc.max_len)))
+                c.update({"cache_bytes": sum(i.dtype.itemsize * math.prod(i.shape)
+                                             for _, i in base.tree_items(cache_info)),
+                          "cache_shape": list(cache_info["k"].shape)})
+                if label == "a":
+                    engine = Engine(cfg, params, sc, device=dev)
+                    engine.generate(prompts[:, :16])                 # warm-up
+                    t0 = time.perf_counter()
+                    gen = engine.generate(prompts)
+                    wall = time.perf_counter() - t0
+                    if (gen.shape != (DENSE_BATCH, DENSE_NEW) or gen.min() < 0
+                            or gen.max() >= cfg.vocab):
+                        raise AssertionError(f"{cfg.name}: bad tokens, shape {gen.shape}")
+                    c.update({"generate_s": wall, "prefill_ms": engine.stats["prefill_s"] * 1e3,
+                              "decode_ms_per_token":
+                                  statistics.median(engine.stats["decode_s"]) * 1e3})
+                    del engine
+                got = _moe_steps(cfg, params, prompts, TP_MOE_STEPS, dev)
+            c.update({k: got.pop(k) for k in ("drop_prefill", "drop_decode")})
+            arrays.update({f"{label}/{k}": v for k, v in got.items()})
+            rec["cases"][label] = c
+            if lead:
+                print(f"[4 tp moe path] ({label}) {cfg.name} {cfg.n_layers} layers {dtype} "
+                      f"split over 2 ranks: shards drawn in {c['init_s']:.2f} s, experts "
+                      f"{c['experts']} a rank, parameters {c['param_bytes'] / 1e9:.3f} GB a "
+                      f"rank, cache {c['cache_shape']} a rank; fallbacks {c['fallbacks']}"
+                      + ("" if label != "a" else
+                         f"; {DENSE_BATCH}x{DENSE_PROMPT} + "
+                         f"{DENSE_NEW} tokens: {c['generate_s']:.2f} s, prefill "
+                         f"{c['prefill_ms']:.1f} ms, decode {c['decode_ms_per_token']:.2f} "
+                         "ms/token (gloo through host memory)"))
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec["launches"] = _rank_launches()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    (root / f"rank{rank}.json").write_text(json.dumps(rec))
+    np.savez(root / f"rank{rank}.npz", **arrays)
+    return 0
+
+
+def _tp_moe_train_setup(label: str):
+    """(cfg, shape, OptConfig, TrainerConfig kwargs) of phase 4(p)'s
+    training run `label`."""
+    from repro_torch.models import base
+    from repro_torch.optim import adamw
+    arch, layers, dtype = TP_MOE_TRAIN_CASES[label]
+    B, S, accum = TP_TRAIN_SHAPE
+    shape = base.ShapeConfig("tp_moe_train", S, B, "train", accum=accum)
+    oc = adamw.OptConfig(lr=TP_TRAIN_LR, warmup_steps=2, total_steps=TP_TRAIN_STEPS)
+    return _tp_config(arch, dtype, layers), shape, oc, {
+        "total_steps": TP_TRAIN_STEPS, "ckpt_every": TP_TRAIN_STEPS + 1, "seed": SEED,
+        "remat": "full"}
+
+
+def _tp_moe_train_child(rank: int, root: Path, device: str) -> int:
+    """`chip_smoke.py --tp-moe-train-child RANK DIR DEVICE`, one of phase
+    4(p)'s four training ranks, on the parent's DEVICE (all on the one
+    card): a gloo world over a `FileStore` in DIR, a (2, 2) (data, model)
+    mesh under the trainer's rules, `trainer.run` of (a), (ca) and (cb) on
+    this rank's shards; writes DIR/rank<RANK>.json, the router after each
+    step to DIR/rank<RANK>_<label>_router.pt and (ca)'s and (cb)'s final
+    parameter shards to DIR/rank<RANK>_<label>.pt."""
+    import gc
+    import os
+    from unittest import mock
+    # four ranks share the card with this script's parent (see
+    # `_tp_ssm_train_child`)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import api, base
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor
+    from repro_torch.train import trainer
+
+    dev = torch.device(device)
+    torch.cuda.set_per_process_memory_fraction(TP_MOE_TRAIN_MEMORY, dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n_ranks = math.prod(TP_TRAIN_RANKS)
+    lead = rank == 0
+    dist.init_process_group("gloo", store=dist.FileStore(str(root / "store"), n_ranks),
+                            rank=rank, world_size=n_ranks)
+    rec = {"cases": {}}
+    routers: list = []
+    make_train_step = trainer.step_lib.make_train_step
+
+    def recording(*args, **kw):
+        train_step = make_train_step(*args, **kw)
+
+        def run(state, batch):
+            state, metrics = train_step(state, batch)
+            routers.append(state["params"]["layers"]["moe"]["router"].detach().cpu().clone())
+            return state, metrics
+        return run
+
+    try:
+        mesh = make_mesh_compat(TP_TRAIN_RANKS, ("data", "model"), device=dev.type)
+        coordinate = {a: mesh.coordinate(a) for a in mesh.shape}
+        if lead:
+            print(f"[4 tp moe path] {mesh}, backend {dist.get_backend()}, world "
+                  f"{dist.get_world_size()}, all ranks on {_device_name(dev)}")
+        _rank_launches(reset=True)
+        for label in TP_MOE_TRAIN_CASES:
+            cfg, shape, oc, kw = _tp_moe_train_setup(label)
+            tc = trainer.TrainerConfig(ckpt_dir=str(root / f"ckpt_{label}_{rank}"), **kw)
+            torch.cuda.reset_peak_memory_stats(dev)
+            routers.clear()
+            t0 = time.perf_counter()
+            with shd.use_mesh(mesh, tensor.training_rules(mesh)), \
+                    mock.patch.object(trainer.step_lib, "make_train_step", recording):
+                state, hist = trainer.run(cfg, shape, oc, tc, device=dev)
+            torch.cuda.synchronize(dev)
+            with shd.use_mesh(mesh, tensor.training_rules(mesh)):
+                tensor.local_tree(cfg, api.abstract_params(cfg), tensor.TRAIN_AXES)
+                fallbacks = shd.fallbacks()
+            moe = state["params"]["layers"]["moe"]
+            c = {"arch": cfg.name, "dtype": cfg.compute_dtype, "layers": cfg.n_layers,
+                 "coordinate": coordinate, "run_s": time.perf_counter() - t0,
+                 "state_bytes": _tree_bytes(state),
+                 "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                 "peak_reserved": torch.cuda.max_memory_reserved(dev),
+                 "shapes": {k: list(moe[k].shape) for k in ("router", "wi", "wo")},
+                 "loss": hist["loss"], "grad_norm": hist["grad_norm"],
+                 "step_s": hist["step_s"], "fallbacks": [list(f) for f in fallbacks]}
+            rec["cases"][label] = c
+            torch.save(list(routers), root / f"rank{rank}_{label}_router.pt")
+            if lead:
+                print(f"[4 tp moe path] (train {label}) {cfg.name} {cfg.n_layers} layers "
+                      f"{cfg.compute_dtype}, {TP_TRAIN_STEPS} steps of "
+                      f"{shape.global_batch}x{shape.seq_len} in {shape.accum} microbatches, "
+                      f"remat full, split over {mesh.shape}: {c['run_s']:.1f} s, steps "
+                      f"{', '.join(f'{v:.2f}' for v in c['step_s'])} s (gloo through host "
+                      f"memory); a rank's router, wi, wo {c['shapes']}, state "
+                      f"{c['state_bytes'] / 1e9:.3f} GB a rank (whole "
+                      f"{12 * base.count_params(api.abstract_params(cfg)) / 1e9:.1f} GB of "
+                      f"parameters, m and v), peak {c['peak_bytes'] / 1e9:.2f} GB allocated, "
+                      f"{c['peak_reserved'] / 1e9:.2f} GB reserved; fallbacks "
+                      f"{c['fallbacks']}")
+            if label.startswith("c"):
+                torch.save({base.keystr(p): t.cpu() for p, t in
+                            base.tree_items(state["params"])}, root / f"rank{rank}_{label}.pt")
+            del state, hist, moe
             gc.collect()
             torch.cuda.empty_cache()
         rec["launches"] = _rank_launches()
@@ -4726,6 +5302,7 @@ def main() -> int:
     launches["ssd_scan"] += tp_ssm["ssd_scan"]
     mma_launches["ssd_scan"] += tp_ssm["ssd_scan mma"]
     _tp_ssm_train_path(dev, wrappers, reset_launches, smi)
+    _tp_moe_path(dev, wrappers, reset_launches, smi)
 
     # -- 5. times -------------------------------------------------------------
     def nbytes(tensors):
@@ -4902,4 +5479,8 @@ if __name__ == "__main__":
         sys.exit(_tp_ssm_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--tp-ssm-train-child"]:
         sys.exit(_tp_ssm_train_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--tp-moe-child"]:
+        sys.exit(_tp_moe_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--tp-moe-train-child"]:
+        sys.exit(_tp_moe_train_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -20,27 +20,25 @@ No inner-scan correction is added: the counter sees every flash block
 and SSD chunk, and the `ssd_scan` kernel reports its own work.
 
 What a rank runs is what the port runs. A train step takes the rank's
-rows of the global batch over the data axes (`rows_per_rank`); the
-dense, ssm and hybrid families train split over the model axis and hold
-their state cut over "data" (FSDP) and "model" (`train/step.py`
-`local_state`, ROADMAP.md A.7b, A.7c: each Mamba2 mixer by heads, its
-per-head vectors and shared B and C summed once a step), and the record
-lists the axes that stayed whole (`fallbacks`). The MoE family refuses
-a model axis above 1 in the train step (A.7d), which the sweep records
-as `{"ok": false, "error": ...}` and goes on. A prefill or decode step
-takes its rank's rows of the batch (all of them when the data ranks do
-not divide it).
-The dense family serves them split over the model axis alone
-(`parallel/tensor.py`, A.7a: heads, ffn and vocab shards, the cache by
-kv heads or by positions; `serve_trees`), with its `fallbacks`; so do
-the ssm and hybrid families (A.7c's serving half: each Mamba2 mixer by
-heads, the hybrid's shared block as the dense layers, the vocab where
-it divides). The MoE family serves its rows whole, parameters
-replicated (A.7d), so under model = 16 each rank does its data group's
-whole work.
+rows of the global batch over the data axes (`rows_per_rank`); every
+family trains split over the model axis and holds its state cut over
+"data" (FSDP) and "model" (`train/step.py` `local_state`, ROADMAP.md
+A.7b, A.7c, A.7d: each Mamba2 mixer by heads, its per-head vectors and
+shared B and C summed once a step; each MoE block's experts E/m a rank,
+its router whole over "model"), and the record lists the axes that
+stayed whole (`fallbacks`). A step that raises `NotImplementedError` is
+recorded as `{"ok": false, "error": ...}` and the sweep goes on. A
+prefill or decode step takes its rank's rows of the batch (all of them
+when the data ranks do not divide it). Every family serves them split
+over the model axis alone (`parallel/tensor.py`; `serve_trees`), with
+its `fallbacks`: the dense family's heads, ffn and vocab shards, the
+cache by kv heads or by positions (A.7a); each Mamba2 mixer by heads,
+the hybrid's shared block as the dense layers (A.7c); the MoE family's
+attention as the dense family's and its experts E/m a rank, every rank
+routing all of its rows (A.7d).
 On `meta` a data-parallel MoE layer cannot
-read how many pairs each expert keeps and sizes its buffer at the
-capacity (`layers/moe.py`); the cell's record says so (`moe_rows`).
+read how many pairs each of its experts keeps and sizes its buffer at
+the capacity (`layers/moe.py`); the cell's record says so (`moe_rows`).
 Prefill sends every SSD through the `ssd_scan` kernel, as serving does.
 
 `--serve-opt` serves from a bf16 copy of the parameters with the
@@ -152,9 +150,9 @@ def serve_rows(shape, mesh) -> int:
 
 def serve_trees(cfg, shape, mesh, rules: dict, variant: dict | None = None) -> tuple:
     """A serve cell's abstract (params, cache) at one rank's shapes, and
-    the fallbacks of their split (None where nothing is split). The
-    dense, ssm and hybrid families under a model axis above 1 hold their
-    shards (`parallel/tensor.py`): the specs are taken at the global
+    the fallbacks of their split (None where nothing is split). Under a
+    model axis above 1 every family holds its shards
+    (`parallel/tensor.py`): the specs are taken at the global
     batch, as the reference places its arrays, and the cache then holds
     the rank's rows. Every other cell holds its parameters whole and a
     cache of its rows."""
@@ -175,8 +173,7 @@ def serve_trees(cfg, shape, mesh, rules: dict, variant: dict | None = None) -> t
 
 def train_tree(cfg, mesh, rules: dict) -> tuple:
     """A train cell's abstract state at one rank's shapes
-    (`step.local_state`: the dense, ssm and hybrid families' cut over
-    "data" and "model"), and the fallbacks of its cut (None where nothing
+    (`step.local_state`: cut over "data" and "model"), and the fallbacks of its cut (None where nothing
     is cut)."""
     with shd.use_mesh(mesh, rules) if mesh is not None else contextlib.nullcontext():
         state = step_lib.local_state(cfg)

@@ -24,8 +24,10 @@ branch: `make_host_mesh(model=world)` with the TP-only serving rules
 is split over the model axis (ROADMAP.md A.7a: its heads, ffn and vocab
 shards, the KV cache by kv heads or by positions), and so are mamba2 and
 zamba2 (A.7c: each Mamba2 mixer by heads, zamba2's shared block as a
-dense layer, the vocab where it divides); the MoE family keeps its
-parameters whole (A.7d), and W8 leaves under the split raise (A.7e).
+dense layer, the vocab where it divides), and so are granite-moe and
+qwen3-moe (A.7d: the dense family's attention, embedding and head, and
+each MoE block's experts E/m a rank, the router whole); W8 leaves under
+the split raise (A.7e).
 Every rank draws the whole tree from the same seed and keeps its
 shards.
 Rank 0 prints the same summary line as the reference.

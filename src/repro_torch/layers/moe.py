@@ -33,10 +33,30 @@ only its own kept pairs, so a rank does its share of the expert
 products, not the global batch's. On `meta` tensors (the dry run's
 counting step) that most cannot be read, and the buffer holds `cap`
 rows per expert, the bound it cannot exceed.
+
+Expert parallelism (ROADMAP.md A.7d), the reference's default (GSPMD)
+semantics: under a model group whose ranks hold shards of the expert
+leaves (E/m experts a rank, `parallel/tensor.py`), every rank of the
+group routes all of its data shard's tokens from the replicated input,
+so the capacity, the queues and the kept pairs are the unmeshed layer's
+(decode's capacity of 1 included). A rank then fills only its own
+experts' rows of the buffer (`dispatch`'s `experts`; `rows` the
+capacity, or in a data-parallel step the most that one of its experts
+keeps), runs their SwiGLU on its shards and scatters its kept pairs'
+gated outputs into a (T, D) partial, which `tensor.reduce_from` sums
+over the group: one all-reduce a layer. The router and the aux losses
+read the replicated input, so their gradients are whole on every rank;
+the tokens that enter the buffer and the gates pass through
+`tensor.copy_to`, whose backward sums over the group the partial input
+and gate gradients that each rank's experts give. The router's and the
+input's gradients come out whole, with no sum in the train step. Where
+E does not divide the axis the expert leaves stay whole on every rank
+(a recorded fallback) and the layer runs whole there.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.layers.common import is_q
@@ -44,6 +64,7 @@ from repro_torch.models import runtime
 from repro_torch.models.base import ArchConfig, ParamInfo
 from repro_torch.parallel import data_parallel as dp
 from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor
 
 __all__ = ["moe_params", "capacity", "route", "dispatch", "moe"]
 
@@ -80,18 +101,23 @@ def route(cfg: ArchConfig, router: torch.Tensor, xt: torch.Tensor):
 
 
 def dispatch(ids: torch.Tensor, gates: torch.Tensor, n_experts: int, cap: int,
-             first: torch.Tensor | None = None, rows: int | None = None):
+             first: torch.Tensor | None = None, rows: int | None = None,
+             experts: tuple[int, int] | None = None):
     """Sort the T·K routed pairs by expert (stably, so a token's place in
     its expert's queue follows token order) and give each a slot in the
-    (E·rows + 1) buffer, the last slot being the overflow bin. A pair is
-    kept when its place in its expert's queue is below `cap`. `first`
-    (E,) is each expert's queue place of this batch's first pair (the
-    pairs of the ranks before this one in a data-parallel step); `rows`
-    (default `cap`) is the buffer's slots per expert, which must hold
-    this batch's kept pairs of each expert. Returns (token, gate, slot,
-    keep) of the pairs in sorted order."""
+    (n·rows + 1) buffer of the n experts of `experts` ((first expert, n);
+    default all E), the last slot being the overflow bin. A pair is kept
+    when its place in its expert's queue is below `cap`; a kept pair of
+    an expert outside `experts` goes to the overflow bin too. `first` (E,)
+    is each expert's queue place of this batch's first pair (the pairs of
+    the ranks before this one in a data-parallel step); `rows` (default
+    `cap`) is the buffer's slots per expert, which must hold this batch's
+    kept pairs of each expert of `experts`. Returns (token, gate, slot,
+    keep) of the pairs in sorted order; the pairs the buffer holds are
+    those whose slot is below n·rows."""
     T, K = ids.shape
     rows = cap if rows is None else rows
+    e0, n = (0, n_experts) if experts is None else experts
     flat_expert = ids.reshape(-1)
     flat_token = torch.arange(T, device=ids.device).repeat_interleave(K)
     order = torch.argsort(flat_expert, stable=True)
@@ -99,13 +125,16 @@ def dispatch(ids: torch.Tensor, gates: torch.Tensor, n_experts: int, cap: int,
     seg_start = torch.searchsorted(se, torch.arange(n_experts, device=ids.device), side="left")
     pos_in_expert = torch.arange(se.numel(), device=ids.device) - seg_start[se]
     keep = pos_in_expert + (0 if first is None else first[se]) < cap
-    slot = torch.where(keep, se * rows + pos_in_expert, n_experts * rows)
+    held = keep if experts is None else keep & (se >= e0) & (se < e0 + n)
+    slot = torch.where(held, (se - e0) * rows + pos_in_expert, n * rows)
     return stok, sgate, slot, keep
 
 
-def moe(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
-        capacity_factor: float = 1.25) -> tuple[torch.Tensor, dict]:
-    """x: (B, S, D) -> (out (B, S, D), {"lb_loss", "z_loss"})."""
+def moe(cfg: ArchConfig, p: dict, x: torch.Tensor, *, capacity_factor: float = 1.25,
+        group=None) -> tuple[torch.Tensor, dict]:
+    """x: (B, S, D) -> (out (B, S, D), {"lb_loss", "z_loss"}). `group`: the
+    model group when the expert leaves of `p` are this rank's shards
+    (expert parallelism; see the module's docstring)."""
     if any(is_q(p[k]) for k in ("wi", "wg", "wo")):
         raise TypeError(
             "W8 expert weights are not served: the reference reads them with "
@@ -115,6 +144,7 @@ def moe(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
         return moe_shardmap(cfg, p, x, capacity_factor=capacity_factor)
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
+    El = p["wi"].shape[-3]                     # this rank's experts
     T = B * S
     dt = x.dtype
     xt = x.reshape(T, D)
@@ -131,28 +161,38 @@ def moe(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     lb_loss = E * torch.sum(me * (counts / n_tok))
     z_loss = dp.global_sum(torch.sum(torch.logsumexp(logits, dim=-1) ** 2)) / n_tok
 
+    # this rank's experts [e0, e0 + El): all E unless the leaves are shards
+    e0, experts = 0, None
+    if El < E:
+        e0 = dist.get_rank(group) * El
+        experts = (e0, El)
+        xt, gates = tensor.copy_to(xt, group), tensor.copy_to(gates, group)
     # the capacity and the experts' queues are the global batch's; this
     # rank's buffer holds only its own kept pairs (rows per expert: the
-    # most that any expert keeps of them, read on the host)
+    # most that one of its experts keeps of them, read on the host)
     cap = capacity(n_tok, K, E, capacity_factor)
     first, rows = None, cap
     if dp.size() > 1:
         first = dp.exclusive_sum(local_counts).long()
-        kept = torch.minimum((cap - first).clamp(min=0), local_counts.long())
+        kept = torch.minimum((cap - first).clamp(min=0), local_counts.long())[e0:e0 + El]
         # on meta (launch/dryrun.py) there is no value to read: the bound
         rows = cap if kept.is_meta else max(1, int(kept.max()))
-    stok, sgate, slot, keep = dispatch(ids, gates, E, cap, first, rows)
-    # every dropped pair lands in the overflow slot, which is cut off (no
-    # boolean mask: the shapes stay data-independent, meta tensors too)
-    buf_tok = torch.zeros(E * rows + 1, dtype=torch.long, device=x.device)
+    stok, sgate, slot, _ = dispatch(ids, gates, E, cap, first, rows, experts)
+    # every pair the buffer does not hold lands in the overflow slot, which
+    # is cut off (no boolean mask: the shapes stay data-independent, meta
+    # tensors too)
+    held = slot < El * rows
+    buf_tok = torch.zeros(El * rows + 1, dtype=torch.long, device=x.device)
     buf_tok[slot] = stok
-    xe = xt[buf_tok[:E * rows]].reshape(E, rows, D)
+    xe = xt[buf_tok[:El * rows]].reshape(El, rows, D)
 
     h = torch.bmm(xe, p["wi"].to(dt))
     g = torch.bmm(xe, p["wg"].to(dt))
     h = F.silu(g.float()).to(dt) * h
-    ye = torch.bmm(h, p["wo"].to(dt)).reshape(E * rows, D)
+    ye = torch.bmm(h, p["wo"].to(dt)).reshape(El * rows, D)
 
-    contrib = ye[torch.where(keep, slot, 0)] * (sgate * keep.float())[:, None].to(dt)
+    contrib = ye[torch.where(held, slot, 0)] * (sgate * held.float())[:, None].to(dt)
     out = torch.zeros((T, D), dtype=dt, device=x.device).index_add_(0, stok, contrib)
+    if experts is not None:
+        out = tensor.reduce_from(out, group)
     return out.reshape(B, S, D), {"lb_loss": lb_loss, "z_loss": z_loss}

@@ -10,8 +10,10 @@ active mesh's process groups (`launch.mesh.Mesh.group`):
   * x is this rank's data shard (B_loc, S, D), the same on every rank
     of the model axis; its B_loc·S tokens split into mp slices, one per
     model rank (`_Scatter`);
-  * local routing (`layers.moe.route`: fp32, ties to the lower expert),
-    the reference's per-shard load-balance and z losses, averaged over
+  * local routing (`layers.moe.route`: fp32, ties to the lower expert)
+    through `tensor.copy_to` on the router (identity forward, all-reduce
+    of its gradient over the model axis backward), the reference's
+    per-shard load-balance and z losses, averaged over
     the model axis, then over the data axis (`data_parallel.sum_over`,
     whose backward gives each rank its share);
   * `_bucket_by_dest`: the routed pairs sorted stably by destination
@@ -21,7 +23,9 @@ active mesh's process groups (`launch.mesh.Mesh.group`):
   * `all_to_all_single` out (`_AllToAll`); the received rows sorted by
     local expert into cap_e = int(max(1, 2·mp·cap // e_loc)) slots each
     (mean plus 2x imbalance headroom); the SwiGLU experts of this rank,
-    E/mp of them, sliced from the whole expert weights; `all_to_all_single`
+    E/mp of them: the expert leaves when they are this rank's shards
+    (`parallel/tensor.py` cuts them over "model"), else sliced from the
+    whole ones; `all_to_all_single`
     home; the gated scatter-add at the source;
   * `all_gather` over the model axis of the mp token slices (`_Gather`).
 
@@ -35,8 +39,12 @@ output is replicated over the model axis, and the backward treats the
 loss as computed once from it: `_Gather`'s backward keeps this rank's
 slice of the gradient, `_Scatter`'s gathers every slice's, so each model
 rank gets the whole input gradient; the expert weights get theirs from
-every token routed to them; the router's gradient on a rank covers its
-own tokens (a sum over the model axis gives the whole).
+every token routed to them. Each rank routes its own T/mp tokens, so its
+router gradient, from its tokens' gates and its share of the aux
+losses, is a part of the whole: the `copy_to` on the router sums it
+over the model axis in the backward, and every rank gets the whole
+router gradient, as the reference's replicated router (`P(None, None)`)
+gets it.
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ from repro_torch.layers.moe import route
 from repro_torch.models.base import ArchConfig
 from repro_torch.parallel import data_parallel as dp
 from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor
 
 __all__ = ["moe_shardmap"]
 
@@ -130,8 +139,8 @@ def _bucket_by_dest(ids, gates, xt, *, n_dest: int, cap: int, e_loc: int):
 def moe_shardmap(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
                  capacity_factor: float = 1.25) -> tuple[torch.Tensor, dict]:
     """Drop-in for `layers.moe.moe` under an active mesh with a model axis.
-    x: (B_loc, S, D), this rank's data shard; p: the layer's whole
-    weights. Returns (out (B_loc, S, D), {"lb_loss", "z_loss"})."""
+    x: (B_loc, S, D), this rank's data shard; p: the layer's weights, the
+    expert leaves whole or this rank's shards. Returns (out (B_loc, S, D), {"lb_loss", "z_loss"})."""
     mesh = shd.active_mesh()
     if mesh is None or "model" not in mesh.shape:
         raise ValueError(f"moe_shardmap needs an active mesh with a model axis, got {mesh}")
@@ -151,7 +160,7 @@ def moe_shardmap(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
 
     # local routing and the reference's per-shard aux losses, then their
     # means over the model axis and the data axis
-    logits, probs, gates, ids = route(cfg, p["router"], xt)
+    logits, probs, gates, ids = route(cfg, tensor.copy_to(p["router"], gm), xt)
     me = probs.mean(dim=0)
     counts = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
         0, ids.reshape(-1), torch.ones(T_loc * K, dtype=torch.float32, device=x.device))
@@ -184,12 +193,13 @@ def moe_shardmap(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     xe = xr.new_zeros((e_loc * cap_e, D)).index_put(
         (slot[kept],), xr[order[kept]]).reshape(e_loc, cap_e, D)
 
-    # this rank's experts (swiglu)
+    # this rank's experts (swiglu): its shards, or its slice of whole leaves
     mine = slice(midx * e_loc, (midx + 1) * e_loc)
-    h = torch.bmm(xe, p["wi"][mine].to(dt))
-    g = torch.bmm(xe, p["wg"][mine].to(dt))
+    wi, wg, wo = (p[k] if p[k].shape[0] == e_loc else p[k][mine] for k in ("wi", "wg", "wo"))
+    h = torch.bmm(xe, wi.to(dt))
+    g = torch.bmm(xe, wg.to(dt))
     h = F.silu(g.float()).to(dt) * h
-    ye = torch.bmm(h, p["wo"][mine].to(dt)).reshape(e_loc * cap_e, D)
+    ye = torch.bmm(h, wo.to(dt)).reshape(e_loc * cap_e, D)
 
     # un-bucket into received-row order, then all-to-all home
     back = torch.where(kept[:, None], ye[torch.where(kept, slot, 0)], 0.0).to(dt)

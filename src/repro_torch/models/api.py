@@ -65,12 +65,12 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: str = "none", use_kernel: 
     Inside `data_parallel.reducing` (a data-parallel train step) the nll
     sum and the token count are the global batch's, reduced separately:
     the loss is the global batch's, and each rank's backward gives its
-    rows' share of the gradient. On dense, ssm or hybrid shards under a
-    model axis above 1 the logits stay split over a vocab that divides the
-    axis and the nll is taken over the model group (`tensor.vocab_nll`); a
-    vocab that does not divide stays whole on every rank. The sums over
-    the data group are as above. The MoE family's `forward` runs whole
-    (ROADMAP.md A.7d)."""
+    rows' share of the gradient. On shards under a model axis above 1
+    (every family; the MoE family's experts split, ROADMAP.md A.7d) the
+    logits stay split over a vocab that divides the axis and the nll is
+    taken over the model group (`tensor.vocab_nll`); a vocab that does
+    not divide stays whole on every rank. The sums over the data group
+    are as above."""
     group = tensor.group_for(cfg)
     if group is None:
         logits, aux = forward(cfg, params, batch, remat=remat, use_kernel=use_kernel)

@@ -14,17 +14,20 @@ number, and a dense model's are zero, as in the reference. gemma's
 reference tests the config's name, so a renamed or derived config keeps
 it.
 
-Under a model axis above 1 the dense family runs its split layers on
-parameter shards with the model group (`tensor.group_for`;
+Under a model axis above 1 the dense and MoE families run their split
+layers on parameter shards with the model group (`tensor.group_for`;
 `parallel/tensor.py`): `prefill` and `decode_step` with a cache slice
-(`local_tree`, `cache_len`; ROADMAP.md A.7a), and `forward`, which
-training runs (A.7b), with the layers' autograd collectives; its
+(`local_tree`, `cache_len`; ROADMAP.md A.7a, A.7d), and `forward`, which
+training runs (A.7b, A.7d), with the layers' autograd collectives; its
 `local_vocab=True` keeps the head's logits split over the vocab for
-`api.loss_fn`. A train state cut over "data" too (FSDP,
-`parallel/fsdp.py`) is gathered a layer at a time inside the function
-that `remat_call` checkpoints, so the recompute gathers again; the
-embedding's leaves are gathered where `forward` uses them. The MoE
-family's parameters stay whole and its layers take their whole path.
+`api.loss_fn`. A MoE block runs its experts' shards (`layers/moe.py`,
+expert parallelism: the routing replicated over the group, one
+all-reduce of the partial output). A train state cut over "data" too
+(FSDP, `parallel/fsdp.py`) is gathered a layer at a time inside the
+function that `remat_call` checkpoints (the attention's, the norms' and
+the MoE block's router and expert leaves alike), so the recompute
+gathers again; the embedding's leaves are gathered where `forward`
+uses them.
 
 `forward` and `prefill` take the port's `use_kernel` keyword, which the
 `Engine` passes to every family: the transformer path reaches no kernel,
@@ -84,7 +87,7 @@ def _block(cfg: ArchConfig, lp: dict, h, positions, cache_layer, cache_pos, caus
     h = h + a
     hn = norms.apply_norm(cfg.norm, lp["ln_mlp"], h, eps=cfg.norm_eps, plus_one=plus_one)
     if cfg.family == "moe":
-        m, aux = moe_lib.moe(cfg, lp["moe"], hn)
+        m, aux = moe_lib.moe(cfg, lp["moe"], hn, group=group)
     else:
         m, aux = mlp_lib.mlp(cfg, lp["mlp"], hn, group), None
     return h + m, new_cache, aux

@@ -5,14 +5,14 @@ takes its B / n rows of the global batch (`local_rows`; every rank of a
 model group the same rows), computes the loss of the global batch and
 its own share of the gradient, and the shares are summed over the data
 group: by `reduce_grads` after the accumulation for a leaf held whole
-over "data", and in the backward for a leaf the dense family holds as a
+over "data", and in the backward for a leaf held as a
 shard of its fsdp dim (`parallel/fsdp.py`, whose gradient is
 reduce-scattered; `reduce_grads` then sums it over "pod" alone).
-Parameters and optimizer state are whole over "data" in the MoE family
-and where an fsdp dim does not divide the axis, and the dense, ssm and
-hybrid families' are this rank's shards elsewhere; either way each
-rank applies the update to what it holds, and the step equals the
-single-process step up to the order of fp32 sums.
+Parameters and optimizer state are whole over "data" where an fsdp dim
+does not divide the axis, and this rank's shards elsewhere, in every
+family (the MoE family's router and experts too, ROADMAP.md A.7d);
+either way each rank applies the update to what it holds, and the step
+equals the single-process step up to the order of fp32 sums.
 
 The loss of the global batch needs sums over every rank's rows wherever
 the loss divides or multiplies by them: `loss_fn`'s nll sum and token

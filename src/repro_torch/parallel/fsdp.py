@@ -1,5 +1,4 @@
-"""Fully sharded parameters of the dense, ssm and hybrid families over
-"data" (FSDP).
+"""Fully sharded parameters over "data" (FSDP), in every family.
 
 The port's own module, as `parallel/data_parallel.py` is. The reference
 declares each matrix's d_model dim `fsdp` and maps it to "data"
@@ -22,11 +21,15 @@ leaves were cut over "data" (`parallel/tensor.py` `shard_params` with
   layer scan does; the embedding and head are gathered where they are
   used, and zamba2's shared block once a forward (`models/zamba.py`).
 
+The MoE block's router and expert leaves are gathered with the rest of
+their layer (`wi` and `wg` along d, their dim 2 of (L, E/m, d, f); `wo`
+along its last dim, d; the router along d), and their gradients
+reduce-scattered to the shards (ROADMAP.md A.7d).
+
 A leaf whose fsdp dim does not divide the axis stays whole over "data"
 (a `sharding.fallbacks()` entry) and its gradient is summed over the
 data group after the step's accumulation (`train/step.py`), as every
-leaf's is at a data axis of 1 and in the MoE family, whose parameters
-stay whole over "data".
+leaf's is at a data axis of 1.
 """
 from __future__ import annotations
 

@@ -1,13 +1,14 @@
-"""Tensor parallelism over the model axis (the dense, ssm and hybrid
-families), and the cut of their leaves over every mesh axis.
+"""Tensor and expert parallelism over the model axis (the dense, MoE,
+ssm and hybrid families), and the cut of their leaves over every mesh
+axis.
 
 The port's own module, as `parallel/data_parallel.py` is. The reference
 places each array by its logical axes under a mesh and lets GSPMD insert
 the collectives. The port's tensors are local, so the split is explicit:
 
-* Parameters. Under a mesh, each leaf of the dense family is cut along
-  every dimension that `sharding.spec` maps to a mesh axis of `axes`
-  into contiguous slices, and a rank holds the slice at its coordinate
+* Parameters. Under a mesh, each leaf of the dense and MoE families is
+  cut along every dimension that `sharding.spec` maps to a mesh axis of
+  `axes` into contiguous slices, and a rank holds the slice at its coordinate
   along those axes: the shard the reference's `NamedSharding` places
   there (`shard_params`, `local_info`, `local_tree`; `gather_leaf`
   puts the whole leaf back together). Serving cuts "model" alone (heads,
@@ -16,8 +17,14 @@ the collectives. The port's tensors are local, so the split is explicit:
   d_model dim of each matrix, gathered a layer at a time by
   `parallel/fsdp.py`). A dimension that does not divide stays whole on
   every rank and is recorded in `sharding.fallbacks()`, entry for entry
-  as the reference records it. The MoE family keeps its leaves whole
-  (ROADMAP.md A.7d).
+  as the reference records it. The MoE family's attention, embedding
+  and head are the dense family's; its expert leaves `wi`, `wg` (L, E,
+  d, f) and `wo` (L, E, f, d) are cut along E over "model" (the
+  reference's "experts" rule: rank r of m holds experts [r E/m,
+  (r + 1) E/m), or all of them on every rank where m does not divide E,
+  recorded), and in a train state along d over "data" too; the router
+  (L, d, E) stays whole over "model" and is cut along d over "data" in a
+  train state (ROADMAP.md A.7d; `layers/moe.py`).
 * The Mamba2 mixer (ssm and hybrid) is cut over "model" by heads, not by
   the spec's contiguous slices: the spec's "ffn" slice
   of `in_proj`'s concatenated [z | x | B | C | dt] columns (and of the
@@ -42,7 +49,7 @@ the collectives. The port's tensors are local, so the split is explicit:
   length up to a multiple of m in the second case, so the layers can
   tell the two layouts apart from the cache's shape: a cache by kv heads
   has fewer heads than the config.
-* The layers (`layers/{attention,mlp,embedding}.py`) read their split
+* The layers (`layers/{attention,mlp,embedding,moe}.py`) read their split
   from their shards' shapes and reduce over the model group with the
   Megatron pair of autograd collectives here: `copy_to` (identity
   forward, all-reduce backward) on the input of each product whose
@@ -50,6 +57,8 @@ the collectives. The port's tensors are local, so the split is explicit:
   vocab-split head), and `reduce_from` (all-reduce forward, identity
   backward) after each product whose contraction is split (attention's
   and the MLP's output projections, the vocab-split embedding).
+  The MoE block puts `copy_to` on the tokens that enter its expert
+  buffer and on the gates, and `reduce_from` on its partial output.
   Serving's head all-gathers its logits (`gather_from`); training keeps
   them split and takes the loss over the vocab with `vocab_nll`. The
   mixer's gated norm sums its squares over the group with `sum_over`
@@ -82,8 +91,8 @@ __all__ = ["MODEL", "DATA", "TRAIN_AXES", "serving_rules", "training_rules", "mo
 MODEL = "model"
 DATA = "data"
 TRAIN_AXES = (DATA, MODEL)     # what a train state is cut over
-# the families whose trees are cut over the mesh (MoE's stay whole, A.7d)
-_SPLIT_FAMILIES = ("dense", "ssm", "hybrid")
+# the families whose trees are cut over the mesh
+_SPLIT_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 _W8 = ("q", "s")     # the keys of a W8 leaf: int8 values, scales
@@ -121,15 +130,14 @@ def model_group():
 
 def group_for(cfg):
     """The group a model of `cfg` runs split over: the model group for
-    the dense, ssm and hybrid families, None for MoE (its leaves stay
-    whole)."""
+    every family that is cut (dense, MoE, ssm, hybrid), else None."""
     return model_group() if cfg.family in _SPLIT_FAMILIES else None
 
 
 def splits(cfg, axes=(MODEL,)) -> bool:
     """Whether a tree of `cfg` is cut over `axes` under the active mesh:
-    one of `axes` above 1, and the family one that is cut (dense, ssm,
-    hybrid)."""
+    one of `axes` above 1, and the family one that is cut (dense, MoE,
+    ssm, hybrid)."""
     mesh = shd.active_mesh()
     return (mesh is not None and cfg.family in _SPLIT_FAMILIES
             and any(mesh.shape.get(a, 1) > 1 for a in axes))

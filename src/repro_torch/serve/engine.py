@@ -13,15 +13,15 @@ dense and MoE families reach no kernel and ignore the flag.
 
 Under an active mesh whose model axis is above 1 (`sharding.use_mesh`,
 around both the construction and `generate`, as the reference's launcher
-does), a dense, ssm or hybrid model serves split (`parallel/tensor.py`):
+does), a model of any family serves split (`parallel/tensor.py`):
 the engine keeps this rank's parameter shards (`shard_params`, from
-whole leaves or shards; a Mamba2 mixer's by heads) and builds its cache
+whole leaves or shards; a Mamba2 mixer's by heads, a MoE block's experts
+E/m a rank) and builds its cache
 at its shards' shapes (`local_tree`), its length rounded up to a
 multiple of the axis where a KV cache goes by positions (`cache_len`).
 Each rank's prefill sends its mixers' SSDs, on its heads, through the
 `ssd_scan` kernel. Every rank of the model group runs `generate` on the
-same prompts and returns the same tokens. A MoE model keeps its
-parameters whole (ROADMAP.md A.7d).
+same prompts and returns the same tokens.
 """
 from __future__ import annotations
 

@@ -20,11 +20,13 @@ rank: each rank takes its B / n rows of the global batch
 (`data_parallel.local_rows`, whose microbatches are shares of the global
 microbatches; every rank of a model group takes the same rows), and
 computes the global batch's loss inside `data_parallel.reducing` and its
-share of the gradients. The dense, ssm and hybrid families also run
-under a model axis above 1 (ROADMAP.md A.7b, A.7c): their layers split
-over "model" with autograd collectives (`parallel/tensor.py`; the
-Mamba2 mixer by heads, `layers/mamba2.py`), so every rank of a model
-group computes the same loss and its shards' gradients. Their train
+share of the gradients. Every family also runs under a model axis
+above 1 (ROADMAP.md A.7b, A.7c, A.7d): its layers split over "model"
+with autograd collectives (`parallel/tensor.py`; the Mamba2 mixer by
+heads, `layers/mamba2.py`; the MoE block's experts, `layers/moe.py`,
+whose router and input gradients come out whole from its `copy_to`s),
+so every rank of a model group computes the same loss and its shards'
+gradients. Their train
 state may be cut over "data" too (FSDP, `parallel/fsdp.py`;
 `shard_state`, `local_state`, `whole_state`): a leaf held as a data
 shard gets its gradient reduce-scattered over "data" in each
@@ -40,8 +42,8 @@ counting a B or C column that m/G ranks share once
 (`mamba2.norm_weights`), and AdamW updates the shards in place: the
 shared copies get the same summed gradient and stay equal. What a leaf
 is, whole or a shard, is read from its shape, so a whole state under a
-mesh trains data parallel as before. The MoE family refuses a model
-axis above 1 (ROADMAP.md A.7d) and keeps its state whole.
+mesh trains data parallel as before. The MoE router, whole over
+"model", counts once in the norm.
 """
 from __future__ import annotations
 
@@ -146,17 +148,10 @@ def _reduce(cfg, mesh, params, gsum: list, group) -> None:
 
 
 _DATA_AXES = ("pod", "data")
-_REFUSED = {"moe": "expert parallelism (ROADMAP.md, A.7d)"}
 
 
 def _data_parallel(cfg: ArchConfig, mesh, batch: dict, accum: int):
     """(the data group, this rank's rows of `batch`) under `mesh`."""
-    if mesh.shape.get("model", 1) != 1 and cfg.family in _REFUSED:
-        raise NotImplementedError(
-            f"training {cfg.family} under a mesh with model axis {mesh.shape['model']}: "
-            f"{_REFUSED[cfg.family]} is not ported; the port trains this family data "
-            "parallel under model = 1, and the dense, ssm and hybrid families under any "
-            "model axis")
     axes = tuple(a for a in _DATA_AXES if a in mesh.shape)
     if not axes:
         raise ValueError(f"a training mesh needs a data axis, got {mesh.shape}")
@@ -234,9 +229,8 @@ def _infos(cfg: ArchConfig, path: tuple):
 
 def local_state(cfg: ArchConfig) -> dict:
     """The abstract train state at one rank's shards' shapes under the
-    active mesh and rules: the dense, ssm and hybrid families' parameters,
-    m and v cut over "data" (fsdp) and "model"; the whole state
-    otherwise."""
+    active mesh and rules: the parameters, m and v cut over "data" (fsdp)
+    and "model"; the whole state without a mesh."""
     st = abstract_state(cfg)
     if not _sharded(cfg):
         return st

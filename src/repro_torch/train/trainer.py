@@ -22,8 +22,7 @@ step's wall seconds, ending when its loss has reached the host).
 
 Under an active mesh (`train/step.py`) every rank draws the same initial
 state from the seed, leaf by leaf, and keeps its shards of each
-(`step.shard_leaf`: the dense, ssm and hybrid families' leaves cut over
-"data" and "model", the MoE family's whole), and feeds the step the same
+(`step.shard_leaf`: its leaves cut over "data" and "model"), and feeds the step the same
 global batches; a resumed state is restored whole (outside the mesh, so
 `ckpt.restore` does not reshard it) and then cut the same way. A
 checkpoint stays the whole tree: every rank takes part in gathering its

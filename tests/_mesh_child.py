@@ -30,24 +30,28 @@ TRAIN_ARCHS = ("gemma-2b", "granite-moe-1b-a400m", "qwen2-vl-2b")
 
 
 def _moe(d: Path) -> dict:
-    """moe_shardmap on a 2x4 mesh: this rank's data shard of x."""
+    """moe_shardmap on a 2x4 mesh: this rank's data shard of x; the
+    gradients of out.sum() by x and by the router, beside the plain
+    layer's on the same shard."""
     from repro_torch.layers import moe
     z = np.load(d / "moe_in.npz")
     cfg = configs.smoke(MOE_ARCH)
     p = {k: torch.from_numpy(z[k]) for k in ("router", "wi", "wg", "wo")}
+    p["router"].requires_grad_(True)
     mesh = make_host_mesh(data=2, model=4, device="cpu")
     di = mesh.coordinate("data")
     rows = z["x"].shape[0] // 2
     x = torch.from_numpy(z["x"][di * rows:(di + 1) * rows]).requires_grad_(True)
     with shd.use_mesh(mesh, {"batch": ("data",)}), runtime.with_flags(moe_impl="shardmap"):
         out, aux = moe.moe(cfg, p, x, capacity_factor=4.0)
-        grad, = torch.autograd.grad(out.sum(), x)
+        grad, router_grad = torch.autograd.grad(out.sum(), (x, p["router"]))
     xp = x.detach().clone().requires_grad_(True)
     plain, _ = moe.moe(cfg, p, xp, capacity_factor=4.0)
-    plain_grad, = torch.autograd.grad(plain.sum(), xp)
+    plain_grad, plain_router = torch.autograd.grad(plain.sum(), (xp, p["router"]))
     return {"out": out.detach().numpy(), "lb": aux["lb_loss"].detach().numpy(),
             "zl": aux["z_loss"].detach().numpy(), "grad": grad.numpy(),
-            "plain_grad": plain_grad.numpy(), "data": np.int64(di)}
+            "plain_grad": plain_grad.numpy(), "router_grad": router_grad.numpy(),
+            "plain_router_grad": plain_router.numpy(), "data": np.int64(di)}
 
 
 def _counts(server) -> np.ndarray:

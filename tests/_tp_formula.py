@@ -1,13 +1,14 @@
 """The collective bytes of a serving or train step split over a model
 axis (`repro_torch/parallel/tensor.py`), by formula: shared by
 tests/test_torch_tp.py, tests/test_torch_tp_train.py,
-tests/test_torch_tp_ssm.py, tests/test_torch_tp_ssm_train.py and
-tests/test_torch_dryrun.py."""
+tests/test_torch_tp_ssm.py, tests/test_torch_tp_ssm_train.py,
+tests/test_torch_tp_moe.py and tests/test_torch_dryrun.py."""
 
 
 def split_collectives(cfg, kind: str, rows: int, S: int, m: int) -> dict:
     """Per layer an all-reduce of (rows, S, D) after attention where heads
-    split and after the MLP where ffn splits; where the vocab splits, the
+    split and after the MLP where ffn splits (after a MoE block where its
+    experts split: its partial output); where the vocab splits, the
     embedding's all-reduce and the logits' all-gather (one position);
     and on a cache by positions at decode, the gathered queries (heads
     split) and the log-sum-exp's fp32 all-reduces of the max and of the
@@ -18,7 +19,8 @@ def split_collectives(cfg, kind: str, rows: int, S: int, m: int) -> dict:
                           cfg.head_dim, cfg.vocab)
     S = 1 if kind == "decode" else S
     act = rows * S * D * e
-    heads, ffn, vocab, by_seq = H % m == 0, cfg.d_ff % m == 0, V % m == 0, KV % m != 0
+    ffn = (cfg.n_experts if cfg.family == "moe" else cfg.d_ff) % m == 0
+    heads, vocab, by_seq = H % m == 0, V % m == 0, KV % m != 0
     ar = act * vocab + L * (act * heads + act * ffn)
     ag = rows * V * e * vocab
     n = 2 * vocab + L * (heads + ffn)
@@ -32,7 +34,7 @@ def split_collectives(cfg, kind: str, rows: int, S: int, m: int) -> dict:
 
 def _cut(info, data: int, model: int) -> tuple:
     """(model-cut shape, model- and data-cut shape, axes, data shard?) of a
-    leaf: dims named heads, kv_heads, ffn or vocab cut over "model" where
+    leaf: dims named heads, kv_heads, ffn, vocab or experts cut over "model" where
     they divide it (a Mamba2 leaf's segmented dim by heads, where its
     heads split: H/m heads a rank, G/m groups where m divides G, else
     one), its fsdp dim over "data" where that divides."""
@@ -45,7 +47,8 @@ def _cut(info, data: int, model: int) -> tuple:
                 gl = G // model if G % model == 0 else 1
                 n = sum(w * (H // model if kind == "heads" else gl) for kind, w in segments)
                 axes.add("model")
-        elif lg in ("heads", "kv_heads", "ffn", "vocab") and model > 1 and n % model == 0:
+        elif (lg in ("heads", "kv_heads", "ffn", "vocab", "experts") and model > 1
+              and n % model == 0):
             n //= model
             axes.add("model")
         ml.append(n)
@@ -106,7 +109,8 @@ def _breakdown(ar, ag, rs, n_ar, n_ag, n_rs) -> dict:
             "collective-permute": 0, "_num_ops": n_ar + n_ag + n_rs}
 
 
-def _dense_layers(cfg, L: int, model: int, mb: int, seq: int, remat: bool) -> tuple:
+def _dense_layers(cfg, L: int, model: int, mb: int, seq: int, remat: bool,
+                  mlp: bool = True) -> tuple:
     """(all-reduce bytes, ops) of L dense layers' split over "model" in a
     microbatch: where the heads split, attention's output all-reduced
     (again in remat's recompute) and x's gradient once, and where the kv
@@ -122,7 +126,7 @@ def _dense_layers(cfg, L: int, model: int, mb: int, seq: int, remat: bool) -> tu
         if cfg.n_kv_heads % model != 0:
             ar += L * 2 * mb * seq * cfg.n_kv_heads * cfg.head_dim * 2
             n += L * 2
-    if model > 1 and cfg.d_ff % model == 0:
+    if mlp and model > 1 and cfg.d_ff % model == 0:
         ar += L * 2 * act
         n += L * 2
     return ar, n
@@ -199,3 +203,42 @@ def ssm_split_collectives(cfg, kind: str, rows: int, S: int, m: int) -> dict:
     out["all-reduce"] += mixers * (rows * S * cfg.d_model * 2 + rows * S * 4)
     out["_num_ops"] += 2 * mixers
     return out
+
+
+def moe_train_collectives(cfg, *, data: int, model: int, batch: int, seq: int,
+                          accum: int) -> dict:
+    """The collectives of one MoE train step (remat "full", bf16 compute) on
+    a (data, model) mesh under the trainer's rules, by kind and
+    `_num_ops`: the state's and the loss's (`_state_collectives`; the
+    experts' E dim cut over "model" where it divides), the attention of
+    every layer as the dense family's (`_dense_layers`, without an MLP),
+    and per MoE block and microbatch of mb = `batch // data // accum`
+    rows (T = mb seq tokens):
+
+    * the router's statistics summed over "data" (a group of one rank
+      too) in the forward and again in remat's recompute: the
+      probabilities' and the assignments' sums (E fp32 each) and the
+      z-loss's (one fp32), three all-reduces; and where data > 1 the
+      assignments of every data rank gathered for the experts' queues
+      (`exclusive_sum`: data x E fp32), one all-gather;
+    * where the experts split over "model", the partial output (T, D)
+      all-reduced once (remat's recompute stops before it: nothing after
+      it is saved for the backward), and the gradients of the tokens
+      that enter the buffer (T, D) and of the gates (T, K) fp32
+      all-reduced once each (the two `copy_to`s)."""
+    L, D, E, K = cfg.n_layers, cfg.d_model, cfg.n_experts, cfg.experts_per_token
+    mb = batch // data // accum
+    T = mb * seq
+    c = _state_collectives(cfg, data=data, model=model, mb=mb, seq=seq, accum=accum)
+    ar, n = _dense_layers(cfg, L, model, mb, seq, remat=True, mlp=False)
+    ar += L * 2 * (2 * E + 1) * 4
+    n += L * 2 * 3
+    if data > 1:
+        c[1] += accum * L * 2 * data * E * 4
+        c[4] += accum * L * 2
+    if model > 1 and E % model == 0:
+        ar += L * (2 * T * D * 2 + T * K * 4)
+        n += L * 3
+    c[0] += accum * ar
+    c[3] += accum * n
+    return _breakdown(*c)

@@ -11,7 +11,9 @@ parent runs the JAX reference and passes inputs and results as files.
   capacity factor 4.0, where neither drops a pair (fp32: 1e-5 of the
   largest |out|; the reference's own test allows 2e-3); its aux losses
   equal the reference formula's pmean over model, then data (1e-6
-  relative); its input gradient equals the plain `moe`'s (1e-5). The
+  relative); its input gradient equals the plain `moe`'s (1e-5), and so
+  does its router's on every rank (1e-5 of its largest magnitude): the
+  router's `copy_to` sums the model ranks' parts. The
   sharded stacked dispatch over 8 data ranks on the `torch` target,
   bit-exact with the unsharded dispatch, the port's `predict_quantized`
   and the reference's, with
@@ -201,6 +203,16 @@ def test_moe_shardmap_matches_the_reference(eight):
         g = r["moe/grad"]
         assert np.abs(g - r["moe/plain_grad"]).max() <= 1e-5 * np.abs(g).max()
         assert np.abs(g - eight["jgrad"][di * 2:(di + 1) * 2]).max() <= 1e-5 * np.abs(g).max()
+
+
+def test_moe_shardmap_router_gradient_is_whole(eight):
+    """Each model rank routes its own quarter of the tokens; the router's
+    gradient of out.sum() on every rank is the plain layer's on the same
+    data shard (nothing dropped at capacity factor 4), not a quarter of
+    it."""
+    for r in eight["ranks"]:
+        want = r["moe/plain_router_grad"]
+        assert np.abs(r["moe/router_grad"] - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def test_sharded_stacked_dispatch_over_eight_data_ranks(eight):

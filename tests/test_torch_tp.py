@@ -157,13 +157,14 @@ def _spawn(world: int, d: Path) -> list[dict]:
     return [dict(np.load(d / f"tp_{r}.npz")) for r in range(world)]
 
 
-def _world(world: int, d: Path) -> dict:
-    """Run the reference on every case, hand the inputs to a world of
-    `world` ranks, and gather both sides."""
+def serve_world(world: int, d: Path, world_cases: list, seed: int = 100) -> dict:
+    """Run the reference on every case of `world_cases` (weights from seeds
+    `seed` + i), hand the inputs to a world of `world` ranks, and gather
+    both sides."""
     cases = {}
-    for i, case in enumerate(CASES[world]):
+    for i, case in enumerate(world_cases):
         jcfg = _jcfg(case)
-        keys, treedef, leaves = _weights(jcfg, seed=100 + i)
+        keys, treedef, leaves = _weights(jcfg, seed=seed + i)
         jp = jax.tree_util.tree_unflatten(treedef, [jnp.asarray(a) for a in leaves])
         batch = jpipeline.make_batch(jcfg, jbase.ShapeConfig("tp", P, B, "prefill"), 0)
         extras = {k: v for k, v in batch.items()
@@ -185,7 +186,7 @@ def _world(world: int, d: Path) -> dict:
             "specs": {jax.tree_util.keystr(k): s for k, s in flat},
             "cache_spec": cspecs["k"], "fallbacks": json.loads(json.dumps(fallbacks))}
     (d / "cases.json").write_text(json.dumps(
-        [dict(c, max_len=MAX_LEN, steps=STEPS) for c in CASES[world]]))
+        [dict(c, max_len=MAX_LEN, steps=STEPS) for c in world_cases]))
     return {"cases": cases, "ranks": _spawn(world, d)}
 
 
@@ -196,7 +197,8 @@ def worlds(tmp_path_factory):
 
     def get(world: int) -> dict:
         if world not in made:
-            made[world] = _world(world, tmp_path_factory.mktemp(f"tp{world}"))
+            made[world] = serve_world(world, tmp_path_factory.mktemp(f"tp{world}"),
+                                      CASES[world])
         return made[world]
 
     return get

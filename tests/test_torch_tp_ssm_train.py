@@ -66,7 +66,6 @@ line in the layer count through the dry run's two analysis depths.
 """
 import json
 import os
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -74,14 +73,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from _pinned_parent import ENV as PINNED_ENV
 from _tp_formula import ssm_train_collectives
 from test_torch_tp_ssm import HEAD_ALIGNED, _head_slice, _mixer_leaf, _splits
-from test_torch_tp_train import (LR, SHARE, _close, _jcfg, _save_case, _slice, _spawn,
-                                 _specs)
+from test_torch_tp_train import LR, SHARE, _close, _jcfg, _slice, _specs, train_worlds
 
 ROOT = Path(__file__).resolve().parents[1]
-PINNED = Path(__file__).with_name("_pinned_parent.py")
 TIMEOUT = 240
 BASE = {"seq": 16, "batch": 4, "accum": 2, "lr": LR, "data_seed": 5}
 MAMBA = {"name": "mamba2-2.7b", "arch": "mamba2-2.7b", "over": {}}
@@ -100,48 +96,9 @@ HEAD_VECTORS = ("a_log", "dt_bias", "d_skip", "norm_scale")
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
-    """The reference's steps of every case (one pinned subprocess), and
-    every world's ranks, all started at once; world -> results."""
-    d = tmp_path_factory.mktemp("tp_ssm_train")
-    weights = {}
-    for i, (name, case) in enumerate(ALL.items()):
-        weights[name] = _save_case(d, case, seed=400 + i)
-    (d / "cases.json").write_text(json.dumps(list(ALL.values())))
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), **PINNED_ENV}
-    log = open(d / "pinned_tp.log", "w")
-    pinned = subprocess.Popen([sys.executable, str(PINNED), "tp", str(d)], env=env,
-                              stdout=log, stderr=subprocess.STDOUT)
-    worlds = {}
-    try:
-        for shape, cases in WORLDS.items():
-            wd = d / "x".join(map(str, shape))
-            wd.mkdir()
-            for case in cases:
-                (wd / f"{case['name']}.npz").symlink_to(d / f"{case['name']}.npz")
-                shutil.copytree(d / f"ckpt_{case['name']}", wd / f"ckpt_{case['name']}")
-            (wd / "cases.json").write_text(json.dumps([ALL[c["name"]] for c in cases]))
-            worlds[shape] = wd
-        ranks = {shape: _spawn(shape, wd) for shape, wd in worlds.items()}
-    finally:
-        try:
-            pinned.wait(timeout=TIMEOUT)
-        except subprocess.TimeoutExpired:
-            pinned.kill()
-            pinned.wait()
-        log.close()
-    if pinned.returncode:
-        raise AssertionError("pinned tp: exit code " + str(pinned.returncode) + "\n"
-                             + (d / "pinned_tp.log").read_text()[-3000:])
-    z = np.load(d / "tp_ref.npz")
-    ref = {}
-    for name in ALL:
-        ref[name] = {"loss": z[f"{name}/loss"], "params": {}, "gmin": {}, "grad0": {}}
-        for key in z.files:
-            for part in ("params", "gmin", "grad0"):
-                head = f"{name}/{part}/"
-                if key.startswith(head):
-                    ref[name][part][key[len(head):]] = z[key]
-    return {"ranks": ranks, "ref": ref, "weights": weights, "dirs": worlds}
+    """The reference's steps of every case and every world's ranks; world
+    -> results."""
+    return train_worlds(tmp_path_factory.mktemp("tp_ssm_train"), ALL, WORLDS, seed=400)
 
 
 @pytest.mark.parametrize("world,name", WORLD_CASES)

@@ -50,9 +50,9 @@ case:
 
 Each world also holds `copy_to`, `reduce_from`, `gather_from`,
 `fsdp.gather` and `vocab_nll` to one process (outputs and input
-gradients within 1e-6). In this process: the MoE family refuses a model
-axis above 1, naming ROADMAP.md A.7d, and the ssm and hybrid families
-take it (their split training is tests/test_torch_tp_ssm_train.py's).
+gradients within 1e-6). In this process: the MoE, ssm and hybrid
+families take a model axis above 1 (their split training is
+tests/test_torch_tp_moe.py's and tests/test_torch_tp_ssm_train.py's).
 And on a fake world of 4 ranks on `meta` (a subprocess): the counted
 argument bytes of a dense train step under (2, 2) equal its state
 shards' and its inputs' (and the scalars the step makes), and its
@@ -204,33 +204,33 @@ def _specs(case: dict, shape: tuple) -> tuple[dict, list]:
             json.loads(json.dumps(fallbacks)))
 
 
-@pytest.fixture(scope="module")
-def run(tmp_path_factory):
-    """The reference's steps of every case (one pinned subprocess), and
-    each world's ranks, all started at once; world -> results."""
-    d = tmp_path_factory.mktemp("tp_train")
+def train_worlds(d: Path, cases: dict, worlds: dict, seed: int) -> dict:
+    """The reference's steps of every case of `cases` ({name: case}; one
+    pinned subprocess, the cases' weights drawn from seeds `seed` + i),
+    and the ranks of each world of `worlds` ({(data, model): cases}), one
+    world after the other beside it; {"ranks": {world: results},
+    "ref": {name: {loss, params, gmin, grad0}}, "weights", "dirs"}."""
     weights = {}
-    for i, (name, case) in enumerate(ALL.items()):
-        weights[name] = _save_case(d, case, seed=200 + i)
-    (d / "cases.json").write_text(json.dumps(list(ALL.values())))
+    for i, (name, case) in enumerate(cases.items()):
+        weights[name] = _save_case(d, case, seed=seed + i)
+    (d / "cases.json").write_text(json.dumps(list(cases.values())))
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), **PINNED_ENV}
     log = open(d / "pinned_tp.log", "w")
     pinned = subprocess.Popen([sys.executable, str(PINNED), "tp", str(d)], env=env,
                               stdout=log, stderr=subprocess.STDOUT)
-    worlds = {}
+    dirs = {}
     try:
-        for shape, cases in WORLDS.items():
+        for shape, world_cases in worlds.items():
             wd = d / "x".join(map(str, shape))
             wd.mkdir()
-            for case in cases:
-                for f in d.glob(f"{case['name']}.npz"):
-                    (wd / f.name).symlink_to(f)
+            for case in world_cases:
+                (wd / f"{case['name']}.npz").symlink_to(d / f"{case['name']}.npz")
                 shutil.copytree(d / f"ckpt_{case['name']}", wd / f"ckpt_{case['name']}")
-            (wd / "cases.json").write_text(json.dumps([ALL[c["name"]] for c in cases]))
-            worlds[shape] = wd
+            (wd / "cases.json").write_text(json.dumps([cases[c["name"]] for c in world_cases]))
+            dirs[shape] = wd
         # the worlds one after the other (each holds 2 or 4 processes), the
         # reference beside them
-        ranks = {shape: _spawn(shape, wd) for shape, wd in worlds.items()}
+        ranks = {shape: _spawn(shape, wd) for shape, wd in dirs.items()}
     finally:
         try:
             pinned.wait(timeout=TIMEOUT)
@@ -243,14 +243,21 @@ def run(tmp_path_factory):
                              + (d / "pinned_tp.log").read_text()[-3000:])
     z = np.load(d / "tp_ref.npz")
     ref = {}
-    for name in ALL:
-        ref[name] = {"loss": z[f"{name}/loss"], "params": {}, "gmin": {}}
+    for name in cases:
+        ref[name] = {"loss": z[f"{name}/loss"], "params": {}, "gmin": {}, "grad0": {}}
         for key in z.files:
-            for part in ("params", "gmin"):
+            for part in ("params", "gmin", "grad0"):
                 head = f"{name}/{part}/"
                 if key.startswith(head):
                     ref[name][part][key[len(head):]] = z[key]
-    return {"ranks": ranks, "ref": ref, "weights": weights, "dirs": worlds}
+    return {"ranks": ranks, "ref": ref, "weights": weights, "dirs": dirs}
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """The reference's steps of every case and each world's ranks; world
+    -> results."""
+    return train_worlds(tmp_path_factory.mktemp("tp_train"), ALL, WORLDS, seed=200)
 
 
 NOISE = ("['layers']['attn']['bk']",)     # gradients at AdamW's eps (module doc)
@@ -360,19 +367,15 @@ class _GroupMesh(FakeMesh):
         return math.prod(self.shape[a] for a in axes)
 
 
-@pytest.mark.parametrize("arch,item", [("granite-moe-1b-a400m", "A.7d"),
-                                       ("mamba2-2.7b", None), ("zamba2-2.7b", None)])
-def test_moe_refuses_a_model_axis_and_ssm_and_hybrid_take_it(arch, item, monkeypatch):
-    """The MoE family refuses a model axis above 1, naming ROADMAP.md
-    A.7d; the ssm and hybrid families train under it: `_data_parallel`
-    gives the data group and this rank's rows (rank 1 of 2 data ranks)."""
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-2.7b", "zamba2-2.7b"])
+def test_moe_ssm_and_hybrid_take_a_model_axis(arch, monkeypatch):
+    """The MoE, ssm and hybrid families train under a model axis above 1
+    (the MoE family's split training is tests/test_torch_tp_moe.py's):
+    `_data_parallel` gives the data group and this rank's rows (rank 1 of
+    2 data ranks)."""
     cfg = configs.smoke(arch)
     mesh = _GroupMesh({"data": 2, "model": 2})
     batch = {"tokens": torch.arange(8 * 3).reshape(8, 3)}
-    if item:
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md, {item}"):
-            step._data_parallel(cfg, mesh, batch, 2)
-        return
     monkeypatch.setattr(step.dist, "get_rank", lambda group=None: 1)
     group, rows = step._data_parallel(cfg, mesh, batch, 2)
     assert group == ("group", ("data",))
