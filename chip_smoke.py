@@ -260,7 +260,21 @@ Phases, each raising on failure (nothing is caught):
    bf16 within the larger of 0.05 and 3 x a witness of the split's
    roundings (the routings that differ counted), the training steps as
    in (o), and the router's copies on the model ranks bitwise equal
-   after each step. Every count, the ranks' too, must stay 0.
+   after each step. Every count, the ranks' too, must stay 0. (q) W8
+   checkpoints split over the model axis with the batch split over
+   "data", last (`parallel/tensor.py`, `serve/engine.py`): four
+   `chip_smoke.py --w8-dp-child` ranks under a (2, 2) (data, model) mesh
+   and the serving rules, each quantizing the seeded tree whole leaf by
+   leaf and keeping its shards of `q` and `s`, serve 4 x 512 + 32
+   through `Engine`, 2 rows a rank, the tokens gathered over "data":
+   qwen1.5-4b W8 at 6 layers in bf16 and 4 in fp32, mamba2-2.7b W8 at 8
+   in bf16 (ssd_scan once a mixer on a rank's 40 heads, on the tensor
+   cores) and 4 in fp32, granite-moe-1b-a400m at 4 in fp32; this
+   process serves the same weights unmeshed: each rank's logits on its
+   rows within the larger of 0.05 and 3 x a witness in bf16, within 1e-5
+   in fp32 with the greedy tokens equal, granite's routings and dropped
+   pairs equal, and every rank's tokens bitwise equal. The ranks'
+   ssd_scan launches join the `kernels` line's.
    Every launch count is set to 0 just before a path runs and read just
    after it; each of the path's kernels must have launched.
 5. Times: CUDA events, median of 20 runs after warmup, per kernel (both
@@ -661,6 +675,43 @@ TP_MOE_STEPS, TP_MOE_WITNESS = 8, 3.0
 TP_MOE_TRAIN_CASES = {"a": (MOE_ARCH, 4, "bfloat16"), "ca": (MOE_ARCH, 2, "float32"),
                       "cb": (MOE_ARCH, 4, "float32")}
 TP_MOE_TRAIN_MEMORY = 0.2        # of the card a rank may take
+# Phase 4(q), last: W8 checkpoints served under a model axis above 1
+# (`parallel/tensor.py`, ROADMAP.md A.7e) with the batch split over "data"
+# (`serve/engine.py`): four ranks on the one card in a gloo world under a
+# (2, 2) (data, model) cuda mesh and the serving rules, each a
+# `chip_smoke.py --w8-dp-child` process that draws the whole tree from the
+# seed leaf by leaf, quantizes each matmul leaf whole
+# (`quantize_params_for_serving(..., min_size=0)`, as `launch.serve --w8`:
+# the scales are the unmeshed quantization's, bit for bit) and keeps its
+# shards of `q` and `s`. Every rank is handed the 4 x 512 prompts and
+# serves its 2 rows (its data coordinate's) through `Engine` with 32 new
+# tokens, gathered over "data". This process then serves the same weights
+# unmeshed, and each rank's logits are held on its rows. (a) qwen1.5-4b W8
+# at full width and TP_SERVED_LAYERS' depth in bf16: the prefill's last
+# logits within the larger of TP_BF16_RTOL and W8_DP_WITNESS x a witness
+# (the same W8 weights unmeshed with the split's roundings,
+# `_dense_split_roundings`: attention's output contraction and the MLP's
+# down projection in two halves, each rounded and then added, as the two
+# model ranks take them); (af) the same at 4 layers in fp32 (TF32 off):
+# the prefill and TP_FP32_STEPS steps within TP_FP32_RTOL of the largest
+# |logit|, the greedy tokens equal. (b) mamba2-2.7b W8 at 8 layers in
+# bf16, the segmented `in_proj`'s `q` and `s` by heads: each rank's
+# prefill launches ssd_scan once a mixer on its 40 heads and 2 rows, all
+# on the tensor cores, and no other kernel; the logits within the larger of
+# TP_BF16_RTOL and W8_DP_WITNESS x the unmeshed kernel route's distance
+# from the plain route (as 4(n)); (bf) at 4 layers in fp32 as (af). (c)
+# granite-moe-1b-a400m fp32 at 4 layers (W8 MoE is refused): each MoE
+# layer's routing of every token and the pairs each call drops, summed
+# over the data ranks, equal to unmeshed (the capacity and the experts'
+# queues are the global batch's), the greedy tokens equal. Every rank must
+# return the same tokens, bitwise.
+W8_DP_RANKS = (2, 2)
+W8_DP_CASES = {"a": (DENSE_ARCH, TP_SERVED_LAYERS[DENSE_ARCH], "bfloat16", True),
+               "af": (DENSE_ARCH, 4, "float32", True),
+               "b": ("mamba2-2.7b", 8, "bfloat16", True),
+               "bf": ("mamba2-2.7b", 4, "float32", True),
+               "c": (MOE_ARCH, 4, "float32", False)}
+W8_DP_WITNESS = 3.0
 
 
 def _smi(query: str) -> str:
@@ -845,14 +896,14 @@ def _qmm_args(rng, m, k, n, dev):
     return xq, wq, sx, sw
 
 
-def _ssd_args(rng, dev, dtype, n: int = 128, h: int = 80):
+def _ssd_args(rng, dev, dtype, n: int = 128, h: int = 80, b: int = LM_BATCH):
     """Seeded SSD inputs at mamba2-2.7b's width (H=80, P=64, G=1, N=128;
     zamba2-2.7b's is the same with N=64; a rank of a model axis of 2 holds
-    h=40 heads), batch 4 x 512 tokens, distributed as the JAX package's
-    kernel tests."""
+    h=40 heads), batch b x 512 tokens (a rank of a data axis of 2 holds
+    b=2 rows), distributed as the JAX package's kernel tests."""
     import numpy as np
     import torch
-    b, l, p, g = LM_BATCH, LM_PROMPT, 64, 1
+    l, p, g = LM_PROMPT, 64, 1
 
     def t(a):
         return torch.from_numpy(a.astype(np.float32)).to(dev)
@@ -4326,6 +4377,18 @@ def _moe_recorded():
         yield seen
 
 
+def _out_in_halves(p, ctx, x, group):
+    """`layers/attention.py`'s `_out` with its contraction in two halves
+    of the heads, each rounded to the compute dtype and then added, as two
+    model ranks take it (the witnesses' attention half)."""
+    import torch
+    from repro_torch.layers.common import wx
+    B, Hl, S, hd = ctx.shape
+    ctx = ctx.transpose(1, 2).reshape(B, S, Hl * hd)
+    w, k = wx(p["wo"], x.dtype).reshape(Hl * hd, x.shape[-1]), Hl * hd // 2
+    return torch.matmul(ctx[..., :k], w[:k]) + torch.matmul(ctx[..., k:], w[k:])
+
+
 @contextlib.contextmanager
 def _moe_split_roundings():
     """Within: every attention layer takes its output contraction in two
@@ -4338,17 +4401,9 @@ def _moe_split_roundings():
     vocab does not divide 2, so its embedding and head stay whole, as in
     the split."""
     from unittest import mock
-    import torch
     from repro_torch.layers import attention as attn
     from repro_torch.layers import moe as moe_lib
-    from repro_torch.layers.common import wx
     real = moe_lib.moe
-
-    def out(p, ctx, x, group):
-        B, Hl, S, hd = ctx.shape
-        ctx = ctx.transpose(1, 2).reshape(B, S, Hl * hd)
-        w, k = wx(p["wo"], x.dtype).reshape(Hl * hd, x.shape[-1]), Hl * hd // 2
-        return torch.matmul(ctx[..., :k], w[:k]) + torch.matmul(ctx[..., k:], w[k:])
 
     def moe(cfg, p, x, *, capacity_factor=1.25, group=None):
         half, parts, aux = p["wi"].shape[-3] // 2, [], None
@@ -4362,7 +4417,7 @@ def _moe_split_roundings():
             aux = aux or a
         return parts[0] + parts[1], aux
 
-    with mock.patch.object(attn, "_out", out), mock.patch.object(moe_lib, "moe", moe):
+    with mock.patch.object(attn, "_out", _out_in_halves), mock.patch.object(moe_lib, "moe", moe):
         yield
 
 
@@ -4831,6 +4886,307 @@ def _tp_moe_train_child(rank: int, root: Path, device: str) -> int:
     return 0
 
 
+def _w8_tree(cfg, dev, shard: bool):
+    """The whole tree drawn leaf by leaf from the seed, as `tree_init`
+    draws it, each matmul leaf quantized whole (`launch.serve --w8`'s
+    `quantize_params_for_serving(..., min_size=0)`) and, with `shard`, cut
+    to this rank's shards under the active mesh."""
+    import torch
+    from repro_torch.models import api, base
+    from repro_torch.parallel import tensor
+    from repro_torch.quantized import apply as qapply
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    paths, leaves = [], []
+    with torch.inference_mode():
+        for path, info in base.tree_items(api.abstract_params(cfg)):
+            tree = base.tree_init(base.tree_unflatten([path], [info]), gen, dev)
+            tree = qapply.quantize_params_for_serving(cfg, tree, min_size=0)
+            if shard:
+                tree = tensor.shard_params(cfg, tree)
+            for p, leaf in base.tree_items(tree):
+                paths.append(p)
+                leaves.append(leaf)
+            del tree
+    return base.tree_unflatten(paths, leaves)
+
+
+def _engine_record(engine, prompts, keep: int, moe: bool = False) -> dict:
+    """`engine.generate(prompts)`, keeping the logits (fp32, numpy) that
+    its first `keep` calls of prefill and decode return: the rows this
+    rank serves. With `moe`, each MoE layer's routing (every token's
+    expert ids, sorted) and the pairs each call drops."""
+    from unittest import mock
+    import numpy as np
+    from repro_torch.models import api
+    logits = []
+
+    def kept(fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            if len(logits) < keep:
+                logits.append(out[0].float().cpu().numpy())
+            return out
+        return call
+
+    with mock.patch.object(api, "prefill", kept(api.prefill)), \
+            mock.patch.object(api, "decode_step", kept(api.decode_step)), \
+            (_moe_recorded() if moe else contextlib.nullcontext()) as seen:
+        t0 = time.perf_counter()
+        tokens = engine.generate(prompts)
+        wall = time.perf_counter() - t0
+    rec = {"tokens": tokens, "logits": np.stack(logits), "wall": wall}
+    if moe:
+        rec["ids"] = [t.cpu().numpy().astype(np.uint8) for t in seen["ids"]]
+        rec["dropped"] = [int((~k).sum()) for k in seen["keep"]]
+    return rec
+
+
+@contextlib.contextmanager
+def _dense_split_roundings():
+    """Within: every attention layer takes its output contraction, and
+    every MLP its down projection, in two halves (of the heads, of the
+    ffn), each rounded to the compute dtype and then added: the roundings
+    a split over two model ranks adds, unmeshed (phase 4(q)'s witness for
+    the dense family)."""
+    from unittest import mock
+    from repro_torch.layers import attention as attn
+    from repro_torch.layers import mlp as mlp_lib
+    real = mlp_lib.mlp
+
+    def half(w, dim: int, r: int, last: bool):
+        """Half r of a leaf along `dim`; a W8 leaf's scales with it where
+        `dim` is the last (output) dim."""
+        def cut(t):
+            n = t.shape[dim] // 2
+            return t.narrow(dim, r * n, n)
+        if isinstance(w, dict):
+            return {"q": cut(w["q"]), "s": cut(w["s"]) if last else w["s"]}
+        return cut(w)
+
+    def mlp(cfg, p, x, group=None):
+        parts = [real(cfg, {k: half(v, -1, r, True) if k in ("wi", "wg") else
+                            half(v, -2, r, False) for k, v in p.items()}, x)
+                 for r in range(2)]
+        return parts[0] + parts[1]
+
+    with mock.patch.object(attn, "_out", _out_in_halves), mock.patch.object(mlp_lib, "mlp", mlp):
+        yield
+
+
+def _w8_dp_path(dev, reset_launches, smi) -> dict:
+    """Phase 4(q): W8 checkpoints served under a model axis of 2 with the
+    batch over a data axis of 2 on the card (the constants' comment above
+    `W8_DP_RANKS`). Four `--w8-dp-child` ranks serve first, each counting
+    its own kernel launches in each measured generate, while this process
+    holds nothing; then this process serves the same weights unmeshed
+    through `Engine` and holds the ranks' results to it. Returns the ranks'
+    ssd_scan launches (and tensor-core launches) in their measured
+    generates."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.models import api, base
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag = "w8 dp path"
+    reset_launches()
+    root = ROOT / "build" / "w8_dp_path"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    n_ranks = math.prod(W8_DP_RANKS)
+    ranks = _run_ranks("--w8-dp-child", n_ranks, root, dev, "W8 data-parallel serving")
+    arrays = [dict(np.load(root / f"rank{r}.npz")) for r in range(n_ranks)]
+    served = {"ssd_scan": 0, "ssd_scan mma": 0}
+    for r, rec in enumerate(ranks):
+        for label, c in rec["cases"].items():
+            counts = dict(c["launches"])
+            ssd, mma = counts.pop("ssd_scan"), counts.pop("ssd_scan mma")
+            arch, layers, dtype, _ = W8_DP_CASES[label]
+            want = (0 if arch != "mamba2-2.7b" else layers, layers if label == "b" else 0)
+            print(f"[4 {tag}] rank {r} {c['coordinate']} ({label}) {arch} {layers} layers "
+                  f"{dtype}{' W8' if c['w8'] else ''}: parameters {c['param_bytes'] / 1e9:.3f} "
+                  f"GB a rank, rows {c['cache_rows']} a rank; generate {c['generate_s']:.2f} s "
+                  f"(gloo through host memory); {mma} of {ssd} ssd_scan launches on the "
+                  f"tensor cores in the measured generate (one prefill), other launches "
+                  f"{counts}")
+            if (ssd, mma) != want or any(counts.values()):
+                raise AssertionError(f"rank {r} ({label}): want {want[0]} ssd_scan launches, "
+                                     f"{want[1]} on the tensor cores, and no other kernel")
+            if label.startswith("b"):
+                served["ssd_scan"] += ssd
+                served["ssd_scan mma"] += mma
+    out = {"ranks": ranks}
+    rows = [slice(c * DENSE_BATCH // W8_DP_RANKS[0], (c + 1) * DENSE_BATCH // W8_DP_RANKS[0])
+            for c in (rec["coordinate"]["data"] for rec in ranks)]
+    sc = ServeConfig(max_len=DENSE_PROMPT + DENSE_NEW + 8, max_new_tokens=DENSE_NEW)
+    for label, (arch, layers, dtype, w8) in W8_DP_CASES.items():
+        cfg = _tp_config(arch, dtype, layers)
+        prompts = _tp_prompts(cfg.vocab, DENSE_BATCH, DENSE_PROMPT)
+        if w8:
+            params = _w8_tree(cfg, dev, shard=False)
+        else:
+            with torch.inference_mode():
+                params = base.tree_init(api.abstract_params(cfg),
+                                        torch.Generator(device=dev).manual_seed(SEED), dev)
+        keep = 1 if dtype == "bfloat16" else TP_FP32_STEPS + 1
+        want = _engine_record(Engine(cfg, params, sc, device=dev), prompts, keep,
+                              moe=arch == MOE_ARCH)
+        same = all(np.array_equal(a[f"{label}/tokens"], arrays[0][f"{label}/tokens"])
+                   for a in arrays)
+        equal = int((arrays[0][f"{label}/tokens"] == want["tokens"]).sum())
+        scale = float(np.abs(want["logits"]).max())
+        errs = [float(np.abs(a[f"{label}/logits"] - want["logits"][:, rows[r]]).max())
+                for r, a in enumerate(arrays)]
+        witness, flips, drops = None, None, None
+        if dtype == "bfloat16":
+            # the dense family's split roundings; the ssm family's plain route
+            with torch.inference_mode(), (_dense_split_roundings() if arch == DENSE_ARCH
+                                          else contextlib.nullcontext()):
+                cache = base.tree_init(api.abstract_cache(cfg, DENSE_BATCH, sc.max_len),
+                                       torch.Generator(device=dev), dev)
+                wit, _ = api.prefill(cfg, params, {"tokens": torch.as_tensor(
+                    prompts, device=dev).long()}, cache, use_kernel=arch == DENSE_ARCH)
+            witness = float(np.abs(wit.float().cpu().numpy() - want["logits"][0]).max()) / scale
+            del cache, wit
+            bound = max(TP_BF16_RTOL, W8_DP_WITNESS * witness)
+            held = max(errs) <= bound * scale
+        else:
+            bound = TP_FP32_RTOL
+            held = max(errs) <= bound * scale and equal == want["tokens"].size
+        if arch == MOE_ARCH:
+            by_data = {rec["coordinate"]["data"]: a for rec, a in zip(ranks, arrays)
+                       if rec["coordinate"]["model"] == 0}
+            split = [by_data[c] for c in sorted(by_data)]
+            calls = len(want["ids"])
+            flips = sum(int((np.concatenate([a[f"{label}/ids{i}"] for a in split])
+                             != want["ids"][i]).any(-1).sum()) for i in range(calls))
+            drops = (int(sum(a[f"{label}/dropped"].sum() for a in split)),
+                     int(sum(want["dropped"])))
+            held = held and flips == 0 and np.array_equal(
+                sum(a[f"{label}/dropped"] for a in split), np.array(want["dropped"]))
+        print(f"[4 {tag}] ({label}) {arch} {layers} layers {dtype}{' W8' if w8 else ''}, "
+              f"{DENSE_BATCH}x{DENSE_PROMPT} + {DENSE_NEW} over (data 2, model 2) vs unmeshed: "
+              f"the logits of {keep} call(s) on each rank's rows max |diff| "
+              f"{', '.join(f'{e:.4g}' for e in errs)} (ranks 0-3) of the largest |logit| "
+              f"{scale:.4g}: {max(errs) / scale:.4g} (bound {bound:.4g}"
+              + ("" if witness is None else f": the larger of {TP_BF16_RTOL} and "
+                 f"{W8_DP_WITNESS:g} x the witness's {witness:.4g}")
+              + f"); greedy tokens {equal} of {want['tokens'].size} equal unmeshed"
+              + ("" if flips is None else f"; {flips} (token, layer) routings differ; "
+                 f"dropped pairs {drops[0]} over the data ranks, {drops[1]} unmeshed")
+              + f"; the four ranks' tokens bitwise equal: {same}")
+        out[label] = {"max_abs": errs, "logit_scale": scale, "bound_rel": bound,
+                      "witness_rel": witness, "tokens_equal": equal,
+                      "routings_differ": flips, "dropped": drops,
+                      "unmeshed_generate_s": want["wall"]}
+        if not (held and same):
+            raise AssertionError(f"{arch} ({label}): the split serving differs from unmeshed, "
+                                 "or the ranks differ")
+        del params, want
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    seconds = time.perf_counter() - t_phase
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[4 {tag}] the ranks' ssd_scan launches in their measured generates: "
+          f"{served['ssd_scan']} ({served['ssd_scan mma']} on the tensor cores)")
+    print(f"[4 {tag}] phase {seconds:.1f} s")
+    print(json.dumps({"w8_dp": out, "phase_s": seconds, "device": _device_name(dev),
+                      "power": smi}))
+    return served
+
+
+def _w8_dp_child(rank: int, root: Path, device: str) -> int:
+    """`chip_smoke.py --w8-dp-child RANK DIR DEVICE`, one of phase 4(q)'s
+    four ranks, on the parent's DEVICE (all on the one card): a gloo world
+    over a `FileStore` in DIR, a (2, 2) (data, model) mesh under the
+    serving rules, each case's `Engine.generate` on this rank's shards
+    (W8 quantized whole, then cut) and rows, every launch count set to 0
+    just before each measured generate and read just after; writes
+    DIR/rank<RANK>.{json,npz}."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n_ranks = math.prod(W8_DP_RANKS)
+    lead = rank == 0
+    dist.init_process_group("gloo", store=dist.FileStore(str(root / "store"), n_ranks),
+                            rank=rank, world_size=n_ranks)
+    rec, arrays = {"cases": {}}, {}
+    try:
+        mesh = make_mesh_compat(W8_DP_RANKS, ("data", "model"), device=dev.type)
+        coordinate = rec["coordinate"] = {a: mesh.coordinate(a) for a in mesh.shape}
+        if lead:
+            print(f"[4 w8 dp path] {mesh}, backend {dist.get_backend()}, world "
+                  f"{dist.get_world_size()}, all ranks on {_device_name(dev)}")
+        sc = ServeConfig(max_len=DENSE_PROMPT + DENSE_NEW + 8, max_new_tokens=DENSE_NEW)
+        for label, (arch, layers, dtype, w8) in W8_DP_CASES.items():
+            cfg = _tp_config(arch, dtype, layers)
+            prompts = _tp_prompts(cfg.vocab, DENSE_BATCH, DENSE_PROMPT)
+            with shd.use_mesh(mesh, tensor.serving_rules(mesh)):
+                t0 = time.perf_counter()
+                params = _w8_tree(cfg, dev, shard=True) if w8 else _tp_shards(cfg, dev)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                init_s = time.perf_counter() - t0
+                engine = Engine(cfg, params, sc, device=dev)
+                _rank_launches(reset=True)
+                got = _engine_record(engine, prompts,
+                                     1 if dtype == "bfloat16" else TP_FP32_STEPS + 1,
+                                     moe=arch == MOE_ARCH)
+                launches = _rank_launches()
+                fallbacks = shd.fallbacks()
+            if got["tokens"].shape != (DENSE_BATCH, DENSE_NEW) or got["tokens"].min() < 0 \
+                    or got["tokens"].max() >= cfg.vocab:
+                raise AssertionError(f"{arch} ({label}): bad tokens, shape "
+                                     f"{got['tokens'].shape}")
+            arrays[f"{label}/tokens"], arrays[f"{label}/logits"] = got["tokens"], got["logits"]
+            if "ids" in got:
+                arrays.update({f"{label}/ids{i}": a for i, a in enumerate(got["ids"])})
+                arrays[f"{label}/dropped"] = np.array(got["dropped"], dtype=np.int64)
+            c = {"arch": arch, "dtype": dtype, "w8": w8, "layers": layers,
+                 "coordinate": coordinate, "init_s": init_s,
+                 "param_bytes": _tree_bytes(engine.params),
+                 "cache_rows": int(got["logits"].shape[1]), "generate_s": got["wall"],
+                 "prefill_ms": engine.stats["prefill_s"] * 1e3,
+                 "decode_ms_per_token": statistics.median(engine.stats["decode_s"]) * 1e3,
+                 "fallbacks": [list(f) for f in fallbacks], "launches": launches}
+            rec["cases"][label] = c
+            if lead:
+                print(f"[4 w8 dp path] ({label}) {arch} {layers} layers {dtype}"
+                      f"{' W8' if w8 else ''} over {mesh.shape}: shards drawn (and quantized "
+                      f"whole) in {init_s:.2f} s, parameters {c['param_bytes'] / 1e9:.3f} GB "
+                      f"a rank; {DENSE_BATCH}x{DENSE_PROMPT} + {DENSE_NEW} tokens, "
+                      f"{c['cache_rows']} rows a rank: {c['generate_s']:.2f} s, prefill "
+                      f"{c['prefill_ms']:.1f} ms, decode {c['decode_ms_per_token']:.2f} "
+                      f"ms/token (gloo through host memory); fallbacks {c['fallbacks']}")
+            del params, engine, got
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    (root / f"rank{rank}.json").write_text(json.dumps(rec))
+    np.savez(root / f"rank{rank}.npz", **arrays)
+    return 0
+
+
 ROOF_PREFILL = (4, 512)                  # mamba2-2.7b prefill through B7 (rows, tokens)
 ROOF_WALL_RUNS = 3                       # uncounted prefills timed after one warm-up
 DRYRUN_TIMEOUT_S = 300
@@ -5181,10 +5537,19 @@ def main() -> int:
             raise AssertionError(f"quant_matmul[{label}] took the {tile} tile at M={m}")
         lm_cases["quant_matmul"][label] = args
     ssd_routes = {}
-    # mamba2-2.7b's N = 128 on both routes, then zamba2-2.7b's N = 64 in bf16
-    for label, dtype, n in (("bf16", torch.bfloat16, 128), ("fp32", torch.float32, 128),
-                            ("bf16_zamba", torch.bfloat16, HYBRID_SSM_STATE)):
-        args = _ssd_args(rng, dev, dtype, n)
+    # mamba2-2.7b's N = 128 on both routes, then zamba2-2.7b's N = 64 in
+    # bf16, then on both routes a rank's share under phase 4(q)'s (data 2,
+    # model 2) mesh: its rows and its heads
+    rows_2x2 = DENSE_BATCH // W8_DP_RANKS[0]
+    for label, dtype, n, b, h in (
+            ("bf16", torch.bfloat16, 128, LM_BATCH, 80),
+            ("fp32", torch.float32, 128, LM_BATCH, 80),
+            ("bf16_zamba", torch.bfloat16, HYBRID_SSM_STATE, LM_BATCH, 80),
+            (f"bf16_rank_of_2x2: B={rows_2x2}, H={TP_SSM_SSD_HEADS}", torch.bfloat16, 128,
+             rows_2x2, TP_SSM_SSD_HEADS),
+            (f"fp32_rank_of_2x2: B={rows_2x2}, H={TP_SSM_SSD_HEADS}", torch.float32, 128,
+             rows_2x2, TP_SSM_SSD_HEADS)):
+        args = _ssd_args(rng, dev, dtype, n, h, b)
         mma = sops.ssd.mma_launches
         (y, s), (yp, sp) = sops.ssd(*args, chunk=LM_CHUNK), sref.ssd(*args, chunk=LM_CHUNK)
         torch.cuda.synchronize()
@@ -5199,6 +5564,8 @@ def main() -> int:
             raise AssertionError(f"ssd_scan[{label}] disagrees with its plain version")
         if dtype == torch.bfloat16 and ssd_routes[label] != "tensor cores":
             raise AssertionError(f"ssd_scan[{label}] did not take the tensor-core route")
+        if "rank_of_2x2" in label and dtype == torch.float32 and ssd_routes[label] != "scalar":
+            raise AssertionError(f"ssd_scan[{label}] did not take the scalar route")
         lm_cases["ssd_scan"][label] = args
 
     # -- 4. main paths --------------------------------------------------------
@@ -5303,6 +5670,12 @@ def main() -> int:
     mma_launches["ssd_scan"] += tp_ssm["ssd_scan mma"]
     _tp_ssm_train_path(dev, wrappers, reset_launches, smi)
     _tp_moe_path(dev, wrappers, reset_launches, smi)
+    w8_dp = _w8_dp_path(dev, reset_launches, smi)
+    launches["ssd_scan"] += w8_dp["ssd_scan"]
+    mma_launches["ssd_scan"] += w8_dp["ssd_scan mma"]
+    for label in lm_cases["ssd_scan"]:                # a rank's, in phase 4(q)
+        if "rank_of_2x2" in label:
+            ssd_per_prefill[label] = W8_DP_CASES["b" if label.startswith("bf16") else "bf"][1]
 
     # -- 5. times -------------------------------------------------------------
     def nbytes(tensors):
@@ -5483,4 +5856,6 @@ if __name__ == "__main__":
         sys.exit(_tp_moe_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--tp-moe-train-child"]:
         sys.exit(_tp_moe_train_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--w8-dp-child"]:
+        sys.exit(_w8_dp_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -42,7 +42,11 @@ the capacity (`layers/moe.py`); the cell's record says so (`moe_rows`).
 Prefill sends every SSD through the `ssd_scan` kernel, as serving does.
 
 `--serve-opt` serves from a bf16 copy of the parameters with the
-reference's `fsdp` rule cleared. Records go to `build/dryrun_<mesh><tag>.json`
+reference's `fsdp` rule cleared, `--serve-w8` from the W8 tree
+(`abstract_quantized_params`) with that rule cleared: the reference's
+hill-climb variants `serve_bf16_tp_only` and `serve_w8_tp_only`
+(`benchmarks/perf_hillclimb.py`). A serving cell's record holds the
+parameter bytes a rank holds (`param_bytes`). Records go to `build/dryrun_<mesh><tag>.json`
 under the repo root, or to `--out`; a cell already recorded `ok` there is
 skipped unless `--force`.
 """
@@ -52,6 +56,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import time
 import traceback
 from pathlib import Path
@@ -65,7 +70,7 @@ from repro_torch.launch import cost
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import FAKE_BACKEND, make_production_mesh
 from repro_torch.models import api, runtime
-from repro_torch.models.base import ParamInfo, tree_init, tree_map, tree_sds
+from repro_torch.models.base import ParamInfo, tree_init, tree_items, tree_map, tree_sds
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor
@@ -343,8 +348,12 @@ def run_cell(cfg, shape, mesh, *, remat: str = "full", analysis: bool = True,
                           else serve_rows(shape, mesh)),
     }
     rules = _cell_rules(mesh, variant)
-    fallbacks = (train_tree(cfg, mesh, rules)[1] if shape.kind == "train"
-                 else serve_trees(cfg, shape, mesh, rules, variant)[2])
+    if shape.kind == "train":
+        fallbacks = train_tree(cfg, mesh, rules)[1]
+    else:
+        params, _, fallbacks = serve_trees(cfg, shape, mesh, rules, variant)
+        meta["param_bytes"] = sum(math.prod(i.shape) * i.dtype.itemsize
+                                  for _, i in tree_items(params))
     meta["fallbacks"] = None if fallbacks is None else [list(f) for f in fallbacks]
     if analysis:
         meta["extended_from_layers"] = analysis_layers(cfg) if eff["extended"] else None
@@ -353,6 +362,8 @@ def run_cell(cfg, shape, mesh, *, remat: str = "full", analysis: bool = True,
             and torch.device(device).type == "meta"):
         meta["moe_rows"] = "capacity (meta: the kept pairs per expert cannot be read)"
     if verbose:
+        if "param_bytes" in meta:
+            print(f"  parameters: {meta['param_bytes']/2**30:.3f}GiB a rank")
         print(f"  counted: args={meta['arg_bytes']/2**30:.2f}GiB "
               f"live peak={meta['peak_live_bytes']/2**30:.2f}GiB "
               f"-> peak/device={record.peak_mem_per_device/2**30:.3f}GiB")
@@ -379,6 +390,8 @@ def main(argv=None):
                     help="count each step at its full depth (no extension from L1, L2)")
     ap.add_argument("--serve-opt", action="store_true",
                     help="serve cells use a bf16 copy of the parameters, fsdp rule cleared")
+    ap.add_argument("--serve-w8", action="store_true",
+                    help="serve cells use the W8 parameters, fsdp rule cleared")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default=None,
@@ -412,6 +425,8 @@ def main(argv=None):
         variant = None
         if args.serve_opt and shape.kind in ("prefill", "decode"):
             variant = {"serve_dtype": "bfloat16", "rules": {"fsdp": ()}}
+        if args.serve_w8 and shape.kind in ("prefill", "decode"):
+            variant = {"quant": True, "rules": {"fsdp": ()}}
         try:
             record, meta = run_cell(cfg, shape, mesh, remat=args.remat,
                                     analysis=not args.no_analysis, variant=variant)

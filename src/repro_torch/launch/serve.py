@@ -1,7 +1,7 @@
 """LM serving launcher of the port.
 
   python -m repro_torch.launch.serve --arch qwen1.5-4b [--smoke] \
-      [--batch 8] [--prompt-len 16] [--new-tokens 16] [--w8] [--device cuda]
+      [--batch 8] [--prompt-len 16] [--new-tokens 16] [--w8] [--multi-pod] [--device cuda]
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch qwen1.5-4b --smoke \
       --device cpu
@@ -13,23 +13,31 @@ mamba2-2.7b, zamba2-2.7b). Without --smoke the full published config is
 served (qwen2-72b and qwen3-moe-30b-a3b do not fit one card in fp32: use
 --smoke); weights are random from a `torch.Generator` seeded 0, made on
 the device. --w8 serves the int8 checkpoint (`quantize_params_for_serving`,
-every matmul weight); a MoE model raises there, as the reference's W8
-MoE fails (`layers/moe.py`).
+every matmul weight, quantized whole before any split); a MoE model
+raises there, as the reference's W8 MoE fails (`layers/moe.py`).
 
 One process serves on one card (or the CPU) with no mesh. Under
 `torchrun` (`WORLD_SIZE` above 1) every process joins the world (NCCL on
-the card, gloo with --device cpu) and serves under the reference's mesh
-branch: `make_host_mesh(model=world)` with the TP-only serving rules
-(`parallel/tensor.py`: batch over data, fsdp replicated). A dense model
-is split over the model axis (ROADMAP.md A.7a: its heads, ffn and vocab
-shards, the KV cache by kv heads or by positions), and so are mamba2 and
-zamba2 (A.7c: each Mamba2 mixer by heads, zamba2's shared block as a
-dense layer, the vocab where it divides), and so are granite-moe and
-qwen3-moe (A.7d: the dense family's attention, embedding and head, and
-each MoE block's experts E/m a rank, the router whole); W8 leaves under
-the split raise (A.7e).
-Every rank draws the whole tree from the same seed and keeps its
-shards.
+the card, gloo with --device cpu) and serves under a mesh
+(`mesh_and_rules`), with the reference's TP-only serving rules
+(`tensor.serving_rules`: parameters replicated over the data axes):
+
+* --multi-pod: the reference's 2 x 16 x 16 production mesh, the batch
+  over ("pod", "data"); on a world of any other size than 512 it raises
+  the mesh's own error, as the training launcher does;
+* off --smoke on a world of exactly 256 ranks: the reference's 16 x 16
+  production mesh, the batch over "data";
+* every other world: `make_host_mesh(model=world)`, the port's own
+  branch for a few cards (ROADMAP.md, C): all ranks on "model".
+
+Every family is split over the model axis (ROADMAP.md A.7a, A.7c, A.7d:
+the dense layers' heads, ffn and vocab, the KV cache by kv heads or by
+positions; each Mamba2 mixer by heads, zamba2's shared block as a dense
+layer; each MoE block's experts E/m a rank), a W8 checkpoint's `q` and
+scales with it (A.7e), and `Engine` serves each rank its rows of the
+batch over the data axes, every rank returning the whole batch's tokens.
+Every rank draws the whole tree from the same seed (and quantizes it
+whole) and keeps its shards.
 Rank 0 prints the same summary line as the reference.
 """
 from __future__ import annotations
@@ -45,12 +53,29 @@ import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch._device import resolve_device
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import api, base
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor
 from repro_torch.quantized import apply as qapply
 from repro_torch.serve.engine import Engine, ServeConfig
+
+
+PRODUCTION_WORLD = 256       # the single-pod production mesh's ranks
+
+
+def mesh_and_rules(args, world: int, device=None) -> tuple:
+    """(mesh, rules) the launcher serves under, from its arguments and
+    the world's size: (None, None) for one process without --multi-pod."""
+    if args.multi_pod:
+        mesh = make_production_mesh(multi_pod=True, device=device)
+    elif world == 1:
+        return None, None
+    elif not args.smoke and world == PRODUCTION_WORLD:
+        mesh = make_production_mesh(device=device)
+    else:
+        mesh = make_host_mesh(model=world, device=device)
+    return mesh, tensor.serving_rules(mesh)
 
 
 def main(argv=None):
@@ -61,23 +86,25 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--w8", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     dev = resolve_device(args.device)
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    mesh, lead = None, True
     if world > 1:
         dist.init_process_group("gloo" if dev.type == "cpu" else "nccl")
-        mesh = make_host_mesh(model=world, device=dev)
-        dev = resolve_device(dev.type)          # the rank's card, set by the mesh
-        lead = dist.get_rank() == 0
+    lead = True
     try:
-        with shd.use_mesh(mesh, tensor.serving_rules()) if mesh else contextlib.nullcontext():
+        mesh, rules = mesh_and_rules(args, world, dev)
+        if mesh is not None:
+            dev = resolve_device(dev.type)          # the rank's card, set by the mesh
+            lead = dist.get_rank() == 0
+        with shd.use_mesh(mesh, rules) if mesh else contextlib.nullcontext():
             out, dt = _serve(cfg, args, dev)
     finally:
-        if mesh is not None:
+        if world > 1:
             dist.destroy_process_group()
     if lead:
         print(f"generated {out.size} tokens in {dt:.2f}s "

@@ -45,21 +45,27 @@ def embed(cfg: ArchConfig, p: dict, tokens: torch.Tensor, group=None) -> torch.T
     """tokens (B, S) -> (B, S, D) in compute dtype; `group` the model
     group when p holds shards."""
     tok = p["tok"]
-    if is_q(tok):
-        h = (tok["q"][tokens].float() * tok["s"]).to(cfg.cdtype())
-    elif group is not None and tok.shape[0] < cfg.vocab:
-        rows = tok.shape[0]
+    rows = (tok["q"] if is_q(tok) else tok).shape[0]
+    if group is not None and rows < cfg.vocab:
         ids = tokens - dist.get_rank(group) * rows
         mine = (ids >= 0) & (ids < rows)
-        h = tok[ids.clamp(0, rows - 1)].to(cfg.cdtype())
+        h = _rows(cfg, tok, ids.clamp(0, rows - 1))
         h = tensor.reduce_from(torch.where(mine[..., None], h, torch.zeros_like(h)), group)
     else:
-        h = tok[tokens].to(cfg.cdtype())     # gather, then cast: the same values
+        h = _rows(cfg, tok, tokens)
     if cfg.scale_embedding:
         # the scale is rounded to h's dtype before the product, as in the
         # reference (sqrt(2048) = 45.2548... is 45.25 in bf16)
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype, device=h.device)
     return h
+
+
+def _rows(cfg: ArchConfig, tok, ids: torch.Tensor) -> torch.Tensor:
+    """The embedding rows `ids` of `tok` (a tensor or a W8 leaf, whose
+    per-d_model scales are whole) in compute dtype: gathered, then cast."""
+    if is_q(tok):
+        return (tok["q"][ids].float() * tok["s"]).to(cfg.cdtype())
+    return tok[ids].to(cfg.cdtype())
 
 
 def lm_head(cfg: ArchConfig, p: dict, h: torch.Tensor, group=None, *,
@@ -68,15 +74,17 @@ def lm_head(cfg: ArchConfig, p: dict, h: torch.Tensor, group=None, *,
     group when p holds shards. With the vocab split, `gather=False` gives
     this rank's slice (B, S, V / m) instead of the whole vocab."""
     w = p["tok"] if cfg.tie_embeddings else p["head"]
-    if is_q(w):
-        if cfg.tie_embeddings:
-            # w = q * s with per-d_model scales: fold s into h, matmul int8ᵀ
-            return torch.matmul(h * w["s"].to(h.dtype), w["q"].to(h.dtype).T)
-        return torch.matmul(h, (w["q"].float() * w["s"]).to(h.dtype))
-    split = group is not None and w.shape[0 if cfg.tie_embeddings else 1] < cfg.vocab
+    split = group is not None and (w["q"] if is_q(w) else w).shape[
+        0 if cfg.tie_embeddings else 1] < cfg.vocab
     if split:
         h = tensor.copy_to(h, group)
-    logits = torch.matmul(h, w.to(h.dtype).T if cfg.tie_embeddings else w.to(h.dtype))
+    if is_q(w) and cfg.tie_embeddings:
+        # w = q * s with per-d_model scales: fold s into h, matmul int8ᵀ
+        logits = torch.matmul(h * w["s"].to(h.dtype), w["q"].to(h.dtype).T)
+    elif is_q(w):
+        logits = torch.matmul(h, (w["q"].float() * w["s"]).to(h.dtype))
+    else:
+        logits = torch.matmul(h, w.to(h.dtype).T if cfg.tie_embeddings else w.to(h.dtype))
     if split and gather:
         logits = tensor.gather_from(logits, group)
     return logits

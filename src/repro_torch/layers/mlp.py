@@ -7,7 +7,8 @@ above 1 (`group`, `parallel/tensor.py`) `wi` and `wg` hold this rank's
 ffn columns and `wo` its rows: x enters through `copy_to` (its gradient
 summed over the group) and one all-reduce sums the output
 (`reduce_from`). An ffn that does not divide the axis stays whole and
-runs whole, with neither.
+runs whole, with neither. A W8 leaf splits as its `q` does: the scales
+of `wi` and `wg` are this rank's columns', those of `wo` whole.
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor, group=None) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D); `group` the model group when p holds
     shards."""
     dt = x.dtype
-    split = group is not None and not is_q(p["wi"]) and p["wi"].shape[-1] < cfg.d_ff
+    wi = p["wi"]["q"] if is_q(p["wi"]) else p["wi"]
+    split = group is not None and wi.shape[-1] < cfg.d_ff
     if split:
         x = tensor.copy_to(x, group)
     h = torch.matmul(x, wx(p["wi"], dt))

@@ -65,11 +65,25 @@ the collectives. The port's tensors are local, so the split is explicit:
   (all-reduce forward and backward). Under `torch.no_grad()` these run
   the forward collectives and nothing else.
 
+* A W8 leaf `{"q", "s"}` (`quantized/apply.py`) of the dense, ssm and
+  hybrid families is cut from the whole quantization, never quantized a
+  shard at a time, so a rank's scales are the unmeshed ones bit for bit
+  (ROADMAP.md A.7e). `q` is cut as its dense leaf is, by the spec's
+  slices or a Mamba2 leaf's head runs. `s` (per first and last dim of a
+  weight of three or more dims, else per last dim: `w8_infos`) takes
+  the same cut along those dims and stays whole along the others:
+  attention's `wq` (L, d, H, hd) keeps its (L, hd) scales whole while
+  `q` goes by heads; the MLP's `wi`/`wg`, the head and a Mamba2
+  `in_proj` cut their scales with the output dim; `wo`, `out_proj` and
+  `tok` keep theirs whole; zamba2's shared `wo` (H, hd, d) cuts its (H,
+  d) scales by heads with `q`. A W8 expert leaf of the MoE family is cut
+  too, and raises at the MoE layer's forward, split or not
+  (`layers/moe.py`).
+
 gloo, which holds several ranks on one card and on the CPU, has no
 reduce-scatter for CUDA tensors: `reduce_scatter` all-reduces and keeps
 this rank's slice under gloo, and calls `reduce_scatter_tensor` under
 NCCL (and the dry run's `fake` backend), picked by the group's backend.
-W8 leaves under a split raise (ROADMAP.md A.7e).
 """
 from __future__ import annotations
 
@@ -98,16 +112,12 @@ _SPLIT_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 _W8 = ("q", "s")     # the keys of a W8 leaf: int8 values, scales
 
 
-def _w8_refused() -> NotImplementedError:
-    return NotImplementedError(
-        "W8 leaves under a model axis above 1 are not ported (ROADMAP.md, A.7e): serve the "
-        "fp32 checkpoint, or W8 under model = 1")
-
-
-def serving_rules() -> dict:
-    """The reference launcher's serving rules: batch over "data" only,
-    parameters replicated over it (TP-only)."""
-    return {"batch": ("data",), "fsdp": ()}
+def serving_rules(mesh=None) -> dict:
+    """The reference launcher's serving rules, parameters replicated over
+    the data axes (TP-only): the batch over "data" alone, or on a mesh
+    with a "pod" axis the default batch rule, over ("pod", "data")."""
+    return {"fsdp": ()} if mesh is not None and "pod" in mesh.shape else \
+        {"batch": ("data",), "fsdp": ()}
 
 
 def training_rules(mesh) -> dict:
@@ -218,16 +228,14 @@ def local_info(info: ParamInfo, axes=(MODEL,)) -> ParamInfo:
 
 
 def local_tree(cfg, tree, axes=(MODEL,)) -> dict:
-    """An abstract tree (parameters, optimizer moments or cache) of `cfg`
-    at its shards' shapes along `axes`, visited in the reference's
-    flatten order (so `fallbacks()` lists its entries in that order);
-    unchanged unless `splits(cfg, axes)`. W8 leaves raise
-    NotImplementedError."""
+    """An abstract tree (parameters, optimizer moments, cache, or the W8
+    tree of `abstract_quantized_params`) of `cfg` at its shards' shapes
+    along `axes`, visited in the reference's flatten order (so
+    `fallbacks()` lists its entries in that order); unchanged unless
+    `splits(cfg, axes)`."""
     if not splits(cfg, axes):
         return tree
     items = list(tree_items(tree))
-    if any(p[-1] in _W8 for p, _ in items):
-        raise _w8_refused()
     return tree_unflatten([p for p, _ in items], [local_info(i, axes) for _, i in items])
 
 
@@ -273,19 +281,21 @@ def shard_leaf(info: ParamInfo, leaf: torch.Tensor, axes=(MODEL,), name: str = "
 
 def shard_params(cfg, params, axes=(MODEL,)) -> dict:
     """This rank's shards of a parameter tree (or of a tree of the same
-    shapes: AdamW's moments) under the active mesh, along `axes`:
+    shapes: AdamW's moments; or of a W8 tree, whose `q` and `s` take
+    `w8_infos` of their dense leaf) under the active mesh, along `axes`:
     `shard_leaf` of every leaf. Returns `params` unchanged unless
-    `splits(cfg, axes)`. W8 leaves raise NotImplementedError."""
+    `splits(cfg, axes)`."""
     if not splits(cfg, axes):
         return params
     from repro_torch.models import api
+    from repro_torch.quantized.apply import w8_infos
     infos = dict(tree_items(api.abstract_params(cfg)))
     paths, leaves = [], []
     for path, leaf in tree_items(params):
-        if path[-1] in _W8:
-            raise _w8_refused()
+        info = (w8_infos(infos[path[:-1]])[path[-1]]
+                if path[-1] in _W8 and path[:-1] in infos else infos[path])
         paths.append(path)
-        leaves.append(shard_leaf(infos[path], leaf, axes, base.keystr(path)))
+        leaves.append(shard_leaf(info, leaf, axes, base.keystr(path)))
     return tree_unflatten(paths, leaves)
 
 

@@ -11,6 +11,7 @@ declares the W8 serving tree without making a tensor.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 
@@ -19,7 +20,7 @@ import torch
 from repro_torch.models import api
 from repro_torch.models.base import ParamInfo
 
-__all__ = ["QUANT_MIN_SIZE", "quantize_leaf", "quantize_tree", "dequantize_tree",
+__all__ = ["QUANT_MIN_SIZE", "quantize_leaf", "quantize_tree", "dequantize_tree", "w8_infos",
            "abstract_quantized_params", "quantize_params_for_serving", "prune_stats"]
 
 QUANT_MIN_SIZE = 1 << 14      # don't quantize tiny tensors (norms, biases)
@@ -104,19 +105,28 @@ def _served_as_int8(path: str, shape, min_size: int) -> bool:
     return len(shape) >= 2 and math.prod(shape) >= min_size and bool(_QUANT_NAMES.search(path))
 
 
+def w8_infos(info: ParamInfo) -> dict:
+    """The {"q", "s"} infos of the W8 leaf that serves a dense leaf of
+    `info`: q is `info` at int8 (its segments kept); s holds the scales,
+    per (first dim, last dim) for a weight of three or more dims, else per
+    last dim, with those dims' logical axes, and keeps the segments where
+    the segmented dim (a Mamba2 `in_proj`'s "ffn") is the last dim."""
+    dims = (0, -1) if len(info.shape) >= 3 else (-1,)
+    segmented = info.segments and info.logical[-1] in ("ffn", "heads")
+    return {"q": dataclasses.replace(info, dtype=torch.int8, init="zeros"),
+            "s": ParamInfo(tuple(info.shape[d] for d in dims), torch.float32,
+                           tuple(info.logical[d] for d in dims), init="ones",
+                           segments=info.segments if segmented else ())}
+
+
 def abstract_quantized_params(cfg, *, min_size: int = QUANT_MIN_SIZE) -> dict:
     """The abstract (ParamInfo) tree of the W8 serving checkpoint, made
     without allocating: the leaves `quantize_params_for_serving` quantizes
-    become {"q": int8, "s": fp32 scales}, with per-(stack, out-channel)
-    scales, (L, last), for stacked weights, and the same logical axes."""
+    become `w8_infos`' {"q": int8, "s": fp32 scales}, with per-(stack,
+    out-channel) scales, (L, last), for stacked weights, and the same
+    logical axes."""
     def one(path, info):
-        if not _served_as_int8(path, info.shape, min_size):
-            return info
-        three = len(info.shape) >= 3
-        sshape = (info.shape[0], info.shape[-1]) if three else (info.shape[-1],)
-        slogical = (info.logical[0], info.logical[-1]) if three else (info.logical[-1],)
-        return {"q": ParamInfo(info.shape, torch.int8, info.logical, init="zeros"),
-                "s": ParamInfo(sshape, torch.float32, slogical, init="ones")}
+        return w8_infos(info) if _served_as_int8(path, info.shape, min_size) else info
 
     return _rebuild(api.abstract_params(cfg), one)
 

@@ -20,8 +20,22 @@ E/m a rank) and builds its cache
 at its shards' shapes (`local_tree`), its length rounded up to a
 multiple of the axis where a KV cache goes by positions (`cache_len`).
 Each rank's prefill sends its mixers' SSDs, on its heads, through the
-`ssd_scan` kernel. Every rank of the model group runs `generate` on the
-same prompts and returns the same tokens.
+`ssd_scan` kernel. A W8 checkpoint (`quantize_params_for_serving` of the
+whole tree) is cut the same way, its scales with it (ROADMAP.md A.7e).
+
+Under an active mesh whose batch rule ("data", or ("pod", "data") on a
+mesh with a "pod" axis, `tensor.serving_rules`) spans n ranks above 1,
+every rank is handed the whole batch and serves its B / n rows
+(`data_parallel.local_rows`' order: rank order over the data group, the
+same rows on every rank of a model group), its modality extras cut by
+rows too, from a cache of those rows; prefill and decode run inside
+`data_parallel.reducing` over the data group, so a MoE layer's capacity
+and expert queues are the global batch's. Each step's tokens are
+gathered over the data group, and every rank returns the same (B, new)
+array, as the reference returns its global one; `eos_id` masks the
+gathered tokens. A batch that the data axes do not divide is served
+whole on every rank, recorded in `sharding.fallbacks()` as the
+reference's spec records it (a prefix of the axes where one divides).
 """
 from __future__ import annotations
 
@@ -30,10 +44,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 from repro_torch.models import api
 from repro_torch.models.base import ArchConfig, tree_init, tree_map
+from repro_torch.parallel import data_parallel as dp
+from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor
 
 __all__ = ["ServeConfig", "make_serve_step", "Engine"]
@@ -78,31 +95,53 @@ class Engine:
         prompt's modality inputs (`pixel_embeds`/`pixel_mask`/`positions`
         for vlm, `frame_embeds` for audio), numpy arrays or tensors, moved
         to the engine's device with their dtypes. Returns
-        (B, max_new_tokens) int32."""
+        (B, max_new_tokens) int32, every row, on every rank."""
         B, P = prompts.shape
         sc, dev = self.sc, self.device
-        cache_info = api.abstract_cache(self.cfg, B, tensor.cache_len(self.cfg, sc.max_len))
-        cache = tree_init(tensor.local_tree(self.cfg, cache_info),
-                          torch.Generator(device=dev).manual_seed(0), dev)
         batch = {"tokens": torch.as_tensor(np.asarray(prompts), device=dev).long()}
         if extras:
             batch.update({k: torch.as_tensor(v).to(dev) for k, v in extras.items()})
-        t0 = time.perf_counter()
-        logits, cache = api.prefill(self.cfg, self.params, batch, cache,
-                                    use_kernel=self.use_kernel)
-        toks = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-        out = [toks.cpu().numpy()]
-        self.stats = {"prefill_s": time.perf_counter() - t0, "decode_s": []}
-        pos = torch.full((B,), P, dtype=torch.int32, device=dev)
-        alive = np.ones((B,), bool)
-        for _ in range(sc.max_new_tokens - 1):
+        group = _data_group(B)
+        if group is not None:
+            batch = dp.local_rows(batch, 1, dist.get_world_size(group), dist.get_rank(group))
+        rows = batch["tokens"].shape[0]
+        cache_info = api.abstract_cache(self.cfg, rows, tensor.cache_len(self.cfg, sc.max_len))
+        cache = tree_init(tensor.local_tree(self.cfg, cache_info),
+                          torch.Generator(device=dev).manual_seed(0), dev)
+
+        def gathered(toks):
+            return (toks if group is None else tensor.all_gather(toks, group, dim=0)).cpu().numpy()
+
+        with dp.reducing(group):
             t0 = time.perf_counter()
-            toks, cache = self._step(self.params, cache, toks.long(), pos)
-            pos = pos + 1
-            t_np = toks.cpu().numpy()
-            self.stats["decode_s"].append(time.perf_counter() - t0)
-            if sc.eos_id >= 0:
-                alive &= (t_np[:, 0] != sc.eos_id)
-                t_np = np.where(alive[:, None], t_np, sc.eos_id)
-            out.append(t_np)
+            logits, cache = api.prefill(self.cfg, self.params, batch, cache,
+                                        use_kernel=self.use_kernel)
+            toks = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            out = [gathered(toks)]
+            self.stats = {"prefill_s": time.perf_counter() - t0, "decode_s": []}
+            pos = torch.full((rows,), P, dtype=torch.int32, device=dev)
+            alive = np.ones((B,), bool)
+            for _ in range(sc.max_new_tokens - 1):
+                t0 = time.perf_counter()
+                toks, cache = self._step(self.params, cache, toks.long(), pos)
+                pos = pos + 1
+                t_np = gathered(toks)
+                self.stats["decode_s"].append(time.perf_counter() - t0)
+                if sc.eos_id >= 0:
+                    alive &= (t_np[:, 0] != sc.eos_id)
+                    t_np = np.where(alive[:, None], t_np, sc.eos_id)
+                out.append(t_np)
         return np.concatenate(out, axis=1)
+
+
+def _data_group(batch: int):
+    """The group a batch of `batch` rows is split over under the active
+    mesh: its "batch" rule's axes, or the prefix of them that divides it
+    (the reference's spec, whose fallback is recorded); None without a
+    mesh or where that is one rank."""
+    mesh = shd.active_mesh()
+    if mesh is None:
+        return None
+    part = shd.spec((batch,), ("batch",))
+    names = () if not part else (part[0],) if isinstance(part[0], str) else tuple(part[0])
+    return mesh.group(names) if mesh.size(names) > 1 else None

@@ -59,6 +59,7 @@ from repro.models import api as japi
 from repro.models import base as jbase
 from repro.parallel import sharding as jshd
 
+from _gloo_world import spawn
 from _tp_formula import split_collectives
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -131,32 +132,6 @@ def _slice(a: np.ndarray, spec, coord: int, m: int) -> np.ndarray:
     return a
 
 
-def _spawn(world: int, d: Path) -> list[dict]:
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
-    logs = [open(d / f"tp_{r}.log", "w") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, str(CHILD), str(r), str(world), str(d)],
-                              env=env, stdout=log, stderr=subprocess.STDOUT)
-             for r, log in enumerate(logs)]
-    try:
-        for p in procs:
-            p.wait(timeout=TIMEOUT)
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for log in logs:
-            log.close()
-    if any(p.returncode for p in procs):
-        tails = "\n".join(f"--- rank {r}:\n" + (d / f"tp_{r}.log").read_text()[-3000:]
-                          for r in range(world))
-        raise AssertionError(f"tp world {world}: exit codes "
-                             f"{[p.returncode for p in procs]}\n{tails}")
-    return [dict(np.load(d / f"tp_{r}.npz")) for r in range(world)]
-
-
 def serve_world(world: int, d: Path, world_cases: list, seed: int = 100) -> dict:
     """Run the reference on every case of `world_cases` (weights from seeds
     `seed` + i), hand the inputs to a world of `world` ranks, and gather
@@ -187,7 +162,7 @@ def serve_world(world: int, d: Path, world_cases: list, seed: int = 100) -> dict
             "cache_spec": cspecs["k"], "fallbacks": json.loads(json.dumps(fallbacks))}
     (d / "cases.json").write_text(json.dumps(
         [dict(c, max_len=MAX_LEN, steps=STEPS) for c in world_cases]))
-    return {"cases": cases, "ranks": _spawn(world, d)}
+    return {"cases": cases, "ranks": spawn(CHILD, world, d, TIMEOUT, prefix="tp_")}
 
 
 @pytest.fixture(scope="module")

@@ -72,6 +72,7 @@ from repro.models import api as japi
 from repro.models import base as jbase
 from repro.parallel import sharding as jshd
 
+from _gloo_world import spawn
 from _tp_formula import ssm_split_collectives
 from test_torch_tp import FakeMesh, _slice, _weights
 
@@ -148,32 +149,6 @@ def _specs(tree) -> dict:
     return {jax.tree_util.keystr(k): s for k, s in flat}
 
 
-def _spawn(world: int, d: Path) -> list[dict]:
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
-    logs = [open(d / f"tp_{r}.log", "w") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, str(CHILD), str(r), str(world), str(d)],
-                              env=env, stdout=log, stderr=subprocess.STDOUT)
-             for r, log in enumerate(logs)]
-    try:
-        for p in procs:
-            p.wait(timeout=TIMEOUT)
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for log in logs:
-            log.close()
-    if any(p.returncode for p in procs):
-        tails = "\n".join(f"--- rank {r}:\n" + (d / f"tp_{r}.log").read_text()[-3000:]
-                          for r in range(world))
-        raise AssertionError(f"tp world {world}: exit codes "
-                             f"{[p.returncode for p in procs]}\n{tails}")
-    return [dict(np.load(d / f"tp_{r}.npz")) for r in range(world)]
-
-
 @functools.lru_cache(maxsize=None)
 def _case_inputs(i: int) -> dict:
     """A case's weights, prompts and reference run (the same in every world)."""
@@ -206,7 +181,7 @@ def _world(world: int, d: Path) -> dict:
             "fallbacks": json.loads(json.dumps(fallbacks))}
     (d / "cases.json").write_text(json.dumps(
         [dict(c, max_len=MAX_LEN, steps=STEPS) for c in CASES]))
-    return {"cases": cases, "ranks": _spawn(world, d)}
+    return {"cases": cases, "ranks": spawn(CHILD, world, d, TIMEOUT, prefix="tp_")}
 
 
 @pytest.fixture(scope="module")
