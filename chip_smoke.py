@@ -138,9 +138,17 @@ Phases, each raising on failure (nothing is caught):
    (0.15), and two bf16 prefills of one prompt against each other (0.15:
    the combine's bf16 `index_add_` adds in no fixed order); `loss_fn`'s
    aux losses; the share of routed pairs dropped at
-   prefill and at decode (capacity 1 at 4 tokens); a profile;
-   qwen3-moe-30b-a3b abstract (fp32, bf16 and W8 bytes). Every count must
-   stay 0. (h) The vlm and audio modalities: qwen2-vl-2b (1.54 B
+   prefill and at decode (capacity 1 at 4 tokens); a profile. Then
+   qwen3-moe-30b-a3b at full width (30.5 B parameters, 48 layers, 128
+   experts of d_ff 768, top 8) from the reference's bf16 serving copy
+   (61.06 GB), drawn on the card a layer slice at a time
+   (`base.tree_draw`): the init's peak within the tree's bytes plus its
+   largest fp32 part plus 1 GB, beside the prefill's peak counted on
+   `meta`; served in bf16 at 4 x 512 + 32 with the dropped shares; the
+   fp32-compute prefill against forward (2e-2); the bf16 prefill against
+   the fp32 one (MOE_BIG_BF16_RTOL of the largest |logit|, routings that
+   differ counted); its W8 tree (30.6 GB) counted, not served. Every
+   count must stay 0. (h) The vlm and audio modalities: qwen2-vl-2b (1.54 B
    parameters, M-RoPE, the first 128 positions of a 512-token prompt image
    patches) and musicgen-medium (1.37 B, LayerNorm, GELU, sinusoidal
    positions, frame embeddings) at full width, served from fp32 at
@@ -244,7 +252,7 @@ Phases, each raising on failure (nothing is caught):
    against its plain version, timed beside its bound. The ranks'
    launches join the `kernels` line's. (o) The ssm and hybrid families
    trained split over a (2, 2) (data, model) mesh: four `chip_smoke.py
-   --tp-ssm-train-child` ranks, mamba2-2.7b at full width cut to 8
+   --tp-ssm-train-child` ranks, mamba2-2.7b at full width cut to 4
    layers and zamba2-2.7b to 6, 2 steps of 4 x 512 in bf16, and at 4
    and 6 layers in fp32, held to unmeshed and to witnesses of the
    split's roundings; the shared B, C and per-head copies bitwise equal.
@@ -254,7 +262,7 @@ Phases, each raising on failure (nothing is caught):
    a rank, heads and kv heads split, the vocab whole) at 4 x 512 + 32
    in bf16 through `Engine`, then the prefill and 8 greedy steps in
    bf16 and in fp32; four `chip_smoke.py --tp-moe-train-child` ranks
-   train it on a (2, 2) mesh at full width (4 layers in bf16, 2 and 4 in
+   train it on a (2, 2) mesh at full width (2 layers in bf16, 2 and 4 in
    fp32); this process runs the same weights unmeshed: fp32 logits
    within 1e-5 of the largest |logit| with the same routings and drops,
    bf16 within the larger of 0.05 and 3 x a witness of the split's
@@ -423,8 +431,8 @@ FP32_ROUTE_RTOL = 1e-3
 # fp32 teacher forcing on 4 x 64 + 16, as the dense family's.
 HYBRID_ARCH, HYBRID_PARAMS, HYBRID_SSM_STATE = "zamba2-2.7b", 2_409_563_040, 64
 # The MoE family (phase 4(g)): granite-moe-1b-a400m as published (24 layers,
-# 32 experts of d_ff 512, top 8), fp32 at 4 x 512 + 32; qwen3-moe-30b-a3b
-# abstract only. A decode step's capacity (1 at T = 4) is not a prefill's,
+# 32 experts of d_ff 512, top 8), fp32 at 4 x 512 + 32; then qwen3-moe-30b-a3b
+# from its bf16 serving copy (below). A decode step's capacity (1 at T = 4) is not a prefill's,
 # so teacher forcing does not hold; instead: prefill against forward at the
 # same T (PREFILL_TOL); one fp32-compute decode step on the card against
 # the same step on the host from the same weights and cache, within
@@ -438,9 +446,24 @@ HYBRID_ARCH, HYBRID_PARAMS, HYBRID_SSM_STATE = "zamba2-2.7b", 2_409_563_040, 64
 # bf16 `index_add_` is atomic on the card, in no fixed order, so two bf16
 # prefills of one prompt may differ: a reordered bf16 sum is a bf16
 # rounding, held to the same bound.
-MOE_ARCH, MOE_ABSTRACT = "granite-moe-1b-a400m", "qwen3-moe-30b-a3b"
+MOE_ARCH, MOE_BIG = "granite-moe-1b-a400m", "qwen3-moe-30b-a3b"
 MOE_PARAMS = {"granite-moe-1b-a400m": 1_334_628_352, "qwen3-moe-30b-a3b": 30_532_110_336}
 MOE_HOST_RTOL, MOE_BF16_RTOL = 1e-3, 0.15
+# qwen3-moe-30b-a3b (phase 4(g), part (b)): the reference's bf16 serving copy
+# (`base.serving_copy`: fp32 leaves of two dims or more in bf16, 61.06 GB),
+# drawn on the card by `base.tree_draw` a layer slice at a time, so the
+# init's peak stays below the tree's bytes + its largest fp32 part (the
+# 151,936 x 2,048 embedding, 1.245 GB) + MOE_BIG_INIT_SLACK. Served in bf16
+# at 4 x 512 + 32; in fp32 compute on the same bf16 weights prefill is held
+# against forward (PREFILL_TOL), and the bf16 prefill's last logits against
+# the fp32 one's within MOE_BIG_BF16_RTOL of the largest |logit|. That bound
+# was fixed before the first card reading from CPU readings of
+# `scripts/moe_bf16_gap.py` at 4 x 512: 0.0075-0.0305 at the smoke size
+# over 9 seeds; at the full width cut to 2 layers 0.0058 and 0.0268, to 4
+# layers 0.0055-0.0122 over 3 seeds (~5% of the (token, layer) routings
+# flipped). 48 layers may flip more, so the MoE family's bf16 bound,
+# MOE_BF16_RTOL: five times the worst CPU reading.
+MOE_BIG_INIT_SLACK, MOE_BIG_BF16_RTOL = 1e9, MOE_BF16_RTOL
 # The vlm and audio modalities (phase 4(h)): qwen2-vl-2b and musicgen-medium
 # as published, served from fp32 (bf16 compute) at 4 x 512 + 32 with the
 # prompt extras of `data.pipeline.make_batch` (vlm: the first 128
@@ -541,7 +564,7 @@ TP_BF16_RTOL, TP_FP32_RTOL = 0.05, 1e-5
 # gradient), within 2 lr elsewhere.
 TP_TRAIN_SHAPE, TP_TRAIN_RANKS, TP_TRAIN_STEPS = (4, 512, 2), (2, 2), 2
 TP_TRAIN_FP32_LAYERS, TP_TRAIN_FP32_RTOL, EPS_REGIME = 4, 1e-5, 1e-6
-TP_TRAIN_BF16_LAYERS = 6
+TP_TRAIN_BF16_LAYERS = 4
 TP_TRAIN_LOSS_RTOL, TP_TRAIN_GNORM_RTOL, TP_TRAIN_LR = 1e-4, 2 ** -8, 3e-4
 # Phase 4(n), the ssm and hybrid families served split over a model axis of
 # 2 (`parallel/tensor.py`, `layers/mamba2.py`): two ranks on the one card in
@@ -595,7 +618,7 @@ TP_SSM_WITNESS = 3.0
 # backward, in either package), so every kernel count, the ranks' too,
 # must stay 0. After the ranks have exited this process runs the same
 # steps unmeshed from the same seed on the same batches. (a) mamba2-2.7b
-# at full width cut to 8 of its 64 mixers and (b) zamba2-2.7b at full
+# at full width cut to 4 of its 64 mixers and (b) zamba2-2.7b at full
 # width cut to 6 mixers (1 shared site; the depths cut to keep the script
 # inside its time once phase 4(p) joined it), bf16: losses and grad norms within the larger of
 # TP_TRAIN_LOSS_RTOL / TP_TRAIN_GNORM_RTOL and TP_SSM_WITNESS x a witness,
@@ -628,7 +651,7 @@ TP_SSM_WITNESS = 3.0
 # norms stay within 1e-5. And the copies that ranks share bitwise equal:
 # the B and C columns of in_proj and channels of the conv on the two
 # model ranks of each data coordinate, the per-head vectors on all four.
-TP_SSM_TRAIN_CASES = {"a": ("mamba2-2.7b", 8, "bfloat16"), "b": (HYBRID_ARCH, 6, "bfloat16"),
+TP_SSM_TRAIN_CASES = {"a": ("mamba2-2.7b", 4, "bfloat16"), "b": (HYBRID_ARCH, 6, "bfloat16"),
                       "ca": ("mamba2-2.7b", 4, "float32"), "cb": (HYBRID_ARCH, 6, "float32")}
 TP_SSM_TRAIN_MEMORY = 0.225      # of the card a rank may take (4 x 17.8 GiB of 79.2)
 # Phase 4(p), the MoE family served and trained under a model axis above 1:
@@ -672,7 +695,7 @@ TP_SSM_TRAIN_MEMORY = 0.225      # of the card a rank may take (4 x 17.8 GiB of 
 # The MoE path reaches no kernel, as the reference's reaches no Pallas
 # kernel: every count, the ranks' too, must stay 0.
 TP_MOE_STEPS, TP_MOE_WITNESS = 8, 3.0
-TP_MOE_TRAIN_CASES = {"a": (MOE_ARCH, 4, "bfloat16"), "ca": (MOE_ARCH, 2, "float32"),
+TP_MOE_TRAIN_CASES = {"a": (MOE_ARCH, 2, "bfloat16"), "ca": (MOE_ARCH, 2, "float32"),
                       "cb": (MOE_ARCH, 4, "float32")}
 TP_MOE_TRAIN_MEMORY = 0.2        # of the card a rank may take
 # Phase 4(q), last: W8 checkpoints served under a model axis above 1
@@ -2356,8 +2379,9 @@ def _moe_path(dev, wrappers, reset_launches, smi) -> None:
     4 x 512 + 32 (bf16 compute); its W8 form refused as the reference's
     fails; prefill against forward, a decode step on the card against the
     host's, a bf16 step against fp32; loss_fn's aux losses; the share of
-    routed pairs dropped at prefill and at decode; a profile;
-    qwen3-moe-30b-a3b counted abstractly. No TPU kernel: every count 0."""
+    routed pairs dropped at prefill and at decode; a profile. Then (b)
+    qwen3-moe-30b-a3b at full width from its bf16 serving copy
+    (`_moe_big_path`). No TPU kernel: every count 0."""
     import dataclasses
     import gc
     import math
@@ -2480,32 +2504,181 @@ def _moe_path(dev, wrappers, reset_launches, smi) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # qwen3-moe-30b-a3b, abstract only: fp32 fits no card
-    big = configs.get_config(MOE_ABSTRACT)
-    n = base.count_params(api.abstract_params(big))
-    if n != MOE_PARAMS[MOE_ABSTRACT]:
-        raise AssertionError(f"{MOE_ABSTRACT}: {n} parameters")
-    w8_bytes = 0
-
-    def add(info):
-        nonlocal w8_bytes
-        w8_bytes += math.prod(info.shape) * info.dtype.itemsize
-
-    base.tree_map(add, qapply.abstract_quantized_params(big))
-    card_bytes = torch.cuda.get_device_properties(dev).total_memory
-    print(f"[4 moe path] {MOE_ABSTRACT} (abstract only): {n} parameters, fp32 {4 * n / 1e9:.1f} "
-          f"GB, bf16 {2 * n / 1e9:.1f} GB, W8 tree {w8_bytes / 1e9:.2f} GB "
-          f"(abstract_quantized_params) against the card's {card_bytes / 1e9:.1f} GB")
+    big = _moe_big_path(dev, smi)
     counts = {name: w.launches for name, w in wrappers.items()}
     print(f"[4 moe path] launches {counts} (the MoE path reaches no TPU kernel)")
     if any(counts.values()):
         raise AssertionError("the MoE path launched a kernel")
     seconds = time.perf_counter() - t_phase
-    print(f"[4 moe path] phase {seconds:.1f} s")
+    print(f"[4 moe path] phase {seconds:.1f} s ({MOE_BIG} {big['phase_s']:.1f} s)")
     print(json.dumps({"moe_ms": runs, "moe_checks": checks, "moe_profile": trace,
-                      "abstract": {MOE_ABSTRACT: {"params": n, "w8_bytes": w8_bytes}},
-                      "phase_s": seconds, "device": torch.cuda.get_device_name(dev),
-                      "power": smi}))
+                      MOE_BIG: big, "phase_s": seconds,
+                      "device": torch.cuda.get_device_name(dev), "power": smi}))
+
+
+def _tree_bytes_abstract(tree) -> int:
+    """Bytes of an abstract tree's leaves."""
+    from repro_torch.models import base
+    return sum(math.prod(i.shape) * i.dtype.itemsize for _, i in base.tree_items(tree))
+
+
+def _moe_big_counted(cfg, batch: int, prompt: int, new: int) -> dict:
+    """The bf16 serving copy's bf16-compute prefill of batch x (prompt +
+    new) tokens, a bound on the generate's step, and its fp32-compute
+    forward of batch x prompt, counted on `meta` at world size 1
+    (`launch/cost.py`): peak bytes (parameters included), FLOPs, bytes."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import cost, dryrun
+    from repro_torch.models import api, base
+
+    run = dryrun.build_step(cfg, base.ShapeConfig("chip", prompt + new, batch, "prefill"),
+                            device="meta", variant={"serve_dtype": "bfloat16"})
+    prefill = dryrun.count_step(run)
+    params = base.tree_sds(base.serving_copy(api.abstract_params(cfg), torch.bfloat16))
+    tokens = torch.empty((batch, prompt), dtype=torch.long, device="meta")
+    with cost.Counter() as forward:
+        api.forward(dataclasses.replace(cfg, compute_dtype="float32"), params,
+                    {"tokens": tokens})
+    return {k: {"peak_bytes": c.peak_bytes, "flops": c.flops, "bytes": c.bytes}
+            for k, c in (("prefill_bf16", prefill), ("forward_fp32", forward))}
+
+
+def _moe_bf16_gap(cfg, params, tokens, dev) -> dict:
+    """Prefill `tokens` in fp32 and in bf16 compute on the same weights:
+    the bf16 last logits' `_rel_max` against the fp32 ones, the (token,
+    layer) routings that differ, each run's share of routed pairs dropped,
+    and the fp32 last logits."""
+    import dataclasses
+    import torch
+    from repro_torch.models import api, base
+
+    B, P = tokens.shape
+    last, ids, drop = {}, {}, {}
+    with torch.inference_mode():
+        for c in ("float32", "bfloat16"):
+            cc = dataclasses.replace(cfg, compute_dtype=c)
+            cache = base.tree_init(api.abstract_cache(cc, B, P), torch.Generator(device=dev), dev)
+            with _moe_recorded() as seen:
+                last[c] = api.prefill(cc, params, {"tokens": tokens}, cache)[0].float()
+            del cache
+            ids[c] = seen["ids"]
+            drop[c] = float((~torch.cat(seen["keep"])).float().mean())
+    flips = sum(int((a != b).any(-1).sum()) for a, b in zip(ids["bfloat16"], ids["float32"]))
+    return {"rel_max": _rel_max(last["bfloat16"], last["float32"]), "routings_differ": flips,
+            "routings": B * P * cfg.n_layers, "dropped": drop, "last_fp32": last["float32"]}
+
+
+def _moe_big_path(dev, smi) -> dict:
+    """Phase 4(g), part (b): qwen3-moe-30b-a3b at full width from the
+    reference's bf16 serving copy, drawn on the card a layer slice at a
+    time; served in bf16 at 4 x 512 + 32; the fp32-compute prefill
+    against forward; the bf16 prefill against the fp32 one; its W8 tree
+    counted (the reference's W8 MoE fails, so it is not served)."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.layers import moe
+    from repro_torch.models import api, base
+    from repro_torch.quantized import apply as qapply
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag = "moe path"
+    cfg = configs.get_config(MOE_BIG)
+    abstract = api.abstract_params(cfg)
+    n = base.count_params(abstract)
+    if n != MOE_PARAMS[MOE_BIG]:
+        raise AssertionError(f"{MOE_BIG}: {n} parameters, want {MOE_PARAMS[MOE_BIG]}")
+    tree = base.serving_copy(abstract, torch.bfloat16)
+    tree_bytes = _tree_bytes_abstract(tree)
+    largest_part = max(4 * math.prod(i.shape[1:] if p[0] == base.STACKED else i.shape)
+                       for p, i in base.tree_items(tree))
+    B, P, new = DENSE_BATCH, DENSE_PROMPT, DENSE_NEW
+    counted = _moe_big_counted(cfg, B, P, new)
+    rec = {"params": n, "tree_bytes": tree_bytes, "largest_fp32_part": largest_part,
+           "counted_meta": counted}
+    print(f"[4 {tag}] (b) {MOE_BIG}: {n} parameters, {cfg.n_layers} layers, {cfg.n_experts} "
+          f"experts of d_ff {cfg.d_ff}, top {cfg.experts_per_token}, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab}; bf16 serving copy {tree_bytes / 1e9:.3f} GB (fp32 "
+          f"{4 * n / 1e9:.1f} GB fits no card), largest fp32 part {largest_part / 1e9:.3f} GB; "
+          f"counted on meta (world size 1): bf16 prefill {B}x{P + new} peak "
+          f"{counted['prefill_bf16']['peak_bytes'] / 1e9:.3f} GB, fp32-compute forward "
+          f"{B}x{P} peak {counted['forward_fp32']['peak_bytes'] / 1e9:.3f} GB")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params = base.tree_draw(tree, SEED, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated(dev) - before
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    bound = tree_bytes + largest_part + MOE_BIG_INIT_SLACK
+    rec.update(init_s=init_s, allocated=held, init_peak=peak, init_bound=bound)
+    print(f"[4 {tag}] (b) {MOE_BIG} bf16 copy drawn a layer slice at a time: init "
+          f"{init_s:.2f} s, {held / 1e9:.3f} GB allocated ({held} B; the tree {tree_bytes} B), "
+          f"max_memory_allocated over the init {peak / 1e9:.3f} GB (bound {bound / 1e9:.3f}: "
+          f"the tree + the largest fp32 part + {MOE_BIG_INIT_SLACK / 1e9:.0f} GB) ({smi})")
+    if not tree_bytes <= held < tree_bytes + 1e8:
+        raise AssertionError(f"{MOE_BIG}: {held} B allocated for a tree of {tree_bytes} B")
+    if not peak <= bound:
+        raise AssertionError(f"{MOE_BIG}: the init's peak {peak} B passed {bound} B")
+
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab, size=(B, P)).astype(np.int32)
+    with _moe_recorded() as seen:
+        _dense_generate(cfg, params, prompts, 2, dev, "bf16 copy warm-up", tag=tag)
+    prefill_keep = torch.cat(seen["keep"][:cfg.n_layers])
+    decode_keep = torch.cat(seen["keep"][cfg.n_layers:])
+    drops = {"prefill": float((~prefill_keep).float().mean()),
+             "decode": float((~decode_keep).float().mean())}
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = _dense_generate(cfg, params, prompts, new, dev, "bf16 copy", tag=tag)
+    run["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    rec.update(generate=run, dropped=drops)
+    print(f"[4 {tag}] (b) {MOE_BIG} bf16 generate {B}x{P} + {new}: prefill "
+          f"{run['prefill_ms']:.1f} ms, decode {run['decode_ms_per_token']:.2f} ms/token (host "
+          f"clock); max_memory_allocated {run['max_memory_allocated'] / 1e9:.3f} GB (counted "
+          f"on meta {counted['prefill_bf16']['peak_bytes'] / 1e9:.3f}); routed pairs dropped: "
+          f"{drops['prefill']:.4f} at prefill (capacity "
+          f"{moe.capacity(B * P, cfg.experts_per_token, cfg.n_experts)}), {drops['decode']:.4f} "
+          f"at decode (capacity {moe.capacity(B, cfg.experts_per_token, cfg.n_experts)})")
+
+    toks = torch.as_tensor(prompts, device=dev).long()
+    gap = _moe_bf16_gap(cfg, params, toks, dev)
+    with torch.inference_mode():
+        full = api.forward(dataclasses.replace(cfg, compute_dtype="float32"), params,
+                           {"tokens": toks})[0][:, -1]
+    err = (gap["last_fp32"] - full).abs().max().item()
+    print(f"[4 {tag}] (b) {MOE_BIG} fp32-compute prefill {B}x{P} on the bf16 copy vs forward's "
+          f"last position: max |diff| {err:.3g} (bound {PREFILL_TOL})")
+    if not torch.allclose(gap["last_fp32"], full, rtol=PREFILL_TOL, atol=PREFILL_TOL):
+        raise AssertionError(f"{MOE_BIG}: prefill's last logits differ from forward's")
+    del full
+    print(f"[4 {tag}] (b) {MOE_BIG} bf16 prefill vs fp32 prefill on the same weights: max |diff| "
+          f"{gap['rel_max']:.4g} of the largest |logit| (bound {MOE_BIG_BF16_RTOL}); "
+          f"{gap['routings_differ']} of {gap['routings']} (token, layer) routings differ; "
+          f"dropped {gap['dropped']['float32']:.4f} (fp32) / {gap['dropped']['bfloat16']:.4f} "
+          "(bf16)")
+    if not gap["rel_max"] < MOE_BIG_BF16_RTOL:
+        raise AssertionError(f"{MOE_BIG}: the bf16 prefill is not within {MOE_BIG_BF16_RTOL} "
+                             "of the fp32 one")
+    rec.update(prefill_vs_forward_max_abs=err,
+               bf16_vs_fp32={k: v for k, v in gap.items() if k != "last_fp32"})
+    del params, gap
+    gc.collect()
+    torch.cuda.empty_cache()
+    w8_bytes = _tree_bytes_abstract(qapply.abstract_quantized_params(cfg))
+    rec["w8_bytes"] = w8_bytes
+    print(f"[4 {tag}] (b) {MOE_BIG} W8 tree {w8_bytes / 1e9:.2f} GB "
+          "(abstract_quantized_params), not served: the reference's W8 MoE fails")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
 
 
 def _modality_path(dev, wrappers, reset_launches, smi) -> None:

@@ -70,7 +70,7 @@ from repro_torch.launch import cost
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import FAKE_BACKEND, make_production_mesh
 from repro_torch.models import api, runtime
-from repro_torch.models.base import ParamInfo, tree_init, tree_items, tree_map, tree_sds
+from repro_torch.models.base import serving_copy, tree_init, tree_items, tree_map, tree_sds
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor
@@ -112,20 +112,15 @@ def _cell_rules(mesh, variant: dict | None) -> dict:
 
 def _serve_params_tree(cfg, variant: dict):
     """Abstract serving params under a variant: optional dtype cast
-    (fp32 master -> bf16 serving copy) and/or W8 int8 specialization."""
+    (fp32 master -> bf16 serving copy, `base.serving_copy`) and/or W8 int8
+    specialization."""
     if variant.get("quant"):
         from repro_torch.quantized.apply import abstract_quantized_params
         tree = abstract_quantized_params(cfg)
     else:
         tree = api.abstract_params(cfg)
     dt = variant.get("serve_dtype")
-    if dt:
-        def cast(i: ParamInfo) -> ParamInfo:
-            if i.dtype == torch.float32 and len(i.shape) >= 2:
-                return dataclasses.replace(i, dtype=getattr(torch, dt))
-            return i
-        tree = tree_map(cast, tree)
-    return tree
+    return serving_copy(tree, dt) if dt else tree
 
 
 def _materialize(tree, device: torch.device, seed: int = 0):

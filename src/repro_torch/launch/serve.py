@@ -10,11 +10,15 @@ Counterpart of `repro/launch/serve.py`, for every config the port
 registers (`configs.ARCHS`: qwen1.5-4b, gemma-2b,
 llama3.2-3b, qwen2-72b, granite-moe-1b-a400m, qwen3-moe-30b-a3b,
 mamba2-2.7b, zamba2-2.7b). Without --smoke the full published config is
-served (qwen2-72b and qwen3-moe-30b-a3b do not fit one card in fp32: use
---smoke); weights are random from a `torch.Generator` seeded 0, made on
-the device. --w8 serves the int8 checkpoint (`quantize_params_for_serving`,
-every matmul weight, quantized whole before any split); a MoE model
-raises there, as the reference's W8 MoE fails (`layers/moe.py`).
+served; weights are random, seeded 0 and drawn on the device by
+`models.base.tree_draw`: a layer slice at a time, each slice from its own
+seeded generator, so no fp32 temporary exceeds one layer slice or one
+unstacked leaf. --w8 serves the int8 checkpoint (`serving_leaf`, every
+matmul weight; a stacked leaf quantized a slice at a time, which gives
+the whole tree's `q` and `s` bit for bit, each slice whole before any
+split); a MoE model raises there, as the reference's W8 MoE fails
+(`layers/moe.py`). In fp32 qwen3-moe-30b-a3b (122 GB) and qwen2-72b
+(291 GB) fit no one card: split them over enough ranks, or use --smoke.
 
 One process serves on one card (or the CPU) with no mesh. Under
 `torchrun` (`WORLD_SIZE` above 1) every process joins the world (NCCL on
@@ -36,8 +40,11 @@ positions; each Mamba2 mixer by heads, zamba2's shared block as a dense
 layer; each MoE block's experts E/m a rank), a W8 checkpoint's `q` and
 scales with it (A.7e), and `Engine` serves each rank its rows of the
 batch over the data axes, every rank returning the whole batch's tokens.
-Every rank draws the whole tree from the same seed (and quantizes it
-whole) and keeps its shards.
+Every rank draws the tree from the same seed a layer slice at a time and
+keeps only its shards of each slice (`tensor.draw_keep`; under --w8 each
+slice quantized whole first), so a rank holds its shards' bytes and one
+fp32 slice, never a whole stacked leaf: qwen2-72b needs about 291 GB / m a rank
+in fp32 under a model axis of m, plus one slice.
 Rank 0 prints the same summary line as the reference.
 """
 from __future__ import annotations
@@ -112,13 +119,26 @@ def main(argv=None):
     return out
 
 
-def _serve(cfg, args, dev):
+def draw_params(cfg, dev, w8: bool = False) -> dict:
+    """The launcher's weights: `api.abstract_params(cfg)` drawn by
+    `base.tree_draw` from seed 0 on `dev`, under --w8 each drawn part
+    quantized whole (`serving_leaf`: a stacked leaf a slice at a time),
+    then cut to this rank's shards under the active mesh
+    (`tensor.draw_keep`)."""
+    cut = tensor.draw_keep(cfg)
+
+    def quantized(path, info, part, i):
+        part = qapply.serving_leaf(base.keystr(path), part, shape=info.shape, min_size=0)
+        return part if cut is None else cut(path, info, part, i)
+
     with torch.inference_mode():
-        params = base.tree_init(api.abstract_params(cfg),
-                                torch.Generator(device=dev).manual_seed(0), dev)
-        if args.w8:
-            params = qapply.quantize_params_for_serving(cfg, params, min_size=0)
-            print("serving W8-specialized checkpoint (paper technique)")
+        return base.tree_draw(api.abstract_params(cfg), 0, dev, keep=quantized if w8 else cut)
+
+
+def _serve(cfg, args, dev):
+    params = draw_params(cfg, dev, args.w8)
+    if args.w8:
+        print("serving W8-specialized checkpoint (paper technique)")
     eng = Engine(cfg, params, ServeConfig(
         max_len=args.prompt_len + args.new_tokens + 8,
         max_new_tokens=args.new_tokens), device=dev)

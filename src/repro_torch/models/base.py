@@ -12,7 +12,12 @@ tensors on the `meta` device (shape and dtype, no storage), each with a
 (spec and `torch.distributed.tensor` placements), None outside one. The
 same seed gives other
 bits than `jax.random`, so the tests carry weights across with
-`models.convert.from_jax_params` instead.
+`models.convert.from_jax_params` instead. `tree_draw` materializes a
+tree a layer slice at a time, each leaf straight into its own dtype and
+each slice from its own seeded generator, so a tree too large to exist
+in fp32 on one card (qwen3-moe-30b-a3b's bf16 serving copy,
+`serving_copy`), or a rank's shards of one (`keep`), can be drawn; its
+values are not `tree_init`'s (ROADMAP.md, C).
 
 Trees are nested dicts. `tree_items` walks one in the reference's
 flatten order (sorted keys at every level) and names each leaf by its
@@ -24,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import zlib
 from typing import Any
 
 import torch
@@ -36,7 +42,8 @@ from repro_torch.parallel import sharding as shd
 
 __all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "supports_shape", "ParamInfo", "is_info",
            "tree_map", "tree_items", "tree_unflatten", "keystr", "layer", "unstack",
-           "remat_call", "sds", "tree_sds", "tree_specs", "tree_init", "count_params"]
+           "remat_call", "sds", "tree_sds", "tree_specs", "tree_init", "tree_draw", "serving_copy",
+           "count_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,6 +253,26 @@ def tree_specs(tree):
     return _map_in_order(lambda i: shd.spec(i.shape, i.logical), tree)
 
 
+def _draw(info: ParamInfo, shape, generator: torch.Generator, device) -> torch.Tensor:
+    """A tensor of `shape` (the leaf's, or one layer slice's) filled by
+    `info`'s init: zeros and ones in the leaf's dtype; the random inits in
+    fp32, for the caller to cast, the normal init's std taken from the
+    whole leaf's fan-in."""
+    if info.init == "zeros":
+        return torch.zeros(shape, dtype=info.dtype, device=device)
+    if info.init == "ones":
+        return torch.ones(shape, dtype=info.dtype, device=device)
+    if info.init == "normal":
+        fan_in = info.shape[info.fan] if info.shape else 1
+        std = info.scale / math.sqrt(max(fan_in, 1))
+        t = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return t.mul_(std)
+    if info.init == "uniform":
+        t = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+        return t.mul_(2 * info.scale).sub_(info.scale)
+    raise ValueError(info.init)
+
+
 def tree_init(tree, generator: torch.Generator, device=None):
     """Materialize an abstract tree on `device`. Leaves draw from the one
     `generator` in the tree's key order (sorted at each level), so the
@@ -253,29 +280,86 @@ def tree_init(tree, generator: torch.Generator, device=None):
     None means `cuda:0` (`_device.resolve_device`)."""
     device = resolve_device(device)
 
-    def mk(info: ParamInfo) -> torch.Tensor:
-        if info.init == "zeros":
-            return torch.zeros(info.shape, dtype=info.dtype, device=device)
-        if info.init == "ones":
-            return torch.ones(info.shape, dtype=info.dtype, device=device)
-        if info.init == "normal":
-            fan_in = info.shape[info.fan] if info.shape else 1
-            std = info.scale / math.sqrt(max(fan_in, 1))
-            t = torch.randn(info.shape, generator=generator, device=device,
-                            dtype=torch.float32)
-            return t.mul_(std).to(info.dtype)
-        if info.init == "uniform":
-            t = torch.rand(info.shape, generator=generator, device=device,
-                           dtype=torch.float32)
-            return t.mul_(2 * info.scale).sub_(info.scale).to(info.dtype)
-        raise ValueError(info.init)
-
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(node[k]) for k in sorted(node)}
-        return mk(node)
+        return _draw(node, node.shape, generator, device).to(node.dtype)
 
     return walk(tree)
+
+
+STACKED = "layers"      # the top-level key whose leaves are stacked over layers
+
+
+def _seed(seed: int, path: tuple, i: int | None) -> int:
+    """A slice's generator seed: a stable hash (crc32, not Python's
+    salted `hash`) of the draw's seed, the leaf's path and its layer."""
+    return zlib.crc32(f"{seed}{keystr(path)}[{i}]".encode())
+
+
+def _put(out, part, i: int) -> None:
+    """Layer i of `out` (a tensor, or a dict of them) = `part`, leaf by
+    leaf; a function, so that no loop variable outlives the copy."""
+    for (_, o), (_, t) in zip(tree_items(out), tree_items(part)):
+        o[i].copy_(t)
+
+
+def tree_draw(tree, seed: int, device=None, *, keep=None):
+    """Materialize an abstract tree on `device`, each leaf straight into
+    its own dtype, a layer slice at a time: a leaf under the `layers` key
+    is stacked over dim 0 (as `unstack` reads it) and is drawn slice by
+    slice into a tensor allocated once; every other leaf is drawn whole.
+    So no fp32 temporary exceeds one slice or one unstacked leaf, and a
+    bf16 tree (`serving_copy`) never exists in fp32.
+
+    Each slice (or unstacked leaf) draws from its own generator, seeded
+    from (seed, path, layer) by `_seed`: its values depend on nothing
+    else, not the tree's key order nor the other leaves. They are not
+    `tree_init`'s values for the same seed, nor the reference's
+    (ROADMAP.md, C).
+
+    `keep(path, info, part, i)`, where given, maps each drawn part (the
+    whole leaf, `i` None, or layer `i`'s slice of a stacked leaf, in the
+    leaf's dtype; `info` is the whole leaf's) to what the tree holds of
+    it: a tensor, or a dict of tensors (a W8 leaf's `{"q", "s"}`), each
+    then stacked over the layers. `parallel/tensor.py` `draw_keep` keeps a
+    rank's shards; `launch/serve.py` quantizes there too."""
+    device = resolve_device(device)
+
+    def leaf(path, info: ParamInfo):
+        def drawn(shape, i):
+            g = torch.Generator(device=device).manual_seed(_seed(seed, path, i))
+            t = _draw(info, shape, g, device).to(info.dtype)
+            return t if keep is None else keep(path, info, t, i)
+
+        if path[0] != STACKED:
+            return drawn(info.shape, None)
+        out = None
+        for i in range(info.shape[0]):
+            one = drawn(info.shape[1:], i)
+            if out is None:
+                out = tree_map(lambda t: t.new_empty((info.shape[0], *t.shape)), one)
+            _put(out, one, i)
+            del one                 # freed before the next slice is drawn
+        return out
+
+    items = list(tree_items(tree))
+    return tree_unflatten([p for p, _ in items], [leaf(p, i) for p, i in items])
+
+
+def serving_copy(tree, dtype):
+    """The abstract serving copy of a parameter tree (the reference's
+    `serve_dtype` variant, `repro/launch/dryrun.py` `_serve_params_sds`):
+    every fp32 leaf of two dims or more in `dtype` (a torch dtype or its
+    name), every other leaf as it is."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+    def cast(i: ParamInfo) -> ParamInfo:
+        if i.dtype == torch.float32 and len(i.shape) >= 2:
+            return dataclasses.replace(i, dtype=dtype)
+        return i
+
+    return tree_map(cast, tree)
 
 
 def count_params(tree) -> int:

@@ -6,7 +6,10 @@ both packages to the same computation, a caller turns the reference's
 parameter tree into numpy arrays (leaf by leaf, nested dicts kept) and
 hands it to `from_jax_params`, which returns the port's tree of tensors
 with the same keys, shapes and dtypes, `{"q", "s"}` leaves included.
-The port itself never sees JAX.
+A bfloat16 leaf (`ml_dtypes.bfloat16`, the dtype of the reference's
+bf16 serving copy, which numpy cannot hand to torch) crosses bit for
+bit as its uint16 words. The port itself never sees JAX, nor
+`ml_dtypes`.
 """
 from __future__ import annotations
 
@@ -26,6 +29,9 @@ def from_jax_params(tree, device=None) -> dict:
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
-        return torch.from_numpy(np.array(node, copy=True, order="C")).to(device)
+        a = np.array(node, copy=True, order="C")
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+        return torch.from_numpy(a).to(device)
 
     return conv(tree)

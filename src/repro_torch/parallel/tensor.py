@@ -11,7 +11,9 @@ the collectives. The port's tensors are local, so the split is explicit:
   `axes` into contiguous slices, and a rank holds the slice at its coordinate
   along those axes: the shard the reference's `NamedSharding` places
   there (`shard_params`, `local_info`, `local_tree`; `gather_leaf`
-  puts the whole leaf back together). Serving cuts "model" alone (heads,
+  puts the whole leaf back together; `draw_keep` cuts each layer slice
+  of a leaf as `base.tree_draw` draws it, so a rank never holds a whole
+  stacked leaf). Serving cuts "model" alone (heads,
   kv_heads, ffn, vocab; its rules keep `fsdp` empty); training cuts
   "model" and "data" (`TRAIN_AXES`, the reference's `fsdp` rule: the
   d_model dim of each matrix, gathered a layer at a time by
@@ -98,7 +100,7 @@ from repro_torch.parallel import sharding as shd
 
 __all__ = ["MODEL", "DATA", "TRAIN_AXES", "serving_rules", "training_rules", "model_group",
            "group_for", "splits", "local_info", "local_tree", "cache_len", "shard_leaf",
-           "shard_params", "gather_leaf", "split_axes", "ssm_splits", "ssm_runs",
+           "shard_params", "draw_keep", "gather_leaf", "split_axes", "ssm_splits", "ssm_runs",
            "all_reduce", "all_gather", "reduce_scatter", "copy_to", "reduce_from",
            "gather_from", "sum_over", "vocab_nll"]
 
@@ -258,6 +260,18 @@ def _index(mesh, names) -> int:
     return i
 
 
+def _narrow(leaf: torch.Tensor, cuts, mesh) -> torch.Tensor:
+    """`leaf` cut by `cuts` (`_cuts`' triples): a view of the contiguous
+    slice along each cut dim, or a Mamba2 leaf's head-aligned runs."""
+    for d, names, runs in cuts:
+        if runs is None:
+            n = leaf.shape[d] // mesh.size(names)
+            leaf = leaf.narrow(d, _index(mesh, names) * n, n)
+        else:
+            leaf = torch.cat([leaf.narrow(d, a, n) for a, n in runs], dim=d)
+    return leaf
+
+
 def shard_leaf(info: ParamInfo, leaf: torch.Tensor, axes=(MODEL,), name: str = "") -> torch.Tensor:
     """This rank's shard of `leaf` (whole, or already at its shard's
     shape, which is kept): contiguous slices along each cut dim, or a
@@ -265,12 +279,7 @@ def shard_leaf(info: ParamInfo, leaf: torch.Tensor, axes=(MODEL,), name: str = "
     mesh = shd.active_mesh()
     cuts = _cuts(info, axes)
     if tuple(leaf.shape) == tuple(info.shape):
-        for d, names, runs in cuts:
-            if runs is None:
-                n = leaf.shape[d] // mesh.size(names)
-                leaf = leaf.narrow(d, _index(mesh, names) * n, n)
-            else:
-                leaf = torch.cat([leaf.narrow(d, a, n) for a, n in runs], dim=d)
+        leaf = _narrow(leaf, cuts, mesh)
         if cuts:                               # a copy: the whole leaf can be freed
             leaf = leaf.clone(memory_format=torch.contiguous_format)
     elif tuple(leaf.shape) != _local_shape(info, cuts, mesh):
@@ -297,6 +306,42 @@ def shard_params(cfg, params, axes=(MODEL,)) -> dict:
         paths.append(path)
         leaves.append(shard_leaf(info, leaf, axes, base.keystr(path)))
     return tree_unflatten(paths, leaves)
+
+
+def draw_keep(cfg, axes=(MODEL,)):
+    """The `keep` of `models.base.tree_draw` that holds this rank's shards
+    of a parameter tree of `cfg` under the active mesh, along `axes`; None
+    unless `splits(cfg, axes)`. `keep(path, info, part, i)` cuts a drawn
+    part, the whole leaf (`i` None) or layer `i`'s slice of a stacked one,
+    or a W8 leaf's `{"q", "s"}` quantized from that part whole (each cut
+    by `w8_infos` of the dense leaf). A slice takes its leaf's cut on the
+    dims after the first: no cut touches the layers dim, so the cut of a
+    slice is the slice of `shard_leaf`'s shard, bit for bit, and a rank
+    never holds more of a stacked leaf than its shard and one slice. Each
+    leaf's cut is taken once, so `fallbacks()` records it once."""
+    if not splits(cfg, axes):
+        return None
+    from repro_torch.quantized.apply import w8_infos
+    mesh = shd.active_mesh()
+    cuts: dict = {}
+
+    def cut(path, info: ParamInfo, part: torch.Tensor, i) -> torch.Tensor:
+        if path not in cuts:
+            cuts[path] = _cuts(info, axes)
+        if i is None:                          # a copy: the whole leaf can be freed
+            return _narrow(part, cuts[path], mesh).clone(
+                memory_format=torch.contiguous_format) if cuts[path] else part
+        if any(d == 0 for d, _, _ in cuts[path]):
+            raise ValueError(f"{base.keystr(path)}: a stacked leaf cut along its layers")
+        return _narrow(part, [(d - 1, names, runs) for d, names, runs in cuts[path]], mesh)
+
+    def keep(path, info: ParamInfo, part, i):
+        if isinstance(part, dict):
+            infos = w8_infos(info)
+            return {k: cut(path + (k,), infos[k], v, i) for k, v in part.items()}
+        return cut(path, info, part, i)
+
+    return keep
 
 
 def gather_leaf(info: ParamInfo, leaf: torch.Tensor, axes=(MODEL,)) -> torch.Tensor:

@@ -7,7 +7,9 @@ is `torch.round`, half to even, as `np.round` in the reference. Leaves
 of a quantized tree are tensors or `{"q": int8, "s": fp32}`; paths are
 named as the reference names them (`['layers']['mixer']['in_proj']`),
 so the same filters select the same leaves. `abstract_quantized_params`
-declares the W8 serving tree without making a tensor.
+declares the W8 serving tree without making a tensor; `serving_leaf`
+quantizes one leaf of it, or one layer slice of a stacked leaf as
+`base.tree_draw` draws it, to the whole leaf's `q` and `s` bit for bit.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from repro_torch.models import api
 from repro_torch.models.base import ParamInfo
 
 __all__ = ["QUANT_MIN_SIZE", "quantize_leaf", "quantize_tree", "dequantize_tree", "w8_infos",
-           "abstract_quantized_params", "quantize_params_for_serving", "prune_stats"]
+           "abstract_quantized_params", "serving_leaf", "quantize_params_for_serving",
+           "prune_stats"]
 
 QUANT_MIN_SIZE = 1 << 14      # don't quantize tiny tensors (norms, biases)
 
@@ -131,24 +134,37 @@ def abstract_quantized_params(cfg, *, min_size: int = QUANT_MIN_SIZE) -> dict:
     return _rebuild(api.abstract_params(cfg), one)
 
 
+def serving_leaf(path: str, x: torch.Tensor, *, shape=None, min_size: int = QUANT_MIN_SIZE):
+    """One leaf of the serving checkpoint: `x` itself, or real int8 +
+    scales `{"q", "s"}` where `_served_as_int8` picks the leaf by its
+    path and its whole `shape` (`x`'s unless given). A whole weight of
+    three or more dims takes per-(first, last) scales: per (layer,
+    out-channel) for a stacked one. `shape` given and longer than `x`'s
+    means `x` is one layer slice of a stacked leaf (`base.tree_draw`): its
+    per-last-dim scales and values are then the whole leaf's row for that
+    layer, bit for bit, so a tree quantized a slice at a time is the tree
+    quantized whole."""
+    whole = tuple(x.shape) if shape is None else tuple(shape)
+    if not _served_as_int8(path, whole, min_size):
+        return x
+    if x.dim() >= 3 and x.dim() == len(whole):
+        flatw = x.reshape(x.shape[0], -1, x.shape[-1])
+        amax = torch.clamp_min(flatw.abs().amax(dim=1), 1e-8)               # (L, last)
+        s = (amax / 127.0).float()
+        s_b = s.reshape(x.shape[0], *([1] * (x.dim() - 2)), x.shape[-1])
+        return {"q": _quantize(x, s_b), "s": s}
+    if x.dim() < len(whole) < 3:
+        raise ValueError(f"{path}: a slice of a {len(whole)}-dim leaf, whose scales "
+                         "span its layers")
+    q, s = quantize_leaf(x)
+    return {"q": q, "s": s}
+
+
 def quantize_params_for_serving(cfg, params, *, min_size: int = QUANT_MIN_SIZE):
     """Real int8 + scales for the big matmul weights, with per-(layer,
-    out-channel) scales for stacked weights (ndim >= 3)."""
-    def one(path, arr):
-        if not _served_as_int8(path, arr.shape, min_size):
-            return arr
-        if arr.dim() >= 3:
-            flatw = arr.reshape(arr.shape[0], -1, arr.shape[-1])
-            amax = torch.clamp_min(flatw.abs().amax(dim=1), 1e-8)           # (L, last)
-            s = (amax / 127.0).float()
-            s_b = s.reshape(arr.shape[0], *([1] * (arr.dim() - 2)), arr.shape[-1])
-        else:
-            amax = torch.clamp_min(arr.abs().reshape(-1, arr.shape[-1]).amax(dim=0), 1e-8)
-            s = (amax / 127.0).float()
-            s_b = s
-        return {"q": _quantize(arr, s_b), "s": s}
-
-    return _rebuild(params, one)
+    out-channel) scales for stacked weights (ndim >= 3): `serving_leaf`
+    of every leaf."""
+    return _rebuild(params, lambda path, arr: serving_leaf(path, arr, min_size=min_size))
 
 
 def prune_stats(params, threshold: float = 0.0) -> dict:
