@@ -237,9 +237,10 @@ Phases, each raising on failure (nothing is caught):
    mesh and the serving rules, each drawing the whole tree from the seed
    leaf by leaf and keeping its shards (every Mamba2 mixer by heads, 40
    of 80 a rank; the vocab; zamba2's shared block as the dense layers,
-   its KV cache by kv heads): mamba2-2.7b and zamba2-2.7b as published
-   through `Engine` at 4 x 512 + 32 in bf16, each rank's measured
-   generate launching `ssd_scan` once a mixer (64, 54), all on the
+   its KV cache by kv heads): mamba2-2.7b and zamba2-2.7b at full width
+   cut to 8 and 12 layers, through `Engine` at 4 x 512 + 32 in bf16,
+   each rank's measured generate launching `ssd_scan` once a mixer (8,
+   12), all on the
    tensor cores, and no other kernel; each rank's parameter and cache
    bytes, prefill and decode times; then this process runs the same
    weights unmeshed: layer 0's split mixer within 4 bf16 ulps, the last
@@ -252,14 +253,15 @@ Phases, each raising on failure (nothing is caught):
    against its plain version, timed beside its bound. The ranks'
    launches join the `kernels` line's. (o) The ssm and hybrid families
    trained split over a (2, 2) (data, model) mesh: four `chip_smoke.py
-   --tp-ssm-train-child` ranks, mamba2-2.7b at full width cut to 4
-   layers and zamba2-2.7b to 6, 2 steps of 4 x 512 in bf16, and at 4
+   --tp-ssm-train-child` ranks, mamba2-2.7b at full width cut to 2
+   layers and zamba2-2.7b to 6, 2 steps of 4 x 512 in bf16, and at 2
    and 6 layers in fp32, held to unmeshed and to witnesses of the
    split's roundings; the shared B, C and per-head copies bitwise equal.
-   (p) The MoE family split over the model axis, last (expert
+   (p) The MoE family split over the model axis (expert
    parallelism, `layers/moe.py`): two `chip_smoke.py --tp-moe-child`
-   ranks serve granite-moe-1b-a400m as published (16 of its 32 experts
-   a rank, heads and kv heads split, the vocab whole) at 4 x 512 + 32
+   ranks serve granite-moe-1b-a400m at full width cut to 12 of its 24
+   layers (16 of its 32 experts a rank, heads and kv heads split, the
+   vocab whole) at 4 x 512 + 32
    in bf16 through `Engine`, then the prefill and 8 greedy steps in
    bf16 and in fp32; four `chip_smoke.py --tp-moe-train-child` ranks
    train it on a (2, 2) mesh at full width (2 layers in bf16, 2 and 4 in
@@ -282,7 +284,21 @@ Phases, each raising on failure (nothing is caught):
    rows within the larger of 0.05 and 3 x a witness in bf16, within 1e-5
    in fp32 with the greedy tokens equal, granite's routings and dropped
    pairs equal, and every rank's tokens bitwise equal. The ranks'
-   ssd_scan launches join the `kernels` line's.
+   ssd_scan launches join the `kernels` line's. (r) Sequence parallelism
+   between layers, last (`parallel/tensor.py` `gather_seq`,
+   `scatter_seq`): three `chip_smoke.py --sp-child` ranks under a (1, 3)
+   mesh, qwen1.5-4b at full width cut to 6 layers, whose 20 heads, 20 kv
+   heads and 151,936-entry vocab stay whole under 3 and whose ffn
+   splits: the hidden state holds a third of the positions between
+   layers and attention splits the query sequence. bf16 through `Engine`
+   at 4 x 510 + 32 and at 1 x 3,072 + 8 through flash (1,024 queries a
+   rank), each rank's hidden bytes between layers, collectives by kind
+   and peak bytes; fp32 at 4 layers, prefill and 8 greedy steps; fp32
+   training at 2 layers, 2 steps of 4 x 510; this process runs the same
+   unmeshed: bf16 logits within the larger of 0.05 and 3 x a witness of
+   the split's roundings, fp32 within 1e-5 with the tokens equal, the
+   training's losses, grad norms and parameters as in (m). Every count,
+   the ranks' too, must stay 0.
    Every launch count is set to 0 just before a path runs and read just
    after it; each of the path's kernels must have launched.
 5. Times: CUDA events, median of 20 runs after warmup, per kernel (both
@@ -575,9 +591,10 @@ TP_TRAIN_LOSS_RTOL, TP_TRAIN_GNORM_RTOL, TP_TRAIN_LR = 1e-4, 2 ** -8, 3e-4
 # (50,280 and 32,000 divide 2), zamba2's shared block as the dense layers
 # (16 of its 32 heads and kv heads, half its ffn; the KV cache by kv heads).
 # (a) mamba2-2.7b and (b) zamba2-2.7b at full width, cut to
-# TP_SSM_SERVED_LAYERS (16 of 64 mixers; 12 of 54, two shared sites: the
-# depth cut to keep the script inside its time once phase 4(o) joined it,
-# since a decode step's collectives through gloo grow with the layers), 4 x
+# TP_SSM_SERVED_LAYERS (8 of 64 mixers; 12 of 54, two shared sites: the
+# depth cut to keep the script inside its time once phases 4(o) and 4(r)
+# joined it, since a decode step's collectives through gloo grow with the
+# layers), 4 x
 # 512 + 32 in bf16 through `Engine` (use_kernel=True): each rank's prefill
 # launches ssd_scan
 # once a mixer on its 40 heads, all on the tensor cores; held to the same
@@ -598,7 +615,7 @@ TP_TRAIN_LOSS_RTOL, TP_TRAIN_GNORM_RTOL, TP_TRAIN_LR = 1e-4, 2 ** -8, 3e-4
 # rank's shape (TP_SSM_SSD_HEADS heads, bf16, N 128) against its plain
 # version (`_ssd_agrees`), timed beside its bound.
 TP_SSM_SERVED = (("a", "mamba2-2.7b"), ("b", HYBRID_ARCH))
-TP_SSM_SERVED_LAYERS = {"mamba2-2.7b": 16, HYBRID_ARCH: 12}
+TP_SSM_SERVED_LAYERS = {"mamba2-2.7b": 8, HYBRID_ARCH: 12}
 TP_SSM_FP32_LAYERS = {"mamba2-2.7b": 4, HYBRID_ARCH: 6}
 TP_SSM_SSD_HEADS = 40
 TP_SSM_WITNESS = 3.0
@@ -618,10 +635,11 @@ TP_SSM_WITNESS = 3.0
 # backward, in either package), so every kernel count, the ranks' too,
 # must stay 0. After the ranks have exited this process runs the same
 # steps unmeshed from the same seed on the same batches. (a) mamba2-2.7b
-# at full width cut to 4 of its 64 mixers and (b) zamba2-2.7b at full
+# at full width cut to 2 of its 64 mixers and (b) zamba2-2.7b at full
 # width cut to 6 mixers (1 shared site; the depths cut to keep the script
-# inside its time once phase 4(p) joined it), bf16: losses and grad norms within the larger of
-# TP_TRAIN_LOSS_RTOL / TP_TRAIN_GNORM_RTOL and TP_SSM_WITNESS x a witness,
+# inside its time once phases 4(p) and 4(r) joined it), bf16: losses and
+# grad norms within the larger of TP_TRAIN_LOSS_RTOL / TP_TRAIN_GNORM_RTOL
+# and TP_SSM_WITNESS x a witness,
 # read in this run from the same weights unmeshed with the roundings the
 # split adds (`_one_rounding_more`: out_proj's contraction, in_proj's
 # columns and the head's vocab each in two halves, as the two model ranks
@@ -635,7 +653,7 @@ TP_SSM_WITNESS = 3.0
 # split's roundings, not the data split's; the witness read 4.9e-4 and
 # 1.7e-2, out_proj's halves alone 2.2e-4 and 1.5e-2. zamba2 at 12 layers
 # read 3.0e-5 and 1.4e-3, inside the plain bounds. (c) fp32 with TF32 off,
-# mamba2 at 4 layers and zamba2 at 6 (one shared site): as
+# mamba2 at TP_SSM_TRAIN_CASES' depth and zamba2 at 6 (one shared site): as
 # `[4 tp train path]` (b), losses and grad norms within
 # TP_TRAIN_FP32_RTOL relative and every rank's parameter shards within the
 # larger of TP_TRAIN_FP32_RTOL and TP_SSM_WITNESS x a witness of the largest
@@ -651,8 +669,8 @@ TP_SSM_WITNESS = 3.0
 # norms stay within 1e-5. And the copies that ranks share bitwise equal:
 # the B and C columns of in_proj and channels of the conv on the two
 # model ranks of each data coordinate, the per-head vectors on all four.
-TP_SSM_TRAIN_CASES = {"a": ("mamba2-2.7b", 4, "bfloat16"), "b": (HYBRID_ARCH, 6, "bfloat16"),
-                      "ca": ("mamba2-2.7b", 4, "float32"), "cb": (HYBRID_ARCH, 6, "float32")}
+TP_SSM_TRAIN_CASES = {"a": ("mamba2-2.7b", 2, "bfloat16"), "b": (HYBRID_ARCH, 6, "bfloat16"),
+                      "ca": ("mamba2-2.7b", 2, "float32"), "cb": (HYBRID_ARCH, 6, "float32")}
 TP_SSM_TRAIN_MEMORY = 0.225      # of the card a rank may take (4 x 17.8 GiB of 79.2)
 # Phase 4(p), the MoE family served and trained under a model axis above 1:
 # expert parallelism (`layers/moe.py`, `parallel/{tensor,fsdp}.py`). Every
@@ -664,7 +682,9 @@ TP_SSM_TRAIN_MEMORY = 0.225      # of the card a rank may take (4 x 17.8 GiB of 
 # 49,155-entry tied vocab whole (a recorded fallback). Serving: two
 # `chip_smoke.py --tp-moe-child` ranks on the one card in a gloo world
 # under a (1, 2) cuda mesh and the serving rules, each drawing the whole
-# tree from the seed leaf by leaf and keeping its shards: (a) 24 layers in
+# tree from the seed leaf by leaf and keeping its shards: (a)
+# TP_MOE_SERVED_LAYERS of its 24 layers (the full width; the depth cut to
+# keep the script inside its time once phase 4(r) joined it) in
 # bf16 through `Engine` at 4 x 512 + 32, then the prefill and
 # TP_MOE_STEPS greedy decode steps with their logits, routings and the
 # share of routed pairs dropped (capacity 640 at prefill, 1 at decode); (b)
@@ -695,6 +715,7 @@ TP_SSM_TRAIN_MEMORY = 0.225      # of the card a rank may take (4 x 17.8 GiB of 
 # The MoE path reaches no kernel, as the reference's reaches no Pallas
 # kernel: every count, the ranks' too, must stay 0.
 TP_MOE_STEPS, TP_MOE_WITNESS = 8, 3.0
+TP_MOE_SERVED_LAYERS = 12        # of 24, for the script's time
 TP_MOE_TRAIN_CASES = {"a": (MOE_ARCH, 2, "bfloat16"), "ca": (MOE_ARCH, 2, "float32"),
                       "cb": (MOE_ARCH, 4, "float32")}
 TP_MOE_TRAIN_MEMORY = 0.2        # of the card a rank may take
@@ -735,6 +756,36 @@ W8_DP_CASES = {"a": (DENSE_ARCH, TP_SERVED_LAYERS[DENSE_ARCH], "bfloat16", True)
                "bf": ("mamba2-2.7b", 4, "float32", True),
                "c": (MOE_ARCH, 4, "float32", False)}
 W8_DP_WITNESS = 3.0
+# Phase 4(r), last: sequence parallelism between layers (`parallel/tensor.py`
+# `gather_seq`, `scatter_seq`, `seq_range`; ROADMAP.md A item 4): three ranks
+# on the one card in a gloo world under a (1, 3) cuda mesh and the serving
+# rules (training: the trainer's), each a `chip_smoke.py --sp-child` process
+# that draws the whole tree from the seed leaf by leaf and keeps its shards.
+# qwen1.5-4b at full width cut to SP_LAYERS of its 40 layers: its 20 heads,
+# 20 kv heads and 151,936-entry vocab stay whole under 3 and its ffn of
+# 6,912 splits, so the hidden state holds a rank's third of the positions
+# between layers, attention projects q, k and v from them, gathers k and v
+# and attends with its queries under an offset causal mask, the MLP gathers
+# and reduce-scatters, and the whole vocab's head runs on a rank's
+# positions: on one card, the path of the dry run's 16-way cells whose
+# heads stay whole. (a) bf16 through `Engine` at 4 x 510 + 32 and (b) at
+# 1 x 3,072 + 8, whose prefill takes flash on 1,024 queries a rank; each
+# rank prints its hidden bytes between layers, its prefill's collectives
+# by kind (counted by `launch.cost.Counter`) and its peak bytes. This
+# process runs the same weights unmeshed: the prefill's last logits within
+# the larger of TP_BF16_RTOL and SP_WITNESS x a witness (the same weights
+# unmeshed with the MLP's down projection in three parts, each rounded and
+# then added, as the three ranks take it), the ranks' logits and tokens
+# bitwise equal. (c) fp32 (TF32 off) at TP_FP32_LAYERS: the prefill at
+# 4 x 510 and TP_FP32_STEPS greedy steps within TP_FP32_RTOL of the
+# largest |logit| of unmeshed, the tokens equal. (d) fp32 training at
+# SP_TRAIN_LAYERS, TP_TRAIN_STEPS steps of SP_TRAIN_SHAPE: losses and grad
+# norms within TP_TRAIN_FP32_RTOL relative of unmeshed, every rank's
+# parameters within TP_TRAIN_FP32_RTOL of the largest |p| where |g|
+# stayed above EPS_REGIME, within 2 lr elsewhere.
+SP_RANKS, SP_LAYERS, SP_WITNESS = 3, 6, 3.0
+SP_SERVED = {"a": (DENSE_BATCH, 510, 32), "b": (1, 3072, 8)}
+SP_TRAIN_LAYERS, SP_TRAIN_SHAPE = 2, (4, 510, 2)
 
 
 def _smi(query: str) -> str:
@@ -4211,16 +4262,16 @@ def _one_rounding_more():
         k = w.shape[-1] // 2
         return torch.cat([torch.matmul(x, w[..., :k]), torch.matmul(x, w[..., k:])], -1)
 
-    def out(p, y, loc):
+    def out(p, y, loc, seq=None):
         w, k = wx(p["out_proj"], y.dtype), y.shape[-1] // 2
         return torch.matmul(y[..., :k], w[:k]) + torch.matmul(y[..., k:], w[k:])
 
-    def project(cfg, p, xin, loc):
+    def project(cfg, p, xin, loc, gathered=False):
         zxbcdt = column_halves(xin, wx(p["in_proj"], xin.dtype))
         N = cfg.ssm_state
         return torch.split(zxbcdt, [loc.di, loc.di, loc.G * N, loc.G * N, loc.H], dim=-1)
 
-    def head(cfg, p, h, group=None, *, gather=True):
+    def head(cfg, p, h, group=None, *, gather=True, seq=None):
         return column_halves(h, (p["tok"].T if cfg.tie_embeddings else p["head"]).to(h.dtype))
 
     saved = m2._out, m2._project, emb.lm_head
@@ -4266,9 +4317,10 @@ def _held_rel(state, other, gmin) -> float:
         base.tree_items(state["params"]), base.tree_items(other["params"]), gmin))
 
 
-def _shard_errors(cfg, state, gmin, shards: list, coordinates: list, dev) -> tuple:
+def _shard_errors(cfg, state, gmin, shards: list, coordinates: list, dev,
+                  ranks: tuple = TP_TRAIN_RANKS) -> tuple:
     """Every rank's parameter shards ({keystr: tensor}, at its (data,
-    model) coordinate of TP_TRAIN_RANKS) against the slices of the whole
+    model) coordinate of `ranks`) against the slices of the whole
     `state` that the trainer's rules give it: (the largest |difference|
     where |g| stayed above EPS_REGIME, the largest anywhere, the elements
     held so, all elements)."""
@@ -4279,7 +4331,7 @@ def _shard_errors(cfg, state, gmin, shards: list, coordinates: list, dev) -> tup
     infos = dict(base.tree_items(step_lib.abstract_state(cfg)["params"]))
     worst, worst_any, n_sure, n_all = 0.0, 0.0, 0, 0
     for shard, coordinate in zip(shards, coordinates):
-        mesh = _Coordinate(dict(zip(("data", "model"), TP_TRAIN_RANKS)), coordinate)
+        mesh = _Coordinate(dict(zip(("data", "model"), ranks)), coordinate)
         with shd.use_mesh(mesh, tensor.training_rules(mesh)):
             for (path, whole), gm in zip(base.tree_items(state["params"]), gmin):
                 want = tensor.shard_leaf(infos[path], whole, tensor.TRAIN_AXES)
@@ -4578,7 +4630,7 @@ def _moe_split_roundings():
     from repro_torch.layers import moe as moe_lib
     real = moe_lib.moe
 
-    def moe(cfg, p, x, *, capacity_factor=1.25, group=None):
+    def moe(cfg, p, x, *, capacity_factor=1.25, group=None, seq=None):
         half, parts, aux = p["wi"].shape[-3] // 2, [], None
         for r in range(2):
             shard = dict(p, **{k: p[k][r * half:(r + 1) * half] for k in ("wi", "wg", "wo")})
@@ -4686,7 +4738,7 @@ def _tp_moe_path(dev, wrappers, reset_launches, smi) -> None:
 
     # serving: (a) bf16 and (b) fp32 unmeshed on the split's tokens
     for label, dtype in (("a", "bfloat16"), ("b", "float32")):
-        cfg = _tp_config(MOE_ARCH, dtype)
+        cfg = _tp_config(MOE_ARCH, dtype, TP_MOE_SERVED_LAYERS)
         prompts = _tp_prompts(cfg.vocab, DENSE_BATCH, DENSE_PROMPT)
         split = {k[2:]: v for k, v in arrays[0].items() if k.startswith(f"{label}/")}
         with torch.inference_mode():
@@ -4888,7 +4940,7 @@ def _tp_moe_child(rank: int, root: Path, device: str) -> int:
                   f"{dist.get_world_size()}, both ranks on {_device_name(dev)}")
         _rank_launches(reset=True)
         for label, dtype in (("a", "bfloat16"), ("b", "float32")):
-            cfg = _tp_config(MOE_ARCH, dtype)
+            cfg = _tp_config(MOE_ARCH, dtype, TP_MOE_SERVED_LAYERS)
             prompts = _tp_prompts(cfg.vocab, DENSE_BATCH, DENSE_PROMPT)
             with shd.use_mesh(mesh, tensor.serving_rules()):
                 t0 = time.perf_counter()
@@ -5115,34 +5167,38 @@ def _engine_record(engine, prompts, keep: int, moe: bool = False) -> dict:
 
 
 @contextlib.contextmanager
-def _dense_split_roundings():
-    """Within: every attention layer takes its output contraction, and
-    every MLP its down projection, in two halves (of the heads, of the
-    ffn), each rounded to the compute dtype and then added: the roundings
-    a split over two model ranks adds, unmeshed (phase 4(q)'s witness for
-    the dense family)."""
+def _dense_split_roundings(parts: int = 2, heads: bool = True):
+    """Within: every attention layer takes its output contraction (unless
+    not `heads`), and every MLP its down projection, in `parts` parts (of
+    the heads, of the ffn), each rounded to the compute dtype and then
+    added: the roundings a split over `parts` model ranks adds, unmeshed
+    (phase 4(q)'s witness for the dense family; 4(r)'s, whose heads stay
+    whole, in three)."""
     from unittest import mock
     from repro_torch.layers import attention as attn
     from repro_torch.layers import mlp as mlp_lib
     real = mlp_lib.mlp
 
     def half(w, dim: int, r: int, last: bool):
-        """Half r of a leaf along `dim`; a W8 leaf's scales with it where
+        """Part r of a leaf along `dim`; a W8 leaf's scales with it where
         `dim` is the last (output) dim."""
         def cut(t):
-            n = t.shape[dim] // 2
+            n = t.shape[dim] // parts
             return t.narrow(dim, r * n, n)
         if isinstance(w, dict):
             return {"q": cut(w["q"]), "s": cut(w["s"]) if last else w["s"]}
         return cut(w)
 
-    def mlp(cfg, p, x, group=None):
-        parts = [real(cfg, {k: half(v, -1, r, True) if k in ("wi", "wg") else
+    def mlp(cfg, p, x, group=None, seq=None):
+        outs = [real(cfg, {k: half(v, -1, r, True) if k in ("wi", "wg") else
                             half(v, -2, r, False) for k, v in p.items()}, x)
-                 for r in range(2)]
-        return parts[0] + parts[1]
+                 for r in range(parts)]
+        return functools.reduce(lambda a, b: a + b, outs)
 
-    with mock.patch.object(attn, "_out", _out_in_halves), mock.patch.object(mlp_lib, "mlp", mlp):
+    with contextlib.ExitStack() as stack:
+        if heads:
+            stack.enter_context(mock.patch.object(attn, "_out", _out_in_halves))
+        stack.enter_context(mock.patch.object(mlp_lib, "mlp", mlp))
         yield
 
 
@@ -5352,6 +5408,306 @@ def _w8_dp_child(rank: int, root: Path, device: str) -> int:
             gc.collect()
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    (root / f"rank{rank}.json").write_text(json.dumps(rec))
+    np.savez(root / f"rank{rank}.npz", **arrays)
+    return 0
+
+
+def _sp_path(dev, wrappers, reset_launches, smi) -> None:
+    """Phase 4(r): sequence parallelism between layers on a (1, 3) mesh on
+    the card (the constants' comment above `SP_RANKS`). Three `--sp-child`
+    ranks run the split paths first, while this process holds nothing;
+    then this process runs the same weights unmeshed and holds the ranks'
+    results to them. The dense path reaches no TPU kernel: every count,
+    the ranks' too, must stay 0."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.layers.attention import FLASH_MIN_SEQ
+    from repro_torch.models import api, base
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag = "sp path"
+    reset_launches()
+    root = ROOT / "build" / "sp_path"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ranks = _run_ranks("--sp-child", SP_RANKS, root, dev, "sequence-parallel")
+    arrays = [dict(np.load(root / f"rank{r}.npz")) for r in range(SP_RANKS)]
+    for r, rec in enumerate(ranks):
+        for label, c in rec["cases"].items():
+            print(f"[4 {tag}] rank {r} ({label}) {c['shape']}: hidden between layers "
+                  f"{c['hidden_bytes']} bytes of the whole {c['whole_hidden_bytes']}, "
+                  f"collectives {c['collectives']}, peak {c['peak_bytes'] / 1e9:.3f} GB")
+        d = rec["train"]
+        print(f"[4 {tag}] rank {r} (d) training: state {d['state_bytes'] / 1e9:.3f} GB, peak "
+              f"{d['peak_bytes'] / 1e9:.2f} GB, steps {', '.join(f'{v:.2f}' for v in d['step_s'])}"
+              f" s, losses {', '.join(f'{v:.7f}' for v in d['loss'])}")
+    out = {"ranks": ranks}
+    for label, (B, P, _) in SP_SERVED.items():
+        offsets = [rec["cases"][label]["q_offsets"] for rec in ranks]
+        flash = P >= FLASH_MIN_SEQ
+        if (any(rec["cases"][label]["hidden_bytes"] * SP_RANKS
+                != rec["cases"][label]["whole_hidden_bytes"] for rec in ranks)
+                or offsets != ([[r * P // SP_RANKS] for r in range(SP_RANKS)] if flash
+                               else [[]] * SP_RANKS)):
+            raise AssertionError(f"({label}): a rank's hidden state is not its third of the "
+                                 f"positions, or flash did not take its queries: {offsets}")
+
+    # (a), (b) bf16: the prefill's last logits against unmeshed and a witness
+    cfg = _tp_config(DENSE_ARCH, "bfloat16", SP_LAYERS)
+    with torch.inference_mode():
+        params = base.tree_init(api.abstract_params(cfg),
+                                torch.Generator(device=dev).manual_seed(SEED), dev)
+    for label, (B, P, new) in SP_SERVED.items():
+        tokens = torch.as_tensor(_tp_prompts(cfg.vocab, B, P), device=dev).long()
+        runs = []
+        for witness in (False, True):
+            with torch.inference_mode(), (_dense_split_roundings(SP_RANKS, heads=False)
+                                          if witness else contextlib.nullcontext()):
+                cache = base.tree_init(api.abstract_cache(cfg, B, P), torch.Generator(
+                    device=dev), dev)
+                runs.append(api.prefill(cfg, params, {"tokens": tokens}, cache)[0]
+                            .float().cpu().numpy())
+                del cache
+        want, wit = runs
+        scale = float(np.abs(want).max())
+        errs = [float(np.abs(a[f"{label}/prefill"] - want).max()) for a in arrays]
+        wrel = float(np.abs(wit - want).max()) / scale
+        bound = max(TP_BF16_RTOL, SP_WITNESS * wrel)
+        same = all(np.array_equal(a[f"{label}/prefill"], arrays[0][f"{label}/prefill"])
+                   and np.array_equal(a[f"{label}/tokens"], arrays[0][f"{label}/tokens"])
+                   for a in arrays)
+        c = ranks[0]["cases"][label]
+        print(f"[4 {tag}] ({label}) {DENSE_ARCH} {SP_LAYERS} layers bf16 {B}x{P} + {new}, "
+              f"split over {SP_RANKS} ranks by the sequence: generate {c['generate_s']:.2f} s, "
+              f"prefill {c['prefill_ms']:.1f} ms, decode {c['decode_ms_per_token']:.2f} "
+              f"ms/token (gloo through host memory); flash_attention calls a prefill "
+              f"{c['flash_calls']} a rank, at query offsets "
+              f"{[rec['cases'][label]['q_offsets'] for rec in ranks]}; last logits vs unmeshed "
+              f"max |diff| {', '.join(f'{e:.4g}' for e in errs)} of the largest |logit| "
+              f"{scale:.4g}: {max(errs) / scale:.4g} (bound {bound:.4g}: the larger of "
+              f"{TP_BF16_RTOL} and {SP_WITNESS} x the witness's {wrel:.4g}); the ranks' "
+              f"logits and tokens bitwise equal: {same}")
+        out[label] = {"prefill_max_abs": errs, "logit_scale": scale, "witness_rel": wrel,
+                      "bound": bound}
+        if max(errs) > bound * scale or not same:
+            raise AssertionError(f"({label}): the sequence-split prefill differs from unmeshed")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) fp32, TF32 off: the prefill and greedy steps
+    cfg = _tp_config(DENSE_ARCH, "float32", TP_FP32_LAYERS)
+    B, P, _ = SP_SERVED["a"]
+    with torch.inference_mode():
+        params = base.tree_init(api.abstract_params(cfg),
+                                torch.Generator(device=dev).manual_seed(SEED), dev)
+        cache = base.tree_init(api.abstract_cache(cfg, B, P + TP_FP32_STEPS + 8),
+                               torch.Generator(device=dev), dev)
+    want = _tp_steps(cfg, params, cache, _tp_prompts(cfg.vocab, B, P), TP_FP32_STEPS, dev)
+    scale = float(np.abs(want["logits"]).max())
+    errs = [float(np.abs(a["c/logits"] - want["logits"]).max()) for a in arrays]
+    equal = all(np.array_equal(a["c/tokens"], want["tokens"]) for a in arrays)
+    print(f"[4 {tag}] (c) {DENSE_ARCH} {TP_FP32_LAYERS} layers fp32 (TF32 off) prefill {B}x{P} "
+          f"+ {TP_FP32_STEPS} steps, split vs unmeshed: max |diff| "
+          f"{', '.join(f'{e:.3g}' for e in errs)} of the largest |logit| {scale:.4g}: "
+          f"{max(errs) / scale:.3g} (bound {TP_FP32_RTOL}); greedy tokens "
+          f"{'equal' if equal else 'differ'}")
+    out["c"] = {"max_abs": errs, "logit_scale": scale}
+    if max(errs) > TP_FP32_RTOL * scale or not equal:
+        raise AssertionError("(c): the fp32 sequence-split path differs from unmeshed")
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) fp32 training: the unmeshed steps with each element's smallest |g|
+    cfg, shape, oc = _sp_train_setup()
+    state, losses, norms, gmin = _fp32_steps(cfg, shape, oc, dev)
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    lrel = max(rel(rec["train"]["loss"], losses) for rec in ranks)
+    grel = max(rel(rec["train"]["grad_norm"], norms) for rec in ranks)
+    scale = max(t.abs().max().item() for _, t in base.tree_items(state["params"]))
+    shards = [torch.load(root / f"rank{r}_d.pt") for r in range(SP_RANKS)]
+    worst, worst_any, n_sure, n_all = _shard_errors(
+        cfg, state, gmin, shards, [rec["train"]["coordinate"] for rec in ranks], dev,
+        (1, SP_RANKS))
+    del shards
+    print(f"[4 {tag}] (d) {DENSE_ARCH} {cfg.n_layers} layers fp32 (TF32 off), {TP_TRAIN_STEPS} "
+          f"steps of {shape.global_batch}x{shape.seq_len} in {shape.accum} microbatches "
+          f"unmeshed: losses {', '.join(f'{v:.7f}' for v in losses)}, grad norms "
+          f"{', '.join(f'{v:.7f}' for v in norms)}; split over {SP_RANKS} by the sequence vs "
+          f"unmeshed: losses within {lrel:.3g} relative, grad norms within {grel:.3g} (bound "
+          f"{TP_TRAIN_FP32_RTOL}); every rank's parameters after {TP_TRAIN_STEPS} steps within "
+          f"{worst / scale:.3g} of the largest |p| {scale:.4g} where |g| stayed above "
+          f"{EPS_REGIME} ({n_sure / n_all:.4f} of the elements; bound {TP_TRAIN_FP32_RTOL}), "
+          f"{worst_any:.3g} elsewhere (bound 2 lr {2 * oc.lr:.3g})")
+    out["d"] = {"loss": losses, "grad_norm": norms, "loss_rel": lrel, "grad_norm_rel": grel,
+                "param_err_of_max": worst / scale, "param_err_any": worst_any,
+                "share_held": n_sure / n_all}
+    if not (lrel <= TP_TRAIN_FP32_RTOL and grel <= TP_TRAIN_FP32_RTOL
+            and worst <= TP_TRAIN_FP32_RTOL * scale and worst_any <= 2 * oc.lr):
+        raise AssertionError("(d): the sequence-split training steps differ from unmeshed")
+    del state, gmin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    counts = {name: w.launches for name, w in wrappers.items()}
+    children = [rec["launches"] for rec in ranks]
+    print(f"[4 {tag}] launches {counts}, ranks {children} (the dense path reaches no TPU "
+          f"kernel)")
+    if any(counts.values()) or any(any(c.values()) for c in children):
+        raise AssertionError("a kernel launched on the sequence-split path")
+    seconds = time.perf_counter() - t_phase
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[4 {tag}] phase {seconds:.1f} s")
+    print(json.dumps({"sp": out, "phase_s": seconds, "device": _device_name(dev),
+                      "power": smi}))
+
+
+def _sp_train_setup():
+    """(cfg, shape, OptConfig) of phase 4(r)'s training (d)."""
+    import dataclasses
+    from repro_torch.models import base
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(_tp_config(DENSE_ARCH, "float32"), n_layers=SP_TRAIN_LAYERS)
+    B, S, accum = SP_TRAIN_SHAPE
+    return (cfg, base.ShapeConfig("sp_train", S, B, "train", accum=accum),
+            adamw.OptConfig(lr=TP_TRAIN_LR, warmup_steps=2, total_steps=TP_TRAIN_STEPS))
+
+
+@contextlib.contextmanager
+def _seen_by_attention():
+    """Within: each attention input's bytes and each flash_attention call's
+    query offset, appended to the lists yielded."""
+    from unittest import mock
+    from repro_torch.layers import attention
+    seen = {"bytes": [], "q_offsets": []}
+    attn, flash = attention.attention, attention.flash_attention
+
+    def attended(cfg, p, x, *args, **kw):
+        seen["bytes"].append(x.numel() * x.element_size())
+        return attn(cfg, p, x, *args, **kw)
+
+    def flashed(*args, **kw):
+        seen["q_offsets"].append(kw.get("q_offset", 0))
+        return flash(*args, **kw)
+
+    with mock.patch.object(attention, "attention", attended), \
+            mock.patch.object(attention, "flash_attention", flashed):
+        yield seen
+
+
+def _sp_child(rank: int, root: Path, device: str) -> int:
+    """`chip_smoke.py --sp-child RANK DIR DEVICE`, one of phase 4(r)'s three
+    ranks, on the parent's DEVICE (all on the one card): a gloo world over
+    a `FileStore` in DIR, a (1, 3) mesh under the serving rules for (a),
+    (b) and (c) and the trainer's for (d), on this rank's shards; writes
+    DIR/rank<RANK>.{json,npz} and (d)'s final parameters to
+    DIR/rank<RANK>_d.pt."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import cost
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import api, base
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.train import trainer
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lead = rank == 0
+    dist.init_process_group("gloo", store=dist.FileStore(str(root / "store"), SP_RANKS),
+                            rank=rank, world_size=SP_RANKS)
+    rec, arrays = {"cases": {}}, {}
+    try:
+        mesh = make_mesh_compat((1, SP_RANKS), ("data", "model"), device=dev.type)
+        if lead:
+            print(f"[4 sp path] {mesh}, backend {dist.get_backend()}, world "
+                  f"{dist.get_world_size()}, all ranks on {_device_name(dev)}")
+        cfg = _tp_config(DENSE_ARCH, "bfloat16", SP_LAYERS)
+        with shd.use_mesh(mesh, tensor.serving_rules()):
+            params = _tp_shards(cfg, dev)
+            fallbacks = [list(f) for f in shd.fallbacks()]
+            for label, (B, P, new) in SP_SERVED.items():
+                prompts = _tp_prompts(cfg.vocab, B, P)
+                engine = Engine(cfg, params, ServeConfig(max_len=P + new + 8,
+                                                         max_new_tokens=new), device=dev)
+                engine.generate(prompts)                         # warm-up
+                t0 = time.perf_counter()
+                gen = engine.generate(prompts)
+                wall = time.perf_counter() - t0
+                cache = base.tree_init(tensor.local_tree(cfg, api.abstract_cache(
+                    cfg, B, tensor.cache_len(cfg, P))), torch.Generator(device=dev), dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                with torch.inference_mode(), _seen_by_attention() as seen, \
+                        cost.Counter() as counter:
+                    last, _ = api.prefill(cfg, engine.params, {"tokens": torch.as_tensor(
+                        prompts, device=dev).long()}, cache)
+                arrays[f"{label}/prefill"] = last.float().cpu().numpy()
+                arrays[f"{label}/tokens"] = gen
+                c = {"shape": f"bf16 {B}x{P} + {new}", "generate_s": wall,
+                     "prefill_ms": engine.stats["prefill_s"] * 1e3,
+                     "decode_ms_per_token": statistics.median(engine.stats["decode_s"]) * 1e3,
+                     "hidden_bytes": seen["bytes"][0],
+                     "whole_hidden_bytes": B * P * cfg.d_model * 2,
+                     "collectives": counter.summary()["breakdown"],
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                     "flash_calls": len(seen["q_offsets"]),
+                     "q_offsets": sorted(set(seen["q_offsets"])),
+                     "fallbacks": fallbacks}
+                rec["cases"][label] = c
+                if lead:
+                    print(f"[4 sp path] ({label}) {DENSE_ARCH} {SP_LAYERS} layers split over "
+                          f"{SP_RANKS} ranks: bf16 {B}x{P} + {new} tokens {wall:.2f} s, "
+                          f"fallbacks {fallbacks}")
+                del engine, cache
+                gc.collect()
+                torch.cuda.empty_cache()
+            del params
+            cfg = _tp_config(DENSE_ARCH, "float32", TP_FP32_LAYERS)
+            B, P, _ = SP_SERVED["a"]
+            params = _tp_shards(cfg, dev)
+            cache = base.tree_init(tensor.local_tree(cfg, api.abstract_cache(
+                cfg, B, tensor.cache_len(cfg, P + TP_FP32_STEPS + 8))),
+                torch.Generator(device=dev), dev)
+            got = _tp_steps(cfg, params, cache, _tp_prompts(cfg.vocab, B, P), TP_FP32_STEPS,
+                            dev)
+            arrays["c/logits"], arrays["c/tokens"] = got["logits"], got["tokens"]
+            del params, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg, shape, oc = _sp_train_setup()
+        tc = trainer.TrainerConfig(ckpt_dir=str(root / f"ckpt_{rank}"), seed=SEED,
+                                   total_steps=TP_TRAIN_STEPS, ckpt_every=TP_TRAIN_STEPS + 1,
+                                   remat="full")
+        torch.cuda.reset_peak_memory_stats(dev)
+        with shd.use_mesh(mesh, tensor.training_rules(mesh)):
+            state, hist = trainer.run(cfg, shape, oc, tc, device=dev)
+        rec["train"] = {"coordinate": {a: mesh.coordinate(a) for a in mesh.shape},
+                        "state_bytes": _tree_bytes(state),
+                        "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                        "loss": hist["loss"], "grad_norm": hist["grad_norm"],
+                        "step_s": hist["step_s"]}
+        torch.save({base.keystr(p): t.cpu() for p, t in base.tree_items(state["params"])},
+                   root / f"rank{rank}_d.pt")
+        del state, hist
+        rec["launches"] = _rank_launches()
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -5846,6 +6202,7 @@ def main() -> int:
     w8_dp = _w8_dp_path(dev, reset_launches, smi)
     launches["ssd_scan"] += w8_dp["ssd_scan"]
     mma_launches["ssd_scan"] += w8_dp["ssd_scan mma"]
+    _sp_path(dev, wrappers, reset_launches, smi)
     for label in lm_cases["ssd_scan"]:                # a rank's, in phase 4(q)
         if "rank_of_2x2" in label:
             ssd_per_prefill[label] = W8_DP_CASES["b" if label.startswith("bf16") else "bf"][1]
@@ -6031,4 +6388,6 @@ if __name__ == "__main__":
         sys.exit(_tp_moe_train_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--w8-dp-child"]:
         sys.exit(_w8_dp_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--sp-child"]:
+        sys.exit(_sp_child(int(sys.argv[2]), Path(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

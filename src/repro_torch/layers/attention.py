@@ -1,13 +1,15 @@
 """Multi-head attention with GQA/MQA, RoPE/M-RoPE, and a KV cache.
 
 Counterpart of `repro/layers/attention.py`. The parameters and the KV
-cache carry the reference's logical axes (`models.base.tree_specs`); the
-reference's activation annotations (`shard`) are left out, as they would
-compute nothing on plain tensors. The dense family under a model axis
-above 1 splits the heads (and, serving, the cache) explicitly: `group`
-below, with the shards and the autograd collectives of
-`parallel/tensor.py`, for serving (ROADMAP.md A.7a) and training (A.7b)
-alike. The cache layout is
+cache carry the reference's logical axes (`models.base.tree_specs`). The
+dense family under a model axis above 1 splits the heads (and, serving,
+the cache) explicitly: `group` below, with the shards and the autograd
+collectives of `parallel/tensor.py`, for serving (ROADMAP.md A.7a) and
+training (A.7b) alike; with the hidden state split along the sequence
+between layers (`seq`, A item 4) it gathers the sequence where the heads
+split, and splits the query sequence where they stay whole, as the
+reference's spec gives "model" to the query sequence then. The cache
+layout is
 (B, KV, S_max, hd); `cache_pos` is a per-sequence write index, which
 lets the serving engine decode a batch whose sequences stand at other
 positions. Every function returns new tensors and leaves its inputs as
@@ -21,6 +23,8 @@ TPU (GSPMD's placement of a repeated KV, an in-place scatter) and are not
 ported.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
@@ -73,9 +77,10 @@ def _project(x: torch.Tensor, w, b=None) -> torch.Tensor:
     return y
 
 
-def _causal(S: int, T: int, device) -> torch.Tensor:
-    """(S, T) bool: key index <= query index."""
-    return torch.arange(T, device=device)[None, :] <= torch.arange(S, device=device)[:, None]
+def _causal(S: int, T: int, device, q0: int = 0) -> torch.Tensor:
+    """(S, T) bool: key index <= query index, the queries from position
+    q0."""
+    return torch.arange(T, device=device)[None, :] <= q0 + torch.arange(S, device=device)[:, None]
 
 
 def _slots(n: int, first: int, device) -> torch.Tensor:
@@ -111,6 +116,7 @@ def attention(
     cache_pos: torch.Tensor | None = None,  # (B,) write index for decode
     causal: bool = True,
     group=None,                            # the model group when p holds shards
+    seq: tuple[int, int] | None = None,    # x's positions when split along the sequence
 ) -> tuple[torch.Tensor, dict | None]:
     """Returns (out (B, S, D), updated cache or None).
 
@@ -133,7 +139,23 @@ def attention(
     under split query heads, k and v are projected from x itself and pass
     `copy_to` instead: each rank uses only its query heads' kv heads, so
     their gradients are summed there, once, and reach wk, wv, bk, bv and
-    x whole on every rank. The flash path runs on the local heads."""
+    x whole on every rank. The flash path runs on the local heads.
+
+    With x split along the sequence (`seq`: this rank's (first, count)
+    positions, `tensor.seq_range`; `positions` stay the whole sequence's)
+    the heads-split path gathers x (`tensor.gather_seq` in place of
+    `copy_to`, k and v too where the kv heads stay whole) and `_out`
+    reduce-scatters the output back to this rank's positions
+    (`scatter_seq` in place of `reduce_from`). Where the heads stay
+    whole, the reference splits the query sequence instead: q, k and v
+    are projected from this rank's positions (RoPE at them), k and v are
+    gathered along the sequence, the rank attends with its queries under
+    a causal mask offset by its first position (flash too, chosen on the
+    whole sequence's length, with query blocks that divide its count),
+    and `wo` runs on its positions with no reduction. The cache is
+    written from the gathered K/V as above. A rank's gradients of a
+    replicated wq, wk, wv, wo and their biases are then its part of the
+    whole, which the train step sums over the model group."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     Hl, KVl, r = H, KV, 0
@@ -142,15 +164,29 @@ def attention(
     heads_split = Hl < H
     by_seq = group is not None and cache is not None and KVl == KV
     h0 = r * Hl if heads_split else 0                # this rank's first query head
+    q0 = 0                                           # the first query's position
 
-    xs = tensor.copy_to(x, group) if heads_split else x
-    q = _project(xs, p["wq"], p.get("bq"))           # (B, S, Hl, hd)
-    if heads_split and KVl == KV:                    # whole kv heads: their gradient summed
-        k = tensor.copy_to(_project(x, p["wk"], p.get("bk")), group)
-        v = tensor.copy_to(_project(x, p["wv"], p.get("bv")), group)
-    else:
-        k = _project(xs, p["wk"], p.get("bk"))       # (B, S, KVl, hd)
+    if seq is not None and heads_split:              # the whole sequence, by heads
+        xs = tensor.gather_seq(x, group)
+        S = xs.shape[1]
+        q = _project(xs, p["wq"], p.get("bq"))
+        k = _project(xs, p["wk"], p.get("bk"))
         v = _project(xs, p["wv"], p.get("bv"))
+    elif seq is not None:                            # heads whole: the query sequence split
+        q0 = seq[0]
+        positions = positions.narrow(-1, q0, S)
+        q = _project(x, p["wq"], p.get("bq"))
+        k = _project(x, p["wk"], p.get("bk"))
+        v = _project(x, p["wv"], p.get("bv"))
+    else:
+        xs = tensor.copy_to(x, group) if heads_split else x
+        q = _project(xs, p["wq"], p.get("bq"))       # (B, S, Hl, hd)
+        if heads_split and KVl == KV:                # whole kv heads: their gradient summed
+            k = tensor.copy_to(_project(x, p["wk"], p.get("bk")), group)
+            v = tensor.copy_to(_project(x, p["wv"], p.get("bv")), group)
+        else:
+            k = _project(xs, p["wk"], p.get("bk"))   # (B, S, KVl, hd)
+            v = _project(xs, p["wv"], p.get("bv"))
 
     if cfg.pos == "rope":
         q = rotary.rope(q, positions, cfg.rope_theta)
@@ -159,14 +195,17 @@ def attention(
         q = rotary.mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = rotary.mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     # cfg.pos == "sin": absolute embeddings added at the input; nothing here.
+    if seq is not None and not heads_split:
+        k, v = tensor.gather_seq(k, group), tensor.gather_seq(v, group)
 
     q = q.transpose(1, 2)                            # (B, Hl, S, hd)
-    k = k.transpose(1, 2)                            # (B, KVl, S, hd)
+    k = k.transpose(1, 2)                            # (B, KVl, T, hd)
     v = v.transpose(1, 2)
+    T = k.shape[2]                                   # the whole sequence
 
     new_cache = None
     valid = None
-    k_full, v_full, kv_len = k, v, S
+    k_full, v_full, kv_len = k, v, T
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
         first = r * ck.shape[2] if by_seq else 0     # the cache's first position
@@ -193,12 +232,12 @@ def attention(
             ck = torch.zeros_like(ck)
             cv = torch.zeros_like(cv)
             if by_seq:
-                n = max(0, min(S, first + ck.shape[2]) - first)
+                n = max(0, min(T, first + ck.shape[2]) - first)
                 ck[:, :, :n] = k[:, :, first:first + n].to(ck.dtype)
                 cv[:, :, :n] = v[:, :, first:first + n].to(cv.dtype)
             else:
-                ck[:, :, :S] = k.to(ck.dtype)
-                cv[:, :, :S] = v.to(cv.dtype)
+                ck[:, :, :T] = k.to(ck.dtype)
+                cv[:, :, :T] = v.to(cv.dtype)
             new_cache = {"k": ck, "v": cv}
 
     # the kv heads this rank's query heads use, relative to those it holds
@@ -210,20 +249,24 @@ def attention(
         idx = torch.tensor(gather, device=x.device)
         k_full, v_full, used = k_full[:, idx], v_full[:, idx], Hl
 
+    Sq = q.shape[2]                                  # this rank's queries
     scale = hd ** -0.5
-    if valid is None and causal and S >= FLASH_MIN_SEQ:
+    if valid is None and causal and T >= FLASH_MIN_SEQ:
         # long-sequence path: flash-style chunked attention
-        ctx = flash_attention(q, k_full, v_full, causal=True)
+        ctx = flash_attention(q, k_full, v_full, causal=True,
+                              q_blk=512 if seq is None else math.gcd(512, Sq), q_offset=q0)
     else:
         # grouped GQA: query heads reshaped (KV, rep); K/V in their stored layout
-        qg = q.reshape(B, used, Hl // used, S, hd)
+        qg = q.reshape(B, used, Hl // used, Sq, hd)
         scores = torch.einsum("bgrsk,bgtk->bgrst", qg, k_full).float() * scale
         if valid is not None:
             scores = torch.where(valid[:, :, None], scores, NEG_INF)
-        elif causal and S > 1:
-            scores = torch.where(_causal(S, kv_len, x.device), scores, NEG_INF)
+        elif causal and T > 1:
+            scores = torch.where(_causal(Sq, kv_len, x.device, q0), scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        ctx = torch.einsum("bgrst,bgtk->bgrsk", probs, v_full).reshape(B, Hl, S, hd)
+        ctx = torch.einsum("bgrst,bgtk->bgrsk", probs, v_full).reshape(B, Hl, Sq, hd)
+    if seq is not None and heads_split:
+        return _out(p, ctx, x, group, scatter=True), new_cache
     return _out(p, ctx, x, group if heads_split else None), new_cache
 
 
@@ -249,10 +292,14 @@ def _decode_by_seq(q, ck, cv, valid, group, heads_split: bool, H: int, KV: int, 
     return ctx[:, h0:h0 + Hl]
 
 
-def _out(p: dict, ctx: torch.Tensor, x: torch.Tensor, group) -> torch.Tensor:
+def _out(p: dict, ctx: torch.Tensor, x: torch.Tensor, group, scatter: bool = False
+         ) -> torch.Tensor:
     """ctx (B, Hl, S, hd) through wo (this rank's rows), summed over
-    `group` when the heads are split."""
+    `group` when the heads are split: all-reduced, or with `scatter`
+    reduce-scattered to this rank's positions of the sequence."""
     B, Hl, S, hd = ctx.shape
     ctx = ctx.transpose(1, 2).reshape(B, S, Hl * hd)  # (B, S, Hl·hd)
     out = torch.matmul(ctx, wx(p["wo"], x.dtype).reshape(Hl * hd, x.shape[-1]))
-    return out if group is None else tensor.reduce_from(out, group)
+    if group is None:
+        return out
+    return tensor.scatter_seq(out, group) if scatter else tensor.reduce_from(out, group)

@@ -10,9 +10,11 @@ Counterpart of `repro/layers/mamba2.py`. Block structure
 Decode keeps (conv_state (B, W-1, conv_dim), ssm_state (B, H, N, P)) and
 advances the recurrence one token at a time. The parameters and the
 cache carry the reference's logical axes (`models.base.tree_specs`).
-The reference's activation annotations (`shard`, `shard_hidden`, the
-`ssm_shard` flag) only constrain layouts; on the port's plain tensors
-they would compute nothing and are left out (ROADMAP.md, C).
+The reference's `ssm_shard` flag (`models.runtime.flag`, default
+"mixed") is read by `parallel/tensor.py` `seq_splits`: in "mixed" the
+hidden state between layers holds a rank's positions of the sequence
+and the mixer runs by heads on the gathered sequence (`seq` below);
+"heads" keeps it whole between mixers.
 
 Under a model axis above 1 (`group`, `parallel/tensor.py`) the mixer
 serves split by heads: its shards hold this rank's heads' columns of z,
@@ -31,8 +33,14 @@ B and C's columns and conv channels where m > G) gets only this rank's
 heads' part of its gradient: `sum_partial_grads` sums those over the
 ranks that hold them, once a train step (`train/step.py`), and
 `norm_weights` counts each shared B or C column once in the global
-norm. Sequence parallelism between layers is not ported (ROADMAP.md,
-C).
+norm. With the hidden state split along the sequence (`seq`, ROADMAP.md
+A item 4) the whole in_proj product takes `gather_seq(xin)` in place of
+`copy_to(xin)` and the output is reduce-scattered back to the rank's
+positions (`scatter_seq` in place of `reduce_from`); the conv, the SSD
+(B7 at the same shapes as unsplit) and the gated norm's `sum_over` run
+on the gathered sequence as before. A mixer that stays whole gathers
+the sequence, runs whole and keeps its rank's positions, so its
+gradients are its positions' part, which the train step sums.
 """
 from __future__ import annotations
 
@@ -143,7 +151,7 @@ def _shared_group(cfg: ArchConfig, loc: _Local) -> int | None:
     return loc.h0 // (cfg.ssm_heads // cfg.ssm_groups)
 
 
-def sum_partial_grads(cfg: ArchConfig, p: dict, grads: dict, group) -> None:
+def sum_partial_grads(cfg: ArchConfig, p: dict, grads: dict, group) -> tuple[str, ...]:
     """Complete in place the gradients that a split mixer's backward leaves
     partial: `grads` (the layer-stacked mixer leaves' gradients, leaf for
     leaf of `p`, the rank's shards). The per-head vectors are whole on
@@ -154,10 +162,11 @@ def sum_partial_grads(cfg: ArchConfig, p: dict, grads: dict, group) -> None:
     writes its part at its group's place in a zero tensor G groups wide,
     so that the sum over the whole group adds only the parts of the
     ranks that share a group, and takes its group's sum back. One
-    all-reduce of all of it; nothing when the mixer is whole."""
+    all-reduce of all of it; nothing when the mixer is whole. Returns the
+    names of the leaves it completed whole (the per-head vectors), or ()."""
     loc = _local(cfg, p, group)
     if loc.group is None:
-        return
+        return ()
     G, N = cfg.ssm_groups, cfg.ssm_state
     g = _shared_group(cfg, loc)
     parts = [grads[k] for k in _HEAD_VECTORS]
@@ -179,6 +188,7 @@ def sum_partial_grads(cfg: ArchConfig, p: dict, grads: dict, group) -> None:
             t.copy_(got)
         else:
             bcs[i - len(_HEAD_VECTORS)].copy_(got[..., g, :].flatten(-2))
+    return _HEAD_VECTORS
 
 
 def norm_weights(cfg: ArchConfig, p: dict, group) -> dict:
@@ -199,11 +209,12 @@ def norm_weights(cfg: ArchConfig, p: dict, group) -> dict:
     return out
 
 
-def _project(cfg: ArchConfig, p: dict, xin: torch.Tensor, loc: _Local):
+def _project(cfg: ArchConfig, p: dict, xin: torch.Tensor, loc: _Local, gathered: bool = False):
     """in_proj: (z, x, B, C, dt) at the rank's widths, from `copy_to(xin)`
-    when split (see the module's docstring)."""
+    when split, or from xin itself when it was gathered along the
+    sequence (see the module's docstring)."""
     N = cfg.ssm_state
-    xs = xin if loc.group is None else tensor.copy_to(xin, loc.group)
+    xs = xin if loc.group is None or gathered else tensor.copy_to(xin, loc.group)
     zxbcdt = torch.matmul(xs, wx(p["in_proj"], xin.dtype))
     return torch.split(zxbcdt, [loc.di, loc.di, loc.G * N, loc.G * N, loc.H], dim=-1)
 
@@ -222,17 +233,24 @@ def _gated_norm(cfg: ArchConfig, p, y: torch.Tensor, z: torch.Tensor, loc: _Loca
     return (gf * torch.rsqrt(var + cfg.norm_eps) * scale).to(y.dtype)
 
 
-def _out(p: dict, y: torch.Tensor, loc: _Local) -> torch.Tensor:
+def _out(p: dict, y: torch.Tensor, loc: _Local, seq=None) -> torch.Tensor:
+    """out_proj, summed over the group when split: all-reduced, or with
+    `seq` reduce-scattered to this rank's positions; a whole mixer on the
+    gathered sequence keeps this rank's positions."""
     out = torch.matmul(y, wx(p["out_proj"], y.dtype))
+    if seq is not None:
+        return out.narrow(1, *seq) if loc.group is None else tensor.scatter_seq(out, loc.group)
     return out if loc.group is None else tensor.reduce_from(out, loc.group)
 
 
 def mamba_mixer(cfg: ArchConfig, p: dict, xin: torch.Tensor, *, chunk: int = 128,
-                use_kernel: bool = False, return_state: bool = False, group=None):
+                use_kernel: bool = False, return_state: bool = False, group=None, seq=None):
     """Prefill path. xin: (B, S, D) -> (B, S, D). With return_state=True
     also returns the decode cache {conv, ssm} advanced through the whole
     sequence (used by prefill). `group`: the model group when p holds
-    this rank's shards (the cache returned is then its slice).
+    this rank's shards (the cache returned is then its slice); `seq`:
+    this rank's positions when xin holds them (B, S/m, D): the mixer
+    gathers the sequence, runs on it and returns its positions.
 
     use_kernel=True runs the SSD through `kernels.ssd_scan.ops.ssd` (the
     CUDA kernel on the card, its plain version on the CPU), with dt cast to
@@ -241,12 +259,14 @@ def mamba_mixer(cfg: ArchConfig, p: dict, xin: torch.Tensor, *, chunk: int = 128
     zero-padded to a chunk multiple first and y cut back: a padded row has
     dt = 0, so it adds nothing to y and leaves the state undecayed, and
     the result equals the unpadded scan."""
-    B, S, D = xin.shape
     loc = _local(cfg, p, group)
+    if seq is not None:                                            # the whole sequence
+        xin = tensor.gather_seq(xin, group)
+    B, S, D = xin.shape
     di, G, N, H, P = loc.di, loc.G, cfg.ssm_state, loc.H, cfg.ssm_headdim
     dt_ = xin.dtype
 
-    z, xbc_x, bmat, cmat, dt_raw = _project(cfg, p, xin, loc)
+    z, xbc_x, bmat, cmat, dt_raw = _project(cfg, p, xin, loc, seq is not None)
 
     # causal conv over [x, B, C] channels
     xbc = torch.cat([xbc_x, bmat, cmat], dim=-1)                  # (B, S, conv_dim)
@@ -281,7 +301,7 @@ def mamba_mixer(cfg: ArchConfig, p: dict, xin: torch.Tensor, *, chunk: int = 128
         y = y.to(dt_)
     y = y + xh * _heads(loc, p["d_skip"]).to(dt_)[None, None, :, None]
     y = y.reshape(B, S, di)
-    out = _out(p, _gated_norm(cfg, p, y, z, loc), loc)
+    out = _out(p, _gated_norm(cfg, p, y, z, loc), loc, seq)
     if not return_state:
         return out
     W = cfg.conv_width

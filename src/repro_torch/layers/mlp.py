@@ -8,7 +8,12 @@ ffn columns and `wo` its rows: x enters through `copy_to` (its gradient
 summed over the group) and one all-reduce sums the output
 (`reduce_from`). An ffn that does not divide the axis stays whole and
 runs whole, with neither. A W8 leaf splits as its `q` does: the scales
-of `wi` and `wg` are this rank's columns', those of `wo` whole.
+of `wi` and `wg` are this rank's columns', those of `wo` whole. With x
+split along the sequence (`seq`, ROADMAP.md A item 4) a split ffn
+gathers it (`tensor.gather_seq` in place of `copy_to`) and
+reduce-scatters the output back to this rank's positions (`scatter_seq`
+in place of `reduce_from`); a whole ffn runs on this rank's positions,
+and its gradients are then their part, which the train step sums.
 """
 from __future__ import annotations
 
@@ -34,14 +39,14 @@ def mlp_params(cfg: ArchConfig, n_layers: int | None = None) -> dict:
     return p
 
 
-def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor, group=None) -> torch.Tensor:
+def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor, group=None, seq=None) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D); `group` the model group when p holds
-    shards."""
+    shards; `seq` this rank's positions when x holds them."""
     dt = x.dtype
     wi = p["wi"]["q"] if is_q(p["wi"]) else p["wi"]
     split = group is not None and wi.shape[-1] < cfg.d_ff
     if split:
-        x = tensor.copy_to(x, group)
+        x = tensor.copy_to(x, group) if seq is None else tensor.gather_seq(x, group)
     h = torch.matmul(x, wx(p["wi"], dt))
     if cfg.act == "swiglu":
         g = torch.matmul(x, wx(p["wg"], dt))
@@ -54,4 +59,6 @@ def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor, group=None) -> torch.Tensor:
     else:
         raise ValueError(cfg.act)
     out = torch.matmul(h, wx(p["wo"], dt))
-    return tensor.reduce_from(out, group) if split else out
+    if not split:
+        return out
+    return tensor.reduce_from(out, group) if seq is None else tensor.scatter_seq(out, group)

@@ -52,6 +52,24 @@ and gate gradients that each rank's experts give. The router's and the
 input's gradients come out whole, with no sum in the train step. Where
 E does not divide the axis the expert leaves stay whole on every rank
 (a recorded fallback) and the layer runs whole there.
+
+With x split along the sequence between layers (`seq`, this rank's
+positions; ROADMAP.md A item 4), the layer gathers the sequence
+(`tensor.gather_seq`) before routing, so the routing stays replicated
+over the model group: the dispatch, the capacity and the kept pairs are
+the unmeshed layer's. The aux losses keep their values: each rank takes
+its positions' router statistics and sums them over the model group as
+over the data group (`data_parallel.sum_over`, whose backward gives each
+rank its positions' share). Without `copy_to`, each rank's gradients of
+the gathered tokens and of the gates are its experts' part and its
+positions' aux part, which the gather's reduce-scatter sums once; the
+router's gradient is that part too, which the train step sums over the
+model group. The (T, D) partial is reduce-scattered back to this rank's
+positions (`scatter_seq` in place of `reduce_from`); whole experts give
+the whole output on every rank, of which the rank keeps its positions.
+Under the "shardmap" flag the layer takes the whole sequence
+(`gather_from`) and keeps its positions of the replicated output
+(`split_seq`), so `moe_shardmap` runs as it does unsplit.
 """
 from __future__ import annotations
 
@@ -131,42 +149,58 @@ def dispatch(ids: torch.Tensor, gates: torch.Tensor, n_experts: int, cap: int,
 
 
 def moe(cfg: ArchConfig, p: dict, x: torch.Tensor, *, capacity_factor: float = 1.25,
-        group=None) -> tuple[torch.Tensor, dict]:
+        group=None, seq=None) -> tuple[torch.Tensor, dict]:
     """x: (B, S, D) -> (out (B, S, D), {"lb_loss", "z_loss"}). `group`: the
     model group when the expert leaves of `p` are this rank's shards
-    (expert parallelism; see the module's docstring)."""
+    (expert parallelism; see the module's docstring); `seq`: this rank's
+    positions when x holds them."""
     if any(is_q(p[k]) for k in ("wi", "wg", "wo")):
         raise TypeError(
             "W8 expert weights are not served: the reference reads them with "
             "`.astype` (repro/layers/moe.py:116), which fails on a {'q', 's'} leaf")
     if runtime.flag("moe_impl") == "shardmap" and shd.active_mesh() is not None:
         from repro_torch.layers.moe_shardmap import moe_shardmap
-        return moe_shardmap(cfg, p, x, capacity_factor=capacity_factor)
+        if seq is None:
+            return moe_shardmap(cfg, p, x, capacity_factor=capacity_factor)
+        out, aux = moe_shardmap(cfg, p, tensor.gather_from(x, group, dim=1),
+                                capacity_factor=capacity_factor)
+        return tensor.split_seq(out, group), aux
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     El = p["wi"].shape[-3]                     # this rank's experts
-    T = B * S
     dt = x.dtype
+
+    if seq is not None:                        # the whole sequence, routed on every rank
+        x = tensor.gather_seq(x, group)
+        S = x.shape[1]
+    T = B * S
     xt = x.reshape(T, D)
 
     logits, probs, gates, ids = route(cfg, p["router"], xt)
+    own = logits
+    if seq is not None:                        # the aux losses' share of this rank's positions
+        own = logits.reshape(B, S, E).narrow(1, *seq).reshape(-1, E)
+        probs = probs.reshape(B, S, E).narrow(1, *seq).reshape(-1, E)
     # aux: load balance (mean prob x assignment fraction) + z-loss, over
-    # the global batch inside a data-parallel step; the assignments
-    # counted by a scatter-add, not a (T, K, E) one-hot
+    # the global batch inside a data-parallel step (and the model group
+    # where the sequence is split), both statistics in one sum; the
+    # assignments counted by a scatter-add, not a (T, K, E) one-hot
     n_tok = T * dp.size()
-    me = dp.global_sum(probs.sum(dim=0)) / n_tok
+    stats = torch.cat([probs.sum(dim=0), torch.sum(torch.logsumexp(own, dim=-1) ** 2)[None]])
+    stats = dp.global_sum(stats if seq is None else dp.sum_over(stats, group)) / n_tok
+    me, z_loss = stats[:E], stats[E]
     local_counts = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
         0, ids.reshape(-1), torch.ones(T * K, dtype=torch.float32, device=x.device))
     counts = dp.global_sum(local_counts)
     lb_loss = E * torch.sum(me * (counts / n_tok))
-    z_loss = dp.global_sum(torch.sum(torch.logsumexp(logits, dim=-1) ** 2)) / n_tok
 
     # this rank's experts [e0, e0 + El): all E unless the leaves are shards
     e0, experts = 0, None
     if El < E:
         e0 = dist.get_rank(group) * El
         experts = (e0, El)
-        xt, gates = tensor.copy_to(xt, group), tensor.copy_to(gates, group)
+        if seq is None:
+            xt, gates = tensor.copy_to(xt, group), tensor.copy_to(gates, group)
     # the capacity and the experts' queues are the global batch's; this
     # rank's buffer holds only its own kept pairs (rows per expert: the
     # most that one of its experts keeps of them, read on the host)
@@ -193,6 +227,9 @@ def moe(cfg: ArchConfig, p: dict, x: torch.Tensor, *, capacity_factor: float = 1
 
     contrib = ye[torch.where(held, slot, 0)] * (sgate * held.float())[:, None].to(dt)
     out = torch.zeros((T, D), dtype=dt, device=x.device).index_add_(0, stok, contrib)
-    if experts is not None:
+    out = out.reshape(B, S, D)
+    if seq is not None:
+        out = tensor.scatter_seq(out, group) if experts else out.narrow(1, *seq)
+    elif experts is not None:
         out = tensor.reduce_from(out, group)
-    return out.reshape(B, S, D), {"lb_loss": lb_loss, "z_loss": z_loss}
+    return out, {"lb_loss": lb_loss, "z_loss": z_loss}

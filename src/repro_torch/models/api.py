@@ -19,6 +19,7 @@ transformer families reach no kernel and ignore it.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import mamba, transformer, zamba
 from repro_torch.models.base import ArchConfig
@@ -70,7 +71,11 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: str = "none", use_kernel: 
     logits stay split over a vocab that divides the axis and the nll is
     taken over the model group (`tensor.vocab_nll`); a vocab that does
     not divide stays whole on every rank. The sums over the data group
-    are as above."""
+    are as above. With the hidden state split along the sequence
+    (`tensor.seq_range`, ROADMAP.md A item 4) a whole vocab's logits are
+    this rank's positions': the nll and the token count are then taken
+    on its positions' targets and summed over the model group as well
+    (`data_parallel.sum_over`), so the loss stays the global batch's."""
     group = tensor.group_for(cfg)
     if group is None:
         logits, aux = forward(cfg, params, batch, remat=remat, use_kernel=use_kernel)
@@ -82,6 +87,12 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: str = "none", use_kernel: 
     if mask is None:
         mask = torch.ones_like(targets, dtype=torch.float32)
     mask = mask.float()
+    total = dp.global_sum
+    n = logits.shape[1]
+    if n < targets.shape[1]:                 # this rank's positions of the sequence
+        first = dist.get_rank(group) * n
+        targets, mask = targets.narrow(1, first, n), mask.narrow(1, first, n)
+        total = lambda t: dp.global_sum(dp.sum_over(t, group))  # noqa: E731
 
     lf = logits.float()
     if logits.shape[-1] < cfg.vocab:
@@ -91,8 +102,8 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: str = "none", use_kernel: 
         tgt = torch.take_along_dim(lf, targets[..., None].long(), dim=-1)[..., 0]
         nll = (lse - tgt) * mask
     # the global batch's sums inside a data-parallel train step
-    denom = torch.clamp_min(dp.global_sum(mask.sum()), 1.0)
-    loss = dp.global_sum(nll.sum()) / denom
+    denom = torch.clamp_min(total(mask.sum()), 1.0)
+    loss = total(nll.sum()) / denom
     metrics = {"nll": loss}
     if aux:
         loss = loss + LB_WEIGHT * aux["lb_loss"] + Z_WEIGHT * aux["z_loss"]

@@ -19,7 +19,10 @@ logits split over the vocab for `api.loss_fn`. A train state cut over
 rows, the embedding's and head's d) is gathered a layer at a time
 inside the function that `remat_call` checkpoints, so the recompute
 gathers again, as `models/transformer.py` does; the embedding's leaves
-where `forward` uses them.
+where `forward` uses them. Under the `ssm_shard` flag's "mixed" (the
+reference's default) `forward` and `prefill` split the hidden state
+along the sequence between layers, as `models/transformer.py` does
+(ROADMAP.md A item 4); "heads" keeps it whole.
 """
 from __future__ import annotations
 
@@ -56,23 +59,26 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
 
 
 def layer_body(cfg: ArchConfig, lp: dict, h: torch.Tensor, use_kernel: bool, group=None,
-               dims=None) -> torch.Tensor:
+               dims=None, seq=None) -> torch.Tensor:
     """One Mamba2 layer (norm, mixer, residual) on layer slice `lp`; the
     hybrid family's mixers run it too. `group`: the model group when lp
     holds shards; `dims`: the fsdp dims of lp's shards, gathered here
-    (`fsdp.gather_tree`)."""
+    (`fsdp.gather_tree`); `seq`: h's positions when it holds this rank's
+    of the sequence."""
     lp = fsdp.gather_tree(lp, dims)
     hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
-    return h + m2.mamba_mixer(cfg, lp["mixer"], hn, use_kernel=use_kernel, group=group)
+    return h + m2.mamba_mixer(cfg, lp["mixer"], hn, use_kernel=use_kernel, group=group,
+                              seq=seq)
 
 
 def backbone(cfg: ArchConfig, params: dict, h: torch.Tensor, *, remat: str = "none",
-             use_kernel: bool = False, group=None, dims: dict | None = None) -> torch.Tensor:
-    """Every layer, then the final norm. `group` and `dims` (`fsdp.shard_dims`
-    of `params`) as `layer_body`'s."""
+             use_kernel: bool = False, group=None, dims: dict | None = None,
+             seq=None) -> torch.Tensor:
+    """Every layer, then the final norm. `group`, `dims` (`fsdp.shard_dims`
+    of `params`) and `seq` as `layer_body`'s."""
     ldims = fsdp.layer_dims(dims)
     for lp in unstack(params["layers"], cfg.n_layers):
-        h = remat_call(remat, layer_body, cfg, lp, h, use_kernel, group, ldims)
+        h = remat_call(remat, layer_body, cfg, lp, h, use_kernel, group, ldims, seq)
     return norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
 
 
@@ -82,11 +88,13 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: str = "none",
     above 1, `local_vocab` gives this rank's slice of a split vocab's
     logits instead of the whole (see the module's docstring)."""
     group = tensor.group_for(cfg)
+    seq = tensor.seq_range(cfg, batch["tokens"].shape[1])
     dims = fsdp.shard_dims(cfg, params)
     emb = fsdp.gather_tree(params["embed"], fsdp.sub_dims(dims, "embed"))
-    h = emb_lib.assemble_inputs(cfg, emb, batch, group)
-    h = backbone(cfg, params, h, remat=remat, use_kernel=use_kernel, group=group, dims=dims)
-    return emb_lib.lm_head(cfg, emb, h, group, gather=not local_vocab), {}
+    h = emb_lib.assemble_inputs(cfg, emb, batch, group, seq)
+    h = backbone(cfg, params, h, remat=remat, use_kernel=use_kernel, group=group, dims=dims,
+                 seq=seq)
+    return emb_lib.lm_head(cfg, emb, h, group, gather=not local_vocab, seq=seq), {}
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
@@ -95,17 +103,18 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
     Returns the last position's logits (B, V) and a cache advanced
     through the whole prompt (a new tree; `cache` gives the dtypes)."""
     group = tensor.group_for(cfg)
-    h = emb_lib.assemble_inputs(cfg, params["embed"], batch, group)
+    seq = tensor.seq_range(cfg, batch["tokens"].shape[1])
+    h = emb_lib.assemble_inputs(cfg, params["embed"], batch, group, seq)
     convs, ssms = [], []
     for lp in unstack(params["layers"], cfg.n_layers):
         hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
         out, state = m2.mamba_mixer(cfg, lp["mixer"], hn, return_state=True,
-                                    use_kernel=use_kernel, group=group)
+                                    use_kernel=use_kernel, group=group, seq=seq)
         h = h + out
         convs.append(state["conv"].to(cache["conv"].dtype))
         ssms.append(state["ssm"].to(cache["ssm"].dtype))
     h = norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
-    logits = emb_lib.lm_head(cfg, params["embed"], h[:, -1:, :], group)[:, 0]
+    logits = emb_lib.lm_head(cfg, params["embed"], tensor.last_row(h, group, seq), group)[:, 0]
     return logits, {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
 
 
@@ -116,6 +125,7 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     if extras:
         batch.update(extras)
     group = tensor.group_for(cfg)
+    tensor.seq_range(cfg, 1)                         # the recorded fallback
     h = emb_lib.assemble_inputs(cfg, params["embed"], batch, group)
     convs, ssms = [], []
     for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):

@@ -27,7 +27,13 @@ all-reduce of the partial output). A train state cut over "data" too
 function that `remat_call` checkpoints (the attention's, the norms' and
 the MoE block's router and expert leaves alike), so the recompute
 gathers again; the embedding's leaves are gathered where `forward`
-uses them.
+uses them. Where the sequence divides the model group, `forward` and
+`prefill` carry the hidden state split along it between layers
+(`tensor.seq_range`, ROADMAP.md A item 4): each block's input, and so
+what `remat_call` saves, is (B, S/m, D), the positions stay the whole
+sequence's, and the recompute gathers again in the same order on every
+rank; `prefill` brings the last position to every rank before the head
+(`tensor.last_row`). A decode step keeps it whole (recorded).
 
 `forward` and `prefill` take the port's `use_kernel` keyword, which the
 `Engine` passes to every family: the transformer path reaches no kernel,
@@ -76,31 +82,35 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
 
 
 def _block(cfg: ArchConfig, lp: dict, h, positions, cache_layer, cache_pos, causal: bool,
-           group=None, dims=None):
+           group=None, dims=None, seq=None):
     """One transformer block. Returns (h, new_cache_layer, aux). `dims`:
-    the fsdp dims of lp's shards, gathered here (`fsdp.gather_tree`)."""
+    the fsdp dims of lp's shards, gathered here (`fsdp.gather_tree`);
+    `seq`: h's positions when it holds this rank's of the sequence."""
     lp = fsdp.gather_tree(lp, dims)
     plus_one = cfg.norm_plus_one
     hn = norms.apply_norm(cfg.norm, lp["ln_attn"], h, eps=cfg.norm_eps, plus_one=plus_one)
     a, new_cache = attn_lib.attention(cfg, lp["attn"], hn, positions, cache=cache_layer,
-                                      cache_pos=cache_pos, causal=causal, group=group)
+                                      cache_pos=cache_pos, causal=causal, group=group,
+                                      seq=seq)
     h = h + a
     hn = norms.apply_norm(cfg.norm, lp["ln_mlp"], h, eps=cfg.norm_eps, plus_one=plus_one)
     if cfg.family == "moe":
-        m, aux = moe_lib.moe(cfg, lp["moe"], hn, group=group)
+        m, aux = moe_lib.moe(cfg, lp["moe"], hn, group=group, seq=seq)
     else:
-        m, aux = mlp_lib.mlp(cfg, lp["mlp"], hn, group), None
+        m, aux = mlp_lib.mlp(cfg, lp["mlp"], hn, group, seq), None
     return h + m, new_cache, aux
 
 
 def backbone(cfg: ArchConfig, params: dict, h: torch.Tensor, positions: torch.Tensor, *,
              cache: dict | None = None, cache_pos: torch.Tensor | None = None,
-             remat: str = "none", group=None,
-             dims: dict | None = None) -> tuple[torch.Tensor, dict | None, dict]:
+             remat: str = "none", group=None, dims: dict | None = None,
+             seq=None) -> tuple[torch.Tensor, dict | None, dict]:
     """Run all layers. Returns (h, new_cache, aux_losses): the MoE losses
     averaged over the layers; a dense model's are zero, as in the reference.
     `group`: the model group when `params` are shards (`_block`); `dims`:
-    `fsdp.shard_dims` of `params`, whose layer shards each block gathers."""
+    `fsdp.shard_dims` of `params`, whose layer shards each block gathers;
+    `seq`: h's positions (`tensor.seq_range`) when it holds this rank's
+    of the sequence, `positions` staying the whole sequence's."""
     ldims = fsdp.layer_dims(dims)
     ks, vs = [], []
     lb = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -108,7 +118,7 @@ def backbone(cfg: ArchConfig, params: dict, h: torch.Tensor, positions: torch.Te
     for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
         h, new, aux = remat_call(remat, _block, cfg, lp, h, positions,
                                  None if cache is None else layer(cache, i), cache_pos, True,
-                                 group, ldims)
+                                 group, ldims, seq)
         if new is not None:
             ks.append(new["k"])
             vs.append(new["v"])
@@ -140,12 +150,14 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: str = "none",
     `use_kernel` has no effect on this family."""
     B, S = batch["tokens"].shape
     group = tensor.group_for(cfg)
+    seq = tensor.seq_range(cfg, S)
     dims = fsdp.shard_dims(cfg, params)
     emb = fsdp.gather_tree(params["embed"], fsdp.sub_dims(dims, "embed"))
-    h = emb_lib.assemble_inputs(cfg, emb, batch, group)
+    h = emb_lib.assemble_inputs(cfg, emb, batch, group, seq)
     positions = _positions_for(cfg, batch, B, S, h.device)
-    h, _, aux = backbone(cfg, params, h, positions, remat=remat, group=group, dims=dims)
-    return emb_lib.lm_head(cfg, emb, h, group, gather=not local_vocab), aux
+    h, _, aux = backbone(cfg, params, h, positions, remat=remat, group=group, dims=dims,
+                         seq=seq)
+    return emb_lib.lm_head(cfg, emb, h, group, gather=not local_vocab, seq=seq), aux
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
@@ -154,10 +166,11 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
     last-position logits (B, V). `use_kernel` has no effect on this family."""
     B, S = batch["tokens"].shape
     group = tensor.group_for(cfg)
-    h = emb_lib.assemble_inputs(cfg, params["embed"], batch, group)
+    seq = tensor.seq_range(cfg, S)
+    h = emb_lib.assemble_inputs(cfg, params["embed"], batch, group, seq)
     positions = _positions_for(cfg, batch, B, S, h.device)
-    h, new_cache, _ = backbone(cfg, params, h, positions, cache=cache, group=group)
-    logits = emb_lib.lm_head(cfg, params["embed"], h[:, -1:, :], group)[:, 0]
+    h, new_cache, _ = backbone(cfg, params, h, positions, cache=cache, group=group, seq=seq)
+    logits = emb_lib.lm_head(cfg, params["embed"], tensor.last_row(h, group, seq), group)[:, 0]
     return logits, new_cache
 
 
@@ -182,6 +195,7 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, pos: torch.
                                                      device=tokens.device))
         batch.setdefault("positions", pos[:, None])
     group = tensor.group_for(cfg)
+    tensor.seq_range(cfg, 1)                         # the recorded fallback
     h = emb_lib.assemble_inputs(cfg, params["embed"], batch, group)
     positions = torch.stack([pos[:, None]] * 3) if cfg.pos == "mrope" else pos[:, None]
     h, new_cache, _ = backbone(cfg, params, h, positions, cache=cache, cache_pos=pos,

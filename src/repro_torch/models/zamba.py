@@ -26,7 +26,11 @@ as in `models/mamba.py`; the shared block's attention and MLP on the
 dense family's split (heads, kv heads and ffn that divide the axis; the
 KV cache by kv heads, else by positions, `tensor.cache_len`); the
 embedding and head on a vocab that divides it. The shared block's
-`in_proj` ("fsdp", None) stays whole over "model". `forward`, which
+`in_proj` ("fsdp", None) stays whole over "model"; under the
+`ssm_shard` flag's "mixed" (the reference's default) the hidden state
+and `emb0` hold a rank's positions of the sequence between layers
+(ROADMAP.md A item 4), so it runs on S/m tokens and its gradient is
+their part, which the train step sums. `forward`, which
 training runs, takes the mixers' and the block's autograd collectives
 and `local_vocab`, as in `models/mamba.py`. Under FSDP each mixer's
 layer is gathered inside its checkpointed function, as in mamba; the
@@ -99,16 +103,17 @@ def _groups(cfg: ArchConfig):
 
 
 def _shared_block(cfg: ArchConfig, sp: dict, h, emb0, positions, cache_kv, cache_pos,
-                  group=None):
+                  group=None, seq=None):
     """The shared attention+MLP block. Returns (h, new_kv_cache). `group`:
-    the model group when sp holds shards."""
+    the model group when sp holds shards; `seq`: the positions of h and
+    emb0 when they hold this rank's of the sequence."""
     x = torch.matmul(torch.cat([h, emb0], dim=-1), wx(sp["in_proj"], h.dtype))
     xn = norms.apply_norm(cfg.norm, sp["ln_attn"], x, eps=cfg.norm_eps)
     a, new_kv = attn_lib.attention(cfg, sp["attn"], xn, positions, cache=cache_kv,
-                                   cache_pos=cache_pos, group=group)
+                                   cache_pos=cache_pos, group=group, seq=seq)
     x = x + a
     xn = norms.apply_norm(cfg.norm, sp["ln_mlp"], x, eps=cfg.norm_eps)
-    x = x + mlp_lib.mlp(cfg, sp["mlp"], xn, group)
+    x = x + mlp_lib.mlp(cfg, sp["mlp"], xn, group, seq)
     return h + x, new_kv
 
 
@@ -122,19 +127,20 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: str = "none",
     `models/mamba.py`."""
     B, S = batch["tokens"].shape
     mg = tensor.group_for(cfg)
+    seq = tensor.seq_range(cfg, S)
     dims = fsdp.shard_dims(cfg, params)
     emb = fsdp.gather_tree(params["embed"], fsdp.sub_dims(dims, "embed"))
     shared = fsdp.gather_tree(params["shared"], fsdp.sub_dims(dims, "shared"))
     ldims = fsdp.layer_dims(dims)
-    h = emb_lib.assemble_inputs(cfg, emb, batch, mg)
+    h = emb_lib.assemble_inputs(cfg, emb, batch, mg, seq)
     emb0, positions = h, _positions(B, S, h.device)
     layers = unstack(params["layers"], cfg.n_layers)
     for group in _groups(cfg):
         for i in group:
-            h = remat_call(remat, layer_body, cfg, layers[i], h, use_kernel, mg, ldims)
-        h, _ = _shared_block(cfg, shared, h, emb0, positions, None, None, mg)
+            h = remat_call(remat, layer_body, cfg, layers[i], h, use_kernel, mg, ldims, seq)
+        h, _ = _shared_block(cfg, shared, h, emb0, positions, None, None, mg, seq)
     h = norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
-    return emb_lib.lm_head(cfg, emb, h, mg, gather=not local_vocab), {}
+    return emb_lib.lm_head(cfg, emb, h, mg, gather=not local_vocab, seq=seq), {}
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
@@ -144,7 +150,8 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
     position's logits (B, V) and the new cache."""
     B, S = batch["tokens"].shape
     mg = tensor.group_for(cfg)
-    h = emb_lib.assemble_inputs(cfg, params["embed"], batch, mg)
+    seq = tensor.seq_range(cfg, S)
+    h = emb_lib.assemble_inputs(cfg, params["embed"], batch, mg, seq)
     emb0, positions = h, _positions(B, S, h.device)
     convs, ssms, ks, vs = [], [], [], []
     layers = unstack(params["layers"], cfg.n_layers)
@@ -153,16 +160,16 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
             lp = layers[i]
             hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
             out, state = m2.mamba_mixer(cfg, lp["mixer"], hn, return_state=True,
-                                        use_kernel=use_kernel, group=mg)
+                                        use_kernel=use_kernel, group=mg, seq=seq)
             h = h + out
             convs.append(state["conv"].to(cache["ssm"]["conv"].dtype))
             ssms.append(state["ssm"].to(cache["ssm"]["ssm"].dtype))
         h, kv = _shared_block(cfg, params["shared"], h, emb0, positions,
-                              layer(cache["kv"], g), None, mg)
+                              layer(cache["kv"], g), None, mg, seq)
         ks.append(kv["k"])
         vs.append(kv["v"])
     h = norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
-    logits = emb_lib.lm_head(cfg, params["embed"], h[:, -1:, :], mg)[:, 0]
+    logits = emb_lib.lm_head(cfg, params["embed"], tensor.last_row(h, mg, seq), mg)[:, 0]
     return logits, {"ssm": {"conv": torch.stack(convs), "ssm": torch.stack(ssms)},
                     "kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
 
@@ -176,6 +183,7 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     if extras:
         batch.update(extras)
     mg = tensor.group_for(cfg)
+    tensor.seq_range(cfg, 1)                         # the recorded fallback
     h = emb_lib.assemble_inputs(cfg, params["embed"], batch, mg)
     emb0, positions = h, pos[:, None]
     convs, ssms, ks, vs = [], [], [], []

@@ -66,6 +66,24 @@ the collectives. The port's tensors are local, so the split is explicit:
   mixer's gated norm sums its squares over the group with `sum_over`
   (all-reduce forward and backward). Under `torch.no_grad()` these run
   the forward collectives and nothing else.
+* Sequence parallelism between layers (ROADMAP.md A item 4), the
+  reference's ("batch", "seq", None) hidden state: where a sequence of S
+  divides the model group's m (`seq_splits`; for the ssm and hybrid
+  families only under the `ssm_shard` flag's "mixed", the reference's
+  default), rank r holds positions [r S/m, (r + 1) S/m) between layers
+  (`seq_range`); else, at a decode step and on a ragged prompt, the
+  hidden state stays whole, recorded in `fallbacks()` as the reference
+  records it. A layer that needs the whole sequence gathers it with
+  `gather_seq` (all-gather forward, reduce-scatter backward) in place of
+  `copy_to`, and reduce-scatters its partial output back with
+  `scatter_seq` (reduce-scatter forward, all-gather backward) in place
+  of `reduce_from`; never both on one input, or a gradient is summed m
+  times. A product whose weights stay whole over "model" (heads, ffn or
+  vocab that do not divide, the norms, the MoE router, zamba2's shared
+  `in_proj`) runs on the rank's positions, and the train step sums its
+  gradient over the group once (`train/step.py`). Prefill's last
+  position lives on the last rank: `last_row` brings it to every rank
+  before the head.
 
 * A W8 leaf `{"q", "s"}` (`quantized/apply.py`) of the dense, ssm and
   hybrid families is cut from the whole quantization, never quantized a
@@ -94,15 +112,16 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from repro_torch.models import base
+from repro_torch.models import base, runtime
 from repro_torch.models.base import ParamInfo, tree_items, tree_unflatten
 from repro_torch.parallel import sharding as shd
 
 __all__ = ["MODEL", "DATA", "TRAIN_AXES", "serving_rules", "training_rules", "model_group",
            "group_for", "splits", "local_info", "local_tree", "cache_len", "shard_leaf",
            "shard_params", "draw_keep", "gather_leaf", "split_axes", "ssm_splits", "ssm_runs",
-           "all_reduce", "all_gather", "reduce_scatter", "copy_to", "reduce_from",
-           "gather_from", "sum_over", "vocab_nll"]
+           "seq_splits", "seq_range", "all_reduce", "all_gather", "reduce_scatter", "copy_to",
+           "reduce_from", "gather_from", "sum_over", "gather_seq", "scatter_seq", "split_seq",
+           "last_row", "vocab_nll"]
 
 MODEL = "model"
 DATA = "data"
@@ -153,6 +172,35 @@ def splits(cfg, axes=(MODEL,)) -> bool:
     mesh = shd.active_mesh()
     return (mesh is not None and cfg.family in _SPLIT_FAMILIES
             and any(mesh.shape.get(a, 1) > 1 for a in axes))
+
+
+def seq_splits(cfg, S: int) -> bool:
+    """Whether a hidden state of S positions of `cfg` is split along the
+    sequence over the model group between layers: a model group, S a
+    multiple of its size, the rules' "seq" on "model", and for the ssm
+    and hybrid families the `ssm_shard` flag other than "heads" (the
+    reference's default "mixed")."""
+    group = group_for(cfg)
+    if group is None or MODEL not in shd.rule_axes("seq") or S % dist.get_world_size(group):
+        return False
+    return cfg.family in ("dense", "moe") or runtime.flag("ssm_shard", "mixed") != "heads"
+
+
+def seq_range(cfg, S: int) -> tuple[int, int] | None:
+    """This rank's positions of a sequence of S, (first, count) =
+    (r S/m, S/m), where `seq_splits`; else None. Under a model group a
+    sequence that does not divide it is recorded in `fallbacks()` as the
+    reference records its ("batch", "seq", None) hidden state: ("seq", S,
+    ("model",), None)."""
+    group = group_for(cfg)
+    if group is None:
+        return None
+    m = dist.get_world_size(group)
+    if S % m and MODEL in shd.rule_axes("seq"):
+        shd.record_fallback("seq", S, (MODEL,), None)
+    if not seq_splits(cfg, S):
+        return None
+    return dist.get_rank(group) * (S // m), S // m
 
 
 def ssm_splits(H: int, G: int, m: int) -> bool:
@@ -470,6 +518,40 @@ class _GatherFrom(torch.autograd.Function):
         return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
 
 
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather(x, group, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, dim=1), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return reduce_scatter(x, group, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, dim=1), None
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = x.shape[1] // dist.get_world_size(group)
+        return x.narrow(1, dist.get_rank(group) * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, dim=1), None
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """x, whose gradient is summed over `group`: the input of a product
     whose output is split over the group (each rank's gradient is its
@@ -497,6 +579,40 @@ def gather_from(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     """Every rank's x along `dim`, in rank order; the gradient of this
     rank's slice goes to x."""
     return _GatherFrom.apply(x, group, dim)
+
+
+def gather_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's positions of x (B, S/m, ...) along the sequence (dim
+    1), in rank order: the whole (B, S, ...). Its backward reduce-scatters
+    the gradient: each rank's gradient of the whole sequence is its part
+    (from its heads, ffn columns, experts or queries), and the sum of the
+    parts at this rank's positions is x's. It takes the place of
+    `copy_to` where the hidden state is split along the sequence."""
+    return _GatherSeq.apply(x, group)
+
+
+def scatter_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's positions (along dim 1) of the sum of x over `group`: a
+    reduce-scatter, where `reduce_from` would all-reduce the whole
+    sequence. Its backward all-gathers the positions' gradients."""
+    return _ScatterSeq.apply(x, group)
+
+
+def split_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's positions (along dim 1) of x, which is the same on
+    every rank; its backward all-gathers the positions' gradients, so the
+    gradient of x is whole and the same on every rank (the counterpart of
+    `gather_from` along the sequence)."""
+    return _SplitSeq.apply(x, group)
+
+
+def last_row(h: torch.Tensor, group, seq) -> torch.Tensor:
+    """The last position of the whole sequence, h[:, -1:], on every rank:
+    with the sequence split (`seq`, `seq_range`'s) it lives on the last
+    rank, and is all-gathered from every rank's last row."""
+    if seq is None:
+        return h[:, -1:]
+    return all_gather(h[:, -1:], group, dim=1)[:, -1:]
 
 
 class _VocabNLL(torch.autograd.Function):

@@ -43,7 +43,10 @@ counting a B or C column that m/G ranks share once
 shared copies get the same summed gradient and stay equal. What a leaf
 is, whole or a shard, is read from its shape, so a whole state under a
 mesh trains data parallel as before. The MoE router, whole over
-"model", counts once in the norm.
+"model", counts once in the norm. With the hidden state split along the
+sequence (ROADMAP.md A item 4) a leaf held whole over "model" sees only
+the rank's positions, so the model-group sum covers every such leaf
+too (`_sum_positions`), once a step, before the sums over "data".
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.layers import mamba2
-from repro_torch.models import api
+from repro_torch.models import api, runtime
 from repro_torch.models.base import (ArchConfig, ShapeConfig, keystr, tree_items, tree_map,
                                      tree_unflatten)
 from repro_torch.optim import adamw
@@ -104,7 +107,7 @@ def make_grad_fn(cfg: ArchConfig, shape: ShapeConfig, *, remat: str = "full"):
                     loss_sum = loss_sum + loss / accum
                 del grads
         if group is not None:
-            _sum_partial(cfg, params, gsum)
+            _sum_partial(cfg, params, gsum, batch["tokens"].shape[1])
             _reduce(cfg, mesh, params, gsum, group)
         return loss_sum, metrics, tree_unflatten(paths, gsum)
 
@@ -122,13 +125,43 @@ def _mixer_leaves(cfg: ArchConfig, tree) -> dict | None:
     return {p[-1]: i for i, (p, _) in enumerate(tree_items(tree)) if p[:2] == _MIXER}
 
 
-def _sum_partial(cfg, params, gsum: list) -> None:
-    """Sum over the model group the mixer's gradients that each rank holds
-    only its heads' part of (`mamba2.sum_partial_grads`)."""
+def _sum_partial(cfg, params, gsum: list, S: int) -> None:
+    """Sum over the model group the gradients that each rank holds only a
+    part of: the mixer's, its heads' part (`mamba2.sum_partial_grads`);
+    and with the hidden state split along the sequence (`tensor.seq_splits`
+    of the batch's S), every other leaf that a rank holds whole over
+    "model", its positions' part (`_sum_positions`)."""
     idx = _mixer_leaves(cfg, params)
+    done = ()
     if idx:
-        mamba2.sum_partial_grads(cfg, params["layers"]["mixer"],
-                                 {k: gsum[i] for k, i in idx.items()}, tensor.model_group())
+        done = mamba2.sum_partial_grads(cfg, params["layers"]["mixer"],
+                                        {k: gsum[i] for k, i in idx.items()},
+                                        tensor.model_group())
+    if tensor.seq_splits(cfg, S):
+        _sum_positions(cfg, params, gsum, {_MIXER + (k,) for k in done})
+
+
+def _sum_positions(cfg, params, gsum: list, done: set) -> None:
+    """One all-reduce over the model group of the gradients of the leaves
+    held whole over "model" (`tensor.split_axes`), but those in `done`
+    and, under the "shardmap" MoE flag, the MoE block's (whose router
+    `copy_to` makes whole): with the sequence split, a norm scale, a
+    replicated attention or MLP weight, a whole vocab's `tok` and `head`,
+    zamba2's shared `in_proj`, a whole mixer and the MoE router each
+    see only this rank's positions."""
+    shardmap = runtime.flag("moe_impl") == "shardmap"
+    parts = [g for (path, _), axes, g in zip(tree_items(params), tensor.split_axes(cfg, params),
+                                             gsum)
+             if tensor.MODEL not in axes and path not in done
+             and not (shardmap and path[:2] == ("layers", "moe"))]
+    if not parts:
+        return
+    flat = torch.cat([g.reshape(-1) for g in parts])
+    dist.all_reduce(flat, group=tensor.model_group())
+    at = 0
+    for g in parts:
+        g.copy_(flat[at:at + g.numel()].view(g.shape))
+        at += g.numel()
 
 
 def _reduce(cfg, mesh, params, gsum: list, group) -> None:

@@ -29,8 +29,10 @@ state saved as step 0 of <dir>/ckpt_<case>, the cases as
   its device thread, so each layer's recompute (its FSDP gathers and
   collectives) runs where the forward's mesh is not set.
 
-Then the autograd collectives against one process on small tensors
-(`unit/`). It writes everything to <dir>/tp_<rank>.npz.
+A case's `flags` are the runtime flags (`models.runtime.with_flags`)
+everything of it runs under. Then the autograd collectives against one
+process on small tensors (`unit/`). It writes everything to
+<dir>/tp_<rank>.npz.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ from _mesh_child import _GRAD, _grad_on_another_thread
 from repro_torch import configs
 from repro_torch.data.pipeline import make_batch
 from repro_torch.launch.mesh import make_mesh_compat
-from repro_torch.models import api, base, convert
+from repro_torch.models import api, base, convert, runtime
 from repro_torch.optim import adamw
 from repro_torch.parallel import fsdp, tensor
 from repro_torch.parallel import sharding as shd
@@ -223,7 +225,8 @@ def main(argv) -> int:
         out = {"coord/data": np.int64(mesh.coordinate("data")),
                "coord/model": np.int64(mesh.coordinate("model"))}
         for case in json.loads((d / "cases.json").read_text()):
-            out.update(run_case(case, d, mesh, rank == 0))
+            with runtime.with_flags(**case.get("flags", {})):
+                out.update(run_case(case, d, mesh, rank == 0))
         out.update(units(mesh))
         dist.barrier()
     finally:
