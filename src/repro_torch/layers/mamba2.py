@@ -41,6 +41,12 @@ positions (`scatter_seq` in place of `reduce_from`); the conv, the SSD
 on the gathered sequence as before. A mixer that stays whole gathers
 the sequence, runs whole and keeps its rank's positions, so its
 gradients are its positions' part, which the train step sums.
+
+Spans (`netgen.telemetry`, live only while traced), in prefill and
+decode alike: `mixer.in_proj`, `mixer.conv` (the cat of x|B|C, the conv,
+its bias and SiLU), `mixer.ssd` (the scan with its padding, or the decode
+state update; the D skip), `mixer.gate_norm` and `mixer.out_proj`; the
+projections' weight casts are `weights.cast` spans inside them.
 """
 from __future__ import annotations
 
@@ -52,6 +58,7 @@ import torch.nn.functional as F
 
 from repro_torch.layers.common import is_q, wx
 from repro_torch.models.base import ArchConfig, ParamInfo
+from repro_torch.netgen.telemetry import span
 from repro_torch.parallel import tensor
 
 __all__ = ["mamba_params", "ssm_cache_info", "mamba_mixer", "mamba_decode_step",
@@ -214,8 +221,9 @@ def _project(cfg: ArchConfig, p: dict, xin: torch.Tensor, loc: _Local, gathered:
     when split, or from xin itself when it was gathered along the
     sequence (see the module's docstring)."""
     N = cfg.ssm_state
-    xs = xin if loc.group is None or gathered else tensor.copy_to(xin, loc.group)
-    zxbcdt = torch.matmul(xs, wx(p["in_proj"], xin.dtype))
+    with span("mixer.in_proj"):
+        xs = xin if loc.group is None or gathered else tensor.copy_to(xin, loc.group)
+        zxbcdt = torch.matmul(xs, wx(p["in_proj"], xin.dtype))
     return torch.split(zxbcdt, [loc.di, loc.di, loc.G * N, loc.G * N, loc.H], dim=-1)
 
 
@@ -223,24 +231,27 @@ def _gated_norm(cfg: ArchConfig, p, y: torch.Tensor, z: torch.Tensor, loc: _Loca
                 ) -> torch.Tensor:
     """norm(y * silu(z)) over the whole d_inner: split, each rank sums its
     channels' squares in fp32 and the sums are summed over the group."""
-    g = y * F.silu(z.float()).to(y.dtype)
-    gf = g.float()
-    if loc.group is None:
-        var = torch.mean(gf * gf, dim=-1, keepdim=True)
-    else:
-        var = tensor.sum_over(torch.sum(gf * gf, dim=-1, keepdim=True), loc.group) / cfg.d_inner
-    scale = _heads(loc, p["norm_scale"], cfg.ssm_headdim)
-    return (gf * torch.rsqrt(var + cfg.norm_eps) * scale).to(y.dtype)
+    with span("mixer.gate_norm"):
+        g = y * F.silu(z.float()).to(y.dtype)
+        gf = g.float()
+        if loc.group is None:
+            var = torch.mean(gf * gf, dim=-1, keepdim=True)
+        else:
+            var = tensor.sum_over(torch.sum(gf * gf, dim=-1, keepdim=True),
+                                  loc.group) / cfg.d_inner
+        scale = _heads(loc, p["norm_scale"], cfg.ssm_headdim)
+        return (gf * torch.rsqrt(var + cfg.norm_eps) * scale).to(y.dtype)
 
 
 def _out(p: dict, y: torch.Tensor, loc: _Local, seq=None) -> torch.Tensor:
     """out_proj, summed over the group when split: all-reduced, or with
     `seq` reduce-scattered to this rank's positions; a whole mixer on the
     gathered sequence keeps this rank's positions."""
-    out = torch.matmul(y, wx(p["out_proj"], y.dtype))
-    if seq is not None:
-        return out.narrow(1, *seq) if loc.group is None else tensor.scatter_seq(out, loc.group)
-    return out if loc.group is None else tensor.reduce_from(out, loc.group)
+    with span("mixer.out_proj"):
+        out = torch.matmul(y, wx(p["out_proj"], y.dtype))
+        if seq is not None:
+            return out.narrow(1, *seq) if loc.group is None else tensor.scatter_seq(out, loc.group)
+        return out if loc.group is None else tensor.reduce_from(out, loc.group)
 
 
 def mamba_mixer(cfg: ArchConfig, p: dict, xin: torch.Tensor, *, chunk: int = 128,
@@ -269,13 +280,14 @@ def mamba_mixer(cfg: ArchConfig, p: dict, xin: torch.Tensor, *, chunk: int = 128
     z, xbc_x, bmat, cmat, dt_raw = _project(cfg, p, xin, loc, seq is not None)
 
     # causal conv over [x, B, C] channels
-    xbc = torch.cat([xbc_x, bmat, cmat], dim=-1)                  # (B, S, conv_dim)
-    conv_w = p["conv_w"].to(dt_)                                   # (W, conv_dim)
-    W = conv_w.shape[0]
-    pads = F.pad(xbc, (0, 0, W - 1, 0))
-    conv = sum(pads[:, i:i + S, :] * conv_w[i][None, None, :] for i in range(W))
-    conv = conv + p["conv_b"].to(dt_)
-    conv = F.silu(conv.float()).to(dt_)
+    with span("mixer.conv"):
+        xbc = torch.cat([xbc_x, bmat, cmat], dim=-1)              # (B, S, conv_dim)
+        conv_w = p["conv_w"].to(dt_)                               # (W, conv_dim)
+        W = conv_w.shape[0]
+        pads = F.pad(xbc, (0, 0, W - 1, 0))
+        conv = sum(pads[:, i:i + S, :] * conv_w[i][None, None, :] for i in range(W))
+        conv = conv + p["conv_b"].to(dt_)
+        conv = F.silu(conv.float()).to(dt_)
     x, bmat, cmat = torch.split(conv, [di, G * N, G * N], dim=-1)
 
     xh = x.reshape(B, S, H, P)
@@ -284,22 +296,23 @@ def mamba_mixer(cfg: ArchConfig, p: dict, xin: torch.Tensor, *, chunk: int = 128
     dt = F.softplus(dt_raw.float() + _heads(loc, p["dt_bias"]))    # (B, S, H)
     a = -torch.exp(_heads(loc, p["a_log"]).float())                # (H,)
 
-    if use_kernel:
-        from repro_torch.kernels.ssd_scan import ops as ssd_ops
-        dtk = dt.to(dt_)
-        pad = -S % chunk
-        if pad:
-            xk, dtk, bk, ck = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
-                               for t in (xh, dtk, bh, ch))
+    with span("mixer.ssd"):
+        if use_kernel:
+            from repro_torch.kernels.ssd_scan import ops as ssd_ops
+            dtk = dt.to(dt_)
+            pad = -S % chunk
+            if pad:
+                xk, dtk, bk, ck = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                                   for t in (xh, dtk, bh, ch))
+            else:
+                xk, bk, ck = xh, bh, ch
+            y, s_fin = ssd_ops.ssd(xk, dtk, a, bk, ck, chunk=chunk)
+            y = y[:, :S]
         else:
-            xk, bk, ck = xh, bh, ch
-        y, s_fin = ssd_ops.ssd(xk, dtk, a, bk, ck, chunk=chunk)
-        y = y[:, :S]
-    else:
-        y, s_fin = _ssd_chunked_batch(xh.float(), dt, a, bh.float(), ch.float(),
-                                      chunk=chunk)
-        y = y.to(dt_)
-    y = y + xh * _heads(loc, p["d_skip"]).to(dt_)[None, None, :, None]
+            y, s_fin = _ssd_chunked_batch(xh.float(), dt, a, bh.float(), ch.float(),
+                                          chunk=chunk)
+            y = y.to(dt_)
+        y = y + xh * _heads(loc, p["d_skip"]).to(dt_)[None, None, :, None]
     y = y.reshape(B, S, di)
     out = _out(p, _gated_norm(cfg, p, y, z, loc), loc, seq)
     if not return_state:
@@ -366,13 +379,13 @@ def mamba_decode_step(cfg: ArchConfig, p: dict, xin: torch.Tensor, cache: dict,
     dt_ = xin.dtype
 
     z, xbc_x, bmat, cmat, dt_raw = _project(cfg, p, xin, loc)
-    xbc = torch.cat([xbc_x, bmat, cmat], dim=-1)[:, 0]             # (B, conv_dim)
-
-    conv_state = cache["conv"].to(dt_)                             # (B, W-1, C)
-    window = torch.cat([conv_state, xbc[:, None, :]], dim=1)       # (B, W, C)
-    conv_w = p["conv_w"].to(dt_)                                   # (W, C)
-    conv = torch.einsum("bwc,wc->bc", window, conv_w) + p["conv_b"].to(dt_)
-    conv = F.silu(conv.float()).to(dt_)
+    with span("mixer.conv"):
+        xbc = torch.cat([xbc_x, bmat, cmat], dim=-1)[:, 0]         # (B, conv_dim)
+        conv_state = cache["conv"].to(dt_)                         # (B, W-1, C)
+        window = torch.cat([conv_state, xbc[:, None, :]], dim=1)   # (B, W, C)
+        conv_w = p["conv_w"].to(dt_)                               # (W, C)
+        conv = torch.einsum("bwc,wc->bc", window, conv_w) + p["conv_b"].to(dt_)
+        conv = F.silu(conv.float()).to(dt_)
     new_conv_state = window[:, 1:, :]
 
     x, bmat, cmat = torch.split(conv, [di, G * N, G * N], dim=-1)
@@ -382,11 +395,12 @@ def mamba_decode_step(cfg: ArchConfig, p: dict, xin: torch.Tensor, cache: dict,
     dt = F.softplus(dt_raw[:, 0].float() + _heads(loc, p["dt_bias"]))   # (B, H)
     a = -torch.exp(_heads(loc, p["a_log"]).float())
 
-    s = cache["ssm"]                                               # (B,H,N,P) fp32
-    decay = torch.exp(dt * a[None, :])                             # (B,H)
-    s_new = s * decay[:, :, None, None] + torch.einsum("bhn,bh,bhp->bhnp", bh, dt, xh)
-    y = torch.einsum("bhn,bhnp->bhp", ch, s_new)                   # (B,H,P)
-    y = y + xh * _heads(loc, p["d_skip"])[None, :, None]
-    y = y.reshape(B, 1, di).to(dt_)
+    with span("mixer.ssd"):
+        s = cache["ssm"]                                           # (B,H,N,P) fp32
+        decay = torch.exp(dt * a[None, :])                         # (B,H)
+        s_new = s * decay[:, :, None, None] + torch.einsum("bhn,bh,bhp->bhnp", bh, dt, xh)
+        y = torch.einsum("bhn,bhnp->bhp", ch, s_new)               # (B,H,P)
+        y = y + xh * _heads(loc, p["d_skip"])[None, :, None]
+        y = y.reshape(B, 1, di).to(dt_)
     out = _out(p, _gated_norm(cfg, p, y, z, loc), loc)
     return out, {"conv": new_conv_state.to(cache["conv"].dtype), "ssm": s_new}

@@ -23,6 +23,10 @@ where `forward` uses them. Under the `ssm_shard` flag's "mixed" (the
 reference's default) `forward` and `prefill` split the hidden state
 along the sequence between layers, as `models/transformer.py` does
 (ROADMAP.md A item 4); "heads" keeps it whole.
+
+`prefill` and `decode_step` open the spans (`netgen.telemetry`, live only
+while traced) `model.embed`, one `model.layer` a layer (norm, mixer,
+residual, the state's casts), `model.head` and `model.cache_stack`.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from repro_torch.layers import embedding as emb_lib
 from repro_torch.layers import mamba2 as m2
 from repro_torch.layers import norms
 from repro_torch.models.base import ArchConfig, layer, remat_call, tree_map, unstack
+from repro_torch.netgen.telemetry import span
 from repro_torch.parallel import fsdp, tensor
 
 __all__ = ["abstract_params", "abstract_cache", "layer_body", "backbone", "forward",
@@ -104,18 +109,23 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
     through the whole prompt (a new tree; `cache` gives the dtypes)."""
     group = tensor.group_for(cfg)
     seq = tensor.seq_range(cfg, batch["tokens"].shape[1])
-    h = emb_lib.assemble_inputs(cfg, params["embed"], batch, group, seq)
+    with span("model.embed"):
+        h = emb_lib.assemble_inputs(cfg, params["embed"], batch, group, seq)
     convs, ssms = [], []
     for lp in unstack(params["layers"], cfg.n_layers):
-        hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
-        out, state = m2.mamba_mixer(cfg, lp["mixer"], hn, return_state=True,
-                                    use_kernel=use_kernel, group=group, seq=seq)
-        h = h + out
-        convs.append(state["conv"].to(cache["conv"].dtype))
-        ssms.append(state["ssm"].to(cache["ssm"].dtype))
-    h = norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
-    logits = emb_lib.lm_head(cfg, params["embed"], tensor.last_row(h, group, seq), group)[:, 0]
-    return logits, {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
+        with span("model.layer"):
+            hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
+            out, state = m2.mamba_mixer(cfg, lp["mixer"], hn, return_state=True,
+                                        use_kernel=use_kernel, group=group, seq=seq)
+            h = h + out
+            convs.append(state["conv"].to(cache["conv"].dtype))
+            ssms.append(state["ssm"].to(cache["ssm"].dtype))
+    with span("model.head"):
+        h = norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
+        logits = emb_lib.lm_head(cfg, params["embed"], tensor.last_row(h, group, seq),
+                                 group)[:, 0]
+    with span("model.cache_stack"):
+        return logits, {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
 
 
 def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
@@ -126,14 +136,18 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
         batch.update(extras)
     group = tensor.group_for(cfg)
     tensor.seq_range(cfg, 1)                         # the recorded fallback
-    h = emb_lib.assemble_inputs(cfg, params["embed"], batch, group)
+    with span("model.embed"):
+        h = emb_lib.assemble_inputs(cfg, params["embed"], batch, group)
     convs, ssms = [], []
     for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
-        hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
-        out, new = m2.mamba_decode_step(cfg, lp["mixer"], hn, layer(cache, i), group)
-        h = h + out
-        convs.append(new["conv"])
-        ssms.append(new["ssm"])
-    h = norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
-    logits = emb_lib.lm_head(cfg, params["embed"], h, group)[:, 0]
-    return logits, {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
+        with span("model.layer"):
+            hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
+            out, new = m2.mamba_decode_step(cfg, lp["mixer"], hn, layer(cache, i), group)
+            h = h + out
+            convs.append(new["conv"])
+            ssms.append(new["ssm"])
+    with span("model.head"):
+        h = norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
+        logits = emb_lib.lm_head(cfg, params["embed"], h, group)[:, 0]
+    with span("model.cache_stack"):
+        return logits, {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}

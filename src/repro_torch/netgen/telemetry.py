@@ -20,9 +20,21 @@ thread-safe registry of
               spans land in a bounded ring buffer.
 
 Metrics are ALWAYS live — they are the package's stats backbone and
-cost one lock + one add per update — while *tracing* is opt-in:
-`enable()` turns span recording on, `disable()` turns it back off, and
-a disabled `span()` returns a shared no-op context.
+cost one lock + one add per update — while *tracing* is opt-in: a span
+is live after `enable()` (until `disable()`) and, without it, while a
+`torch.profiler` records in the process (checked only once `torch` is
+imported, so the module stays stdlib-only). Otherwise `span()` returns
+a shared no-op context. A live span stamps its start and end with
+`time.time_ns()`, the clock of the profiler's (Kineto's) events, so a
+span can be laid over a device trace; it opens no profiler range, so it
+adds no event to that trace. A `device_span()`, and every span opened
+inside one, also records a timing `torch.cuda.Event` at entry and at
+exit on the stream current at entry, where CUDA is initialised and that
+stream is not capturing a graph: `SpanRecord.device_s` is the stream's
+time between the two, resolved when first read, after the caller's
+`synchronize()`; None elsewhere. Only the subtrees whose device time is
+read take events: each costs tens of µs of host time, more under the
+profiler, which would slow a host-paced loop and show as device idle.
 
 Exporters:
 
@@ -59,6 +71,28 @@ Instrumented span tree (what a trace of one request lifecycle nests):
                             reach the host
     netgen.store.load       artifact rebuilt from disk
 
+Served LMs (`repro_torch.serve.engine.Engine.generate`; the Mamba2
+mixer's spans; `weights.cast` in every family's `layers.common.wx`):
+
+    serve.generate          one call: rows, length, new — roots its trace
+      serve.cache_init      the cache drawn for the call: bytes (device_span)
+      serve.prefill         api.prefill through the first token on the host
+                            (device_span: it and its subtree take events)
+        model.embed
+        model.layer         one layer: norm, mixer, residual, state casts
+          mixer.in_proj
+            weights.cast    a master cast to the compute dtype: bytes
+          mixer.conv        cat of x|B|C, the causal conv, bias, SiLU
+          mixer.ssd         the scan (or the decode state update), D skip
+          mixer.gate_norm
+          mixer.out_proj
+            weights.cast
+        model.head          final norm and lm_head
+        model.cache_stack   the stacks of the new cache
+        serve.sync          the tokens' gather and copy to the host
+      serve.decode_step     one greedy step: step; children as the prefill's
+                            (host stamps only)
+
 Serving metrics: `netgen_predict_latency_seconds{server,version}`
 records per-version SERVICE time and `netgen_requests_total` counts one
 increment per dispatch call per version — `benchmarks/check_trace.py`
@@ -91,6 +125,7 @@ import dataclasses
 import itertools
 import json
 import math
+import sys
 import threading
 import time
 from collections import deque
@@ -98,7 +133,7 @@ from typing import Mapping
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry", "SpanRecord", "counter",
-    "disable", "enable", "export_jsonl", "gauge", "get_registry",
+    "device_span", "disable", "enable", "export_jsonl", "gauge", "get_registry",
     "histogram", "jit_cost", "kernel_launches", "new_scope", "prometheus",
     "report", "reset", "span", "summary", "timed",
 ]
@@ -245,7 +280,10 @@ class Histogram:
 
 @dataclasses.dataclass(frozen=True)
 class SpanRecord:
-    """One finished span, as exported to the JSONL trace."""
+    """One finished span, as exported to the JSONL trace. `start_ns` and
+    `end_ns`: `time.time_ns()` at entry and exit (the profiler's clock).
+    `device_time`: the device seconds, or the (entry, exit) CUDA events
+    they are read from (`device_s`), or None."""
     trace_id: int
     span_id: int
     parent_id: int | None
@@ -255,6 +293,23 @@ class SpanRecord:
     attrs: dict
     thread: str
     error: str | None = None
+    start_ns: int = 0
+    end_ns: int = 0
+    device_time: object = dataclasses.field(default=None, compare=False, repr=False)
+
+    @property
+    def device_s(self) -> float | None:
+        """Seconds on the stream between the span's entry and exit events
+        (waits for the exit event if it has not run yet); None where no
+        events were recorded."""
+        d = self.device_time
+        if d is None or isinstance(d, (int, float)):
+            return d
+        start, end = d
+        end.synchronize()
+        seconds = start.elapsed_time(end) / 1e3
+        object.__setattr__(self, "device_time", seconds)
+        return seconds
 
     def as_dict(self) -> dict:
         d = {
@@ -264,9 +319,13 @@ class SpanRecord:
             "name": self.name,
             "start_unix": self.start_unix,
             "duration_s": self.duration_s,
+            "start_ns": self.start_ns,
+            "end_ns": self.end_ns,
             "attrs": self.attrs,
             "thread": self.thread,
         }
+        if self.device_time is not None:
+            d["device_s"] = self.device_s
         if self.error is not None:
             d["error"] = self.error
         return d
@@ -290,19 +349,52 @@ class _NullSpan:
 
 _NULL_SPAN = _NullSpan()
 
+_profiler_enabled = None      # torch's check, looked up once torch is imported
+
+
+def _profiling() -> bool:
+    """Whether a torch profiler is recording in the process; False until
+    `torch` is imported (this module never imports it)."""
+    global _profiler_enabled
+    if _profiler_enabled is None:
+        autograd = getattr(sys.modules.get("torch"), "autograd", None)
+        if autograd is None:
+            return False
+        _profiler_enabled = autograd._profiler_enabled
+    return _profiler_enabled()
+
+
+def _timing_stream():
+    """The current CUDA stream, or None where CUDA is not initialised or
+    the stream is capturing a graph."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized() \
+            or torch.cuda.is_current_stream_capturing():
+        return None
+    return torch.cuda.current_stream()
+
+
+def _event(stream):
+    """A timing event recorded on `stream` now."""
+    ev = sys.modules["torch"].cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
 
 class _Span:
     """A live span: context manager that records itself into the
     registry's ring buffer on exit. Parentage comes from the thread's
-    span stack, so nesting follows lexical `with` structure per thread."""
+    span stack, so nesting follows lexical `with` structure per thread.
+    `device`: record the span's device time, as every span inside it does."""
 
-    __slots__ = ("_reg", "name", "attrs", "trace_id", "span_id",
-                 "parent_id", "start_unix", "_t0")
+    __slots__ = ("_reg", "name", "attrs", "trace_id", "span_id", "parent_id",
+                 "start_unix", "start_ns", "_t0", "_device", "_stream", "_ev0")
 
-    def __init__(self, reg: "Registry", name: str, attrs: dict):
+    def __init__(self, reg: "Registry", name: str, attrs: dict, device: bool = False):
         self._reg = reg
         self.name = name
         self.attrs = attrs
+        self._device = device
 
     def set_attr(self, key, value) -> None:
         self.attrs[key] = value
@@ -315,31 +407,32 @@ class _Span:
             parent = stack[-1]
             self.parent_id = parent.span_id
             self.trace_id = parent.trace_id
+            self._device = self._device or parent._device
         else:
             self.parent_id = None
             self.trace_id = self.span_id
         stack.append(self)
-        self.start_unix = time.time()
+        self._stream = _timing_stream() if self._device else None
+        self._ev0 = None if self._stream is None else _event(self._stream)
+        self.start_ns = time.time_ns()
+        self.start_unix = self.start_ns / 1e9
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, et, ev, tb):
         duration = time.perf_counter() - self._t0
+        end_ns = time.time_ns()
+        ev1 = None if self._stream is None else _event(self._stream)
         stack = self._reg._stack()
         if stack and stack[-1] is self:
             stack.pop()
         elif self in stack:              # exited out of order: still unwind
             stack.remove(self)
-        self._reg._record(SpanRecord(
-            trace_id=self.trace_id,
-            span_id=self.span_id,
-            parent_id=self.parent_id,
-            name=self.name,
-            start_unix=self.start_unix,
-            duration_s=duration,
-            attrs=dict(self.attrs),
-            thread=threading.current_thread().name,
-            error=None if et is None else et.__name__,
+        self._reg._record((             # SpanRecord's fields, in order
+            self.trace_id, self.span_id, self.parent_id, self.name,
+            self.start_unix, duration, dict(self.attrs),
+            threading.current_thread().name, None if et is None else et.__name__,
+            self.start_ns, end_ns, None if ev1 is None else (self._ev0, ev1),
         ))
         return False
 
@@ -398,9 +491,11 @@ class Registry:
             stack = self._tls.stack = []
         return stack
 
-    def _record(self, rec: SpanRecord) -> None:
+    def _record(self, fields: tuple) -> None:
+        """Keep a finished span as the tuple of its `SpanRecord` fields:
+        the record is built when read, off the traced code's path."""
         with self._lock:
-            self._spans.append(rec)
+            self._spans.append(fields)
 
     @staticmethod
     def _key(kind: str, name: str, labels: Mapping) -> tuple:
@@ -436,11 +531,19 @@ class Registry:
     # -- tracing -------------------------------------------------------------
 
     def span(self, name: str, /, **attrs):
-        """A nested trace span (no-op unless `enabled`); attributes are
-        keyword arguments plus anything set via `set_attr` inside."""
-        if not self.enabled:
+        """A nested trace span (no-op unless `enabled` or a torch profiler
+        is recording); attributes are keyword arguments plus anything set
+        via `set_attr` inside."""
+        if not self.enabled and not _profiling():
             return _NULL_SPAN
         return _Span(self, name, attrs)
+
+    def device_span(self, name: str, /, **attrs):
+        """`span()` that also records its device seconds and those of
+        every span opened inside it (`SpanRecord.device_s`)."""
+        if not self.enabled and not _profiling():
+            return _NULL_SPAN
+        return _Span(self, name, attrs, device=True)
 
     def timed(self, name: str, /, **labels) -> _Timed:
         """Time a block into `histogram(name, **labels)` — the one code
@@ -449,7 +552,8 @@ class Registry:
 
     def spans(self) -> list[SpanRecord]:
         with self._lock:
-            return list(self._spans)
+            fields = list(self._spans)
+        return [SpanRecord(*f) for f in fields]
 
     # -- exporters -----------------------------------------------------------
 
@@ -657,7 +761,13 @@ def histogram(name: str, /, **labels) -> Histogram:
 
 
 def span(name: str, /, **attrs):
-    return _REGISTRY.span(name, **attrs)
+    if not _REGISTRY.enabled and not _profiling():    # Registry.span, one call less
+        return _NULL_SPAN
+    return _Span(_REGISTRY, name, attrs)
+
+
+def device_span(name: str, /, **attrs):
+    return _REGISTRY.device_span(name, **attrs)
 
 
 def timed(name: str, /, **labels) -> _Timed:

@@ -36,6 +36,15 @@ array, as the reference returns its global one; `eos_id` masks the
 gathered tokens. A batch that the data axes do not divide is served
 whole on every rank, recorded in `sharding.fallbacks()` as the
 reference's spec records it (a prefix of the axes where one divides).
+
+Spans (`netgen.telemetry`, live only while traced): each call is a
+`serve.generate` (rows: this rank's, length, new) rooting its own trace,
+over `serve.cache_init` (the cache drawn for the call: bytes),
+`serve.prefill` and one `serve.decode_step` (step) a new token, the
+stretches over which `stats` is taken; `serve.sync` is each gather and
+copy of the tokens to the host. The cache's and the prefill's spans (and
+those inside the prefill) record device seconds; a decode step's spans
+stamp the host clock alone, so a traced step is not slowed by events.
 """
 from __future__ import annotations
 
@@ -48,7 +57,8 @@ import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 from repro_torch.models import api
-from repro_torch.models.base import ArchConfig, tree_init, tree_map
+from repro_torch.models.base import ArchConfig, tree_init, tree_items, tree_map
+from repro_torch.netgen.telemetry import device_span, span
 from repro_torch.parallel import data_parallel as dp
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor
@@ -98,39 +108,49 @@ class Engine:
         (B, max_new_tokens) int32, every row, on every rank."""
         B, P = prompts.shape
         sc, dev = self.sc, self.device
-        batch = {"tokens": torch.as_tensor(np.asarray(prompts), device=dev).long()}
-        if extras:
-            batch.update({k: torch.as_tensor(v).to(dev) for k, v in extras.items()})
-        group = _data_group(B)
-        if group is not None:
-            batch = dp.local_rows(batch, 1, dist.get_world_size(group), dist.get_rank(group))
-        rows = batch["tokens"].shape[0]
-        cache_info = api.abstract_cache(self.cfg, rows, tensor.cache_len(self.cfg, sc.max_len))
-        cache = tree_init(tensor.local_tree(self.cfg, cache_info),
-                          torch.Generator(device=dev).manual_seed(0), dev)
+        with span("serve.generate", length=P, new=sc.max_new_tokens) as call:
+            batch = {"tokens": torch.as_tensor(np.asarray(prompts), device=dev).long()}
+            if extras:
+                batch.update({k: torch.as_tensor(v).to(dev) for k, v in extras.items()})
+            group = _data_group(B)
+            if group is not None:
+                batch = dp.local_rows(batch, 1, dist.get_world_size(group),
+                                      dist.get_rank(group))
+            rows = batch["tokens"].shape[0]
+            call.set_attr("rows", rows)
+            with device_span("serve.cache_init") as sp:
+                cache_info = api.abstract_cache(self.cfg, rows,
+                                                tensor.cache_len(self.cfg, sc.max_len))
+                cache = tree_init(tensor.local_tree(self.cfg, cache_info),
+                                  torch.Generator(device=dev).manual_seed(0), dev)
+                sp.set_attr("bytes", sum(t.nbytes for _, t in tree_items(cache)))
 
-        def gathered(toks):
-            return (toks if group is None else tensor.all_gather(toks, group, dim=0)).cpu().numpy()
+            def gathered(toks):
+                with span("serve.sync"):
+                    return (toks if group is None
+                            else tensor.all_gather(toks, group, dim=0)).cpu().numpy()
 
-        with dp.reducing(group):
-            t0 = time.perf_counter()
-            logits, cache = api.prefill(self.cfg, self.params, batch, cache,
-                                        use_kernel=self.use_kernel)
-            toks = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-            out = [gathered(toks)]
-            self.stats = {"prefill_s": time.perf_counter() - t0, "decode_s": []}
-            pos = torch.full((rows,), P, dtype=torch.int32, device=dev)
-            alive = np.ones((B,), bool)
-            for _ in range(sc.max_new_tokens - 1):
-                t0 = time.perf_counter()
-                toks, cache = self._step(self.params, cache, toks.long(), pos)
-                pos = pos + 1
-                t_np = gathered(toks)
-                self.stats["decode_s"].append(time.perf_counter() - t0)
-                if sc.eos_id >= 0:
-                    alive &= (t_np[:, 0] != sc.eos_id)
-                    t_np = np.where(alive[:, None], t_np, sc.eos_id)
-                out.append(t_np)
+            with dp.reducing(group):
+                with device_span("serve.prefill"):
+                    t0 = time.perf_counter()
+                    logits, cache = api.prefill(self.cfg, self.params, batch, cache,
+                                                use_kernel=self.use_kernel)
+                    toks = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+                    out = [gathered(toks)]
+                    self.stats = {"prefill_s": time.perf_counter() - t0, "decode_s": []}
+                pos = torch.full((rows,), P, dtype=torch.int32, device=dev)
+                alive = np.ones((B,), bool)
+                for step in range(sc.max_new_tokens - 1):
+                    with span("serve.decode_step", step=step):
+                        t0 = time.perf_counter()
+                        toks, cache = self._step(self.params, cache, toks.long(), pos)
+                        pos = pos + 1
+                        t_np = gathered(toks)
+                        self.stats["decode_s"].append(time.perf_counter() - t0)
+                    if sc.eos_id >= 0:
+                        alive &= (t_np[:, 0] != sc.eos_id)
+                        t_np = np.where(alive[:, None], t_np, sc.eos_id)
+                    out.append(t_np)
         return np.concatenate(out, axis=1)
 
 
