@@ -6,8 +6,8 @@
 Phases, each raising on failure (nothing is caught):
 
 1. Device: the card's name, and `nvidia-smi`'s name and power limit.
-2. Build: all four kernel libraries (`binary_matvec.cu`, `fused_mlp.cu`,
-   `ssd_scan.cu`, `quant_matmul.cu`) with nvcc, one per source, started
+2. Build: all five kernel libraries (`binary_matvec.cu`, `fused_mlp.cu`,
+   `ssd_scan.cu`, `quant_matmul.cu`, `causal_conv.cu`) with nvcc, one per source, started
    together, into the git-ignored `build/` directory, timed, with nvcc's
    register and shared-memory report.
 3. Kernels against their plain PyTorch versions on the card, at the
@@ -32,6 +32,10 @@ Phases, each raising on failure (nothing is caught):
    (the scalar route), and in bf16 (which must take the tensor-core
    route) within one bf16 ulp on y (plus 1e-5 for fp32 summation order)
    and 1e-4 on the fp32 state; once more in bf16 at zamba2-2.7b's N = 64.
+   The port-only `causal_conv` (the prefill conv, its bias and SiLU) on
+   x|B|C read in place from a 10,576-wide bf16 in_proj product at 16 x
+   4,096 and 64 x 512, on the vector route, within one bf16 ulp of its
+   plain version at fp32 (plus 1e-6 for the sums' order).
 4. Main paths. (a) Three seeded 784-500-10 nets served by `NetServer` on
    `Session(device="cuda")`, once per target: `cuda[planes=true]` (one
    `predict` through the per-layer `binary_matmul_planes` chain, two
@@ -67,7 +71,8 @@ Phases, each raising on failure (nothing is caught):
    `Engine.generate` (batch 4 x prompt 512 and a ragged prompt of 200,
    then 32 new tokens) from the fp32 checkpoint and from its W8 form;
    `ssd` must launch once per layer of each prefill, every launch on the
-   tensor cores (the bf16 route). The kernel route is
+   tensor cores (the bf16 route), and `causal_conv` once per layer of
+   each prefill (its count set to 0 before each generate). The kernel route is
    held against `use_kernel=False`: per layer on the same input in bf16
    (4 bf16 ulps of the layer's scale), and end to end over the 64 layers
    in fp32 compute, where no cast separates the routes (logits and final
@@ -347,7 +352,9 @@ SOURCES = {
     "fused_mlp_predict": FUSED_SOURCE,
     "quant_matmul": "src/repro_torch/kernels/quant_matmul/csrc/quant_matmul.cu",
     "ssd_scan": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+    "causal_conv": "src/repro_torch/kernels/causal_conv/csrc/causal_conv.cu",
 }
+# the TPU kernel each kernel ports; None for a kernel of the port alone
 REPLACES = {
     "binary_matmul_planes": "src/repro/kernels/binary_matvec/binary_matvec.py:198",
     "binary_forward_planes": "src/repro/kernels/binary_matvec/binary_matvec.py:302",
@@ -356,6 +363,7 @@ REPLACES = {
     "fused_mlp_predict": "src/repro/kernels/fused_mlp/fused_mlp.py:34",
     "quant_matmul": "src/repro/kernels/quant_matmul/quant_matmul.py:46",
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:73",
+    "causal_conv": None,
 }
 NETGEN = ("binary_matmul_planes", "binary_forward_planes", "binary_matmul",
           "binary_matmul_packed", "fused_mlp_predict")
@@ -426,6 +434,9 @@ CSE_SPEC = "zeros,cse[budget=8,bucketed=true]"   # adder sharing at 784 inputs
 QMM_SHAPES = {"in_proj": (LM_BATCH * LM_PROMPT, 2560, 10576),
               "out_proj": (LM_BATCH * LM_PROMPT, 5120, 2560),
               "in_proj_decode": (LM_BATCH, 2560, 10576)}
+# The prefill conv's (rows, length): the benchmark's largest calls, the
+# long cell's and the short cell's.
+CONV_SHAPES = {"16x4096": (16, 4096), "64x512": (64, 512)}
 # Kernel route against use_kernel=False, per layer on the same input: dt
 # enters the kernel in bf16 (relative error <= 2^-9, which the chunk's
 # cumulative decay sums over up to 128 rows), and the routes round y to
@@ -1001,6 +1012,64 @@ def _ssd_agrees(y, s, yp, sp) -> bool:
     g, w = y.float(), yp.float()
     ulp = torch.finfo(torch.bfloat16).eps * torch.maximum(g.abs(), w.abs())
     return ok and bool(((g - w).abs() <= ulp + 1e-5).all())
+
+
+def _conv_args(dev, b: int, s: int):
+    """Seeded causal-conv operands at mamba2-2.7b's widths: x|B|C (5,376
+    channels) as the narrow view of a (b, s, 10,576) bf16 product at
+    column 5,120, where the mixer reads it from in_proj's, and the conv's
+    fp32 weight (4, 5,376) and bias."""
+    import torch
+    from repro_torch import configs
+    cfg = configs.get_config(LM_ARCH)
+    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    zx = torch.randn((b, s, 2 * di + 2 * gn + cfg.ssm_heads), generator=g, device=dev)
+    zx = zx.to(torch.bfloat16)
+    w = torch.randn((cfg.conv_width, cfg.conv_dim), generator=g, device=dev) / 2
+    bias = torch.rand((cfg.conv_dim,), generator=g, device=dev) - 0.5
+    return zx.narrow(-1, di, cfg.conv_dim), w, bias
+
+
+def _conv_agrees(got, want) -> bool:
+    """bf16 within one bf16 ulp of the larger magnitude of the kernel's and
+    the fp32 plain version's (the kernel rounds its fp32 sum once), plus
+    1e-6 for the sums' order."""
+    import torch
+    g = got.float()
+    ulp = torch.finfo(torch.bfloat16).eps * torch.maximum(g.abs(), want.abs())
+    return bool(((g - want).abs() <= ulp + 1e-6).all())
+
+
+def _composed_conv(xbc, w, bias):
+    """The prefill conv as the mixer composes it off the card: the cat of
+    x|B|C (a packed copy of the view), then the plain version."""
+    from repro_torch.kernels.causal_conv import ref
+    return ref.causal_conv(xbc.contiguous(), w, bias)
+
+
+def _conv_count_swap(cfg, rows: int, seq: int) -> tuple[float, float]:
+    """What a counted mamba2 prefill on the card adds to the same step's
+    count on `meta`, (FLOPs, bytes): on the card each layer's conv kernel
+    records its formula (`causal_conv` `work`) where `meta` counts the
+    composed conv's aten ops (the cat of x|B|C, then `ref.causal_conv`),
+    counted here once at one layer's shapes."""
+    import torch
+    from repro_torch.kernels.causal_conv import ops as cops
+    from repro_torch.kernels.causal_conv import ref as cref
+    from repro_torch.launch import cost
+    from repro_torch.models import api
+    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    zx = torch.empty((rows, seq, 2 * di + 2 * gn + cfg.ssm_heads), dtype=cfg.cdtype(),
+                     device="meta")
+    leaves = api.abstract_params(cfg)["layers"]["mixer"]
+    w = torch.empty((cfg.conv_width, cfg.conv_dim), dtype=leaves["conv_w"].dtype, device="meta")
+    bias = torch.empty((cfg.conv_dim,), dtype=leaves["conv_b"].dtype, device="meta")
+    parts = torch.split(zx, [di, di, gn, gn, cfg.ssm_heads], dim=-1)
+    with cost.Counter() as c:
+        cref.causal_conv(torch.cat(parts[1:4], dim=-1), w, bias)
+    flops, bytes_ = cops.work(rows, seq, cfg.conv_dim, cfg.conv_width, zx.element_size())
+    return cfg.n_layers * (flops - c.flops), cfg.n_layers * (bytes_ - c.bytes)
 
 
 def _ssd_flop(x, b, chunk: int) -> int:
@@ -1809,8 +1878,13 @@ def _lm_main_path(dev, wrappers, reset_launches):
                                      f"{cfg.n_layers} on the tensor cores")
             if out.shape != (LM_BATCH, LM_NEW) or out.min() < 0 or out.max() >= cfg.vocab:
                 raise AssertionError(f"{ckpt} {kind}: bad tokens, shape {out.shape}")
+            if counts["causal_conv"] != cfg.n_layers:
+                raise AssertionError(f"{ckpt} {kind}: causal_conv launched "
+                                     f"{counts['causal_conv']} times in one prefill, want "
+                                     f"{cfg.n_layers}")
             launches["ssd_scan"] = counts["ssd_scan"]
             launches["ssd_scan mma"] = mma
+            launches["causal_conv"] = counts["causal_conv"]
             times[f"{ckpt} {kind}"] = {
                 "prefill_ms": engine.stats["prefill_s"] * 1e3,
                 "decode_ms_per_token": decode_ms, "generate_s": wall,
@@ -2404,9 +2478,11 @@ def _hybrid_path(dev, wrappers, reset_launches, smi) -> int:
         mma = wrappers["ssd_scan"].mma_launches
         print(f"[4 hybrid path] {ckpt}: {mma} of {counts['ssd_scan']} ssd_scan launches on the "
               f"tensor cores in one prefill; launches {counts}")
-        if not counts.pop("ssd_scan") == mma == cfg.n_layers or any(counts.values()):
+        if (not counts.pop("ssd_scan") == mma == counts.pop("causal_conv") == cfg.n_layers
+                or any(counts.values())):
             raise AssertionError(f"{ckpt}: want {cfg.n_layers} ssd_scan launches, all on the "
-                                 "tensor cores, and no other kernel in one generate")
+                                 f"tensor cores, {cfg.n_layers} of causal_conv and no other "
+                                 "kernel in one generate")
         runs[f"{ckpt} 4x512"] = {**rec, "ssd_launches": mma}
         routes[ckpt] = _check_routes(cfg, p, prompts, np.array(rec["first_tokens"])[:, None],
                                      dev, ckpt, tag="hybrid path")
@@ -4269,7 +4345,8 @@ def _one_rounding_more():
     def project(cfg, p, xin, loc, gathered=False):
         zxbcdt = column_halves(xin, wx(p["in_proj"], xin.dtype))
         N = cfg.ssm_state
-        return torch.split(zxbcdt, [loc.di, loc.di, loc.G * N, loc.G * N, loc.H], dim=-1)
+        return (*torch.split(zxbcdt, [loc.di, loc.di, loc.G * N, loc.G * N, loc.H], dim=-1),
+                zxbcdt)
 
     def head(cfg, p, h, group=None, *, gather=True, seq=None):
         return column_halves(h, (p["tok"].T if cfg.tie_embeddings else p["head"]).to(h.dtype))
@@ -5725,7 +5802,9 @@ def _roofline_path(dev, wrappers, reset_launches, smi) -> dict:
     """Phase 4(k): the counting mode (`launch/cost.py`) and the roofline
     (`launch/roofline.py`) on the card, at world size 1. (a) mamba2-2.7b
     prefill 4 x 512 through B7, counted on the card and the same step on
-    `meta`: FLOPs and bytes equal, B7's counted FLOPs 64 x
+    `meta`: FLOPs and bytes equal but for the conv kernel's formula in
+    place of the composed conv (`_conv_count_swap`), the kernel counted
+    once a layer on the card and never on `meta`, B7's counted FLOPs 64 x
     `ssd_correction`'s per-layer forward, its 64 launches all on the
     tensor cores; the uncounted prefill's wall beside t_compute, t_memory
     and the roofline fraction. (b) The gemma-2b train step of the train
@@ -5753,24 +5832,34 @@ def _roofline_path(dev, wrappers, reset_launches, smi) -> dict:
     tag = "roofline path"
     out = {}
 
-    def both(cfg, shape, remat="full"):
-        """(card counter, meta counter, the card's built step)."""
+    def both(cfg, shape, remat="full", swap=(0.0, 0.0)):
+        """(card counter, meta counter, the card's built step); the card's
+        FLOPs and bytes are meta's plus `swap`."""
         run = dryrun.build_step(cfg, shape, device=dev, remat=remat)
         torch.cuda.synchronize()
         card = dryrun.count_step(run)
         torch.cuda.synchronize()
         meta = dryrun.count_step(dryrun.build_step(cfg, shape, device="meta", remat=remat))
-        if (card.flops, card.bytes) != (meta.flops, meta.bytes):
+        if (card.flops, card.bytes) != (meta.flops + swap[0], meta.bytes + swap[1]):
             raise AssertionError(f"{cfg.name} {shape.kind}: card counts {card.flops} FLOP, "
-                                 f"{card.bytes} B; meta {meta.flops}, {meta.bytes}")
+                                 f"{card.bytes} B; meta {meta.flops}, {meta.bytes}, plus "
+                                 f"{swap}")
         return card, meta, run
 
     # (a) mamba2-2.7b prefill through B7
     cfg = configs.get_config(LM_ARCH)
     shape = ShapeConfig("chip", ROOF_PREFILL[1], ROOF_PREFILL[0], "prefill")
     reset_launches()
-    card, meta, run = both(cfg, shape)
+    swap = _conv_count_swap(cfg, shape.global_batch, shape.seq_len)
+    card, meta, run = both(cfg, shape, swap=swap)
     n_ssd, n_mma = wrappers["ssd_scan"].launches, wrappers["ssd_scan"].mma_launches
+    conv = card.kernels.get("causal_conv", {})
+    if (not wrappers["causal_conv"].launches == cfg.n_layers == conv.get("calls")
+            or "causal_conv" in meta.kernels):
+        raise AssertionError(f"causal_conv: {wrappers['causal_conv'].launches} launches, "
+                             f"{conv.get('calls')} counted on the card, "
+                             f"{meta.kernels.get('causal_conv')} on meta; want {cfg.n_layers}, "
+                             f"{cfg.n_layers}, none")
     per_layer = rl.ssd_correction(dataclasses.replace(cfg, n_layers=1), batch=shape.global_batch,
                                   seq=shape.seq_len, kind="prefill")
     b7 = card.kernels.get("ssd_scan", {})
@@ -5895,6 +5984,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import dataset, quantize
     from repro_torch.kernels.binary_matvec import build, ops, ref
+    from repro_torch.kernels.causal_conv import build as cbuild
+    from repro_torch.kernels.causal_conv import ops as cops
+    from repro_torch.kernels.causal_conv import ref as cref
     from repro_torch.kernels.fused_mlp import build as fbuild
     from repro_torch.kernels.fused_mlp import ops as fops
     from repro_torch.kernels.fused_mlp import ref as fref
@@ -5913,11 +6005,12 @@ def main() -> int:
                 "binary_matmul": ops.binary_matmul,
                 "binary_matmul_packed": ops.binary_matmul_packed,
                 "fused_mlp_predict": fops.fused_mlp_predict,
-                "quant_matmul": qops.quant_matmul, "ssd_scan": sops.ssd}
-    libraries = (build, fbuild, sbuild, qbuild)
+                "quant_matmul": qops.quant_matmul, "ssd_scan": sops.ssd,
+                "causal_conv": cops.causal_conv}
+    libraries = (build, fbuild, sbuild, qbuild, cbuild)
 
     def reset_launches():
-        for mod in (ops, fops, qops, sops):
+        for mod in (ops, fops, qops, sops, cops):
             mod.reset_launches()
 
     # -- 1. device ------------------------------------------------------------
@@ -6096,6 +6189,26 @@ def main() -> int:
         if "rank_of_2x2" in label and dtype == torch.float32 and ssd_routes[label] != "scalar":
             raise AssertionError(f"ssd_scan[{label}] did not take the scalar route")
         lm_cases["ssd_scan"][label] = args
+    # the prefill conv (port-only) on x|B|C read in place from in_proj's
+    # product, mamba2-2.7b's widths at the benchmark's largest calls,
+    # against its plain version at fp32: within one bf16 ulp
+    conv_cases = {}
+    for label, (b, s) in CONV_SHAPES.items():
+        args = _conv_args(dev, b, s)
+        vec = cops.causal_conv.vec_launches
+        got, want = cops.causal_conv(*args), cref.causal_conv(args[0].float(), *args[1:])
+        torch.cuda.synchronize()
+        route = "vector" if cops.causal_conv.vec_launches > vec else "element"
+        err = float((got.float() - want).abs().max().item())
+        errors["causal_conv", label] = err
+        print(f"[3 kernel] causal_conv[{label}] {tuple(got.shape)} from a "
+              f"{args[0].stride(1)}-wide row on the {route} route max_abs_err={err:.3g} "
+              f"(|y| <= {want.abs().max().item():.3g})")
+        if not _conv_agrees(got, want):
+            raise AssertionError(f"causal_conv[{label}] disagrees with its plain version")
+        if route != "vector":
+            raise AssertionError(f"causal_conv[{label}] did not take the vector route")
+        conv_cases[label] = args
 
     # -- 4. main paths --------------------------------------------------------
     nets = []
@@ -6310,6 +6423,29 @@ def main() -> int:
     for label, run in lm_times.items():
         if label.endswith("aligned"):     # the shape ssd_scan was timed at, per layer
             run["ssd_scan_ms_per_prefill"] = run["ssd_launches"] * records[-1]["ms"]
+    per_shape = []
+    for label, args in conv_cases.items():
+        out = cops.causal_conv(*args)
+        (b, s, c), w = out.shape, args[1].shape[0]
+        work, moved = cops.work(b, s, c, w, out.element_size())
+        bound_ms, bound_by = _bound(moved, work, None)
+        rec = {"shape": label, "ms": _time_ms(lambda: cops.causal_conv(*args), clock_hz),
+               "plain_ms": _time_ms(lambda: _composed_conv(*args), clock_hz),
+               "library_ms": None, "library": None, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": moved, "flop": work, "path": "vector",
+               "max_abs_err": errors["causal_conv", label]}
+        per_shape.append(rec)
+        print(json.dumps({"kernel": "causal_conv", **rec}))
+    head = per_shape[0]
+    records.append({
+        "name": "causal_conv", "route": "cuda", "source": SOURCES["causal_conv"],
+        "replaces": REPLACES["causal_conv"], "port_only": True,
+        "launches": launches["causal_conv"], "launches_per_prefill": launches["causal_conv"],
+        "max_abs_err": max(r["max_abs_err"] for r in per_shape),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "library": None, "timed_shape": head["shape"], "shapes": per_shape,
+    })
     print(json.dumps({"lm_ms": lm_times, "lm_profile": lm_trace, "device": kind,
                       "power": smi}))
 

@@ -12,6 +12,8 @@ them (`gpubench/metrics/_program_spans.py`):
             span's own: its seconds less its children's (a `mixer.*`
             span is so net of its `weights.cast`);
   decode    host seconds of every `serve.decode_step`, split the same way;
+  conv      each prefill shape's `mixer.conv` spans: device ms a call (the
+            mean over the shape's layers), calls, and their `route`s;
   overhead  the traced steps' mean host ms against the window's
             `decode_step_ms` (tracing off), and the share of a traced
             step that the tracing (profiler and spans) takes;
@@ -47,18 +49,27 @@ def _own(children, span, clock, into: dict) -> None:
 
 def breakdown(decode_step_ms: float | None) -> dict:
     from gpubench.metrics import _program_spans as ps
-    pre, dec, steps = {}, {}, []
+    pre, dec, steps, conv = {}, {}, [], {}
     for root, children in ps.calls():
         for s in ps.kids(children, root, "serve.prefill"):
             if s.device_s is not None:
                 _own(children, s, lambda x: x.device_s, pre)
+            shape = conv.setdefault(f"{root.attrs['rows']}x{root.attrs['length']}",
+                                    {"device_s": [], "routes": {}})
+            for c in ps.under(children, s, "mixer.conv"):
+                if c.device_s is not None:
+                    shape["device_s"].append(c.device_s)
+                route = str(c.attrs.get("route"))
+                shape["routes"][route] = shape["routes"].get(route, 0) + 1
         for s in ps.kids(children, root, "serve.decode_step"):
             _own(children, s, lambda x: x.duration_s, dec)
             steps.append(s.duration_s)
     traced = 1e3 * sum(steps) / len(steps) if steps else None
     share = (100.0 * (1.0 - decode_step_ms / traced)
              if traced and decode_step_ms is not None else None)
-    return {"prefill_device_s": pre, "decode_host_s": dec,
+    conv = {k: {"ms": 1e3 * sum(v["device_s"]) / len(v["device_s"]) if v["device_s"] else None,
+                "calls": len(v["device_s"]), "routes": v["routes"]} for k, v in conv.items()}
+    return {"prefill_device_s": pre, "decode_host_s": dec, "conv": conv,
             "overhead": {"traced_step_ms": traced, "window_step_ms": decode_step_ms,
                          "tracing_share_of_traced_step": share}}
 

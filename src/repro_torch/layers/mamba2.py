@@ -42,9 +42,20 @@ on the gathered sequence as before. A mixer that stays whole gathers
 the sequence, runs whole and keeps its rank's positions, so its
 gradients are its positions' part, which the train step sums.
 
+The prefill conv, its bias and SiLU run as one pass of the `causal_conv`
+kernel (`kernels/causal_conv`), which reads x|B|C in place from in_proj's
+product, wherever the mixer can run it: on a CUDA device, with autograd
+recording nothing of the conv; under the counting mode the kernel's call
+counts its formula (`kernels/causal_conv/ops.py` `work`). Training, the
+CPU and `meta` keep the composed conv (`kernels/causal_conv/ref.py`, after
+a cat of x|B|C), so the dry run's counts are the aten ops' as before;
+decode keeps its own.
+
 Spans (`netgen.telemetry`, live only while traced), in prefill and
-decode alike: `mixer.in_proj`, `mixer.conv` (the cat of x|B|C, the conv,
-its bias and SiLU), `mixer.ssd` (the scan with its padding, or the decode
+decode alike: `mixer.in_proj`, `mixer.conv` (prefill: the conv kernel,
+`route="kernel"`, or the cat of x|B|C and the composed conv,
+`route="plain"`; decode: the cat, the conv against the cached rows, its
+bias and SiLU), `mixer.ssd` (the scan with its padding, or the decode
 state update; the D skip), `mixer.gate_norm` and `mixer.out_proj`; the
 projections' weight casts are `weights.cast` spans inside them.
 """
@@ -56,6 +67,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.kernels.causal_conv import ops as conv_ops
+from repro_torch.kernels.causal_conv import ref as conv_ref
 from repro_torch.layers.common import is_q, wx
 from repro_torch.models.base import ArchConfig, ParamInfo
 from repro_torch.netgen.telemetry import span
@@ -219,12 +232,24 @@ def norm_weights(cfg: ArchConfig, p: dict, group) -> dict:
 def _project(cfg: ArchConfig, p: dict, xin: torch.Tensor, loc: _Local, gathered: bool = False):
     """in_proj: (z, x, B, C, dt) at the rank's widths, from `copy_to(xin)`
     when split, or from xin itself when it was gathered along the
-    sequence (see the module's docstring)."""
+    sequence (see the module's docstring); and the product itself, whose
+    x|B|C columns the conv kernel reads in place."""
     N = cfg.ssm_state
     with span("mixer.in_proj"):
         xs = xin if loc.group is None or gathered else tensor.copy_to(xin, loc.group)
         zxbcdt = torch.matmul(xs, wx(p["in_proj"], xin.dtype))
-    return torch.split(zxbcdt, [loc.di, loc.di, loc.G * N, loc.G * N, loc.H], dim=-1)
+    parts = torch.split(zxbcdt, [loc.di, loc.di, loc.G * N, loc.G * N, loc.H], dim=-1)
+    return (*parts, zxbcdt)
+
+
+def _conv_on_card(x: torch.Tensor, p: dict) -> bool:
+    """Whether the prefill conv runs the `causal_conv` kernel: x (a column
+    block of in_proj's product) is on a CUDA device and autograd records
+    nothing of the conv (the kernel has no backward)."""
+    if not x.is_cuda:
+        return False
+    return not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in (x, p["conv_w"], p["conv_b"])))
 
 
 def _gated_norm(cfg: ArchConfig, p, y: torch.Tensor, z: torch.Tensor, loc: _Local
@@ -263,6 +288,11 @@ def mamba_mixer(cfg: ArchConfig, p: dict, xin: torch.Tensor, *, chunk: int = 128
     this rank's positions when xin holds them (B, S/m, D): the mixer
     gathers the sequence, runs on it and returns its positions.
 
+    The conv (with its bias and SiLU) takes the `causal_conv` kernel on
+    x|B|C in place where `_conv_on_card` allows, whatever `use_kernel`
+    says; the composed conv elsewhere (see the module's docstring). Both
+    give the conv state the decode cache keeps, x|B|C's last W - 1 rows.
+
     use_kernel=True runs the SSD through `kernels.ssd_scan.ops.ssd` (the
     CUDA kernel on the card, its plain version on the CPU), with dt cast to
     the compute dtype first, as the reference's kernel route does. Unlike
@@ -277,17 +307,17 @@ def mamba_mixer(cfg: ArchConfig, p: dict, xin: torch.Tensor, *, chunk: int = 128
     di, G, N, H, P = loc.di, loc.G, cfg.ssm_state, loc.H, cfg.ssm_headdim
     dt_ = xin.dtype
 
-    z, xbc_x, bmat, cmat, dt_raw = _project(cfg, p, xin, loc, seq is not None)
+    z, xbc_x, bmat, cmat, dt_raw, zxbcdt = _project(cfg, p, xin, loc, seq is not None)
 
-    # causal conv over [x, B, C] channels
-    with span("mixer.conv"):
-        xbc = torch.cat([xbc_x, bmat, cmat], dim=-1)              # (B, S, conv_dim)
-        conv_w = p["conv_w"].to(dt_)                               # (W, conv_dim)
-        W = conv_w.shape[0]
-        pads = F.pad(xbc, (0, 0, W - 1, 0))
-        conv = sum(pads[:, i:i + S, :] * conv_w[i][None, None, :] for i in range(W))
-        conv = conv + p["conv_b"].to(dt_)
-        conv = F.silu(conv.float()).to(dt_)
+    # causal conv over [x, B, C] channels, its bias and SiLU
+    on_card = _conv_on_card(xbc_x, p)
+    with span("mixer.conv", route="kernel" if on_card else "plain"):
+        if on_card:                                                # x|B|C in place
+            xbc = zxbcdt.narrow(-1, di, di + 2 * G * N)
+            conv = conv_ops.causal_conv(xbc, p["conv_w"], p["conv_b"])
+        else:
+            xbc = torch.cat([xbc_x, bmat, cmat], dim=-1)          # (B, S, conv_dim)
+            conv = conv_ref.causal_conv(xbc, p["conv_w"], p["conv_b"])
     x, bmat, cmat = torch.split(conv, [di, G * N, G * N], dim=-1)
 
     xh = x.reshape(B, S, H, P)
@@ -378,7 +408,7 @@ def mamba_decode_step(cfg: ArchConfig, p: dict, xin: torch.Tensor, cache: dict,
     di, G, N, H, P = loc.di, loc.G, cfg.ssm_state, loc.H, cfg.ssm_headdim
     dt_ = xin.dtype
 
-    z, xbc_x, bmat, cmat, dt_raw = _project(cfg, p, xin, loc)
+    z, xbc_x, bmat, cmat, dt_raw, _ = _project(cfg, p, xin, loc)
     with span("mixer.conv"):
         xbc = torch.cat([xbc_x, bmat, cmat], dim=-1)[:, 0]         # (B, conv_dim)
         conv_state = cache["conv"].to(dt_)                         # (B, W-1, C)

@@ -82,7 +82,9 @@ mixer's spans; `weights.cast` in every family's `layers.common.wx`):
         model.layer         one layer: norm, mixer, residual, state casts
           mixer.in_proj
             weights.cast    a master cast to the compute dtype: bytes
-          mixer.conv        cat of x|B|C, the causal conv, bias, SiLU
+          mixer.conv        the causal conv, bias, SiLU: the conv kernel
+                            on x|B|C in place (prefill on the card,
+                            route=kernel) or the cat and composed ops
           mixer.ssd         the scan (or the decode state update), D skip
           mixer.gate_norm
           mixer.out_proj

@@ -9,6 +9,8 @@ Imports neither JAX nor the JAX package, so it runs where only PyTorch
 is installed. Every comparison of the netgen kernels and of
 `quant_matmul` is exact (integer paths); `ssd_scan` states its tolerance.
 """
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -819,6 +821,120 @@ def test_engine_prefill_launches_ssd_once_per_layer(cuda):
                    use_kernel=False).generate(prompts)
     assert sops.ssd.launches == cfg.n_layers
     assert out.shape == plain.shape
+
+
+# -- the prefill causal conv (kernels/causal_conv) ---------------------------
+
+def _conv_view(batch, seq, row, at, conv_dim, dtype, dev, seed):
+    """A (batch, seq, conv_dim) view at column `at` of a (batch, seq, row)
+    product, as the mixer hands in_proj's x|B|C columns to the kernel, and
+    fp32 weights and bias."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    zx = torch.randn((batch, seq, row), generator=g, device=dev).to(dtype)
+    w = torch.randn((4, conv_dim), generator=g, device=dev) / 2
+    b = torch.rand((conv_dim,), generator=g, device=dev) - 0.5
+    return zx.narrow(-1, at, conv_dim), w, b
+
+
+# (batch, seq, row, first column, conv_dim, dtype, vector route): mamba2-2.7b's widths
+# (row 10,576, columns 5,120-10,495) at the benchmark's largest calls, fp32, S = 1 and 3;
+# one rank of four (row 2,836, 1,536 channels), whose bf16 rows (5,672 B) take the
+# element route and fp32 rows (11,344 B) the vector route; on the element route also a
+# conv_dim off the multiples of 8 and an odd first column
+_CONV_CASES = [
+    (16, 4096, 10576, 5120, 5376, _BF16, True), (64, 512, 10576, 5120, 5376, _BF16, True),
+    (2, 300, 10576, 5120, 5376, _F32, True), (3, 1, 10576, 5120, 5376, _BF16, True),
+    (3, 3, 10576, 5120, 5376, _BF16, True), (3, 3, 10576, 5120, 5376, _F32, True),
+    (4, 512, 2836, 1280, 1536, _BF16, False), (4, 512, 2836, 1280, 1536, _F32, True),
+    (2, 130, 61, 21, 37, _BF16, False), (2, 65, 80, 7, 40, _F32, False)]
+
+
+@pytest.mark.parametrize("batch,seq,row,at,conv_dim,dtype,vec", _CONV_CASES)
+def test_causal_conv_kernel_matches_plain(cuda, batch, seq, row, at, conv_dim, dtype, vec):
+    """The kernel on a strided view against the plain version at fp32 (the
+    input widened, fp32 weights): bf16 within one bf16 ulp of the larger of
+    the two (the kernel rounds its fp32 sum once) plus 1e-6 for the sums'
+    order, fp32 within 1e-5 relative; the route the view allows."""
+    from repro_torch.kernels.causal_conv import ops as cops
+    from repro_torch.kernels.causal_conv import ref as cref
+    xbc, w, b = _conv_view(batch, seq, row, at, conv_dim, dtype, cuda, seq + conv_dim)
+    before, before_vec = cops.causal_conv.launches, cops.causal_conv.vec_launches
+    got = cops.causal_conv(xbc, w, b)
+    torch.cuda.synchronize()
+    assert (cops.causal_conv.launches, cops.causal_conv.vec_launches) == \
+        (before + 1, before_vec + int(vec))
+    assert got.dtype == dtype and got.shape == (batch, seq, conv_dim) and got.is_contiguous()
+    want = cref.causal_conv(xbc.float(), w, b)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        g = got.float()
+        ulp = torch.finfo(torch.bfloat16).eps * torch.maximum(g.abs(), want.abs())
+        assert bool(((g - want).abs() <= ulp + 1e-6).all())
+    assert torch.equal(got, cops.causal_conv(xbc.contiguous(), w, b))
+
+
+def test_causal_conv_kernel_refuses_bad_operands(cuda):
+    from repro_torch.kernels.causal_conv import ops as cops
+    xbc, w, b = _conv_view(2, 8, 64, 0, 64, _BF16, cuda, 1)
+    with pytest.raises(TypeError):
+        cops.causal_conv(xbc.half(), w, b)
+    with pytest.raises(ValueError):                       # channels not packed
+        cops.causal_conv(xbc.transpose(1, 2), w[:, :8], b[:8])
+    for width in (1, 3, 5):                               # the kernel holds width 4 alone
+        with pytest.raises(ValueError):
+            cops.causal_conv(xbc, torch.zeros((width, 64), device=cuda), b)
+    # a bf16 weight (the serving copy's conv_w) is read as its fp32 values
+    got = cops.causal_conv(xbc, w.to(_BF16), b)
+    assert torch.equal(got, cops.causal_conv(xbc, w.to(_BF16).float(), b))
+
+
+def test_mixer_prefill_takes_the_conv_kernel_once_a_layer(cuda):
+    """A served mamba2-2.7b prefill (its 64 layers, the smoke widths)
+    launches the conv kernel once a layer, each `mixer.conv` span of the
+    prefill with `route="kernel"` and decode's without a route; a
+    training forward with autograd recording keeps the plain route; a
+    prefill under the counting mode launches the kernel too, and counts
+    its formula once a layer."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels.causal_conv import ops as cops
+    from repro_torch.launch import cost
+    from repro_torch.models import api, base
+    from repro_torch.netgen import telemetry
+    from repro_torch.serve.engine import Engine, ServeConfig
+    n_layers = configs.get_config("mamba2-2.7b").n_layers
+    cfg = dataclasses.replace(configs.smoke("mamba2-2.7b"), n_layers=n_layers)
+    params = base.tree_init(api.abstract_params(cfg),
+                            torch.Generator(device=cuda).manual_seed(0), cuda)
+    prompts = np.arange(2 * 50, dtype=np.int32).reshape(2, 50) % cfg.vocab
+    engine = Engine(cfg, params, ServeConfig(max_len=64, max_new_tokens=3))
+    cops.reset_launches()
+    telemetry.disable()
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        out = engine.generate(prompts)
+    finally:
+        telemetry.disable()
+    spans = telemetry.get_registry().spans()
+    telemetry.reset()
+    assert out.shape == (2, 3) and cops.causal_conv.launches == n_layers == 64
+    routes = Counter(s.attrs.get("route") for s in spans if s.name == "mixer.conv")
+    assert routes == {"kernel": n_layers, None: 2 * n_layers}
+    tokens = torch.as_tensor(prompts, device=cuda).long()
+    trained = base.tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+    logits, _ = api.forward(cfg, trained, {"tokens": tokens})
+    logits.float().sum().backward()
+    assert cops.causal_conv.launches == n_layers
+    assert trained["layers"]["mixer"]["conv_w"].grad is not None
+    cache = base.tree_init(api.abstract_cache(cfg, 2, 64), torch.Generator(device=cuda), cuda)
+    with torch.inference_mode(), cost.Counter() as counted:
+        api.prefill(cfg, params, {"tokens": tokens}, cache, use_kernel=True)
+    assert cops.causal_conv.launches == 2 * n_layers
+    flops, bytes_ = cops.work(2, 50, cfg.conv_dim, cops.WIDTH, cfg.cdtype().itemsize)
+    assert counted.kernels["causal_conv"] == {
+        "calls": n_layers, "flops": float(n_layers * flops), "bytes": float(n_layers * bytes_)}
 
 
 # ---------------------------------------------------------------------------
