@@ -9,7 +9,8 @@
 Counterpart of `repro/launch/serve.py`, for every config the port
 registers (`configs.ARCHS`: qwen1.5-4b, gemma-2b,
 llama3.2-3b, qwen2-72b, granite-moe-1b-a400m, qwen3-moe-30b-a3b,
-mamba2-2.7b, zamba2-2.7b). Without --smoke the full published config is
+mamba2-2.7b, zamba2-2.7b; and the port-only `configs.PORT_ONLY`:
+zamba2-7b-instruct, which serves on one process only). Without --smoke the full published config is
 served; weights are random, seeded 0 and drawn on the device by
 `models.base.tree_draw`: a layer slice at a time, each slice from its own
 seeded generator, so no fp32 temporary exceeds one layer slice or one

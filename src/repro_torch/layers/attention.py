@@ -21,6 +21,19 @@ heads reshaped (KV, rep) against K/V in their stored layout) and the
 `attn_impl`/`cache_update` flags are hill-climb variants for XLA on the
 TPU (GSPMD's placement of a repeated KV, an in-place scatter) and are not
 ported.
+
+The port's widening (Zamba2's shared block, `models/zamba.py`): the
+projections take an input wider than their output (`attn_params`'
+`d_in`; `wo` gives the model width whatever x's is), and the scores'
+scale is the caller's `scale` where given, else hd^-1/2, on every route.
+
+The attention core (the flash loop, the dense scores, or a decode step's
+against the cache, without the projections) is an `attn.core` span
+(`netgen.telemetry`, live only while traced): `route` (flash, dense or
+decode), `rows`, `q_len`, `kv_len`, `heads` and `kv_heads` (this
+rank's), `head_dim`, and the (query block, key block) pairs computed
+(`pairs`) and of those the pairs that hold a position the causal mask
+keeps (`causal_pairs`); the dense and decode routes are one pair.
 """
 from __future__ import annotations
 
@@ -31,8 +44,9 @@ import torch.distributed as dist
 
 from repro_torch.layers import rotary
 from repro_torch.layers.common import is_q, wx
-from repro_torch.layers.flash import NEG_INF, flash_attention
+from repro_torch.layers.flash import NEG_INF, block_pairs, flash_attention
 from repro_torch.models.base import ArchConfig, ParamInfo
+from repro_torch.netgen.telemetry import span
 from repro_torch.parallel import tensor
 
 __all__ = ["NEG_INF", "FLASH_MIN_SEQ", "attn_params", "init_cache_info", "attention"]
@@ -40,16 +54,19 @@ __all__ = ["NEG_INF", "FLASH_MIN_SEQ", "attn_params", "init_cache_info", "attent
 FLASH_MIN_SEQ = 2048   # dense path below this (smoke tests, short prompts)
 
 
-def attn_params(cfg: ArchConfig, n_layers: int | None = None) -> dict:
-    """Abstract attention params; leading n_layers dim when stacked."""
+def attn_params(cfg: ArchConfig, n_layers: int | None = None, d_in: int | None = None
+                ) -> dict:
+    """Abstract attention params; leading n_layers dim when stacked; the
+    projections' input width `d_in` (d_model where None)."""
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    di = d if d_in is None else d_in
     L = () if n_layers is None else (n_layers,)
     nl = (None,) * len(L)
     fan = len(L)
     f32 = torch.float32
-    p = {"wq": ParamInfo(L + (d, H, hd), f32, nl + ("fsdp", "heads", None), fan=fan),
-         "wk": ParamInfo(L + (d, KV, hd), f32, nl + ("fsdp", "kv_heads", None), fan=fan),
-         "wv": ParamInfo(L + (d, KV, hd), f32, nl + ("fsdp", "kv_heads", None), fan=fan),
+    p = {"wq": ParamInfo(L + (di, H, hd), f32, nl + ("fsdp", "heads", None), fan=fan),
+         "wk": ParamInfo(L + (di, KV, hd), f32, nl + ("fsdp", "kv_heads", None), fan=fan),
+         "wv": ParamInfo(L + (di, KV, hd), f32, nl + ("fsdp", "kv_heads", None), fan=fan),
          "wo": ParamInfo(L + (H, hd, d), f32, nl + ("heads", None, "fsdp"), fan=fan)}
     if cfg.qkv_bias:
         p["bq"] = ParamInfo(L + (H, hd), f32, nl + ("heads", None), init="zeros")
@@ -117,6 +134,7 @@ def attention(
     causal: bool = True,
     group=None,                            # the model group when p holds shards
     seq: tuple[int, int] | None = None,    # x's positions when split along the sequence
+    scale: float | None = None,            # the scores' scale; hd^-1/2 where None
 ) -> tuple[torch.Tensor, dict | None]:
     """Returns (out (B, S, D), updated cache or None).
 
@@ -158,6 +176,7 @@ def attention(
     whole, which the train step sums over the model group."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = hd ** -0.5 if scale is None else scale
     Hl, KVl, r = H, KV, 0
     if group is not None:
         Hl, KVl, r = _width(p["wq"]), _width(p["wk"]), dist.get_rank(group)
@@ -224,7 +243,10 @@ def attention(
             valid = (_slots(kv_len, first, x.device)[None, None, None, :]
                      <= pos[:, None, None, None])    # (B, 1, 1, T)
             if by_seq:
-                ctx = _decode_by_seq(q, ck, cv, valid, group, heads_split, H, KV, h0, Hl)
+                with span("attn.core", route="decode", rows=B, q_len=S, kv_len=kv_len,
+                          heads=H, kv_heads=KV, head_dim=hd, pairs=1, causal_pairs=1):
+                    ctx = _decode_by_seq(q, ck, cv, valid, group, heads_split, H, KV, h0, Hl,
+                                         scale)
                 return _out(p, ctx, x, group if heads_split else None), new_cache
         else:
             # prefill: the computed K/V (this rank's positions of them, when
@@ -250,28 +272,35 @@ def attention(
         k_full, v_full, used = k_full[:, idx], v_full[:, idx], Hl
 
     Sq = q.shape[2]                                  # this rank's queries
-    scale = hd ** -0.5
-    if valid is None and causal and T >= FLASH_MIN_SEQ:
+    flash = valid is None and causal and T >= FLASH_MIN_SEQ
+    q_blk = 512 if seq is None else math.gcd(512, Sq)
+    pairs = block_pairs(Sq, T, q_blk, q_offset=q0) if flash else (1, 1)
+    core = span("attn.core", route="flash" if flash else "dense" if valid is None else "decode",
+                rows=B, q_len=Sq, kv_len=kv_len, heads=Hl, kv_heads=used, head_dim=hd,
+                pairs=pairs[0], causal_pairs=pairs[1])
+    if flash:
         # long-sequence path: flash-style chunked attention
-        ctx = flash_attention(q, k_full, v_full, causal=True,
-                              q_blk=512 if seq is None else math.gcd(512, Sq), q_offset=q0)
+        with core:
+            ctx = flash_attention(q, k_full, v_full, causal=True, q_blk=q_blk, q_offset=q0,
+                                  scale=scale)
     else:
         # grouped GQA: query heads reshaped (KV, rep); K/V in their stored layout
-        qg = q.reshape(B, used, Hl // used, Sq, hd)
-        scores = torch.einsum("bgrsk,bgtk->bgrst", qg, k_full).float() * scale
-        if valid is not None:
-            scores = torch.where(valid[:, :, None], scores, NEG_INF)
-        elif causal and T > 1:
-            scores = torch.where(_causal(Sq, kv_len, x.device, q0), scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        ctx = torch.einsum("bgrst,bgtk->bgrsk", probs, v_full).reshape(B, Hl, Sq, hd)
+        with core:
+            qg = q.reshape(B, used, Hl // used, Sq, hd)
+            scores = torch.einsum("bgrsk,bgtk->bgrst", qg, k_full).float() * scale
+            if valid is not None:
+                scores = torch.where(valid[:, :, None], scores, NEG_INF)
+            elif causal and T > 1:
+                scores = torch.where(_causal(Sq, kv_len, x.device, q0), scores, NEG_INF)
+            probs = torch.softmax(scores, dim=-1).to(x.dtype)
+            ctx = torch.einsum("bgrst,bgtk->bgrsk", probs, v_full).reshape(B, Hl, Sq, hd)
     if seq is not None and heads_split:
         return _out(p, ctx, x, group, scatter=True), new_cache
     return _out(p, ctx, x, group if heads_split else None), new_cache
 
 
 def _decode_by_seq(q, ck, cv, valid, group, heads_split: bool, H: int, KV: int, h0: int,
-                   Hl: int) -> torch.Tensor:
+                   Hl: int, scale: float) -> torch.Tensor:
     """One decode step's attention over a cache split by positions: every
     query head against this rank's positions, then the ranks' partial
     softmaxes combined by log-sum-exp (an all-reduce of the max, then one
@@ -281,7 +310,7 @@ def _decode_by_seq(q, ck, cv, valid, group, heads_split: bool, H: int, KV: int, 
     if heads_split:
         q = tensor.all_gather(q, group, dim=1)       # (B, H, 1, hd)
     qg = q.reshape(B, KV, H // KV, 1, hd)
-    scores = torch.einsum("bgrsk,bgtk->bgrst", qg, ck).float() * hd ** -0.5
+    scores = torch.einsum("bgrsk,bgtk->bgrst", qg, ck).float() * scale
     scores = torch.where(valid[:, :, None], scores, NEG_INF)            # (B, KV, rep, 1, T)
     top = tensor.all_reduce(scores.amax(dim=-1, keepdim=True), group, dist.ReduceOp.MAX)
     e = torch.exp(scores - top)
@@ -294,12 +323,14 @@ def _decode_by_seq(q, ck, cv, valid, group, heads_split: bool, H: int, KV: int, 
 
 def _out(p: dict, ctx: torch.Tensor, x: torch.Tensor, group, scatter: bool = False
          ) -> torch.Tensor:
-    """ctx (B, Hl, S, hd) through wo (this rank's rows), summed over
-    `group` when the heads are split: all-reduced, or with `scatter`
-    reduce-scattered to this rank's positions of the sequence."""
+    """ctx (B, Hl, S, hd) through wo (this rank's rows), to wo's output
+    width, summed over `group` when the heads are split: all-reduced, or
+    with `scatter` reduce-scattered to this rank's positions of the
+    sequence."""
     B, Hl, S, hd = ctx.shape
     ctx = ctx.transpose(1, 2).reshape(B, S, Hl * hd)  # (B, S, Hl·hd)
-    out = torch.matmul(ctx, wx(p["wo"], x.dtype).reshape(Hl * hd, x.shape[-1]))
+    wo = wx(p["wo"], x.dtype)
+    out = torch.matmul(ctx, wo.reshape(Hl * hd, wo.shape[-1]))
     if group is None:
         return out
     return tensor.scatter_seq(out, group) if scatter else tensor.reduce_from(out, group)

@@ -18,51 +18,87 @@ entirely too. `q_offset` places the queries at positions [q_offset,
 q_offset + S) of the keys' sequence, for a rank that attends with its
 slice of the queries (the query-sequence split, `layers/attention.py`);
 the causal mask reads it in the forward and in both backward passes.
+
+A length that its blocks do not divide (a 4,092-token prompt against
+blocks of 512 and 1,024) is zero-padded to whole blocks: the padded keys
+are masked in the forward and in both backward passes, the padded
+queries' rows are cut from the output (so their gradient is zero), and
+the padding's own gradient is dropped. Lengths the blocks divide take no
+padding and no extra mask. `scale` multiplies the scores (hd^-1/2 where
+None).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["NEG_INF", "flash_attention", "flash_attention_ref"]
+__all__ = ["NEG_INF", "flash_attention", "block_pairs", "flash_attention_ref"]
 
 NEG_INF = -2.0e38
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_blk: int = 512, k_blk: int = 1024,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, scale: float | None = None) -> torch.Tensor:
     """q: (B, H, S, hd); k/v: (B, KV, T, hd) -> (B, H, S, hd); query i
-    at key position q_offset + i."""
+    at key position q_offset + i; scores times `scale` (hd^-1/2 where
+    None). S and T need not be multiples of the blocks."""
     S, T = q.shape[2], k.shape[2]
     q_blk = min(q_blk, S)
     k_blk = min(k_blk, T)
-    if S % q_blk or T % k_blk:
-        raise ValueError(f"flash_attention needs S % q_blk == 0 and T % k_blk == 0, got "
-                         f"S={S}, q_blk={q_blk}, T={T}, k_blk={k_blk}")
-    return _Flash.apply(q, k, v, causal, q_blk, k_blk, q_offset)
+    if q_blk < 1 or k_blk < 1:
+        raise ValueError(f"flash_attention needs blocks of at least 1, got q_blk={q_blk}, "
+                         f"k_blk={k_blk}")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    q_pad, k_pad = -S % q_blk, -T % k_blk
+    if q_pad or k_pad:
+        q = F.pad(q, (0, 0, 0, q_pad))
+        k, v = F.pad(k, (0, 0, 0, k_pad)), F.pad(v, (0, 0, 0, k_pad))
+    out = _Flash.apply(q, k, v, causal, q_blk, k_blk, q_offset, scale, T if k_pad else None)
+    return out[:, :, :S] if q_pad else out
 
 
-def _mask(iq: int, jk: int, q_blk: int, k_blk: int, device, q0: int = 0) -> torch.Tensor:
+def block_pairs(S: int, T: int, q_blk: int = 512, k_blk: int = 1024, *,
+                q_offset: int = 0) -> tuple[int, int]:
+    """(block pairs `flash_attention` computes for S queries from position
+    `q_offset` against T keys, those of them that hold a position its
+    causal mask keeps)."""
+    q_blk, k_blk = min(q_blk, S), min(k_blk, T)
+    nq, nk = -(-S // q_blk), -(-T // k_blk)
+    kept = sum(min(nk, (q_offset + min((i + 1) * q_blk, S) - 1) // k_blk + 1)
+               for i in range(nq))
+    return nq * nk, kept
+
+
+def _mask(iq: int, jk: int, q_blk: int, k_blk: int, device, q0: int = 0,
+          causal: bool = True, t_real: int | None = None) -> torch.Tensor:
     """(q_blk, k_blk) bool: key position <= query position (the queries
-    from position q0)."""
-    qpos = q0 + iq * q_blk + torch.arange(q_blk, device=device)[:, None]
+    from position q0) where `causal`, and key position < `t_real` (the
+    keys before the padding) where given."""
     kpos = jk * k_blk + torch.arange(k_blk, device=device)[None, :]
-    return kpos <= qpos
+    keep = None
+    if causal:
+        qpos = q0 + iq * q_blk + torch.arange(q_blk, device=device)[:, None]
+        keep = kpos <= qpos
+    if t_real is not None:
+        real = kpos < t_real
+        keep = real if keep is None else keep & real
+    return keep
 
 
-def _scores(qi, kj, scale, causal, iq, jk, q_blk, k_blk, q0=0) -> torch.Tensor:
+def _scores(qi, kj, scale, causal, iq, jk, q_blk, k_blk, q0=0, t_real=None) -> torch.Tensor:
     """(B, KV, rep, Q, K) fp32 scaled scores of one block pair, masked."""
     s = torch.einsum("bgrqd,bgkd->bgrqk", qi, kj).float() * scale
-    if causal:
-        s = torch.where(_mask(iq, jk, q_blk, k_blk, s.device, q0), s, NEG_INF)
+    if causal or t_real is not None:
+        s = torch.where(_mask(iq, jk, q_blk, k_blk, s.device, q0, causal, t_real), s, NEG_INF)
     return s
 
 
-def _flash_fwd(q, k, v, causal, q_blk, k_blk, q0=0):
+def _flash_fwd(q, k, v, causal, q_blk, k_blk, q0, scale, t_real):
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
     rep = H // KV
-    scale = hd ** -0.5
     qg = q.reshape(B, KV, rep, S, hd)
     outs, lses = [], []
     for iq in range(S // q_blk):
@@ -73,7 +109,7 @@ def _flash_fwd(q, k, v, causal, q_blk, k_blk, q0=0):
         for jk in range(T // k_blk):
             kj = k[:, :, jk * k_blk:(jk + 1) * k_blk]
             vj = v[:, :, jk * k_blk:(jk + 1) * k_blk]
-            s = _scores(qi, kj, scale, causal, iq, jk, q_blk, k_blk, q0)
+            s = _scores(qi, kj, scale, causal, iq, jk, q_blk, k_blk, q0, t_real)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -88,12 +124,11 @@ def _flash_fwd(q, k, v, causal, q_blk, k_blk, q0=0):
     return out, torch.cat(lses, dim=3)                       # lse: (B, KV, rep, S)
 
 
-def _flash_bwd(q, k, v, out, lse, dout, causal, q_blk, k_blk, q0=0):
+def _flash_bwd(q, k, v, out, lse, dout, causal, q_blk, k_blk, q0, scale, t_real):
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
     rep = H // KV
     nq, nk = S // q_blk, T // k_blk
-    scale = hd ** -0.5
     qg = q.reshape(B, KV, rep, S, hd)
     dog = dout.reshape(B, KV, rep, S, hd)
     # D_i = rowsum(dout * out)  (B, KV, rep, S)
@@ -108,7 +143,7 @@ def _flash_bwd(q, k, v, out, lse, dout, causal, q_blk, k_blk, q0=0):
         return k[:, :, sl], v[:, :, sl]
 
     def p_ds(qi, doi, lse_i, dl_i, kj, vj, iq, jk):
-        p = torch.exp(_scores(qi, kj, scale, causal, iq, jk, q_blk, k_blk, q0)
+        p = torch.exp(_scores(qi, kj, scale, causal, iq, jk, q_blk, k_blk, q0, t_real)
                       - lse_i[..., None])
         dp = torch.einsum("bgrqd,bgkd->bgrqk", doi, vj).float()
         return p, p * (dp - dl_i[..., None]) * scale
@@ -144,26 +179,28 @@ class _Flash(torch.autograd.Function):
     """The forward recurrence, and the two-pass recomputation backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_blk, k_blk, q0):
-        out, lse = _flash_fwd(q, k, v, causal, q_blk, k_blk, q0)
+    def forward(ctx, q, k, v, causal, q_blk, k_blk, q0, scale, t_real):
+        out, lse = _flash_fwd(q, k, v, causal, q_blk, k_blk, q0, scale, t_real)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.blocks = (causal, q_blk, k_blk, q0)
+        ctx.blocks = (causal, q_blk, k_blk, q0, scale, t_real)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.blocks)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                        scale: float | None = None) -> torch.Tensor:
     """Dense oracle for tests (small shapes only)."""
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
     kr = torch.repeat_interleave(k, H // KV, dim=1)
     vr = torch.repeat_interleave(v, H // KV, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q, kr).float() * hd ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kr).float() * (hd ** -0.5 if scale is None
+                                                          else scale)
     if causal:
         qi = q_offset + torch.arange(S, device=q.device)[:, None]
         ki = torch.arange(T, device=q.device)[None, :]

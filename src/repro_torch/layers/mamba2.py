@@ -5,7 +5,8 @@ Counterpart of `repro/layers/mamba2.py`. Block structure
   in_proj: d -> [z (d_inner), x (d_inner), B (G*N), C (G*N), dt (H)]
   causal conv1d (width 4) over [x, B, C]; silu
   SSD scan over chunks (the `ssd_scan` kernel / chunked plain version)
-  gated RMSNorm: norm(y * silu(z)); out_proj: d_inner -> d
+  gated RMSNorm: norm(y * silu(z)) over d_inner (over each group's
+  d_inner / G with `ssm_group_norm`, Zamba2's); out_proj: d_inner -> d
 
 Decode keeps (conv_state (B, W-1, conv_dim), ssm_state (B, H, N, P)) and
 advances the recurrence one token at a time. The parameters and the
@@ -255,10 +256,19 @@ def _conv_on_card(x: torch.Tensor, p: dict) -> bool:
 def _gated_norm(cfg: ArchConfig, p, y: torch.Tensor, z: torch.Tensor, loc: _Local
                 ) -> torch.Tensor:
     """norm(y * silu(z)) over the whole d_inner: split, each rank sums its
-    channels' squares in fp32 and the sums are summed over the group."""
+    channels' squares in fp32 and the sums are summed over the group.
+    With `cfg.ssm_group_norm` (Zamba2's mixer) the norm is taken over
+    each group's d_inner / G channels instead, on a whole mixer only."""
     with span("mixer.gate_norm"):
         g = y * F.silu(z.float()).to(y.dtype)
         gf = g.float()
+        if cfg.ssm_group_norm:
+            if loc.group is not None:
+                raise ValueError("the per-group gated norm runs on a whole mixer only")
+            gg = gf.unflatten(-1, (cfg.ssm_groups, -1))
+            var = torch.mean(gg * gg, dim=-1, keepdim=True)
+            gf = (gg * torch.rsqrt(var + cfg.norm_eps)).flatten(-2)
+            return (gf * p["norm_scale"]).to(y.dtype)
         if loc.group is None:
             var = torch.mean(gf * gf, dim=-1, keepdim=True)
         else:

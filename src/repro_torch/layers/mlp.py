@@ -14,6 +14,10 @@ gathers it (`tensor.gather_seq` in place of `copy_to`) and
 reduce-scatters the output back to this rank's positions (`scatter_seq`
 in place of `reduce_from`); a whole ffn runs on this rank's positions,
 and its gradients are then their part, which the train step sums.
+
+`adapted_mlp` is Zamba2's shared MLP (`models/zamba.py`'s published
+layout): one gate|up product, the site's low-rank adapter added to it,
+and the exact (erf) GELU of the gate times the up half; it runs whole.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from repro_torch.layers.common import is_q, wx
 from repro_torch.models.base import ArchConfig, ParamInfo
 from repro_torch.parallel import tensor
 
-__all__ = ["mlp_params", "mlp"]
+__all__ = ["mlp_params", "mlp", "adapted_mlp_params", "adapted_mlp"]
 
 
 def mlp_params(cfg: ArchConfig, n_layers: int | None = None) -> dict:
@@ -62,3 +66,24 @@ def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor, group=None, seq=None) -> torc
     if not split:
         return out
     return tensor.reduce_from(out, group) if seq is None else tensor.scatter_seq(out, group)
+
+
+def adapted_mlp_params(cfg: ArchConfig, n_blocks: int) -> dict:
+    """Abstract params of `n_blocks` stacked adapted MLPs: the fused
+    gate|up (d, 2 d_ff) and down (d_ff, d)."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {"gate_up": ParamInfo((n_blocks, d, 2 * f), torch.float32, (None, None, None), fan=1),
+            "down": ParamInfo((n_blocks, f, d), torch.float32, (None, None, None), fan=1)}
+
+
+def adapted_mlp(p: dict, x: torch.Tensor, adapter_a, adapter_b) -> torch.Tensor:
+    """down(gelu_erf(g) · u), [g | u] = x W_gate_up + (x A) B with the
+    site's adapter A (d, r), B (r, 2 d_ff); the GELU in fp32.
+    x: (B, S, D) -> (B, S, D)."""
+    dt = x.dtype
+    gu = torch.matmul(x, wx(p["gate_up"], dt))
+    xa = torch.matmul(x, wx(adapter_a, dt))   # the low-rank term added in place: no
+    gu.view(-1, gu.shape[-1]).addmm_(xa.view(-1, xa.shape[-1]), wx(adapter_b, dt))  # 2nd buffer
+    g, u = gu.chunk(2, dim=-1)
+    h = F.gelu(g.float()).to(dt) * u
+    return torch.matmul(h, wx(p["down"], dt))

@@ -80,6 +80,15 @@ class ArchConfig:
     conv_width: int = 4
     # hybrid (zamba2): one shared attention+MLP block applied every k layers
     attn_every: int = 0
+    # hybrid, Zamba2's published layout (`models/zamba.py`), on where
+    # `hybrid_layer_ids` is given: the layers whose mixer input takes the
+    # shared block's output, `num_mem_blocks` blocks alternating over
+    # them, the rank of each site's MLP adapter, and the mixers' gated
+    # norm taken per group
+    hybrid_layer_ids: tuple = ()
+    num_mem_blocks: int = 1
+    adapter_rank: int = 0
+    ssm_group_norm: bool = False
     param_dtype: str = "float32"    # master params
     compute_dtype: str = "bfloat16"
 

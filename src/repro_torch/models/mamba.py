@@ -64,14 +64,15 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
 
 
 def layer_body(cfg: ArchConfig, lp: dict, h: torch.Tensor, use_kernel: bool, group=None,
-               dims=None, seq=None) -> torch.Tensor:
+               dims=None, seq=None, t=None) -> torch.Tensor:
     """One Mamba2 layer (norm, mixer, residual) on layer slice `lp`; the
     hybrid family's mixers run it too. `group`: the model group when lp
     holds shards; `dims`: the fsdp dims of lp's shards, gathered here
     (`fsdp.gather_tree`); `seq`: h's positions when it holds this rank's
-    of the sequence."""
+    of the sequence; `t`: added to the mixer's input, not to the residual
+    (a Zamba2 site's shared-block output)."""
     lp = fsdp.gather_tree(lp, dims)
-    hn = norms.apply_norm(cfg.norm, lp["ln"], h, eps=cfg.norm_eps)
+    hn = norms.apply_norm(cfg.norm, lp["ln"], h if t is None else h + t, eps=cfg.norm_eps)
     return h + m2.mamba_mixer(cfg, lp["mixer"], hn, use_kernel=use_kernel, group=group,
                               seq=seq)
 

@@ -38,6 +38,31 @@ shared block, which is not remat'd, is gathered once a forward and
 reused at every site, so its gathered weights are saved for the
 backward once (not once a site) and its gradient, summed over the
 sites by autograd, is reduce-scattered once.
+
+Zamba2's published layout (transformers' `modeling_zamba2`), selected by
+`cfg.hybrid_layer_ids`, is a second path beside the reference's, which
+stays the default. With e the embedding output and h the residual
+stream, layer i is h <- h + mixer_i(norm(h + t_i)), where t_i is 0
+except at a site (a layer of `hybrid_layer_ids`): there, t_i is the
+output of shared block b = s mod `num_mem_blocks` at site s, through
+the site's own linear L_s. The block has no residual of its own:
+x = rms_2d(cat(h, e)); a = attention(x) (q, k, v from the 2·d_model-wide
+x, `wo` back to d_model, RoPE, the published scale (head_dim / 2)^-1/2);
+t = L_s(mlp(rms(a))), the MLP's gate|up product plus the site's
+low-rank adapter A_s B_s (rank `adapter_rank`), with the exact GELU
+(`layers/mlp.py` `adapted_mlp`). The mixers take `cfg.ssm_group_norm`,
+Zamba2's gated norm per group. Its parameters: `blocks` (stacked over
+the blocks) and `sites` (each site's adapter and linear, stacked over
+the sites) beside `layers`; its decode state: the SSM cache stacked over
+the layers and the KV cache over the sites. It runs on one card: under a
+model axis above 1 every entry point raises `ValueError`.
+
+Spans (`netgen.telemetry`, live only while traced), in the published
+layout's `prefill` and `decode_step`: `model.embed`, one `model.layer`
+a layer (norm, mixer, residual, the state's copies into the new cache's
+stacks), one `zamba.shared_block` a site (`site`, `block`; the
+attention's `attn.core` inside it), `model.cache_stack` (the site's K/V
+into its stack) and `model.head`.
 """
 from __future__ import annotations
 
@@ -53,18 +78,29 @@ from repro_torch.layers import norms
 from repro_torch.layers.common import wx
 from repro_torch.models.base import ArchConfig, ParamInfo, layer, remat_call, tree_map, unstack
 from repro_torch.models.mamba import layer_body
+from repro_torch.netgen.telemetry import span
 from repro_torch.parallel import fsdp, tensor
 
-__all__ = ["n_sites", "abstract_params", "abstract_cache", "forward", "prefill",
+__all__ = ["published", "n_sites", "abstract_params", "abstract_cache", "forward", "prefill",
            "decode_step"]
 
 
+def published(cfg: ArchConfig) -> bool:
+    """Whether `cfg` selects Zamba2's published layout (see the module's
+    docstring) over the reference's."""
+    return bool(cfg.hybrid_layer_ids)
+
+
 def n_sites(cfg: ArchConfig) -> int:
+    if published(cfg):
+        return len(cfg.hybrid_layer_ids)
     return cfg.n_layers // cfg.attn_every
 
 
 def abstract_params(cfg: ArchConfig) -> dict:
     L = cfg.n_layers
+    if published(cfg):
+        return _published_params(cfg)
     return {
         "embed": emb_lib.embed_params(cfg),
         "layers": {
@@ -89,6 +125,8 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
         return lambda i: dataclasses.replace(i, shape=(n,) + i.shape,
                                              logical=(None,) + i.logical, init="zeros")
 
+    if published(cfg):
+        _one_card(cfg)
     return {"ssm": tree_map(stack(cfg.n_layers), m2.ssm_cache_info(cfg, batch)),
             "kv": tree_map(stack(n_sites(cfg)), attn_lib.init_cache_info(cfg, batch, max_len))}
 
@@ -125,6 +163,8 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: str = "none",
             use_kernel: bool = False, local_vocab: bool = False) -> tuple[torch.Tensor, dict]:
     """Training/eval forward: (logits, {}); `local_vocab` as in
     `models/mamba.py`."""
+    if published(cfg):
+        return _published_forward(cfg, params, batch, remat, use_kernel)
     B, S = batch["tokens"].shape
     mg = tensor.group_for(cfg)
     seq = tensor.seq_range(cfg, S)
@@ -148,6 +188,8 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
     """Run the prompt, filling each site's KV cache and building every
     layer's SSM state (cast to the cache's dtypes). Returns the last
     position's logits (B, V) and the new cache."""
+    if published(cfg):
+        return _published_serve(cfg, params, batch, cache, use_kernel=use_kernel)
     B, S = batch["tokens"].shape
     mg = tensor.group_for(cfg)
     seq = tensor.seq_range(cfg, S)
@@ -182,6 +224,8 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     batch = {"tokens": tokens}
     if extras:
         batch.update(extras)
+    if published(cfg):
+        return _published_serve(cfg, params, batch, cache, pos)
     mg = tensor.group_for(cfg)
     tensor.seq_range(cfg, 1)                         # the recorded fallback
     h = emb_lib.assemble_inputs(cfg, params["embed"], batch, mg)
@@ -204,3 +248,132 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     logits = emb_lib.lm_head(cfg, params["embed"], h, mg)[:, 0]
     return logits, {"ssm": {"conv": torch.stack(convs), "ssm": torch.stack(ssms)},
                     "kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+
+
+# -- Zamba2's published layout --------------------------------------------------------
+
+
+def _published_params(cfg: ArchConfig) -> dict:
+    L, nb, ns = cfg.n_layers, cfg.num_mem_blocks, n_sites(cfg)
+    d, r = cfg.d_model, cfg.adapter_rank
+
+    def per_site(*shape):
+        return ParamInfo((ns, *shape), torch.float32, (None,) * (1 + len(shape)), fan=1)
+
+    return {
+        "embed": emb_lib.embed_params(cfg),
+        "layers": {
+            "ln": norms.norm_params(cfg.norm, d, L),
+            "mixer": m2.mamba_params(cfg, L),
+        },
+        "blocks": {
+            "ln_in": norms.norm_params(cfg.norm, 2 * d, nb),
+            "attn": attn_lib.attn_params(cfg, nb, d_in=2 * d),
+            "ln_mlp": norms.norm_params(cfg.norm, d, nb),
+            "mlp": mlp_lib.adapted_mlp_params(cfg, nb),
+        },
+        "sites": {"adapter_a": per_site(d, r), "adapter_b": per_site(r, 2 * cfg.d_ff),
+                  "linear": per_site(d, d)},
+        "final_norm": norms.norm_params(cfg.norm, d),
+    }
+
+
+def _one_card(cfg: ArchConfig) -> None:
+    if tensor.group_for(cfg) is not None:
+        raise ValueError(f"{cfg.name}: Zamba2's published hybrid layout runs on one card; "
+                         "it is not split over a model axis above 1")
+
+
+def _site_of(cfg: ArchConfig) -> dict:
+    """{layer index: site index} of the sites."""
+    ids = cfg.hybrid_layer_ids
+    if sorted(set(ids)) != list(ids) or not 0 <= ids[0] <= ids[-1] < cfg.n_layers:
+        raise ValueError(f"hybrid_layer_ids {ids}: want increasing layers of "
+                         f"{cfg.n_layers}")
+    return {i: s for s, i in enumerate(ids)}
+
+
+def _site_block(cfg: ArchConfig, blocks: list, sites: list, s: int, h, emb0, positions,
+                cache_kv=None, cache_pos=None):
+    """Site s: shared block s mod num_mem_blocks on (h, emb0), through the
+    site's adapter and linear. Returns (t_s (B, S, d), the site's K/V)."""
+    b = s % cfg.num_mem_blocks
+    bp, sp = blocks[b], sites[s]
+    with span("zamba.shared_block", site=s, block=b):
+        x = norms.apply_norm(cfg.norm, bp["ln_in"], torch.cat([h, emb0], dim=-1),
+                             eps=cfg.norm_eps)
+        a, kv = attn_lib.attention(cfg, bp["attn"], x, positions, cache=cache_kv,
+                                   cache_pos=cache_pos, scale=(cfg.head_dim / 2) ** -0.5)
+        m = mlp_lib.adapted_mlp(bp["mlp"], norms.apply_norm(cfg.norm, bp["ln_mlp"], a,
+                                                           eps=cfg.norm_eps),
+                                sp["adapter_a"], sp["adapter_b"])
+        return torch.matmul(m, wx(sp["linear"], m.dtype)), kv
+
+
+def _published_forward(cfg: ArchConfig, params: dict, batch: dict, remat: str,
+                       use_kernel: bool) -> tuple[torch.Tensor, dict]:
+    _one_card(cfg)
+    B, S = batch["tokens"].shape
+    dims = fsdp.shard_dims(cfg, params)
+    emb = fsdp.gather_tree(params["embed"], fsdp.sub_dims(dims, "embed"))
+    blocks = unstack(fsdp.gather_tree(params["blocks"], fsdp.sub_dims(dims, "blocks")),
+                     cfg.num_mem_blocks)
+    sites = unstack(fsdp.gather_tree(params["sites"], fsdp.sub_dims(dims, "sites")),
+                    n_sites(cfg))
+    ldims = fsdp.layer_dims(dims)
+    site_of = _site_of(cfg)
+    h = emb_lib.assemble_inputs(cfg, emb, batch)
+    emb0, positions = h, _positions(B, S, h.device)
+    for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
+        t = None
+        if i in site_of:
+            t, _ = _site_block(cfg, blocks, sites, site_of[i], h, emb0, positions)
+        h = remat_call(remat, layer_body, cfg, lp, h, use_kernel, None, ldims, None, t)
+    h = norms.apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
+    return emb_lib.lm_head(cfg, emb, h), {}
+
+
+def _mixer_input(cfg: ArchConfig, lp: dict, h, t):
+    return norms.apply_norm(cfg.norm, lp["ln"], h if t is None else h + t, eps=cfg.norm_eps)
+
+
+def _published_serve(cfg: ArchConfig, params: dict, batch: dict, cache: dict,
+                     pos: torch.Tensor | None = None, use_kernel: bool = False
+                     ) -> tuple[torch.Tensor, dict]:
+    """`prefill` (pos None) or one `decode_step` (pos (B,), the write
+    index): the last position's logits (B, V) and the new cache. Each
+    layer's SSM state and each site's K/V are copied into stacks allocated
+    once, each as it is made."""
+    _one_card(cfg)
+    B, S = batch["tokens"].shape
+    site_of = _site_of(cfg)
+    blocks = unstack(params["blocks"], cfg.num_mem_blocks)
+    sites = unstack(params["sites"], n_sites(cfg))
+    new = tree_map(torch.empty_like, cache)
+    with span("model.embed"):
+        h = emb_lib.assemble_inputs(cfg, params["embed"], batch)
+    emb0 = h
+    positions = _positions(B, S, h.device) if pos is None else pos[:, None]
+    for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
+        t = None
+        if i in site_of:
+            s = site_of[i]
+            t, kv = _site_block(cfg, blocks, sites, s, h, emb0, positions,
+                                layer(cache["kv"], s), pos)
+            with span("model.cache_stack"):
+                new["kv"]["k"][s].copy_(kv["k"])
+                new["kv"]["v"][s].copy_(kv["v"])
+        with span("model.layer"):
+            x = _mixer_input(cfg, lp, h, t)
+            if pos is None:
+                out, state = m2.mamba_mixer(cfg, lp["mixer"], x, return_state=True,
+                                            use_kernel=use_kernel)
+            else:
+                out, state = m2.mamba_decode_step(cfg, lp["mixer"], x, layer(cache["ssm"], i))
+            h = h + out
+            new["ssm"]["conv"][i].copy_(state["conv"])
+            new["ssm"]["ssm"][i].copy_(state["ssm"])
+    with span("model.head"):
+        h = norms.apply_norm(cfg.norm, params["final_norm"], h[:, -1:], eps=cfg.norm_eps)
+        logits = emb_lib.lm_head(cfg, params["embed"], h)[:, 0]
+    return logits, new

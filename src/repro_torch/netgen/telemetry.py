@@ -89,6 +89,11 @@ mixer's spans; `weights.cast` in every family's `layers.common.wx`):
           mixer.gate_norm
           mixer.out_proj
             weights.cast
+        zamba.shared_block  Zamba2's published layout: a site's shared
+                            block (site, block), its adapter and linear
+          attn.core         the attention core: route (flash, dense,
+                            decode), rows, q_len, kv_len, heads,
+                            kv_heads, head_dim, pairs, causal_pairs
         model.head          final norm and lm_head
         model.cache_stack   the stacks of the new cache
         serve.sync          the tokens' gather and copy to the host

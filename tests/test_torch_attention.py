@@ -299,8 +299,12 @@ def test_flash_non_causal_and_block_check():
     want = _jit(lambda *a: jflash.flash_attention(*a, causal=False, q_blk=32, k_blk=64),
                 q, k, v)
     _close(got.numpy(), want, tol=2e-5)
-    with pytest.raises(ValueError, match="S % q_blk"):
-        flash.flash_attention(_t(q), _t(k), _t(v), q_blk=48)
+    # blocks that do not divide the length pad it (ROADMAP F3): the dense oracle
+    ragged = flash.flash_attention(_t(q), _t(k), _t(v), causal=False, q_blk=48, k_blk=80)
+    dense = flash.flash_attention_ref(_t(q), _t(k), _t(v), causal=False)
+    _close(ragged.numpy(), dense.numpy(), tol=2e-5)
+    with pytest.raises(ValueError, match="blocks of at least 1"):
+        flash.flash_attention(_t(q), _t(k), _t(v), q_blk=0)
 
 
 @pytest.mark.parametrize("kv,qb,kb", [(4, 64, 64), (2, 64, 128), (1, 128, 64)])
